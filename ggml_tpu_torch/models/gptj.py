@@ -1,0 +1,350 @@
+"""GPT-J 6B — the north-star quantized decode config, in PyTorch.
+
+Port of ggml_tpu/models/gptj.py (reference: examples/gpt-j/main.cpp):
+parallel residual (attn and mlp both read the SAME post-layernorm
+activations, main.cpp:449-565), separate unbiased q/k/v projections, RoPE on
+the first n_rot dims (ggml rope mode 0), biased mlp and biased untied lm head.
+
+- quantized weights stay compact Q4_K planes in device memory and run through
+  the hand-written kernels of ggml_tpu_torch.kernels.qmatmul;
+- single-token steps run attention through kernels.decode_attn;
+- the KV cache is written in place (the JAX package donates it to XLA);
+- decode is a plain Python loop whose position and tokens stay on the device,
+  so it never waits for the host until the ids are returned.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..dtypes import GGMLType
+from ..gguf import GGUFFile
+from .common import cache_write, init_layer_cache, layer_norm as _layer_norm, linear as _linear
+
+
+@dataclass(frozen=True)
+class GPTJConfig:
+    n_vocab: int = 50400
+    n_ctx: int = 2048
+    n_embd: int = 4096
+    n_head: int = 16
+    n_layer: int = 28
+    n_rot: int = 64
+    eps: float = 1e-5
+    # prompts of flash_min_seq tokens or more (or any prompt with
+    # use_flash_prefill) take the flash-attention prefill in the JAX package;
+    # that kernel is not ported yet, so the port raises there
+    use_flash_prefill: bool = False
+    flash_min_seq: int = 1024
+    # the reference CPU's fp16-table gelu (GGML_GELU_FP16); not ported yet
+    gelu_fp16: bool = False
+    # q/k weight columns were permuted at load (rope_permutation) so RoPE
+    # runs deinterleaved — see _rope_deinterleaved
+    rope_deinterleaved: bool = False
+
+    @property
+    def head_dim(self):
+        return self.n_embd // self.n_head
+
+
+def config_from_gguf(g: GGUFFile) -> GPTJConfig:
+    md = g.metadata
+    return GPTJConfig(
+        n_vocab=int(md.get("gptj.vocab_size", 50400)),
+        n_ctx=int(md["gptj.context_length"]),
+        n_embd=int(md["gptj.embedding_length"]),
+        n_head=int(md["gptj.attention.head_count"]),
+        n_layer=int(md["gptj.block_count"]),
+        n_rot=int(md.get("gptj.rope.dimension_count", 64)),
+    )
+
+
+@functools.lru_cache(maxsize=8)
+def _inv_freq(n_rot: int, base: float, device: torch.device) -> torch.Tensor:
+    """RoPE frequencies, computed in float64 on the host as the JAX package
+    does, copied to the device once (a host-to-device copy per step would
+    make the decode loop wait for the device)."""
+    half = n_rot // 2
+    return torch.from_numpy((base ** (-2.0 * np.arange(half) / n_rot)).astype(np.float32)).to(device)
+
+
+def rope_angles(positions, n_rot: int, base: float = 10000.0):
+    """cos, sin (b, t, 1, n_rot/2) f32 of ggml rope mode 0 at positions
+    (b, t); computed once per forward and shared by every layer's q and k."""
+    theta = positions.float()[..., None] * _inv_freq(n_rot, base, positions.device)[None, None, :]
+    return torch.cos(theta)[:, :, None, :], torch.sin(theta)[:, :, None, :]
+
+
+def _rope_interleaved(x, cos, sin, n_rot: int):
+    """ggml rope mode 0 (GPT-J interleaved pairs) on the first n_rot dims.
+    x: (b, t, h, d); cos/sin from rope_angles."""
+    rot, rest = x[..., :n_rot], x[..., n_rot:]
+    x0 = rot[..., 0::2]
+    x1 = rot[..., 1::2]
+    o0 = x0 * cos - x1 * sin
+    o1 = x0 * sin + x1 * cos
+    out = torch.stack([o0, o1], dim=-1).reshape(o0.shape[:-1] + (n_rot,))
+    return torch.cat([out, rest.to(out.dtype)], dim=-1) if rest.shape[-1] else out
+
+
+def _rope_deinterleaved(x, cos, sin, n_rot: int):
+    """Mode-0 RoPE in a DEINTERLEAVED head layout: the q/k weight output
+    columns were permuted at load (rope_permutation) so logical pair
+    (2j, 2j+1) lives at dims (j, j+n_rot/2).  Attention dots are invariant to
+    the fixed per-head permutation because q and k are permuted identically;
+    v is untouched."""
+    half = n_rot // 2
+    x0, x1, rest = x[..., :half], x[..., half:n_rot], x[..., n_rot:]
+    o0 = x0 * cos - x1 * sin
+    o1 = x0 * sin + x1 * cos
+    parts = (o0, o1, rest.to(o0.dtype)) if rest.shape[-1] else (o0, o1)
+    return torch.cat(parts, dim=-1)
+
+
+def rope_permutation(head_dim: int, n_head: int, n_rot: int) -> np.ndarray:
+    """Output-feature permutation that moves each head's even rotary dims
+    first and odd second ([0,2,..,n_rot-2, 1,3,..,n_rot-1, n_rot..]) so
+    _rope_deinterleaved applies mode-0 RoPE with contiguous slices."""
+    within = np.concatenate([
+        np.arange(0, n_rot, 2), np.arange(1, n_rot, 2), np.arange(n_rot, head_dim)
+    ])
+    return (np.arange(n_head)[:, None] * head_dim + within[None, :]).reshape(-1)
+
+
+def init_cache(cfg: GPTJConfig, batch: int, max_seq: int, dtype=torch.bfloat16, device="cuda"):
+    return init_layer_cache(cfg.n_layer, batch, cfg.n_head, max_seq, cfg.head_dim, dtype, device)
+
+
+def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torch.Tensor,
+            cache: list, cache_len: torch.Tensor, *, prefill: bool = False) -> torch.Tensor:
+    """tokens (b, t) -> logits (b, t, n_vocab); the cache is updated in place.
+
+    pos_start (b,) and cache_len (0-d) are integer tensors on the model's
+    device.  prefill=True asserts that the cache is empty below pos_start —
+    only then may a flash path attend just the current tokens."""
+    from ..kernels.decode_attn import fused_decode_attention
+
+    b, t = tokens.shape
+    if cache_len.dim() != 0:
+        raise NotImplementedError("per-slot cache positions (batched serving) are not ported yet (ROADMAP.md)")
+    max_seq = cache[0][0].shape[-2]
+    positions = pos_start[:, None] + torch.arange(t, device=tokens.device)[None, :]
+    embd = params.get("token_embd.weight@dense", params["token_embd.weight"])
+    x = embd[tokens]
+    compute_dtype = x.dtype
+    cache_dtype = cache[0][0].dtype
+    scale = 1.0 / np.sqrt(cfg.head_dim)
+    rope = _rope_deinterleaved if cfg.rope_deinterleaved else _rope_interleaved
+    cos, sin = rope_angles(positions, cfg.n_rot)
+    rows = cache_len.to(torch.long) + torch.arange(t, device=tokens.device)  # cache rows written
+    for i in range(cfg.n_layer):
+        pre = f"blk.{i}."
+        h = _layer_norm(x, params[pre + "attn_norm.weight"], params[pre + "attn_norm.bias"], cfg.eps)
+
+        ff_pre = None
+        if pre + "attn_qkvup.weight" in params:  # qkv + ffn_up in ONE kernel
+            fused = _linear(h, params[pre + "attn_qkvup.weight"])
+            q, k, v, ff_pre = torch.split(fused, [cfg.n_embd, cfg.n_embd, cfg.n_embd, 4 * cfg.n_embd], dim=-1)
+        else:  # separate projections, as a GGUF file stores them
+            q = _linear(h, params[pre + "attn_q.weight"])
+            k = _linear(h, params[pre + "attn_k.weight"])
+            v = _linear(h, params[pre + "attn_v.weight"])
+
+        def heads(z):
+            return z.reshape(b, t, cfg.n_head, cfg.head_dim)
+
+        q = rope(heads(q), cos, sin, cfg.n_rot).transpose(1, 2)
+        k = rope(heads(k), cos, sin, cfg.n_rot).transpose(1, 2)
+        v = heads(v).transpose(1, 2)
+        kc, vc = cache[i]
+
+        fuse_decode = t == 1 and b == 1
+        if fuse_decode:
+            # single-token decode: the attention block runs as ONE kernel per
+            # layer over the PRE-update cache with the new row inserted
+            out = fused_decode_attention(q.contiguous(), k.to(cache_dtype).contiguous(),
+                                         v.to(cache_dtype).contiguous(), kc, vc, cache_len, scale=scale)
+            attn_out = out.transpose(1, 2).reshape(b, t, cfg.n_embd).to(compute_dtype)
+
+        cache_write(kc, k, rows)
+        cache_write(vc, v, rows)
+
+        if fuse_decode:
+            pass
+        elif t > 1 and prefill and (cfg.use_flash_prefill or t >= cfg.flash_min_seq):
+            raise NotImplementedError(
+                f"prefill of {t} tokens takes flash_attention, which is not ported yet "
+                "(ROADMAP.md, flash_attention for prompts >= 1024)")
+        else:
+            # plain f32 attention over the whole cache window (gptj.py:213-222)
+            att = torch.matmul(q.float(), kc.float().transpose(-1, -2)) * scale
+            kv_pos = torch.arange(max_seq, device=x.device)[None, None, None, :]
+            q_pos = positions[:, None, :, None]
+            att = torch.where(kv_pos <= q_pos, att, torch.full((), float("-inf"), device=x.device))
+            att = torch.softmax(att, dim=-1).to(vc.dtype)
+            out = torch.matmul(att, vc)
+            attn_out = out.transpose(1, 2).reshape(b, t, cfg.n_embd).to(compute_dtype)
+        attn_out = _linear(attn_out, params[pre + "attn_output.weight"])
+
+        # parallel residual: mlp reads the SAME normed input (main.cpp:538-541)
+        if ff_pre is not None:
+            ff = ff_pre + params[pre + "ffn_up.bias"]
+        else:
+            ff = _linear(h, params[pre + "ffn_up.weight"], params[pre + "ffn_up.bias"])
+        if cfg.gelu_fp16:
+            raise NotImplementedError("gelu_fp16 (the reference CPU's fp16 gelu table) is not ported yet")
+        ff = 0.5 * ff * (1.0 + torch.tanh(0.79788456080286535588 * ff * (1.0 + 0.044715 * ff * ff)))
+        ff = _linear(ff, params[pre + "ffn_down.weight"], params[pre + "ffn_down.bias"])
+
+        x = x + attn_out + ff
+
+    x = _layer_norm(x, params["output_norm.weight"], params["output_norm.bias"], cfg.eps)
+    return _linear(x, params["output.weight"], params.get("output.bias"))
+
+
+class GPTJ:
+    """Inference wrapper: prefill + on-device greedy decode."""
+
+    def __init__(self, params: dict, cfg: GPTJConfig, max_seq: int = 2048, batch: int = 1,
+                 device="cuda"):
+        self.params = params
+        self.cfg = cfg
+        self.max_seq = max_seq
+        self.batch = batch
+        self.device = torch.device(device)
+
+    @classmethod
+    def from_gguf(cls, path, dtype=torch.bfloat16, rope_deinterleaved: bool = True, device="cuda", **kw):
+        """Load a GGUF file; its quantized matmul weights stay compact Q4_K
+        planes on `device`."""
+        from ..quant.planar import PlanarWeight, permute_output_columns
+        from .gpt2 import load_params  # same GGUF tensor-naming loader
+
+        with GGUFFile(path) as g:
+            cfg = config_from_gguf(g)
+            params = load_params(g, dtype, device=device)
+        if rope_deinterleaved:
+            # on-load q/k column permutation -> contiguous-slice RoPE on the
+            # decode hot path (exact: see _rope_deinterleaved)
+            perm = rope_permutation(cfg.head_dim, cfg.n_head, cfg.n_rot)
+            for i in range(cfg.n_layer):
+                for nm in ("attn_q.weight", "attn_k.weight"):
+                    key = f"blk.{i}.{nm}"
+                    v = params[key]
+                    params[key] = (permute_output_columns(v, perm) if isinstance(v, PlanarWeight)
+                                   else v[torch.from_numpy(perm).to(v.device)])
+            cfg = dataclasses.replace(cfg, rope_deinterleaved=True)
+        return cls(params, cfg, device=device, **kw)
+
+    def new_cache(self, dtype=torch.bfloat16):
+        return init_cache(self.cfg, self.batch, self.max_seq, dtype, self.device)
+
+    def _check_room(self, n_past: int, n_new: int):
+        if n_past + n_new > self.max_seq:
+            raise ValueError(f"{n_past} + {n_new} tokens exceed the cache of {self.max_seq}")
+
+    def prefill(self, cache, tokens: np.ndarray):
+        """Run the prompt (b, t) from an empty cache; returns (last-position
+        logits (b, n_vocab), cache, t)."""
+        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.long).to(self.device)
+        t = tokens.shape[1]
+        self._check_room(0, t)
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        logits = forward(self.params, self.cfg, tokens, zero.expand(tokens.shape[0]), cache, zero,
+                         prefill=True)
+        return logits[:, -1, :], cache, t
+
+    def decode_greedy(self, cache, first_token, n_past: int, n_tokens: int):
+        """Generate n_tokens greedily from first_token at position n_past.
+        The position and the tokens live on the device; the host waits only
+        for the returned ids (n_tokens, b) numpy."""
+        self._check_room(n_past, n_tokens)
+        tok = torch.as_tensor(first_token).to(self.device, torch.long).reshape(-1, 1)
+        pos = torch.full((), n_past, dtype=torch.int32, device=self.device)
+        out = torch.empty((n_tokens, tok.shape[0]), dtype=torch.long, device=self.device)
+        for i in range(n_tokens):
+            logits = forward(self.params, self.cfg, tok, pos.expand(tok.shape[0]), cache, pos)
+            tok = torch.argmax(logits[:, -1, :], dim=-1, keepdim=True)
+            out[i] = tok[:, 0]
+            pos += 1
+        return cache, out.cpu().numpy()
+
+    def generate(self, prompt_tokens: np.ndarray, n_tokens: int, sampler=None, key=None):
+        from .common import generate
+
+        return generate(self, prompt_tokens, n_tokens, sampler=sampler, key=key)
+
+
+def random_config(scale: str = "6b") -> GPTJConfig:
+    """The GPT-J-6B config for synthesized weights.  rope_deinterleaved:
+    synthetic codes are value-free, so the synthetic model takes the
+    contiguous-slice RoPE path directly.  (The JAX package's "tiny" config has
+    E=256, whose Q4_K weights are not compact planes, so it is not offered.)"""
+    if scale == "6b":
+        return GPTJConfig(rope_deinterleaved=True)
+    raise ValueError(scale)
+
+
+def synth_quantized_params(cfg: GPTJConfig, ggml_type: GGMLType = GGMLType.Q4_K, seed: int = 0,
+                           dtype=torch.bfloat16, device="cuda") -> dict:
+    """A full parameter set with weights ALREADY in compact Q4_K planes
+    (random codes, constant sub-scales) made on `device` from a
+    torch.Generator — for running the quantized path at full width without a
+    checkpoint.  Every weight's effective scale is 0.0025 and offset -0.02, as
+    in the JAX package's synth_quantized_params, so activations stay finite.
+    Each layer holds one (7E x E) qkv+ffn_up weight, the JAX default layout:
+    with the parallel residual, qkv and ffn_up read the same h."""
+    from ..quant.planar import PlanarWeight, _compact_applicable
+
+    if ggml_type != GGMLType.Q4_K:
+        raise NotImplementedError(f"synthetic {GGMLType(ggml_type).name} planes are not ported yet (ROADMAP.md)")
+    G, SB = 32, 8
+    s_val = np.float32(0.02 / 8)
+    sdt = torch.bfloat16  # d/dmin in bf16, as the JAX synthesis stores them
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 7)
+
+    def qweight(n, k):
+        if not _compact_applicable(ggml_type, k):
+            raise NotImplementedError(f"K={k}: the non-compact q4 planes are not ported yet")
+        pad_to = 2048 if n > 8192 else 128
+        npad = -(-n // pad_to) * pad_to
+        codes = torch.randint(0, 256, (k // 2, npad), dtype=torch.uint8, device=device, generator=gen)
+        sup = (2, (k // 2) // (G * SB), npad)
+        return PlanarWeight(
+            kind="q4", codes=codes,
+            scales=torch.full((2, (k // 2) // G, npad), 32, dtype=torch.int8, device=device),
+            offsets=torch.full((k // G, npad), 32, dtype=torch.int8, device=device),
+            group=G, n=n, k=k, orig_type=ggml_type, sb=SB,
+            supers=(torch.full(sup, float(s_val / 32), dtype=sdt, device=device),
+                    torch.full(sup, float(8.0 * s_val / 32), dtype=sdt, device=device)))
+
+    E = cfg.n_embd
+    dgen = torch.Generator(device=device)
+    dgen.manual_seed(seed)
+    embd = (torch.randn((cfg.n_vocab, E), generator=dgen, device=device) * 0.02).to(dtype)
+    ones_e = torch.ones((E,), dtype=dtype, device=device)
+    zeros_e = torch.zeros((E,), dtype=dtype, device=device)
+    zeros_4e = torch.zeros((4 * E,), dtype=dtype, device=device)
+    p = {
+        "token_embd.weight": embd,
+        "output_norm.weight": ones_e,
+        "output_norm.bias": zeros_e,
+        "output.weight": qweight(cfg.n_vocab, E),
+        "output.bias": torch.zeros((cfg.n_vocab,), dtype=dtype, device=device),
+    }
+    layer = [("attn_qkvup.weight", 7 * E, E), ("attn_output.weight", E, E), ("ffn_down.weight", E, 4 * E)]
+    for i in range(cfg.n_layer):
+        pre = f"blk.{i}."
+        for name, n, k in layer:
+            p[pre + name] = qweight(n, k)
+        p[pre + "attn_norm.weight"] = ones_e
+        p[pre + "attn_norm.bias"] = zeros_e
+        p[pre + "ffn_up.bias"] = zeros_4e
+        p[pre + "ffn_down.bias"] = zeros_e
+    return p

@@ -1,0 +1,152 @@
+"""The port's GPT-J slice (ggml_tpu_torch.models.gptj) against the JAX GPTJ
+on the same parameters, on the CPU.
+
+A tiny GPT-J at E=512 (K=512 is the smallest width whose Q4_K weights take
+the compact planes in both packages), with synthesized Q4_K planes from the
+JAX package carried over as numpy.  Prefill of 40 tokens runs the M>32
+matmul (kernel C), of 5 tokens the 2..32-row GEMV (kernel B); the 16 decode
+steps run the M=1 GEMV (kernel A) and the decode attention (kernel D).
+The JAX side is its forward run op by op (Pallas kernels in interpret mode).
+Gates: logits NMSE <= 1e-6 at prefill and at every decode step, and the 16
+greedy tokens of both sides equal, each side decoding its own tokens.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from ggml_tpu.dtypes import GGMLType as JGGMLType
+from ggml_tpu.models import gptj as jgptj
+from ggml_tpu_torch.convert import params_from_numpy
+from ggml_tpu_torch.models import gptj
+from tests.test_torch_rules import nmse, params_to_numpy
+
+CFG = dict(n_vocab=512, n_ctx=256, n_embd=512, n_head=4, n_layer=2, n_rot=32,
+           rope_deinterleaved=True)
+MAX_SEQ = 64
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg = jgptj.GPTJConfig(**CFG)
+    jparams = jgptj.synth_quantized_params(jcfg, JGGMLType.Q4_K, seed=0, dtype=jnp.float32)
+    tparams = params_from_numpy(params_to_numpy(jparams), device="cpu")
+    jm = jgptj.GPTJ(jparams, jcfg, max_seq=MAX_SEQ, batch=1)
+    tm = gptj.GPTJ(tparams, gptj.GPTJConfig(**CFG), max_seq=MAX_SEQ, batch=1, device="cpu")
+    return jm, tm
+
+
+def _prompt(t: int):
+    return np.random.default_rng(t).integers(0, CFG["n_vocab"], (1, t)).astype(np.int32)
+
+
+def _jax_prefill(jm, prompt):
+    """JAX prefill through its forward run op by op."""
+    cache = jm.new_cache(dtype=jnp.float32)
+    return jgptj.forward(jm.params, jm.cfg, jnp.asarray(prompt), jnp.zeros((1,), jnp.int32), cache,
+                         jnp.int32(0), prefill=True)
+
+
+def _port_prefill(tm, prompt):
+    cache = tm.new_cache(dtype=torch.float32)
+    zero = torch.zeros((), dtype=torch.int32)
+    logits = gptj.forward(tm.params, tm.cfg, torch.from_numpy(prompt).long(), zero.expand(1), cache,
+                          zero, prefill=True)
+    return logits.numpy(), cache
+
+
+@pytest.mark.parametrize("t", [40, 5], ids=["prefill40-matmul", "prefill5-gemv"])
+def test_prefill_logits_match_jax(models, t):
+    jm, tm = models
+    prompt = _prompt(t)
+    want, _ = _jax_prefill(jm, prompt)
+    got, _ = _port_prefill(tm, prompt)
+    assert got.shape == want.shape == (1, t, CFG["n_vocab"])
+    assert nmse(np.asarray(want), got) <= 1e-6
+
+
+@pytest.mark.parametrize("layout", ["interleaved", "deinterleaved"])
+def test_rope_matches_jax(layout):
+    """Both RoPE layouts: ggml mode 0 on interleaved pairs, and the layout of
+    q/k weights whose output columns were permuted at load."""
+    x = np.random.default_rng(7).standard_normal((1, 6, 4, 128)).astype(np.float32)
+    positions = np.arange(30, 36, dtype=np.int32)[None]
+    want = getattr(jgptj, f"_rope_{layout}")(jnp.asarray(x), jnp.asarray(positions), 32)
+    cos, sin = gptj.rope_angles(torch.from_numpy(positions), 32)
+    got = getattr(gptj, f"_rope_{layout}")(torch.from_numpy(x), cos, sin, 32)
+    assert nmse(np.asarray(want), got.numpy()) <= 1e-12
+    np.testing.assert_array_equal(gptj.rope_permutation(128, 4, 32), jgptj.rope_permutation(128, 4, 32))
+
+
+def greedy_decode_both(jm, tm, prompt, n_steps: int):
+    """Prefill both sides, then greedy-decode n_steps on each, each side
+    feeding back its own token; yields (jax logits, port logits, jax token,
+    port token) per step."""
+    jl, jcache = _jax_prefill(jm, prompt)
+    tl, tcache = _port_prefill(tm, prompt)
+    jtok, ttok = int(np.argmax(np.asarray(jl)[0, -1])), int(np.argmax(tl[0, -1]))
+    t = prompt.shape[1]
+    pos = torch.tensor(t, dtype=torch.int32)
+    for n_past in range(t, t + n_steps):
+        jl, jcache = jgptj.forward(jm.params, jm.cfg, jnp.asarray([[jtok]], jnp.int32),
+                                   jnp.full((1,), n_past, jnp.int32), jcache, jnp.int32(n_past))
+        tl = gptj.forward(tm.params, tm.cfg, torch.tensor([[ttok]]), pos.expand(1), tcache, pos).numpy()
+        pos += 1
+        jl = np.asarray(jl)
+        jtok, ttok = int(np.argmax(jl[0, -1])), int(np.argmax(tl[0, -1]))
+        yield jl, tl, jtok, ttok
+
+
+def test_greedy_decode_matches_jax(models):
+    jm, tm = models
+    steps = list(greedy_decode_both(jm, tm, _prompt(5), 16))
+    assert len(steps) == 16
+    for step, (jl, tl, jtok, ttok) in enumerate(steps):
+        assert nmse(jl, tl) <= 1e-6, (step, nmse(jl, tl))
+        assert jtok == ttok, step
+
+
+def test_decode_loop_matches_stepwise(models):
+    """The wrapper's on-device loop (position and tokens kept on the device)
+    gives the ids of stepping forward() by hand."""
+    _, tm = models
+    prompt = _prompt(5)
+    cache = tm.new_cache(dtype=torch.float32)
+    logits, cache, n_past = tm.prefill(cache, prompt)
+    first = torch.argmax(logits, dim=-1, keepdim=True)
+    _, ids = tm.decode_greedy(cache, first, n_past, 16)
+
+    _, cache = _port_prefill(tm, prompt)
+    tok, pos, want = first, torch.tensor(n_past, dtype=torch.int32), []
+    for _ in range(16):
+        logits = gptj.forward(tm.params, tm.cfg, tok, pos.expand(1), cache, pos)
+        tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+        want.append(int(tok))
+        pos += 1
+    assert ids.shape == (16, 1) and ids[:, 0].tolist() == want
+
+    # generate: prefill + the same loop over the model's default (bf16) cache
+    logits, cache, n_past = tm.prefill(tm.new_cache(), prompt)
+    first = torch.argmax(logits, dim=-1, keepdim=True)
+    _, ids = tm.decode_greedy(cache, first, n_past, 16)
+    assert tm.generate(prompt, 17) == [int(first)] + ids[:, 0].tolist()
+
+
+def test_generate_and_limits(models):
+    _, tm = models
+    out = tm.generate(_prompt(3), 6)
+    assert len(out) == 6 and all(0 <= t < CFG["n_vocab"] for t in out)
+    with pytest.raises(NotImplementedError):
+        tm.generate(_prompt(3), 4, sampler=lambda logits, key: (logits, key))
+    with pytest.raises(ValueError):
+        tm.decode_greedy(tm.new_cache(torch.float32), torch.zeros((1, 1), dtype=torch.long),
+                         MAX_SEQ - 2, 3)
+    flash = dataclasses.replace(tm.cfg, use_flash_prefill=True)
+    with pytest.raises(NotImplementedError):
+        zero = torch.zeros((), dtype=torch.int32)
+        gptj.forward(tm.params, flash, torch.zeros((1, 4), dtype=torch.long), zero.expand(1),
+                     tm.new_cache(torch.float32), zero, prefill=True)

@@ -1,0 +1,78 @@
+"""Rules of the PyTorch/CUDA port (ggml_tpu_torch) and helpers its CPU tests
+share: the port imports neither JAX nor the JAX package, its entry points
+default to the card, and parameters carry over from ggml_tpu as numpy."""
+
+import inspect
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def nmse(ref, got) -> float:
+    ref = np.asarray(ref, np.float64)
+    got = np.asarray(got, np.float64)
+    return float(((ref - got) ** 2).sum() / (ref * ref).sum())
+
+
+def planar_fields(pw) -> dict:
+    """A ggml_tpu PlanarWeight as the dict of numpy fields that
+    ggml_tpu_torch.convert.params_from_numpy takes."""
+    return dict(
+        kind=pw.kind, codes=np.asarray(pw.codes), scales=np.asarray(pw.scales),
+        offsets=None if pw.offsets is None else np.asarray(pw.offsets),
+        supers=None if pw.supers is None else tuple(np.asarray(s) for s in pw.supers),
+        group=pw.group, n=pw.n, k=pw.k, sb=pw.sb, orig_type=int(pw.orig_type))
+
+
+def params_to_numpy(params: dict) -> dict:
+    from ggml_tpu.quant.planar import PlanarWeight
+
+    return {k: planar_fields(v) if isinstance(v, PlanarWeight) else np.asarray(v)
+            for k, v in params.items()}
+
+
+def _port_modules() -> list[str]:
+    import ggml_tpu_torch
+
+    names = ["ggml_tpu_torch"]
+    for info in pkgutil.walk_packages(ggml_tpu_torch.__path__, "ggml_tpu_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_port_modules_listed():
+    names = _port_modules()
+    for want in ("ggml_tpu_torch.kernels.qmatmul", "ggml_tpu_torch.kernels.decode_attn",
+                 "ggml_tpu_torch.models.gptj", "ggml_tpu_torch.convert"):
+        assert want in names
+
+
+@pytest.mark.parametrize("target", ["package", "chip_smoke"])
+def test_port_imports_no_jax(target):
+    """Import every module of the port (or chip_smoke.py) in a fresh
+    interpreter and check that neither jax nor ggml_tpu got loaded."""
+    if target == "package":
+        stmt = "; ".join(f"import {m}" for m in _port_modules())
+    else:
+        stmt = "import chip_smoke"
+    code = (f"import sys; {stmt}; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ggml_tpu')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_entry_points_default_to_cuda():
+    from ggml_tpu_torch.convert import params_from_numpy
+    from ggml_tpu_torch.models import common, gpt2, gptj
+
+    for fn in (gptj.GPTJ.__init__, gptj.GPTJ.from_gguf, gptj.synth_quantized_params,
+               gptj.init_cache, common.init_layer_cache, gpt2.load_params, params_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
+
