@@ -6,8 +6,9 @@ ggml_tpu_torch` light):
 
     ggml_tpu_torch.GGUFFile              GGUF v3 reader
     ggml_tpu_torch.GGMLType              on-disk dtype ids + traits
-    ggml_tpu_torch.repack / PlanarWeight compact Q4_K planes
-    ggml_tpu_torch.planar_matmul         Q4_K matmul through the CUDA kernels
+    ggml_tpu_torch.repack / PlanarWeight Q4_K nibble planes, int8 planes of
+                                         Q8_0, Q5_0, Q5_1, Q5_K, Q6_K
+    ggml_tpu_torch.planar_matmul         quantized matmul through the CUDA kernels
     ggml_tpu_torch.fused_decode_attention  single-token attention kernel
     ggml_tpu_torch.models.gptj           GPT-J (greedy generation)
     ggml_tpu_torch.params_from_numpy     weights carried over from ggml_tpu

@@ -33,6 +33,8 @@ _SIGNATURES = {
     "q4k_gemv_qact": [P, P, P, P, P, P, I, P, P, P, P, P, I, I, I, P],
     "q4k_gemv_rows": [P, P, P, P, P, P, I, P, P, P, P, P, I, I, I, P],
     "q4k_matmul": [P, P, P, P, P, P, I, P, I, I, I, P],
+    "q8_gemv": [P, P, P, P, P, P, I, P, P, P, P, P, I, I, I, I, I, I, P],
+    "q8_matmul": [P, P, P, P, P, P, I, I, I, P, I, I, I, P],
     "decode_attn": [P, P, P, P, P, P, P, I, I, I, I, ctypes.c_float, P],
 }
 

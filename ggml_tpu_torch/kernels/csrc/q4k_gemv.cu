@@ -28,10 +28,10 @@
 // 256-1024 blocks; the split partial sums go to a scratch buffer and the last
 // block of each column strip (counted with an atomic ticket) adds them in a
 // fixed order: one launch, deterministic result, no atomics on the output.
-// Activation quantization (amax, rint-to-even, clip +-127) runs in a small
-// kernel before the GEMV, one block per scale segment; it also zeroes the
-// tickets, so every launch brings its own scratch and counters and no launch
-// depends on what an earlier one left behind.
+// Activation quantization (amax, rint-to-even, clip +-127; quant_segments in
+// common.cuh) runs in a small kernel before the GEMV, one block per scale
+// segment; it also zeroes the tickets, so every launch brings its own scratch
+// and counters and no launch depends on what an earlier one left behind.
 
 #include "common.cuh"
 
@@ -40,36 +40,9 @@ namespace {
 
 constexpr int BN = 128;      // columns per block: 32 lanes x 4 columns
 constexpr int ROWS = 256;    // packed rows per block: 8 warps x one 32-row group
-constexpr int THREADS = 256;
+constexpr int THREADS = QUANT_THREADS;
 constexpr int MAX_M = 32;
 constexpr int MC = 4;        // rows of x reduced per shared-memory pass
-
-// x viewed as contiguous segments of L bf16 values; one int8 scale each.
-// FOLD: s = amax * f32(1/127), as the JAX M=1 kernel computes its per-tile
-// scale (XLA folds the division by the constant 127 into a multiply by its
-// reciprocal); else s = amax / 127 as the JAX per-row quantization computes
-// it.  Codes are rint(x / s) with a correctly rounded division.  Block 0
-// also zeroes this launch's column-strip tickets: the GEMV that follows on
-// the same stream counts on them.
-template <bool FOLD>
-__global__ void __launch_bounds__(THREADS)
-quant_segments(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ xq,
-               float* __restrict__ sx, int L, unsigned* __restrict__ tickets, int n_strips) {
-  __shared__ float scratch[32];
-  if (blockIdx.x == 0)
-    for (int i = threadIdx.x; i < n_strips; i += THREADS) tickets[i] = 0u;
-  const size_t base = (size_t)blockIdx.x * L;
-  float amax = 0.f;
-  for (int i = threadIdx.x; i < L; i += THREADS)
-    amax = fmaxf(amax, fabsf(__bfloat162float(x[base + i])));
-  amax = block_reduce<true>(amax, scratch);
-  const float s = amax == 0.f ? 1.f : (FOLD ? amax * (1.f / 127.f) : amax / 127.f);
-  for (int i = threadIdx.x; i < L; i += THREADS) {
-    const float v = rintf(__fdiv_rn(__bfloat162float(x[base + i]), s));
-    xq[base + i] = (int8_t)fminf(fmaxf(v, -127.f), 127.f);
-  }
-  if (threadIdx.x == 0) sx[blockIdx.x] = s;
-}
 
 // QACT: M == 1 and sx holds one scale per (half, K-tile): [lo tiles, hi tiles].
 // !QACT: sx holds one scale per row, applied to the finished sum.

@@ -1,8 +1,10 @@
-"""Fused Q4_K matmuls over compact packed-nibble planes (kernels A, B, C).
+"""Fused quantized matmuls over the planes of quant/planar.py (kernels A-C
+over compact Q4_K nibble planes, E-G over int8 planes).
 
-The port of ggml_tpu/kernels/qmatmul.py for the compact Q4_K planes of
-quant/planar.py.  `planar_matmul` dispatches as `_planar_matmul_impl` does:
+The port of ggml_tpu/kernels/qmatmul.py.  `planar_matmul` dispatches as
+`_planar_matmul_impl` does (`select_kernel`):
 
+compact q4 planes (Q4_K, K % 512 == 0)
   M == 1        q4k_gemv_qact  int8 activations with one scale per K-tile per
                                half-plane, quantized on the device (kernel A,
                                csrc/q4k_gemv.cu)
@@ -11,6 +13,17 @@ quant/planar.py.  `planar_matmul` dispatches as `_planar_matmul_impl` does:
   M > 32        q4k_matmul     bf16 weights dequantized per tile, bf16 dot,
                                f32 sums, f32 offset term (kernel C,
                                csrc/q4k_matmul.cu)
+q8 planes; "GEMV" means M <= 32, G in (16, 32) and (K/G) % 8 == 0
+  GEMV, compact planes with a legal superblock tile (_sb_q8_gemv_ok)
+                q8_gemv_sb     int8 activations per row; d * sub-scale and
+                               -dmin * min code rebuilt in the kernel
+                               (kernel F, csrc/q8_gemv.cu)
+  GEMV otherwise  q8_gemv      the same sum over multiplied-out scale/offset
+                               planes (kernel E, csrc/q8_gemv.cu); compact
+                               planes without a legal tile are expanded first
+  every other M and K  q8_matmul  bf16 weights dequantized per tile, bf16
+                               dot, f32 sums, f32 offset term (kernel G,
+                               csrc/q8_matmul.cu)
 
 Each wrapper runs its plain PyTorch version for CPU tensors and its CUDA
 kernel for CUDA tensors; it never falls back from one to the other.  The
@@ -24,14 +37,16 @@ from __future__ import annotations
 
 import torch
 
-from ..quant.planar import PlanarWeight
+from ..quant.planar import PlanarWeight, effective_planes, expand_compact
 from . import _build
 
 GEMV_MAX_M = 32  # int-GEMV path for decode-sized row counts (qmatmul.py:866)
 
-launches = {"q4k_gemv_qact": 0, "q4k_gemv_rows": 0, "q4k_matmul": 0}
+launches = {"q4k_gemv_qact": 0, "q4k_gemv_rows": 0, "q4k_matmul": 0,
+            "q8_gemv": 0, "q8_gemv_sb": 0, "q8_matmul": 0}
 
 _BN = 128  # column strip of the GEMV kernels; Npad must be a multiple of it
+_Q8_SLAB = 256  # K rows a block of the q8 GEMV reduces per step (csrc/q8_gemv.cu)
 
 
 def _sb_gemv_k_tile(k2: int, G: int, sb: int) -> int | None:
@@ -50,15 +65,6 @@ def _nib(pw: PlanarWeight):
     return (c & 0xF).float(), (c >> 4).float()
 
 
-def _group_planes(pw: PlanarWeight):
-    """Effective group scale d*sc (2, K/64, Npad) and offset -dmin*m in
-    natural group order (K/32, Npad), f32 — the _sb_expand arithmetic."""
-    eff_s = pw.d.float().repeat_interleave(pw.sb, dim=1) * pw.scales.float()
-    dmin_nat = pw.dmin.float().reshape(-1, pw.npad)
-    eff_o = -dmin_nat.repeat_interleave(pw.sb, dim=0) * pw.offsets.float()
-    return eff_s, eff_o
-
-
 def quantize_rows(x: torch.Tensor, *, folded_scale: bool = False):
     """Symmetric int8 quantization with one scale per row of x (..., L):
     sx = amax/127 (1 where amax == 0), codes round(x / sx) half to even,
@@ -72,7 +78,10 @@ def quantize_rows(x: torch.Tensor, *, folded_scale: bool = False):
     op by op and divides (ROADMAP.md, "Faults found")."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    sx = amax * (1.0 / 127.0) if folded_scale else amax / 127.0  # the scalar rounds to f32
+    # the folded scalar rounds to f32; the division is by a tensor, because on
+    # the card PyTorch turns a division by a number into a multiply by its
+    # reciprocal (the folded form again)
+    sx = amax * (1.0 / 127.0) if folded_scale else amax / torch.full_like(amax, 127.0)
     sx = torch.where(amax == 0, torch.ones_like(amax), sx)
     return torch.clamp(torch.round(xf / sx), -127, 127), sx
 
@@ -100,7 +109,7 @@ def _gemv_qact_plain(x: torch.Tensor, pw: PlanarWeight, kt2: int) -> torch.Tenso
     xq, sx = quantize_rows(x.reshape(2 * nt, kt2), folded_scale=True)
     lo, hi = _nib(pw)
     p_lo, p_hi, xs_lo, xs_hi = _group_dots(xq.reshape(1, -1), lo, hi, pw.group)
-    eff_s, eff_o = _group_planes(pw)
+    eff_s, eff_o = effective_planes(pw)
     g2 = k2 // pw.group
     contrib_lo = p_lo[0] * eff_s[0] + xs_lo[0] * eff_o[:g2]
     contrib_hi = p_hi[0] * eff_s[1] + xs_hi[0] * eff_o[g2:]
@@ -121,7 +130,7 @@ def _gemv_rows_plain(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     xq, sx = quantize_rows(x)
     lo, hi = _nib(pw)
     p_lo, p_hi, xs_lo, xs_hi = _group_dots(xq, lo, hi, pw.group)
-    eff_s, eff_o = _group_planes(pw)
+    eff_s, eff_o = effective_planes(pw)
     g2 = pw.k // 2 // pw.group
     y = (p_lo * eff_s[0] + xs_lo * eff_o[:g2] + p_hi * eff_s[1] + xs_hi * eff_o[g2:]).sum(1)
     return y * sx
@@ -130,7 +139,7 @@ def _gemv_rows_plain(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
 def _matmul_plain(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     """_q4_kernel semantics plus the xsum @ eff_o side product:
     x (M, K) bf16 -> (M, Npad) f32."""
-    eff_s, eff_o = _group_planes(pw)
+    eff_s, eff_o = effective_planes(pw)
     lo, hi = _nib(pw)
     w_lo = (lo * eff_s[0].repeat_interleave(pw.group, dim=0)).to(torch.bfloat16)
     w_hi = (hi * eff_s[1].repeat_interleave(pw.group, dim=0)).to(torch.bfloat16)
@@ -141,50 +150,132 @@ def _matmul_plain(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     return y + xsum @ eff_o
 
 
-def _check_planes(x: torch.Tensor, pw: PlanarWeight, max_m: int | None = None):
+def _sb_q8_gemv_ok(k: int, G: int, sb: int) -> bool:
+    """Whether the JAX compact q8 GEMV has a legal K tile at this K (a 2048
+    or 4096 tile whose superblock rows are a multiple of 8, or a whole-K tile
+    up to 4096); without one the dispatch expands the planes (qmatmul.py:793)."""
+    for c in (2048, 4096):
+        if c <= k and k % c == 0 and c % G == 0 and (c // (G * sb)) % 8 == 0:
+            return True
+    return k <= 4096
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c rounded once, as a fused multiply-add does (the
+    product of two float32 values is exact in float64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _q8_gemv_plain(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
+    """_q8gemv_kernel / _q8gemv_off_kernel semantics (and, over compact
+    planes, those of the four _q8gemv*_sb* bodies) with the per-row
+    quantization before and the * sx after: x (M, K) bf16 -> (M, Npad) f32.
+
+    Sum order: the groups one by one in K order into a running f32 sum,
+    acc = fma(dot(xq_g, q_g), s_g, acc), then acc = fma(sum xq_g, o_g, acc),
+    with exact int32 dots: the order of the JAX loop bodies as XLA compiles
+    them for the CPU (it fuses each multiply-add), which this reproduces bit
+    for bit on multiplied-out planes.  The block-diagonal bodies (compact
+    planes at M = 1) reduce each K-tile as a tree, and the CUDA kernel adds
+    warps, slabs and K-splits in its own fixed order; both are held to this
+    version by NMSE."""
+    xq, sx = quantize_rows(x)
+    eff_s, eff_o = effective_planes(pw)
+    m, g = x.shape[0], pw.group
+    xg = xq.reshape(m, pw.k // g, g)
+    # every partial sum is an integer below 2**24: float32 holds it exactly
+    dots = torch.einsum("mgr,grn->mgn", xg, pw.codes.float().reshape(pw.k // g, g, pw.npad))
+    xsum = xg.sum(-1, keepdim=True)
+    acc = torch.zeros((m, pw.npad), dtype=torch.float32, device=x.device)
+    for i in range(pw.k // g):
+        acc = _fma(dots[:, i], eff_s[i], acc)
+        if eff_o is not None:
+            acc = _fma(xsum[:, i], eff_o[i], acc)
+    return acc * sx
+
+
+def _q8_matmul_plain(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
+    """_q8_kernel semantics, w = bf16(f32(code) * f32(scale)) with the
+    effective scale of compact planes formed in f32 first, plus the f32 side
+    product xsum @ eff_o over the bf16 activations: x (M, K) bf16 -> (M, Npad) f32."""
+    eff_s, eff_o = effective_planes(pw)
+    w = (pw.codes.float() * eff_s.repeat_interleave(pw.group, dim=0)).to(torch.bfloat16).float()
+    xf = x.float()
+    y = xf @ w
+    if eff_o is not None:
+        y = y + xf.reshape(x.shape[0], pw.k // pw.group, pw.group).sum(-1) @ eff_o
+    return y
+
+
+_FLOAT_PLANES = (torch.float32, torch.bfloat16)
+
+
+def _check_planes(x: torch.Tensor, pw: PlanarWeight, kind: str, max_m: int | None = None):
+    """Raise on what the kernels of `kind` planes do not take."""
+    if pw.kind != kind:
+        raise ValueError(f"a {kind} kernel was given {pw.kind} planes")
     if x.dim() != 2 or x.shape[1] != pw.k:
         raise ValueError(f"x {tuple(x.shape)} does not match weight K={pw.k}")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"x must be bfloat16, got {x.dtype}")
     if max_m is not None and not 1 <= x.shape[0] <= max_m:
         raise ValueError(f"M={x.shape[0]} outside 1..{max_m}")
-    if pw.k % 512:
+    if kind == "q4" and pw.k % 512:
         raise ValueError(f"K={pw.k} is not a multiple of 512")
-    planes = (pw.codes, pw.scales, pw.offsets, pw.d, pw.dmin)
+    if kind == "q8" and (pw.group not in (16, 32) or pw.k % 32):
+        raise ValueError(f"group {pw.group} / K={pw.k}: the q8 kernels take groups of 16 or 32 and K % 32 == 0")
+    planes = list(pw.buffers())
     if any(t.device != x.device for t in planes):
         raise ValueError("x and the weight planes are on different devices")
-    if x.is_cuda:
-        if not x.is_contiguous() or any(not t.is_contiguous() for t in planes):
-            raise ValueError("the CUDA kernels take contiguous tensors only")
-        if pw.npad % _BN:
-            raise ValueError(f"Npad={pw.npad} is not a multiple of {_BN}")
-        if pw.d.dtype not in (torch.float32, torch.bfloat16) or pw.dmin.dtype != pw.d.dtype:
-            raise TypeError(f"d/dmin must both be float32 or bfloat16, got {pw.d.dtype}/{pw.dmin.dtype}")
-        if (pw.codes.dtype, pw.scales.dtype, pw.offsets.dtype) != (torch.uint8, torch.int8, torch.int8):
-            raise TypeError("codes must be uint8 and scales/offsets int8")
-        if any(t.data_ptr() % 16 for t in (x, *planes)):
-            raise ValueError("the CUDA kernels need 16-byte aligned tensors")
+    if not x.is_cuda:
+        return
+    if not x.is_contiguous() or any(not t.is_contiguous() for t in planes):
+        raise ValueError("the CUDA kernels take contiguous tensors only")
+    if pw.npad % _BN:
+        raise ValueError(f"Npad={pw.npad} is not a multiple of {_BN}")
+    if any(t.data_ptr() % 16 for t in (x, *planes)):
+        raise ValueError("the CUDA kernels need 16-byte aligned tensors")
+    # integer planes, then the float planes, which share one of two types
+    compact = pw.d is not None
+    ints = [pw.codes] + ([pw.scales, pw.offsets] if compact else [])
+    floats = [pw.d, pw.dmin] if compact else [pw.scales, pw.offsets]
+    want = [torch.uint8 if kind == "q4" else torch.int8] + [torch.int8] * 2
+    if any(t is not None and t.dtype != w for t, w in zip(ints, want)):
+        raise TypeError(f"{kind} codes must be {want[0]} and compact sub-scale/min codes int8")
+    if floats[0].dtype not in _FLOAT_PLANES or any(t is not None and t.dtype != floats[0].dtype for t in floats):
+        raise TypeError("the float planes (scales/offsets or d/dmin) must all be float32 or all bfloat16")
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def _plane_ptrs(pw: PlanarWeight):
-    return (pw.codes.data_ptr(), pw.scales.data_ptr(), pw.offsets.data_ptr(),
-            pw.d.data_ptr(), pw.dmin.data_ptr(), int(pw.d.dtype == torch.bfloat16))
+    """codes, scales, offsets, d, dmin (None where absent) and whether the
+    float planes are bf16."""
+    floats = pw.scales if pw.d is None else pw.d
+    return (pw.codes.data_ptr(), pw.scales.data_ptr(), _ptr(pw.offsets), _ptr(pw.d), _ptr(pw.dmin),
+            int(floats.dtype == torch.bfloat16))
 
 
-def _gemv_cuda(name: str, x: torch.Tensor, pw: PlanarWeight, kt2: int) -> torch.Tensor:
+def _gemv_cuda(name: str, x: torch.Tensor, pw: PlanarWeight, kt2: int = 0) -> torch.Tensor:
     m, k = x.shape
     dev = x.device
+    q8 = pw.kind == "q8"
+    split = _q8_gemv_split(k, pw.npad) if q8 else k // 512  # K-split partial sums per column
     y = torch.empty((m, pw.npad), dtype=torch.float32, device=dev)
     # scratch of this launch alone, from the stream-ordered allocator; the
     # quantization kernel zeroes the tickets before the GEMV counts on them
     xq = torch.empty((m, k), dtype=torch.int8, device=dev)
     sx = torch.empty((k // kt2 if kt2 else m,), dtype=torch.float32, device=dev)
-    partial = torch.empty((k // 512, m, pw.npad), dtype=torch.float32, device=dev)
+    partial = torch.empty((split, m, pw.npad), dtype=torch.float32, device=dev)
     tickets = torch.empty((pw.npad // _BN,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (x.data_ptr(), *_plane_ptrs(pw), xq.data_ptr(), sx.data_ptr(), partial.data_ptr(),
             tickets.data_ptr(), y.data_ptr())
-    if kt2:
+    if q8:
+        rc = _build.lib().q8_gemv(*args, pw.group, pw.sb, m, k, pw.npad, split, stream)
+    elif kt2:
         rc = _build.lib().q4k_gemv_qact(*args, k, pw.npad, kt2, stream)
     else:
         rc = _build.lib().q4k_gemv_rows(*args, m, k, pw.npad, stream)
@@ -193,10 +284,24 @@ def _gemv_cuda(name: str, x: torch.Tensor, pw: PlanarWeight, kt2: int) -> torch.
     return y
 
 
+def _matmul_cuda(name: str, x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
+    m, k = x.shape
+    y = torch.empty((m, pw.npad), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if pw.kind == "q8":
+        rc = _build.lib().q8_matmul(x.data_ptr(), *_plane_ptrs(pw), pw.group, pw.sb, y.data_ptr(),
+                                    m, k, pw.npad, stream)
+    else:
+        rc = _build.lib().q4k_matmul(x.data_ptr(), *_plane_ptrs(pw), y.data_ptr(), m, k, pw.npad, stream)
+    launches[name] += 1
+    _build.check(rc, name)
+    return y
+
+
 def q4k_gemv_qact(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     """Kernel A: x (1, K) bf16 -> y (1, Npad) f32 with in-kernel per-tile
     activation quantization (replaces _q4gemv_bd_sb_qact_kernel)."""
-    _check_planes(x, pw, max_m=1)
+    _check_planes(x, pw, "q4", max_m=1)
     kt2 = _sb_gemv_k_tile(pw.k // 2, pw.group, pw.sb)
     if kt2 is None:
         raise NotImplementedError(f"K={pw.k}: no compact GEMV tile; the non-compact q4 GEMV is not ported yet")
@@ -209,42 +314,114 @@ def q4k_gemv_rows(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     """Kernel B: x (M, K) bf16, 1 <= M <= 32 -> y (M, Npad) f32 with one
     activation scale per row (replaces _q4gemv_sb_kernel and the per-row
     quantization around it)."""
-    _check_planes(x, pw, max_m=GEMV_MAX_M)
+    _check_planes(x, pw, "q4", max_m=GEMV_MAX_M)
     if not x.is_cuda:
         return _gemv_rows_plain(x, pw)
-    return _gemv_cuda("q4k_gemv_rows", x, pw, 0)
+    return _gemv_cuda("q4k_gemv_rows", x, pw)
 
 
 def q4k_matmul(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     """Kernel C: x (M, K) bf16 -> y (M, Npad) f32, dequantizing bf16 weight
     tiles from the compact planes (replaces _q4_kernel, _effective_planes and
     the xsum @ eff_o side product)."""
-    _check_planes(x, pw)
+    _check_planes(x, pw, "q4")
     if not x.is_cuda:
         return _matmul_plain(x, pw)
-    m, k = x.shape
-    y = torch.empty((m, pw.npad), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _build.lib().q4k_matmul(x.data_ptr(), *_plane_ptrs(pw), y.data_ptr(), m, k, pw.npad, stream)
-    launches["q4k_matmul"] += 1
-    _build.check(rc, "q4k_matmul")
-    return y
+    return _matmul_cuda("q4k_matmul", x, pw)
+
+
+def _q8_gemv_split(k: int, npad: int) -> int:
+    """Blocks along K of the q8 GEMV: one per 256-row slab, halved while the
+    grid keeps at least 1024 blocks (a block then walks several slabs and
+    writes one partial sum, so wide weights pay less scratch traffic)."""
+    split = -(-k // _Q8_SLAB)
+    while split % 2 == 0 and (npad // _BN) * (split // 2) >= 1024:
+        split //= 2
+    return split
+
+
+def _check_q8_gemv(x: torch.Tensor, pw: PlanarWeight, compact: bool):
+    _check_planes(x, pw, "q8", max_m=GEMV_MAX_M)
+    if (pw.k // pw.group) % 8:
+        raise ValueError(f"K={pw.k}: the q8 GEMV needs a multiple of 8 groups of {pw.group}")
+    if (pw.d is not None) != compact:
+        raise ValueError("q8_gemv takes multiplied-out planes and q8_gemv_sb compact planes")
+
+
+def q8_gemv(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
+    """Kernel E: x (M, K) bf16, 1 <= M <= 32 -> y (M, Npad) f32 over int8
+    codes with one f32 or bf16 scale (and offset) per group (replaces
+    _q8gemv_kernel, _q8gemv_off_kernel, the per-row quantization before them
+    and the * sx after)."""
+    _check_q8_gemv(x, pw, compact=False)
+    if not x.is_cuda:
+        return _q8_gemv_plain(x, pw)
+    return _gemv_cuda("q8_gemv", x, pw)
+
+
+def q8_gemv_sb(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
+    """Kernel F: the sum of kernel E over COMPACT planes, the group scale
+    d * sub-scale and offset -dmin * min code rebuilt in f32 in the kernel
+    (replaces _q8gemv_sb_kernel, _q8gemv_bd_sb_kernel and their two affine
+    twins, with the quantization and the * sx around them)."""
+    _check_q8_gemv(x, pw, compact=True)
+    if pw.k % (pw.group * pw.sb):
+        raise ValueError(f"K={pw.k} is not whole superblocks of {pw.group * pw.sb}")
+    if not x.is_cuda:
+        return _q8_gemv_plain(x, pw)
+    return _gemv_cuda("q8_gemv_sb", x, pw)
+
+
+def q8_matmul(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
+    """Kernel G: x (M, K) bf16 -> y (M, Npad) f32, dequantizing bf16 weight
+    tiles from int8 planes, compact or multiplied out (replaces _q8_kernel,
+    _effective_planes and the xsum @ eff_o side product)."""
+    _check_planes(x, pw, "q8")
+    if not x.is_cuda:
+        return _q8_matmul_plain(x, pw)
+    return _matmul_cuda("q8_matmul", x, pw)
 
 
 def planar_dequant(pw: PlanarWeight, dtype=torch.float32) -> torch.Tensor:
     """Dense (K, Npad) dequantized weight — the executable spec of the planar
     factoring (qmatmul.py:904)."""
-    eff_s, eff_o = _group_planes(pw)
-    lo, hi = _nib(pw)
+    eff_s, eff_o = effective_planes(pw)
     g = pw.group
-    w = torch.cat([lo * eff_s[0].repeat_interleave(g, dim=0),
-                   hi * eff_s[1].repeat_interleave(g, dim=0)], dim=0)
-    w = w + eff_o.repeat_interleave(g, dim=0)
+    if pw.kind == "q4":
+        lo, hi = _nib(pw)
+        w = torch.cat([lo * eff_s[0].repeat_interleave(g, dim=0),
+                       hi * eff_s[1].repeat_interleave(g, dim=0)], dim=0)
+    else:
+        w = pw.codes.float() * eff_s.repeat_interleave(g, dim=0)
+    if eff_o is not None:
+        w = w + eff_o.repeat_interleave(g, dim=0)
     return w.to(dtype)
 
 
+_WRAPPERS = {f.__name__: f for f in (q4k_gemv_qact, q4k_gemv_rows, q4k_matmul, q8_gemv, q8_gemv_sb, q8_matmul)}
+
+
+def select_kernel(pw: PlanarWeight, m: int) -> str:
+    """Name of the wrapper planar_matmul runs for m rows of x, decided as
+    _planar_matmul_impl decides (qmatmul.py:998-1085)."""
+    k, g = pw.k, pw.group
+    if pw.kind == "q4":
+        has_tile = _sb_gemv_k_tile(k // 2, g, pw.sb) is not None
+        if m > GEMV_MAX_M:
+            return "q4k_matmul"
+        if not has_tile:
+            raise NotImplementedError(
+                f"K={k}: no compact GEMV tile; the expanded-plane q4 GEMV is not ported yet (ROADMAP.md)")
+        return "q4k_gemv_qact" if m == 1 else "q4k_gemv_rows"
+    if m > GEMV_MAX_M or g not in (16, 32) or (k // g) % 8:
+        return "q8_matmul"
+    if pw.d is not None and _sb_q8_gemv_ok(k, g, pw.sb):
+        return "q8_gemv_sb"
+    return "q8_gemv"  # compact planes with no legal tile are expanded first
+
+
 def planar_matmul(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
-    """y = x @ W^T with W a compact Q4_K planar weight.
+    """y = x @ W^T with W a planar-repacked quantized weight.
 
     x: (..., K) float tensor, computed as bf16.  Returns (..., N) in x's dtype.
     """
@@ -252,15 +429,8 @@ def planar_matmul(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     if k != pw.k:
         raise ValueError(f"K mismatch: x {k} vs weight {pw.k}")
     xb = x.reshape(-1, k).to(torch.bfloat16)
-    m = xb.shape[0]
-    has_tile = _sb_gemv_k_tile(k // 2, pw.group, pw.sb) is not None
-    if m == 1 and has_tile:
-        y = q4k_gemv_qact(xb, pw)
-    elif m <= GEMV_MAX_M and has_tile:
-        y = q4k_gemv_rows(xb, pw)
-    elif m > GEMV_MAX_M:
-        y = q4k_matmul(xb, pw)
-    else:
-        raise NotImplementedError(
-            f"K={k}: no compact GEMV tile; the expanded-plane q4 GEMV is not ported yet (ROADMAP.md)")
+    name = select_kernel(pw, xb.shape[0])
+    if name == "q8_gemv" and pw.d is not None:
+        pw = expand_compact(pw)
+    y = _WRAPPERS[name](xb, pw)
     return y[:, : pw.n].reshape(*batch, pw.n).to(x.dtype)

@@ -16,7 +16,7 @@ def load_params(g: GGUFFile, dtype=torch.float32, device="cuda") -> dict:
     """Load GGUF tensors onto `device`, as the JAX load_params does with
     keep_quantized=True.
 
-    2-D quantized matmul weights are repacked to compact planes
+    2-D quantized matmul weights are repacked to planes
     (quant/planar.py) and stay packed in device memory, consumed by the fused
     kernels; the token embedding is additionally kept dense for the row
     gather.  Everything else is loaded as `dtype`.  A quantized type without

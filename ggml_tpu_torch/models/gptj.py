@@ -5,8 +5,9 @@ parallel residual (attn and mlp both read the SAME post-layernorm
 activations, main.cpp:449-565), separate unbiased q/k/v projections, RoPE on
 the first n_rot dims (ggml rope mode 0), biased mlp and biased untied lm head.
 
-- quantized weights stay compact Q4_K planes in device memory and run through
-  the hand-written kernels of ggml_tpu_torch.kernels.qmatmul;
+- quantized weights stay planes in device memory (compact Q4_K nibbles, int8
+  planes for Q8_0/Q5_0/Q5_1/Q5_K/Q6_K) and run through the hand-written
+  kernels of ggml_tpu_torch.kernels.qmatmul;
 - single-token steps run attention through kernels.decode_attn;
 - the KV cache is written in place (the JAX package donates it to XLA);
 - decode is a plain Python loop whose position and tokens stay on the device,
@@ -220,8 +221,8 @@ class GPTJ:
 
     @classmethod
     def from_gguf(cls, path, dtype=torch.bfloat16, rope_deinterleaved: bool = True, device="cuda", **kw):
-        """Load a GGUF file; its quantized matmul weights stay compact Q4_K
-        planes on `device`."""
+        """Load a GGUF file; its quantized matmul weights (Q4_K, Q8_0, Q5_0,
+        Q5_1, Q5_K, Q6_K, alone or mixed) stay planes on `device`."""
         from ..quant.planar import PlanarWeight, permute_output_columns
         from .gpt2 import load_params  # same GGUF tensor-naming loader
 
@@ -291,38 +292,56 @@ def random_config(scale: str = "6b") -> GPTJConfig:
 
 
 def synth_quantized_params(cfg: GPTJConfig, ggml_type: GGMLType = GGMLType.Q4_K, seed: int = 0,
-                           dtype=torch.bfloat16, device="cuda") -> dict:
-    """A full parameter set with weights ALREADY in compact Q4_K planes
-    (random codes, constant sub-scales) made on `device` from a
-    torch.Generator — for running the quantized path at full width without a
-    checkpoint.  Every weight's effective scale is 0.0025 and offset -0.02, as
-    in the JAX package's synth_quantized_params, so activations stay finite.
+                           dtype=torch.bfloat16, device="cuda", use_q4: bool | None = None) -> dict:
+    """A full parameter set with weights ALREADY in planes (random codes,
+    constant scales) made on `device` from a torch.Generator — for running
+    the quantized path at full width without a checkpoint.  Planes as the
+    JAX package's synth_quantized_params builds them:
+
+    - Q4_K (use_q4, the default for it): compact packed-nibble planes, every
+      weight's effective scale 0.0025 and offset -0.02;
+    - Q8_0, Q5_0, Q5_1, Q5_K, Q6_K, and Q4_K with use_q4=False: int8 codes
+      over the full int8 range with one bf16 scale 0.0025 per group of 32
+      (16 for Q6_K) and, for the affine K-quants, a bf16 offset -0.02.
+
     Each layer holds one (7E x E) qkv+ffn_up weight, the JAX default layout:
     with the parallel residual, qkv and ffn_up read the same h."""
-    from ..quant.planar import PlanarWeight, _compact_applicable
+    from ..quant.planar import PlanarWeight, _compact_applicable, planar_types
 
-    if ggml_type != GGMLType.Q4_K:
-        raise NotImplementedError(f"synthetic {GGMLType(ggml_type).name} planes are not ported yet (ROADMAP.md)")
-    G, SB = 32, 8
+    ggml_type = GGMLType(ggml_type)
+    if ggml_type not in planar_types():
+        raise NotImplementedError(f"synthetic {ggml_type.name} planes are not ported yet (ROADMAP.md)")
+    if use_q4 is None:
+        use_q4 = ggml_type == GGMLType.Q4_K
+    elif use_q4 and ggml_type != GGMLType.Q4_K:
+        raise ValueError(f"{ggml_type.name} codes do not fit a 4-bit plane")
+    G = 16 if ggml_type == GGMLType.Q6_K else 32
+    SB = 8
+    affine = ggml_type in (GGMLType.Q4_K, GGMLType.Q5_K)
     s_val = np.float32(0.02 / 8)
-    sdt = torch.bfloat16  # d/dmin in bf16, as the JAX synthesis stores them
+    sdt = torch.bfloat16  # scales, offsets, d and dmin in bf16, as the JAX synthesis stores them
     gen = torch.Generator(device=device)
     gen.manual_seed(seed + 7)
 
     def qweight(n, k):
-        if not _compact_applicable(ggml_type, k):
-            raise NotImplementedError(f"K={k}: the non-compact q4 planes are not ported yet")
         pad_to = 2048 if n > 8192 else 128
         npad = -(-n // pad_to) * pad_to
-        codes = torch.randint(0, 256, (k // 2, npad), dtype=torch.uint8, device=device, generator=gen)
+        full = lambda shape, v, dt: torch.full(shape, v, dtype=dt, device=device)
+        if not use_q4:
+            return PlanarWeight(
+                kind="q8", group=G, n=n, k=k, orig_type=ggml_type,
+                codes=torch.randint(-128, 128, (k, npad), dtype=torch.int8, device=device, generator=gen),
+                scales=full((k // G, npad), float(s_val), sdt),
+                offsets=full((k // G, npad), float(-8.0 * s_val), sdt) if affine else None)
+        if not _compact_applicable(ggml_type, k):
+            raise NotImplementedError(f"K={k}: the non-compact q4 planes are not ported yet")
         sup = (2, (k // 2) // (G * SB), npad)
         return PlanarWeight(
-            kind="q4", codes=codes,
-            scales=torch.full((2, (k // 2) // G, npad), 32, dtype=torch.int8, device=device),
-            offsets=torch.full((k // G, npad), 32, dtype=torch.int8, device=device),
-            group=G, n=n, k=k, orig_type=ggml_type, sb=SB,
-            supers=(torch.full(sup, float(s_val / 32), dtype=sdt, device=device),
-                    torch.full(sup, float(8.0 * s_val / 32), dtype=sdt, device=device)))
+            kind="q4", group=G, n=n, k=k, orig_type=ggml_type, sb=SB,
+            codes=torch.randint(0, 256, (k // 2, npad), dtype=torch.uint8, device=device, generator=gen),
+            scales=full((2, (k // 2) // G, npad), 32, torch.int8),
+            offsets=full((k // G, npad), 32, torch.int8),
+            supers=(full(sup, float(s_val / 32), sdt), full(sup, float(8.0 * s_val / 32), sdt)))
 
     E = cfg.n_embd
     dgen = torch.Generator(device=device)

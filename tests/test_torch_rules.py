@@ -30,6 +30,36 @@ def planar_fields(pw) -> dict:
         group=pw.group, n=pw.n, k=pw.k, sb=pw.sb, orig_type=int(pw.orig_type))
 
 
+def random_raw(ggml_type, n: int, k: int, seed: int) -> np.ndarray:
+    """Raw blocks (n, row bytes) of a random (n, k) weight of a ggml type the
+    port has ported: random codes and sub-scales, finite fp16 scales."""
+    from ggml_tpu_torch.dtypes import get_type_traits
+    from ggml_tpu_torch.quant.reference import random_blocks
+
+    tr = get_type_traits(ggml_type)
+    blocks = random_blocks(ggml_type, n * k // tr.block_size, np.random.default_rng(seed), scale=2e-3)
+    return blocks.reshape(n, -1)
+
+
+def assert_planes_equal(pw, jpw):
+    """A port PlanarWeight holds the planes of a ggml_tpu PlanarWeight bit
+    for bit, in the same types."""
+    assert (pw.kind, pw.group, pw.n, pw.k, int(pw.orig_type)) == (
+        jpw.kind, jpw.group, jpw.n, jpw.k, int(jpw.orig_type))
+    assert (pw.supers is None) == (jpw.supers is None)
+    pairs = [("codes", pw.codes, jpw.codes), ("scales", pw.scales, jpw.scales),
+             ("offsets", pw.offsets, jpw.offsets)]
+    if jpw.supers is not None:
+        assert pw.sb == jpw.sb
+        pairs += [("d", pw.d, jpw.supers[0]), ("dmin", pw.dmin, jpw.supers[1])]
+    for name, got, want in pairs:
+        assert (got is None) == (want is None), name
+        if want is not None:
+            want = np.asarray(want)
+            assert got.numpy().dtype == want.dtype and got.shape == want.shape, name
+            np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+
+
 def params_to_numpy(params: dict) -> dict:
     from ggml_tpu.quant.planar import PlanarWeight
 
