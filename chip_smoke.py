@@ -12,11 +12,15 @@ Phases (any failure exits non-zero without the result line):
    never calls it), beside the least time the card could take (bound);
 4. serve greedy requests through GPT-J-6B at its published widths
    (EleutherAI/gpt-j-6b: n_vocab 50400, E 4096, 16 heads, 28 layers, n_rot
-   64), counting every kernel launch of each run: (a) synthesized compact
-   Q4_K planes, (b) synthesized Q8_0 planes, three requests each, (c) compact
-   Q6_K planes repacked from random blocks, one request; then hold a tiny
-   GPT-J on the card against the same model on the CPU for a Q4_K, a Q8_0
-   and a mixed Q4_K/Q6_K parameter set;
+   64, context 2048), counting every kernel launch of each run: (a)
+   synthesized compact Q4_K planes, prompts 8, 100, 1, then a 1024-token
+   prompt through the flash prefill, (b) synthesized Q8_0 planes, three
+   requests, (c) compact Q6_K planes repacked from random blocks, one
+   request, (e) synthesized Q4_0 planes (multiplied-out nibble planes),
+   prompts 8, 100, 1 and 1024, (f) synthesized Q3_K planes (groups of 16),
+   one request; then (d) hold a tiny GPT-J on the card against the same model
+   on the CPU for a Q4_K, a Q8_0, a mixed Q4_K/Q6_K, a Q4_0 and a mixed
+   Q4_1/Q2_K/Q3_K parameter set, and a flash prefill;
 5. one JSON line listing every kernel, then the result line.
 
 Runs only where torch.cuda.is_available(); it imports nothing of JAX.
@@ -25,6 +29,7 @@ Runs only where torch.cuda.is_available(); it imports nothing of JAX.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -36,7 +41,7 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 FLUSH_BYTES = 128 << 20  # written between timed launches: evicts the 50 MB L2
 PLAIN = {"q4k_gemv_qact": "_gemv_qact_plain", "q4k_gemv_rows": "_gemv_rows_plain",
          "q4k_matmul": "_matmul_plain", "q8_gemv": "_q8_gemv_plain", "q8_gemv_sb": "_q8_gemv_plain",
-         "q8_matmul": "_q8_matmul_plain"}
+         "q8_matmul": "_q8_matmul_plain", "q4_gemv": "_q4_gemv_plain", "q4k_gemv_i8": "_gemv_i8_plain"}
 SOURCES = {
     "q4k_gemv_qact": ("ggml_tpu_torch/kernels/csrc/q4k_gemv.cu", "ggml_tpu/kernels/qmatmul.py:523"),
     "q4k_gemv_rows": ("ggml_tpu_torch/kernels/csrc/q4k_gemv.cu", "ggml_tpu/kernels/qmatmul.py:446"),
@@ -45,12 +50,17 @@ SOURCES = {
     "q8_gemv": ("ggml_tpu_torch/kernels/csrc/q8_gemv.cu", "ggml_tpu/kernels/qmatmul.py:189"),
     "q8_gemv_sb": ("ggml_tpu_torch/kernels/csrc/q8_gemv.cu", "ggml_tpu/kernels/qmatmul.py:645"),
     "q8_matmul": ("ggml_tpu_torch/kernels/csrc/q8_matmul.cu", "ggml_tpu/kernels/qmatmul.py:133"),
+    "q4_gemv": ("ggml_tpu_torch/kernels/csrc/q4_gemv.cu", "ggml_tpu/kernels/qmatmul.py:292"),
+    "q4k_gemv_i8": ("ggml_tpu_torch/kernels/csrc/q4k_gemv.cu", "ggml_tpu/kernels/qmatmul.py:482"),
+    "flash_attn": ("ggml_tpu_torch/kernels/csrc/flash_attn.cu", "ggml_tpu/kernels/flash_attn.py:30"),
 }
 # NMSE of a kernel against its plain version on the card: the int8 kernels
 # differ only in the order of their f32 sums, the matmuls in the order of
-# their bf16 products too
+# their bf16 products too; the flash kernel rounds p (and, for bf16 q, its
+# output) to bf16, and a last-bit difference of a score moves single roundings
 GATE = {"q4k_gemv_qact": 1e-6, "q4k_gemv_rows": 1e-6, "q4k_matmul": 1e-5, "decode_attn": 1e-6,
-        "q8_gemv": 1e-9, "q8_gemv_sb": 1e-9, "q8_matmul": 1e-8}
+        "q8_gemv": 1e-9, "q8_gemv_sb": 1e-9, "q8_matmul": 1e-8, "q4_gemv": 1e-9, "q4k_gemv_i8": 1e-9,
+        "flash_attn": 1e-6}
 
 
 class SmokeFailure(Exception):
@@ -137,42 +147,65 @@ def random_q8_planes(torch, n: int, k: int, npad: int, fmt: str, gen):
                         offsets=-8 * small(k // g, dt) if affine else None, group=g, n=n, k=k, orig_type=orig)
 
 
-def phase_kernels(torch, F, qmatmul, decode_attn, flush):
+def random_q4_planes(torch, n: int, k: int, npad: int, fmt: str, gen):
+    """A q4 weight with multiplied-out random scale and offset planes on the
+    card.  fmt: "q4_0" / "q3_k" (bf16 planes per 32 / 16 codes, as the
+    synthesis builds them), "q4_0_f32" (f32 planes per 32, as repack builds
+    them)."""
+    from ggml_tpu_torch.dtypes import GGMLType
+    from ggml_tpu_torch.quant.planar import PlanarWeight
+
+    kw = dict(device="cuda", generator=gen)
+    g, dt, orig = {"q4_0": (32, torch.bfloat16, GGMLType.Q4_0), "q3_k": (16, torch.bfloat16, GGMLType.Q3_K),
+                   "q4_0_f32": (32, torch.float32, GGMLType.Q4_0)}[fmt]
+    small = lambda shape: ((torch.rand(shape, **kw) + 0.5) * 2.5e-3).to(dt)
+    return PlanarWeight(kind="q4", codes=torch.randint(0, 256, (k // 2, npad), dtype=torch.uint8, **kw),
+                        scales=small((2, k // 2 // g, npad)), offsets=-8 * small((k // g, npad)), group=g,
+                        n=n, k=k, orig_type=orig)
+
+
+def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
     """Each kernel against its plain version at the main path's shapes."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     results = {name: [] for name in SOURCES}
 
-    def record(name, r):
+    def record(name, r, gate=None):
+        gate = GATE[name] if gate is None else gate
         results[name].append(r)
+        us = lambda v: "not timed" if v is None else f"{v * 1e3:.1f}us"
         print(f"  {name:14s} {r['shape']:44s} nmse={r['nmse']:.2e} max_abs={r['max_abs_err']:.2e} "
-              f"kernel={r['ms'] * 1e3:.1f}us plain={r['plain_ms'] * 1e3:.1f}us "
-              f"library={r['library_ms'] * 1e3:.1f}us bound={r['bound_ms'] * 1e3:.1f}us ({r['bound_by']})")
-        check(r["nmse"] <= GATE[name], f"{name} {r['shape']}: NMSE {r['nmse']:.3e} > {GATE[name]:g}")
+              f"kernel={us(r['ms'])} plain={us(r['plain_ms'])} "
+              f"library={us(r['library_ms'])} bound={r['bound_ms'] * 1e3:.1f}us ({r['bound_by']})")
+        check(r["nmse"] <= gate, f"{name} {r['shape']}: NMSE {r['nmse']:.3e} > {gate:g}")
 
     def gemv_case(name, m, k, n, npad, d_dtype=torch.bfloat16, fmt=None):
         if fmt is None:
             pw, label = random_planes(torch, n, k, npad, d_dtype, gen), f"d={str(d_dtype)[6:]}"
+        elif fmt in ("q4_0", "q3_k", "q4_0_f32"):
+            pw, label = random_q4_planes(torch, n, k, npad, fmt, gen), fmt
         else:
             pw, label = random_q8_planes(torch, n, k, npad, fmt, gen), fmt
         x = torch.randn((m, k), device="cuda", generator=gen).to(torch.bfloat16)
+        if name == "q4k_gemv_i8":  # activations that are int8 already
+            x = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda", generator=gen)
         wrapper = getattr(qmatmul, name)
         plain = getattr(qmatmul, PLAIN[name])
         plain_fn = ((lambda: plain(x, pw, qmatmul._sb_gemv_k_tile(k // 2, 32, 8)))
-                    if name == "q4k_gemv_qact" else (lambda: plain(x, pw)))
+                    if name in ("q4k_gemv_qact", "q4k_gemv_i8") else (lambda: plain(x, pw)))
         got = wrapper(x, pw)
         torch.cuda.synchronize()
         nmse, mae = errors(plain_fn(), got)
         w = qmatmul.planar_dequant(pw, torch.bfloat16)
         plane = pw.plane_bytes()
-        moved = plane + x.numel() * 2 + m * npad * 4
+        moved = plane + x.numel() * x.element_size() + m * npad * 4
         ops = 2 * m * k * npad
         kind = "bf16" if name.endswith("matmul") else "int8"
         t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[kind] * 1e3
         rec = dict(shape=f"M={m} K={k} N={n} Npad={npad} {label}", nmse=nmse, max_abs_err=mae,
                    ms=device_ms(torch, lambda: wrapper(x, pw), flush, 50),
                    plain_ms=device_ms(torch, plain_fn, flush, 5),
-                   library_ms=device_ms(torch, lambda: torch.matmul(x, w), flush, 20),
+                   library_ms=device_ms(torch, lambda: torch.matmul(x.to(torch.bfloat16), w), flush, 20),
                    bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
         del w, pw
         record(name, rec)
@@ -206,9 +239,77 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flush):
     gemv_case("q8_matmul", 100, *qkvup, fmt="q5_k")     # compact planes, offset term
     gemv_case("q8_matmul", 100, *ffn_down, fmt="q6_k")  # compact planes, groups of 16
 
+    for m in (1, 8):  # H: planes as the synthesis builds Q4_0 and Q3_K
+        gemv_case("q4_gemv", m, *qkvup, fmt="q4_0")
+        gemv_case("q4_gemv", m, *qkvup, fmt="q3_k")
+    gemv_case("q4_gemv", 1, *qkvup, fmt="q4_0_f32")     # f32 planes, as repack builds them
+    for shape in (attn_out, ffn_down, head):
+        gemv_case("q4_gemv", 1, *shape, fmt="q4_0")
+    gemv_case("q4k_gemv_i8", 1, *qkvup)                 # int8 x, on no path of planar_matmul
+    for m in (100, 1024):  # C over multiplied-out planes, and at the long prompt's M
+        gemv_case("q4k_matmul", m, *qkvup, fmt="q4_0")
+    gemv_case("q4k_matmul", 100, *qkvup, fmt="q3_k")
+    gemv_case("q4k_matmul", 1024, *qkvup)               # compact planes
+    gemv_case("q8_matmul", 1024, *qkvup, fmt="q8_0")
+
+    def flash_case(b, h, h_kv, nq, nkv, d, types, causal=True, max_bias=0.0, softcap=0.0, time_it=True):
+        """J against its plain version.  types: "bfloat16" or "float32" for
+        q, k and v alike, "mixed" for f32 q and k with a bf16 v (the bf16
+        model's prefill).  The bound counts the unmasked (q, k) pairs only (the
+        causal half): 4*h*d operations a pair at the rate of the inputs' type;
+        for "mixed" the f32 q . k costs three bf16 products, so 8*h*d a pair at
+        the bf16 rate.  The library call takes one type, so "mixed" is timed
+        against SDPA on q and k rounded to bf16: it computes less."""
+        qk_type = torch.float32 if types == "mixed" else getattr(torch, types)
+        v_type = torch.bfloat16 if types == "mixed" else qk_type
+        mk = lambda dt, *shape: torch.randn(shape, device="cuda", generator=gen).to(dt)
+        q, k, v = mk(qk_type, b, h, nq, d), mk(qk_type, b, h_kv, nkv, d), mk(v_type, b, h_kv, nkv, d)
+        rows = torch.arange(nq, device="cuda")[:, None] + (nkv - nq)
+        mask = torch.where(torch.arange(nkv, device="cuda")[None, :] <= rows, 0.0, -1e30) if causal else None
+        scale = d ** -0.5
+        call = lambda: flash_attn.flash_attention(q, k, v, mask=mask, scale=scale, max_bias=max_bias,
+                                                  logit_softcap=softcap)
+        slopes = torch.from_numpy(flash_attn.alibi_slopes(h, max_bias)).cuda()
+        plain_fn = lambda: flash_attn._flash_attention_plain(
+            q, k, v, mask, slopes, scale / softcap if softcap else scale, softcap)
+        got = call()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "flash_attn: output not finite")
+        nmse, mae = errors(plain_fn(), got)
+        pairs = int((mask > -5e29).sum()) if causal else nq * nkv
+        moved = ((q.numel() + k.numel() + b * nq * h * d) * q.element_size() + v.numel() * v.element_size()
+                 + (nq * nkv * 4 if causal else 0))
+        ops = (8 if types == "mixed" else 4) * b * h * d * pairs
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS["f32" if types == "float32" else "bf16"] * 1e3
+        lib_q, lib_k, lib_v = (q.to(v_type), k.to(v_type).repeat_interleave(h // h_kv, 1),
+                               v.repeat_interleave(h // h_kv, 1))
+        lib = lambda: F.scaled_dot_product_attention(lib_q, lib_k, lib_v, is_causal=causal and nq == nkv,
+                                                     scale=scale)
+        plain_lib = max_bias == 0.0 and softcap == 0.0 and (not causal or nq == nkv)  # what one SDPA call computes
+        rec = dict(shape=f"b={b} h={h} h_kv={h_kv} nq={nq} nkv={nkv} d={d} "
+                         f"{'f32 q/k, bf16 v' if types == 'mixed' else types}"
+                         f"{' causal' if causal else ''}{' alibi' if max_bias else ''}{' softcap' if softcap else ''}",
+                   nmse=nmse, max_abs_err=mae,
+                   ms=device_ms(torch, call, flush, 20) if time_it else None,
+                   plain_ms=device_ms(torch, plain_fn, flush, 3) if time_it else None,
+                   library_ms=device_ms(torch, lib, flush, 20) if time_it and plain_lib else None,
+                   bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+        record("flash_attn", rec, 1e-9 if types == "float32" else GATE["flash_attn"])
+
+    for types in ("mixed", "bfloat16"):
+        flash_case(1, 16, 16, 1024, 1024, 256, types)   # the 1024-token prefill of GPT-J (a bf16 model: mixed)
+        flash_case(1, 16, 16, 2048, 2048, 256, types)   # the full context
+        flash_case(1, 4, 4, 100, 100, 128, types)       # the tiny model's heads, ragged tiles
+    # correctness only: GQA, ALiBi, softcap, ragged lengths, no mask
+    flash_case(2, 8, 2, 37, 53, 64, "float32", max_bias=8.0, softcap=30.0, time_it=False)
+    flash_case(1, 4, 4, 37, 53, 64, "float32", causal=False, time_it=False)
+    for types in ("mixed", "bfloat16"):
+        flash_case(2, 8, 2, 100, 200, 64, types, max_bias=8.0, softcap=30.0, time_it=False)
+
     hq = hkv = 16
-    d, s = 256, 256
-    for pos in (0, 100, 255):
+    d = 256
+    for s, pos in ((256, 0), (256, 100), (256, 255), (2048, 1087), (2048, 2047)):
         q = torch.randn((1, hq, 1, d), device="cuda", generator=gen)
         kn, vn = (torch.randn((1, hkv, 1, d), device="cuda", generator=gen).to(torch.bfloat16) for _ in range(2))
         kc, vc = (torch.randn((1, hkv, s, d), device="cuda", generator=gen).to(torch.bfloat16) for _ in range(2))
@@ -233,12 +334,18 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flush):
     return results
 
 
-def launch_counts(qmatmul, decode_attn) -> dict:
-    return {**qmatmul.launches, **decode_attn.launches}
+def _launch_tables():
+    from ggml_tpu_torch.kernels import decode_attn, flash_attn, qmatmul
+
+    return qmatmul.launches, decode_attn.launches, flash_attn.launches
 
 
-def reset_launches(qmatmul, decode_attn):
-    for table in (qmatmul.launches, decode_attn.launches):
+def launch_counts() -> dict:
+    return {k: v for table in _launch_tables() for k, v in table.items()}
+
+
+def reset_launches():
+    for table in _launch_tables():
         for k in table:
             table[k] = 0
 
@@ -274,11 +381,12 @@ def q6k_planes_like(torch, np, params: dict) -> dict:
     return out
 
 
-def phase_gptj(torch, np, qmatmul, decode_attn, label: str, params: dict, kernels: dict, prompts, profile: bool):
+def phase_gptj(torch, np, label: str, params: dict, kernels: dict, prompts, profile: bool, max_seq: int = 256):
     """GPT-J-6B at published widths over `params`: one greedy request of 64
     tokens per prompt length, every launch counted.  kernels names the
     wrapper each step must go through: "decode" (M=1), "rows" (2..32-token
-    prefill), "matmul" (longer prefill)."""
+    prefill), "matmul" (longer prefill).  A prompt of flash_min_seq (1024)
+    tokens or more must also go through the flash kernel once per layer."""
     from ggml_tpu_torch.models import gptj
     from ggml_tpu_torch.quant.planar import PlanarWeight
 
@@ -286,7 +394,7 @@ def phase_gptj(torch, np, qmatmul, decode_attn, label: str, params: dict, kernel
     plane_bytes = sum(v.plane_bytes() for v in params.values() if isinstance(v, PlanarWeight))
     print(f"  {label}: {plane_bytes / 1e9:.3f} GB of planes read per decode token, bound at "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: {plane_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms/token")
-    model = gptj.GPTJ(params, cfg, max_seq=256, device="cuda")
+    model = gptj.GPTJ(params, cfg, max_seq=max_seq, device="cuda")
     for t in prompts:  # warm-up of each path: first-use allocations and library handles
         model.generate(np.arange(t)[None], 4)
     torch.cuda.synchronize()
@@ -294,10 +402,10 @@ def phase_gptj(torch, np, qmatmul, decode_attn, label: str, params: dict, kernel
     n_gen, per_layer = 64, 3
     layers = cfg.n_layer
     rng = np.random.default_rng(0)
-    reset_launches(qmatmul, decode_attn)
+    reset_launches()
     requests = []
     for t in prompts:
-        before = launch_counts(qmatmul, decode_attn)
+        before = launch_counts()
         prompt = rng.integers(0, cfg.n_vocab, (1, t))
         cache = model.new_cache(torch.bfloat16)
         torch.cuda.synchronize()
@@ -309,7 +417,7 @@ def phase_gptj(torch, np, qmatmul, decode_attn, label: str, params: dict, kernel
         t1 = time.perf_counter()
         cache, ids = model.decode_greedy(cache, first, n_past, n_gen - 1)
         t2 = time.perf_counter()
-        after = launch_counts(qmatmul, decode_attn)
+        after = launch_counts()
         delta = {k: after[k] - before[k] for k in after}
         steps = n_gen - 1 + (1 if t == 1 else 0)  # a 1-token prompt is a decode step too
         want = {k: 0 for k in delta}
@@ -317,6 +425,8 @@ def phase_gptj(torch, np, qmatmul, decode_attn, label: str, params: dict, kernel
         want["decode_attn"] = layers * steps
         if t > 1:
             want[kernels["rows" if t <= 32 else "matmul"]] += per_layer * layers + 1
+        if t >= cfg.flash_min_seq:
+            want["flash_attn"] = layers
         toks = [int(first[0, 0])] + ids[:, 0].tolist()
         check(finite, f"{label}, prompt {t}: prefill logits not finite")
         check(len(toks) == n_gen and all(0 <= x < cfg.n_vocab for x in toks), f"{label}, prompt {t}: tokens {toks}")
@@ -326,14 +436,76 @@ def phase_gptj(torch, np, qmatmul, decode_attn, label: str, params: dict, kernel
                    decode_tok_per_s=1e3 / dec_ms, plane_gb_per_s=plane_bytes / (dec_ms * 1e-3) / 1e9,
                    launches=delta, first_tokens=toks[:8])
         requests.append(req)
-        print(f"  request prompt={t:3d}: prefill {req['prefill_ms']:.1f} ms, decode "
+        print(f"  request prompt={t:4d}: prefill {req['prefill_ms']:.1f} ms, decode "
               f"{dec_ms:.2f} ms/token ({req['decode_tok_per_s']:.1f} tok/s, "
               f"{req['plane_gb_per_s']:.0f} GB/s of planes), launches {delta}")
-    counts = launch_counts(qmatmul, decode_attn)
-    for name in {*kernels.values(), "decode_attn"}:
+    counts = launch_counts()
+    long_prompt = max(prompts) >= cfg.flash_min_seq
+    roles = {"decode"} | {"rows" if t <= 32 else "matmul" for t in prompts if t > 1}
+    for name in {*(kernels[r] for r in roles), "decode_attn", *(["flash_attn"] if long_prompt else [])}:
         check(counts[name] > 0, f"{label}: {name} was never launched on its main path")
     trace = profile_decode(torch, np, model) if profile else None
-    return dict(counts=counts, requests=requests, plane_bytes=plane_bytes, decode_trace=trace)
+    prefill_trace = profile_prefill(torch, np, model, max(prompts)) if profile and long_prompt else None
+    flash_nmse = flash_against_plain_attention(torch, np, model, max(prompts)) if long_prompt else None
+    return dict(counts=counts, requests=requests, plane_bytes=plane_bytes, decode_trace=trace,
+                prefill_trace=prefill_trace, flash_vs_plain_attention=flash_nmse)
+
+
+def flash_against_plain_attention(torch, np, model, t: int) -> float:
+    """Logits at every position of a t-token prefill through the flash kernel
+    against the same prefill through the plain f32 attention over the cache
+    window (flash_min_seq raised out of reach), over the model's first layer
+    at full width, on the card (after the launch counters are read).  The two
+    differ in bf16 roundings only: the plain attention reads k back from the
+    bf16 cache and rounds the normalized p, the flash branch takes k in f32
+    and rounds p before it is normalized.  NMSE <= 1e-4."""
+    from ggml_tpu_torch.models import gptj
+
+    prompt = torch.from_numpy(np.random.default_rng(t).integers(0, model.cfg.n_vocab, (1, t))).to(model.device)
+    zero = torch.zeros((), dtype=torch.int32, device=model.device)
+
+    def logits(**changes):
+        cfg = dataclasses.replace(model.cfg, n_layer=1, **changes)
+        cache = gptj.init_cache(cfg, 1, model.max_seq, torch.bfloat16, model.device)
+        return gptj.forward(model.params, cfg, prompt, zero.expand(1), cache, zero, prefill=True)
+
+    nmse, _ = errors(logits(flash_min_seq=1 << 30), logits())
+    print(f"  {t}-token prefill over one layer at full width, flash against plain attention, logits at every "
+          f"position: NMSE {nmse:.2e}")
+    check(nmse <= 1e-4, f"flash prefill against plain attention over one layer: NMSE {nmse:.2e} > 1e-4")
+    return nmse
+
+
+def _device_events(prof):
+    """Device-side events only (kernels, copies, fills): the ops that launch
+    them carry the same time again as their own "device time"."""
+    return [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+
+
+def profile_prefill(torch, np, model, t: int) -> dict:
+    """Device time of one prefill of t tokens by kernel, from a
+    torch.profiler trace (after the launch counters are read)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prompt = np.arange(t)[None]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(model.new_cache(torch.bfloat16), prompt)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    events = _device_events(prof)
+    total_us = sum(e.self_device_time_total for e in events)
+    ours = {name: sum(e.self_device_time_total for e in events if name in e.key) / 1e3
+            for name in ("q4k_matmul_kernel", "q8_matmul_kernel", "flash_attn_bf16_kernel")}
+    ours = {k: v for k, v in ours.items() if v}
+    trace = dict(prompt=t, host_ms=host_ms, device_ms=total_us / 1e3, port_kernels_ms=ours,
+                 other_device_ms=total_us / 1e3 - sum(ours.values()))
+    print(f"  profiled a {t}-token prefill: {host_ms:.1f} ms on the host's clock (profiler on), device busy "
+          f"{trace['device_ms']:.1f} ms; port kernels "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in ours.items())
+          + f"; other ops {trace['other_device_ms']:.1f} ms")
+    return trace
 
 
 def profile_decode(torch, np, model, steps: int = 8) -> dict:
@@ -349,12 +521,11 @@ def profile_decode(torch, np, model, steps: int = 8) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model.decode_greedy(cache, first, n_past, steps)
         torch.cuda.synchronize()
-    # device-side events only (kernels, copies, fills): the ops that launch
-    # them carry the same time again as their own "device time"
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = _device_events(prof)
     total_us = sum(e.self_device_time_total for e in events)
     ours = {name: sum(e.self_device_time_total for e in events if name in e.key)
-            for name in ("q4k_gemv_kernel", "q8_gemv_kernel", "quant_segments", "decode_attn_kernel")}
+            for name in ("q4k_gemv_kernel", "q4_gemv_kernel", "q8_gemv_kernel", "quant_segments",
+                         "decode_attn_kernel")}
     ours = {k: v for k, v in ours.items() if v}
     launches = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
     trace = dict(steps=steps, device_ms_per_token=total_us / steps / 1e3,
@@ -370,10 +541,13 @@ def profile_decode(torch, np, model, steps: int = 8) -> dict:
 
 def phase_tiny_reference(torch, np):
     """A tiny GPT-J on the card (kernels) against the same weights on the CPU
-    (plain versions), fed the same tokens, for three parameter sets:
-    synthesized Q4_K, synthesized Q8_0, and Q4_K with Q6_K ffn_down and
-    output.weight (compact planes repacked from random blocks).  Prefill of
-    40 tokens has no int8 activations: NMSE <= 1e-5 (bf16 product order).
+    (plain versions), fed the same tokens, for five parameter sets:
+    synthesized Q4_K, synthesized Q8_0, Q4_K with Q6_K ffn_down and
+    output.weight (compact planes repacked from random blocks), synthesized
+    Q4_0, and Q4_1 with Q2_K ffn_down and Q3_K attn_output and output.weight
+    (nibble planes repacked from random blocks); the Q4_0 set also prefills
+    through the flash kernel (use_flash_prefill).  Prefill of 40 tokens has
+    no int8 activations: NMSE <= 1e-5 (bf16 product order).
     The int8 paths: the card sums in f32 in another order than the CPU, and a
     last-bit difference that crosses a rounding boundary of the bf16 cast or
     of the int8 quantization moves one activation code, which costs about
@@ -392,9 +566,17 @@ def phase_tiny_reference(torch, np):
         n, k = mixed[name].n, mixed[name].k
         mixed[name] = repack(reference.random_blocks(GGMLType.Q6_K, n * k // 256, rng, scale=1e-4),
                              GGMLType.Q6_K, (n, k))
+    nibbles = synth(GGMLType.Q4_1)
+    for name, t, scale in (("output.weight", GGMLType.Q3_K, 1e-4), ("blk.0.attn_output.weight", GGMLType.Q3_K, 1e-4),
+                           ("blk.0.ffn_down.weight", GGMLType.Q2_K, 3e-4), ("blk.1.ffn_down.weight", GGMLType.Q2_K, 3e-4)):
+        n, k = nibbles[name].n, nibbles[name].k
+        nibbles[name] = repack(reference.random_blocks(t, n * k // 256, rng, scale=scale), t, (n, k))
     out = {}
-    for label, cpu_params in (("q4_k", synth(GGMLType.Q4_K)), ("q8_0", synth(GGMLType.Q8_0)),
-                              ("q4_k+q6_k", mixed)):
+    flash_cfg = dataclasses.replace(cfg, use_flash_prefill=True)
+    for label, cpu_params, run_cfg in (
+            ("q4_k", synth(GGMLType.Q4_K), cfg), ("q8_0", synth(GGMLType.Q8_0), cfg), ("q4_k+q6_k", mixed, cfg),
+            ("q4_0", synth(GGMLType.Q4_0), cfg), ("q4_1+q2_k+q3_k", nibbles, cfg),
+            ("q4_0 flash prefill", synth(GGMLType.Q4_0), flash_cfg)):
         # Module.to moves in place: copy the planar weights before moving them
         gpu_params = {k: copy.deepcopy(v).to("cuda") for k, v in cpu_params.items()}
         for t, gate in ((40, 1e-5), (5, 5e-4)):
@@ -403,7 +585,7 @@ def phase_tiny_reference(torch, np):
             for params, dev in ((cpu_params, "cpu"), (gpu_params, "cuda")):
                 cache = gptj.init_cache(cfg, 1, 64, torch.bfloat16, dev)
                 zero = torch.zeros((), dtype=torch.int32, device=dev)
-                runs.append([gptj.forward(params, cfg, prompt.to(dev), zero.expand(1), cache, zero,
+                runs.append([gptj.forward(params, run_cfg, prompt.to(dev), zero.expand(1), cache, zero,
                                           prefill=True)[:, -1].cpu(), cache, dev])
             nm, _ = errors(runs[0][0], runs[1][0])
             check(nm <= gate, f"tiny GPT-J {label}, prefill {t}: card vs CPU NMSE {nm:.2e} > {gate:g}")
@@ -421,6 +603,25 @@ def phase_tiny_reference(torch, np):
             check(worst <= 5e-4, f"tiny GPT-J {label}, decode after {t}: card vs CPU NMSE {worst:.2e} > 5e-4")
             out[f"{label}/{t}"] = dict(prefill_nmse=nm, decode_worst_nmse=worst)
             print(f"  tiny GPT-J {label}, prompt {t}: prefill NMSE {nm:.2e}, 8 decode steps worst NMSE {worst:.2e}")
+
+    # the bf16 flash kernel inside the model: a bf16 tiny model on the card,
+    # flash prefill against its own plain-attention prefill (bf16 roundings of
+    # k and p differ between the two; gated over one layer, see
+    # flash_against_plain_attention)
+    params = gptj.synth_quantized_params(cfg, GGMLType.Q4_0, seed=3, dtype=torch.bfloat16, device="cuda")
+    prompt = torch.from_numpy(np.random.default_rng(40).integers(0, 512, (1, 40))).cuda()
+    nms = []
+    for depth in (1, cfg.n_layer):
+        logits = []
+        for run_cfg in (cfg, flash_cfg):
+            zero = torch.zeros((), dtype=torch.int32, device="cuda")
+            logits.append(gptj.forward(params, dataclasses.replace(run_cfg, n_layer=depth), prompt, zero.expand(1),
+                                       gptj.init_cache(cfg, 1, 64), zero, prefill=True).float())
+        nms.append(errors(*logits)[0])
+    check(nms[0] <= 1e-4, f"tiny bf16 GPT-J, flash against plain-attention prefill over one layer: NMSE {nms[0]:.2e} > 1e-4")
+    out["q4_0 bf16 flash vs plain attention"] = dict(one_layer_nmse=nms[0], two_layer_nmse=nms[1])
+    print(f"  tiny bf16 GPT-J q4_0, prompt 40, flash against plain-attention prefill on the card: NMSE {nms[0]:.2e} "
+          f"over one layer, {nms[1]:.2e} over two")
     return out
 
 
@@ -436,7 +637,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
     try:
-        from ggml_tpu_torch.kernels import _build, decode_attn, qmatmul
+        from ggml_tpu_torch.kernels import _build, decode_attn, flash_attn, qmatmul
     except ImportError as e:
         print(f"chip_smoke: the ggml_tpu_torch package is not here ({e})", file=sys.stderr)
         return 2
@@ -462,7 +663,7 @@ def main() -> int:
 
         print("== 3. kernels against their plain versions")
         flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-        kernel_results = phase_kernels(torch, F, qmatmul, decode_attn, flush)
+        kernel_results = phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush)
         del flush
 
         from ggml_tpu_torch.dtypes import GGMLType
@@ -471,23 +672,35 @@ def main() -> int:
         cfg = gptj.random_config("6b")
         synth = lambda t: gptj.synth_quantized_params(cfg, t, seed=0, dtype=torch.bfloat16, device="cuda")
         runs = []
-        print("== 4a. GPT-J-6B Q4_K (synthesized compact planes), three greedy requests")
+        q4k_kernels = dict(decode="q4k_gemv_qact", rows="q4k_gemv_rows", matmul="q4k_matmul")
+        print("== 4a. GPT-J-6B Q4_K (synthesized compact planes), three greedy requests, then a 1024-token prompt")
         params = synth(GGMLType.Q4_K)
-        runs.append(phase_gptj(torch, np, qmatmul, decode_attn, "q4_k", params, dict(
-            decode="q4k_gemv_qact", rows="q4k_gemv_rows", matmul="q4k_matmul"), (8, 100, 1), profile=True))
+        runs.append(phase_gptj(torch, np, "q4_k", params, q4k_kernels, (8, 100, 1), profile=True))
+        runs.append(phase_gptj(torch, np, "q4_k long", params, q4k_kernels, (1024,), profile=False, max_seq=2048))
         del params
         torch.cuda.empty_cache()
         print("== 4b. GPT-J-6B Q8_0 (synthesized int8 planes), three greedy requests")
         params = synth(GGMLType.Q8_0)
-        runs.append(phase_gptj(torch, np, qmatmul, decode_attn, "q8_0", params, dict(
+        runs.append(phase_gptj(torch, np, "q8_0", params, dict(
             decode="q8_gemv", rows="q8_gemv", matmul="q8_matmul"), (8, 100, 1), profile=True))
         print("== 4c. GPT-J-6B Q6_K (compact planes repacked from random blocks), one greedy request")
         t0 = time.perf_counter()
         params = q6k_planes_like(torch, np, params)
         torch.cuda.synchronize()
         print(f"  repacked and tiled in {time.perf_counter() - t0:.1f}s")
-        runs.append(phase_gptj(torch, np, qmatmul, decode_attn, "q6_k", params, dict(
+        runs.append(phase_gptj(torch, np, "q6_k", params, dict(
             decode="q8_gemv_sb", rows="q8_gemv_sb"), (8,), profile=False))
+        del params
+        torch.cuda.empty_cache()
+        q4_kernels = dict(decode="q4_gemv", rows="q4_gemv", matmul="q4k_matmul")
+        print("== 4e. GPT-J-6B Q4_0 (synthesized multiplied-out nibble planes), context 2048, four greedy requests")
+        params = synth(GGMLType.Q4_0)
+        runs.append(phase_gptj(torch, np, "q4_0", params, q4_kernels, (8, 100, 1, 1024), profile=True, max_seq=2048))
+        del params
+        torch.cuda.empty_cache()
+        print("== 4f. GPT-J-6B Q3_K (synthesized nibble planes, groups of 16), one greedy request")
+        params = synth(GGMLType.Q3_K)
+        runs.append(phase_gptj(torch, np, "q3_k", params, q4_kernels, (8,), profile=False))
         del params
         torch.cuda.empty_cache()
         print("== 4d. tiny GPT-J on the card against the CPU")
@@ -501,8 +714,11 @@ def main() -> int:
 
     print("== 5. summary")
     kernels = []
+    # q4k_gemv_i8 lies on no path of planar_matmul (at M=1 that hands bf16 x to
+    # q4k_gemv_qact), so its launches are 0; phase 3 holds it against its plain version
     for name, recs in kernel_results.items():
-        # the shape the main path spends most time in: the widest GEMV, the longest window
+        # the shape the main path spends most time in: the widest GEMV, the longest window,
+        # the 1024-token prefill
         main_rec = recs[-1] if name == "decode_attn" else recs[0]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],

@@ -32,10 +32,13 @@ I = ctypes.c_int
 _SIGNATURES = {
     "q4k_gemv_qact": [P, P, P, P, P, P, I, P, P, P, P, P, I, I, I, P],
     "q4k_gemv_rows": [P, P, P, P, P, P, I, P, P, P, P, P, I, I, I, P],
-    "q4k_matmul": [P, P, P, P, P, P, I, P, I, I, I, P],
+    "q4k_gemv_i8": [P, P, P, P, P, P, I, P, P, P, I, I, P],
+    "q4k_matmul": [P, P, P, P, P, P, I, I, P, I, I, I, P],
+    "q4_gemv": [P, P, P, P, I, P, P, P, P, P, I, I, I, I, I, P],
     "q8_gemv": [P, P, P, P, P, P, I, P, P, P, P, P, I, I, I, I, I, I, P],
     "q8_matmul": [P, P, P, P, P, P, I, I, I, P, I, I, I, P],
     "decode_attn": [P, P, P, P, P, P, P, I, I, I, I, ctypes.c_float, P],
+    "flash_attn": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, ctypes.c_float, P],
 }
 
 _lib = None

@@ -7,7 +7,12 @@
 //                     _sb_gemv_k_tile(K/2, 32, 8) (:578);
 //   q4k_gemv_rows  <- _q4gemv_sb_kernel (:446) for 2 <= M <= 32, together
 //                     with the per-row quantization before it (:856) and the
-//                     * sx after it (:1054-1059).
+//                     * sx after it (:1054-1059);
+//   q4k_gemv_i8    <- _q4gemv_bd_sb_kernel (:482), what _q4_gemv_sb (:588)
+//                     runs at M=1 for x that is int8 already: no quantization
+//                     and no activation scale, the caller multiplies by its
+//                     own.  planar_matmul never reaches it (at M=1 it hands
+//                     bf16 x to the first entry).
 // Both compute, per column n and half-plane h,
 //   y = sum_g sx * ( d*sc * sum_{k in g} xq_k q_kn  +  (-dmin*m) * sum_{k in g} xq_k )
 // with exact int32 group dots and f32 everything else.
@@ -45,7 +50,8 @@ constexpr int MAX_M = 32;
 constexpr int MC = 4;        // rows of x reduced per shared-memory pass
 
 // QACT: M == 1 and sx holds one scale per (half, K-tile): [lo tiles, hi tiles].
-// !QACT: sx holds one scale per row, applied to the finished sum.
+// !QACT: sx holds one scale per row, applied to the finished sum; null: the
+// activations came quantized and the sum goes out un-scaled.
 template <typename DT, bool QACT>
 __global__ void __launch_bounds__(THREADS)
 q4k_gemv_kernel(const uint8_t* __restrict__ codes, const int8_t* __restrict__ sc,
@@ -168,20 +174,28 @@ q4k_gemv_kernel(const uint8_t* __restrict__ codes, const int8_t* __restrict__ sc
     const int m = i / BN, c = col0 + i % BN;
     float s = 0.f;
     for (int rb = 0; rb < (int)gridDim.y; ++rb) s += __ldcg(&partial[((size_t)rb * M + m) * Npad + c]);
-    y[(size_t)m * Npad + c] = QACT ? s : s * sx[m];
+    y[(size_t)m * Npad + c] = (QACT || sx == nullptr) ? s : s * sx[m];
   }
 }
 
+// xq == null: x is int8 already (sx is then null too) and the tickets are
+// zeroed with a memset; else x is bf16 and quant_segments fills xq and sx.
 template <bool QACT>
 int launch(const void* x, const void* codes, const void* sc, const void* mc, const void* d,
            const void* dmin, int d_bf16, void* xq, void* sx, void* partial, void* tickets,
            void* y, int M, int K, int Npad, int kt2, cudaStream_t stream) {
   if (M < 1 || M > MAX_M || K % 512 || Npad % BN || (QACT && (M != 1 || kt2 % ROWS || (K / 2) % kt2)))
     return (int)cudaErrorInvalidValue;
-  const int n_seg = QACT ? K / kt2 : M;
-  quant_segments<QACT><<<n_seg, THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq), static_cast<float*>(sx),
-      QACT ? kt2 : K, static_cast<unsigned*>(tickets), Npad / BN);
+  if (xq == nullptr) {
+    const cudaError_t rc = cudaMemsetAsync(tickets, 0, sizeof(unsigned) * (Npad / BN), stream);
+    if (rc != cudaSuccess) return (int)rc;
+    xq = const_cast<void*>(x);
+  } else {
+    const int n_seg = QACT ? K / kt2 : M;
+    quant_segments<QACT><<<n_seg, THREADS, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq), static_cast<float*>(sx),
+        QACT ? kt2 : K, static_cast<unsigned*>(tickets), Npad / BN);
+  }
   const dim3 grid(Npad / BN, (K / 2) / ROWS);
   if (d_bf16)
     q4k_gemv_kernel<__nv_bfloat16, QACT><<<grid, THREADS, 0, stream>>>(
@@ -221,4 +235,13 @@ extern "C" int q4k_gemv_rows(const void* x, const void* codes, const void* sc, c
                              void* stream) {
   return ggml_tpu_torch::launch<false>(x, codes, sc, mc, d, dmin, d_bf16, xq, sx, partial, tickets,
                                        y, M, K, Npad, 0, static_cast<cudaStream_t>(stream));
+}
+
+// x (1, K) int8 -> y (1, Npad) f32, the un-scaled sum.  Scratch: partial
+// (K/512, 1, Npad) f32, tickets (Npad/128) uint32 (zeroed here).
+extern "C" int q4k_gemv_i8(const void* xq, const void* codes, const void* sc, const void* mc,
+                           const void* d, const void* dmin, int d_bf16, void* partial,
+                           void* tickets, void* y, int K, int Npad, void* stream) {
+  return ggml_tpu_torch::launch<false>(xq, codes, sc, mc, d, dmin, d_bf16, nullptr, nullptr, partial,
+                                       tickets, y, 1, K, Npad, 0, static_cast<cudaStream_t>(stream));
 }

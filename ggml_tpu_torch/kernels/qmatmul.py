@@ -1,17 +1,23 @@
 """Fused quantized matmuls over the planes of quant/planar.py (kernels A-C
-over compact Q4_K nibble planes, E-G over int8 planes).
+and H over packed-nibble planes, E-G over int8 planes).
 
 The port of ggml_tpu/kernels/qmatmul.py.  `planar_matmul` dispatches as
 `_planar_matmul_impl` does (`select_kernel`):
 
-compact q4 planes (Q4_K, K % 512 == 0)
-  M == 1        q4k_gemv_qact  int8 activations with one scale per K-tile per
-                               half-plane, quantized on the device (kernel A,
-                               csrc/q4k_gemv.cu)
-  2 <= M <= 32  q4k_gemv_rows  int8 activations with one scale per row
+q4 planes; "GEMV" means M <= 32 and (K/2/G) % 8 == 0
+  GEMV, compact planes (Q4_K, K % 512 == 0) with a legal superblock tile
+    M == 1        q4k_gemv_qact  int8 activations with one scale per K-tile
+                               per half-plane, quantized on the device
+                               (kernel A, csrc/q4k_gemv.cu)
+    2 <= M <= 32  q4k_gemv_rows  int8 activations with one scale per row
                                (kernel B, csrc/q4k_gemv.cu)
-  M > 32        q4k_matmul     bf16 weights dequantized per tile, bf16 dot,
-                               f32 sums, f32 offset term (kernel C,
+  GEMV otherwise  q4_gemv      int8 activations per row over multiplied-out
+                               scale/offset planes, G 16 or 32 (kernel H,
+                               csrc/q4_gemv.cu); compact planes without a
+                               legal tile are expanded first
+  every other M and K  q4k_matmul  bf16 weights dequantized per tile, bf16
+                               dot, f32 sums, f32 offset term, over compact
+                               or multiplied-out planes (kernel C,
                                csrc/q4k_matmul.cu)
 q8 planes; "GEMV" means M <= 32, G in (16, 32) and (K/G) % 8 == 0
   GEMV, compact planes with a legal superblock tile (_sb_q8_gemv_ok)
@@ -42,11 +48,11 @@ from . import _build
 
 GEMV_MAX_M = 32  # int-GEMV path for decode-sized row counts (qmatmul.py:866)
 
-launches = {"q4k_gemv_qact": 0, "q4k_gemv_rows": 0, "q4k_matmul": 0,
+launches = {"q4k_gemv_qact": 0, "q4k_gemv_rows": 0, "q4k_gemv_i8": 0, "q4k_matmul": 0, "q4_gemv": 0,
             "q8_gemv": 0, "q8_gemv_sb": 0, "q8_matmul": 0}
 
 _BN = 128  # column strip of the GEMV kernels; Npad must be a multiple of it
-_Q8_SLAB = 256  # K rows a block of the q8 GEMV reduces per step (csrc/q8_gemv.cu)
+_SLAB = 256  # plane rows a block of the q8 and q4 GEMVs reduces per step (csrc/q8_gemv.cu, q4_gemv.cu)
 
 
 def _sb_gemv_k_tile(k2: int, G: int, sb: int) -> int | None:
@@ -103,10 +109,24 @@ def _group_dots(xq: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, G: int):
 
 def _gemv_qact_plain(x: torch.Tensor, pw: PlanarWeight, kt2: int) -> torch.Tensor:
     """_q4gemv_bd_sb_qact_kernel semantics: x (1, K) bf16 -> (1, Npad) f32."""
+    # segments: lo tiles, then hi tiles
+    xq, sx = quantize_rows(x.reshape(pw.k // kt2, kt2), folded_scale=True)
+    return _gemv_tiles_plain(xq, sx, pw, kt2)
+
+
+def _gemv_i8_plain(xq: torch.Tensor, pw: PlanarWeight, kt2: int) -> torch.Tensor:
+    """_q4gemv_bd_sb_kernel semantics: x (1, K) int8, already quantized ->
+    the un-scaled sum (1, Npad) f32."""
+    return _gemv_tiles_plain(xq.float(), torch.ones((pw.k // kt2, 1), device=xq.device), pw, kt2)
+
+
+def _gemv_tiles_plain(xq: torch.Tensor, sx: torch.Tensor, pw: PlanarWeight, kt2: int) -> torch.Tensor:
+    """The sum of the block-diagonal compact bodies: integer-valued f32
+    activations xq (K elements) with one scale sx per K-tile per half-plane
+    ((2 * K/2/kt2, 1): lo tiles, then hi tiles); each tile's groups add up
+    first, then the tiles in K order."""
     k2 = pw.k // 2
     nt = k2 // kt2
-    # segments: lo tiles, then hi tiles
-    xq, sx = quantize_rows(x.reshape(2 * nt, kt2), folded_scale=True)
     lo, hi = _nib(pw)
     p_lo, p_hi, xs_lo, xs_hi = _group_dots(xq.reshape(1, -1), lo, hi, pw.group)
     eff_s, eff_o = effective_planes(pw)
@@ -122,6 +142,32 @@ def _gemv_qact_plain(x: torch.Tensor, pw: PlanarWeight, kt2: int) -> torch.Tenso
     for t in range(1, nt):  # the sequential K grid of the TPU kernel
         y = y + per_tile[t]
     return y.reshape(1, -1)
+
+
+def _q4_gemv_plain(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
+    """_q4gemv_kernel / _q4gemv_off_kernel semantics (and, at M = 1, those of
+    the two block-diagonal bodies) with the per-row quantization before and
+    the * sx after: x (M, K) bf16 -> (M, Npad) f32 over multiplied-out planes.
+
+    Sum order: group by group in the order of the packed rows, the low
+    half-plane's group before the high one's, acc = fma(dot, s, acc) then
+    acc = fma(sum xq, o, acc), with exact int32 dots: the order of the JAX
+    loop bodies as XLA compiles them for the CPU (each multiply-add fused).
+    The block-diagonal bodies reduce each K-tile as a tree, and the CUDA
+    kernel adds warps, slabs and K-splits in its own fixed order; both are
+    held to this version by NMSE."""
+    xq, sx = quantize_rows(x)
+    lo, hi = _nib(pw)
+    p_lo, p_hi, xs_lo, xs_hi = _group_dots(xq, lo, hi, pw.group)
+    eff_s, eff_o = effective_planes(pw)
+    g2 = pw.k // 2 // pw.group
+    acc = torch.zeros((x.shape[0], pw.npad), dtype=torch.float32, device=x.device)
+    for g in range(g2):
+        for h, p, xs in ((0, p_lo, xs_lo), (1, p_hi, xs_hi)):
+            acc = _fma(p[:, g], eff_s[h, g], acc)
+            if eff_o is not None:
+                acc = _fma(xs[:, g], eff_o[h * g2 + g], acc)
+    return acc * sx
 
 
 def _gemv_rows_plain(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
@@ -146,8 +192,9 @@ def _matmul_plain(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     w = torch.cat([w_lo, w_hi], dim=0).float()  # (K, Npad): bf16 values, exact in f32
     xf = x.float()
     y = xf @ w
-    xsum = xf.reshape(x.shape[0], pw.k // pw.group, pw.group).sum(-1)
-    return y + xsum @ eff_o
+    if eff_o is not None:
+        y = y + xf.reshape(x.shape[0], pw.k // pw.group, pw.group).sum(-1) @ eff_o
+    return y
 
 
 def _sb_q8_gemv_ok(k: int, G: int, sb: int) -> bool:
@@ -210,20 +257,23 @@ def _q8_matmul_plain(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
 _FLOAT_PLANES = (torch.float32, torch.bfloat16)
 
 
-def _check_planes(x: torch.Tensor, pw: PlanarWeight, kind: str, max_m: int | None = None):
+def _check_planes(x: torch.Tensor, pw: PlanarWeight, kind: str, max_m: int | None = None,
+                  x_dtype=torch.bfloat16):
     """Raise on what the kernels of `kind` planes do not take."""
     if pw.kind != kind:
         raise ValueError(f"a {kind} kernel was given {pw.kind} planes")
     if x.dim() != 2 or x.shape[1] != pw.k:
         raise ValueError(f"x {tuple(x.shape)} does not match weight K={pw.k}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"x must be bfloat16, got {x.dtype}")
+    if x.dtype != x_dtype:
+        raise TypeError(f"x must be {x_dtype}, got {x.dtype}")
     if max_m is not None and not 1 <= x.shape[0] <= max_m:
         raise ValueError(f"M={x.shape[0]} outside 1..{max_m}")
-    if kind == "q4" and pw.k % 512:
+    if kind == "q4" and pw.d is not None and pw.k % 512:
         raise ValueError(f"K={pw.k} is not a multiple of 512")
-    if kind == "q8" and (pw.group not in (16, 32) or pw.k % 32):
-        raise ValueError(f"group {pw.group} / K={pw.k}: the q8 kernels take groups of 16 or 32 and K % 32 == 0")
+    k_step = 64 if kind == "q4" else 32  # a 32-row step of the code planes (32 rows of each half-plane for q4)
+    if pw.group not in (16, 32) or pw.k % k_step:
+        raise ValueError(f"group {pw.group} / K={pw.k}: the {kind} kernels take groups of 16 or 32 "
+                         f"and K % {k_step} == 0")
     planes = list(pw.buffers())
     if any(t.device != x.device for t in planes):
         raise ValueError("x and the weight planes are on different devices")
@@ -261,24 +311,41 @@ def _plane_ptrs(pw: PlanarWeight):
 def _gemv_cuda(name: str, x: torch.Tensor, pw: PlanarWeight, kt2: int = 0) -> torch.Tensor:
     m, k = x.shape
     dev = x.device
-    q8 = pw.kind == "q8"
-    split = _q8_gemv_split(k, pw.npad) if q8 else k // 512  # K-split partial sums per column
+    lib = _build.lib()
+    # K-split partial sums per column
+    if name in ("q8_gemv", "q8_gemv_sb"):
+        split = _gemv_split(k, pw.npad)
+    elif name == "q4_gemv":
+        split = _gemv_split(k // 2, pw.npad)
+    else:
+        split = k // 512
     y = torch.empty((m, pw.npad), dtype=torch.float32, device=dev)
     # scratch of this launch alone, from the stream-ordered allocator; the
     # quantization kernel zeroes the tickets before the GEMV counts on them
-    xq = torch.empty((m, k), dtype=torch.int8, device=dev)
-    sx = torch.empty((k // kt2 if kt2 else m,), dtype=torch.float32, device=dev)
+    # (the int8-x entry zeroes them itself)
     partial = torch.empty((split, m, pw.npad), dtype=torch.float32, device=dev)
     tickets = torch.empty((pw.npad // _BN,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (x.data_ptr(), *_plane_ptrs(pw), xq.data_ptr(), sx.data_ptr(), partial.data_ptr(),
-            tickets.data_ptr(), y.data_ptr())
-    if q8:
-        rc = _build.lib().q8_gemv(*args, pw.group, pw.sb, m, k, pw.npad, split, stream)
+    if name == "q4k_gemv_i8":
+        rc = lib.q4k_gemv_i8(x.data_ptr(), *_plane_ptrs(pw), partial.data_ptr(), tickets.data_ptr(),
+                             y.data_ptr(), k, pw.npad, stream)
+        launches[name] += 1
+        _build.check(rc, name)
+        return y
+    xq = torch.empty((m, k), dtype=torch.int8, device=dev)
+    sx = torch.empty((k // kt2 if kt2 else m,), dtype=torch.float32, device=dev)
+    scratch = (xq.data_ptr(), sx.data_ptr(), partial.data_ptr(), tickets.data_ptr(), y.data_ptr())
+    args = (x.data_ptr(), *_plane_ptrs(pw), *scratch)
+    if name == "q4_gemv":
+        rc = lib.q4_gemv(x.data_ptr(), pw.codes.data_ptr(), pw.scales.data_ptr(), _ptr(pw.offsets),
+                         int(pw.scales.dtype == torch.bfloat16), *scratch, pw.group, m, k, pw.npad, split,
+                         stream)
+    elif pw.kind == "q8":
+        rc = lib.q8_gemv(*args, pw.group, pw.sb, m, k, pw.npad, split, stream)
     elif kt2:
-        rc = _build.lib().q4k_gemv_qact(*args, k, pw.npad, kt2, stream)
+        rc = lib.q4k_gemv_qact(*args, k, pw.npad, kt2, stream)
     else:
-        rc = _build.lib().q4k_gemv_rows(*args, m, k, pw.npad, stream)
+        rc = lib.q4k_gemv_rows(*args, m, k, pw.npad, stream)
     launches[name] += 1
     _build.check(rc, name)
     return y
@@ -292,19 +359,30 @@ def _matmul_cuda(name: str, x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
         rc = _build.lib().q8_matmul(x.data_ptr(), *_plane_ptrs(pw), pw.group, pw.sb, y.data_ptr(),
                                     m, k, pw.npad, stream)
     else:
-        rc = _build.lib().q4k_matmul(x.data_ptr(), *_plane_ptrs(pw), y.data_ptr(), m, k, pw.npad, stream)
+        rc = _build.lib().q4k_matmul(x.data_ptr(), *_plane_ptrs(pw), pw.group, y.data_ptr(), m, k, pw.npad,
+                                     stream)
     launches[name] += 1
     _build.check(rc, name)
     return y
+
+
+def _compact_tile(pw: PlanarWeight) -> int:
+    """The superblock K-tile of the compact-plane GEMVs; raises where the
+    planes are not compact or no legal tile exists (planar_matmul expands
+    such planes and takes q4_gemv)."""
+    if pw.d is None:
+        raise ValueError("the q4k GEMVs take compact planes; multiplied-out planes go to q4_gemv")
+    kt2 = _sb_gemv_k_tile(pw.k // 2, pw.group, pw.sb)
+    if kt2 is None:
+        raise ValueError(f"K={pw.k}: no compact GEMV tile; expand the planes and take q4_gemv")
+    return kt2
 
 
 def q4k_gemv_qact(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     """Kernel A: x (1, K) bf16 -> y (1, Npad) f32 with in-kernel per-tile
     activation quantization (replaces _q4gemv_bd_sb_qact_kernel)."""
     _check_planes(x, pw, "q4", max_m=1)
-    kt2 = _sb_gemv_k_tile(pw.k // 2, pw.group, pw.sb)
-    if kt2 is None:
-        raise NotImplementedError(f"K={pw.k}: no compact GEMV tile; the non-compact q4 GEMV is not ported yet")
+    kt2 = _compact_tile(pw)
     if not x.is_cuda:
         return _gemv_qact_plain(x, pw, kt2)
     return _gemv_cuda("q4k_gemv_qact", x, pw, kt2)
@@ -315,26 +393,61 @@ def q4k_gemv_rows(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     activation scale per row (replaces _q4gemv_sb_kernel and the per-row
     quantization around it)."""
     _check_planes(x, pw, "q4", max_m=GEMV_MAX_M)
+    _compact_tile(pw)
     if not x.is_cuda:
         return _gemv_rows_plain(x, pw)
     return _gemv_cuda("q4k_gemv_rows", x, pw)
 
 
+def q4k_gemv_i8(xq: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
+    """x (1, K) int8, already quantized -> the un-scaled sum (1, Npad) f32
+    over compact planes (replaces _q4gemv_bd_sb_kernel, what _q4_gemv_sb runs
+    for int8 x at M = 1).  The caller multiplies by its activation scale.
+    planar_matmul never takes this entry, in either package: at M = 1 it
+    hands bf16 x to kernel A."""
+    _check_planes(xq, pw, "q4", max_m=1, x_dtype=torch.int8)
+    kt2 = _compact_tile(pw)
+    if not xq.is_cuda:
+        return _gemv_i8_plain(xq, pw, kt2)
+    return _gemv_cuda("q4k_gemv_i8", xq, pw)
+
+
 def q4k_matmul(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     """Kernel C: x (M, K) bf16 -> y (M, Npad) f32, dequantizing bf16 weight
-    tiles from the compact planes (replaces _q4_kernel, _effective_planes and
-    the xsum @ eff_o side product)."""
+    tiles from compact planes (scale d * sub-scale, offset -dmin * min code)
+    or from multiplied-out f32/bf16 scale and offset planes with groups of 16
+    or 32 (replaces _q4_kernel, _effective_planes and the xsum @ eff_o side
+    product).  One launch takes any M: its grid has a block row per 64 rows
+    of x, so the JAX package's chunks of 512 rows (its bound on VMEM) have no
+    counterpart here."""
     _check_planes(x, pw, "q4")
     if not x.is_cuda:
         return _matmul_plain(x, pw)
     return _matmul_cuda("q4k_matmul", x, pw)
 
 
-def _q8_gemv_split(k: int, npad: int) -> int:
-    """Blocks along K of the q8 GEMV: one per 256-row slab, halved while the
-    grid keeps at least 1024 blocks (a block then walks several slabs and
-    writes one partial sum, so wide weights pay less scratch traffic)."""
-    split = -(-k // _Q8_SLAB)
+def q4_gemv(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
+    """Kernel H: x (M, K) bf16, 1 <= M <= 32 -> y (M, Npad) f32 over packed
+    nibbles with one f32 or bf16 scale (and offset) per group of G = 16 or 32
+    (replaces _q4gemv_kernel, _q4gemv_off_kernel, _q4gemv_bd_kernel and
+    _q4gemv_bd_off_kernel, the per-row quantization before them and the * sx
+    after)."""
+    _check_planes(x, pw, "q4", max_m=GEMV_MAX_M)
+    if pw.d is not None:
+        raise ValueError("q4_gemv takes multiplied-out planes (expand_compact first)")
+    if (pw.k // 2 // pw.group) % 8:
+        raise ValueError(f"K={pw.k}: the q4 GEMV needs a multiple of 8 groups of {pw.group} per half-plane")
+    if not x.is_cuda:
+        return _q4_gemv_plain(x, pw)
+    return _gemv_cuda("q4_gemv", x, pw)
+
+
+def _gemv_split(rows: int, npad: int) -> int:
+    """Blocks along K of the q8 and q4 GEMVs over `rows` plane rows: one per
+    256-row slab, halved while the grid keeps at least 1024 blocks (a block
+    then walks several slabs and writes one partial sum, so wide weights pay
+    less scratch traffic)."""
+    split = -(-rows // _SLAB)
     while split % 2 == 0 and (npad // _BN) * (split // 2) >= 1024:
         split //= 2
     return split
@@ -398,7 +511,8 @@ def planar_dequant(pw: PlanarWeight, dtype=torch.float32) -> torch.Tensor:
     return w.to(dtype)
 
 
-_WRAPPERS = {f.__name__: f for f in (q4k_gemv_qact, q4k_gemv_rows, q4k_matmul, q8_gemv, q8_gemv_sb, q8_matmul)}
+_WRAPPERS = {f.__name__: f for f in (q4k_gemv_qact, q4k_gemv_rows, q4k_matmul, q4_gemv,
+                                     q8_gemv, q8_gemv_sb, q8_matmul)}
 
 
 def select_kernel(pw: PlanarWeight, m: int) -> str:
@@ -406,13 +520,11 @@ def select_kernel(pw: PlanarWeight, m: int) -> str:
     _planar_matmul_impl decides (qmatmul.py:998-1085)."""
     k, g = pw.k, pw.group
     if pw.kind == "q4":
-        has_tile = _sb_gemv_k_tile(k // 2, g, pw.sb) is not None
-        if m > GEMV_MAX_M:
+        if m > GEMV_MAX_M or g not in (16, 32) or (k // 2) % g or (k // 2 // g) % 8:
             return "q4k_matmul"
-        if not has_tile:
-            raise NotImplementedError(
-                f"K={k}: no compact GEMV tile; the expanded-plane q4 GEMV is not ported yet (ROADMAP.md)")
-        return "q4k_gemv_qact" if m == 1 else "q4k_gemv_rows"
+        if pw.d is not None and _sb_gemv_k_tile(k // 2, g, pw.sb) is not None:
+            return "q4k_gemv_qact" if m == 1 else "q4k_gemv_rows"
+        return "q4_gemv"  # compact planes with no legal tile are expanded first
     if m > GEMV_MAX_M or g not in (16, 32) or (k // g) % 8:
         return "q8_matmul"
     if pw.d is not None and _sb_q8_gemv_ok(k, g, pw.sb):
@@ -424,13 +536,16 @@ def planar_matmul(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     """y = x @ W^T with W a planar-repacked quantized weight.
 
     x: (..., K) float tensor, computed as bf16.  Returns (..., N) in x's dtype.
+    Every kernel takes all the rows in one launch (the matmul kernels tile M
+    in their grid), so rows above 512 are not cut into chunks as the JAX
+    package cuts them; each row's result is the same either way.
     """
     *batch, k = x.shape
     if k != pw.k:
         raise ValueError(f"K mismatch: x {k} vs weight {pw.k}")
     xb = x.reshape(-1, k).to(torch.bfloat16)
     name = select_kernel(pw, xb.shape[0])
-    if name == "q8_gemv" and pw.d is not None:
+    if name in ("q8_gemv", "q4_gemv") and pw.d is not None:
         pw = expand_compact(pw)
     y = _WRAPPERS[name](xb, pw)
     return y[:, : pw.n].reshape(*batch, pw.n).to(x.dtype)

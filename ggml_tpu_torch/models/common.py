@@ -3,6 +3,8 @@ greedy generation loop (port of ggml_tpu/models/common.py)."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -26,6 +28,15 @@ def cache_write(cache_layer: torch.Tensor, kv: torch.Tensor, rows: torch.Tensor)
     cache_len+t-1, shared by every sequence of the batch), so the write needs
     no host value.  The caller keeps the rows below S."""
     cache_layer.index_copy_(2, rows, kv.to(cache_layer.dtype))
+
+
+@functools.lru_cache(maxsize=4)
+def causal_mask(t: int, device="cuda") -> torch.Tensor:
+    """Additive (t, t) f32 causal mask with a finite -inf (-1e30 above the
+    diagonal), built on the device and cached per length and device.  Only
+    the last few lengths are kept: at t = 2048 a mask is 16.8 MB."""
+    i = torch.arange(t, device=device)
+    return torch.where(i[None, :] <= i[:, None], 0.0, -1e30).to(torch.float32)
 
 
 def layer_norm(x, w, b, eps):

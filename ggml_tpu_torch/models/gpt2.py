@@ -19,8 +19,10 @@ def load_params(g: GGUFFile, dtype=torch.float32, device="cuda") -> dict:
     2-D quantized matmul weights are repacked to planes
     (quant/planar.py) and stay packed in device memory, consumed by the fused
     kernels; the token embedding is additionally kept dense for the row
-    gather.  Everything else is loaded as `dtype`.  A quantized type without
-    a ported plane layout raises NotImplementedError.
+    gather.  Everything else is loaded as `dtype`.  Ported plane layouts:
+    Q4_0, Q4_1, Q2_K, Q3_K, Q4_K (packed nibbles where (K/2) % G == 0, else
+    int8), Q5_0, Q5_1, Q8_0, Q5_K, Q6_K (int8); any other quantized type (the
+    IQ* and TQ* families) raises NotImplementedError.
     """
     from ..quant.planar import repack
 

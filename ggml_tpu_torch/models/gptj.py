@@ -5,10 +5,11 @@ parallel residual (attn and mlp both read the SAME post-layernorm
 activations, main.cpp:449-565), separate unbiased q/k/v projections, RoPE on
 the first n_rot dims (ggml rope mode 0), biased mlp and biased untied lm head.
 
-- quantized weights stay planes in device memory (compact Q4_K nibbles, int8
-  planes for Q8_0/Q5_0/Q5_1/Q5_K/Q6_K) and run through the hand-written
-  kernels of ggml_tpu_torch.kernels.qmatmul;
-- single-token steps run attention through kernels.decode_attn;
+- quantized weights stay planes in device memory (packed nibbles for
+  Q4_0/Q4_1/Q2_K/Q3_K/Q4_K, int8 planes for Q8_0/Q5_0/Q5_1/Q5_K/Q6_K) and run
+  through the hand-written kernels of ggml_tpu_torch.kernels.qmatmul;
+- single-token steps run attention through kernels.decode_attn, prompts of
+  flash_min_seq tokens or more through kernels.flash_attn;
 - the KV cache is written in place (the JAX package donates it to XLA);
 - decode is a plain Python loop whose position and tokens stay on the device,
   so it never waits for the host until the ids are returned.
@@ -25,7 +26,7 @@ import torch
 
 from ..dtypes import GGMLType
 from ..gguf import GGUFFile
-from .common import cache_write, init_layer_cache, layer_norm as _layer_norm, linear as _linear
+from .common import cache_write, causal_mask, init_layer_cache, layer_norm as _layer_norm, linear as _linear
 
 
 @dataclass(frozen=True)
@@ -38,8 +39,7 @@ class GPTJConfig:
     n_rot: int = 64
     eps: float = 1e-5
     # prompts of flash_min_seq tokens or more (or any prompt with
-    # use_flash_prefill) take the flash-attention prefill in the JAX package;
-    # that kernel is not ported yet, so the port raises there
+    # use_flash_prefill) take the flash-attention prefill
     use_flash_prefill: bool = False
     flash_min_seq: int = 1024
     # the reference CPU's fp16-table gelu (GGML_GELU_FP16); not ported yet
@@ -178,9 +178,15 @@ def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torc
         if fuse_decode:
             pass
         elif t > 1 and prefill and (cfg.use_flash_prefill or t >= cfg.flash_min_seq):
-            raise NotImplementedError(
-                f"prefill of {t} tokens takes flash_attention, which is not ported yet "
-                "(ROADMAP.md, flash_attention for prompts >= 1024)")
+            # prefill from an empty cache: attend the current tokens only,
+            # through the flash kernel (the cache holds no history by contract)
+            from ..kernels.flash_attn import flash_attention
+
+            # in a bf16 model RoPE leaves q and k in f32 beside a bf16 v; they
+            # go in as they are (the scores come from the f32 values, as in
+            # the JAX kernel) and the output comes back in f32
+            out = flash_attention(q, k, v, mask=causal_mask(t, x.device), scale=scale)
+            attn_out = out.reshape(b, t, cfg.n_embd).to(compute_dtype)
         else:
             # plain f32 attention over the whole cache window (gptj.py:213-222)
             att = torch.matmul(q.float(), kc.float().transpose(-1, -2)) * scale
@@ -221,8 +227,9 @@ class GPTJ:
 
     @classmethod
     def from_gguf(cls, path, dtype=torch.bfloat16, rope_deinterleaved: bool = True, device="cuda", **kw):
-        """Load a GGUF file; its quantized matmul weights (Q4_K, Q8_0, Q5_0,
-        Q5_1, Q5_K, Q6_K, alone or mixed) stay planes on `device`."""
+        """Load a GGUF file; its quantized matmul weights (Q4_0, Q4_1, Q2_K,
+        Q3_K, Q4_K, Q8_0, Q5_0, Q5_1, Q5_K, Q6_K, alone or mixed) stay planes
+        on `device`."""
         from ..quant.planar import PlanarWeight, permute_output_columns
         from .gpt2 import load_params  # same GGUF tensor-naming loader
 
@@ -282,12 +289,16 @@ class GPTJ:
 
 
 def random_config(scale: str = "6b") -> GPTJConfig:
-    """The GPT-J-6B config for synthesized weights.  rope_deinterleaved:
-    synthetic codes are value-free, so the synthetic model takes the
-    contiguous-slice RoPE path directly.  (The JAX package's "tiny" config has
-    E=256, whose Q4_K weights are not compact planes, so it is not offered.)"""
+    """The GPT-J-6B config for synthesized weights, or a tiny one (E=256: its
+    Q4_K weights are non-compact nibble planes with 4 groups per half-plane,
+    which take the matmul kernel at every M).  rope_deinterleaved: synthetic
+    codes are value-free, so the synthetic model takes the contiguous-slice
+    RoPE path directly."""
     if scale == "6b":
         return GPTJConfig(rope_deinterleaved=True)
+    if scale == "tiny":
+        return GPTJConfig(n_vocab=512, n_ctx=256, n_embd=256, n_head=4, n_layer=2, n_rot=32,
+                          rope_deinterleaved=True)
     raise ValueError(scale)
 
 
@@ -298,26 +309,29 @@ def synth_quantized_params(cfg: GPTJConfig, ggml_type: GGMLType = GGMLType.Q4_K,
     the quantized path at full width without a checkpoint.  Planes as the
     JAX package's synth_quantized_params builds them:
 
-    - Q4_K (use_q4, the default for it): compact packed-nibble planes, every
-      weight's effective scale 0.0025 and offset -0.02;
-    - Q8_0, Q5_0, Q5_1, Q5_K, Q6_K, and Q4_K with use_q4=False: int8 codes
-      over the full int8 range with one bf16 scale 0.0025 per group of 32
-      (16 for Q6_K) and, for the affine K-quants, a bf16 offset -0.02.
+    - Q4_0, Q4_1, Q2_K, Q3_K, Q4_K (use_q4, the default for them):
+      packed-nibble planes, every weight's effective scale 0.0025 and offset
+      -0.02: compact planes for Q4_K at K % 512 == 0, else one bf16 scale and
+      offset per group of 32 (16 for Q2_K and Q3_K);
+    - Q8_0, Q5_0, Q5_1, Q5_K, Q6_K, and the five above with use_q4=False: int8
+      codes over the full int8 range with one bf16 scale 0.0025 per group of
+      32 (16 for Q2_K, Q3_K and Q6_K) and, for the affine types, a bf16 offset
+      -0.02.
 
     Each layer holds one (7E x E) qkv+ffn_up weight, the JAX default layout:
     with the parallel residual, qkv and ffn_up read the same h."""
-    from ..quant.planar import PlanarWeight, _compact_applicable, planar_types
+    from ..quant.planar import _Q4_PLANE_TYPES, PlanarWeight, _compact_applicable, planar_types
 
     ggml_type = GGMLType(ggml_type)
     if ggml_type not in planar_types():
         raise NotImplementedError(f"synthetic {ggml_type.name} planes are not ported yet (ROADMAP.md)")
     if use_q4 is None:
-        use_q4 = ggml_type == GGMLType.Q4_K
-    elif use_q4 and ggml_type != GGMLType.Q4_K:
+        use_q4 = ggml_type in _Q4_PLANE_TYPES
+    elif use_q4 and ggml_type not in _Q4_PLANE_TYPES:
         raise ValueError(f"{ggml_type.name} codes do not fit a 4-bit plane")
-    G = 16 if ggml_type == GGMLType.Q6_K else 32
+    G = 16 if ggml_type in (GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q6_K) else 32
     SB = 8
-    affine = ggml_type in (GGMLType.Q4_K, GGMLType.Q5_K)
+    affine = ggml_type in _Q4_PLANE_TYPES or ggml_type == GGMLType.Q5_K
     s_val = np.float32(0.02 / 8)
     sdt = torch.bfloat16  # scales, offsets, d and dmin in bf16, as the JAX synthesis stores them
     gen = torch.Generator(device=device)
@@ -327,14 +341,17 @@ def synth_quantized_params(cfg: GPTJConfig, ggml_type: GGMLType = GGMLType.Q4_K,
         pad_to = 2048 if n > 8192 else 128
         npad = -(-n // pad_to) * pad_to
         full = lambda shape, v, dt: torch.full(shape, v, dtype=dt, device=device)
+        offsets = full((k // G, npad), float(-8.0 * s_val), sdt) if affine else None
         if not use_q4:
             return PlanarWeight(
                 kind="q8", group=G, n=n, k=k, orig_type=ggml_type,
                 codes=torch.randint(-128, 128, (k, npad), dtype=torch.int8, device=device, generator=gen),
-                scales=full((k // G, npad), float(s_val), sdt),
-                offsets=full((k // G, npad), float(-8.0 * s_val), sdt) if affine else None)
+                scales=full((k // G, npad), float(s_val), sdt), offsets=offsets)
         if not _compact_applicable(ggml_type, k):
-            raise NotImplementedError(f"K={k}: the non-compact q4 planes are not ported yet")
+            return PlanarWeight(
+                kind="q4", group=G, n=n, k=k, orig_type=ggml_type, sb=SB,
+                codes=torch.randint(0, 256, (k // 2, npad), dtype=torch.uint8, device=device, generator=gen),
+                scales=full((2, (k // 2) // G, npad), float(s_val), sdt), offsets=offsets)
         sup = (2, (k // 2) // (G * SB), npad)
         return PlanarWeight(
             kind="q4", group=G, n=n, k=k, orig_type=ggml_type, sb=SB,

@@ -6,9 +6,13 @@ integer codes q, a scale s and an optional offset o per group of G elements.
 A weight W (N rows of length K, ggml orientation) is stored K-major so that
 columns are independent and N is the fastest axis.
 
-q4 planes (packed nibbles; compact Q4_K only so far):
+q4 planes (packed nibbles: Q4_0, Q4_1, Q2_K, Q3_K, Q4_K where (K/2) % G == 0):
   codes   (K/2, Npad) uint8   byte (c, n) holds k=c in its low nibble and
                               k=c+K/2 in its high nibble (two half-planes)
+  scales  (2, K/2/G, Npad)    effective scale, plane-major, fp32 (repack) or
+                              bf16 (synth)
+  offsets (K/G, Npad) or None effective offset, natural group order
+or, COMPACT, for Q4_K at K % 512 == 0 (G=32, sb=8):
   scales  (2, K/64, Npad) int8  6-bit sub-scale codes, plane-major
   offsets (K/32, Npad) int8     6-bit min codes, natural group order
   d, dmin (2, K/512, Npad)      per-superblock fp32 (repack) or bf16 (synth)
@@ -25,8 +29,8 @@ Q6_K: G=16, sb=16, signed sub-scales, no offsets):
 with s = d * scales and o = -dmin * offsets rebuilt in f32 by the kernels,
 exactly the reference block factoring (src/ggml-common.h:279-320).
 
-The non-compact q4 planes and the remaining ggml types raise
-NotImplementedError until their slice is ported (ROADMAP.md).
+The IQ* and TQ* types raise NotImplementedError until their slice is ported
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -40,13 +44,26 @@ from . import reference as R
 
 F32 = np.float32
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, non-compact q4 and the remaining GGUF types)"
+_NOT_PORTED = "not ported yet (ROADMAP.md, the remaining GGUF types)"
 
 
 # Per-type plane extractors: (nb, type_size) uint8 raw blocks ->
 #   q (nb, block) integer codes, s (nb, block // G) fp32 effective scale,
 #   o (nb, block // G) fp32 effective offset or None, G
 # in natural element order (that of reference dequantize_row_*).
+
+
+def _nibbles(qs):
+    return np.concatenate([qs & 0xF, qs >> 4], axis=1).astype(np.int16)
+
+
+def _planes_q4_0(b):
+    d = R._f16(b, 0)
+    return _nibbles(b[:, 2:18]), d[:, None], (-8.0 * d)[:, None], 32
+
+
+def _planes_q4_1(b):
+    return _nibbles(b[:, 4:20]), R._f16(b, 0)[:, None], R._f16(b, 2)[:, None], 32
 
 
 def _planes_q5_0(b):
@@ -59,6 +76,23 @@ def _planes_q5_1(b):
 
 def _planes_q8_0(b):
     return b[:, 2:34].view(np.int8).astype(np.int16), R._f16(b, 0)[:, None], None, 32
+
+
+def _planes_q2_k(b):
+    d = R._f16(b, 80)[:, None]
+    dmin = R._f16(b, 82)[:, None]
+    scales = b[:, 0:16]
+    s = d * (scales & 0xF).astype(F32)
+    o = -dmin * (scales >> 4).astype(F32)
+    return R._q2k_codes(b[:, 16:80]).astype(np.int16), s, o, 16
+
+
+def _planes_q3_k(b):
+    d = R._f16(b, 108)[:, None]
+    # value = code2 - 4 when the high bit is clear: store code + 4 in 0..7
+    q = R._q2k_codes(b[:, 32:96]).astype(np.int16) + 4 * R._q3k_high_bits(b[:, 0:32]).astype(np.int16)
+    s = d * R._q3k_scales(b[:, 96:108]).astype(F32)
+    return q, s, -4.0 * s, 16
 
 
 def _planes_q4_k(b):
@@ -94,8 +128,13 @@ _COMPACT_PLANES = {
 }
 
 # Q5_K and Q6_K always take the compact planes (their K is whole superblocks),
-# so only Q4_K needs a multiplied-out extractor, for force_q8.
+# so of the compact types only Q4_K needs a multiplied-out extractor, for
+# force_q8 and for K % 512 != 0.
 _PLANES = {
+    GGMLType.Q4_0: _planes_q4_0,
+    GGMLType.Q4_1: _planes_q4_1,
+    GGMLType.Q2_K: _planes_q2_k,
+    GGMLType.Q3_K: _planes_q3_k,
     GGMLType.Q5_0: _planes_q5_0,
     GGMLType.Q5_1: _planes_q5_1,
     GGMLType.Q8_0: _planes_q8_0,
@@ -103,7 +142,7 @@ _PLANES = {
 }
 
 # Types whose codes fit an unsigned 4-bit plane (0..15).
-_Q4_PLANE_TYPES = {GGMLType.Q4_K}
+_Q4_PLANE_TYPES = {GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K}
 
 
 def planar_types() -> set[GGMLType]:
@@ -127,14 +166,12 @@ class PlanarWeight(nn.Module):
     def __init__(self, kind: str, codes, scales, offsets, group: int, n: int, k: int,
                  orig_type: GGMLType, supers: tuple | None = None, sb: int = 8):
         super().__init__()
-        if kind == "q4":
-            if supers is None or supers[1] is None or offsets is None or group != 32 or sb != 8:
-                raise NotImplementedError(
-                    f"q4 planes group={group} compact={supers is not None}: {_NOT_PORTED}")
-        elif kind != "q8":
+        if kind not in ("q4", "q8"):
             raise ValueError(f"unknown plane kind {kind!r}")
-        elif supers is not None and (supers[1] is None) != (offsets is None):
-            raise ValueError("compact q8 planes carry dmin exactly when they carry min codes")
+        if supers is not None and (supers[1] is None) != (offsets is None):
+            raise ValueError("compact planes carry dmin exactly when they carry min codes")
+        if kind == "q4" and supers is not None and (offsets is None or group != 32 or sb != 8):
+            raise ValueError("compact q4 planes are the Q4_K factoring: groups of 32, 8 per superblock, min codes")
         self.kind = kind
         self.group = group
         self.n = n
@@ -164,15 +201,13 @@ def repack(raw: np.ndarray, ggml_type: GGMLType, shape: tuple[int, int],
            n_pad_to: int = 128, force_q8: bool = False) -> PlanarWeight:
     """Repack raw ggml-format bytes of a (N, K) weight into planes.
 
-    force_q8 keeps Q4_K on int8 planes with multiplied-out fp32 scales and
-    offsets in place of the compact packed-nibble planes."""
+    force_q8 keeps the 4-bit types on int8 planes with multiplied-out fp32
+    scales and offsets in place of the packed-nibble planes."""
     n, k = shape
     ggml_type = GGMLType(ggml_type)
     if ggml_type not in planar_types():
         raise NotImplementedError(f"repack {ggml_type.name}: {_NOT_PORTED}")
     compact = _compact_applicable(ggml_type, k, force_q8)
-    if not compact and ggml_type in _Q4_PLANE_TYPES and not force_q8:
-        raise NotImplementedError(f"repack {ggml_type.name} at K={k}: {_NOT_PORTED}")
     tt = get_type_traits(ggml_type)
     blocks = np.asarray(raw).reshape(n * (k // tt.block_size), tt.type_size)
     n_pad_to = _wide_pad(n, n_pad_to)
@@ -181,12 +216,26 @@ def repack(raw: np.ndarray, ggml_type: GGMLType, shape: tuple[int, int],
         return _repack_numpy_compact(blocks, ggml_type, n, k, npad)
 
     q, s, o, G = _PLANES[ggml_type](blocks)
-    q = q.reshape(n, k)
     pad = lambda a: np.pad(a, ((0, npad - n), (0, 0)))
+    q = pad(q.reshape(n, k))
     plane = lambda a: np.ascontiguousarray(pad(a.reshape(n, k // G)).T.astype(F32))  # (K/G, Npad)
-    return PlanarWeight(kind="q8", codes=np.ascontiguousarray(pad(q).astype(np.int8).T),
-                        scales=plane(s), offsets=None if o is None else plane(o), group=G,
+    scales, offsets = plane(s), None if o is None else plane(o)
+    # q4: half the code bytes; else int8 codes
+    if ggml_type in _Q4_PLANE_TYPES and (k // 2) % G == 0 and not force_q8:
+        kind, codes = "q4", _pack_halves(q, k)
+        # plane-major scales (2, K/2/G, Npad): [0] = low-nibble plane (k < K/2)
+        scales = scales.reshape(2, (k // 2) // G, npad)
+    else:
+        kind, codes = "q8", np.ascontiguousarray(q.astype(np.int8).T)
+    return PlanarWeight(kind=kind, codes=codes, scales=scales, offsets=offsets, group=G,
                         n=n, k=k, orig_type=ggml_type)
+
+
+def _pack_halves(q: np.ndarray, k: int) -> np.ndarray:
+    """(Npad, K) codes 0..15 -> (K/2, Npad) uint8: k < K/2 in the low nibble,
+    k + K/2 in the high nibble of the same byte."""
+    qu = q.astype(np.uint8)
+    return np.ascontiguousarray((qu[:, : k // 2] | (qu[:, k // 2 :] << 4)).T)
 
 
 def _compact_applicable(ggml_type: GGMLType, k: int, force_q8: bool = False) -> bool:
@@ -215,9 +264,7 @@ def _repack_numpy_compact(blocks: np.ndarray, ggml_type: GGMLType, n: int, k: in
     sc, m = plane(sc, k // G), plane(m, k // G)
     d, dmin = plane(d, k // (G * SB), F32), plane(dmin, k // (G * SB), F32)
     if ggml_type in _Q4_PLANE_TYPES:
-        qu = np.pad(q.reshape(n, k), ((0, npad - n), (0, 0))).astype(np.uint8)
-        lo, hi = qu[:, : k // 2], qu[:, k // 2 :]
-        codes = np.ascontiguousarray((lo | (hi << 4)).T)  # (K/2, Npad)
+        codes = _pack_halves(np.pad(q.reshape(n, k), ((0, npad - n), (0, 0))), k)
         # sub-scales and d/dmin plane-major; min codes stay in natural order
         halves = lambda a: a.reshape(2, a.shape[0] // 2, npad)
         return PlanarWeight(kind="q4", codes=codes, scales=halves(sc), offsets=m, group=G,

@@ -1,9 +1,9 @@
 """Reference dequantization in NumPy — the port's own copy of the parts of
 ggml_tpu/quant/reference.py the ported slices need: the scalar float types
-and the block decodes of Q8_0, Q5_0, Q5_1, Q4_K, Q5_K and Q6_K (reference:
-src/ggml-quants.c dequantize_row_*, block layouts src/ggml-common.h).  Other
-block formats raise NotImplementedError until their slice is ported
-(ROADMAP.md, "non-compact q4 and the remaining GGUF types").
+and the block decodes of Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K
+and Q6_K (reference: src/ggml-quants.c dequantize_row_*, block layouts
+src/ggml-common.h).  The IQ* and TQ* formats raise NotImplementedError until
+their slice is ported (ROADMAP.md, "the remaining GGUF types").
 """
 
 from __future__ import annotations
@@ -22,6 +22,23 @@ def _f16(blocks: np.ndarray, off: int) -> np.ndarray:
 
 def _u32(blocks: np.ndarray, off: int, n: int = 1) -> np.ndarray:
     return np.ascontiguousarray(blocks[:, off : off + 4 * n]).view("<u4").reshape(len(blocks), n)
+
+
+def dequant_q4_0(b):
+    d = _f16(b, 0)[:, None]
+    qs = b[:, 2:18]
+    lo = (qs & 0x0F).astype(np.int8) - 8
+    hi = (qs >> 4).astype(np.int8) - 8
+    return np.concatenate([lo, hi], axis=1).astype(F32) * d
+
+
+def dequant_q4_1(b):
+    d = _f16(b, 0)[:, None]
+    m = _f16(b, 2)[:, None]
+    qs = b[:, 4:20]
+    lo = (qs & 0x0F).astype(F32)
+    hi = (qs >> 4).astype(F32)
+    return np.concatenate([lo, hi], axis=1) * d + m
 
 
 def _q5_bits(qh_u32):
@@ -62,8 +79,60 @@ def _k4_scale_min(scales: np.ndarray):
     return sc.astype(F32), m.astype(F32)
 
 
-# static element->byte/nibble maps for the 256-element Q4_K/Q5_K superblock
+# static element->byte/shift maps for the 256-element superblocks
 _E = np.arange(QK_K)
+
+
+def _q2k_maps():
+    g = _E // 16  # 16 groups of 16
+    l = _E % 16
+    qidx = 32 * (g // 8) + 16 * (g % 2) + l
+    shift = 2 * ((g % 8) // 2)
+    return g, qidx, shift
+
+
+_Q2K_G, _Q2K_QIDX, _Q2K_SHIFT = _q2k_maps()
+
+
+def _q2k_codes(qs):
+    """2-bit codes 0..3 (nb, 256) of a Q2_K/Q3_K superblock in element order."""
+    return (qs[:, _Q2K_QIDX] >> _Q2K_SHIFT) & 3
+
+
+def dequant_q2_k(b):
+    d = _f16(b, 80)[:, None]
+    dmin = _f16(b, 82)[:, None]
+    sc = b[:, 0:16][:, _Q2K_G]
+    q = _q2k_codes(b[:, 16:80]).astype(np.int8).astype(F32)
+    dl = d * (sc & 0xF).astype(F32)
+    ml = dmin * (sc >> 4).astype(F32)
+    return dl * q - ml
+
+
+def _q3k_scales(scales: np.ndarray) -> np.ndarray:
+    """12 packed bytes -> 16 6-bit scales, minus 32 (reference: dequantize_row_q3_K
+    kmask trick, equivalently quantize_row_q3_K_ref's decode)."""
+    j = np.arange(16)
+    lo = np.where(j < 8, scales[:, j % 8] & 0xF, scales[:, (j - 8) % 8] >> 4)
+    hi = (scales[:, 8 + j % 4] >> (2 * (j // 4))) & 3
+    return (lo | (hi << 4)).astype(np.int32) - 32
+
+
+def _q3k_high_bits(hmask):
+    """The third bit (nb, 256) of each Q3_K code, 0 or 1, in element order."""
+    g = _Q2K_G
+    return (hmask[:, 16 * (g % 2) + (_E % 16)] >> (g // 2)) & 1
+
+
+def dequant_q3_k(b):
+    d = _f16(b, 108)[:, None]
+    sc16 = _q3k_scales(b[:, 96:108])
+    q = _q2k_codes(b[:, 32:96]).astype(np.int32) - np.where(_q3k_high_bits(b[:, 0:32]) == 0, 4, 0)
+    dl = d * sc16[:, _Q2K_G].astype(F32)
+    return dl * q.astype(F32)
+
+
+# element->byte/nibble maps of the Q4_K/Q5_K superblock
 _Q4K_IS = 2 * (_E // 64) + (_E % 64) // 32
 _Q4K_QIDX = 32 * (_E // 64) + (_E % 32)
 _Q4K_NIB = (_E % 64) // 32
@@ -128,6 +197,10 @@ def dequant_q6_k(b):
 
 
 _DEQUANT = {
+    GGMLType.Q4_0: dequant_q4_0,
+    GGMLType.Q4_1: dequant_q4_1,
+    GGMLType.Q2_K: dequant_q2_k,
+    GGMLType.Q3_K: dequant_q3_k,
     GGMLType.Q5_0: dequant_q5_0,
     GGMLType.Q5_1: dequant_q5_1,
     GGMLType.Q8_0: dequant_q8_0,
@@ -138,6 +211,7 @@ _DEQUANT = {
 
 # byte offsets of the fp16 fields of each ported block format
 _F16_FIELDS = {
+    GGMLType.Q4_0: (0,), GGMLType.Q4_1: (0, 2), GGMLType.Q2_K: (80, 82), GGMLType.Q3_K: (108,),
     GGMLType.Q5_0: (0,), GGMLType.Q5_1: (0, 2), GGMLType.Q8_0: (0,),
     GGMLType.Q4_K: (0, 2), GGMLType.Q5_K: (0, 2), GGMLType.Q6_K: (208,),
 }
@@ -171,8 +245,7 @@ def dequantize(data: np.ndarray, ggml_type: GGMLType, n_elements: int) -> np.nda
         return bf16_bits_to_fp32(data.view("<u2")[:n_elements])
     if t not in _DEQUANT:
         raise NotImplementedError(
-            f"dequantize {t.name}: not ported yet (ROADMAP.md, non-compact q4 and the "
-            "remaining GGUF types)")
+            f"dequantize {t.name}: not ported yet (ROADMAP.md, the remaining GGUF types)")
     tr = get_type_traits(t)
     if n_elements % tr.block_size:
         raise ValueError(f"{t.name}: {n_elements} elements is not whole blocks")

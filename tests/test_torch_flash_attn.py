@@ -1,0 +1,167 @@
+"""Port kernel J (ggml_tpu_torch.kernels.flash_attn.flash_attention) against
+the JAX flash_attention on the same inputs.
+
+The JAX side runs its Pallas kernel in interpret mode, as its own tests do on
+the CPU; the port runs its plain PyTorch version (CPU tensors), which walks
+kv tiles of 64 rows as its CUDA kernel does (the JAX wrapper picks its own
+tile).  f32 inputs differ only in the last bits of dots, exp and sums: NMSE <=
+1e-10.  A bf16 v has p rounded to bf16 before p @ v, against a running max that
+depends on the tile, and a bf16 q has the output rounded to bf16: NMSE <= 1e-5,
+also for f32 q and k with a bf16 v (what a bf16 model's prefill hands over).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ggml_tpu.kernels.flash_attn import flash_attention as jax_flash_attention
+from ggml_tpu.models.common import causal_mask as jax_causal_mask
+from ggml_tpu.ops.core import alibi_slopes as jax_alibi_slopes
+from ggml_tpu_torch.kernels import flash_attn
+from ggml_tpu_torch.kernels.flash_attn import flash_attention
+from ggml_tpu_torch.models.common import causal_mask
+from tests.test_torch_rules import nmse
+
+GATE = {"float32": 1e-10, "bfloat16": 1e-5, "mixed": 1e-5}
+
+
+def _make(b, h, h_kv, nq, nkv, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, nq, d)).astype(np.float32),
+            rng.standard_normal((b, h_kv, nkv, d)).astype(np.float32),
+            rng.standard_normal((b, h_kv, nkv, d)).astype(np.float32))
+
+
+def _offset_causal(nq, nkv, offset, fill=-np.inf):
+    i = np.arange(nq)[:, None]
+    j = np.arange(nkv)[None, :]
+    return np.where(j <= i + offset, 0.0, fill).astype(np.float32)
+
+
+def _both(q, k, v, mask, dtype, **kw):
+    """(JAX result, port result) as f32 numpy, inputs cast to dtype on both
+    sides; "mixed" is f32 q and k with a bf16 v."""
+    names = ("float32", "float32", "bfloat16") if dtype == "mixed" else (dtype,) * 3
+    want = jax_flash_attention(*(jnp.asarray(a).astype(getattr(jnp, n)) for a, n in zip((q, k, v), names)),
+                               mask=None if mask is None else jnp.asarray(mask), interpret=True, **kw)
+    got = flash_attention(*(torch.from_numpy(a).to(getattr(torch, n)) for a, n in zip((q, k, v), names)),
+                          mask=None if mask is None else torch.from_numpy(mask),
+                          scale=kw.get("scale", 1.0), max_bias=kw.get("max_bias", 0.0),
+                          logit_softcap=kw.get("logit_softcap", 0.0))
+    assert got.dtype == getattr(torch, names[0]) and str(want.dtype) == names[0]
+    assert tuple(got.shape) == tuple(want.shape)
+    return np.asarray(want.astype(jnp.float32)), got.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "mixed"])
+@pytest.mark.parametrize(
+    "b,h,h_kv,nq,nkv,d,max_bias,softcap",
+    [
+        (1, 4, 4, 128, 256, 64, 0.0, 0.0),
+        (2, 8, 2, 128, 128, 64, 0.0, 0.0),  # GQA
+        (1, 4, 4, 128, 256, 64, 8.0, 0.0),  # ALiBi
+        (1, 4, 4, 128, 256, 64, 0.0, 30.0),  # softcap
+        (1, 4, 4, 100, 256, 64, 0.0, 0.0),  # ragged n_q
+    ],
+    ids=["plain", "gqa", "alibi", "softcap", "ragged-q"])
+def test_flash_attention_matches_jax(b, h, h_kv, nq, nkv, d, max_bias, softcap, dtype):
+    """The parameter sets of tests/test_flash_attn.py, -inf above the diagonal."""
+    q, k, v = _make(b, h, h_kv, nq, nkv, d, seed=nq + h)
+    mask = _offset_causal(nq, nkv, nkv - nq)
+    want, got = _both(q, k, v, mask, dtype, scale=1.0 / np.sqrt(d), max_bias=max_bias, logit_softcap=softcap)
+    assert got.shape == (b, nq, h, d) and np.isfinite(got).all()
+    assert nmse(want, got) <= GATE[dtype], nmse(want, got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "mixed"])
+def test_no_mask_and_ragged_lengths(dtype):
+    q, k, v = _make(1, 4, 4, 128, 128, 64, seed=1)
+    want, got = _both(q, k, v, None, dtype, scale=0.3)
+    assert nmse(want, got) <= GATE[dtype]
+    # odd q and kv lengths, with and without a mask: JAX pads, the port does not
+    q, k, v = _make(1, 2, 2, 37, 53, 64, seed=2)
+    for mask in (_offset_causal(37, 53, 16), None):
+        want, got = _both(q, k, v, mask, dtype, scale=0.2)
+        assert got.shape == (1, 37, 2, 64)
+        assert nmse(want, got) <= GATE[dtype]
+
+
+def test_decode_shape_and_extra_mask_rows():
+    """nq = 1 against a longer kv; a mask with more rows than q (the KQ pad)."""
+    q, k, v = _make(1, 8, 8, 1, 256, 64, seed=3)
+    want, got = _both(q, k, v, _offset_causal(1, 256, 200), "float32", scale=0.125)
+    assert nmse(want, got) <= 1e-10
+    q, k, v = _make(1, 2, 2, 5, 64, 64, seed=4)
+    want, got = _both(q, k, v, _offset_causal(8, 64, 59), "float32", scale=0.125)
+    assert got.shape == (1, 5, 2, 64) and nmse(want, got) <= 1e-10
+
+
+@pytest.mark.parametrize("fill", [-np.inf, -1e30], ids=["inf", "finite"])
+def test_fully_masked_rows_give_zeros(fill):
+    """Rows with every kv masked give exactly 0 and no NaN, whether the mask
+    says -inf or the finite sentinel."""
+    q, k, v = _make(1, 2, 2, 16, 33, 64, seed=5)
+    mask = np.zeros((16, 33), np.float32)
+    mask[4:9, :] = fill
+    mask[12, :20] = fill
+    want, got = _both(q, k, v, mask, "float32", scale=0.2)
+    assert np.isfinite(got).all()
+    assert (got[0, 4:9] == 0).all() and (want[0, 4:9] == 0).all()
+    assert nmse(want, got) <= 1e-10
+
+
+def test_causal_mask_and_alibi_slopes_match_jax():
+    for t in (1, 7, 40):
+        np.testing.assert_array_equal(causal_mask(t, "cpu").numpy(), np.asarray(jax_causal_mask(t)))
+    assert causal_mask(7, "cpu") is causal_mask(7, "cpu")  # cached per length and device
+    for h, bias in ((4, 8.0), (12, 8.0), (8, 0.0)):
+        np.testing.assert_array_equal(flash_attn.alibi_slopes(h, bias), np.asarray(jax_alibi_slopes(h, bias)))
+
+
+def test_kv_tile_of_the_plain_version():
+    """The plain version walks the CUDA kernel's kv tiles of 64 rows, several
+    of them here with a ragged last one, and agrees with the softmax written
+    out in full."""
+    q, k, v = (torch.from_numpy(a) for a in _make(1, 2, 2, 40, 200, 64, seed=6))
+    mask = torch.from_numpy(_offset_causal(40, 200, 160, fill=-1e30))
+    assert flash_attn._BKV == 64
+    got = flash_attn._flash_attention_plain(q, k, v, mask, torch.ones(2), 0.125, 0.0).numpy()
+    ref = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * 0.125 + mask, dim=-1) @ v
+    assert nmse(ref.transpose(1, 2).numpy(), got) <= 1e-10
+
+
+def test_bf16_model_prefill_types_at_head_dim_256():
+    """What a bf16 GPT-J's prefill hands the kernel: f32 q and k out of RoPE,
+    bf16 v, head_dim 256, causal, scores of a few units.  The JAX kernel
+    multiplies the f32 values; so does the port (NMSE 5e-8 here, from the
+    tiles' roundings of p).  Rounding q and k to bf16 first is another
+    function: 1.8e-5 here, outside the gate."""
+    q, k, v = _make(1, 2, 2, 96, 96, 256, seed=8)
+    q *= 4.0
+    mask = np.array(jax_causal_mask(96))
+    want, got = _both(q, k, v, mask, "mixed", scale=1.0 / 16)
+    assert nmse(want, got) <= 1e-6, nmse(want, got)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    rounded = flash_attention(tq.bfloat16().float(), tk.bfloat16().float(), tv.bfloat16(),
+                              mask=torch.from_numpy(mask), scale=1.0 / 16).numpy()
+    assert nmse(want, rounded) > GATE["mixed"], nmse(want, rounded)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v = (torch.from_numpy(a) for a in _make(1, 4, 2, 8, 16, 64, seed=7))
+    with pytest.raises(TypeError):  # bf16 q and k with an f32 v
+        flash_attention(q.bfloat16(), k.bfloat16(), v)
+    with pytest.raises(TypeError):  # q and k of two types
+        flash_attention(q, k.bfloat16(), v.bfloat16())
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):  # 4 heads over 3 kv heads
+        flash_attention(q, k[:, :1].repeat(1, 3, 1, 1), v[:, :1].repeat(1, 3, 1, 1))
+    with pytest.raises(ValueError):  # mask narrower than kv
+        flash_attention(q, k, v, mask=torch.zeros((8, 15)))
+    with pytest.raises(ValueError):  # fewer mask rows than q rows
+        flash_attention(q, k, v, mask=torch.zeros((4, 16)))
+    before = dict(flash_attn.launches)
+    flash_attention(q, k, v)
+    assert flash_attn.launches == before  # CPU tensors: the plain version, nothing launched

@@ -145,8 +145,13 @@ def test_generate_and_limits(models):
     with pytest.raises(ValueError):
         tm.decode_greedy(tm.new_cache(torch.float32), torch.zeros((1, 1), dtype=torch.long),
                          MAX_SEQ - 2, 3)
+    zero = torch.zeros((), dtype=torch.int32)
+    toks = torch.zeros((1, 4), dtype=torch.long)
     flash = dataclasses.replace(tm.cfg, use_flash_prefill=True)
+    logits = gptj.forward(tm.params, flash, toks, zero.expand(1), tm.new_cache(torch.float32), zero, prefill=True)
+    assert logits.shape == (1, 4, CFG["n_vocab"]) and bool(torch.isfinite(logits).all())
+    with pytest.raises(NotImplementedError):  # per-slot cache positions: batched serving, a later slice
+        gptj.forward(tm.params, tm.cfg, toks, zero.expand(1), tm.new_cache(torch.float32), zero.expand(1))
     with pytest.raises(NotImplementedError):
-        zero = torch.zeros((), dtype=torch.int32)
-        gptj.forward(tm.params, flash, torch.zeros((1, 4), dtype=torch.long), zero.expand(1),
+        gptj.forward(tm.params, dataclasses.replace(tm.cfg, gelu_fp16=True), toks, zero.expand(1),
                      tm.new_cache(torch.float32), zero, prefill=True)

@@ -140,6 +140,6 @@ def test_synthesized_planes_have_the_jax_layout(t, use_q4):
 
 def test_synth_rejects_unported_types():
     with pytest.raises(NotImplementedError):
-        gptj.synth_quantized_params(gptj.GPTJConfig(**CFG), GGMLType.Q4_0, device="cpu")
+        gptj.synth_quantized_params(gptj.GPTJConfig(**CFG), GGMLType.IQ4_NL, device="cpu")
     with pytest.raises(ValueError):
         gptj.synth_quantized_params(gptj.GPTJConfig(**CFG), GGMLType.Q8_0, device="cpu", use_q4=True)

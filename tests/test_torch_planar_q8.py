@@ -105,15 +105,17 @@ def test_plane_bytes_and_module_moves():
 
 def test_unported_planes_raise():
     raw = random_raw(GGMLType.Q4_K, N, 768, seed=1)
-    with pytest.raises(NotImplementedError):  # non-compact q4 planes: a later slice
-        planar.repack(raw, GGMLType.Q4_K, (N, 768))
+    with pytest.raises(NotImplementedError):  # the IQ* and TQ* types: a later slice
+        planar.repack(raw, GGMLType.IQ4_NL, (N, 768))
     with pytest.raises(NotImplementedError):
-        planar.repack(raw, GGMLType.Q3_K, (N, 768))
+        planar.repack(raw, GGMLType.TQ1_0, (N, 768))
     with pytest.raises(NotImplementedError):
         reference.dequantize(raw, GGMLType.IQ4_NL, 32)
     q4 = planar.repack(random_raw(GGMLType.Q4_K, N, 512, seed=1), GGMLType.Q4_K, (N, 512))
-    with pytest.raises(NotImplementedError):  # its expansion is a non-compact q4 weight
-        planar.expand_compact(q4)
+    with pytest.raises(ValueError):  # compact q4 planes are the Q4_K factoring only: groups of 32 with min codes
+        PlanarWeight("q4", q4.codes, q4.scales, None, 32, N, 512, GGMLType.Q4_K, supers=(q4.d, None))
+    with pytest.raises(ValueError):
+        PlanarWeight("q4", q4.codes, q4.scales, q4.offsets, 16, N, 512, GGMLType.Q4_K, supers=q4.supers)
     codes = np.zeros((64, 128), np.int8)
     with pytest.raises(ValueError):
         PlanarWeight("q2", codes, codes, None, 32, 128, 64, GGMLType.Q8_0)

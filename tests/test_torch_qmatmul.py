@@ -98,7 +98,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         qmatmul.q4k_gemv_rows(torch.zeros((33, 512), dtype=torch.bfloat16), pw)
     with pytest.raises(ValueError):
         qmatmul.q4k_matmul(torch.zeros((40, 256), dtype=torch.bfloat16), pw)
-    with pytest.raises(NotImplementedError):  # non-compact planes: a later slice
-        repack(raw, GGMLType.Q4_K, (N, 768))
-    with pytest.raises(NotImplementedError):
-        repack(raw, GGMLType.Q4_0, (N, 512))
+    # multiplied-out nibble planes go to q4_gemv, not to the compact-plane GEMVs
+    from ggml_tpu_torch.quant.planar import expand_compact
+
+    flat = expand_compact(pw)
+    with pytest.raises(ValueError):
+        qmatmul.q4k_gemv_qact(x, flat)
+    with pytest.raises(ValueError):
+        qmatmul.q4k_gemv_rows(x, flat)
+    with pytest.raises(ValueError):
+        qmatmul.q4_gemv(x, pw)
+    with pytest.raises(NotImplementedError):  # the IQ* types: a later slice
+        repack(raw, GGMLType.IQ4_NL, (N, 512))

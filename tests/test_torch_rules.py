@@ -79,6 +79,7 @@ def _port_modules() -> list[str]:
 def test_port_modules_listed():
     names = _port_modules()
     for want in ("ggml_tpu_torch.kernels.qmatmul", "ggml_tpu_torch.kernels.decode_attn",
+                 "ggml_tpu_torch.kernels.flash_attn",
                  "ggml_tpu_torch.models.gptj", "ggml_tpu_torch.convert"):
         assert want in names
 
