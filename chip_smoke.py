@@ -20,7 +20,14 @@ Phases (any failure exits non-zero without the result line):
    prompts 8, 100, 1 and 1024, (f) synthesized Q3_K planes (groups of 16),
    one request; then (d) hold a tiny GPT-J on the card against the same model
    on the CPU for a Q4_K, a Q8_0, a mixed Q4_K/Q6_K, a Q4_0 and a mixed
-   Q4_1/Q2_K/Q3_K parameter set, and a flash prefill;
+   Q4_1/Q2_K/Q3_K parameter set, and a flash prefill; (g) train GPT-2-medium
+   at its published widths (openai-community/gpt2-medium: n_vocab 50257, E
+   1024, 16 heads, 24 layers, tied head) for 1 + 6 AdamW steps of batch 8 x
+   512 as bench.py's train mode composes them (bf16 over f32 masters, bf16
+   moments, fused cross entropy, flash attention through kernels K, L, M),
+   counting every launch, and profile one step; (h) a tiny f32 GPT-2 on the
+   card against the same model on the CPU: loss, every gradient through the
+   flash kernels, 3 AdamW steps;
 5. one JSON line listing every kernel, then the result line.
 
 Runs only where torch.cuda.is_available(); it imports nothing of JAX.
@@ -38,6 +45,7 @@ import traceback
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+TRAIN = ("flash_attn_fwd_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")  # kernels K, L, M
 FLUSH_BYTES = 128 << 20  # written between timed launches: evicts the 50 MB L2
 PLAIN = {"q4k_gemv_qact": "_gemv_qact_plain", "q4k_gemv_rows": "_gemv_rows_plain",
          "q4k_matmul": "_matmul_plain", "q8_gemv": "_q8_gemv_plain", "q8_gemv_sb": "_q8_gemv_plain",
@@ -53,14 +61,20 @@ SOURCES = {
     "q4_gemv": ("ggml_tpu_torch/kernels/csrc/q4_gemv.cu", "ggml_tpu/kernels/qmatmul.py:292"),
     "q4k_gemv_i8": ("ggml_tpu_torch/kernels/csrc/q4k_gemv.cu", "ggml_tpu/kernels/qmatmul.py:482"),
     "flash_attn": ("ggml_tpu_torch/kernels/csrc/flash_attn.cu", "ggml_tpu/kernels/flash_attn.py:30"),
+    "flash_attn_fwd_lse": ("ggml_tpu_torch/kernels/csrc/flash_attn.cu", "ggml_tpu/kernels/flash_attn.py:180"),
+    "flash_attn_bwd_dq": ("ggml_tpu_torch/kernels/csrc/flash_attn_bwd.cu", "ggml_tpu/kernels/flash_attn.py:222"),
+    "flash_attn_bwd_dkv": ("ggml_tpu_torch/kernels/csrc/flash_attn_bwd.cu", "ggml_tpu/kernels/flash_attn.py:254"),
 }
 # NMSE of a kernel against its plain version on the card: the int8 kernels
 # differ only in the order of their f32 sums, the matmuls in the order of
 # their bf16 products too; the flash kernel rounds p (and, for bf16 q, its
-# output) to bf16, and a last-bit difference of a score moves single roundings
+# output) to bf16, and a last-bit difference of a score moves single roundings;
+# K, L and M round their bf16 outputs (1e-6; f32 inputs 1e-10, the LSE 1e-12);
+# L and M keep p and ds f32 (hi + lo bf16 products), where one bf16 product
+# of each would read about 6e-6: their gate, 3e-7, tells the two apart
 GATE = {"q4k_gemv_qact": 1e-6, "q4k_gemv_rows": 1e-6, "q4k_matmul": 1e-5, "decode_attn": 1e-6,
         "q8_gemv": 1e-9, "q8_gemv_sb": 1e-9, "q8_matmul": 1e-8, "q4_gemv": 1e-9, "q4k_gemv_i8": 1e-9,
-        "flash_attn": 1e-6}
+        "flash_attn": 1e-6, "flash_attn_fwd_lse": 1e-6, "flash_attn_bwd_dq": 3e-7, "flash_attn_bwd_dkv": 3e-7}
 
 
 class SmokeFailure(Exception):
@@ -306,6 +320,102 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
     flash_case(1, 4, 4, 37, 53, 64, "float32", causal=False, time_it=False)
     for types in ("mixed", "bfloat16"):
         flash_case(2, 8, 2, 100, 200, 64, types, max_bias=8.0, softcap=30.0, time_it=False)
+
+    def train_case(b, h, h_kv, nq, nkv, d, dtype, mask_kind="causal", max_bias=0.0, time_it=True):
+        """K, L and M against their plain versions on the same inputs (L and
+        M are handed K's lse and the delta of K's output).  mask_kind:
+        "causal" (-1e30 above the diagonal), None, "dead-inf" / "dead-1e30"
+        (causal, and row 7 all -inf / all -1e30).  Bounds: each input read
+        once, each output written once; operations over the unmasked pairs, 2d
+        per product and pair (K: 2 products, L: 3, M: 4) at the inputs' rate.
+        Library: SDPA's forward (K) and backward (L + M, the time stands in
+        both rows) on the same bf16 tensors, causal; none for other masks."""
+        dt = getattr(torch, dtype)
+        mk = lambda *shape: torch.randn(shape, device="cuda", generator=gen).to(dt)
+        q, k, v, do = mk(b, h, nq, d), mk(b, h_kv, nkv, d), mk(b, h_kv, nkv, d), mk(b, nq, h, d)
+        mask = None
+        if mask_kind is not None:
+            rows = torch.arange(nq, device="cuda")[:, None] + (nkv - nq)
+            mask = torch.where(torch.arange(nkv, device="cuda")[None, :] <= rows, 0.0, -1e30)
+            if mask_kind.startswith("dead"):
+                mask[7] = float("-inf") if mask_kind == "dead-inf" else -1e30
+        scale = d ** -0.5
+        slopes = flash_attn._slopes_on(h, max_bias, q.device)
+        fwd = lambda: flash_attn.flash_attention_fwd_lse(q, k, v, mask, scale, max_bias)
+        o, lse = fwd()
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, mask, scale, max_bias, do, lse, delta)
+        pargs = (q, k, v, mask, slopes, scale, do, lse, delta)
+        dq = flash_attn.flash_attention_bwd_dq(*args)
+        dk, dv = flash_attn.flash_attention_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all()) for t in (o, dq, dk, dv)), f"K/L/M {dtype}: output not finite")
+        po, plse = flash_attn._fa_forward_lse_plain(q, k, v, mask, slopes, scale)
+        check(bool(((lse == 1e30) == (plse == 1e30)).all()), "K: dead rows differ from the plain version")
+        pdq = flash_attn._fa_bwd_dq_plain(*pargs)
+        pdk, pdv = flash_attn._fa_bwd_dkv_plain(*pargs)
+        live = plse != 1e30
+        lse_nmse, _ = errors(plse[live], lse[live])
+        check(lse_nmse <= 1e-12, f"K {dtype} {mask_kind}: LSE NMSE {lse_nmse:.3e} > 1e-12")
+        pairs = b * h * (int((mask > -5e29).sum()) if mask is not None else nq * nkv)
+        el = q.element_size()
+        rate = PEAK_OPS["f32" if dtype == "float32" else "bf16"]
+        io = {"flash_attn_fwd_lse": (2 * q.numel() + k.numel() + v.numel()) * el + b * h * nq * 4,
+              "flash_attn_bwd_dq": (2 * q.numel() + k.numel() + v.numel() + do.numel()) * el + 2 * b * h * nq * 4,
+              "flash_attn_bwd_dkv": (q.numel() + 2 * k.numel() + 2 * v.numel() + do.numel()) * el + 2 * b * h * nq * 4}
+        products = {"flash_attn_fwd_lse": 2, "flash_attn_bwd_dq": 3, "flash_attn_bwd_dkv": 4}
+        lib_fwd = lib_bwd = None
+        if time_it and mask_kind == "causal" and dtype == "bfloat16" and h == h_kv and nq == nkv:
+            lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True, scale=scale)
+            ldo = do.transpose(1, 2).contiguous()
+            lib_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale),
+                                flush, 20)
+            lib_bwd = device_ms(torch, lambda: torch.autograd.grad(lo, (lq, lk, lv), ldo, retain_graph=True), flush, 20)
+        cases = (("flash_attn_fwd_lse", fwd, lambda: flash_attn._fa_forward_lse_plain(q, k, v, mask, slopes, scale),
+                  [(po, o)], lib_fwd),
+                 ("flash_attn_bwd_dq", lambda: flash_attn.flash_attention_bwd_dq(*args),
+                  lambda: flash_attn._fa_bwd_dq_plain(*pargs), [(pdq, dq)], lib_bwd),
+                 ("flash_attn_bwd_dkv", lambda: flash_attn.flash_attention_bwd_dkv(*args),
+                  lambda: flash_attn._fa_bwd_dkv_plain(*pargs), [(pdk, dk), (pdv, dv)], lib_bwd))
+        shape = (f"b={b} h={h} h_kv={h_kv} nq={nq} nkv={nkv} d={d} {dtype} {mask_kind or 'no mask'}"
+                 f"{' alibi' if max_bias else ''}")
+        if time_it and dtype == "bfloat16":
+            # the control: p and ds rounded to bf16 for one bf16 product each
+            # must read above L's and M's gate, or the gate cannot see that loss
+            p, ds, qf, kf, dof = flash_attn._p_ds_plain(*pargs)
+            r = lambda t: t.to(dt).float()
+            one = max(errors(pdq, torch.matmul(r(ds), kf).to(dt))[0],
+                      errors(pdk, torch.matmul(r(ds).transpose(-1, -2), qf).to(dt))[0],
+                      errors(pdv, torch.matmul(r(p).transpose(-1, -2), dof).to(dt))[0])
+            del p, ds, qf, kf, dof
+            print(f"  L/M control, p and ds as one bf16 product each: worst NMSE {one:.2e} "
+                  f"(gate {GATE['flash_attn_bwd_dq']:g})")
+            check(one > GATE["flash_attn_bwd_dq"], f"L/M gate {GATE['flash_attn_bwd_dq']:g} does not catch "
+                  f"one-product rounding (NMSE {one:.2e})")
+        for name, call, plain_fn, pairs_out, lib in cases:
+            errs = [errors(ref, got) for ref, got in pairs_out]
+            t_bytes = (io[name] + (nq * nkv * 4 if mask is not None else 0)) / HBM_BYTES_PER_S * 1e3
+            t_ops = products[name] * 2 * d * pairs / rate * 1e3
+            rec = dict(shape=shape, nmse=max(e[0] for e in errs), max_abs_err=max(e[1] for e in errs),
+                       lse_nmse=lse_nmse if name == "flash_attn_fwd_lse" else None,
+                       ms=device_ms(torch, call, flush, 20) if time_it else None,
+                       plain_ms=device_ms(torch, plain_fn, flush, 3) if time_it else None, library_ms=lib,
+                       bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+            record(name, rec, 1e-10 if dtype == "float32" else GATE[name])
+
+    train_case(8, 16, 16, 512, 512, 64, "bfloat16")    # GPT-2-medium's training step, one layer
+    train_case(4, 16, 16, 1024, 1024, 64, "bfloat16")  # GPT-2's context
+    # correctness only: GQA, ALiBi, ragged lengths, no mask, dead rows (the
+    # bf16 -1e30 row makes K walk its block again without skipping)
+    for dtype in ("float32", "bfloat16"):
+        train_case(2, 8, 2, 64, 128, 64, dtype, time_it=False)
+        train_case(1, 4, 4, 64, 64, 64, dtype, max_bias=8.0, time_it=False)
+        train_case(1, 4, 4, 50, 96, 64, dtype, time_it=False)
+        train_case(1, 4, 4, 64, 64, 64, dtype, mask_kind=None, time_it=False)
+        train_case(1, 2, 2, 128, 128, 64, dtype, mask_kind="dead-inf", time_it=False)
+    train_case(1, 2, 2, 64, 64, 64, "float32", mask_kind="dead-1e30", time_it=False)
+    train_case(1, 2, 2, 128, 128, 64, "bfloat16", mask_kind="dead-1e30", time_it=False)
 
     hq = hkv = 16
     d = 256
@@ -625,6 +735,140 @@ def phase_tiny_reference(torch, np):
     return out
 
 
+def _kernel_class(key: str) -> str:
+    """What a device kernel of a training step is, by its name."""
+    if "flash_attn_bf16_kernel" in key or "flash_attn_f32_kernel" in key:
+        return "K"
+    if "fa_bwd_dq" in key:
+        return "L"
+    if "fa_bwd_dkv" in key:
+        return "M"
+    if any(tag in key.lower() for tag in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
+        return "GEMM"
+    return "other"
+
+
+def phase_train(torch, np) -> dict:
+    """GPT-2-medium at its published widths, trained as bench.py's train
+    mode composes it (make_lm_model_fn + Optimizer; batch 8 x 512 tokens,
+    bf16 forward and backward over f32 masters, bf16 moments, the fused
+    sparse cross entropy, flash attention) on a repeating pattern of random
+    token ids from token_windows: 1 warm step, 6 timed ones with every launch
+    counted (24 layers: exactly 24 of each of K, L and M a step), then one
+    profiled step (after the counters are read)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ggml_tpu_torch.models import gpt2
+    from ggml_tpu_torch.opt import AdamWConfig, Optimizer, make_lm_model_fn, token_windows
+
+    cfg = gpt2.GPT2Config(n_vocab=50257, n_ctx=1024, n_embd=1024, n_head=16, n_layer=24)
+    batch, seq, steps = 8, 512, 6
+    t0 = time.perf_counter()
+    params = gpt2.init_random_params(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in params.values())
+    model_fn = make_lm_model_fn(gpt2, cfg, seq, batch, compute_dtype=torch.bfloat16, cast_logits_f32=False,
+                                train_flash=True)
+    opt = Optimizer(model_fn, params, loss_type="cross_entropy_sparse_fused",
+                    adamw=AdamWConfig(state_dtype="bfloat16"), classify=False)
+    del params
+    pattern = np.random.default_rng(0).integers(0, cfg.n_vocab, 97)
+    ds = token_windows(np.resize(pattern, batch * seq + 1), seq)
+    x, y = (torch.from_numpy(a).cuda() for a in ds.get_batch(0, batch))
+    torch.cuda.synchronize()
+    print(f"  {n_params / 1e6:.1f} M parameters, set up in {time.perf_counter() - t0:.1f}s")
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(opt.step(x, y)["loss"])]  # warm
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = [opt.step(x, y) for _ in range(steps)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses += [float(m["loss"]) for m in metrics]
+    want = {k: (cfg.n_layer * steps if k in TRAIN else 0) for k in counts}
+    check(counts == want, f"GPT-2-medium training: launches {counts}, want {want}")
+    check(all(np.isfinite(losses)), f"GPT-2-medium training: losses {losses}")
+    check(losses[-1] < losses[0], f"GPT-2-medium training: the loss did not fall: {losses}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        opt.step(x, y)
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    shares = {}
+    for e in events:
+        cls = _kernel_class(e.key)
+        shares[cls] = shares.get(cls, 0.0) + e.self_device_time_total / 1e3
+    others = sorted((e for e in events if _kernel_class(e.key) == "other"), key=lambda e: -e.self_device_time_total)
+    top_other = [dict(kernel=e.key[:120], ms=e.self_device_time_total / 1e3, calls=e.count) for e in others[:8]]
+    launches = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
+    tokens = batch * seq
+    flop = 6.0 * n_params * tokens
+    out = dict(model="gpt2-medium", n_params=n_params, batch=batch, seq=seq, steps=steps, ms_per_step=step_ms,
+               tokens_per_s=tokens / (step_ms * 1e-3), mfu=flop / (step_ms * 1e-3) / PEAK_OPS["bf16"],
+               floor_ms_per_step=flop / PEAK_OPS["bf16"] * 1e3, losses=losses, peak_memory_gb=peak_gb,
+               launches=counts, counts=counts, profiled_step=dict(
+                   device_busy_ms=busy_ms, ms_by_class=shares, cuda_launches=launches,
+                   share_by_class={k: v / busy_ms for k, v in shares.items()}, top_other_kernels=top_other))
+    print(f"  {step_ms:.1f} ms/step on the host's clock ({tokens / (step_ms * 1e-3):.0f} tokens/s, MFU "
+          f"{out['mfu'] * 100:.1f} % of {PEAK_OPS['bf16'] / 1e12:.0f} TFLOP/s; floor {out['floor_ms_per_step']:.2f} "
+          f"ms/step), peak memory {peak_gb:.2f} GB")
+    print(f"  losses {[round(v, 4) for v in losses]}")
+    print(f"  launches over {steps} steps: " + ", ".join(f"{k} {counts[k]}" for k in TRAIN))
+    print(f"  profiled step: device busy {busy_ms:.1f} ms, {launches} kernel launches; "
+          + ", ".join(f"{k} {v:.2f} ms ({v / busy_ms * 100:.1f} %)" for k, v in sorted(shares.items())))
+    for o in top_other:
+        print(f"    other: {o['ms']:7.2f} ms in {o['calls']:5d} calls  {o['kernel']}")
+    del opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tiny_train(torch, np) -> dict:
+    """A tiny f32 GPT-2 (2 layers, E 64, 4 heads, seq 64) on the card (f32
+    kernels K, L, M) against the same model on the CPU (plain versions): the
+    loss and every gradient through train_flash, then 3 AdamW steps.  f32 sums
+    in another order: NMSE <= 1e-10 for loss and gradients; params after the
+    steps <= 1e-8, the key bias left out (softmax ignores a shift shared by a
+    row's scores, so its gradient is rounding noise, which AdamW turns into
+    +-alpha steps of either sign)."""
+    from ggml_tpu_torch.models import gpt2
+    from ggml_tpu_torch.opt import AdamWConfig, Optimizer, make_lm_model_fn
+    from ggml_tpu_torch.opt.optimizer import LOSS_TYPES
+
+    cfg = gpt2.GPT2Config(n_vocab=128, n_ctx=64, n_embd=64, n_head=4, n_layer=2)
+    rng = np.random.default_rng(3)
+    x, y = (torch.from_numpy(rng.integers(0, 128, (2, 64))) for _ in range(2))
+    fn = make_lm_model_fn(gpt2, cfg, 64, 2, cast_logits_f32=False, train_flash=True)
+    cpu = gpt2.init_random_params(cfg, seed=1, device="cpu")
+    runs = []
+    for dev in ("cpu", "cuda"):
+        leaves = {k: v.to(dev).clone().requires_grad_() for k, v in cpu.items()}
+        loss = LOSS_TYPES["cross_entropy_sparse_fused"](fn(leaves, x.to(dev)), y.to(dev))
+        loss.backward()
+        opt = Optimizer(fn, {k: v.to(dev) for k, v in cpu.items()}, loss_type="cross_entropy_sparse_fused",
+                        adamw=AdamWConfig(alpha=1e-3, wd=0.01), classify=False)
+        for _ in range(3):
+            opt.step(x.to(dev), y.to(dev))
+        runs.append((float(loss.detach()), {k: v.grad.cpu() for k, v in leaves.items()},
+                     {k: v.cpu() for k, v in opt.params.items()}))
+    (l0, g0, p0), (l1, g1, p1) = runs
+    loss_nmse = errors(torch.tensor([l0]), torch.tensor([l1]))[0]
+    grad_nmse = max(errors(g0[k], g1[k])[0] for k in g0)
+    E = cfg.n_embd
+    drop_key_bias = lambda k, t: torch.cat([t[:E], t[2 * E:]]) if k.endswith("attn_qkv.bias") else t
+    param_nmse = max(errors(drop_key_bias(k, p0[k]), drop_key_bias(k, p1[k]))[0] for k in p0)
+    print(f"  tiny f32 GPT-2, card against CPU: loss NMSE {loss_nmse:.2e}, worst gradient NMSE {grad_nmse:.2e}, "
+          f"params after 3 AdamW steps worst NMSE {param_nmse:.2e}")
+    check(loss_nmse <= 1e-10 and grad_nmse <= 1e-10, f"tiny GPT-2: loss {loss_nmse:.2e}, gradients {grad_nmse:.2e}")
+    check(param_nmse <= 1e-8, f"tiny GPT-2: params after 3 AdamW steps NMSE {param_nmse:.2e} > 1e-8")
+    return dict(loss_nmse=loss_nmse, worst_grad_nmse=grad_nmse, worst_param_nmse_after_3_steps=param_nmse)
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -643,6 +887,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # dense f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False  # bf16 GEMMs sum in f32, as XLA's
 
     try:
         print("== 1. card")
@@ -705,6 +950,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         print("== 4d. tiny GPT-J on the card against the CPU")
         tiny = phase_tiny_reference(torch, np)
+        print("== 4g. GPT-2-medium training, batch 8 x 512, bf16 over f32 masters, AdamW, flash attention")
+        runs.append(phase_train(torch, np))
+        print("== 4h. tiny f32 GPT-2 training on the card against the CPU")
+        tiny["gpt2_train"] = phase_tiny_train(torch, np)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -722,7 +971,7 @@ def main() -> int:
         main_rec = recs[-1] if name == "decode_attn" else recs[0]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
-            launches=sum(r["counts"][name] for r in runs), max_abs_err=max(r["max_abs_err"] for r in recs),
+            launches=sum(r["counts"].get(name, 0) for r in runs), max_abs_err=max(r["max_abs_err"] for r in recs),
             nmse=max(r["nmse"] for r in recs), shape=main_rec["shape"], ms=main_rec["ms"],
             plain_ms=main_rec["plain_ms"], bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
             library_ms=main_rec["library_ms"], shapes=recs))

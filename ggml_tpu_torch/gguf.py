@@ -1,10 +1,10 @@
-"""GGUF v3 reader — the port's own copy of the reading half of
-ggml_tpu/gguf.py (reference: src/gguf.cpp, spec docs/gguf.md).
+"""GGUF v3 reader and writer — the port's own copy of ggml_tpu/gguf.py
+(reference: src/gguf.cpp, spec docs/gguf.md).
 
 The reader mmaps the file and exposes tensors as zero-copy numpy views over
 the aligned data blob; `to_float32()` dequantizes through
-ggml_tpu_torch.quant.reference (F32/F16/BF16/Q4_K in this slice).  Writing
-GGUF files stays with the JAX package's tools.
+ggml_tpu_torch.quant.reference.  The writer writes F32 and F16 tensors (what
+finetuning saves), byte for byte as the JAX package's writer does.
 
 Tensor shape convention: GGUF stores dims as ne[0..n) with ne[0] the
 fastest-moving (contiguous) dimension — the REVERSE of numpy's C-order shape.
@@ -14,6 +14,7 @@ fastest-moving (contiguous) dimension — the REVERSE of numpy's C-order shape.
 from __future__ import annotations
 
 import enum
+import io
 import mmap
 import os
 import struct
@@ -25,6 +26,7 @@ from .dtypes import GGMLType, row_size
 from .quant import reference as qref
 
 GGUF_MAGIC = b"GGUF"
+GGUF_VERSION = 3
 GGUF_DEFAULT_ALIGNMENT = 32  # reference: include/gguf.h:46
 
 
@@ -199,3 +201,101 @@ class GGUFFile:
         """Dequantize to float32 in numpy (C-order) shape."""
         t = self.tensors[name]
         return qref.dequantize(self.tensor_bytes(name), t.ggml_type, t.n_elements).reshape(t.shape)
+
+
+class GGUFWriter:
+    """Single-pass GGUF v3 writer (reference: gguf_write_to_file,
+    src/gguf.cpp:1303) for F32 and F16 tensors."""
+
+    def __init__(self, alignment: int = GGUF_DEFAULT_ALIGNMENT):
+        self.alignment = alignment
+        self.kv: dict[str, tuple[GGUFValueType, object]] = {}
+        self._tensors: list[tuple[str, tuple[int, ...], GGMLType, bytes]] = []
+        if alignment != GGUF_DEFAULT_ALIGNMENT:
+            self.add_u32("general.alignment", alignment)
+
+    def add_value(self, key, vt: GGUFValueType, val):
+        self.kv[key] = (vt, val)
+
+    def add_u32(self, key, val):
+        self.add_value(key, GGUFValueType.UINT32, int(val))
+
+    def add_u64(self, key, val):
+        self.add_value(key, GGUFValueType.UINT64, int(val))
+
+    def add_f32(self, key, val):
+        self.add_value(key, GGUFValueType.FLOAT32, float(val))
+
+    def add_string(self, key, val):
+        self.add_value(key, GGUFValueType.STRING, str(val))
+
+    def add_array(self, key, vals, elem_type: GGUFValueType | None = None):
+        if elem_type is None:
+            if len(vals) and isinstance(vals[0], str):
+                elem_type = GGUFValueType.STRING
+            elif len(vals) and isinstance(vals[0], float):
+                elem_type = GGUFValueType.FLOAT32
+            else:
+                elem_type = GGUFValueType.INT32
+        self.add_value(key, GGUFValueType.ARRAY, (elem_type, list(vals)))
+
+    def add_tensor(self, name: str, data: np.ndarray, ggml_type: GGMLType | None = None):
+        """data: numpy array (C order), stored as F32 (the default for f32
+        data) or F16."""
+        if ggml_type is None:
+            ggml_type = GGMLType.F16 if data.dtype == np.float16 else GGMLType.F32
+        ggml_type = GGMLType(ggml_type)
+        if ggml_type not in (GGMLType.F32, GGMLType.F16):
+            raise NotImplementedError(f"writing {ggml_type.name} tensors is not ported yet (ROADMAP.md)")
+        x = np.ascontiguousarray(data, dtype=np.float32).reshape(-1)
+        blob = (x if ggml_type == GGMLType.F32 else x.astype(np.float16)).tobytes()
+        ne = tuple(reversed(data.shape)) if data.ndim else (1,)
+        self._tensors.append((name, ne, ggml_type, blob))
+
+    def _write_str(self, out, s: str):
+        b = s.encode("utf-8")
+        out.write(struct.pack("<Q", len(b)))
+        out.write(b)
+
+    def _write_value(self, out, vt: GGUFValueType, val):
+        if vt == GGUFValueType.STRING:
+            self._write_str(out, val)
+        elif vt == GGUFValueType.ARRAY:
+            et, vals = val
+            out.write(struct.pack("<I", int(et)))
+            out.write(struct.pack("<Q", len(vals)))
+            if et == GGUFValueType.STRING:
+                for v in vals:
+                    self._write_str(out, v)
+            else:
+                fmt, _ = _SCALAR_FMT[et]
+                for v in vals:
+                    out.write(struct.pack(fmt, v))
+        else:
+            fmt, _ = _SCALAR_FMT[vt]
+            out.write(struct.pack(fmt, val))
+
+    def write(self, path: str | os.PathLike):
+        out = io.BytesIO()
+        out.write(GGUF_MAGIC)
+        out.write(struct.pack("<IQQ", GGUF_VERSION, len(self._tensors), len(self.kv)))
+        for key, (vt, val) in self.kv.items():
+            self._write_str(out, key)
+            out.write(struct.pack("<I", int(vt)))
+            self._write_value(out, vt, val)
+        pad = lambda n: (-n) % self.alignment
+        offset = 0
+        for name, ne, ttype, blob in self._tensors:
+            self._write_str(out, name)
+            out.write(struct.pack("<I", len(ne)))
+            for d in ne:
+                out.write(struct.pack("<Q", d))
+            out.write(struct.pack("<I", int(ttype)))
+            out.write(struct.pack("<Q", offset))
+            offset += len(blob) + pad(len(blob))
+        out.write(b"\x00" * pad(out.tell()))
+        with open(path, "wb") as f:
+            f.write(out.getvalue())
+            for *_, blob in self._tensors:
+                f.write(blob)
+                f.write(b"\x00" * pad(len(blob)))

@@ -39,6 +39,9 @@ _SIGNATURES = {
     "q8_matmul": [P, P, P, P, P, P, I, I, I, P, I, I, I, P],
     "decode_attn": [P, P, P, P, P, P, P, I, I, I, I, ctypes.c_float, P],
     "flash_attn": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, ctypes.c_float, P],
+    "flash_attn_fwd_lse": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, P],
+    "flash_attn_bwd_dq": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, P],
+    "flash_attn_bwd_dkv": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, P],
 }
 
 _lib = None

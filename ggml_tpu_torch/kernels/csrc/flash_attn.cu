@@ -1,6 +1,7 @@
-// Flash attention forward (online softmax over key/value tiles), kernel J.
+// Flash attention forward (online softmax over key/value tiles), kernels J
+// (prefill) and K (the training forward, which also gives the logsumexp).
 //
-// Replaces (ggml_tpu/kernels/flash_attn.py) _fa_kernel (:30) with the work
+// J replaces (ggml_tpu/kernels/flash_attn.py) _fa_kernel (:30) with the work
 // flash_attention (:75) does around it: the padding of ragged q rows and kv
 // columns (bounds are checked here instead), the GQA head map and the final
 // transpose (the output is written as (b, nq, h, d_v) directly).  Per batch
@@ -12,6 +13,15 @@
 // the finite sentinel -1e30, so a mask value of -inf never makes NaN),
 // running sum l, p = exp(s - m) rounded to v's type before p . v, f32 sums;
 // rows whose max never leaves the sentinel give zeros.
+//
+// K replaces _fa_fwd_lse_kernel (:180) with the work _fa_forward_lse (:338)
+// does around it (padding, GQA map; the 128-lane LSE broadcast is dropped):
+// the same recurrence without softcap, plus lse_i = m + log(l) as one f32
+// per row in (b, h, nq).  Its dead rows are those with l = 0 (every p was
+// exp(-inf)): o = 0 and lse = +1e30, so the backward's exp(s - lse) is 0.  A
+// row masked with the finite -1e30 everywhere is NOT dead there: every p is
+// exp(0) = 1, o is the mean of v and lse about -1e30, as in the JAX kernel.
+// K is the LSE instance of J's two kernels, for bf16 q/k/v and for f32.
 //
 // Two kernels, three type sets:
 //   bf16 q/k/v: tensor cores, mma.sync m16n8k16 bf16 with f32 accumulation.
@@ -43,52 +53,20 @@
 // A kv tile whose mask entries (times the slope) are all at or below -5e29
 // for the block's rows is skipped before K and V are loaded: every p in it
 // would be exp(-1e30 - m) = 0 for a live row, and a row that is dead so far
-// stays dead; a causal prefill so does half the work.  No cp.async, no
-// double buffering, no wgmma: later work.
+// stays dead; a causal prefill so does half the work.  For K the skip is
+// exact only for rows whose max ends above -2.5e29 (the skipped scores sit
+// 2.5e29 below it, so their p and the terms they would have added before the
+// row came alive are exactly 0): if a tile was skipped and a row of the block
+// ends at or below that, the block walks every tile again without skipping.
+// No cp.async, no double buffering, no wgmma: later work.
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "flash_common.cuh"
 
 namespace ggml_tpu_torch {
 namespace {
-
-constexpr float NEG_SENTINEL = -1e30f;
-constexpr int BQ = 64, BKV = 64, FA_THREADS = 128, PAD = 8;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half), .y = hi
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows x HD tile of bf16 rows (row stride src_ld elements, `cols` valid
-// columns, `rows` valid rows) -> shared tile [64][HD + PAD], zero elsewhere
-template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int rows,
-                                          int cols, int src_ld) {
-  constexpr int CH = HD / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < 64 * CH; i += FA_THREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r < rows && c < cols) v = *reinterpret_cast<const uint4*>(src + (size_t)r * src_ld + c);
-    *reinterpret_cast<uint4*>(dst + r * (HD + PAD) + c) = v;
-  }
-}
-
-// the A operand of m16n8k16 (rows g and g + 8, columns 2t.. and 2t + 8..) at qp
-__device__ __forceinline__ void load_a_frag(uint32_t a[4], const __nv_bfloat16* qp, int ld) {
-  a[0] = *reinterpret_cast<const uint32_t*>(qp);
-  a[1] = *reinterpret_cast<const uint32_t*>(qp + 8 * ld);
-  a[2] = *reinterpret_cast<const uint32_t*>(qp + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(qp + 8 * ld + 8);
-}
 
 // load_tile from f32 rows, split into two tiles: hi = bf16(x) and lo = bf16(x - hi)
 template <int HD>
@@ -116,11 +94,12 @@ __device__ __forceinline__ void load_tile_split(__nv_bfloat16* hi, __nv_bfloat16
 
 // QK32: q and k are f32 (TQ = float), split into hi and lo bf16 tiles, and
 // the output is f32; else q, k and the output are bf16.  v is bf16 in both.
-template <int HD, bool QK32, typename TQ>
+// LSE: kernel K (no softcap, K's dead rows, lse written); else kernel J.
+template <int HD, bool QK32, bool LSE, typename TQ>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attn_bf16_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask,
-                       const float* __restrict__ slopes, TQ* __restrict__ out,
+                       const float* __restrict__ slopes, TQ* __restrict__ out, float* __restrict__ lse,
                        int H, int Hkv, int nq, int nkv, int d, int dv, float scale, float softcap) {
   constexpr int LD = HD + PAD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -146,20 +125,28 @@ flash_attn_bf16_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
   // this thread's two rows: r_lo = 16 * warp + g and r_lo + 8 of the block
   const int r_lo = 16 * warp + g;
   const int row_lo = min(q0 + r_lo, nq - 1), row_hi = min(q0 + r_lo + 8, nq - 1);  // clamped for mask reads
-  float m_lo = NEG_SENTINEL, m_hi = NEG_SENTINEL, l_lo = 0.f, l_hi = 0.f;
+  float m_lo, m_hi, l_lo, l_hi;
   float o[HD / 8][4];
+  bool may_skip = have_mask;
+  for (;;) {  // one walk over the kv tiles; K walks again without skipping where that was not exact
+  m_lo = m_hi = NEG_SENTINEL;
+  l_lo = l_hi = 0.f;
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  bool skipped = false;
 
   for (int kv0 = 0; kv0 < nkv; kv0 += BKV) {
-    if (have_mask) {  // skip a tile that is masked out for every row of the block
+    if (may_skip) {  // skip a tile that is masked out for every row of the block
       int live = 0;
       const int rows = min(BQ, nq - q0), cols = min(BKV, nkv - kv0);
       for (int i = threadIdx.x; i < rows * BKV; i += FA_THREADS) {
         const int r = i / BKV, c = i % BKV;
         if (c < cols && slope * mask[(size_t)(q0 + r) * nkv + kv0 + c] > 0.5f * NEG_SENTINEL) live = 1;
       }
-      if (!__syncthreads_or(live)) continue;
+      if (!__syncthreads_or(live)) {
+        skipped = true;
+        continue;
+      }
     }
     __syncthreads();  // the previous tile's K and V are read
     if constexpr (QK32) load_tile_split<HD>(Ks, Kl, kb + (size_t)kv0 * d, min(BKV, nkv - kv0), d, d);
@@ -198,7 +185,7 @@ flash_attn_bf16_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = kv0 + j * 8 + 2 * t + (e & 1);
-        float sv = softcap != 0.f ? tanhf(s[j][e] * scale) * softcap : s[j][e] * scale;
+        float sv = !LSE && softcap != 0.f ? tanhf(s[j][e] * scale) * softcap : s[j][e] * scale;
         if (col >= nkv) {
           sv = -INFINITY;
         } else if (have_mask) {
@@ -260,12 +247,30 @@ flash_attn_bf16_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
       }
     }
   }
+  if constexpr (!LSE) break;
+  // skipped is the same in every thread; rows past nq do not count
+  const bool low = (q0 + r_lo < nq && m_lo <= 0.25f * NEG_SENTINEL) ||
+                   (q0 + r_lo + 8 < nq && m_hi <= 0.25f * NEG_SENTINEL);
+  if (!__syncthreads_or(skipped && low)) break;
+  may_skip = false;
+  }
 
   // a row's l is spread over its quad
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  if constexpr (LSE) {
+    // K's dead rows: l = 0; o = 0 and lse = +1e30 (the backward's p underflows to 0)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = q0 + r_lo + 8 * half;
+      const float l = half ? l_hi : l_lo, m = half ? m_hi : m_lo;
+      if (row < nq && t == 0) lse[((size_t)b * H + h) * nq + row] = l == 0.f ? -NEG_SENTINEL : m + logf(l);
+    }
+    m_lo = l_lo == 0.f ? NEG_SENTINEL : 0.f;  // reused below as the dead flag of J
+    m_hi = l_hi == 0.f ? NEG_SENTINEL : 0.f;
+  }
   if (l_lo == 0.f) l_lo = 1.f;
   if (l_hi == 0.f) l_hi = 1.f;
   const bool dead_lo = m_lo <= 0.5f * NEG_SENTINEL, dead_hi = m_hi <= 0.5f * NEG_SENTINEL;
@@ -290,13 +295,15 @@ flash_attn_bf16_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
 
 // f32 inputs: a warp per query row, a lane per key of a 32-key tile for the
 // scores and per output column (stride 32, up to 256 columns) for p . v.
+// No tile is skipped.  LSE: kernel K, as in the bf16 kernel.
 constexpr int F32_ROWS = 4, F32_MAXC = 8;
 
+template <bool LSE>
 __global__ void __launch_bounds__(32 * F32_ROWS)
 flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ mask,
-                      const float* __restrict__ slopes, float* __restrict__ out, int H, int Hkv,
-                      int nq, int nkv, int d, int dv, float scale, float softcap) {
+                      const float* __restrict__ slopes, float* __restrict__ out, float* __restrict__ lse,
+                      int H, int Hkv, int nq, int nkv, int d, int dv, float scale, float softcap) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);  // [F32_ROWS][d]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -325,7 +332,7 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float* kp = kb + (size_t)j * d;
       float dot = 0.f;
       for (int i = 0; i < d; ++i) dot = fmaf(qr[i], kp[i], dot);
-      sv = softcap != 0.f ? tanhf(dot * scale) * softcap : dot * scale;
+      sv = !LSE && softcap != 0.f ? tanhf(dot * scale) * softcap : dot * scale;
       if (mask != nullptr) sv += slope * mask[(size_t)row * nkv + j];
     }
     const float mn = fmaxf(m, warp_max(sv));
@@ -345,8 +352,12 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       o[c] = o[c] * alpha + acc;
     }
   }
+  bool dead = m <= 0.5f * NEG_SENTINEL;
+  if constexpr (LSE) {  // K's dead rows: l = 0
+    dead = l == 0.f;
+    if (lane == 0) lse[((size_t)b * H + h) * nq + row] = dead ? -NEG_SENTINEL : m + logf(l);
+  }
   if (l == 0.f) l = 1.f;
-  const bool dead = m <= 0.5f * NEG_SENTINEL;
   float* op = out + ((size_t)(b * nq + row) * H + h) * dv;
 #pragma unroll
   for (int c = 0; c < F32_MAXC; ++c) {
@@ -355,58 +366,88 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int HD, bool QK32>
+template <int HD, bool QK32, bool LSE>
 int launch_mma(dim3 grid, cudaStream_t s, const void* q, const void* k, const void* v,
-               const void* mask, const void* slopes, void* out, int H, int Hkv, int nq, int nkv,
-               int d, int dv, float scale, float softcap) {
+               const void* mask, const void* slopes, void* out, float* lse, int H, int Hkv, int nq,
+               int nkv, int d, int dv, float scale, float softcap) {
   using TQ = typename std::conditional<QK32, float, __nv_bfloat16>::type;
   constexpr int smem = (QK32 ? 5 : 3) * 64 * (HD + PAD) * (int)sizeof(__nv_bfloat16);
-  const cudaError_t rc = cudaFuncSetAttribute(flash_attn_bf16_kernel<HD, QK32, TQ>,
+  const cudaError_t rc = cudaFuncSetAttribute(flash_attn_bf16_kernel<HD, QK32, LSE, TQ>,
                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return (int)rc;
-  flash_attn_bf16_kernel<HD, QK32, TQ><<<grid, FA_THREADS, smem, s>>>(
+  flash_attn_bf16_kernel<HD, QK32, LSE, TQ><<<grid, FA_THREADS, smem, s>>>(
       static_cast<const TQ*>(q), static_cast<const TQ*>(k), static_cast<const __nv_bfloat16*>(v),
-      static_cast<const float*>(mask), static_cast<const float*>(slopes), static_cast<TQ*>(out), H, Hkv,
-      nq, nkv, d, dv, scale, softcap);
+      static_cast<const float*>(mask), static_cast<const float*>(slopes), static_cast<TQ*>(out), lse, H,
+      Hkv, nq, nkv, d, dv, scale, softcap);
   return (int)cudaGetLastError();
 }
 
-template <bool QK32>
+template <bool QK32, bool LSE>
 int launch_by_head_dim(int hd, dim3 grid, cudaStream_t s, const void* q, const void* k, const void* v,
-                       const void* mask, const void* slopes, void* out, int H, int Hkv, int nq, int nkv,
-                       int d, int dv, float scale, float softcap) {
-  if (hd <= 64) return launch_mma<64, QK32>(grid, s, q, k, v, mask, slopes, out, H, Hkv, nq, nkv, d, dv, scale, softcap);
-  if (hd <= 128) return launch_mma<128, QK32>(grid, s, q, k, v, mask, slopes, out, H, Hkv, nq, nkv, d, dv, scale, softcap);
-  return launch_mma<256, QK32>(grid, s, q, k, v, mask, slopes, out, H, Hkv, nq, nkv, d, dv, scale, softcap);
+                       const void* mask, const void* slopes, void* out, float* lse, int H, int Hkv,
+                       int nq, int nkv, int d, int dv, float scale, float softcap) {
+  if (hd <= 64)
+    return launch_mma<64, QK32, LSE>(grid, s, q, k, v, mask, slopes, out, lse, H, Hkv, nq, nkv, d, dv, scale, softcap);
+  if (hd <= 128)
+    return launch_mma<128, QK32, LSE>(grid, s, q, k, v, mask, slopes, out, lse, H, Hkv, nq, nkv, d, dv, scale, softcap);
+  return launch_mma<256, QK32, LSE>(grid, s, q, k, v, mask, slopes, out, lse, H, Hkv, nq, nkv, d, dv, scale, softcap);
 }
 
-}  // namespace
-}  // namespace ggml_tpu_torch
-
-// q (B, H, nq, d), k (B, Hkv, nkv, d), v (B, Hkv, nkv, dv) -> out (B, nq, H, dv),
-// contiguous.  types: 0 = all f32, 1 = all bf16, 2 = q, k and out f32 with
-// bf16 v.  mask: f32 (>= nq rows, nkv
-// columns, row stride nkv) or null; slopes: f32 (H).  score_scale is `scale`,
-// or scale / softcap where softcap != 0.  d and dv: multiples of 8 up to 256.
-extern "C" int flash_attn(const void* q, const void* k, const void* v, const void* mask,
-                          const void* slopes, void* out, int types, int B, int H, int Hkv, int nq,
-                          int nkv, int d, int dv, float score_scale, float softcap, void* stream) {
-  using namespace ggml_tpu_torch;
+// J, or K where lse is given (types 0 or 1 only, softcap 0)
+int launch(const void* q, const void* k, const void* v, const void* mask, const void* slopes, void* out,
+           float* lse, int types, int B, int H, int Hkv, int nq, int nkv, int d, int dv, float score_scale,
+           float softcap, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || nq < 1 || nkv < 1 || d < 8 || dv < 8 || d % 8 || dv % 8 ||
       d > 256 || dv > 256 || H > 65535 || B > 65535 || types < 0 || types > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (types == 0) {
     const dim3 grid((nq + F32_ROWS - 1) / F32_ROWS, H, B);
-    flash_attn_f32_kernel<<<grid, 32 * F32_ROWS, F32_ROWS * d * sizeof(float), s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(mask), static_cast<const float*>(slopes), static_cast<float*>(out),
-        H, Hkv, nq, nkv, d, dv, score_scale, softcap);
+    const size_t smem = F32_ROWS * d * sizeof(float);
+    const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+                *vf = static_cast<const float*>(v), *mf = static_cast<const float*>(mask),
+                *sf = static_cast<const float*>(slopes);
+    if (lse != nullptr)
+      flash_attn_f32_kernel<true><<<grid, 32 * F32_ROWS, smem, s>>>(
+          qf, kf, vf, mf, sf, static_cast<float*>(out), lse, H, Hkv, nq, nkv, d, dv, score_scale, 0.f);
+    else
+      flash_attn_f32_kernel<false><<<grid, 32 * F32_ROWS, smem, s>>>(
+          qf, kf, vf, mf, sf, static_cast<float*>(out), nullptr, H, Hkv, nq, nkv, d, dv, score_scale, softcap);
     return (int)cudaGetLastError();
   }
   const dim3 grid((nq + BQ - 1) / BQ, H, B);
   const int hd = d > dv ? d : dv;
+  if (lse != nullptr)
+    return types == 1 ? launch_by_head_dim<false, true>(hd, grid, s, q, k, v, mask, slopes, out, lse, H, Hkv, nq,
+                                                        nkv, d, dv, score_scale, 0.f)
+                      : (int)cudaErrorInvalidValue;
   if (types == 2)
-    return launch_by_head_dim<true>(hd, grid, s, q, k, v, mask, slopes, out, H, Hkv, nq, nkv, d, dv, score_scale, softcap);
-  return launch_by_head_dim<false>(hd, grid, s, q, k, v, mask, slopes, out, H, Hkv, nq, nkv, d, dv, score_scale, softcap);
+    return launch_by_head_dim<true, false>(hd, grid, s, q, k, v, mask, slopes, out, nullptr, H, Hkv, nq, nkv, d,
+                                           dv, score_scale, softcap);
+  return launch_by_head_dim<false, false>(hd, grid, s, q, k, v, mask, slopes, out, nullptr, H, Hkv, nq, nkv, d, dv,
+                                          score_scale, softcap);
+}
+
+}  // namespace
+}  // namespace ggml_tpu_torch
+
+// Kernel J.  q (B, H, nq, d), k (B, Hkv, nkv, d), v (B, Hkv, nkv, dv) -> out
+// (B, nq, H, dv), contiguous.  types: 0 = all f32, 1 = all bf16, 2 = q, k and
+// out f32 with bf16 v.  mask: f32 (>= nq rows, nkv columns, row stride nkv)
+// or null; slopes: f32 (H).  score_scale is `scale`, or scale / softcap where
+// softcap != 0.  d and dv: multiples of 8 up to 256.
+extern "C" int flash_attn(const void* q, const void* k, const void* v, const void* mask,
+                          const void* slopes, void* out, int types, int B, int H, int Hkv, int nq,
+                          int nkv, int d, int dv, float score_scale, float softcap, void* stream) {
+  return ggml_tpu_torch::launch(q, k, v, mask, slopes, out, nullptr, types, B, H, Hkv, nq, nkv, d, dv,
+                                score_scale, softcap, stream);
+}
+
+// Kernel K: J's arguments (types 0 or 1, no softcap) and lse, f32 (B, H, nq).
+extern "C" int flash_attn_fwd_lse(const void* q, const void* k, const void* v, const void* mask,
+                                  const void* slopes, void* out, void* lse, int types, int B, int H, int Hkv,
+                                  int nq, int nkv, int d, int dv, float scale, void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return ggml_tpu_torch::launch(q, k, v, mask, slopes, out, static_cast<float*>(lse), types, B, H, Hkv, nq, nkv,
+                                d, dv, scale, 0.f, stream);
 }

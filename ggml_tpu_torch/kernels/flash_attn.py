@@ -1,6 +1,7 @@
-"""Flash attention forward (kernel J): online-softmax attention for prefill.
+"""Flash attention: the prefill forward (kernel J) and the training forward
+and backward (kernels K, L, M).
 
-The port of ggml_tpu/kernels/flash_attn.py `flash_attention`: additive f32
+J is the port of ggml_tpu/kernels/flash_attn.py `flash_attention`: additive f32
 mask (the ggml KQ mask) times a per-head ALiBi slope, optional logit softcap
 applied before the mask, GQA by h // h_kv, f32 scores and sums, `p` rounded to
 v's type before p @ v, rows that never leave the -1e30 sentinel give zeros.
@@ -8,21 +9,33 @@ Ragged q and kv lengths need no padding here: the kernel checks bounds.
 q, k and v are all bf16, all f32, or f32 q and k with bf16 v: what a bf16
 model's prefill hands over, since RoPE leaves q and k in f32.
 
-For CPU tensors the wrapper runs the plain PyTorch version; for CUDA tensors
-it launches the kernel (csrc/flash_attn.cu), never the plain version.
-`launches` counts kernel launches.
+K, L and M are the port of `flash_attention_train` (`_fa_forward_lse`,
+`_fa_train_bwd`): the same function without softcap, differentiable, with a
+backward from the saved output and its logsumexp (FlashAttention-2).  K gives
+the output and the LSE, one f32 per row; L gives dq, M dk and dv.  p and ds stay
+f32 in the backward; only the forward rounds p to v's type before p @ v.  Its
+dead rows are those where every score is -inf: zeros, LSE +1e30 and no
+gradient.  A row masked with the finite -1e30 everywhere is not dead: every p
+is 1, the output the mean of v, the LSE about -1e30 (the JAX kernels'
+arithmetic, where JAX pads nothing).  q, k and v are all bf16 or all f32.
+
+For CPU tensors each wrapper runs its plain PyTorch version; for CUDA tensors
+it launches its kernel (csrc/flash_attn.cu: J and K; csrc/flash_attn_bwd.cu:
+L and M), never the plain version.  `launches` counts kernel launches.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
-launches = {"flash_attn": 0}
+launches = {"flash_attn": 0, "flash_attn_fwd_lse": 0, "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0}
 
 _NEG_INF = -1e30  # finite "minus infinity": the running max starts here, so exp() stays NaN-free
 _BKV = 64  # kv rows per step, of the CUDA kernel and of the plain version
@@ -32,6 +45,7 @@ _BKV = 64  # kv rows per step, of the CUDA kernel and of the plain version
 _TYPES = {(torch.float32, torch.float32, torch.float32): 0,
           (torch.bfloat16, torch.bfloat16, torch.bfloat16): 1,
           (torch.float32, torch.float32, torch.bfloat16): 2}
+_TRAIN_TYPES = {(torch.float32,) * 3: 0, (torch.bfloat16,) * 3: 1}  # K, L and M
 
 
 def alibi_slopes(n_head: int, max_bias: float) -> np.ndarray:
@@ -46,14 +60,21 @@ def alibi_slopes(n_head: int, max_bias: float) -> np.ndarray:
     return slopes.astype(np.float32)
 
 
-def _flash_attention_plain(q, k, v, mask, slopes, score_scale: float, softcap: float) -> torch.Tensor:
-    """The kernel's function in PyTorch: the online-softmax recurrence over
-    kv tiles of 64 rows, the kernel's.  The tile fixes the running max each p
-    is rounded against before p @ v; the JAX wrapper picks other tiles, so for
-    a bf16 v the two differ by single bf16 roundings of p (for an f32 v only
-    in the last bits).  mask: (nq, nkv) f32 or None; slopes: (h,) f32;
-    score_scale: scale, or scale / softcap where softcap != 0.  Returns
-    (b, nq, h, d_v) in q's type."""
+@functools.lru_cache(maxsize=16)
+def _slopes_on(n_head: int, max_bias: float, device: torch.device) -> torch.Tensor:
+    """The ALiBi slopes on `device`, built once per (heads, max_bias, device):
+    a copy from host memory on every call would block the host."""
+    return torch.from_numpy(alibi_slopes(n_head, max_bias)).to(device)
+
+
+def _online_softmax_plain(q, k, v, mask, slopes, score_scale: float, softcap: float):
+    """The forward kernels' recurrence in PyTorch over kv tiles of 64 rows,
+    the kernels'.  The tile fixes the running max each p is rounded against
+    before p @ v; the JAX wrappers pick other tiles, so for a bf16 v the two
+    differ by single bf16 roundings of p (for an f32 v only in the last bits).
+    mask: (nq, nkv) f32 or None; slopes: (h,) f32; score_scale: scale, or
+    scale / softcap where softcap != 0.  Returns the running sum of p @ v, the
+    max and the sum of p after the last tile, (b, h, nq, d_v) and (b, h, nq, 1)."""
     b, h, n_q, _ = q.shape
     _, h_kv, n_kv, d_v = v.shape
     rep = h // h_kv
@@ -74,33 +95,87 @@ def _flash_attention_plain(q, k, v, mask, slopes, score_scale: float, softcap: f
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), vt.float())
         m = m_new
+    return acc, m, l
+
+
+def _flash_attention_plain(q, k, v, mask, slopes, score_scale: float, softcap: float) -> torch.Tensor:
+    """Kernel J's function: rows whose max never leaves the -1e30 sentinel
+    give zeros.  Returns (b, nq, h, d_v) in q's type."""
+    acc, m, l = _online_softmax_plain(q, k, v, mask, slopes, score_scale, softcap)
     l = torch.where(l == 0.0, torch.ones_like(l), l)
     out = torch.where(m <= _NEG_INF * 0.5, torch.zeros_like(acc), acc / l)
     return out.to(q.dtype).transpose(1, 2).contiguous()
 
 
-def flash_attention(q, k, v, mask=None, scale: float = 1.0, max_bias: float = 0.0,
-                    logit_softcap: float = 0.0) -> torch.Tensor:
-    """Fused attention.  q (b, h, nq, d), k (b, h_kv, nkv, d), v (b, h_kv, nkv,
-    d_v), all bf16, all f32, or f32 q and k with bf16 v; mask (nq', nkv)
-    additive f32 with nq' >= nq, or None.  Returns (b, nq, h, d_v) in q's type."""
+def _fa_forward_lse_plain(q, k, v, mask, slopes, scale: float):
+    """Kernel K's function: rows with l = 0 give zeros and LSE +1e30.
+    Returns o (b, nq, h, d_v) in q's type and lse (b, h, nq) f32."""
+    acc, m, l = _online_softmax_plain(q, k, v, mask, slopes, scale, 0.0)
+    dead = l == 0.0
+    l1 = torch.where(dead, torch.ones_like(l), l)
+    out = torch.where(dead, torch.zeros_like(acc), acc / l1)
+    lse = torch.where(dead, torch.full_like(m, -_NEG_INF), m + torch.log(l1))
+    return out.to(q.dtype).transpose(1, 2).contiguous(), lse[..., 0]
+
+
+def _p_ds_plain(q, k, v, mask, slopes, scale: float, do, lse, delta):
+    """p and ds (b, h, nq, nkv) f32 of the backward kernels, and the f32 q, k
+    (per q head) and dO (b, h, nq, d_v) they are multiplied with."""
+    rep = q.shape[1] // k.shape[1]
+    qf = q.float()
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    dof = do.float().transpose(1, 2)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if mask is not None:
+        s = s + slopes.view(1, -1, 1, 1) * mask
+    p = torch.exp(s - lse[..., None])
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta[..., None]) * scale
+    return p, ds, qf, kf, dof
+
+
+def _fa_bwd_dq_plain(q, k, v, mask, slopes, scale: float, do, lse, delta) -> torch.Tensor:
+    """Kernel L's function: dq (b, h, nq, d) in q's type."""
+    _, ds, _, kf, _ = _p_ds_plain(q, k, v, mask, slopes, scale, do, lse, delta)
+    return torch.matmul(ds, kf).to(q.dtype)
+
+
+def _fa_bwd_dkv_plain(q, k, v, mask, slopes, scale: float, do, lse, delta):
+    """Kernel M's function: dk (b, h, nkv, d) and dv (b, h, nkv, d_v) per q
+    head, in k's and v's types."""
+    p, ds, qf, _, dof = _p_ds_plain(q, k, v, mask, slopes, scale, do, lse, delta)
+    return torch.matmul(ds.transpose(-1, -2), qf).to(k.dtype), torch.matmul(p.transpose(-1, -2), dof).to(v.dtype)
+
+
+def _prepare(q, k, v, mask, types: dict):
+    """Check the inputs of a flash wrapper; returns the type-set code, the
+    shapes (b, h, n_q, d, h_kv, n_kv, d_v) and the mask as (nq, nkv) f32."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be (batch, heads, rows, dim)")
     b, h, n_q, d = q.shape
     _, h_kv, n_kv, d_v = v.shape
     if (k.shape[0], v.shape[0]) != (b, b) or k.shape[1] != h_kv or h % h_kv or k.shape[2:] != (n_kv, d):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} do not fit together")
-    types = _TYPES.get((q.dtype, k.dtype, v.dtype))
-    if types is None:
-        raise TypeError("q, k and v must all be bfloat16, all float32, or float32 q and k with bfloat16 v, "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    code = types.get((q.dtype, k.dtype, v.dtype))
+    if code is None:
+        raise TypeError(f"unsupported types of q, k and v: {q.dtype}, {k.dtype}, {v.dtype}")
     if any(t.device != q.device for t in (k, v)) or (mask is not None and mask.device != q.device):
         raise ValueError("all inputs must be on one device")
     if mask is not None:
         if mask.shape[-1] != n_kv or mask.numel() // n_kv < n_q or mask.numel() != mask.shape[-2] * n_kv:
             raise ValueError(f"mask {tuple(mask.shape)} does not cover ({n_q}, {n_kv})")
         mask = mask.reshape(-1, n_kv)[:n_q].float()
-    slopes = torch.from_numpy(alibi_slopes(h, max_bias)).to(q.device)
+    return code, (b, h, n_q, d, h_kv, n_kv, d_v), mask
+
+
+def flash_attention(q, k, v, mask=None, scale: float = 1.0, max_bias: float = 0.0,
+                    logit_softcap: float = 0.0) -> torch.Tensor:
+    """Fused attention (kernel J).  q (b, h, nq, d), k (b, h_kv, nkv, d), v
+    (b, h_kv, nkv, d_v), all bf16, all f32, or f32 q and k with bf16 v; mask
+    (nq', nkv) additive f32 with nq' >= nq, or None.  Returns (b, nq, h, d_v)
+    in q's type."""
+    types, (b, h, n_q, d, h_kv, n_kv, d_v), mask = _prepare(q, k, v, mask, _TYPES)
+    slopes = _slopes_on(h, float(max_bias), q.device)
     softcap = float(logit_softcap)
     score_scale = float(scale / softcap) if softcap != 0.0 else float(scale)
     if not q.is_cuda:
@@ -120,3 +195,133 @@ def flash_attention(q, k, v, mask=None, scale: float = 1.0, max_bias: float = 0.
     launches["flash_attn"] += 1
     _build.check(rc, "flash_attn")
     return out
+
+
+def _check_train_dims(code: int, d: int, d_v: int):
+    top = 256 if code == 0 else 128
+    if d % 8 or d_v % 8 or d > top or d_v > top:
+        raise ValueError(f"head dims {d}/{d_v}: the training kernels take multiples of 8 up to {top} "
+                         f"for {'f32' if code == 0 else 'bf16'}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def flash_attention_fwd_lse(q, k, v, mask=None, scale: float = 1.0, max_bias: float = 0.0):
+    """The training forward (kernel K).  q (b, h, nq, d), k (b, h_kv, nkv,
+    d), v (b, h_kv, nkv, d_v), all bf16 or all f32; mask (nq', nkv) additive
+    f32 with nq' >= nq, or None.  Returns o (b, nq, h, d_v) in q's type and
+    lse (b, h, nq) f32."""
+    code, (b, h, n_q, d, h_kv, n_kv, d_v), mask = _prepare(q, k, v, mask, _TRAIN_TYPES)
+    slopes = _slopes_on(h, float(max_bias), q.device)
+    if not q.is_cuda:
+        return _fa_forward_lse_plain(q, k, v, mask, slopes, float(scale))
+
+    _check_train_dims(code, d, d_v)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    mask = None if mask is None else mask.contiguous()
+    out = torch.empty((b, n_q, h, d_v), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, n_q), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _build.lib().flash_attn_fwd_lse(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), slopes.data_ptr(),
+                                         out.data_ptr(), lse.data_ptr(), code, b, h, h_kv, n_q, n_kv, d, d_v,
+                                         float(scale), stream)
+    launches["flash_attn_fwd_lse"] += 1
+    _build.check(rc, "flash_attn_fwd_lse")
+    return out, lse
+
+
+def _bwd_args(q, k, v, mask, max_bias, do, lse, delta):
+    code, shapes, mask = _prepare(q, k, v, mask, _TRAIN_TYPES)
+    b, h, n_q, d, h_kv, n_kv, d_v = shapes
+    if tuple(do.shape) != (b, n_q, h, d_v) or do.dtype != q.dtype:
+        raise ValueError(f"dO {tuple(do.shape)} {do.dtype}: want ({b}, {n_q}, {h}, {d_v}) {q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (b, h, n_q) or t.dtype != torch.float32:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype}: want ({b}, {h}, {n_q}) float32")
+    if any(t.device != q.device for t in (do, lse, delta)):
+        raise ValueError("all inputs must be on one device")
+    return code, shapes, mask, _slopes_on(h, float(max_bias), q.device)
+
+
+def flash_attention_bwd_dq(q, k, v, mask, scale: float, max_bias: float, do, lse, delta) -> torch.Tensor:
+    """dq of the training attention (kernel L).  q, k, v and mask as for
+    flash_attention_fwd_lse; do (b, nq, h, d_v) the output's gradient, lse
+    (b, h, nq) from the forward, delta (b, h, nq) = rowsum(dO * O), both f32.
+    Returns dq (b, h, nq, d) in q's type."""
+    code, (b, h, n_q, d, h_kv, n_kv, d_v), mask, slopes = _bwd_args(q, k, v, mask, max_bias, do, lse, delta)
+    if not q.is_cuda:
+        return _fa_bwd_dq_plain(q, k, v, mask, slopes, float(scale), do, lse, delta)
+
+    _check_train_dims(code, d, d_v)
+    q, k, v, do, lse, delta = (t.contiguous() for t in (q, k, v, do, lse, delta))
+    mask = None if mask is None else mask.contiguous()
+    dq = torch.empty((b, h, n_q, d), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _build.lib().flash_attn_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), slopes.data_ptr(),
+                                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), code, b, h,
+                                        h_kv, n_q, n_kv, d, d_v, float(scale), stream)
+    launches["flash_attn_bwd_dq"] += 1
+    _build.check(rc, "flash_attn_bwd_dq")
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, mask, scale: float, max_bias: float, do, lse, delta):
+    """dk and dv of the training attention for each q head (kernel M);
+    arguments as for flash_attention_bwd_dq.  Returns dk (b, h, nkv, d) and
+    dv (b, h, nkv, d_v) in k's and v's types; the heads that share a kv head
+    are summed by the caller."""
+    code, (b, h, n_q, d, h_kv, n_kv, d_v), mask, slopes = _bwd_args(q, k, v, mask, max_bias, do, lse, delta)
+    if not q.is_cuda:
+        return _fa_bwd_dkv_plain(q, k, v, mask, slopes, float(scale), do, lse, delta)
+
+    _check_train_dims(code, d, d_v)
+    q, k, v, do, lse, delta = (t.contiguous() for t in (q, k, v, do, lse, delta))
+    mask = None if mask is None else mask.contiguous()
+    dk = torch.empty((b, h, n_kv, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, h, n_kv, d_v), dtype=v.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _build.lib().flash_attn_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), slopes.data_ptr(),
+                                         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                                         dv.data_ptr(), code, b, h, h_kv, n_q, n_kv, d, d_v, float(scale), stream)
+    launches["flash_attn_bwd_dkv"] += 1
+    _build.check(rc, "flash_attn_bwd_dkv")
+    return dk, dv
+
+
+class _FlashAttentionTrain(torch.autograd.Function):
+    """K forward; L and M backward from the saved output and LSE
+    (JAX _fa_train_fwd / _fa_train_bwd).  The mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale: float, max_bias: float):
+        # one contiguous copy of each head view, shared by K, L and M
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_attention_fwd_lse(q, k, v, mask, scale, max_bias)
+        ctx.save_for_backward(q, k, v, mask, o, lse)
+        ctx.scale, ctx.max_bias = scale, max_bias
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        q, k, v, mask, o, lse = ctx.saved_tensors
+        do = g.contiguous()
+        # delta from the stored output in its own type (the JAX o_pad), not the f32 sums
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = flash_attention_bwd_dq(q, k, v, mask, ctx.scale, ctx.max_bias, do, lse, delta)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, mask, ctx.scale, ctx.max_bias, do, lse, delta)
+        b, h_kv, n_kv, _ = k.shape
+        rep = q.shape[1] // h_kv
+        if rep > 1:  # GQA: each q head's dk/dv, in k's type, summed onto its kv head
+            dk = dk.view(b, h_kv, rep, n_kv, -1).sum(2).to(k.dtype)
+            dv = dv.view(b, h_kv, rep, n_kv, -1).sum(2).to(v.dtype)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_train(q, k, v, mask=None, scale: float = 1.0, max_bias: float = 0.0) -> torch.Tensor:
+    """Differentiable fused attention, the training path: flash_attention's
+    semantics and layout without softcap, q, k and v all bf16 or all f32.
+    Returns (b, nq, h, d_v) in q's type; gradients flow to q, k and v."""
+    return _FlashAttentionTrain.apply(q, k, v, mask, float(scale), float(max_bias))

@@ -1,28 +1,70 @@
-"""GGUF tensor-naming loader shared by GPT-2-style families (port of
-ggml_tpu/models/gpt2.py:68 load_params; the GPT-2 model itself is not ported
-yet, ROADMAP.md)."""
+"""GPT-2 in PyTorch (port of ggml_tpu/models/gpt2.py; reference:
+examples/gpt-2/main-backend.cpp), and the GGUF tensor-naming loader the
+GPT-2-style families share.
+
+- forward runs from the KV cache (attention over the whole cache window,
+  differentiable: the cache rows are written in place with index_copy_, which
+  autograd records), or, for training from an empty cache (train_flash), through
+  the differentiable flash-attention kernels K, L and M, without touching the
+  cache (under jit the JAX package's cache writes there are dead code);
+- weights are dense (f32/bf16), or planes in device memory where a GGUF file
+  is loaded with keep_quantized;
+- the tied LM head multiplies by the token embedding.
+
+Linear weights are (out_features, in_features), applied as x @ W^T.
+"""
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..dtypes import GGMLType, is_quantized
 from ..gguf import GGUFFile
+from .common import cache_write, causal_mask, init_layer_cache, layer_norm as _layer_norm, linear as _linear
 
 
-def load_params(g: GGUFFile, dtype=torch.float32, device="cuda") -> dict:
-    """Load GGUF tensors onto `device`, as the JAX load_params does with
-    keep_quantized=True.
+@dataclass(frozen=True)
+class GPT2Config:
+    n_vocab: int = 50257
+    n_ctx: int = 1024
+    n_embd: int = 768
+    n_head: int = 12
+    n_layer: int = 12
+    eps: float = 1e-5
+    # the reference CPU backend's gelu through an fp16 table (GGML_GELU_FP16):
+    # out = fp16(gelu(fp16(x))); off by default
+    gelu_fp16: bool = False
 
-    2-D quantized matmul weights are repacked to planes
-    (quant/planar.py) and stay packed in device memory, consumed by the fused
-    kernels; the token embedding is additionally kept dense for the row
-    gather.  Everything else is loaded as `dtype`.  Ported plane layouts:
-    Q4_0, Q4_1, Q2_K, Q3_K, Q4_K (packed nibbles where (K/2) % G == 0, else
-    int8), Q5_0, Q5_1, Q8_0, Q5_K, Q6_K (int8); any other quantized type (the
-    IQ* and TQ* families) raises NotImplementedError.
+    @property
+    def head_dim(self):
+        return self.n_embd // self.n_head
+
+
+def config_from_gguf(g: GGUFFile) -> GPT2Config:
+    md = g.metadata
+    return GPT2Config(
+        n_vocab=int(md.get("gpt2.vocab_size", md.get("tokenizer.ggml.tokens") and len(md["tokenizer.ggml.tokens"]) or 50257)),
+        n_ctx=int(md["gpt2.context_length"]),
+        n_embd=int(md["gpt2.embedding_length"]),
+        n_head=int(md["gpt2.attention.head_count"]),
+        n_layer=int(md["gpt2.block_count"]),
+    )
+
+
+def load_params(g: GGUFFile, dtype=torch.float32, keep_quantized: bool = False, device="cuda") -> dict:
+    """Load GGUF tensors onto `device`.
+
+    keep_quantized=False: every tensor dequantized to `dtype` (what training
+    loads).  keep_quantized=True: 2-D quantized matmul weights are repacked to
+    planes (quant/planar.py) and stay packed in device memory, consumed by the
+    fused kernels; the token embedding is additionally kept dense for the row
+    gather.  Ported plane layouts: Q4_0, Q4_1, Q2_K, Q3_K, Q4_K (packed nibbles
+    where (K/2) % G == 0, else int8), Q5_0, Q5_1, Q8_0, Q5_K, Q6_K (int8); any
+    other quantized type (the IQ* and TQ* families) raises NotImplementedError.
     """
     from ..quant.planar import repack
 
@@ -34,7 +76,7 @@ def load_params(g: GGUFFile, dtype=torch.float32, device="cuda") -> dict:
             and "norm" not in name
             and name != "position_embd.weight"
         )
-        if is_matmul_weight and is_quantized(info.ggml_type):
+        if keep_quantized and is_matmul_weight and is_quantized(info.ggml_type):
             n, k = info.shape
             pw = repack(g.tensor_bytes(name), GGMLType(info.ggml_type), (int(n), int(k)))
             params[name] = pw.to(device)
@@ -43,3 +85,175 @@ def load_params(g: GGUFFile, dtype=torch.float32, device="cuda") -> dict:
         else:
             params[name] = torch.from_numpy(g.to_float32(name)).to(device, dtype)
     return params
+
+
+def init_random_params(cfg: GPT2Config, seed: int = 0, dtype=torch.float32, device="cuda") -> dict:
+    """Random weights in the converter's naming scheme: the JAX package's
+    numpy draws, in the same order, moved to `device` as `dtype`."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=0.02):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale).to(device, dtype)
+
+    ones = lambda n: torch.ones((n,), dtype=dtype, device=device)
+    zeros = lambda n: torch.zeros((n,), dtype=dtype, device=device)
+    E = cfg.n_embd
+    p = {
+        "token_embd.weight": t(cfg.n_vocab, E),
+        "position_embd.weight": t(cfg.n_ctx, E),
+        "output_norm.weight": ones(E),
+        "output_norm.bias": zeros(E),
+    }
+    for i in range(cfg.n_layer):
+        pre = f"blk.{i}."
+        p[pre + "attn_norm.weight"] = ones(E)
+        p[pre + "attn_norm.bias"] = zeros(E)
+        p[pre + "attn_qkv.weight"] = t(3 * E, E)
+        p[pre + "attn_qkv.bias"] = zeros(3 * E)
+        p[pre + "attn_output.weight"] = t(E, E)
+        p[pre + "attn_output.bias"] = zeros(E)
+        p[pre + "ffn_norm.weight"] = ones(E)
+        p[pre + "ffn_norm.bias"] = zeros(E)
+        p[pre + "ffn_up.weight"] = t(4 * E, E)
+        p[pre + "ffn_up.bias"] = zeros(4 * E)
+        p[pre + "ffn_down.weight"] = t(E, 4 * E)
+        p[pre + "ffn_down.bias"] = zeros(E)
+    return p
+
+
+def init_cache(cfg: GPT2Config, batch: int, max_seq: int, dtype=torch.float32, device="cuda"):
+    """KV cache: per layer (k, v), each (batch, n_head, max_seq, head_dim)."""
+    return init_layer_cache(cfg.n_layer, batch, cfg.n_head, max_seq, cfg.head_dim, dtype, device)
+
+
+def _gelu(x):
+    return 0.5 * x * (1.0 + torch.tanh(0.79788456080286535588 * x * (1.0 + 0.044715 * x * x)))
+
+
+def _gelu_fp16(x):
+    """The reference CPU backend's gelu: out = fp16(gelu(fp16(x)))."""
+    xh = x.to(torch.float16).to(torch.float32)
+    return _gelu(xh).to(torch.float16).to(x.dtype)
+
+
+def forward(params: dict, cfg: GPT2Config, tokens: torch.Tensor, pos_start: torch.Tensor, cache,
+            cache_len: torch.Tensor, *, prefill: bool = False, train_flash: bool = False):
+    """One step over tokens (b, t): returns (logits (b, t, n_vocab), cache).
+
+    pos_start (b,) and cache_len (0-d) are integer tensors on the model's
+    device; the cache is written in place.  prefill is accepted for
+    signature parity with the other families (attention always reads the
+    cache window here).  train_flash=True (training from an empty cache,
+    t > 1): attention runs through flash_attention_train and the cache is
+    neither read nor written; it may be None then."""
+    b, t = tokens.shape
+    flash = train_flash and t > 1
+    if not flash and cache_len.dim() != 0:
+        raise NotImplementedError("per-slot cache positions (batched serving) are not ported yet (ROADMAP.md)")
+    positions = pos_start[:, None] + torch.arange(t, device=tokens.device)[None, :]
+    embd = params.get("token_embd.weight@dense", params["token_embd.weight"])
+    x = embd[tokens] + params["position_embd.weight"][positions]
+
+    scale = 1.0 / np.sqrt(cfg.head_dim)
+    if not flash:
+        max_seq = cache[0][0].shape[-2]
+        rows = cache_len.to(torch.long) + torch.arange(t, device=tokens.device)  # cache rows written
+        kv_pos = torch.arange(max_seq, device=x.device)[None, None, None, :]
+        visible = kv_pos <= positions[:, None, :, None]
+    for i in range(cfg.n_layer):
+        pre = f"blk.{i}."
+        h = _layer_norm(x, params[pre + "attn_norm.weight"], params[pre + "attn_norm.bias"], cfg.eps)
+        qkv = _linear(h, params[pre + "attn_qkv.weight"], params[pre + "attn_qkv.bias"])
+        q, k, v = torch.split(qkv, cfg.n_embd, dim=-1)
+
+        def heads(z):
+            return z.reshape(b, t, cfg.n_head, cfg.head_dim).transpose(1, 2)
+
+        q, k, v = heads(q), heads(k), heads(v)  # (b, h, t, d)
+        if flash:
+            from ..kernels.flash_attn import flash_attention_train
+
+            out = flash_attention_train(q, k, v, mask=causal_mask(t, x.device), scale=scale)  # (b, t, h, d)
+            out = out.reshape(b, t, cfg.n_embd).to(x.dtype)
+        else:
+            kc, vc = cache[i]
+            cache_write(kc, k, rows)
+            cache_write(vc, v, rows)
+            # attention over the full cache with the causal and length mask
+            att = torch.matmul(q.float(), kc.float().transpose(-1, -2)) * scale
+            att = torch.where(visible, att, torch.full((), float("-inf"), device=x.device))
+            att = torch.softmax(att, dim=-1).to(vc.dtype)
+            out = torch.matmul(att, vc)
+            out = out.transpose(1, 2).reshape(b, t, cfg.n_embd).to(x.dtype)
+        x = x + _linear(out, params[pre + "attn_output.weight"], params[pre + "attn_output.bias"])
+
+        h = _layer_norm(x, params[pre + "ffn_norm.weight"], params[pre + "ffn_norm.bias"], cfg.eps)
+        gelu = _gelu_fp16 if cfg.gelu_fp16 else _gelu
+        h = gelu(_linear(h, params[pre + "ffn_up.weight"], params[pre + "ffn_up.bias"]))
+        x = x + _linear(h, params[pre + "ffn_down.weight"], params[pre + "ffn_down.bias"])
+
+    x = _layer_norm(x, params["output_norm.weight"], params["output_norm.bias"], cfg.eps)
+    return _linear(x, params["token_embd.weight"]), cache  # tied lm head
+
+
+class GPT2:
+    """Inference wrapper: prefill, single decode steps, greedy generation."""
+
+    def __init__(self, params: dict, cfg: GPT2Config, max_seq: int = 512, batch: int = 1, device="cuda"):
+        self.params = params
+        self.cfg = cfg
+        self.max_seq = max_seq
+        self.batch = batch
+        self.device = torch.device(device)
+
+    @classmethod
+    def from_gguf(cls, path, dtype=torch.float32, keep_quantized: bool = False, device="cuda", **kw):
+        with GGUFFile(path) as g:
+            cfg = config_from_gguf(g)
+            params = load_params(g, dtype, keep_quantized=keep_quantized, device=device)
+        return cls(params, cfg, device=device, **kw)
+
+    def new_cache(self, dtype=torch.float32):
+        return init_cache(self.cfg, self.batch, self.max_seq, dtype, self.device)
+
+    def _check_room(self, n_past: int, n_new: int):
+        if n_past + n_new > self.max_seq:
+            raise ValueError(f"{n_past} + {n_new} tokens exceed the cache of {self.max_seq}")
+
+    def prefill(self, cache, tokens: np.ndarray):
+        """tokens (b, t) from an empty cache: returns (last-position logits
+        (b, n_vocab), cache, t)."""
+        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.long).to(self.device)
+        t = tokens.shape[1]
+        self._check_room(0, t)
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        logits, cache = forward(self.params, self.cfg, tokens, zero.expand(tokens.shape[0]), cache, zero)
+        return logits[:, -1, :], cache, t
+
+    def decode_step(self, cache, token, n_past: int):
+        """token (b, 1): returns (logits (b, n_vocab), cache)."""
+        self._check_room(n_past, 1)
+        token = torch.as_tensor(token).to(self.device, torch.long).reshape(-1, 1)
+        pos = torch.full((), n_past, dtype=torch.int32, device=self.device)
+        logits, cache = forward(self.params, self.cfg, token, pos.expand(token.shape[0]), cache, pos)
+        return logits[:, -1, :], cache
+
+    def decode_greedy(self, cache, first_token, n_past: int, n_tokens: int):
+        """n_tokens greedy steps from first_token at position n_past; the
+        position and tokens stay on the device until the ids (n_tokens, b)
+        are returned as numpy."""
+        self._check_room(n_past, n_tokens)
+        tok = torch.as_tensor(first_token).to(self.device, torch.long).reshape(-1, 1)
+        pos = torch.full((), n_past, dtype=torch.int32, device=self.device)
+        out = torch.empty((n_tokens, tok.shape[0]), dtype=torch.long, device=self.device)
+        for i in range(n_tokens):
+            logits, cache = forward(self.params, self.cfg, tok, pos.expand(tok.shape[0]), cache, pos)
+            tok = torch.argmax(logits[:, -1, :], dim=-1, keepdim=True)
+            out[i] = tok[:, 0]
+            pos += 1
+        return cache, out.cpu().numpy()
+
+    def generate(self, prompt_tokens: np.ndarray, n_tokens: int, sampler=None, key=None) -> list[int]:
+        from .common import generate
+
+        return generate(self, prompt_tokens, n_tokens, sampler=sampler, key=key)

@@ -235,7 +235,7 @@ class GPTJ:
 
         with GGUFFile(path) as g:
             cfg = config_from_gguf(g)
-            params = load_params(g, dtype, device=device)
+            params = load_params(g, dtype, keep_quantized=True, device=device)
         if rope_deinterleaved:
             # on-load q/k column permutation -> contiguous-slice RoPE on the
             # decode hot path (exact: see _rope_deinterleaved)

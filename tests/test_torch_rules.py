@@ -80,7 +80,9 @@ def test_port_modules_listed():
     names = _port_modules()
     for want in ("ggml_tpu_torch.kernels.qmatmul", "ggml_tpu_torch.kernels.decode_attn",
                  "ggml_tpu_torch.kernels.flash_attn",
-                 "ggml_tpu_torch.models.gptj", "ggml_tpu_torch.convert"):
+                 "ggml_tpu_torch.models.gptj", "ggml_tpu_torch.models.gpt2", "ggml_tpu_torch.convert",
+                 "ggml_tpu_torch.opt.dataset", "ggml_tpu_torch.opt.optimizer", "ggml_tpu_torch.opt.finetune",
+                 "ggml_tpu_torch.cli.finetune"):
         assert want in names
 
 
@@ -101,9 +103,13 @@ def test_port_imports_no_jax(target):
 
 def test_entry_points_default_to_cuda():
     from ggml_tpu_torch.convert import params_from_numpy
+    from ggml_tpu_torch.cli import finetune as cli
     from ggml_tpu_torch.models import common, gpt2, gptj
+    from ggml_tpu_torch.opt import finetune
 
     for fn in (gptj.GPTJ.__init__, gptj.GPTJ.from_gguf, gptj.synth_quantized_params,
-               gptj.init_cache, common.init_layer_cache, gpt2.load_params, params_from_numpy):
+               gptj.init_cache, common.init_layer_cache, gpt2.load_params, params_from_numpy,
+               gpt2.GPT2.__init__, gpt2.GPT2.from_gguf, gpt2.init_random_params, gpt2.init_cache, finetune):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
+    assert cli.parser().parse_args(["in.gguf", "out.gguf", "--tokens", "t.npy"]).device == "cuda"
 
