@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (ggml_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --long-decode-profile   # phases 1, 2 and the decode profile after a long prompt only
 
 Phases (any failure exits non-zero without the result line):
 1. the card, as nvidia-smi reports its name and power limit;
@@ -14,7 +15,8 @@ Phases (any failure exits non-zero without the result line):
    (EleutherAI/gpt-j-6b: n_vocab 50400, E 4096, 16 heads, 28 layers, n_rot
    64, context 2048), counting every kernel launch of each run: (a)
    synthesized compact Q4_K planes, prompts 8, 100, 1, then a 1024-token
-   prompt through the flash prefill, (b) synthesized Q8_0 planes, three
+   prompt through the flash prefill (J and its two helpers) and a profile of
+   decode steps after a 1088-token prompt, (b) synthesized Q8_0 planes, three
    requests, (c) compact Q6_K planes repacked from random blocks, one
    request, (e) synthesized Q4_0 planes (multiplied-out nibble planes),
    prompts 8, 100, 1 and 1024, (f) synthesized Q3_K planes (groups of 16),
@@ -60,7 +62,9 @@ SOURCES = {
     "q8_matmul": ("ggml_tpu_torch/kernels/csrc/q8_matmul.cu", "ggml_tpu/kernels/qmatmul.py:133"),
     "q4_gemv": ("ggml_tpu_torch/kernels/csrc/q4_gemv.cu", "ggml_tpu/kernels/qmatmul.py:292"),
     "q4k_gemv_i8": ("ggml_tpu_torch/kernels/csrc/q4k_gemv.cu", "ggml_tpu/kernels/qmatmul.py:482"),
-    "flash_attn": ("ggml_tpu_torch/kernels/csrc/flash_attn.cu", "ggml_tpu/kernels/flash_attn.py:30"),
+    "flash_attn": ("ggml_tpu_torch/kernels/csrc/flash_attn_sm90.cu", "ggml_tpu/kernels/flash_attn.py:30"),
+    "flash_split": ("ggml_tpu_torch/kernels/csrc/flash_attn_sm90.cu", "ggml_tpu/kernels/flash_attn.py:30"),
+    "flash_mask_ranges": ("ggml_tpu_torch/kernels/csrc/flash_attn_sm90.cu", "ggml_tpu/kernels/flash_attn.py:30"),
     "flash_attn_fwd_lse": ("ggml_tpu_torch/kernels/csrc/flash_attn.cu", "ggml_tpu/kernels/flash_attn.py:180"),
     "flash_attn_bwd_dq": ("ggml_tpu_torch/kernels/csrc/flash_attn_bwd.cu", "ggml_tpu/kernels/flash_attn.py:222"),
     "flash_attn_bwd_dkv": ("ggml_tpu_torch/kernels/csrc/flash_attn_bwd.cu", "ggml_tpu/kernels/flash_attn.py:254"),
@@ -71,10 +75,12 @@ SOURCES = {
 # output) to bf16, and a last-bit difference of a score moves single roundings;
 # K, L and M round their bf16 outputs (1e-6; f32 inputs 1e-10, the LSE 1e-12);
 # L and M keep p and ds f32 (hi + lo bf16 products), where one bf16 product
-# of each would read about 6e-6: their gate, 3e-7, tells the two apart
+# of each would read about 6e-6: their gate, 3e-7, tells the two apart; J's
+# helpers are exact (the hi/lo split bit for bit, the mask ranges equal)
 GATE = {"q4k_gemv_qact": 1e-6, "q4k_gemv_rows": 1e-6, "q4k_matmul": 1e-5, "decode_attn": 1e-6,
         "q8_gemv": 1e-9, "q8_gemv_sb": 1e-9, "q8_matmul": 1e-8, "q4_gemv": 1e-9, "q4k_gemv_i8": 1e-9,
-        "flash_attn": 1e-6, "flash_attn_fwd_lse": 1e-6, "flash_attn_bwd_dq": 3e-7, "flash_attn_bwd_dkv": 3e-7}
+        "flash_attn": 1e-6, "flash_split": 0.0, "flash_mask_ranges": 0.0,
+        "flash_attn_fwd_lse": 1e-6, "flash_attn_bwd_dq": 3e-7, "flash_attn_bwd_dkv": 3e-7}
 
 
 class SmokeFailure(Exception):
@@ -273,11 +279,15 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         causal half): 4*h*d operations a pair at the rate of the inputs' type;
         for "mixed" the f32 q . k costs three bf16 products, so 8*h*d a pair at
         the bf16 rate.  The library call takes one type, so "mixed" is timed
-        against SDPA on q and k rounded to bf16: it computes less."""
+        against SDPA on q and k rounded to bf16: it computes less.  q, k and v
+        are head views of (b, n, h, d) tensors, as the model hands them over.
+        The mixed causal cases that are timed also hold J's two helpers
+        against their plain versions: the hi/lo split of k bit for bit, the
+        mask ranges exactly."""
         qk_type = torch.float32 if types == "mixed" else getattr(torch, types)
         v_type = torch.bfloat16 if types == "mixed" else qk_type
-        mk = lambda dt, *shape: torch.randn(shape, device="cuda", generator=gen).to(dt)
-        q, k, v = mk(qk_type, b, h, nq, d), mk(qk_type, b, h_kv, nkv, d), mk(v_type, b, h_kv, nkv, d)
+        mk = lambda dt, b_, n_, h_: torch.randn((b_, n_, h_, d), device="cuda", generator=gen).to(dt).transpose(1, 2)
+        q, k, v = mk(qk_type, b, nq, h), mk(qk_type, b, nkv, h_kv), mk(v_type, b, nkv, h_kv)
         rows = torch.arange(nq, device="cuda")[:, None] + (nkv - nq)
         mask = torch.where(torch.arange(nkv, device="cuda")[None, :] <= rows, 0.0, -1e30) if causal else None
         scale = d ** -0.5
@@ -296,8 +306,8 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         ops = (8 if types == "mixed" else 4) * b * h * d * pairs
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS["f32" if types == "float32" else "bf16"] * 1e3
-        lib_q, lib_k, lib_v = (q.to(v_type), k.to(v_type).repeat_interleave(h // h_kv, 1),
-                               v.repeat_interleave(h // h_kv, 1))
+        lib_q, lib_k, lib_v = (q.to(v_type).contiguous(), k.to(v_type).repeat_interleave(h // h_kv, 1).contiguous(),
+                               v.repeat_interleave(h // h_kv, 1).contiguous())
         lib = lambda: F.scaled_dot_product_attention(lib_q, lib_k, lib_v, is_causal=causal and nq == nkv,
                                                      scale=scale)
         plain_lib = max_bias == 0.0 and softcap == 0.0 and (not causal or nq == nkv)  # what one SDPA call computes
@@ -310,6 +320,28 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
                    library_ms=device_ms(torch, lib, flush, 20) if time_it and plain_lib else None,
                    bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
         record("flash_attn", rec, 1e-9 if types == "float32" else GATE["flash_attn"])
+        if not (time_it and causal and types == "mixed"):
+            return
+        label = f"b={b} h={h} nq={nq} nkv={nkv} d={d}"
+
+        def exact(name, got, want):
+            check(all(torch.equal(g, w) for g, w in zip(got, want)), f"{name} {label}: not equal to its plain version")
+            return dict(nmse=0.0, max_abs_err=0.0)
+
+        split = lambda: flash_attn.split_hi_lo(k)
+        split_plain = lambda: flash_attn._split_hi_lo_plain(k)
+        t_split = k.numel() * 8 / HBM_BYTES_PER_S * 1e3  # f32 in, two bf16 planes out
+        record("flash_split", dict(shape=f"k f32, {label}", **exact("flash_split", [split()], [split_plain()]),
+                                   ms=device_ms(torch, split, flush, 20), plain_ms=device_ms(torch, split_plain, flush, 5),
+                                   library_ms=None, bound_ms=t_split, bound_by="bytes"))
+        ranges = lambda: flash_attn.mask_ranges(mask)
+        ranges_plain = lambda: flash_attn._mask_ranges_plain(mask)
+        t_ranges = (mask.numel() + ranges().numel()) * 4 / HBM_BYTES_PER_S * 1e3
+        record("flash_mask_ranges", dict(shape=f"causal mask ({nq}, {nkv})",
+                                         **exact("flash_mask_ranges", [ranges()], [ranges_plain()]),
+                                         ms=device_ms(torch, ranges, flush, 20),
+                                         plain_ms=device_ms(torch, ranges_plain, flush, 5), library_ms=None,
+                                         bound_ms=t_ranges, bound_by="bytes"))
 
     for types in ("mixed", "bfloat16"):
         flash_case(1, 16, 16, 1024, 1024, 256, types)   # the 1024-token prefill of GPT-J (a bf16 model: mixed)
@@ -325,7 +357,11 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         """K, L and M against their plain versions on the same inputs (L and
         M are handed K's lse and the delta of K's output).  mask_kind:
         "causal" (-1e30 above the diagonal), None, "dead-inf" / "dead-1e30"
-        (causal, and row 7 all -inf / all -1e30).  Bounds: each input read
+        (causal, and row 7 all -inf / all -1e30), "dead-both" (row 7 all
+        -1e30, row 9 all -inf; at a ragged n_kv K folds in the JAX wrapper's
+        padding, so neither row is dead there).  The LSE is held to NMSE
+        1e-12 on the live rows and to equality on the rows masked everywhere
+        (about -1e30, or +1e30 where dead).  Bounds: each input read
         once, each output written once; operations over the unmasked pairs, 2d
         per product and pair (K: 2 products, L: 3, M: 4) at the inputs' rate.
         Library: SDPA's forward (K) and backward (L + M, the time stands in
@@ -337,8 +373,10 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         if mask_kind is not None:
             rows = torch.arange(nq, device="cuda")[:, None] + (nkv - nq)
             mask = torch.where(torch.arange(nkv, device="cuda")[None, :] <= rows, 0.0, -1e30)
-            if mask_kind.startswith("dead"):
+            if mask_kind in ("dead-inf", "dead-1e30"):
                 mask[7] = float("-inf") if mask_kind == "dead-inf" else -1e30
+            elif mask_kind == "dead-both":
+                mask[7], mask[9] = -1e30, float("-inf")
         scale = d ** -0.5
         slopes = flash_attn._slopes_on(h, max_bias, q.device)
         fwd = lambda: flash_attn.flash_attention_fwd_lse(q, k, v, mask, scale, max_bias)
@@ -351,10 +389,11 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         torch.cuda.synchronize()
         check(all(bool(torch.isfinite(t).all()) for t in (o, dq, dk, dv)), f"K/L/M {dtype}: output not finite")
         po, plse = flash_attn._fa_forward_lse_plain(q, k, v, mask, slopes, scale)
-        check(bool(((lse == 1e30) == (plse == 1e30)).all()), "K: dead rows differ from the plain version")
+        live = plse.abs() < 1e20  # the other rows sit at about -1e30 (masked everywhere) or +1e30 (dead)
+        check(torch.equal(lse[~live], plse[~live]), f"K {dtype} {mask_kind}: rows masked everywhere differ from "
+              "the plain version")
         pdq = flash_attn._fa_bwd_dq_plain(*pargs)
         pdk, pdv = flash_attn._fa_bwd_dkv_plain(*pargs)
-        live = plse != 1e30
         lse_nmse, _ = errors(plse[live], lse[live])
         check(lse_nmse <= 1e-12, f"K {dtype} {mask_kind}: LSE NMSE {lse_nmse:.3e} > 1e-12")
         pairs = b * h * (int((mask > -5e29).sum()) if mask is not None else nq * nkv)
@@ -416,10 +455,17 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         train_case(1, 2, 2, 128, 128, 64, dtype, mask_kind="dead-inf", time_it=False)
     train_case(1, 2, 2, 64, 64, 64, "float32", mask_kind="dead-1e30", time_it=False)
     train_case(1, 2, 2, 128, 128, 64, "bfloat16", mask_kind="dead-1e30", time_it=False)
+    # both kinds at a ragged n_kv, where K folds in the JAX wrapper's padding
+    for dtype in ("float32", "bfloat16"):
+        train_case(1, 4, 4, 64, 100, 64, dtype, mask_kind="dead-both", time_it=False)
+    train_case(1, 4, 4, 64, 100, 64, "float32", mask_kind="dead-both", max_bias=8.0, time_it=False)
 
-    hq = hkv = 16
-    d = 256
-    for s, pos in ((256, 0), (256, 100), (256, 255), (2048, 1087), (2048, 2047)):
+    # D: the chunk edges of the split kernel (64 keys), the end of GPT-J's
+    # window, GQA, a window above the old kernel's 48 KB cap; the main shape last
+    for hq, hkv, d, s, pos in ((16, 16, 256, 256, 0), (16, 16, 256, 256, 100), (16, 16, 256, 256, 255),
+                               (16, 16, 256, 2048, 63), (16, 16, 256, 2048, 64), (16, 16, 256, 2048, 127),
+                               (16, 16, 256, 2048, 1087), (16, 4, 128, 2048, 2047), (16, 16, 256, 8192, 8191),
+                               (16, 16, 256, 2048, 2047)):
         q = torch.randn((1, hq, 1, d), device="cuda", generator=gen)
         kn, vn = (torch.randn((1, hkv, 1, d), device="cuda", generator=gen).to(torch.bfloat16) for _ in range(2))
         kc, vc = (torch.randn((1, hkv, s, d), device="cuda", generator=gen).to(torch.bfloat16) for _ in range(2))
@@ -431,7 +477,15 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         torch.cuda.synchronize()
         nmse, mae = errors(plain_fn(), got)
         qb, kw_, vw_ = q.to(torch.bfloat16), kc[:, :, : pos + 1], vc[:, :, : pos + 1]
-        lib = lambda: F.scaled_dot_product_attention(qb, kw_, vw_, scale=scale)
+        if hq != hkv:  # SDPA's own GQA where this torch has it, else the kv heads repeated before the timing
+            try:
+                F.scaled_dot_product_attention(qb, kw_, vw_, scale=scale, enable_gqa=True)
+                lib = lambda: F.scaled_dot_product_attention(qb, kw_, vw_, scale=scale, enable_gqa=True)
+            except TypeError:
+                kw_, vw_ = kw_.repeat_interleave(hq // hkv, 1), vw_.repeat_interleave(hq // hkv, 1)
+                lib = lambda: F.scaled_dot_product_attention(qb, kw_, vw_, scale=scale)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(qb, kw_, vw_, scale=scale)
         moved = q.numel() * 4 + 2 * hkv * d * 2 + 2 * hkv * (pos + 1) * d * 2 + hq * d * 4
         ops = 4 * hq * (pos + 1) * d
         t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["f32"] * 1e3
@@ -491,9 +545,11 @@ def q6k_planes_like(torch, np, params: dict) -> dict:
     return out
 
 
-def phase_gptj(torch, np, label: str, params: dict, kernels: dict, prompts, profile: bool, max_seq: int = 256):
+def phase_gptj(torch, np, label: str, params: dict, kernels: dict, prompts, profile: bool, max_seq: int = 256,
+               long_decode_profile: int = 0):
     """GPT-J-6B at published widths over `params`: one greedy request of 64
-    tokens per prompt length, every launch counted.  kernels names the
+    tokens per prompt length, every launch counted; with long_decode_profile,
+    a profile of decode steps after a prompt of that length.  kernels names the
     wrapper each step must go through: "decode" (M=1), "rows" (2..32-token
     prefill), "matmul" (longer prefill).  A prompt of flash_min_seq (1024)
     tokens or more must also go through the flash kernel once per layer."""
@@ -535,8 +591,8 @@ def phase_gptj(torch, np, label: str, params: dict, kernels: dict, prompts, prof
         want["decode_attn"] = layers * steps
         if t > 1:
             want[kernels["rows" if t <= 32 else "matmul"]] += per_layer * layers + 1
-        if t >= cfg.flash_min_seq:
-            want["flash_attn"] = layers
+        if t >= cfg.flash_min_seq:  # J and its two helpers (a bf16 model hands over f32 q and k)
+            want["flash_attn"] = want["flash_split"] = want["flash_mask_ranges"] = layers
         toks = [int(first[0, 0])] + ids[:, 0].tolist()
         check(finite, f"{label}, prompt {t}: prefill logits not finite")
         check(len(toks) == n_gen and all(0 <= x < cfg.n_vocab for x in toks), f"{label}, prompt {t}: tokens {toks}")
@@ -552,13 +608,15 @@ def phase_gptj(torch, np, label: str, params: dict, kernels: dict, prompts, prof
     counts = launch_counts()
     long_prompt = max(prompts) >= cfg.flash_min_seq
     roles = {"decode"} | {"rows" if t <= 32 else "matmul" for t in prompts if t > 1}
-    for name in {*(kernels[r] for r in roles), "decode_attn", *(["flash_attn"] if long_prompt else [])}:
+    flash = ["flash_attn", "flash_split", "flash_mask_ranges"] if long_prompt else []
+    for name in {*(kernels[r] for r in roles), "decode_attn", *flash}:
         check(counts[name] > 0, f"{label}: {name} was never launched on its main path")
     trace = profile_decode(torch, np, model) if profile else None
     prefill_trace = profile_prefill(torch, np, model, max(prompts)) if profile and long_prompt else None
+    long_trace = profile_decode(torch, np, model, prompt=long_decode_profile) if long_decode_profile else None
     flash_nmse = flash_against_plain_attention(torch, np, model, max(prompts)) if long_prompt else None
     return dict(counts=counts, requests=requests, plane_bytes=plane_bytes, decode_trace=trace,
-                prefill_trace=prefill_trace, flash_vs_plain_attention=flash_nmse)
+                prefill_trace=prefill_trace, long_decode_trace=long_trace, flash_vs_plain_attention=flash_nmse)
 
 
 def flash_against_plain_attention(torch, np, model, t: int) -> float:
@@ -607,7 +665,8 @@ def profile_prefill(torch, np, model, t: int) -> dict:
     events = _device_events(prof)
     total_us = sum(e.self_device_time_total for e in events)
     ours = {name: sum(e.self_device_time_total for e in events if name in e.key) / 1e3
-            for name in ("q4k_matmul_kernel", "q8_matmul_kernel", "flash_attn_bf16_kernel")}
+            for name in ("q4k_matmul_kernel", "q8_matmul_kernel", "fa_sm90_kernel", "flash_split_kernel",
+                         "flash_mask_ranges_kernel")}
     ours = {k: v for k, v in ours.items() if v}
     trace = dict(prompt=t, host_ms=host_ms, device_ms=total_us / 1e3, port_kernels_ms=ours,
                  other_device_ms=total_us / 1e3 - sum(ours.values()))
@@ -618,14 +677,15 @@ def profile_prefill(torch, np, model, t: int) -> dict:
     return trace
 
 
-def profile_decode(torch, np, model, steps: int = 8) -> dict:
+def profile_decode(torch, np, model, steps: int = 8, prompt: int = 8) -> dict:
     """Device time per decode token by kernel, from a torch.profiler trace of
-    `steps` decode steps after an 8-token prompt (the launch counters are read
-    before this, so these launches are not counted as the main path's)."""
+    `steps` decode steps after a `prompt`-token prompt (the launch counters
+    are read before this, so these launches are not counted as the main
+    path's).  Prints decode attention D's share of the device time."""
     from torch.profiler import ProfilerActivity, profile
 
     cache = model.new_cache(torch.bfloat16)
-    logits, cache, n_past = model.prefill(cache, np.arange(8)[None])
+    logits, cache, n_past = model.prefill(cache, np.arange(prompt)[None])
     first = torch.argmax(logits, dim=-1, keepdim=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -638,10 +698,14 @@ def profile_decode(torch, np, model, steps: int = 8) -> dict:
                          "decode_attn_kernel")}
     ours = {k: v for k, v in ours.items() if v}
     launches = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
-    trace = dict(steps=steps, device_ms_per_token=total_us / steps / 1e3,
+    trace = dict(steps=steps, prompt=prompt, device_ms_per_token=total_us / steps / 1e3,
                  launches_per_token=launches / steps,
                  port_kernels_ms_per_token={k: v / steps / 1e3 for k, v in ours.items()},
-                 other_device_ms_per_token=(total_us - sum(ours.values())) / steps / 1e3)
+                 other_device_ms_per_token=(total_us - sum(ours.values())) / steps / 1e3,
+                 decode_attn_share=ours.get("decode_attn_kernel", 0.0) / total_us)
+    print(f"  profiled {steps} decode steps at pos {prompt}..{prompt + steps - 1}: decode attention D "
+          f"{trace['port_kernels_ms_per_token'].get('decode_attn_kernel', 0.0):.3f} ms/token, "
+          f"{trace['decode_attn_share'] * 100:.1f} % of the device time")
     print(f"  profiled {steps} decode steps: device busy {trace['device_ms_per_token']:.3f} ms/token, "
           f"{trace['launches_per_token']:.0f} kernel launches/token; port kernels "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in trace["port_kernels_ms_per_token"].items())
@@ -906,6 +970,21 @@ def main() -> int:
             if "registers" in line or "spill" in line or line.startswith("=="):
                 print("  " + line.strip())
 
+        if sys.argv[1:] == ["--long-decode-profile"]:
+            print("== 4. GPT-J-6B Q4_K (synthesized compact planes), decode after a 1088-token prompt, profiled")
+            from ggml_tpu_torch.dtypes import GGMLType
+            from ggml_tpu_torch.models import gptj
+
+            cfg = gptj.random_config("6b")
+            params = gptj.synth_quantized_params(cfg, GGMLType.Q4_K, seed=0, dtype=torch.bfloat16, device="cuda")
+            model = gptj.GPTJ(params, cfg, max_seq=2048, device="cuda")
+            model.generate(np.arange(1088)[None], 4)  # warm-up of the path
+            trace = profile_decode(torch, np, model, prompt=1088)
+            print(json.dumps(dict(card=card, long_decode_trace=trace)))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
+
         print("== 3. kernels against their plain versions")
         flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
         kernel_results = phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush)
@@ -921,7 +1000,8 @@ def main() -> int:
         print("== 4a. GPT-J-6B Q4_K (synthesized compact planes), three greedy requests, then a 1024-token prompt")
         params = synth(GGMLType.Q4_K)
         runs.append(phase_gptj(torch, np, "q4_k", params, q4k_kernels, (8, 100, 1), profile=True))
-        runs.append(phase_gptj(torch, np, "q4_k long", params, q4k_kernels, (1024,), profile=False, max_seq=2048))
+        runs.append(phase_gptj(torch, np, "q4_k long", params, q4k_kernels, (1024,), profile=False, max_seq=2048,
+                               long_decode_profile=1088))
         del params
         torch.cuda.empty_cache()
         print("== 4b. GPT-J-6B Q8_0 (synthesized int8 planes), three greedy requests")

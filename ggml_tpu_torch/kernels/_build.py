@@ -28,7 +28,10 @@ _LIB_NAME = "libggml_tpu_torch_kernels.so"
 
 P = ctypes.c_void_p
 I = ctypes.c_int
-# C entry points: name -> argument types (every one returns a cudaError_t as int)
+L = ctypes.c_longlong
+F = ctypes.c_float
+# C entry points: name -> argument types (each returns an int: a cudaError_t,
+# or for decode_attn_heads_per_block a count)
 _SIGNATURES = {
     "q4k_gemv_qact": [P, P, P, P, P, P, I, P, P, P, P, P, I, I, I, P],
     "q4k_gemv_rows": [P, P, P, P, P, P, I, P, P, P, P, P, I, I, I, P],
@@ -37,8 +40,12 @@ _SIGNATURES = {
     "q4_gemv": [P, P, P, P, I, P, P, P, P, P, I, I, I, I, I, P],
     "q8_gemv": [P, P, P, P, P, P, I, P, P, P, P, P, I, I, I, I, I, I, P],
     "q8_matmul": [P, P, P, P, P, P, I, I, I, P, I, I, I, P],
-    "decode_attn": [P, P, P, P, P, P, P, I, I, I, I, ctypes.c_float, P],
-    "flash_attn": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, ctypes.c_float, P],
+    "decode_attn": [P, P, P, P, P, P, P, P, P, I, I, I, I, ctypes.c_float, P],
+    "decode_attn_heads_per_block": [I, I],
+    "flash_attn_f32": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, F, P],
+    "flash_attn_sm90": [P, P, P, P, L, L, L, L, L, L, L, L, L, P, P, P, P, I, I, I, I, I, I, I, I, F, F, P],
+    "flash_split": [P, P, I, I, I, L, L, L, I, P],
+    "flash_mask_ranges": [P, P, I, I, P],
     "flash_attn_fwd_lse": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, P],
     "flash_attn_bwd_dq": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, P],
     "flash_attn_bwd_dkv": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, P],

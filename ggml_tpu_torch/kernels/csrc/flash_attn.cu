@@ -1,66 +1,50 @@
-// Flash attention forward (online softmax over key/value tiles), kernels J
-// (prefill) and K (the training forward, which also gives the logsumexp).
+// Flash attention forward (online softmax over key/value tiles): kernel K
+// (the training forward, which also gives the logsumexp) and the f32 type
+// set of kernel J (the prefill).  J's bf16 and f32-q/k sets run in
+// flash_attn_sm90.cu.
 //
-// J replaces (ggml_tpu/kernels/flash_attn.py) _fa_kernel (:30) with the work
-// flash_attention (:75) does around it: the padding of ragged q rows and kv
-// columns (bounds are checked here instead), the GQA head map and the final
-// transpose (the output is written as (b, nq, h, d_v) directly).  Per batch
-// b, head h (kv head h / (H / Hkv)) and query row i it computes
-//   s_j = softcap ? tanh(q_i . k_j * (scale / softcap)) * softcap : q_i . k_j * scale
-//   s_j += slope_h * mask[i, j]                                    (if a mask is given)
-//   out_i = sum_j softmax_j(s) * v_j
+// K replaces (ggml_tpu/kernels/flash_attn.py) _fa_fwd_lse_kernel (:180) with
+// the work _fa_forward_lse (:338) does around it (GQA map; the 128-lane LSE
+// broadcast is dropped).  Per batch b, head h (kv head h / (H / Hkv)) and
+// query row i it computes
+//   s_j = q_i . k_j * scale + slope_h * mask[i, j]        (if a mask is given)
+//   out_i = sum_j softmax_j(s) * v_j,   lse_i = m + log(l)
 // as the online-softmax recurrence over kv tiles: running max m (starting at
 // the finite sentinel -1e30, so a mask value of -inf never makes NaN),
-// running sum l, p = exp(s - m) rounded to v's type before p . v, f32 sums;
-// rows whose max never leaves the sentinel give zeros.
+// running sum l, p = exp(s - m) rounded to v's type before p . v, f32 sums.
+// _fa_setup (:291) pads kv to a multiple of 32 with zero rows whose mask is
+// -1e30 (times the slope, with or without a mask): the epilogue folds those
+// n_pad columns in, m' = max(m, slope * -1e30), l' = l e^(m - m') + n_pad
+// e^(slope * -1e30 - m'), o = acc e^(m - m') / l'.  Live rows are untouched
+// (their pad terms are exactly 0); a row masked -1e30 everywhere averages v
+// over the padded length, as in JAX.  Dead rows are those with l' = 0 (every
+// score -inf and no padding): o = 0 and lse = +1e30, so the backward's
+// exp(s - lse) is 0.
 //
-// K replaces _fa_fwd_lse_kernel (:180) with the work _fa_forward_lse (:338)
-// does around it (padding, GQA map; the 128-lane LSE broadcast is dropped):
-// the same recurrence without softcap, plus lse_i = m + log(l) as one f32
-// per row in (b, h, nq).  Its dead rows are those with l = 0 (every p was
-// exp(-inf)): o = 0 and lse = +1e30, so the backward's exp(s - lse) is 0.  A
-// row masked with the finite -1e30 everywhere is NOT dead there: every p is
-// exp(0) = 1, o is the mean of v and lse about -1e30, as in the JAX kernel.
-// K is the LSE instance of J's two kernels, for bf16 q/k/v and for f32.
-//
-// Two kernels, three type sets:
+// Two kernels:
 //   bf16 q/k/v: tensor cores, mma.sync m16n8k16 bf16 with f32 accumulation.
 //     bf16 products are exact in f32, so the scores equal the TPU kernel's
 //     f32 dots up to the order of the sums.
-//   f32 q/k with bf16 v (the bf16 model's prefill: RoPE leaves q and k in
-//     f32, v is bf16; the TPU kernel widens q and k and multiplies in f32):
-//     the same kernel with q and k each split into two bf16 terms,
-//     x = hi + lo, hi = bf16(x), lo = bf16(x - hi), and the scores summed
-//     from three products, lo.hi + hi.lo + hi.hi.  What is dropped (lo.lo
-//     and the rounding of lo) is below 2^-16 of |q_i k_i| per product, against
-//     2^-9 had q and k been rounded to bf16.  p . v runs in bf16 as above;
-//     the output is f32 (q's type).
-//   f32 q/k/v (what the reference tests feed): plain FMAs, one warp per row.
+//   f32 q/k/v (what the reference tests feed; also J's f32 set, replacing
+//     _fa_kernel (:30) for f32 inputs): plain FMAs, one warp per row.
 //
-// Bound on the H100 at the prefill shapes (h=16, d=256, nq=nkv >= 1024):
-// operations, 4*h*d per unmasked (q, k) pair at the bf16 tensor-core rate;
-// q, k, v, out and the mask are a few MB.
+// Bound on the H100 at GPT-2-medium's training shape (b=8, h=16, nq=nkv=512,
+// d=64, bf16, causal): bytes, q, k, v, o, the mask and the lse (10.4 us).
 //
 // Design of the bf16 kernel (simple, not fast): a block of 4 warps owns 64
 // query rows of one head, a warp 16 of them; it walks the kv rows in tiles of
 // 64.  Q, K and V tiles sit in shared memory as bf16 rows padded by 16 bytes
-// (conflict-free fragment loads), head dims padded with zeros to HD = 64, 128
-// or 256; at HD = 256 that is 99 KB of dynamic shared memory (opt-in above
-// 48 KB), 165 KB with the lo tiles of f32 q and k.  S = Q K^T lands in mma accumulators whose layout is the A-operand
+// (conflict-free fragment loads), head dims padded with zeros to HD = 64 or
+// 128.  S = Q K^T lands in mma accumulators whose layout is the A-operand
 // layout of the next product, so P goes from registers straight into P V; V
-// fragments come through ldmatrix.trans.  The output accumulators (16 x HD
-// per warp, 128 registers a thread at HD = 256), m and l stay in registers.
-// A kv tile whose mask entries (times the slope) are all at or below -5e29
-// for the block's rows is skipped before K and V are loaded: every p in it
-// would be exp(-1e30 - m) = 0 for a live row, and a row that is dead so far
-// stays dead; a causal prefill so does half the work.  For K the skip is
-// exact only for rows whose max ends above -2.5e29 (the skipped scores sit
-// 2.5e29 below it, so their p and the terms they would have added before the
-// row came alive are exactly 0): if a tile was skipped and a row of the block
-// ends at or below that, the block walks every tile again without skipping.
-// No cp.async, no double buffering, no wgmma: later work.
-
-#include <type_traits>
+// fragments come through ldmatrix.trans.  The output accumulators, m and l
+// stay in registers.  A kv tile whose mask entries (times the slope) are all
+// at or below -5e29 for the block's rows is skipped before K and V are
+// loaded.  The skip is exact only for rows whose max ends above -2.5e29 (the
+// skipped scores sit 2.5e29 below it, so their p and the terms they would
+// have added before the row came alive are exactly 0): if a tile was skipped
+// and a row of the block ends at or below that, the block walks every tile
+// again without skipping.  No cp.async, no double buffering, no wgmma.
 
 #include "common.cuh"
 #include "flash_common.cuh"
@@ -68,46 +52,31 @@
 namespace ggml_tpu_torch {
 namespace {
 
-// load_tile from f32 rows, split into two tiles: hi = bf16(x) and lo = bf16(x - hi)
-template <int HD>
-__device__ __forceinline__ void load_tile_split(__nv_bfloat16* hi, __nv_bfloat16* lo, const float* src,
-                                                int rows, int cols, int src_ld) {
-  constexpr int CH = HD / 8;
-  for (int i = threadIdx.x; i < 64 * CH; i += FA_THREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    __align__(16) float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (r < rows && c < cols) {
-      *reinterpret_cast<float4*>(x) = *reinterpret_cast<const float4*>(src + (size_t)r * src_ld + c);
-      *reinterpret_cast<float4*>(x + 4) = *reinterpret_cast<const float4*>(src + (size_t)r * src_ld + c + 4);
-    }
-    uint32_t h[4], l[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const __nv_bfloat162 hv = __floats2bfloat162_rn(x[2 * e], x[2 * e + 1]);
-      h[e] = *reinterpret_cast<const uint32_t*>(&hv);
-      l[e] = pack_bf16(x[2 * e] - __low2float(hv), x[2 * e + 1] - __high2float(hv));
-    }
-    *reinterpret_cast<uint4*>(hi + r * (HD + PAD) + c) = make_uint4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<uint4*>(lo + r * (HD + PAD) + c) = make_uint4(l[0], l[1], l[2], l[3]);
-  }
+// _fa_setup's n_pad zero kv columns, masked slope * -1e30, folded into a
+// finished row (m, l); c is what the row's accumulator is multiplied by
+__device__ __forceinline__ void fold_padding(float& m, float& l, float& c, int n_pad, float slope) {
+  c = 1.f;
+  if (n_pad == 0) return;
+  const float mp = slope * NEG_SENTINEL;
+  const float mn = fmaxf(m, mp);
+  c = expf(m - mn);
+  l = l * c + (float)n_pad * expf(mp - mn);
+  m = mn;
 }
 
-// QK32: q and k are f32 (TQ = float), split into hi and lo bf16 tiles, and
-// the output is f32; else q, k and the output are bf16.  v is bf16 in both.
-// LSE: kernel K (no softcap, K's dead rows, lse written); else kernel J.
-template <int HD, bool QK32, bool LSE, typename TQ>
+__device__ __forceinline__ int kv_padding(int nkv) { return (nkv + 31) / 32 * 32 - nkv; }
+
+template <int HD>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_attn_bf16_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
+flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask,
-                       const float* __restrict__ slopes, TQ* __restrict__ out, float* __restrict__ lse,
-                       int H, int Hkv, int nq, int nkv, int d, int dv, float scale, float softcap) {
+                       const float* __restrict__ slopes, __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int H, int Hkv, int nq, int nkv, int d, int dv, float scale) {
   constexpr int LD = HD + PAD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + 64 * LD;
   __nv_bfloat16* Vs = Ks + 64 * LD;
-  __nv_bfloat16* Ql = Vs + 64 * LD;  // the lo tiles, QK32 only
-  __nv_bfloat16* Kl = Ql + 64 * LD;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -116,10 +85,8 @@ flash_attn_bf16_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
   const float slope = slopes[h];
   const bool have_mask = mask != nullptr;
 
-  const TQ* qb = q + ((size_t)(b * H + h) * nq + q0) * d;
-  if constexpr (QK32) load_tile_split<HD>(Qs, Ql, qb, min(BQ, nq - q0), d, d);
-  else load_tile<HD>(Qs, qb, min(BQ, nq - q0), d, d);
-  const TQ* kb = k + (size_t)(b * Hkv + hk) * nkv * d;
+  load_tile<HD>(Qs, q + ((size_t)(b * H + h) * nq + q0) * d, min(BQ, nq - q0), d, d);
+  const __nv_bfloat16* kb = k + (size_t)(b * Hkv + hk) * nkv * d;
   const __nv_bfloat16* vb = v + (size_t)(b * Hkv + hk) * nkv * dv;
 
   // this thread's two rows: r_lo = 16 * warp + g and r_lo + 8 of the block
@@ -128,7 +95,7 @@ flash_attn_bf16_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
   float m_lo, m_hi, l_lo, l_hi;
   float o[HD / 8][4];
   bool may_skip = have_mask;
-  for (;;) {  // one walk over the kv tiles; K walks again without skipping where that was not exact
+  for (;;) {  // one walk over the kv tiles; again without skipping where that was not exact
   m_lo = m_hi = NEG_SENTINEL;
   l_lo = l_hi = 0.f;
 #pragma unroll
@@ -149,43 +116,22 @@ flash_attn_bf16_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
       }
     }
     __syncthreads();  // the previous tile's K and V are read
-    if constexpr (QK32) load_tile_split<HD>(Ks, Kl, kb + (size_t)kv0 * d, min(BKV, nkv - kv0), d, d);
-    else load_tile<HD>(Ks, kb + (size_t)kv0 * d, min(BKV, nkv - kv0), d, d);
+    load_tile<HD>(Ks, kb + (size_t)kv0 * d, min(BKV, nkv - kv0), d, d);
     load_tile<HD>(Vs, vb + (size_t)kv0 * dv, min(BKV, nkv - kv0), dv, dv);
     __syncthreads();
 
     // S = Q K^T: 16 rows x 64 kv columns per warp, 8 accumulator tiles of 16 x 8
     float s[BKV / 8][4];
-#pragma unroll
-    for (int j = 0; j < BKV / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const int q_at = r_lo * LD + kk * 16 + 2 * t;
-      uint32_t a[4], al[4];
-      load_a_frag(a, Qs + q_at, LD);
-      if constexpr (QK32) load_a_frag(al, Ql + q_at, LD);
-#pragma unroll
-      for (int j = 0; j < BKV / 8; ++j) {
-        const int k_at = (j * 8 + g) * LD + kk * 16 + 2 * t;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(Ks + k_at);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(Ks + k_at + 8);
-        if constexpr (QK32) {  // the small terms first
-          mma_bf16(s[j], al, b0, b1);
-          mma_bf16(s[j], a, *reinterpret_cast<const uint32_t*>(Kl + k_at),
-                   *reinterpret_cast<const uint32_t*>(Kl + k_at + 8));
-        }
-        mma_bf16(s[j], a, b0, b1);
-      }
-    }
+    mma_abt<HD>(s, Qs, r_lo, Ks, g, t);
 
-    // scores: scale or softcap, mask, kv columns past nkv out
+    // scores: scale, mask, kv columns past nkv out
     float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
     for (int j = 0; j < BKV / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = kv0 + j * 8 + 2 * t + (e & 1);
-        float sv = !LSE && softcap != 0.f ? tanhf(s[j][e] * scale) * softcap : s[j][e] * scale;
+        float sv = s[j][e] * scale;
         if (col >= nkv) {
           sv = -INFINITY;
         } else if (have_mask) {
@@ -238,16 +184,12 @@ flash_attn_bf16_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < HD / 16; ++jj) {
         uint32_t b0, b1, b2, b3;
-        const uint32_t addr = (uint32_t)__cvta_generic_to_shared(vp + jj * 16);
-        asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                     : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
-                     : "r"(addr));
+        ldsm_x4_trans(vp + jj * 16, b0, b1, b2, b3);
         mma_bf16(o[2 * jj], a, b0, b1);
         mma_bf16(o[2 * jj + 1], a, b2, b3);
       }
     }
   }
-  if constexpr (!LSE) break;
   // skipped is the same in every thread; rows past nq do not count
   const bool low = (q0 + r_lo < nq && m_lo <= 0.25f * NEG_SENTINEL) ||
                    (q0 + r_lo + 8 < nq && m_hi <= 0.25f * NEG_SENTINEL);
@@ -260,34 +202,25 @@ flash_attn_bf16_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
-  if constexpr (LSE) {
-    // K's dead rows: l = 0; o = 0 and lse = +1e30 (the backward's p underflows to 0)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = q0 + r_lo + 8 * half;
-      const float l = half ? l_hi : l_lo, m = half ? m_hi : m_lo;
-      if (row < nq && t == 0) lse[((size_t)b * H + h) * nq + row] = l == 0.f ? -NEG_SENTINEL : m + logf(l);
-    }
-    m_lo = l_lo == 0.f ? NEG_SENTINEL : 0.f;  // reused below as the dead flag of J
-    m_hi = l_hi == 0.f ? NEG_SENTINEL : 0.f;
-  }
-  if (l_lo == 0.f) l_lo = 1.f;
-  if (l_hi == 0.f) l_hi = 1.f;
-  const bool dead_lo = m_lo <= 0.5f * NEG_SENTINEL, dead_hi = m_hi <= 0.5f * NEG_SENTINEL;
+  const int n_pad = kv_padding(nkv);
+  float c_lo, c_hi;
+  fold_padding(m_lo, l_lo, c_lo, n_pad, slope);
+  fold_padding(m_hi, l_hi, c_hi, n_pad, slope);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = q0 + r_lo + 8 * half;
     if (row >= nq) continue;
-    const float l = half ? l_hi : l_lo;
-    const bool dead = half ? dead_hi : dead_lo;
-    TQ* op = out + ((size_t)(b * nq + row) * H + h) * dv;
+    const float m = half ? m_hi : m_lo, c = half ? c_hi : c_lo;
+    const bool dead = (half ? l_hi : l_lo) == 0.f;  // o = 0, lse = +1e30
+    const float l = dead ? 1.f : (half ? l_hi : l_lo);
+    if (t == 0) lse[((size_t)b * H + h) * nq + row] = dead ? -NEG_SENTINEL : m + logf(l);
+    __nv_bfloat16* op = out + ((size_t)(b * nq + row) * H + h) * dv;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       const int col = j * 8 + 2 * t;
       if (col < dv) {
-        const float x0 = dead ? 0.f : o[j][2 * half] / l, x1 = dead ? 0.f : o[j][2 * half + 1] / l;
-        if constexpr (QK32) *reinterpret_cast<float2*>(op + col) = make_float2(x0, x1);
-        else *reinterpret_cast<__nv_bfloat162*>(op + col) = __floats2bfloat162_rn(x0, x1);
+        const float x0 = dead ? 0.f : o[j][2 * half] * c / l, x1 = dead ? 0.f : o[j][2 * half + 1] * c / l;
+        *reinterpret_cast<__nv_bfloat162*>(op + col) = __floats2bfloat162_rn(x0, x1);
       }
     }
   }
@@ -295,7 +228,9 @@ flash_attn_bf16_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
 
 // f32 inputs: a warp per query row, a lane per key of a 32-key tile for the
 // scores and per output column (stride 32, up to 256 columns) for p . v.
-// No tile is skipped.  LSE: kernel K, as in the bf16 kernel.
+// No tile is skipped.  LSE: kernel K (no softcap, padding folded in, dead
+// rows l' = 0, lse written); else kernel J (softcap, rows whose max never
+// leaves the sentinel give zeros).
 constexpr int F32_ROWS = 4, F32_MAXC = 8;
 
 template <bool LSE>
@@ -353,7 +288,9 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   bool dead = m <= 0.5f * NEG_SENTINEL;
-  if constexpr (LSE) {  // K's dead rows: l = 0
+  float cf = 1.f;
+  if constexpr (LSE) {
+    fold_padding(m, l, cf, kv_padding(nkv), slope);
     dead = l == 0.f;
     if (lane == 0) lse[((size_t)b * H + h) * nq + row] = dead ? -NEG_SENTINEL : m + logf(l);
   }
@@ -362,92 +299,73 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int c = 0; c < F32_MAXC; ++c) {
     const int col = c * 32 + lane;
-    if (col < dv) op[col] = dead ? 0.f : o[c] / l;
+    if (col < dv) op[col] = dead ? 0.f : o[c] * cf / l;
   }
 }
 
-template <int HD, bool QK32, bool LSE>
-int launch_mma(dim3 grid, cudaStream_t s, const void* q, const void* k, const void* v,
-               const void* mask, const void* slopes, void* out, float* lse, int H, int Hkv, int nq,
-               int nkv, int d, int dv, float scale, float softcap) {
-  using TQ = typename std::conditional<QK32, float, __nv_bfloat16>::type;
-  constexpr int smem = (QK32 ? 5 : 3) * 64 * (HD + PAD) * (int)sizeof(__nv_bfloat16);
-  const cudaError_t rc = cudaFuncSetAttribute(flash_attn_bf16_kernel<HD, QK32, LSE, TQ>,
+template <int HD>
+int launch_bf16(dim3 grid, cudaStream_t s, const void* q, const void* k, const void* v, const void* mask,
+                const void* slopes, void* out, float* lse, int H, int Hkv, int nq, int nkv, int d, int dv,
+                float scale) {
+  constexpr int smem = 3 * 64 * (HD + PAD) * (int)sizeof(__nv_bfloat16);
+  const cudaError_t rc = cudaFuncSetAttribute(flash_attn_bf16_kernel<HD>,
                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return (int)rc;
-  flash_attn_bf16_kernel<HD, QK32, LSE, TQ><<<grid, FA_THREADS, smem, s>>>(
-      static_cast<const TQ*>(q), static_cast<const TQ*>(k), static_cast<const __nv_bfloat16*>(v),
-      static_cast<const float*>(mask), static_cast<const float*>(slopes), static_cast<TQ*>(out), lse, H,
-      Hkv, nq, nkv, d, dv, scale, softcap);
+  using bf = __nv_bfloat16;
+  flash_attn_bf16_kernel<HD><<<grid, FA_THREADS, smem, s>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const float*>(mask), static_cast<const float*>(slopes), static_cast<bf*>(out), lse, H, Hkv,
+      nq, nkv, d, dv, scale);
   return (int)cudaGetLastError();
 }
 
-template <bool QK32, bool LSE>
-int launch_by_head_dim(int hd, dim3 grid, cudaStream_t s, const void* q, const void* k, const void* v,
-                       const void* mask, const void* slopes, void* out, float* lse, int H, int Hkv,
-                       int nq, int nkv, int d, int dv, float scale, float softcap) {
-  if (hd <= 64)
-    return launch_mma<64, QK32, LSE>(grid, s, q, k, v, mask, slopes, out, lse, H, Hkv, nq, nkv, d, dv, scale, softcap);
-  if (hd <= 128)
-    return launch_mma<128, QK32, LSE>(grid, s, q, k, v, mask, slopes, out, lse, H, Hkv, nq, nkv, d, dv, scale, softcap);
-  return launch_mma<256, QK32, LSE>(grid, s, q, k, v, mask, slopes, out, lse, H, Hkv, nq, nkv, d, dv, scale, softcap);
+bool bad_shape(int B, int H, int Hkv, int nq, int nkv, int d, int dv, int top) {
+  return B < 1 || H < 1 || Hkv < 1 || H % Hkv || nq < 1 || nkv < 1 || d < 8 || dv < 8 || d % 8 || dv % 8 ||
+         d > top || dv > top || H > 65535 || B > 65535;
 }
 
-// J, or K where lse is given (types 0 or 1 only, softcap 0)
-int launch(const void* q, const void* k, const void* v, const void* mask, const void* slopes, void* out,
-           float* lse, int types, int B, int H, int Hkv, int nq, int nkv, int d, int dv, float score_scale,
-           float softcap, void* stream) {
-  if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || nq < 1 || nkv < 1 || d < 8 || dv < 8 || d % 8 || dv % 8 ||
-      d > 256 || dv > 256 || H > 65535 || B > 65535 || types < 0 || types > 2)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (types == 0) {
-    const dim3 grid((nq + F32_ROWS - 1) / F32_ROWS, H, B);
-    const size_t smem = F32_ROWS * d * sizeof(float);
-    const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
-                *vf = static_cast<const float*>(v), *mf = static_cast<const float*>(mask),
-                *sf = static_cast<const float*>(slopes);
-    if (lse != nullptr)
-      flash_attn_f32_kernel<true><<<grid, 32 * F32_ROWS, smem, s>>>(
-          qf, kf, vf, mf, sf, static_cast<float*>(out), lse, H, Hkv, nq, nkv, d, dv, score_scale, 0.f);
-    else
-      flash_attn_f32_kernel<false><<<grid, 32 * F32_ROWS, smem, s>>>(
-          qf, kf, vf, mf, sf, static_cast<float*>(out), nullptr, H, Hkv, nq, nkv, d, dv, score_scale, softcap);
-    return (int)cudaGetLastError();
-  }
-  const dim3 grid((nq + BQ - 1) / BQ, H, B);
-  const int hd = d > dv ? d : dv;
-  if (lse != nullptr)
-    return types == 1 ? launch_by_head_dim<false, true>(hd, grid, s, q, k, v, mask, slopes, out, lse, H, Hkv, nq,
-                                                        nkv, d, dv, score_scale, 0.f)
-                      : (int)cudaErrorInvalidValue;
-  if (types == 2)
-    return launch_by_head_dim<true, false>(hd, grid, s, q, k, v, mask, slopes, out, nullptr, H, Hkv, nq, nkv, d,
-                                           dv, score_scale, softcap);
-  return launch_by_head_dim<false, false>(hd, grid, s, q, k, v, mask, slopes, out, nullptr, H, Hkv, nq, nkv, d, dv,
-                                          score_scale, softcap);
+template <bool LSE>
+int launch_f32(cudaStream_t s, const void* q, const void* k, const void* v, const void* mask, const void* slopes,
+               void* out, float* lse, int B, int H, int Hkv, int nq, int nkv, int d, int dv, float scale,
+               float softcap) {
+  const dim3 grid((nq + F32_ROWS - 1) / F32_ROWS, H, B);
+  flash_attn_f32_kernel<LSE><<<grid, 32 * F32_ROWS, F32_ROWS * d * sizeof(float), s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(mask), static_cast<const float*>(slopes), static_cast<float*>(out), lse, H, Hkv,
+      nq, nkv, d, dv, scale, softcap);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace ggml_tpu_torch
 
-// Kernel J.  q (B, H, nq, d), k (B, Hkv, nkv, d), v (B, Hkv, nkv, dv) -> out
-// (B, nq, H, dv), contiguous.  types: 0 = all f32, 1 = all bf16, 2 = q, k and
-// out f32 with bf16 v.  mask: f32 (>= nq rows, nkv columns, row stride nkv)
-// or null; slopes: f32 (H).  score_scale is `scale`, or scale / softcap where
-// softcap != 0.  d and dv: multiples of 8 up to 256.
-extern "C" int flash_attn(const void* q, const void* k, const void* v, const void* mask,
-                          const void* slopes, void* out, int types, int B, int H, int Hkv, int nq,
-                          int nkv, int d, int dv, float score_scale, float softcap, void* stream) {
-  return ggml_tpu_torch::launch(q, k, v, mask, slopes, out, nullptr, types, B, H, Hkv, nq, nkv, d, dv,
-                                score_scale, softcap, stream);
+// Kernel J, f32 q/k/v.  q (B, H, nq, d), k (B, Hkv, nkv, d), v (B, Hkv, nkv,
+// dv) -> out (B, nq, H, dv), contiguous f32.  mask: f32 (>= nq rows, nkv
+// columns, row stride nkv) or null; slopes: f32 (H).  score_scale is
+// `scale`, or scale / softcap where softcap != 0.  d and dv: multiples of 8
+// up to 256.
+extern "C" int flash_attn_f32(const void* q, const void* k, const void* v, const void* mask, const void* slopes,
+                              void* out, int B, int H, int Hkv, int nq, int nkv, int d, int dv, float score_scale,
+                              float softcap, void* stream) {
+  using namespace ggml_tpu_torch;
+  if (bad_shape(B, H, Hkv, nq, nkv, d, dv, 256)) return (int)cudaErrorInvalidValue;
+  return launch_f32<false>(static_cast<cudaStream_t>(stream), q, k, v, mask, slopes, out, nullptr, B, H, Hkv, nq,
+                           nkv, d, dv, score_scale, softcap);
 }
 
-// Kernel K: J's arguments (types 0 or 1, no softcap) and lse, f32 (B, H, nq).
+// Kernel K: J's arguments without softcap, and lse, f32 (B, H, nq).
+// types: 0 = all f32 (d, dv up to 256), 1 = all bf16 (d, dv up to 128).
 extern "C" int flash_attn_fwd_lse(const void* q, const void* k, const void* v, const void* mask,
                                   const void* slopes, void* out, void* lse, int types, int B, int H, int Hkv,
                                   int nq, int nkv, int d, int dv, float scale, void* stream) {
-  if (lse == nullptr) return (int)cudaErrorInvalidValue;
-  return ggml_tpu_torch::launch(q, k, v, mask, slopes, out, static_cast<float*>(lse), types, B, H, Hkv, nq, nkv,
-                                d, dv, scale, 0.f, stream);
+  using namespace ggml_tpu_torch;
+  if (lse == nullptr || types < 0 || types > 1 || bad_shape(B, H, Hkv, nq, nkv, d, dv, types == 0 ? 256 : 128))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lp = static_cast<float*>(lse);
+  if (types == 0) return launch_f32<true>(s, q, k, v, mask, slopes, out, lp, B, H, Hkv, nq, nkv, d, dv, scale, 0.f);
+  const dim3 grid((nq + BQ - 1) / BQ, H, B);
+  const int hd = d > dv ? d : dv;
+  if (hd <= 64) return launch_bf16<64>(grid, s, q, k, v, mask, slopes, out, lp, H, Hkv, nq, nkv, d, dv, scale);
+  return launch_bf16<128>(grid, s, q, k, v, mask, slopes, out, lp, H, Hkv, nq, nkv, d, dv, scale);
 }

@@ -9,7 +9,10 @@ over the cache as it was BEFORE this step's write; keys past pos are masked
 out.  The cache row write stays with the caller, an in-place slice
 assignment (models/common.cache_write).  Dots and softmax are f32.  pos is a
 0-d int32 tensor on the cache's device: the CUDA kernel reads it itself
-(csrc/decode_attn.cu), so the decode loop never syncs with the host.
+(csrc/decode_attn.cu), so the decode loop never syncs with the host.  The
+kernel splits the window into chunks of 64 keys over many blocks and merges
+their partial softmaxes in the same launch; the window S has no cap of its
+own.
 
 For CPU tensors the wrapper runs the plain PyTorch version; for CUDA tensors
 it launches the kernel, never the plain version.  `launches` counts kernel
@@ -23,6 +26,19 @@ import torch
 from . import _build
 
 launches = {"decode_attn": 0}
+_CHUNK = 64  # keys per block of the CUDA kernel
+
+_counters: dict = {}  # device -> int32 arrival counters, zero between launches
+
+
+def _zeroed_counters(n: int, device) -> torch.Tensor:
+    """At least n int32 arrival counters on `device`, zero: each launch
+    leaves the ones it used at zero, so one buffer serves every launch."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
 
 
 def _decode_attention_plain(q, k_new, v_new, kc, vc, pos, scale):
@@ -70,13 +86,18 @@ def fused_decode_attention(q, k_new, v_new, kc, vc, pos, *, scale: float) -> tor
         raise TypeError("k_new, v_new and the caches must be bfloat16")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("the CUDA kernel takes contiguous tensors only")
-    if d not in (64, 128, 256, 512) or (8 * d + s) * 4 > 48 * 1024:
-        raise ValueError(f"head dim {d} / window {s} outside the kernel's range")
+    if d not in (64, 128, 256, 512):
+        raise ValueError(f"head dim {d} outside the kernel's range (64, 128, 256, 512)")
+    lib = _build.lib()
+    hb = lib.decode_attn_heads_per_block(hq // hkv, d)
+    units = hkv * -(-(hq // hkv) // hb)
     out = torch.empty((1, hq, 1, d), dtype=torch.float32, device=q.device)
+    part = torch.empty(units * -(-s // _CHUNK) * hb * (d + 2), dtype=torch.float32, device=q.device)
+    counters = _zeroed_counters(units, q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _build.lib().decode_attn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kc.data_ptr(),
-                                  vc.data_ptr(), pos.data_ptr(), out.data_ptr(), hq, hkv, s, d,
-                                  float(scale), stream)
+    rc = lib.decode_attn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                         pos.data_ptr(), out.data_ptr(), part.data_ptr(), counters.data_ptr(), hq, hkv, s, d,
+                         float(scale), stream)
     launches["decode_attn"] += 1
     _build.check(rc, "decode_attn")
     return out

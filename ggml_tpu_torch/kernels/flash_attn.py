@@ -7,21 +7,30 @@ applied before the mask, GQA by h // h_kv, f32 scores and sums, `p` rounded to
 v's type before p @ v, rows that never leave the -1e30 sentinel give zeros.
 Ragged q and kv lengths need no padding here: the kernel checks bounds.
 q, k and v are all bf16, all f32, or f32 q and k with bf16 v: what a bf16
-model's prefill hands over, since RoPE leaves q and k in f32.
+model's prefill hands over, since RoPE leaves q and k in f32.  On the card
+the bf16 and f32-q/k sets run on Hopper's wgmma (csrc/flash_attn_sm90.cu)
+after two helper kernels: `split_hi_lo` writes f32 k as hi and lo bf16
+planes (the kernel splits q itself as it reads it), and `mask_ranges` gives
+each 64 x 64 tile of the mask its min and max, from which the kernel skips,
+adds a constant or reads the mask.  q, k and v may be head views with
+contiguous rows (no copy is made of them).
 
 K, L and M are the port of `flash_attention_train` (`_fa_forward_lse`,
 `_fa_train_bwd`): the same function without softcap, differentiable, with a
 backward from the saved output and its logsumexp (FlashAttention-2).  K gives
 the output and the LSE, one f32 per row; L gives dq, M dk and dv.  p and ds stay
-f32 in the backward; only the forward rounds p to v's type before p @ v.  Its
-dead rows are those where every score is -inf: zeros, LSE +1e30 and no
-gradient.  A row masked with the finite -1e30 everywhere is not dead: every p
-is 1, the output the mean of v, the LSE about -1e30 (the JAX kernels'
-arithmetic, where JAX pads nothing).  q, k and v are all bf16 or all f32.
+f32 in the backward; only the forward rounds p to v's type before p @ v.  As
+the JAX wrapper pads kv to a multiple of 32 with zero rows masked -1e30 (times
+the slope), K folds those columns into every row: live rows do not change, a
+row masked -1e30 everywhere averages v over the padded length, and its LSE is
+about -1e30.  Its dead rows are those left with l = 0 (every score -inf and no
+padding): zeros, LSE +1e30 and no gradient.  q, k and v are all bf16 or all
+f32.
 
 For CPU tensors each wrapper runs its plain PyTorch version; for CUDA tensors
-it launches its kernel (csrc/flash_attn.cu: J and K; csrc/flash_attn_bwd.cu:
-L and M), never the plain version.  `launches` counts kernel launches.
+it launches its kernel (csrc/flash_attn_sm90.cu: J and its helpers;
+csrc/flash_attn.cu: K and J's all-f32 set; csrc/flash_attn_bwd.cu: L and M),
+never the plain version.  `launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -35,10 +44,13 @@ from torch.autograd.function import once_differentiable
 
 from . import _build
 
-launches = {"flash_attn": 0, "flash_attn_fwd_lse": 0, "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0}
+launches = {"flash_attn": 0, "flash_split": 0, "flash_mask_ranges": 0,
+            "flash_attn_fwd_lse": 0, "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0}
 
 _NEG_INF = -1e30  # finite "minus infinity": the running max starts here, so exp() stays NaN-free
-_BKV = 64  # kv rows per step, of the CUDA kernel and of the plain version
+_BKV = 64  # kv rows per step of K's CUDA kernel, of J's for bf16 q/k/v, and of their plain versions
+_TILE = 64  # q rows and kv columns of a mask-range tile (J's tiles)
+_KV_ALIGN = 32  # the JAX training wrapper pads kv to a multiple of this
 
 
 # the type sets the kernel takes (q, k, v), by the code csrc/flash_attn.cu knows them by
@@ -67,14 +79,15 @@ def _slopes_on(n_head: int, max_bias: float, device: torch.device) -> torch.Tens
     return torch.from_numpy(alibi_slopes(n_head, max_bias)).to(device)
 
 
-def _online_softmax_plain(q, k, v, mask, slopes, score_scale: float, softcap: float):
-    """The forward kernels' recurrence in PyTorch over kv tiles of 64 rows,
-    the kernels'.  The tile fixes the running max each p is rounded against
-    before p @ v; the JAX wrappers pick other tiles, so for a bf16 v the two
-    differ by single bf16 roundings of p (for an f32 v only in the last bits).
-    mask: (nq, nkv) f32 or None; slopes: (h,) f32; score_scale: scale, or
-    scale / softcap where softcap != 0.  Returns the running sum of p @ v, the
-    max and the sum of p after the last tile, (b, h, nq, d_v) and (b, h, nq, 1)."""
+def _online_softmax_plain(q, k, v, mask, slopes, score_scale: float, softcap: float, bkv: int = _BKV):
+    """The forward kernels' recurrence in PyTorch over kv tiles of bkv rows,
+    the kernel's (_j_tile for J, 64 for K).  The tile fixes the running max
+    each p is rounded against before p @ v; the JAX wrappers pick other tiles,
+    so for a bf16 v the two differ by single bf16 roundings of p (for an f32 v
+    only in the last bits).  mask: (nq, nkv) f32 or None; slopes: (h,) f32;
+    score_scale: scale, or scale / softcap where softcap != 0.  Returns the
+    running sum of p @ v, the max and the sum of p after the last tile,
+    (b, h, nq, d_v) and (b, h, nq, 1)."""
     b, h, n_q, _ = q.shape
     _, h_kv, n_kv, d_v = v.shape
     rep = h // h_kv
@@ -82,13 +95,13 @@ def _online_softmax_plain(q, k, v, mask, slopes, score_scale: float, softcap: fl
     m = torch.full((b, h, n_q, 1), _NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, h, n_q, d_v), dtype=torch.float32, device=q.device)
-    for kv0 in range(0, n_kv, _BKV):
-        kf = k[:, :, kv0 : kv0 + _BKV].float().repeat_interleave(rep, dim=1)
-        vt = v[:, :, kv0 : kv0 + _BKV].repeat_interleave(rep, dim=1)
+    for kv0 in range(0, n_kv, bkv):
+        kf = k[:, :, kv0 : kv0 + bkv].float().repeat_interleave(rep, dim=1)
+        vt = v[:, :, kv0 : kv0 + bkv].repeat_interleave(rep, dim=1)
         s = torch.matmul(qf, kf.transpose(-1, -2))
         s = torch.tanh(s * score_scale) * softcap if softcap != 0.0 else s * score_scale
         if mask is not None:
-            s = s + slopes.view(1, h, 1, 1) * mask[:, kv0 : kv0 + _BKV]
+            s = s + slopes.view(1, h, 1, 1) * mask[:, kv0 : kv0 + bkv]
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
@@ -98,19 +111,35 @@ def _online_softmax_plain(q, k, v, mask, slopes, score_scale: float, softcap: fl
     return acc, m, l
 
 
+def _j_tile(q, v) -> int:
+    """J's kv tile: 32 rows for f32 q and k with a bf16 v (the hi and lo
+    planes take twice the shared memory of bf16 ones), else 64."""
+    return 32 if q.dtype == torch.float32 and v.dtype == torch.bfloat16 else _BKV
+
+
 def _flash_attention_plain(q, k, v, mask, slopes, score_scale: float, softcap: float) -> torch.Tensor:
     """Kernel J's function: rows whose max never leaves the -1e30 sentinel
     give zeros.  Returns (b, nq, h, d_v) in q's type."""
-    acc, m, l = _online_softmax_plain(q, k, v, mask, slopes, score_scale, softcap)
+    acc, m, l = _online_softmax_plain(q, k, v, mask, slopes, score_scale, softcap, _j_tile(q, v))
     l = torch.where(l == 0.0, torch.ones_like(l), l)
     out = torch.where(m <= _NEG_INF * 0.5, torch.zeros_like(acc), acc / l)
     return out.to(q.dtype).transpose(1, 2).contiguous()
 
 
 def _fa_forward_lse_plain(q, k, v, mask, slopes, scale: float):
-    """Kernel K's function: rows with l = 0 give zeros and LSE +1e30.
-    Returns o (b, nq, h, d_v) in q's type and lse (b, h, nq) f32."""
+    """Kernel K's function: the n_pad zero kv columns that _fa_setup appends
+    (masked slope * -1e30) folded in, then rows with l = 0 give zeros and
+    LSE +1e30.  Returns o (b, nq, h, d_v) in q's type and lse (b, h, nq) f32."""
     acc, m, l = _online_softmax_plain(q, k, v, mask, slopes, scale, 0.0)
+    n_kv = k.shape[2]
+    n_pad = -(-n_kv // _KV_ALIGN) * _KV_ALIGN - n_kv
+    if n_pad:
+        pad = slopes.view(1, -1, 1, 1) * _NEG_INF  # the padded columns' score
+        m_new = torch.maximum(m, pad)
+        alpha = torch.exp(m - m_new)  # 1 for a live row, which the padding leaves alone
+        l = l * alpha + n_pad * torch.exp(pad - m_new)
+        acc = acc * alpha
+        m = m_new
     dead = l == 0.0
     l1 = torch.where(dead, torch.ones_like(l), l)
     out = torch.where(dead, torch.zeros_like(acc), acc / l1)
@@ -145,6 +174,68 @@ def _fa_bwd_dkv_plain(q, k, v, mask, slopes, scale: float, do, lse, delta):
     head, in k's and v's types."""
     p, ds, qf, _, dof = _p_ds_plain(q, k, v, mask, slopes, scale, do, lse, delta)
     return torch.matmul(ds.transpose(-1, -2), qf).to(k.dtype), torch.matmul(p.transpose(-1, -2), dof).to(v.dtype)
+
+
+def _split_hi_lo_plain(x: torch.Tensor) -> torch.Tensor:
+    """f32 x as two bf16 planes (2, *x.shape): hi = bf16(x), lo = bf16(x - hi)."""
+    hi = x.to(torch.bfloat16)
+    return torch.stack((hi, (x - hi.float()).to(torch.bfloat16)))
+
+
+def _mask_ranges_plain(mask: torch.Tensor) -> torch.Tensor:
+    """(2, ceil(nq / 64), ceil(nkv / 64)) f32: the min and max of the mask
+    entries of each 64 x 64 tile (the ragged edge tiles over their entries)."""
+    nq, nkv = mask.shape
+    nqt, nkt = -(-nq // _TILE), -(-nkv // _TILE)
+
+    def tiles(fill):
+        t = torch.full((nqt * _TILE, nkt * _TILE), fill, dtype=torch.float32, device=mask.device)
+        t[:nq, :nkv] = mask
+        return t.view(nqt, _TILE, nkt, _TILE)
+
+    return torch.stack((tiles(float("inf")).amin(dim=(1, 3)), tiles(float("-inf")).amax(dim=(1, 3))))
+
+
+def _row_strides(t: torch.Tensor, align: int):
+    """t (b, h, n, d) as the kernels read it: rows contiguous, every row start
+    `align` elements apart (16 bytes); a copy only where t is not so already.
+    Returns the tensor and its (batch, head, row) strides."""
+    if t.stride(-1) != 1 or any(st % align for st in t.stride()[:3]) or t.data_ptr() % 16:
+        t = t.contiguous()
+    return t, t.stride()[:3]
+
+
+def split_hi_lo(x: torch.Tensor) -> torch.Tensor:
+    """Helper of kernel J: f32 (b, h, n, d) x as hi and lo bf16 planes
+    (2, b, h, n, d), contiguous."""
+    if not x.is_cuda:
+        return _split_hi_lo_plain(x)
+    if x.dim() != 4 or x.dtype != torch.float32 or x.shape[-1] % 8:
+        raise ValueError(f"split_hi_lo takes an f32 (b, h, n, d) tensor, d a multiple of 8: {tuple(x.shape)} {x.dtype}")
+    x, st = _row_strides(x, 4)
+    planes = torch.empty((2, *x.shape), dtype=torch.bfloat16, device=x.device)
+    rc = _build.lib().flash_split(x.data_ptr(), planes.data_ptr(), *x.shape[:3], *st, x.shape[-1],
+                                  torch.cuda.current_stream(x.device).cuda_stream)
+    launches["flash_split"] += 1
+    _build.check(rc, "flash_split")
+    return planes
+
+
+def mask_ranges(mask: torch.Tensor) -> torch.Tensor:
+    """Helper of kernel J: the (nq, nkv) f32 mask's min and max per 64 x 64
+    tile, (2, ceil(nq / 64), ceil(nkv / 64)) f32."""
+    if not mask.is_cuda:
+        return _mask_ranges_plain(mask)
+    if mask.dim() != 2 or mask.dtype != torch.float32:
+        raise ValueError(f"mask {tuple(mask.shape)} {mask.dtype}: want (nq, nkv) float32")
+    mask = mask.contiguous()
+    nq, nkv = mask.shape
+    ranges = torch.empty((2, -(-nq // _TILE), -(-nkv // _TILE)), dtype=torch.float32, device=mask.device)
+    rc = _build.lib().flash_mask_ranges(mask.data_ptr(), ranges.data_ptr(), nq, nkv,
+                                        torch.cuda.current_stream(mask.device).cuda_stream)
+    launches["flash_mask_ranges"] += 1
+    _build.check(rc, "flash_mask_ranges")
+    return ranges
 
 
 def _prepare(q, k, v, mask, types: dict):
@@ -183,15 +274,28 @@ def flash_attention(q, k, v, mask=None, scale: float = 1.0, max_bias: float = 0.
 
     if d % 8 or d_v % 8 or d > 256 or d_v > 256:
         raise ValueError(f"head dims {d}/{d_v}: the kernel takes multiples of 8 up to 256")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if mask is not None:
-        mask = mask.contiguous()
+    mask = None if mask is None else mask.contiguous()
     out = torch.empty((b, n_q, h, d_v), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _build.lib().flash_attn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 None if mask is None else mask.data_ptr(), slopes.data_ptr(),
-                                 out.data_ptr(), types, b, h, h_kv, n_q, n_kv,
-                                 d, d_v, score_scale, softcap, stream)
+    if types == 0:  # all f32: the FMA kernel of csrc/flash_attn.cu
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        rc = _build.lib().flash_attn_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), slopes.data_ptr(),
+                                         out.data_ptr(), b, h, h_kv, n_q, n_kv, d, d_v, score_scale, softcap, stream)
+    else:
+        ranges = None if mask is None else mask_ranges(mask)
+        v, v_st = _row_strides(v, 8)
+        if types == 2:  # f32 q, split by the kernel as it reads it; f32 k as hi and lo planes
+            q, q_st = _row_strides(q, 4)
+            kp = split_hi_lo(k)
+            q_args = (q.data_ptr(), kp[0].data_ptr(), kp[1].data_ptr())
+            k_st = kp[0].stride()
+        else:
+            q, q_st = _row_strides(q, 8)
+            k, k_st = _row_strides(k, 8)
+            q_args = (q.data_ptr(), k.data_ptr(), None)
+        rc = _build.lib().flash_attn_sm90(*q_args, v.data_ptr(), *q_st[:3], *k_st[:3], *v_st, _ptr(mask),
+                                          _ptr(ranges), slopes.data_ptr(), out.data_ptr(), int(types == 2), b, h,
+                                          h_kv, n_q, n_kv, d, d_v, score_scale, softcap, stream)
     launches["flash_attn"] += 1
     _build.check(rc, "flash_attn")
     return out

@@ -57,3 +57,17 @@ def test_decode_attention_rejects_bad_inputs():
     with pytest.raises(ValueError):
         fused_decode_attention(q.expand(2, -1, -1, -1), kn, vn, kc, vc,
                                torch.tensor(3, dtype=torch.int32), scale=0.1)
+
+
+@pytest.mark.parametrize("pos", [63, 64, 127, 299])
+def test_decode_attention_gqa_at_chunk_edges(pos):
+    """GQA (4 query heads a kv head) at head dim 128 over a window of 300 rows,
+    at the edges of the CUDA kernel's 64-key chunks and at the window's end."""
+    rng = np.random.default_rng(pos)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    q, kn, vn, kc, vc = f(1, 8, 1, 128), f(1, 2, 1, 128), f(1, 2, 1, 128), f(1, 2, 300, 128), f(1, 2, 300, 128)
+    want = np.asarray(jax_fused_decode_attention(*(jnp.asarray(a) for a in (q, kn, vn, kc, vc)), jnp.int32(pos),
+                                                 scale=0.088, interpret=True))
+    got = fused_decode_attention(*(torch.from_numpy(a) for a in (q, kn, vn, kc, vc)),
+                                 torch.tensor(pos, dtype=torch.int32), scale=0.088)
+    assert nmse(want, got.numpy()) <= 1e-10

@@ -165,3 +165,50 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     before = dict(flash_attn.launches)
     flash_attention(q, k, v)
     assert flash_attn.launches == before  # CPU tensors: the plain version, nothing launched
+
+
+def test_split_hi_lo_planes():
+    """Helper of J: f32 k as bf16 planes (2, b, h, n, d), hi = bf16(x) and
+    lo = bf16(x - hi), bit for bit; hi + lo gives x back to 2^-16 of |x|.
+    Head views (strided rows) split as their contiguous copies do."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy((rng.standard_normal((2, 3, 40, 64)) * 10.0 ** rng.integers(-3, 4, (2, 3, 40, 1)).astype(np.float64))
+                         .astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal((2, 40, 3, 64)).astype(np.float32)).transpose(1, 2)
+    for t in (x, y):
+        planes = flash_attn.split_hi_lo(t)
+        assert planes.dtype == torch.bfloat16 and planes.shape == (2, *t.shape) and planes.is_contiguous()
+        hi, lo = planes[0], planes[1]
+        np.testing.assert_array_equal(hi.view(torch.int16).numpy(), t.to(torch.bfloat16).view(torch.int16).numpy())
+        np.testing.assert_array_equal(lo.view(torch.int16).numpy(),
+                                      (t - hi.float()).to(torch.bfloat16).view(torch.int16).numpy())
+        err = (t.double() - hi.double() - lo.double()).abs()
+        assert bool((err <= 2.0 ** -16 * t.double().abs()).all())
+    assert torch.equal(flash_attn.split_hi_lo(y), flash_attn.split_hi_lo(y.contiguous()))
+
+
+def _ranges_numpy(mask):
+    nq, nkv = mask.shape
+    out = np.zeros((2, -(-nq // 64), -(-nkv // 64)), np.float32)
+    for i in range(out.shape[1]):
+        for j in range(out.shape[2]):
+            tile = mask[64 * i:64 * (i + 1), 64 * j:64 * (j + 1)]
+            out[0, i, j], out[1, i, j] = tile.min(), tile.max()
+    return out
+
+
+@pytest.mark.parametrize("kind", ["causal", "alibi-ragged", "random"])
+def test_mask_ranges(kind):
+    """Helper of J: the min and max of each 64 x 64 mask tile, exactly, the
+    ragged edge tiles over their own entries only."""
+    rng = np.random.default_rng(10)
+    if kind == "causal":
+        mask = np.array(jax_causal_mask(200))
+    elif kind == "alibi-ragged":  # ggml's KQ mask with ALiBi positions, ragged in both lengths
+        i, j = np.arange(100)[:, None], np.arange(150)[None, :]
+        mask = np.where(j <= i + 50, -np.abs(i + 50 - j), -np.inf).astype(np.float32)
+    else:
+        mask = rng.standard_normal((130, 70)).astype(np.float32)
+    got = flash_attn.mask_ranges(torch.from_numpy(mask))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), _ranges_numpy(mask))

@@ -168,21 +168,40 @@ def test_alibi_slopes_are_built_once_per_device():
     np.testing.assert_array_equal(a.numpy(), flash_attn.alibi_slopes(8, 8.0))
 
 
-def test_dead_rows_at_padded_lengths_differ_from_jax():
+@pytest.mark.parametrize("max_bias", [0.0, 8.0], ids=["no-alibi", "alibi"])
+def test_dead_rows_at_padded_lengths_match_jax(max_bias):
     """Where the JAX wrapper pads kv to a multiple of 32 (with zero rows
-    masked -1e30), its dead rows read the padding: a row masked -1e30
-    everywhere averages v over the padded length (40 -> 64), an -inf row gets
-    lse = -1e30 + log(24) instead of +1e30.  The port pads nothing: the mean
-    over 40 rows, lse +1e30 (ROADMAP.md, "Faults found").  Live rows agree."""
-    q, k, v, _ = _make(1, 1, 1, 8, 40, 64, seed=12)
+    masked -1e30 times the slope), its dead rows read the padding: a row
+    masked -1e30 everywhere averages v over the padded length (40 -> 64), an
+    -inf row gets lse = -1e30 + log(24) instead of +1e30.  K folds those
+    columns in: o and lse agree on every row, live or not."""
+    q, k, v, _ = _make(1, 2, 2, 8, 40, 64, seed=12)
     mask = np.zeros((8, 40), np.float32)
     mask[2], mask[5] = -1e30, -np.inf
-    o_jax, lse_jax = _fa_forward_lse(*(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(mask), 0.125, 0.0, True)
-    o, lse = flash_attention_fwd_lse(*(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(mask), scale=0.125)
-    o_jax, lse_jax = np.asarray(o_jax)[0, 0], np.asarray(lse_jax)[0, 0, :8, 0]
-    np.testing.assert_allclose(o_jax[2], v[0, 0].sum(0) / 64, rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(o[0, 2, 0].numpy(), v[0, 0].sum(0) / 40, rtol=1e-5, atol=1e-6)
-    assert lse_jax[5] < -1e29 and bool(lse[0, 0, 5] == 1e30)
+    o_jax, lse_jax = _fa_forward_lse(*(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(mask), 0.125, max_bias, True)
+    o, lse = flash_attention_fwd_lse(*(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(mask), scale=0.125,
+                                     max_bias=max_bias)
+    o_jax = np.transpose(np.asarray(o_jax), (0, 2, 1, 3))
+    lse_jax = np.asarray(lse_jax)[0, :, :8, 0]
+    if max_bias == 0.0:
+        np.testing.assert_allclose(o_jax[0, 2, 0], v[0, 0].sum(0) / 64, rtol=1e-5, atol=1e-6)
+    assert nmse(o_jax, o.numpy()) <= 1e-10
     live = [0, 1, 3, 4, 6, 7]
-    assert nmse(o_jax[live], o[0, live, 0].numpy()) <= 1e-10
-    assert nmse(lse_jax[live], lse[0, 0, live].numpy()) <= 1e-12
+    assert nmse(lse_jax[:, live], lse[0][:, live].numpy()) <= 1e-12
+    np.testing.assert_array_equal(lse[0][:, [2, 5]].numpy(), lse_jax[:, [2, 5]])
+    assert (lse_jax[:, [2, 5]] < -1e27).all()  # about slope * -1e30
+
+
+def test_gradients_at_padded_lengths_with_dead_rows_match_jax():
+    """The backward from K's folded LSE at n_kv = 40: a row masked -1e30
+    everywhere takes p = 1 on every real column, an -inf row none; dq, dk and
+    dv agree with jax.vjp on every row."""
+    q, k, v, w = _make(1, 2, 2, 16, 40, 32, seed=13)
+    mask = _causal(16, 40)
+    mask[3], mask[9] = -1e30, -np.inf
+    kw = dict(scale=0.2)
+    want, got = _jax_vjp(q, k, v, w, mask, "float32", **kw), _port_vjp(q, k, v, w, mask, "float32", **kw)
+    for name, a, g in zip(("o", "dq", "dk", "dv"), want, got):
+        assert np.isfinite(g).all(), name
+        assert nmse(a, g) <= 1e-10, (name, nmse(a, g))
+    assert (got[1][0, :, 9] == 0).all()
