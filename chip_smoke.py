@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --long-decode-profile   # phases 1, 2 and the decode profile after a long prompt only
+    python3 chip_smoke.py --flash-times           # phases 1, 2 and kernel J's times at the 1024-token prefill only
 
 Phases (any failure exits non-zero without the result line):
 1. the card, as nvidia-smi reports its name and power limit;
@@ -199,7 +200,7 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
               f"library={us(r['library_ms'])} bound={r['bound_ms'] * 1e3:.1f}us ({r['bound_by']})")
         check(r["nmse"] <= gate, f"{name} {r['shape']}: NMSE {r['nmse']:.3e} > {gate:g}")
 
-    def gemv_case(name, m, k, n, npad, d_dtype=torch.bfloat16, fmt=None):
+    def gemv_case(name, m, k, n, npad, d_dtype=torch.bfloat16, fmt=None, time_it=True):
         if fmt is None:
             pw, label = random_planes(torch, n, k, npad, d_dtype, gen), f"d={str(d_dtype)[6:]}"
         elif fmt in ("q4_0", "q3_k", "q4_0_f32"):
@@ -223,9 +224,10 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         kind = "bf16" if name.endswith("matmul") else "int8"
         t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[kind] * 1e3
         rec = dict(shape=f"M={m} K={k} N={n} Npad={npad} {label}", nmse=nmse, max_abs_err=mae,
-                   ms=device_ms(torch, lambda: wrapper(x, pw), flush, 50),
-                   plain_ms=device_ms(torch, plain_fn, flush, 5),
-                   library_ms=device_ms(torch, lambda: torch.matmul(x.to(torch.bfloat16), w), flush, 20),
+                   ms=device_ms(torch, lambda: wrapper(x, pw), flush, 50) if time_it else None,
+                   plain_ms=device_ms(torch, plain_fn, flush, 5) if time_it else None,
+                   library_ms=device_ms(torch, lambda: torch.matmul(x.to(torch.bfloat16), w), flush, 20)
+                   if time_it else None,
                    bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
         del w, pw
         record(name, rec)
@@ -271,11 +273,30 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
     gemv_case("q4k_matmul", 100, *qkvup, fmt="q3_k")
     gemv_case("q4k_matmul", 1024, *qkvup)               # compact planes
     gemv_case("q8_matmul", 1024, *qkvup, fmt="q8_0")
+    for shape in (attn_out, ffn_down):  # the long prompt's other two prefill shapes
+        gemv_case("q4k_matmul", 1024, *shape)
+        gemv_case("q8_matmul", 1024, *shape, fmt="q8_0")
+    # C and G at their edges, correctness only: one row and a ragged row tile
+    # (M = 1, 33), a half-plane ending in half a stage (q4, K=192), K % 128 ==
+    # 32 (q8, K=4128), groups of 16 (Q3_K, Q6_K), f32 and bf16 planes, and
+    # Npad = 128 times an odd number
+    for m in (1, 33):
+        gemv_case("q4k_matmul", m, 192, 300, 384, fmt="q4_0_f32", time_it=False)
+        gemv_case("q4k_matmul", m, 256, 600, 640, fmt="q4_0", time_it=False)
+        gemv_case("q4k_matmul", m, 256, 600, 640, fmt="q3_k", time_it=False)
+        gemv_case("q4k_matmul", m, 1024, 1100, 1152, d_dtype=torch.float32, time_it=False)
+        gemv_case("q8_matmul", m, 4128, 300, 384, fmt="q5_1", time_it=False)
+        gemv_case("q8_matmul", m, 4128, 300, 384, fmt="q8_0", time_it=False)
+        gemv_case("q8_matmul", m, 512, 600, 640, fmt="q6_k", time_it=False)
+        gemv_case("q8_matmul", m, 512, 600, 640, fmt="q5_k_synth", time_it=False)
 
-    def flash_case(b, h, h_kv, nq, nkv, d, types, causal=True, max_bias=0.0, softcap=0.0, time_it=True):
+    def flash_case(b, h, h_kv, nq, nkv, d, types, causal=True, max_bias=0.0, softcap=0.0, time_it=True,
+                   dead_row=None):
         """J against its plain version.  types: "bfloat16" or "float32" for
         q, k and v alike, "mixed" for f32 q and k with a bf16 v (the bf16
-        model's prefill).  The bound counts the unmasked (q, k) pairs only (the
+        model's prefill).  dead_row: a row of the mask set to -1e30
+        everywhere (at a ragged n_kv with ALiBi, J folds in the JAX
+        wrapper's kv padding, so most heads keep such a row live).  The bound counts the unmasked (q, k) pairs only (the
         causal half): 4*h*d operations a pair at the rate of the inputs' type;
         for "mixed" the f32 q . k costs three bf16 products, so 8*h*d a pair at
         the bf16 rate.  The library call takes one type, so "mixed" is timed
@@ -290,6 +311,8 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         q, k, v = mk(qk_type, b, nq, h), mk(qk_type, b, nkv, h_kv), mk(v_type, b, nkv, h_kv)
         rows = torch.arange(nq, device="cuda")[:, None] + (nkv - nq)
         mask = torch.where(torch.arange(nkv, device="cuda")[None, :] <= rows, 0.0, -1e30) if causal else None
+        if dead_row is not None:
+            mask[dead_row] = -1e30
         scale = d ** -0.5
         call = lambda: flash_attn.flash_attention(q, k, v, mask=mask, scale=scale, max_bias=max_bias,
                                                   logit_softcap=softcap)
@@ -313,7 +336,8 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         plain_lib = max_bias == 0.0 and softcap == 0.0 and (not causal or nq == nkv)  # what one SDPA call computes
         rec = dict(shape=f"b={b} h={h} h_kv={h_kv} nq={nq} nkv={nkv} d={d} "
                          f"{'f32 q/k, bf16 v' if types == 'mixed' else types}"
-                         f"{' causal' if causal else ''}{' alibi' if max_bias else ''}{' softcap' if softcap else ''}",
+                         f"{' causal' if causal else ''}{' alibi' if max_bias else ''}{' softcap' if softcap else ''}"
+                         f"{f' row {dead_row} masked everywhere' if dead_row is not None else ''}",
                    nmse=nmse, max_abs_err=mae,
                    ms=device_ms(torch, call, flush, 20) if time_it else None,
                    plain_ms=device_ms(torch, plain_fn, flush, 3) if time_it else None,
@@ -352,6 +376,9 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
     flash_case(1, 4, 4, 37, 53, 64, "float32", causal=False, time_it=False)
     for types in ("mixed", "bfloat16"):
         flash_case(2, 8, 2, 100, 200, 64, types, max_bias=8.0, softcap=30.0, time_it=False)
+    # a row masked everywhere at a ragged n_kv with ALiBi slopes below 0.5
+    for types in ("float32", "mixed", "bfloat16"):
+        flash_case(1, 16, 16, 8, 40, 64, types, max_bias=8.0, time_it=False, dead_row=3)
 
     def train_case(b, h, h_kv, nq, nkv, d, dtype, mask_kind="causal", max_bias=0.0, time_it=True):
         """K, L and M against their plain versions on the same inputs (L and
@@ -665,8 +692,8 @@ def profile_prefill(torch, np, model, t: int) -> dict:
     events = _device_events(prof)
     total_us = sum(e.self_device_time_total for e in events)
     ours = {name: sum(e.self_device_time_total for e in events if name in e.key) / 1e3
-            for name in ("q4k_matmul_kernel", "q8_matmul_kernel", "fa_sm90_kernel", "flash_split_kernel",
-                         "flash_mask_ranges_kernel")}
+            for name in ("q4k_matmul_kernel", "q8_matmul_kernel", "qmatmul_xsum_kernel", "fa_sm90_kernel",
+                         "flash_split_kernel", "flash_mask_ranges_kernel")}
     ours = {k: v for k, v in ours.items() if v}
     trace = dict(prompt=t, host_ms=host_ms, device_ms=total_us / 1e3, port_kernels_ms=ours,
                  other_device_ms=total_us / 1e3 - sum(ours.values()))
@@ -933,6 +960,26 @@ def phase_tiny_train(torch, np) -> dict:
     return dict(loss_nmse=loss_nmse, worst_grad_nmse=grad_nmse, worst_param_nmse_after_3_steps=param_nmse)
 
 
+def flash_times(torch, flash_attn) -> dict:
+    """Kernel J's device time (µs) at GPT-J's 1024-token prefill, f32 q/k
+    with a bf16 v and all bf16, three timings of 20 calls each: the mode
+    that sets two trees side by side in one call (copy this script into
+    the other tree and run it there with --flash-times)."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    n = 1024
+    mask = torch.where(torch.arange(n, device="cuda")[None, :] <= torch.arange(n, device="cuda")[:, None], 0.0, -1e30)
+    out = {}
+    for types, qk in (("f32 q/k, bf16 v", torch.float32), ("bfloat16", torch.bfloat16)):
+        mk = lambda dt: torch.randn((1, n, 16, 256), device="cuda", generator=gen).to(dt).transpose(1, 2)
+        q, k, v = mk(qk), mk(qk), mk(torch.bfloat16)
+        call = lambda: flash_attn.flash_attention(q, k, v, mask=mask, scale=1 / 16)
+        out[types] = [device_ms(torch, call, flush, 20) * 1e3 for _ in range(3)]
+        print(f"  J {types}: " + ", ".join(f"{t:.1f}us" for t in out[types]))
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -969,6 +1016,14 @@ def main() -> int:
         for line in _build.build_log.splitlines():
             if "registers" in line or "spill" in line or line.startswith("=="):
                 print("  " + line.strip())
+
+        if sys.argv[1:] == ["--flash-times"]:
+            print("== 3. kernel J at the 1024-token prefill (h=16, d=256, causal), three timings each")
+            times = flash_times(torch, flash_attn)
+            print(json.dumps(dict(card=card, flash_times_us=times)))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
 
         if sys.argv[1:] == ["--long-decode-profile"]:
             print("== 4. GPT-J-6B Q4_K (synthesized compact planes), decode after a 1088-token prompt, profiled")

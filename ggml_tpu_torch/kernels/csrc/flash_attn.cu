@@ -52,20 +52,6 @@
 namespace ggml_tpu_torch {
 namespace {
 
-// _fa_setup's n_pad zero kv columns, masked slope * -1e30, folded into a
-// finished row (m, l); c is what the row's accumulator is multiplied by
-__device__ __forceinline__ void fold_padding(float& m, float& l, float& c, int n_pad, float slope) {
-  c = 1.f;
-  if (n_pad == 0) return;
-  const float mp = slope * NEG_SENTINEL;
-  const float mn = fmaxf(m, mp);
-  c = expf(m - mn);
-  l = l * c + (float)n_pad * expf(mp - mn);
-  m = mn;
-}
-
-__device__ __forceinline__ int kv_padding(int nkv) { return (nkv + 31) / 32 * 32 - nkv; }
-
 template <int HD>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -228,9 +214,9 @@ flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 
 // f32 inputs: a warp per query row, a lane per key of a 32-key tile for the
 // scores and per output column (stride 32, up to 256 columns) for p . v.
-// No tile is skipped.  LSE: kernel K (no softcap, padding folded in, dead
-// rows l' = 0, lse written); else kernel J (softcap, rows whose max never
-// leaves the sentinel give zeros).
+// No tile is skipped.  Both fold in the JAX wrappers' kv padding.  LSE:
+// kernel K (no softcap, dead rows l' = 0, lse written); else kernel J
+// (softcap, rows whose folded max m' <= -5e29 give zeros).
 constexpr int F32_ROWS = 4, F32_MAXC = 8;
 
 template <bool LSE>
@@ -287,10 +273,10 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       o[c] = o[c] * alpha + acc;
     }
   }
-  bool dead = m <= 0.5f * NEG_SENTINEL;
-  float cf = 1.f;
+  float cf;
+  fold_padding(m, l, cf, kv_padding(nkv), slope);
+  bool dead = m <= 0.5f * NEG_SENTINEL;  // J: JAX's test on the padded row
   if constexpr (LSE) {
-    fold_padding(m, l, cf, kv_padding(nkv), slope);
     dead = l == 0.f;
     if (lane == 0) lse[((size_t)b * H + h) * nq + row] = dead ? -NEG_SENTINEL : m + logf(l);
   }

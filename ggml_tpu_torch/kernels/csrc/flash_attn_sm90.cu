@@ -12,8 +12,10 @@
 // as the online-softmax recurrence over kv tiles (64 rows for bf16 q/k, 32
 // for f32 q/k): running max m (starting at the finite sentinel -1e30, so a
 // mask value of -inf never makes NaN), running sum l, p = e^(s - m) rounded
-// to bf16 (v's type) before p . v, f32 sums; rows whose max never leaves the
-// sentinel give zeros.  f32 q and k (what a bf16 model's RoPE hands over)
+// to bf16 (v's type) before p . v, f32 sums.  The n_pad zero kv columns the
+// JAX wrapper pads to a multiple of 32 (masked slope * -1e30) are folded into
+// each finished row (fold_padding), and rows whose folded max is at or below
+// -5e29 give zeros, as JAX's test on its padded row.  f32 q and k (what a bf16 model's RoPE hands over)
 // enter as hi + lo bf16, hi = bf16(x), lo = bf16(x - hi), and each score is
 // summed from three products, lo.hi + hi.lo + hi.hi: what is dropped (lo.lo
 // and the rounding of lo) is below 2^-16 of |q_i k_i| per product; the
@@ -57,10 +59,9 @@
 //   max moved.  The q tiles launch longest-work first (the last tiles of a
 //   causal mask see the most keys).
 
-#include <cuda.h>
-#include <dlfcn.h>
-
 #include "common.cuh"
+#include "flash_common.cuh"
+#include "sm90_common.cuh"
 
 namespace ggml_tpu_torch {
 namespace {
@@ -69,126 +70,6 @@ constexpr float NEG = -1e30f;  // the finite sentinel
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int TILE = 64;       // q rows of a tile, and the side of a mask-range tile
 constexpr int WG = 128;        // one warpgroup
-
-__device__ __forceinline__ uint32_t pack2_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
-
-// mbarriers that count the bytes of TMA copies: one arrival (the thread that
-// starts the copies, announcing their bytes), completion when all landed
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-// waits for the phase of the given parity to complete; a copy that never
-// lands (a fault of the tensor map) ends the kernel with an error after about
-// ten seconds instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  while (!done) {
-    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done)
-                 : "r"(smem_addr(bar)), "r"(parity)
-                 : "memory");
-    if (!done && clock64() - start > 20000000000LL) __trap();
-  }
-}
-
-// one box of a 4-d tensor map (coordinates innermost first) into shared memory
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous products
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// wgmma shared-memory descriptor: start address, leading-dimension byte
-// offset, stride-dimension byte offset, all in 16-byte units (layout type in
-// bits 62-63 added by the caller)
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
-}
-
-// d += A B over k16 (m64nNk16, N = 64 or 32, bf16 in, f32 accumulators): A
-// (64 x 16) and B (16 x N, K-major: stored as the rows of its N x 16
-// transpose) from shared memory through their descriptors.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d += A B over k16 with A (64 x 16 bf16) in registers, in the m16n8k16
-// A-fragment layout per warp (warp w of the group holds rows 16 w ..
-// 16 w + 15), and B (16 x 64, MN-major: its rows as stored) from shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// Tiles of ROWS rows x HD bf16 columns in wgmma's 128-byte-swizzle layout,
-// as TMA writes a box of 64 columns x ROWS rows with the 128-byte swizzle:
-// panels of 64 columns, ROWS * 128 bytes each; in a panel row r is 128 bytes
-// at r * 128, its 16-byte chunk c stored at chunk c ^ (r % 8).  Q and K are
-// read as K-major operands (8-row groups 1024 bytes apart), V as the
-// MN-major B operand (the same rows: kv along K, 64 columns along N).  Rows
-// and columns outside the tensor arrive as zeros (and count as bytes).
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int row0,
-                                          int head, int batch) {
-#pragma unroll
-  for (int p = 0; p < HD / 64; ++p) tma_load(dst + p * ROWS * 128, map, bar, 64 * p, row0, head, batch);
-}
-
-// descriptor of a 128-byte-swizzle operand at p (1024-byte aligned pattern):
-// 8-row groups SBO = 1024 bytes apart, lbo between 64-column panels (MN-major)
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo) {
-  return smem_desc(p, lbo, 1024) | (1ull << 62);
-}
 
 // TMA maps of bf16 q (unused for f32 q), k (its hi plane for f32 k), k's lo
 // plane, and v: 4-d (column, row, head, batch), boxes of 64 columns
@@ -258,10 +139,10 @@ __global__ void __launch_bounds__(WG, 2)
   // TMA copies, started by thread 0 only; each is announced to its barrier
   constexpr uint32_t K_BYTES = (QK32 ? 2 : 1) * KB;
   auto load_k = [&](int kt) {
-    load_tile<HD, BKV>(Kh, &maps.kh, &bar_k, kt * BKV, hk, b);
-    if constexpr (QK32) load_tile<HD, BKV>(Kl, &maps.kl, &bar_k, kt * BKV, hk, b);
+    tma_tile<HD, BKV>(Kh, &maps.kh, &bar_k, kt * BKV, hk, b);
+    if constexpr (QK32) tma_tile<HD, BKV>(Kl, &maps.kl, &bar_k, kt * BKV, hk, b);
   };
-  auto load_v = [&](int kt) { load_tile<HD, BKV>(Vs, &maps.v, &bar_v, kt * BKV, hk, b); };
+  auto load_v = [&](int kt) { tma_tile<HD, BKV>(Vs, &maps.v, &bar_v, kt * BKV, hk, b); };
 
   // descriptors, advanced by adding to the start address (16-byte units): k
   // step kk of Q and K is panel kk / 4, 32 bytes times kk % 4 into its rows
@@ -295,7 +176,7 @@ __global__ void __launch_bounds__(WG, 2)
   uint32_t phase = 0;
   if (cur < n_tiles && tid == 0) {
     mbar_expect(&bar_k, (QK32 ? 0 : QB) + K_BYTES);
-    if constexpr (!QK32) load_tile<HD, TILE>(Qh, &maps.q, &bar_k, q0, h, b);
+    if constexpr (!QK32) tma_tile<HD, TILE>(Qh, &maps.q, &bar_k, q0, h, b);
     load_k(cur);
     mbar_expect(&bar_v, KB);
     load_v(cur);
@@ -328,8 +209,7 @@ __global__ void __launch_bounds__(WG, 2)
         *reinterpret_cast<uint4*>(Qh + at) = make_uint4(hw[0], hw[1], hw[2], hw[3]);
         *reinterpret_cast<uint4*>(Ql + at) = make_uint4(lw[0], lw[1], lw[2], lw[3]);
       }
-      // these generic-proxy writes, made visible to the async proxy wgmma reads through
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_proxy_async();  // these generic-proxy writes, read by wgmma
     }
     __syncthreads();
   }
@@ -454,8 +334,13 @@ __global__ void __launch_bounds__(WG, 2)
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
-  // dead rows (the max never left the sentinel) give zeros
-  const float inv_lo = m_lo <= 0.5f * NEG ? 0.f : 1.f / l_lo, inv_hi = m_hi <= 0.5f * NEG ? 0.f : 1.f / l_hi;
+  // the JAX wrapper's kv padding folded in; dead rows (the folded max at or
+  // below -5e29) give zeros
+  const int n_pad = kv_padding(a.nkv);
+  float c_lo, c_hi;
+  fold_padding(m_lo, l_lo, c_lo, n_pad, slope);
+  fold_padding(m_hi, l_hi, c_hi, n_pad, slope);
+  const float inv_lo = m_lo <= 0.5f * NEG ? 0.f : c_lo / l_lo, inv_hi = m_hi <= 0.5f * NEG ? 0.f : c_hi / l_hi;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = q0 + r_lo + 8 * half;
@@ -561,22 +446,6 @@ int launch_fa(const FaArgs& a, const FaMaps& maps, cudaStream_t s) {
   if (rc != cudaSuccess) return (int)rc;
   fa_sm90_kernel<HD, QK32><<<a.nqt * a.H * a.B, WG, smem, s>>>(a, maps);
   return (int)cudaGetLastError();
-}
-
-// libcuda's cuTensorMapEncodeTiled, looked up at run time: the kernels'
-// library links only the CUDA runtime, and the process has libcuda loaded
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* cuda = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (cuda == nullptr) cuda = dlopen("libcuda.so.1", RTLD_NOW);
-    if (cuda != nullptr) fn = reinterpret_cast<EncodeTiled>(dlsym(cuda, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
 }
 
 // map of a (batch, head, row, column) bf16 tensor with element strides (sb,

@@ -1,0 +1,229 @@
+// Hopper (sm_90a) building blocks shared by the wgmma kernels: kernel J
+// (flash_attn_sm90.cu) and the prefill matmuls C and G (qmatmul_sm90.cuh):
+// mbarriers that count TMA bytes, TMA box loads, wgmma shared-memory
+// descriptors for the 128-byte swizzle, the wgmma products, and the
+// host-side lookup of libcuda's cuTensorMapEncodeTiled.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+
+namespace ggml_tpu_torch {
+namespace {
+
+__device__ __forceinline__ uint32_t pack2_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+// mbarriers: `count` arrivals complete a phase, and a barrier that counts
+// TMA bytes completes once the announced bytes have landed as well
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+// one arrival that announces `bytes` of TMA copies
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// waits for the phase of the given parity to complete (on a fresh barrier,
+// parity 1 passes at once); a copy that never lands (a fault of the tensor
+// map) ends the kernel with an error after about ten seconds instead of
+// hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (!done) {
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done)
+                 : "r"(smem_addr(bar)), "r"(parity)
+                 : "memory");
+    if (!done && clock64() - start > 20000000000LL) __trap();
+  }
+}
+
+// one box of a 2-d or 4-d tensor map (coordinates innermost first) into
+// shared memory, counted by `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Tiles of ROWS rows x HD bf16 columns of a (column, row, head, batch) map
+// in wgmma's 128-byte-swizzle layout, as TMA writes boxes of 64 columns x
+// ROWS rows with the 128-byte swizzle: panels of 64 columns, ROWS * 128
+// bytes each; in a panel row r is 128 bytes at r * 128, its 16-byte chunk c
+// stored at chunk c ^ (r % 8).  Rows and columns outside the tensor arrive
+// as zeros (and count as bytes).
+template <int HD, int ROWS>
+__device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int row0,
+                                         int head, int batch) {
+#pragma unroll
+  for (int p = 0; p < HD / 64; ++p) tma_load(dst + p * ROWS * 128, map, bar, 64 * p, row0, head, batch);
+}
+
+// generic-proxy writes to shared memory, made visible to the async proxy
+// (wgmma, TMA) that reads them next
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// a barrier over `count` threads (a multiple of 32) with id `id` (1-15; 0 is
+// __syncthreads)
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading-dimension byte
+// offset, stride-dimension byte offset, all in 16-byte units (layout type in
+// bits 62-63 added by the caller)
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// descriptor of a 128-byte-swizzle operand at p (1024-byte aligned pattern):
+// 8-row groups SBO = 1024 bytes apart, lbo between 64-column panels (for an
+// MN-major operand; a K-major one ignores it).  A k16 step is +2 (32 bytes)
+// along a K-major row, +128 (16 rows of 128 bytes) down an MN-major panel.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo) {
+  return smem_desc(p, lbo, 1024) | (1ull << 62);
+}
+
+// d += A B over k16 (m64nNk16, N = 64 or 32, bf16 in, f32 accumulators): A
+// (64 x 16) and B (16 x N, K-major: stored as the rows of its N x 16
+// transpose) from shared memory through their descriptors.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d += A B over k16 with A (64 x 16 bf16) in registers, in the m16n8k16
+// A-fragment layout per warp (warp w of the group holds rows 16 w ..
+// 16 w + 15), and B (16 x 64, MN-major: its rows as stored) from shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B over k16 (m64n128k16, bf16 in, f32 accumulators): A (64 x 16)
+// in registers, in the m16n8k16 A-fragment layout per warp (warp w of the
+// group holds rows 16 w .. 16 w + 15), and B (16 x 128, K-major: the 128
+// rows of its transpose, as stored) from shared memory.  Register 4 j + e of
+// a thread holds row 16 w + lane / 4 (+ 8 for e >= 2), column 8 j + 2 (lane %
+// 4) + (e & 1).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// waits until at most one committed group of this warpgroup's products is
+// still running
+__device__ __forceinline__ void wg_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
+// keeps registers that a running wgmma reads from being reused before here
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// libcuda's cuTensorMapEncodeTiled, looked up at run time: the kernels'
+// library links only the CUDA runtime, and the process has libcuda loaded
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* cuda = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (cuda == nullptr) cuda = dlopen("libcuda.so.1", RTLD_NOW);
+    if (cuda != nullptr) fn = reinterpret_cast<EncodeTiled>(dlsym(cuda, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// map of a row-major 2-d tensor (rows x cols elements of `type`, row stride
+// `row_bytes`, a multiple of 16), boxes of box_cols x box_rows; elements
+// outside the tensor read as zeros (and count as bytes)
+bool make_map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type, long long rows, long long cols,
+                 long long row_bytes, int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows}, unit[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace
+}  // namespace ggml_tpu_torch

@@ -4,8 +4,11 @@ and backward (kernels K, L, M).
 J is the port of ggml_tpu/kernels/flash_attn.py `flash_attention`: additive f32
 mask (the ggml KQ mask) times a per-head ALiBi slope, optional logit softcap
 applied before the mask, GQA by h // h_kv, f32 scores and sums, `p` rounded to
-v's type before p @ v, rows that never leave the -1e30 sentinel give zeros.
-Ragged q and kv lengths need no padding here: the kernel checks bounds.
+v's type before p @ v.  Ragged q and kv lengths need no padding here: the
+kernel checks bounds.  The JAX wrapper pads kv to a multiple of 32 with zero
+rows masked -1e30 (times the slope); J folds those columns into every row
+as K does (below), and rows whose folded max is at or below -5e29 give zeros,
+as JAX's test on its padded row.
 q, k and v are all bf16, all f32, or f32 q and k with bf16 v: what a bf16
 model's prefill hands over, since RoPE leaves q and k in f32.  On the card
 the bf16 and f32-q/k sets run on Hopper's wgmma (csrc/flash_attn_sm90.cu)
@@ -50,7 +53,7 @@ launches = {"flash_attn": 0, "flash_split": 0, "flash_mask_ranges": 0,
 _NEG_INF = -1e30  # finite "minus infinity": the running max starts here, so exp() stays NaN-free
 _BKV = 64  # kv rows per step of K's CUDA kernel, of J's for bf16 q/k/v, and of their plain versions
 _TILE = 64  # q rows and kv columns of a mask-range tile (J's tiles)
-_KV_ALIGN = 32  # the JAX training wrapper pads kv to a multiple of this
+_KV_ALIGN = 32  # the JAX wrappers pad kv to a multiple of this
 
 
 # the type sets the kernel takes (q, k, v), by the code csrc/flash_attn.cu knows them by
@@ -117,10 +120,29 @@ def _j_tile(q, v) -> int:
     return 32 if q.dtype == torch.float32 and v.dtype == torch.bfloat16 else _BKV
 
 
+def _fold_padding(acc, m, l, n_kv: int, slopes):
+    """The n_pad zero kv columns the JAX wrappers append (flash_attention,
+    _fa_setup: kv padded to a multiple of 32, masked slope * -1e30; their
+    score is 0, also under softcap) folded into finished rows:
+    m' = max(m, slope * -1e30), l' = l e^(m - m') + n_pad e^(slope * -1e30 - m'),
+    acc' = acc e^(m - m').  Live rows do not change; a row masked -1e30
+    everywhere averages v over the padded length."""
+    n_pad = -(-n_kv // _KV_ALIGN) * _KV_ALIGN - n_kv
+    if n_pad:
+        pad = slopes.view(1, -1, 1, 1) * _NEG_INF  # the padded columns' score
+        m_new = torch.maximum(m, pad)
+        alpha = torch.exp(m - m_new)  # 1 for a live row, which the padding leaves alone
+        l = l * alpha + n_pad * torch.exp(pad - m_new)
+        acc = acc * alpha
+        m = m_new
+    return acc, m, l
+
+
 def _flash_attention_plain(q, k, v, mask, slopes, score_scale: float, softcap: float) -> torch.Tensor:
-    """Kernel J's function: rows whose max never leaves the -1e30 sentinel
-    give zeros.  Returns (b, nq, h, d_v) in q's type."""
+    """Kernel J's function: the kv padding folded in, then rows whose max is
+    at or below -5e29 give zeros.  Returns (b, nq, h, d_v) in q's type."""
     acc, m, l = _online_softmax_plain(q, k, v, mask, slopes, score_scale, softcap, _j_tile(q, v))
+    acc, m, l = _fold_padding(acc, m, l, k.shape[2], slopes)
     l = torch.where(l == 0.0, torch.ones_like(l), l)
     out = torch.where(m <= _NEG_INF * 0.5, torch.zeros_like(acc), acc / l)
     return out.to(q.dtype).transpose(1, 2).contiguous()
@@ -131,15 +153,7 @@ def _fa_forward_lse_plain(q, k, v, mask, slopes, scale: float):
     (masked slope * -1e30) folded in, then rows with l = 0 give zeros and
     LSE +1e30.  Returns o (b, nq, h, d_v) in q's type and lse (b, h, nq) f32."""
     acc, m, l = _online_softmax_plain(q, k, v, mask, slopes, scale, 0.0)
-    n_kv = k.shape[2]
-    n_pad = -(-n_kv // _KV_ALIGN) * _KV_ALIGN - n_kv
-    if n_pad:
-        pad = slopes.view(1, -1, 1, 1) * _NEG_INF  # the padded columns' score
-        m_new = torch.maximum(m, pad)
-        alpha = torch.exp(m - m_new)  # 1 for a live row, which the padding leaves alone
-        l = l * alpha + n_pad * torch.exp(pad - m_new)
-        acc = acc * alpha
-        m = m_new
+    acc, m, l = _fold_padding(acc, m, l, k.shape[2], slopes)
     dead = l == 0.0
     l1 = torch.where(dead, torch.ones_like(l), l)
     out = torch.where(dead, torch.zeros_like(acc), acc / l1)

@@ -15,10 +15,11 @@ q4 planes; "GEMV" means M <= 32 and (K/2/G) % 8 == 0
                                scale/offset planes, G 16 or 32 (kernel H,
                                csrc/q4_gemv.cu); compact planes without a
                                legal tile are expanded first
-  every other M and K  q4k_matmul  bf16 weights dequantized per tile, bf16
-                               dot, f32 sums, f32 offset term, over compact
-                               or multiplied-out planes (kernel C,
-                               csrc/q4k_matmul.cu)
+  every other M and K  q4k_matmul  bf16 weights dequantized per tile into
+                               shared memory, wgmma bf16 products, f32 sums,
+                               the offset term as extra product columns, over
+                               compact or multiplied-out planes (kernel C,
+                               csrc/q4k_matmul.cu over csrc/qmatmul_sm90.cuh)
 q8 planes; "GEMV" means M <= 32, G in (16, 32) and (K/G) % 8 == 0
   GEMV, compact planes with a legal superblock tile (_sb_q8_gemv_ok)
                 q8_gemv_sb     int8 activations per row; d * sub-scale and
@@ -27,9 +28,8 @@ q8 planes; "GEMV" means M <= 32, G in (16, 32) and (K/G) % 8 == 0
   GEMV otherwise  q8_gemv      the same sum over multiplied-out scale/offset
                                planes (kernel E, csrc/q8_gemv.cu); compact
                                planes without a legal tile are expanded first
-  every other M and K  q8_matmul  bf16 weights dequantized per tile, bf16
-                               dot, f32 sums, f32 offset term (kernel G,
-                               csrc/q8_matmul.cu)
+  every other M and K  q8_matmul  the same pipeline over int8 planes
+                               (kernel G, csrc/q8_matmul.cu)
 
 Each wrapper runs its plain PyTorch version for CPU tensors and its CUDA
 kernel for CUDA tensors; it never falls back from one to the other.  The
@@ -351,16 +351,62 @@ def _gemv_cuda(name: str, x: torch.Tensor, pw: PlanarWeight, kt2: int = 0) -> to
     return y
 
 
+_MM_TILE = 128  # rows and columns of y a block of the matmul kernels owns (csrc/qmatmul_sm90.cuh)
+_MM_STAGE = 64  # nibble-plane rows (int8: twice as many) and offset groups a stage of theirs takes
+_SMS = 132  # streaming multiprocessors of the H100
+
+
+def matmul_plan(kind: str, m: int, k: int, npad: int, group: int, has_offsets: bool) -> dict:
+    """How kernels C and G (csrc/qmatmul_sm90.cuh) walk a product, as their C
+    entries recompute it: `stages` of 128 values of K (64 rows of the K/2
+    rows of nibble planes, 128 of int8 planes), then `offset_stages` of 64 groups that add
+    the groups' offset term (Gp = K/G rounded up to 64; the group sums of x
+    go to an (m, 2 Gp) bf16 scratch, `xs_cols`), over `tiles` tiles of
+    128 x 128.  Where the tiles do not fill the card's SMs, `split`
+    blocks share a tile's stages (each at least 4), write f32 partials to a
+    (split, m, npad) scratch, and the last to arrive adds them in order."""
+    rows, per_stage = (k // 2, _MM_STAGE) if kind == "q4" else (k, 2 * _MM_STAGE)
+    stages = -(-rows // per_stage)
+    gp = -(-(k // group) // _MM_STAGE) * _MM_STAGE
+    offset_stages = gp // _MM_STAGE if has_offsets else 0
+    tiles = -(-m // _MM_TILE) * (npad // _MM_TILE)
+    split = 1
+    if tiles < _SMS:
+        split = max(1, min(_SMS // tiles, (stages + offset_stages) // 4))
+    return dict(stages=stages, offset_stages=offset_stages, xs_cols=2 * gp if has_offsets else 0, tiles=tiles,
+                split=split)
+
+
+_counters: dict = {}  # device -> int32 arrival counters of the split matmuls, zero between launches
+
+
+def _zeroed_counters(n: int, device) -> torch.Tensor:
+    """At least n int32 arrival counters on `device`, zero: each launch
+    leaves the ones it used at zero, so one buffer serves every launch."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
+
+
 def _matmul_cuda(name: str, x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     m, k = x.shape
-    y = torch.empty((m, pw.npad), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    dev = x.device
+    plan = matmul_plan(pw.kind, m, k, pw.npad, pw.group, pw.offsets is not None)
+    y = torch.empty((m, pw.npad), dtype=torch.float32, device=dev)
+    # scratch of this launch alone, from the stream-ordered allocator
+    xs = torch.empty((m, plan["xs_cols"]), dtype=torch.bfloat16, device=dev) if plan["xs_cols"] else None
+    split = plan["split"]
+    partial = torch.empty((split, m, pw.npad), dtype=torch.float32, device=dev) if split > 1 else None
+    counters = _zeroed_counters(plan["tiles"], dev) if split > 1 else None
+    scratch = (_ptr(xs), _ptr(partial), _ptr(counters), split, torch.cuda.current_stream(dev).cuda_stream)
     if pw.kind == "q8":
         rc = _build.lib().q8_matmul(x.data_ptr(), *_plane_ptrs(pw), pw.group, pw.sb, y.data_ptr(),
-                                    m, k, pw.npad, stream)
+                                    m, k, pw.npad, *scratch)
     else:
         rc = _build.lib().q4k_matmul(x.data_ptr(), *_plane_ptrs(pw), pw.group, y.data_ptr(), m, k, pw.npad,
-                                     stream)
+                                     *scratch)
     launches[name] += 1
     _build.check(rc, name)
     return y
@@ -417,9 +463,9 @@ def q4k_matmul(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     tiles from compact planes (scale d * sub-scale, offset -dmin * min code)
     or from multiplied-out f32/bf16 scale and offset planes with groups of 16
     or 32 (replaces _q4_kernel, _effective_planes and the xsum @ eff_o side
-    product).  One launch takes any M: its grid has a block row per 64 rows
-    of x, so the JAX package's chunks of 512 rows (its bound on VMEM) have no
-    counterpart here."""
+    product).  One launch takes any M: its grid has a block row per 128 rows
+    of x (matmul_plan), so the JAX package's chunks of 512 rows (its bound on
+    VMEM) have no counterpart here."""
     _check_planes(x, pw, "q4")
     if not x.is_cuda:
         return _matmul_plain(x, pw)

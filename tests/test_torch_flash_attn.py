@@ -212,3 +212,27 @@ def test_mask_ranges(kind):
     got = flash_attn.mask_ranges(torch.from_numpy(mask))
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), _ranges_numpy(mask))
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0], ids=["plain", "softcap"])
+@pytest.mark.parametrize("nkv", [40, 64])
+def test_rows_masked_everywhere_with_alibi_at_ragged_lengths_match_jax(nkv, softcap):
+    """The JAX wrapper pads kv to a multiple of 32 with zero rows masked
+    -1e30 times the slope.  With ALiBi (h=16, max_bias=8) most slopes are
+    below 0.5, so a row masked -1e30 everywhere keeps a max of slope * -1e30
+    above JAX's dead threshold (-5e29) and averages v over the padded length
+    (40 -> 64); heads with slope >= 0.5 stay dead (zeros).  The port folds
+    the padding in: dead and live rows alike agree with JAX, and at n_kv = 64
+    (no padding) nothing changes."""
+    q, k, v = _make(1, 16, 16, 8, nkv, 64, seed=nkv + int(softcap))
+    mask = _offset_causal(8, nkv, nkv - 8, fill=-1e30)
+    mask[3] = -1e30
+    want, got = _both(q, k, v, mask, "float32", scale=0.125, max_bias=8.0, logit_softcap=softcap)
+    assert np.isfinite(got).all()
+    for rows in ([3], [0, 1, 2, 4, 5, 6, 7]):
+        assert nmse(want[0, rows], got[0, rows]) <= 1e-10, (rows, nmse(want[0, rows], got[0, rows]))
+    slopes = flash_attn.alibi_slopes(16, 8.0)
+    dead = slopes >= 0.5
+    assert (got[0, 3, dead] == 0).all() and (want[0, 3, dead] == 0).all()
+    padded = -(-nkv // 32) * 32
+    np.testing.assert_allclose(got[0, 3, ~dead], v[0, ~dead].sum(1) / padded, rtol=1e-5, atol=1e-6)

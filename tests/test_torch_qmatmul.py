@@ -110,3 +110,64 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         qmatmul.q4_gemv(x, pw)
     with pytest.raises(NotImplementedError):  # the IQ* types: a later slice
         repack(raw, GGMLType.IQ4_NL, (N, 512))
+
+
+@pytest.mark.parametrize("kind,m,k,npad,group,offsets", [
+    ("q4", 1, 192, 384, 32, True),        # M=1, a half-plane ending in a half stage (96 rows)
+    ("q4", 33, 256, 640, 16, True),       # groups of 16, Npad = 128 * 5
+    ("q4", 100, 4096, 28672, 32, True),   # attn_qkvup at M=100: 224 tiles, no split
+    ("q4", 100, 16384, 4096, 32, False),  # ffn_down at M=100: 32 tiles, split 4
+    ("q4", 1024, 4096, 4096, 32, True),   # attn_output at M=1024: 256 tiles
+    ("q8", 1, 4128, 384, 32, True),       # K % 64 == 32: a half stage at the end
+    ("q8", 33, 512, 384, 16, False),
+    ("q8", 100, 16384, 4096, 16, False),
+    ("q8", 1024, 4096, 28672, 32, True),
+])
+def test_matmul_plan_is_legal(kind, m, k, npad, group, offsets):
+    """matmul_plan, which the wrappers of kernels C and G size their
+    scratch with: every weight row lies in a stage, every group in an offset
+    stage, the group-sum scratch holds 2 Gp columns, and a split shares the
+    stages out with at least 4 to a block and at most one block per SM in
+    all; the tiles cover y."""
+    p = qmatmul.matmul_plan(kind, m, k, npad, group, offsets)
+    rows, per_stage = (k // 2, 64) if kind == "q4" else (k, 128)  # 128 values of K a stage
+    assert (p["stages"] - 1) * per_stage < rows <= p["stages"] * per_stage
+    ng = k // group
+    if offsets:
+        assert p["offset_stages"] * 64 >= ng > (p["offset_stages"] - 1) * 64
+        assert p["xs_cols"] == 2 * p["offset_stages"] * 64
+    else:
+        assert p["offset_stages"] == 0 and p["xs_cols"] == 0
+    assert p["tiles"] == -(-m // 128) * (npad // 128)
+    total = p["stages"] + p["offset_stages"]
+    assert 1 <= p["split"] and (p["split"] == 1 or (total // p["split"] >= 4 and p["tiles"] * p["split"] <= 132))
+    if p["tiles"] >= 132:
+        assert p["split"] == 1
+
+
+def test_check_planes_accepts_what_it_did():
+    """The matmul wrappers take every shape they took before (any M, K % 64
+    for nibble planes, K % 32 for int8 planes, groups of 16 and 32) and
+    refuse the same others."""
+    from ggml_tpu_torch.quant.planar import PlanarWeight
+
+    def q4(k, g, n=256):
+        return PlanarWeight(kind="q4", codes=torch.zeros((k // 2, n), dtype=torch.uint8),
+                            scales=torch.ones((2, k // 2 // g, n)), offsets=None, group=g, n=n, k=k,
+                            orig_type=GGMLType.Q4_0)
+
+    def q8(k, g, n=256):
+        return PlanarWeight(kind="q8", codes=torch.zeros((k, n), dtype=torch.int8), scales=torch.ones((k // g, n)),
+                            offsets=None, group=g, n=n, k=k, orig_type=GGMLType.Q8_0)
+
+    for m in (1, 33, 100):
+        for k, g in ((192, 32), (256, 16), (64, 32)):
+            assert qmatmul.q4k_matmul(torch.zeros((m, k), dtype=torch.bfloat16), q4(k, g)).shape == (m, 256)
+        for k, g in ((4128, 32), (32, 32), (96, 16)):
+            assert qmatmul.q8_matmul(torch.zeros((m, k), dtype=torch.bfloat16), q8(k, g)).shape == (m, 256)
+    with pytest.raises(ValueError):  # K % 64 != 0 over nibble planes
+        qmatmul.q4k_matmul(torch.zeros((1, 96), dtype=torch.bfloat16), q4(96, 16))
+    with pytest.raises(ValueError):  # K % 32 != 0 over int8 planes
+        qmatmul.q8_matmul(torch.zeros((1, 48), dtype=torch.bfloat16), q8(48, 16))
+    with pytest.raises(ValueError):  # groups of 8 are a later slice's
+        qmatmul.q8_matmul(torch.zeros((1, 64), dtype=torch.bfloat16), q8(64, 8))
