@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --long-decode-profile   # phases 1, 2 and the decode profile after a long prompt only
     python3 chip_smoke.py --flash-times           # phases 1, 2 and kernel J's times at the 1024-token prefill only
+    python3 chip_smoke.py --train-times           # phases 1, 2 and kernels K, L, M's times at the training shapes only
 
 Phases (any failure exits non-zero without the result line):
 1. the card, as nvidia-smi reports its name and power limit;
@@ -40,7 +41,9 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import inspect
 import json
+import re
 import subprocess
 import sys
 import time
@@ -66,9 +69,9 @@ SOURCES = {
     "flash_attn": ("ggml_tpu_torch/kernels/csrc/flash_attn_sm90.cu", "ggml_tpu/kernels/flash_attn.py:30"),
     "flash_split": ("ggml_tpu_torch/kernels/csrc/flash_attn_sm90.cu", "ggml_tpu/kernels/flash_attn.py:30"),
     "flash_mask_ranges": ("ggml_tpu_torch/kernels/csrc/flash_attn_sm90.cu", "ggml_tpu/kernels/flash_attn.py:30"),
-    "flash_attn_fwd_lse": ("ggml_tpu_torch/kernels/csrc/flash_attn.cu", "ggml_tpu/kernels/flash_attn.py:180"),
+    "flash_attn_fwd_lse": ("ggml_tpu_torch/kernels/csrc/flash_attn_sm90.cu", "ggml_tpu/kernels/flash_attn.py:180"),
     "flash_attn_bwd_dq": ("ggml_tpu_torch/kernels/csrc/flash_attn_bwd.cu", "ggml_tpu/kernels/flash_attn.py:222"),
-    "flash_attn_bwd_dkv": ("ggml_tpu_torch/kernels/csrc/flash_attn_bwd.cu", "ggml_tpu/kernels/flash_attn.py:254"),
+    "flash_attn_bwd_dkv": ("ggml_tpu_torch/kernels/csrc/flash_bwd_sm90.cu", "ggml_tpu/kernels/flash_attn.py:254"),
 }
 # NMSE of a kernel against its plain version on the card: the int8 kernels
 # differ only in the order of their f32 sums, the matmuls in the order of
@@ -382,11 +385,14 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
 
     def train_case(b, h, h_kv, nq, nkv, d, dtype, mask_kind="causal", max_bias=0.0, time_it=True):
         """K, L and M against their plain versions on the same inputs (L and
-        M are handed K's lse and the delta of K's output).  mask_kind:
-        "causal" (-1e30 above the diagonal), None, "dead-inf" / "dead-1e30"
-        (causal, and row 7 all -inf / all -1e30), "dead-both" (row 7 all
-        -1e30, row 9 all -inf; at a ragged n_kv K folds in the JAX wrapper's
-        padding, so neither row is dead there).  The LSE is held to NMSE
+        M are handed K's lse and the delta of K's output; K and M the mask's
+        tile ranges, computed once, as the autograd Function does).
+        mask_kind: "causal" (-1e30 above the diagonal, offset by nkv - nq),
+        None, "dead-inf" / "dead-1e30" (causal, and row 7 all -inf / all
+        -1e30), "dead-both" (row 7 all -1e30, row 9 all -inf; at a ragged n_kv
+        K folds in the JAX wrapper's padding, so neither row is dead there),
+        "edge-inf" / "edge-1e30" (causal, rows 63 and 64, either side of a
+        tile edge, all -inf / all -1e30).  The LSE is held to NMSE
         1e-12 on the live rows and to equality on the rows masked everywhere
         (about -1e30, or +1e30 where dead).  Bounds: each input read
         once, each output written once; operations over the unmasked pairs, 2d
@@ -404,15 +410,18 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
                 mask[7] = float("-inf") if mask_kind == "dead-inf" else -1e30
             elif mask_kind == "dead-both":
                 mask[7], mask[9] = -1e30, float("-inf")
+            elif mask_kind in ("edge-inf", "edge-1e30"):
+                mask[63:65] = float("-inf") if mask_kind == "edge-inf" else -1e30
         scale = d ** -0.5
         slopes = flash_attn._slopes_on(h, max_bias, q.device)
-        fwd = lambda: flash_attn.flash_attention_fwd_lse(q, k, v, mask, scale, max_bias)
+        ranges = None if mask is None else flash_attn.mask_ranges(mask)
+        fwd = lambda: flash_attn.flash_attention_fwd_lse(q, k, v, mask, scale, max_bias, ranges=ranges)
         o, lse = fwd()
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
         args = (q, k, v, mask, scale, max_bias, do, lse, delta)
         pargs = (q, k, v, mask, slopes, scale, do, lse, delta)
         dq = flash_attn.flash_attention_bwd_dq(*args)
-        dk, dv = flash_attn.flash_attention_bwd_dkv(*args)
+        dk, dv = flash_attn.flash_attention_bwd_dkv(*args, ranges=ranges)
         torch.cuda.synchronize()
         check(all(bool(torch.isfinite(t).all()) for t in (o, dq, dk, dv)), f"K/L/M {dtype}: output not finite")
         po, plse = flash_attn._fa_forward_lse_plain(q, k, v, mask, slopes, scale)
@@ -442,7 +451,7 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
                   [(po, o)], lib_fwd),
                  ("flash_attn_bwd_dq", lambda: flash_attn.flash_attention_bwd_dq(*args),
                   lambda: flash_attn._fa_bwd_dq_plain(*pargs), [(pdq, dq)], lib_bwd),
-                 ("flash_attn_bwd_dkv", lambda: flash_attn.flash_attention_bwd_dkv(*args),
+                 ("flash_attn_bwd_dkv", lambda: flash_attn.flash_attention_bwd_dkv(*args, ranges=ranges),
                   lambda: flash_attn._fa_bwd_dkv_plain(*pargs), [(pdk, dk), (pdv, dv)], lib_bwd))
         shape = (f"b={b} h={h} h_kv={h_kv} nq={nq} nkv={nkv} d={d} {dtype} {mask_kind or 'no mask'}"
                  f"{' alibi' if max_bias else ''}")
@@ -486,6 +495,17 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
     for dtype in ("float32", "bfloat16"):
         train_case(1, 4, 4, 64, 100, 64, dtype, mask_kind="dead-both", time_it=False)
     train_case(1, 4, 4, 64, 100, 64, "float32", mask_kind="dead-both", max_bias=8.0, time_it=False)
+    # the edges of K's and M's tile walks in bf16: head dims 128 and 72 (zero
+    # columns up to 128, M's 32-row q tiles), a causal offset with neither
+    # length a multiple of 64, GQA 16/4, rows masked everywhere on both
+    # sides of a tile edge (with ALiBi too)
+    train_case(1, 4, 4, 128, 128, 128, "bfloat16", time_it=False)
+    train_case(1, 4, 4, 100, 164, 72, "bfloat16", time_it=False)
+    train_case(1, 4, 4, 100, 164, 64, "bfloat16", time_it=False)
+    train_case(2, 16, 4, 128, 128, 64, "bfloat16", time_it=False)
+    for kind in ("edge-1e30", "edge-inf"):
+        train_case(1, 2, 2, 128, 128, 64, "bfloat16", mask_kind=kind, time_it=False)
+    train_case(1, 4, 4, 200, 200, 128, "bfloat16", mask_kind="edge-1e30", max_bias=8.0, time_it=False)
 
     # D: the chunk edges of the split kernel (64 keys), the end of GPT-J's
     # window, GQA, a window above the old kernel's 48 KB cap; the main shape last
@@ -827,13 +847,16 @@ def phase_tiny_reference(torch, np):
 
 
 def _kernel_class(key: str) -> str:
-    """What a device kernel of a training step is, by its name."""
-    if "flash_attn_bf16_kernel" in key or "flash_attn_f32_kernel" in key:
+    """What a device kernel of a training step is, by its name: K is J's
+    wgmma kernel with its LSE flag set (or the f32 kernel's LSE instance)."""
+    if re.search(r"fa_sm90_kernel<\d+, \w+, true>", key) or "flash_attn_f32_kernel<true>" in key:
         return "K"
     if "fa_bwd_dq" in key:
         return "L"
     if "fa_bwd_dkv" in key:
         return "M"
+    if "flash_mask_ranges" in key:
+        return "mask ranges"
     if any(tag in key.lower() for tag in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
         return "GEMM"
     return "other"
@@ -845,7 +868,8 @@ def phase_train(torch, np) -> dict:
     bf16 forward and backward over f32 masters, bf16 moments, the fused
     sparse cross entropy, flash attention) on a repeating pattern of random
     token ids from token_windows: 1 warm step, 6 timed ones with every launch
-    counted (24 layers: exactly 24 of each of K, L and M a step), then one
+    counted (24 layers: exactly 24 of each of K, L and M a step, and 24 of
+    flash_mask_ranges, once per layer forward for K and M), then one
     profiled step (after the counters are read)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -879,7 +903,8 @@ def phase_train(torch, np) -> dict:
     counts = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses += [float(m["loss"]) for m in metrics]
-    want = {k: (cfg.n_layer * steps if k in TRAIN else 0) for k in counts}
+    per_step = TRAIN + ("flash_mask_ranges",)  # each once per layer: the ranges by the forward, for K and M
+    want = {k: (cfg.n_layer * steps if k in per_step else 0) for k in counts}
     check(counts == want, f"GPT-2-medium training: launches {counts}, want {want}")
     check(all(np.isfinite(losses)), f"GPT-2-medium training: losses {losses}")
     check(losses[-1] < losses[0], f"GPT-2-medium training: the loss did not fall: {losses}")
@@ -909,7 +934,7 @@ def phase_train(torch, np) -> dict:
           f"{out['mfu'] * 100:.1f} % of {PEAK_OPS['bf16'] / 1e12:.0f} TFLOP/s; floor {out['floor_ms_per_step']:.2f} "
           f"ms/step), peak memory {peak_gb:.2f} GB")
     print(f"  losses {[round(v, 4) for v in losses]}")
-    print(f"  launches over {steps} steps: " + ", ".join(f"{k} {counts[k]}" for k in TRAIN))
+    print(f"  launches over {steps} steps: " + ", ".join(f"{k} {counts[k]}" for k in per_step))
     print(f"  profiled step: device busy {busy_ms:.1f} ms, {launches} kernel launches; "
           + ", ".join(f"{k} {v:.2f} ms ({v / busy_ms * 100:.1f} %)" for k, v in sorted(shares.items())))
     for o in top_other:
@@ -980,6 +1005,37 @@ def flash_times(torch, flash_attn) -> dict:
     return out
 
 
+def train_times(torch, flash_attn) -> dict:
+    """Kernels K, L and M's device time (µs) at GPT-2-medium's training
+    shape (b=8, n=512) and at GPT-2's context (b=4, n=1024), h=16, d=64,
+    bf16, causal, three timings of 20 calls each: the mode that sets two
+    trees side by side in one call (copy this script into the other tree and
+    run it there with --train-times).  Where the wrappers take the mask's
+    tile ranges, they are computed once beforehand, as the autograd Function
+    does once per layer."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    takes_ranges = "ranges" in inspect.signature(flash_attn.flash_attention_fwd_lse).parameters
+    out = {}
+    for b, n in ((8, 512), (4, 1024)):
+        mk = lambda *shape: torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+        q, k, v, do = mk(b, 16, n, 64), mk(b, 16, n, 64), mk(b, 16, n, 64), mk(b, n, 16, 64)
+        mask = torch.where(torch.arange(n, device="cuda")[None, :] <= torch.arange(n, device="cuda")[:, None],
+                           0.0, -1e30)
+        kw = dict(ranges=flash_attn.mask_ranges(mask)) if takes_ranges else {}
+        o, lse = flash_attn.flash_attention_fwd_lse(q, k, v, mask, 0.125, 0.0, **kw)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, mask, 0.125, 0.0, do, lse, delta)
+        for name, call in (("K", lambda: flash_attn.flash_attention_fwd_lse(q, k, v, mask, 0.125, 0.0, **kw)),
+                           ("L", lambda: flash_attn.flash_attention_bwd_dq(*args)),
+                           ("M", lambda: flash_attn.flash_attention_bwd_dkv(*args, **kw))):
+            key = f"{name} b={b} n={n}"
+            out[key] = [device_ms(torch, call, flush, 20) * 1e3 for _ in range(3)]
+            print(f"  {key}: " + ", ".join(f"{t:.1f}us" for t in out[key]))
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1021,6 +1077,14 @@ def main() -> int:
             print("== 3. kernel J at the 1024-token prefill (h=16, d=256, causal), three timings each")
             times = flash_times(torch, flash_attn)
             print(json.dumps(dict(card=card, flash_times_us=times)))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
+
+        if sys.argv[1:] == ["--train-times"]:
+            print("== 3. kernels K, L and M at the training shapes (h=16, d=64, bf16, causal), three timings each")
+            times = train_times(torch, flash_attn)
+            print(json.dumps(dict(card=card, train_times_us=times)))
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                      "count": torch.cuda.device_count()}}))
             return 0

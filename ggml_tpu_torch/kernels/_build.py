@@ -42,13 +42,14 @@ _SIGNATURES = {
     "q8_matmul": [P, P, P, P, P, P, I, I, I, P, I, I, I, P, P, P, I, P],
     "decode_attn": [P, P, P, P, P, P, P, P, P, I, I, I, I, ctypes.c_float, P],
     "decode_attn_heads_per_block": [I, I],
-    "flash_attn_f32": [P, P, P, P, P, P, I, I, I, I, I, I, I, F, F, P],
+    "flash_attn_f32": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, F, P],
     "flash_attn_sm90": [P, P, P, P, L, L, L, L, L, L, L, L, L, P, P, P, P, I, I, I, I, I, I, I, I, F, F, P],
     "flash_split": [P, P, I, I, I, L, L, L, I, P],
     "flash_mask_ranges": [P, P, I, I, P],
-    "flash_attn_fwd_lse": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, P],
-    "flash_attn_bwd_dq": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, P],
-    "flash_attn_bwd_dkv": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, P],
+    "flash_attn_fwd_lse": [P, P, P, L, L, L, L, L, L, L, L, L, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
+    "flash_attn_bwd_dq": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
+    "flash_attn_bwd_dkv": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
+    "flash_attn_bwd_dkv_f32": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
 }
 
 _lib = None

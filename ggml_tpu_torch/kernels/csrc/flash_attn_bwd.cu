@@ -1,12 +1,14 @@
-// Flash attention backward: kernel L (dq) and kernel M (dk, dv).
+// Flash attention backward: kernel L (dq, bf16 and f32) and kernel M's f32
+// set (dk, dv).  M's bf16 set runs on Hopper's wgmma in flash_bwd_sm90.cu.
 //
-// Replace (ggml_tpu/kernels/flash_attn.py) _fa_bwd_dq_kernel (:222) and
-// _fa_bwd_dkv_kernel (:254) with the work _fa_train_bwd (:407) does around
-// them: the padding of ragged rows (bounds are checked here instead), the GQA
-// head map, the 128-lane broadcast of lse and delta (one f32 per row here),
-// and the transpose of dO (read here in the (b, nq, h, dv) layout the
-// forward's output has).  Per batch b, q head h (kv head h / (H / Hkv)), query
-// row i and key row j, from the forward's lse and delta_i = rowsum(dO_i . O_i):
+// Replace (ggml_tpu/kernels/flash_attn.py) _fa_bwd_dq_kernel (:222) and, for
+// f32 inputs, _fa_bwd_dkv_kernel (:254) with the work _fa_train_bwd (:407)
+// does around them: the padding of ragged rows (bounds are checked here
+// instead), the GQA head map, the 128-lane broadcast of lse and delta (one
+// f32 per row here), and the transpose of dO (read here in the (b, nq, h,
+// dv) layout the forward's output has).  Per batch b, q head h (kv head h /
+// (H / Hkv)), query row i and key row j, from the forward's lse and delta_i =
+// rowsum(dO_i . O_i):
 //   s_ij  = q_i . k_j * scale + slope_h * mask[i, j]
 //   p_ij  = exp(s_ij - lse_i)                    (f32, never rounded)
 //   ds_ij = p_ij * (dO_i . v_j - delta_i) * scale
@@ -15,31 +17,31 @@
 //      caller sums the heads that share a kv head, as the JAX wrapper does)
 // Outputs in the inputs' type.
 //
-// Bound on the H100 at GPT-2-medium's training shape (b=8, h=16, nq=nkv=512,
-// d=64, causal, bf16): bytes, L reads q, k, v, dO, the mask, lse and delta
-// and writes dq (43.5 MB, 13 us); M writes dk and dv (52 MB, 15.5 us); the
-// causal half's products (3 of 64 x 64 x 64 per pair of tiles in L, 4 in M)
-// take 6.5 and 8.7 us at the bf16 tensor-core rate.
+// Bound of L on the H100 at GPT-2-medium's training shape (b=8, h=16,
+// nq=nkv=512, d=64, causal, bf16): bytes, q, k, v, dO, the mask, lse and
+// delta read and dq written (43.5 MB, 13 us); the causal half's three
+// products (64 x 64 x 64 per pair of tiles) take 6.5 us at the bf16
+// tensor-core rate.
 //
-// Design of the bf16 kernels (simple, not fast): as kernel J, a block of 4
-// warps owns 64 rows (L: query rows; M: key rows of one q head), a warp 16 of
-// them, and walks the other side in tiles of 64; Q, dO, K and V tiles sit in
-// shared memory as bf16 rows padded by 16 bytes, head dims padded with zeros
-// to HD = 64 or 128.  S and dO V^T (M: their transposes, K Q^T and V dO^T)
-// come from mma.sync m16n8k16 with f32 accumulators, whose layout is the A
-// operand of the next product.  p and ds stay f32, as in the JAX kernels: they
-// enter ds K (L), P^T dO and dS^T Q (M) as hi + lo bf16 pairs, two products
-// each, so what is lost is below 2^-16 of a term where one bf16 product would
-// lose 2^-9.  The accumulators stay in registers.  The slope-scaled mask tile
-// is staged in shared memory once per step (M reads it transposed).  A tile
-// whose mask entries are all at or below -5e29 is skipped where every row's
-// lse of the block is above -2.5e29: every p in it is then exactly 0.  A row
-// masked with the finite -1e30 everywhere has lse about -1e30 and p = 1 on
-// every column (the JAX kernels' arithmetic); where the block holds one,
-// nothing is skipped.  No cp.async, no double buffering, no wgmma.
+// Design of L's bf16 kernel (simple, not fast): a block of 4 warps owns 64
+// query rows, a warp 16 of them, and walks the kv rows in tiles of 64; Q, dO,
+// K and V tiles sit in shared memory as bf16 rows padded by 16 bytes, head
+// dims padded with zeros to HD = 64 or 128.  S = Q K^T and dP = dO V^T come
+// from mma.sync m16n8k16 with f32 accumulators, whose layout is the A operand
+// of the next product.  ds stays f32, as in the JAX kernel: it enters dS K as
+// hi + lo bf16 pairs, two products, so what is lost is below 2^-16 of a term
+// where one bf16 product would lose 2^-9.  The accumulators stay in
+// registers.  The slope-scaled mask tile is staged in shared memory once per
+// step.  A tile whose mask entries are all at or below -5e29 is skipped where
+// every row's lse of the block is above -2.5e29: every p in it is then
+// exactly 0.  A row masked with the finite -1e30 everywhere has lse about
+// -1e30 and p = 1 on every column (the JAX kernels' arithmetic); where the
+// block holds one, nothing is skipped.  No cp.async, no double buffering, no
+// wgmma.
 //
-// f32 inputs take plain-FMA kernels: a warp per row, a lane per key (L) or
-// per query row (M) of a 32-row tile, lanes over output columns for the sums.
+// f32 inputs take plain-FMA kernels (bound: f32 FMAs; they serve the f32
+// reference paths): a warp per row, a lane per key (L) or per query row (M)
+// of a 32-row tile, lanes over output columns for the sums.
 
 #include "flash_common.cuh"
 
@@ -50,8 +52,7 @@ constexpr int MLD = BKV + 1;  // row stride of the staged mask tile (floats)
 
 template <int HD>
 constexpr int bwd_smem_bytes() {
-  return 4 * 64 * (HD + PAD) * (int)sizeof(__nv_bfloat16) + BQ * MLD * (int)sizeof(float) +
-         2 * BQ * (int)sizeof(float);
+  return 4 * 64 * (HD + PAD) * (int)sizeof(__nv_bfloat16) + BQ * MLD * (int)sizeof(float);
 }
 
 // Kernel L, bf16: dq for 64 query rows of one head
@@ -153,113 +154,6 @@ fa_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
       const int col = j * 8 + 2 * t;
       if (col < d)
         *reinterpret_cast<__nv_bfloat162*>(op + col) = __floats2bfloat162_rn(acc[j][2 * half], acc[j][2 * half + 1]);
-    }
-  }
-}
-
-// Kernel M, bf16: dk and dv for 64 key rows, for one q head
-template <int HD>
-__global__ void __launch_bounds__(FA_THREADS)
-fa_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask,
-                       const float* __restrict__ slopes, const __nv_bfloat16* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dvo, int H, int Hkv, int nq,
-                       int nkv, int d, int dv, float scale) {
-  constexpr int LD = HD + PAD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + 64 * LD;
-  __nv_bfloat16* Qs = Vs + 64 * LD;
-  __nv_bfloat16* Os = Qs + 64 * LD;  // dO
-  float* Ms = reinterpret_cast<float*>(Os + 64 * LD);  // [BQ][MLD] slope * mask: q rows, kv columns
-  float* Ls = Ms + BQ * MLD;  // lse of the q tile
-  float* Ds = Ls + BQ;        // delta of the q tile
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int kv0 = blockIdx.x * BKV, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const float slope = slopes[h];
-  const bool have_mask = mask != nullptr;
-  const int cols = min(BKV, nkv - kv0);
-
-  load_tile<HD>(Ks, k + ((size_t)(b * Hkv + hk) * nkv + kv0) * d, cols, d, d);
-  load_tile<HD>(Vs, v + ((size_t)(b * Hkv + hk) * nkv + kv0) * dv, cols, dv, dv);
-  const int r_lo = 16 * warp + g;  // this thread's key rows r_lo and r_lo + 8
-
-  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-    dk_acc[j][0] = dk_acc[j][1] = dk_acc[j][2] = dk_acc[j][3] = 0.f;
-    dv_acc[j][0] = dv_acc[j][1] = dv_acc[j][2] = dv_acc[j][3] = 0.f;
-  }
-
-  for (int q0 = 0; q0 < nq; q0 += BQ) {
-    const int rows = min(BQ, nq - q0);
-    __syncthreads();  // the previous tile's Q, dO, mask, lse and delta are read
-    int keep = 0;  // a live mask entry, or a row whose lse forbids the skip
-    for (int i = threadIdx.x; i < BQ; i += FA_THREADS) {
-      const size_t at = (size_t)(b * H + h) * nq + q0 + i;
-      const float l = i < rows ? lse[at] : -NEG_SENTINEL;
-      Ls[i] = l;
-      Ds[i] = i < rows ? delta[at] : 0.f;
-      keep |= l <= 0.25f * NEG_SENTINEL;
-    }
-    if (have_mask) {
-      for (int i = threadIdx.x; i < BQ * BKV; i += FA_THREADS) {
-        const int r = i / BKV, c = i % BKV;
-        float m = -INFINITY;
-        if (r < rows && c < cols) {
-          m = slope * mask[(size_t)(q0 + r) * nkv + kv0 + c];
-          keep |= m > 0.5f * NEG_SENTINEL;
-        }
-        Ms[r * MLD + c] = m;
-      }
-      if (!__syncthreads_or(keep)) continue;
-    }
-    load_tile<HD>(Qs, q + ((size_t)(b * H + h) * nq + q0) * d, rows, d, d);
-    load_tile<HD>(Os, dout + ((size_t)b * nq + q0) * H * dv + (size_t)h * dv, rows, dv, (size_t)H * dv);
-    __syncthreads();
-
-    float s[BQ / 8][4], dp[BQ / 8][4];
-    mma_abt<HD>(s, Ks, r_lo, Qs, g, t);   // S^T = K Q^T: key rows, query columns
-    mma_abt<HD>(dp, Vs, r_lo, Os, g, t);  // dP^T = V dO^T
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + 2 * t + (e & 1), r = r_lo + 8 * (e >> 1);
-        float p = 0.f, ds = 0.f;
-        if (c < rows) {
-          float sv = s[j][e] * scale;
-          if (have_mask) sv += Ms[c * MLD + r];
-          p = expf(sv - Ls[c]);
-          ds = p * (dp[j][e] - Ds[c]) * scale;
-        }
-        s[j][e] = p;
-        dp[j][e] = ds;
-      }
-    }
-    mma_split_xb<HD>(dv_acc, s, Os, lane);   // dV += P^T dO
-    mma_split_xb<HD>(dk_acc, dp, Qs, lane);  // dK += dS^T Q
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = kv0 + r_lo + 8 * half;
-    if (row >= nkv) continue;
-    __nv_bfloat16* kp = dk + ((size_t)(b * H + h) * nkv + row) * d;
-    __nv_bfloat16* vp = dvo + ((size_t)(b * H + h) * nkv + row) * dv;
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      const int col = j * 8 + 2 * t;
-      if (col < d)
-        *reinterpret_cast<__nv_bfloat162*>(kp + col) =
-            __floats2bfloat162_rn(dk_acc[j][2 * half], dk_acc[j][2 * half + 1]);
-      if (col < dv)
-        *reinterpret_cast<__nv_bfloat162*>(vp + col) =
-            __floats2bfloat162_rn(dv_acc[j][2 * half], dv_acc[j][2 * half + 1]);
     }
   }
 }
@@ -393,60 +287,25 @@ fa_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, 
   }
 }
 
-template <int HD, bool DKV>
-int launch_bf16(dim3 grid, cudaStream_t s, const void* q, const void* k, const void* v, const void* mask,
-                const void* slopes, const void* dout, const void* lse, const void* delta, void* out0, void* out1,
-                int H, int Hkv, int nq, int nkv, int d, int dv, float scale) {
+template <int HD>
+int launch_dq_bf16(dim3 grid, cudaStream_t s, const void* q, const void* k, const void* v, const void* mask,
+                   const void* slopes, const void* dout, const void* lse, const void* delta, void* dq, int H, int Hkv,
+                   int nq, int nkv, int d, int dv, float scale) {
   using bf = __nv_bfloat16;
   constexpr int smem = bwd_smem_bytes<HD>();
-  const bf *qb = static_cast<const bf*>(q), *kb = static_cast<const bf*>(k), *vb = static_cast<const bf*>(v),
-           *ob = static_cast<const bf*>(dout);
-  const float *mf = static_cast<const float*>(mask), *sf = static_cast<const float*>(slopes),
-              *lf = static_cast<const float*>(lse), *df = static_cast<const float*>(delta);
-  cudaError_t rc;
-  if constexpr (DKV) {
-    rc = cudaFuncSetAttribute(fa_bwd_dkv_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return (int)rc;
-    fa_bwd_dkv_bf16_kernel<HD><<<grid, FA_THREADS, smem, s>>>(qb, kb, vb, mf, sf, ob, lf, df, static_cast<bf*>(out0),
-                                                               static_cast<bf*>(out1), H, Hkv, nq, nkv, d, dv, scale);
-  } else {
-    rc = cudaFuncSetAttribute(fa_bwd_dq_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return (int)rc;
-    fa_bwd_dq_bf16_kernel<HD><<<grid, FA_THREADS, smem, s>>>(qb, kb, vb, mf, sf, ob, lf, df, static_cast<bf*>(out0),
-                                                              H, Hkv, nq, nkv, d, dv, scale);
-  }
+  const cudaError_t rc = cudaFuncSetAttribute(fa_bwd_dq_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              smem);
+  if (rc != cudaSuccess) return (int)rc;
+  fa_bwd_dq_bf16_kernel<HD><<<grid, FA_THREADS, smem, s>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v), static_cast<const float*>(mask),
+      static_cast<const float*>(slopes), static_cast<const bf*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf*>(dq), H, Hkv, nq, nkv, d, dv, scale);
   return (int)cudaGetLastError();
 }
 
-template <bool DKV>
-int launch(const void* q, const void* k, const void* v, const void* mask, const void* slopes, const void* dout,
-           const void* lse, const void* delta, void* out0, void* out1, int types, int B, int H, int Hkv, int nq,
-           int nkv, int d, int dv, float scale, void* stream) {
-  const int max_hd = types == 0 ? 256 : 128;
-  if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || nq < 1 || nkv < 1 || d < 8 || dv < 8 || d % 8 || dv % 8 ||
-      d > max_hd || dv > max_hd || H > 65535 || B > 65535 || types < 0 || types > 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (types == 0) {
-    const dim3 grid(((DKV ? nkv : nq) + F32_ROWS - 1) / F32_ROWS, H, B);
-    const size_t smem = F32_ROWS * (d + dv) * sizeof(float);
-    const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
-                *vf = static_cast<const float*>(v), *mf = static_cast<const float*>(mask),
-                *sf = static_cast<const float*>(slopes), *of = static_cast<const float*>(dout),
-                *lf = static_cast<const float*>(lse), *df = static_cast<const float*>(delta);
-    if constexpr (DKV)
-      fa_bwd_dkv_f32_kernel<<<grid, 32 * F32_ROWS, smem, s>>>(qf, kf, vf, mf, sf, of, lf, df, static_cast<float*>(out0),
-                                                              static_cast<float*>(out1), H, Hkv, nq, nkv, d, dv, scale);
-    else
-      fa_bwd_dq_f32_kernel<<<grid, 32 * F32_ROWS, smem, s>>>(qf, kf, vf, mf, sf, of, lf, df, static_cast<float*>(out0),
-                                                             H, Hkv, nq, nkv, d, dv, scale);
-    return (int)cudaGetLastError();
-  }
-  const dim3 grid(((DKV ? nkv : nq) + 63) / 64, H, B);
-  const int hd = d > dv ? d : dv;
-  if (hd <= 64)
-    return launch_bf16<64, DKV>(grid, s, q, k, v, mask, slopes, dout, lse, delta, out0, out1, H, Hkv, nq, nkv, d, dv, scale);
-  return launch_bf16<128, DKV>(grid, s, q, k, v, mask, slopes, dout, lse, delta, out0, out1, H, Hkv, nq, nkv, d, dv, scale);
+bool bad_shape(int B, int H, int Hkv, int nq, int nkv, int d, int dv, int top) {
+  return B < 1 || H < 1 || Hkv < 1 || H % Hkv || nq < 1 || nkv < 1 || d < 8 || dv < 8 || d % 8 || dv % 8 ||
+         d > top || dv > top || H > 65535 || B > 65535;
 }
 
 }  // namespace
@@ -454,21 +313,44 @@ int launch(const void* q, const void* k, const void* v, const void* mask, const 
 
 // q (B, H, nq, d), k (B, Hkv, nkv, d), v (B, Hkv, nkv, dv), dout (B, nq, H, dv),
 // lse and delta f32 (B, H, nq), all contiguous; mask f32 (>= nq rows, nkv
-// columns, row stride nkv) or null; slopes f32 (H).  types: 0 = all f32 (d, dv
-// multiples of 8 up to 256), 1 = all bf16 (up to 128).
-// Kernel L: dq (B, H, nq, d).
+// columns, row stride nkv) or null; slopes f32 (H).
+// Kernel L: dq (B, H, nq, d).  types: 0 = all f32 (d, dv multiples of 8 up
+// to 256), 1 = all bf16 (up to 128).
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* mask, const void* slopes,
                                  const void* dout, const void* lse, const void* delta, void* dq, int types, int B,
                                  int H, int Hkv, int nq, int nkv, int d, int dv, float scale, void* stream) {
-  return ggml_tpu_torch::launch<false>(q, k, v, mask, slopes, dout, lse, delta, dq, nullptr, types, B, H, Hkv, nq,
-                                       nkv, d, dv, scale, stream);
+  using namespace ggml_tpu_torch;
+  if (types < 0 || types > 1 || bad_shape(B, H, Hkv, nq, nkv, d, dv, types == 0 ? 256 : 128))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (types == 0) {
+    const dim3 grid((nq + F32_ROWS - 1) / F32_ROWS, H, B);
+    fa_bwd_dq_f32_kernel<<<grid, 32 * F32_ROWS, F32_ROWS * (d + dv) * sizeof(float), s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(mask), static_cast<const float*>(slopes), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dq), H, Hkv, nq, nkv, d,
+        dv, scale);
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid((nq + 63) / 64, H, B);
+  if ((d > dv ? d : dv) <= 64)
+    return launch_dq_bf16<64>(grid, s, q, k, v, mask, slopes, dout, lse, delta, dq, H, Hkv, nq, nkv, d, dv, scale);
+  return launch_dq_bf16<128>(grid, s, q, k, v, mask, slopes, dout, lse, delta, dq, H, Hkv, nq, nkv, d, dv, scale);
 }
 
-// Kernel M: dk (B, H, nkv, d) and dv (B, H, nkv, dv), per q head.
-extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* mask,
-                                  const void* slopes, const void* dout, const void* lse, const void* delta, void* dk,
-                                  void* dv_out, int types, int B, int H, int Hkv, int nq, int nkv, int d, int dv,
-                                  float scale, void* stream) {
-  return ggml_tpu_torch::launch<true>(q, k, v, mask, slopes, dout, lse, delta, dk, dv_out, types, B, H, Hkv, nq,
-                                      nkv, d, dv, scale, stream);
+// Kernel M, f32: dk (B, H, nkv, d) and dv (B, H, nkv, dv), per q head; d and
+// dv multiples of 8 up to 256.
+extern "C" int flash_attn_bwd_dkv_f32(const void* q, const void* k, const void* v, const void* mask,
+                                      const void* slopes, const void* dout, const void* lse, const void* delta,
+                                      void* dk, void* dv_out, int B, int H, int Hkv, int nq, int nkv, int d, int dv,
+                                      float scale, void* stream) {
+  using namespace ggml_tpu_torch;
+  if (bad_shape(B, H, Hkv, nq, nkv, d, dv, 256)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((nkv + F32_ROWS - 1) / F32_ROWS, H, B);
+  fa_bwd_dkv_f32_kernel<<<grid, 32 * F32_ROWS, F32_ROWS * (d + dv) * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(mask), static_cast<const float*>(slopes), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv_out), H, Hkv, nq, nkv, d, dv, scale);
+  return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // Kernel J on Hopper: the prefill's flash attention forward for bf16 q/k/v
-// and for f32 q/k with a bf16 v, with its two helper kernels.
+// and for f32 q/k with a bf16 v, with its two helper kernels; and kernel K,
+// the training forward for bf16 q/k/v, as J's kernel with K's rules.
 //
 // J replaces (ggml_tpu/kernels/flash_attn.py) _fa_kernel (:30) with the work
 // flash_attention (:75) does around it: the padding of ragged q rows and kv
@@ -21,10 +22,27 @@
 // and the rounding of lo) is below 2^-16 of |q_i k_i| per product; the
 // output is then f32.  (J's all-f32 set runs on plain FMAs in flash_attn.cu.)
 //
+// K replaces _fa_fwd_lse_kernel (:180) with the work _fa_forward_lse (:338)
+// does around it (the 128-lane LSE broadcast is dropped: one f32 per row).
+// It computes J's function without softcap, also writes lse_i = m + log(l),
+// and keeps the JAX training kernel's own rules, which are not J's: a dead
+// row is one with l' = 0 after the padding fold (every score -inf and no
+// padding), which gives o = 0 and lse = +1e30 (so the backward's exp(s -
+// lse) is 0); a row masked with the finite -1e30 everywhere stays live (p =
+// 1 on every column, lse about -1e30).  Skipping a tile is exact only for
+// rows whose max ends above -2.5e29; where a row of the block ends at or
+// below that after a walk that skipped, the block walks every tile again
+// without skipping (K's f32 set runs on plain FMAs in flash_attn.cu).
+//
 // Bound on the H100 at the prefill shape (h=16, d=256, nq=nkv=1024, causal):
 // bytes, q, k, v, out and the mask (18.8 us with f32 q/k, 11.3 us bf16);
 // the causal half's products (3 + 1 or 1 + 1 of 2 d flop a pair) take 17.4
-// and 8.7 us at the bf16 tensor-core rate.
+// and 8.7 us at the bf16 tensor-core rate.  K at GPT-2-medium's training
+// shape (b=8, h=16, nq=nkv=512, d=64, causal): bytes, q, k, v, o, the mask
+// and the lse (10.4 us); its products take 4.3 us.  At d=64 a tile's two
+// products are small next to its softmax, so the softmax's instructions and
+// the blocks' start-up (the first loads come from device memory all at
+// once) set K's pace.
 //
 // Design.
 // - Helper 1, flash_split: one pass writes f32 k as hi and lo bf16 planes
@@ -58,6 +76,11 @@
 //   at HD = 256), m and l stay in registers; O is rescaled only where a row's
 //   max moved.  The q tiles launch longest-work first (the last tiles of a
 //   causal mask see the most keys).
+// - K's instances (HD = 64 or 128) differ where the softmax is the cost:
+//   five blocks share an SM at HD = 64 (96 registers a thread), exp2 is one
+//   flush-to-zero instruction, and where a tile adds nothing (no mask, or a
+//   mask tile of zeros) the scale goes into the exponent's one fma instead
+//   of a multiply of every score.
 
 #include "common.cuh"
 #include "flash_common.cuh"
@@ -70,6 +93,13 @@ constexpr float NEG = -1e30f;  // the finite sentinel
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int TILE = 64;       // q rows of a tile, and the side of a mask-range tile
 constexpr int WG = 128;        // one warpgroup
+
+// e^x as 2^(x log2 e): K's flush-to-zero exp2 is one instruction, J keeps exp2f
+template <bool FTZ>
+__device__ __forceinline__ float exp2_(float x) {
+  if constexpr (FTZ) return ex2_ftz(x);
+  else return exp2f(x);
+}
 
 // TMA maps of bf16 q (unused for f32 q), k (its hi plane for f32 k), k's lo
 // plane, and v: 4-d (column, row, head, batch), boxes of 64 columns
@@ -84,6 +114,7 @@ struct FaArgs {
   const float* ranges;  // (2, nqt, nkt): min, max of each 64 x 64 tile's mask entries
   const float* slopes;  // (H)
   void* out;            // (B, nq, H, dv): f32 for f32 q/k, else bf16
+  float* lse;           // K: (B, H, nq); J: null
   int B, H, Hkv, nq, nkv, d, dv, nqt, nkt;
   float scale, softcap;
 };
@@ -99,9 +130,12 @@ __host__ __device__ constexpr int fa_smem_bytes() {
   return ((QK32 ? 2 : 1) * TILE + (QK32 ? 2 : 1) * fa_bkv<QK32>() + fa_bkv<QK32>()) * HD * 2 + 16;
 }
 
-template <int HD, bool QK32>
-__global__ void __launch_bounds__(WG, 2)
+// LSE: kernel K (bf16 only, no softcap, LSE written, dead rows l' = 0, the
+// re-walk without skipping; five blocks an SM at HD = 64); else kernel J
+template <int HD, bool QK32, bool LSE>
+__global__ void __launch_bounds__(WG, (LSE && HD == 64) ? 5 : 2)
     fa_sm90_kernel(const __grid_constant__ FaArgs a, const __grid_constant__ FaMaps maps) {
+  static_assert(!(LSE && QK32), "K takes bf16 q, k and v");
   constexpr int BKV = fa_bkv<QK32>();
   constexpr int NS = BKV / 2;       // accumulators of S a thread holds
   constexpr int NB = HD / 64;       // 64-column blocks of O
@@ -129,10 +163,15 @@ __global__ void __launch_bounds__(WG, 2)
   const float* mn_row = have_mask ? a.ranges + (size_t)qt * a.nkt : nullptr;
   const float* mx_row = have_mask ? a.ranges + ((size_t)a.nqt + qt) * a.nkt : nullptr;
   auto range_of = [&](int kt) { return kt * BKV / TILE; };
-  // the first live kv tile at or after kt (no mask: every tile)
+  // the first live kv tile at or after kt (no mask, or K's re-walk: every
+  // tile); `skipped` records that a tile was passed over
+  bool may_skip = have_mask, skipped = false;
   auto next_live = [&](int kt) {
-    if (have_mask)
-      while (kt < n_tiles && !(slope * mx_row[range_of(kt)] > 0.5f * NEG)) ++kt;
+    if (may_skip)
+      while (kt < n_tiles && !(slope * mx_row[range_of(kt)] > 0.5f * NEG)) {
+        ++kt;
+        skipped = true;
+      }
     return kt;
   };
 
@@ -213,6 +252,8 @@ __global__ void __launch_bounds__(WG, 2)
     }
     __syncthreads();
   }
+  bool q_loaded = cur < n_tiles;  // (bf16 q: it comes with the first K)
+  for (;;) {  // one walk over the kv tiles; K walks again without skipping where that was not exact
   while (cur < n_tiles) {
     const int nxt = next_live(cur + 1);
     mbar_wait(&bar_k, phase);  // Q and this tile's K are here (V may still be in flight)
@@ -244,14 +285,20 @@ __global__ void __launch_bounds__(WG, 2)
     // branch is taken by the whole tile
     const int kv0 = cur * BKV;
     const int rt = range_of(cur);
-    if (a.softcap != 0.f) {
+    // K folds the scale into the exponent's one fma where the tile adds
+    // nothing (no mask, or a mask tile of zeros): the max of the scaled
+    // scores is the scaled max, as rounding keeps the order
+    const bool fold = LSE && a.scale > 0.f && (!have_mask || (mn_row[rt] == 0.f && mx_row[rt] == 0.f));
+    if (fold) {
+    } else if (!LSE && a.softcap != 0.f) {
 #pragma unroll
       for (int i = 0; i < NS; ++i) s[i] = tanhf(s[i] * a.scale) * a.softcap;
     } else {
 #pragma unroll
       for (int i = 0; i < NS; ++i) s[i] *= a.scale;
     }
-    if (have_mask && mn_row[rt] != mx_row[rt]) {  // mixed: the mask's own entries
+    if (fold) {
+    } else if (have_mask && mn_row[rt] != mx_row[rt]) {  // mixed: the mask's own entries
 #pragma unroll
       for (int i = 0; i < NS; ++i) {
         const int col = kv0 + (i >> 2) * 8 + 2 * t + (i & 1);
@@ -277,16 +324,29 @@ __global__ void __launch_bounds__(WG, 2)
     mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
     mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
     mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+    if (fold) {
+      mx_lo *= a.scale;
+      mx_hi *= a.scale;
+    }
     const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
     // e^x as 2^(x log2 e): one multiply and the hardware's exp2
-    const float al_lo = exp2f((m_lo - mn_lo) * LOG2E), al_hi = exp2f((m_hi - mn_hi) * LOG2E);
+    const float al_lo = exp2_<LSE>((m_lo - mn_lo) * LOG2E), al_hi = exp2_<LSE>((m_hi - mn_hi) * LOG2E);
     m_lo = mn_lo;
     m_hi = mn_hi;
     float ps_lo = 0.f, ps_hi = 0.f;
+    if (fold) {
+      const float c = a.scale * LOG2E, o_lo = -mn_lo * LOG2E, o_hi = -mn_hi * LOG2E;
 #pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      s[i] = exp2f((s[i] - ((i & 2) ? mn_hi : mn_lo)) * LOG2E);
-      if (i & 2) ps_hi += s[i]; else ps_lo += s[i];
+      for (int i = 0; i < NS; ++i) {
+        s[i] = exp2_<LSE>(fmaf(s[i], c, (i & 2) ? o_hi : o_lo));
+        if (i & 2) ps_hi += s[i]; else ps_lo += s[i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        s[i] = exp2_<LSE>((s[i] - ((i & 2) ? mn_hi : mn_lo)) * LOG2E);
+        if (i & 2) ps_hi += s[i]; else ps_lo += s[i];
+      }
     }
     // each lane keeps the sum of its own columns; the quad's lanes share alpha
     l_lo = l_lo * al_lo + ps_lo;
@@ -328,24 +388,54 @@ __global__ void __launch_bounds__(WG, 2)
     cur = nxt;
     phase ^= 1;
   }
+  if constexpr (!LSE) break;
+  // K: a skipped tile is exact only for rows whose max ends above -2.5e29
+  // (the skipped scores sit 2.5e29 below it, so their p and the terms they
+  // would have added before the row came alive are exactly 0); where a row
+  // of the block (below nq) ends at or below that, walk every tile again
+  const bool low = (q0 + r_lo < a.nq && m_lo <= 0.25f * NEG) || (q0 + r_lo + 8 < a.nq && m_hi <= 0.25f * NEG);
+  if (!__syncthreads_or(skipped && low)) break;
+  may_skip = skipped = false;
+  m_lo = m_hi = NEG;
+  l_lo = l_hi = 0.f;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[nb][i] = 0.f;
+  cur = 0;
+  if (tid == 0) {
+    mbar_expect(&bar_k, (q_loaded ? 0 : QB) + K_BYTES);
+    if (!q_loaded) tma_tile<HD, TILE>(Qh, &maps.q, &bar_k, q0, h, b);
+    load_k(0);
+    mbar_expect(&bar_v, KB);
+    load_v(0);
+  }
+  q_loaded = true;
+  }
 
   // a row's l is spread over its quad
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
-  // the JAX wrapper's kv padding folded in; dead rows (the folded max at or
-  // below -5e29) give zeros
+  // the JAX wrapper's kv padding folded in; dead rows give zeros: J's are
+  // those whose folded max is at or below -5e29 (JAX's test on its padded
+  // row), K's those with l' = 0 (every score -inf and no padding), which get
+  // lse = +1e30 so that the backward's exp(s - lse) is 0
   const int n_pad = kv_padding(a.nkv);
   float c_lo, c_hi;
   fold_padding(m_lo, l_lo, c_lo, n_pad, slope);
   fold_padding(m_hi, l_hi, c_hi, n_pad, slope);
-  const float inv_lo = m_lo <= 0.5f * NEG ? 0.f : c_lo / l_lo, inv_hi = m_hi <= 0.5f * NEG ? 0.f : c_hi / l_hi;
+  const bool dead_lo = LSE ? l_lo == 0.f : m_lo <= 0.5f * NEG, dead_hi = LSE ? l_hi == 0.f : m_hi <= 0.5f * NEG;
+  const float inv_lo = dead_lo ? 0.f : c_lo / l_lo, inv_hi = dead_hi ? 0.f : c_hi / l_hi;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = q0 + r_lo + 8 * half;
     if (row >= a.nq) continue;
     const float inv = half ? inv_hi : inv_lo;
+    if (LSE && t == 0)
+      a.lse[((size_t)b * a.H + h) * a.nq + row] =
+          (half ? dead_hi : dead_lo) ? -NEG : (half ? m_hi : m_lo) + logf(half ? l_hi : l_lo);
     const size_t base = ((size_t)(b * a.nq + row) * a.H + h) * a.dv;
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
@@ -438,29 +528,14 @@ __global__ void __launch_bounds__(256) flash_mask_ranges_kernel(const float* __r
   }
 }
 
-template <int HD, bool QK32>
+template <int HD, bool QK32, bool LSE = false>
 int launch_fa(const FaArgs& a, const FaMaps& maps, cudaStream_t s) {
   constexpr int smem = fa_smem_bytes<HD, QK32>();
-  const cudaError_t rc = cudaFuncSetAttribute(fa_sm90_kernel<HD, QK32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                              smem);
+  const cudaError_t rc = cudaFuncSetAttribute(fa_sm90_kernel<HD, QK32, LSE>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return (int)rc;
-  fa_sm90_kernel<HD, QK32><<<a.nqt * a.H * a.B, WG, smem, s>>>(a, maps);
+  fa_sm90_kernel<HD, QK32, LSE><<<a.nqt * a.H * a.B, WG, smem, s>>>(a, maps);
   return (int)cudaGetLastError();
-}
-
-// map of a (batch, head, row, column) bf16 tensor with element strides (sb,
-// sh, sn) and contiguous columns, boxes of 64 columns x box_rows rows written
-// with the 128-byte swizzle; elements outside the tensor read as zeros
-bool make_map(CUtensorMap* map, const void* base, int B, int Hx, int N, int C, long long sb, long long sh,
-              long long sn, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)N, (cuuint64_t)Hx, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sn * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1}, unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -482,7 +557,8 @@ extern "C" int flash_attn_sm90(const void* q, const void* kh, const void* kl, co
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || nq < 1 || nkv < 1 || d < 8 || dv < 8 || d % 8 || dv % 8 ||
       d > 256 || dv > 256 || (mask != nullptr && ranges == nullptr) || (qk32 && kl == nullptr))
     return (int)cudaErrorInvalidValue;
-  FaArgs a{qk32 ? static_cast<const float*>(q) : nullptr, q_sb, q_sh, q_sn, static_cast<const float*>(mask), static_cast<const float*>(ranges), static_cast<const float*>(slopes), out,
+  FaArgs a{qk32 ? static_cast<const float*>(q) : nullptr, q_sb, q_sh, q_sn, static_cast<const float*>(mask),
+           static_cast<const float*>(ranges), static_cast<const float*>(slopes), out, nullptr,
            B, H, Hkv, nq, nkv, d, dv, (nq + TILE - 1) / TILE, (nkv + TILE - 1) / TILE, score_scale, softcap};
   if ((long long)a.nqt * H * B > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int bkv = qk32 ? fa_bkv<true>() : fa_bkv<false>();
@@ -502,6 +578,32 @@ extern "C" int flash_attn_sm90(const void* q, const void* kh, const void* kl, co
   if (hd <= 64) return launch_fa<64, false>(a, maps, s);
   if (hd <= 128) return launch_fa<128, false>(a, maps, s);
   return launch_fa<256, false>(a, maps, s);
+}
+
+// Kernel K for bf16 q/k/v: J's arguments without softcap and the f32 k
+// planes, and lse, f32 (B, H, nq) contiguous.  d, dv: multiples of 8 up to
+// 128.  out: (B, nq, H, dv) bf16 contiguous.
+extern "C" int flash_attn_fwd_lse(const void* q, const void* k, const void* v, long long q_sb, long long q_sh,
+                                  long long q_sn, long long k_sb, long long k_sh, long long k_sn, long long v_sb,
+                                  long long v_sh, long long v_sn, const void* mask, const void* ranges,
+                                  const void* slopes, void* out, void* lse, int B, int H, int Hkv, int nq, int nkv,
+                                  int d, int dv, float scale, void* stream) {
+  using namespace ggml_tpu_torch;
+  if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || nq < 1 || nkv < 1 || d < 8 || dv < 8 || d % 8 || dv % 8 ||
+      d > 128 || dv > 128 || (mask != nullptr && ranges == nullptr) || lse == nullptr)
+    return (int)cudaErrorInvalidValue;
+  FaArgs a{nullptr, 0, 0, 0, static_cast<const float*>(mask), static_cast<const float*>(ranges),
+           static_cast<const float*>(slopes), out, static_cast<float*>(lse), B, H, Hkv, nq, nkv, d, dv,
+           (nq + TILE - 1) / TILE, (nkv + TILE - 1) / TILE, scale, 0.f};
+  if ((long long)a.nqt * H * B > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  FaMaps maps{};
+  if (!make_map(&maps.q, q, B, H, nq, d, q_sb, q_sh, q_sn, TILE) ||
+      !make_map(&maps.kh, k, B, Hkv, nkv, d, k_sb, k_sh, k_sn, fa_bkv<false>()) ||
+      !make_map(&maps.v, v, B, Hkv, nkv, dv, v_sb, v_sh, v_sn, fa_bkv<false>()))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((d > dv ? d : dv) <= 64) return launch_fa<64, false, true>(a, maps, s);
+  return launch_fa<128, false, true>(a, maps, s);
 }
 
 // Helper of J: split an f32 (B, H, N, d) tensor with element strides (sb,

@@ -1,7 +1,8 @@
-// Device helpers shared by the flash-attention kernels (flash_attn.cu: K and
-// J's all-f32 set; flash_attn_sm90.cu: J; flash_attn_bwd.cu: L and M): the
-// fold of the JAX wrappers' kv padding, tile loads into shared memory, the
-// m16n8k16 bf16 tensor-core product and its operand fragments.
+// Device helpers shared by the flash-attention kernels (flash_attn.cu: the
+// all-f32 sets of J and K; flash_attn_sm90.cu: J and K; flash_attn_bwd.cu: L
+// and M's f32 set; flash_bwd_sm90.cu: M): the fold of the JAX wrappers' kv
+// padding, the hi + lo bf16 split, and L's tile loads into shared memory,
+// m16n8k16 bf16 tensor-core product and operand fragments.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,8 +1,10 @@
-// Hopper (sm_90a) building blocks shared by the wgmma kernels: kernel J
-// (flash_attn_sm90.cu) and the prefill matmuls C and G (qmatmul_sm90.cuh):
+// Hopper (sm_90a) building blocks shared by the wgmma kernels: the flash
+// forward J and K (flash_attn_sm90.cu), the flash backward M
+// (flash_bwd_sm90.cu) and the prefill matmuls C and G (qmatmul_sm90.cuh):
 // mbarriers that count TMA bytes, TMA box loads, wgmma shared-memory
 // descriptors for the 128-byte swizzle, the wgmma products, and the
-// host-side lookup of libcuda's cuTensorMapEncodeTiled.
+// host-side lookup of libcuda's cuTensorMapEncodeTiled with the tensor maps
+// built from it.
 #pragma once
 
 #include <cuda.h>
@@ -20,6 +22,14 @@ __device__ __forceinline__ uint32_t pack2_bf16(float lo, float hi) {
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+// 2^x as one MUFU.EX2, results below 2^-126 flushed to zero (exp2f adds
+// instructions around it to keep those)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // mbarriers: `count` arrivals complete a phase, and a barrier that counts
 // TMA bytes completes once the announced bytes have landed as well
@@ -223,6 +233,21 @@ bool make_map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type, l
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows}, unit[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// map of a (batch, head, row, column) bf16 tensor with element strides (sb,
+// sh, sn) and contiguous columns, boxes of 64 columns x box_rows rows written
+// with the 128-byte swizzle; elements outside the tensor read as zeros
+bool make_map(CUtensorMap* map, const void* base, int B, int Hx, int N, int C, long long sb, long long sh,
+              long long sn, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)N, (cuuint64_t)Hx, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sn * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1}, unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

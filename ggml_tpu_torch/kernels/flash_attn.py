@@ -28,12 +28,15 @@ the slope), K folds those columns into every row: live rows do not change, a
 row masked -1e30 everywhere averages v over the padded length, and its LSE is
 about -1e30.  Its dead rows are those left with l = 0 (every score -inf and no
 padding): zeros, LSE +1e30 and no gradient.  q, k and v are all bf16 or all
-f32.
+f32.  For bf16, K (J's kernel with its LSE rules) and M run on Hopper's wgmma
+and skip, add or read mask tiles from the mask ranges, which the autograd
+Function computes once per forward and hands to both.
 
 For CPU tensors each wrapper runs its plain PyTorch version; for CUDA tensors
-it launches its kernel (csrc/flash_attn_sm90.cu: J and its helpers;
-csrc/flash_attn.cu: K and J's all-f32 set; csrc/flash_attn_bwd.cu: L and M),
-never the plain version.  `launches` counts kernel launches.
+it launches its kernel (csrc/flash_attn_sm90.cu: J, its helpers and K for
+bf16; csrc/flash_attn.cu: the all-f32 sets of J and K; csrc/flash_bwd_sm90.cu:
+M for bf16; csrc/flash_attn_bwd.cu: L and M's f32 set), never the plain
+version.  `launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ launches = {"flash_attn": 0, "flash_split": 0, "flash_mask_ranges": 0,
             "flash_attn_fwd_lse": 0, "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0}
 
 _NEG_INF = -1e30  # finite "minus infinity": the running max starts here, so exp() stays NaN-free
-_BKV = 64  # kv rows per step of K's CUDA kernel, of J's for bf16 q/k/v, and of their plain versions
+_BKV = 64  # kv rows per step of J's kernel for bf16 q/k/v (K's too), and of their plain versions
 _TILE = 64  # q rows and kv columns of a mask-range tile (J's tiles)
 _KV_ALIGN = 32  # the JAX wrappers pad kv to a multiple of this
 
@@ -236,8 +239,8 @@ def split_hi_lo(x: torch.Tensor) -> torch.Tensor:
 
 
 def mask_ranges(mask: torch.Tensor) -> torch.Tensor:
-    """Helper of kernel J: the (nq, nkv) f32 mask's min and max per 64 x 64
-    tile, (2, ceil(nq / 64), ceil(nkv / 64)) f32."""
+    """Helper of kernels J, K and M: the (nq, nkv) f32 mask's min and max per
+    64 x 64 tile, (2, ceil(nq / 64), ceil(nkv / 64)) f32."""
     if not mask.is_cuda:
         return _mask_ranges_plain(mask)
     if mask.dim() != 2 or mask.dtype != torch.float32:
@@ -294,7 +297,8 @@ def flash_attention(q, k, v, mask=None, scale: float = 1.0, max_bias: float = 0.
     if types == 0:  # all f32: the FMA kernel of csrc/flash_attn.cu
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         rc = _build.lib().flash_attn_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), slopes.data_ptr(),
-                                         out.data_ptr(), b, h, h_kv, n_q, n_kv, d, d_v, score_scale, softcap, stream)
+                                         out.data_ptr(), None, b, h, h_kv, n_q, n_kv, d, d_v, score_scale, softcap,
+                                         stream)
     else:
         ranges = None if mask is None else mask_ranges(mask)
         v, v_st = _row_strides(v, 8)
@@ -326,25 +330,48 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def flash_attention_fwd_lse(q, k, v, mask=None, scale: float = 1.0, max_bias: float = 0.0):
+def _train_ranges(mask, ranges):
+    """The bf16 kernels' mask ranges: those handed over (checked), else
+    computed here (one flash_mask_ranges launch); None without a mask."""
+    if mask is None:
+        return None
+    if ranges is None:
+        return mask_ranges(mask)
+    want = (2, -(-mask.shape[0] // _TILE), -(-mask.shape[1] // _TILE))
+    if tuple(ranges.shape) != want or ranges.dtype != torch.float32 or ranges.device != mask.device \
+            or not ranges.is_contiguous():
+        raise ValueError(f"ranges {tuple(ranges.shape)} {ranges.dtype}: want {want} float32, contiguous, "
+                         f"on the mask's device")
+    return ranges
+
+
+def flash_attention_fwd_lse(q, k, v, mask=None, scale: float = 1.0, max_bias: float = 0.0, ranges=None):
     """The training forward (kernel K).  q (b, h, nq, d), k (b, h_kv, nkv,
     d), v (b, h_kv, nkv, d_v), all bf16 or all f32; mask (nq', nkv) additive
-    f32 with nq' >= nq, or None.  Returns o (b, nq, h, d_v) in q's type and
-    lse (b, h, nq) f32."""
+    f32 with nq' >= nq, or None; ranges: mask_ranges of the mask's first nq
+    rows where the caller has them (bf16 on the card reads them).  Returns
+    o (b, nq, h, d_v) in q's type and lse (b, h, nq) f32."""
     code, (b, h, n_q, d, h_kv, n_kv, d_v), mask = _prepare(q, k, v, mask, _TRAIN_TYPES)
     slopes = _slopes_on(h, float(max_bias), q.device)
     if not q.is_cuda:
         return _fa_forward_lse_plain(q, k, v, mask, slopes, float(scale))
 
     _check_train_dims(code, d, d_v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     mask = None if mask is None else mask.contiguous()
     out = torch.empty((b, n_q, h, d_v), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n_q), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _build.lib().flash_attn_fwd_lse(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), slopes.data_ptr(),
-                                         out.data_ptr(), lse.data_ptr(), code, b, h, h_kv, n_q, n_kv, d, d_v,
-                                         float(scale), stream)
+    if code == 0:  # all f32: the FMA kernel of csrc/flash_attn.cu
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        rc = _build.lib().flash_attn_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), slopes.data_ptr(),
+                                         out.data_ptr(), lse.data_ptr(), b, h, h_kv, n_q, n_kv, d, d_v,
+                                         float(scale), 0.0, stream)
+    else:  # bf16: J's wgmma kernel with K's rules (csrc/flash_attn_sm90.cu)
+        ranges = _train_ranges(mask, ranges)
+        (q, q_st), (k, k_st), (v, v_st) = (_row_strides(t, 8) for t in (q, k, v))
+        rc = _build.lib().flash_attn_fwd_lse(q.data_ptr(), k.data_ptr(), v.data_ptr(), *q_st, *k_st, *v_st,
+                                             _ptr(mask), _ptr(ranges), slopes.data_ptr(), out.data_ptr(),
+                                             lse.data_ptr(), b, h, h_kv, n_q, n_kv, d, d_v, float(scale), stream)
     launches["flash_attn_fwd_lse"] += 1
     _build.check(rc, "flash_attn_fwd_lse")
     return out, lse
@@ -385,11 +412,12 @@ def flash_attention_bwd_dq(q, k, v, mask, scale: float, max_bias: float, do, lse
     return dq
 
 
-def flash_attention_bwd_dkv(q, k, v, mask, scale: float, max_bias: float, do, lse, delta):
+def flash_attention_bwd_dkv(q, k, v, mask, scale: float, max_bias: float, do, lse, delta, ranges=None):
     """dk and dv of the training attention for each q head (kernel M);
-    arguments as for flash_attention_bwd_dq.  Returns dk (b, h, nkv, d) and
-    dv (b, h, nkv, d_v) in k's and v's types; the heads that share a kv head
-    are summed by the caller."""
+    arguments as for flash_attention_bwd_dq, and ranges as for
+    flash_attention_fwd_lse.  Returns dk (b, h, nkv, d) and dv (b, h, nkv,
+    d_v) in k's and v's types; the heads that share a kv head are summed by
+    the caller."""
     code, (b, h, n_q, d, h_kv, n_kv, d_v), mask, slopes = _bwd_args(q, k, v, mask, max_bias, do, lse, delta)
     if not q.is_cuda:
         return _fa_bwd_dkv_plain(q, k, v, mask, slopes, float(scale), do, lse, delta)
@@ -400,9 +428,14 @@ def flash_attention_bwd_dkv(q, k, v, mask, scale: float, max_bias: float, do, ls
     dk = torch.empty((b, h, n_kv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, h, n_kv, d_v), dtype=v.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _build.lib().flash_attn_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), slopes.data_ptr(),
-                                         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                                         dv.data_ptr(), code, b, h, h_kv, n_q, n_kv, d, d_v, float(scale), stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask))
+    tail = (do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, h_kv, n_q, n_kv,
+            d, d_v, float(scale), stream)
+    if code == 0:  # all f32: the FMA kernel of csrc/flash_attn_bwd.cu
+        rc = _build.lib().flash_attn_bwd_dkv_f32(*ptrs, slopes.data_ptr(), *tail)
+    else:  # bf16: the wgmma kernel of csrc/flash_bwd_sm90.cu
+        ranges = _train_ranges(mask, ranges)
+        rc = _build.lib().flash_attn_bwd_dkv(*ptrs, _ptr(ranges), slopes.data_ptr(), *tail)
     launches["flash_attn_bwd_dkv"] += 1
     _build.check(rc, "flash_attn_bwd_dkv")
     return dk, dv
@@ -410,26 +443,30 @@ def flash_attention_bwd_dkv(q, k, v, mask, scale: float, max_bias: float, do, ls
 
 class _FlashAttentionTrain(torch.autograd.Function):
     """K forward; L and M backward from the saved output and LSE
-    (JAX _fa_train_fwd / _fa_train_bwd).  The mask gets no gradient."""
+    (JAX _fa_train_fwd / _fa_train_bwd).  The mask gets no gradient.  For
+    bf16 on the card the mask's tile ranges are computed once here and
+    read by K and M."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, scale: float, max_bias: float):
         # one contiguous copy of each head view, shared by K, L and M
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = flash_attention_fwd_lse(q, k, v, mask, scale, max_bias)
-        ctx.save_for_backward(q, k, v, mask, o, lse)
+        code, _, mask2 = _prepare(q, k, v, mask, _TRAIN_TYPES)
+        ranges = mask_ranges(mask2) if mask2 is not None and q.is_cuda and code == 1 else None
+        o, lse = flash_attention_fwd_lse(q, k, v, mask, scale, max_bias, ranges=ranges)
+        ctx.save_for_backward(q, k, v, mask, o, lse, ranges)
         ctx.scale, ctx.max_bias = scale, max_bias
         return o
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        q, k, v, mask, o, lse = ctx.saved_tensors
+        q, k, v, mask, o, lse, ranges = ctx.saved_tensors
         do = g.contiguous()
         # delta from the stored output in its own type (the JAX o_pad), not the f32 sums
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
         dq = flash_attention_bwd_dq(q, k, v, mask, ctx.scale, ctx.max_bias, do, lse, delta)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, mask, ctx.scale, ctx.max_bias, do, lse, delta)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, mask, ctx.scale, ctx.max_bias, do, lse, delta, ranges=ranges)
         b, h_kv, n_kv, _ = k.shape
         rep = q.shape[1] // h_kv
         if rep > 1:  # GQA: each q head's dk/dv, in k's type, summed onto its kv head

@@ -197,13 +197,15 @@ def _ranges_numpy(mask):
     return out
 
 
-@pytest.mark.parametrize("kind", ["causal", "alibi-ragged", "random"])
+@pytest.mark.parametrize("kind", ["causal", "alibi-ragged", "random", "causal-offset-ragged"])
 def test_mask_ranges(kind):
-    """Helper of J: the min and max of each 64 x 64 mask tile, exactly, the
-    ragged edge tiles over their own entries only."""
+    """Helper of J, K and M: the min and max of each 64 x 64 mask tile,
+    exactly, the ragged edge tiles over their own entries only."""
     rng = np.random.default_rng(10)
     if kind == "causal":
         mask = np.array(jax_causal_mask(200))
+    elif kind == "causal-offset-ragged":  # the training mask at nq=100, nkv=164: neither a multiple of 64
+        mask = _offset_causal(100, 164, 64, fill=-1e30)
     elif kind == "alibi-ragged":  # ggml's KQ mask with ALiBi positions, ragged in both lengths
         i, j = np.arange(100)[:, None], np.arange(150)[None, :]
         mask = np.where(j <= i + 50, -np.abs(i + 50 - j), -np.inf).astype(np.float32)

@@ -38,6 +38,17 @@ def _causal(nq, nkv, fill=-1e30):
     return np.where(j <= i + nkv - nq, 0.0, fill).astype(np.float32)
 
 
+def _mask(kind, nq, nkv):
+    """None, "causal", or "rows-63-64:<fill>": causal with rows 63 and 64,
+    either side of a 64-row tile edge, masked with fill everywhere."""
+    if kind is None:
+        return None
+    mask = _causal(nq, nkv)
+    if kind.startswith("rows-63-64:"):
+        mask[63:65] = float(kind.split(":")[1])
+    return mask
+
+
 def _jax_vjp(q, k, v, w, mask, dtype, **kw):
     """JAX output and (dq, dk, dv) for the cotangent w, as f32 numpy."""
     jd = getattr(jnp, dtype)
@@ -60,17 +71,28 @@ def _port_vjp(q, k, v, w, mask, dtype, **kw):
 @pytest.mark.parametrize(
     "b,h,h_kv,nq,nkv,d,max_bias,masked",
     [
-        (1, 4, 4, 64, 64, 64, 0.0, True),
-        (2, 8, 2, 64, 128, 64, 0.0, True),  # GQA: dk/dv summed over the q heads of a kv head
-        (1, 4, 4, 64, 64, 64, 8.0, True),  # ALiBi slopes in both passes
-        (1, 4, 4, 50, 96, 64, 0.0, True),  # ragged nq and nkv: JAX pads, the port does not
-        (1, 4, 4, 64, 64, 64, 0.0, False),  # no mask
+        (1, 4, 4, 64, 64, 64, 0.0, "causal"),
+        (2, 8, 2, 64, 128, 64, 0.0, "causal"),  # GQA: dk/dv summed over the q heads of a kv head
+        (1, 4, 4, 64, 64, 64, 8.0, "causal"),  # ALiBi slopes in both passes
+        (1, 4, 4, 50, 96, 64, 0.0, "causal"),  # ragged nq and nkv: JAX pads, the port does not
+        (1, 4, 4, 64, 64, 64, 0.0, None),  # no mask
+        # the edges of the kernels' tile walks: head dims 128 and 72 (zero
+        # columns up to 128), a causal offset with neither length a multiple
+        # of 64, GQA 16/4, rows masked everywhere on both sides of a tile edge
+        (1, 2, 2, 64, 64, 128, 0.0, "causal"),
+        (1, 2, 2, 64, 64, 72, 0.0, "causal"),
+        (1, 2, 2, 100, 164, 64, 0.0, "causal"),
+        (1, 16, 4, 64, 64, 32, 0.0, "causal"),
+        (1, 2, 2, 128, 128, 32, 0.0, "rows-63-64:-1e30"),
+        (1, 2, 2, 128, 128, 32, 0.0, "rows-63-64:-inf"),
     ],
-    ids=["plain", "gqa", "alibi", "ragged", "no-mask"])
+    ids=["plain", "gqa", "alibi", "ragged", "no-mask", "d128", "d72", "offset-100-164", "gqa-16-4",
+         "rows-63-64-1e30", "rows-63-64-inf"])
 def test_output_and_grads_match_jax(b, h, h_kv, nq, nkv, d, max_bias, masked, dtype):
-    """The parameter sets of tests/test_flash_attn.py's training tests."""
+    """The parameter sets of tests/test_flash_attn.py's training tests, and
+    the edges of the CUDA kernels' tile walks."""
     q, k, v, w = _make(b, h, h_kv, nq, nkv, d, seed=nq + h + int(max_bias))
-    mask = _causal(nq, nkv) if masked else None
+    mask = _mask(masked, nq, nkv)
     kw = dict(scale=1.0 / np.sqrt(d), max_bias=max_bias)
     want, got = _jax_vjp(q, k, v, w, mask, dtype, **kw), _port_vjp(q, k, v, w, mask, dtype, **kw)
     for name, a, g in zip(("o", "dq", "dk", "dv"), want, got):
@@ -205,3 +227,17 @@ def test_gradients_at_padded_lengths_with_dead_rows_match_jax():
         assert np.isfinite(g).all(), name
         assert nmse(a, g) <= 1e-10, (name, nmse(a, g))
     assert (got[1][0, :, 9] == 0).all()
+
+
+def test_handed_ranges_are_checked():
+    """K and M on the card read the mask's tile ranges that the autograd
+    Function computes once; ranges handed over must be those of the mask's
+    (nq, nkv) tiles, and none are computed without a mask."""
+    mask = torch.from_numpy(_causal(100, 164))
+    ranges = flash_attn.mask_ranges(mask)
+    assert flash_attn._train_ranges(mask, ranges) is ranges
+    np.testing.assert_array_equal(flash_attn._train_ranges(mask, None).numpy(), ranges.numpy())
+    assert flash_attn._train_ranges(None, None) is None
+    for bad in (ranges[:, :1], ranges.double(), ranges.transpose(1, 2)):
+        with pytest.raises(ValueError):
+            flash_attn._train_ranges(mask, bad)
