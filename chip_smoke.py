@@ -5,6 +5,7 @@
     python3 chip_smoke.py --long-decode-profile   # phases 1, 2 and the decode profile after a long prompt only
     python3 chip_smoke.py --flash-times           # phases 1, 2 and kernel J's times at the 1024-token prefill only
     python3 chip_smoke.py --train-times           # phases 1, 2 and kernels K, L, M's times at the training shapes only
+    python3 chip_smoke.py --gemv-times            # phases 1, 2 and kernel H's times at the decode shapes (A beside) only
 
 Phases (any failure exits non-zero without the result line):
 1. the card, as nvidia-smi reports its name and power limit;
@@ -70,7 +71,7 @@ SOURCES = {
     "flash_split": ("ggml_tpu_torch/kernels/csrc/flash_attn_sm90.cu", "ggml_tpu/kernels/flash_attn.py:30"),
     "flash_mask_ranges": ("ggml_tpu_torch/kernels/csrc/flash_attn_sm90.cu", "ggml_tpu/kernels/flash_attn.py:30"),
     "flash_attn_fwd_lse": ("ggml_tpu_torch/kernels/csrc/flash_attn_sm90.cu", "ggml_tpu/kernels/flash_attn.py:180"),
-    "flash_attn_bwd_dq": ("ggml_tpu_torch/kernels/csrc/flash_attn_bwd.cu", "ggml_tpu/kernels/flash_attn.py:222"),
+    "flash_attn_bwd_dq": ("ggml_tpu_torch/kernels/csrc/flash_bwd_sm90.cu", "ggml_tpu/kernels/flash_attn.py:222"),
     "flash_attn_bwd_dkv": ("ggml_tpu_torch/kernels/csrc/flash_bwd_sm90.cu", "ggml_tpu/kernels/flash_attn.py:254"),
 }
 # NMSE of a kernel against its plain version on the card: the int8 kernels
@@ -171,11 +172,11 @@ def random_q8_planes(torch, n: int, k: int, npad: int, fmt: str, gen):
                         offsets=-8 * small(k // g, dt) if affine else None, group=g, n=n, k=k, orig_type=orig)
 
 
-def random_q4_planes(torch, n: int, k: int, npad: int, fmt: str, gen):
-    """A q4 weight with multiplied-out random scale and offset planes on the
-    card.  fmt: "q4_0" / "q3_k" (bf16 planes per 32 / 16 codes, as the
-    synthesis builds them), "q4_0_f32" (f32 planes per 32, as repack builds
-    them)."""
+def random_q4_planes(torch, n: int, k: int, npad: int, fmt: str, gen, offsets: bool = True):
+    """A q4 weight with multiplied-out random scale and offset planes (or
+    none) on the card.  fmt: "q4_0" / "q3_k" (bf16 planes per 32 / 16 codes,
+    as the synthesis builds them), "q4_0_f32" (f32 planes per 32, as repack
+    builds them)."""
     from ggml_tpu_torch.dtypes import GGMLType
     from ggml_tpu_torch.quant.planar import PlanarWeight
 
@@ -184,8 +185,8 @@ def random_q4_planes(torch, n: int, k: int, npad: int, fmt: str, gen):
                    "q4_0_f32": (32, torch.float32, GGMLType.Q4_0)}[fmt]
     small = lambda shape: ((torch.rand(shape, **kw) + 0.5) * 2.5e-3).to(dt)
     return PlanarWeight(kind="q4", codes=torch.randint(0, 256, (k // 2, npad), dtype=torch.uint8, **kw),
-                        scales=small((2, k // 2 // g, npad)), offsets=-8 * small((k // g, npad)), group=g,
-                        n=n, k=k, orig_type=orig)
+                        scales=small((2, k // 2 // g, npad)),
+                        offsets=-8 * small((k // g, npad)) if offsets else None, group=g, n=n, k=k, orig_type=orig)
 
 
 def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
@@ -203,14 +204,22 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
               f"library={us(r['library_ms'])} bound={r['bound_ms'] * 1e3:.1f}us ({r['bound_by']})")
         check(r["nmse"] <= gate, f"{name} {r['shape']}: NMSE {r['nmse']:.3e} > {gate:g}")
 
-    def gemv_case(name, m, k, n, npad, d_dtype=torch.bfloat16, fmt=None, time_it=True):
+    def gemv_case(name, m, k, n, npad, d_dtype=torch.bfloat16, fmt=None, time_it=True, offsets=True, x_row=None):
+        """x_row: row 3 of x all zeros ("zero") or with its amax once, in
+        the last 256 rows of K ("late-amax"), among random rows."""
         if fmt is None:
             pw, label = random_planes(torch, n, k, npad, d_dtype, gen), f"d={str(d_dtype)[6:]}"
         elif fmt in ("q4_0", "q3_k", "q4_0_f32"):
-            pw, label = random_q4_planes(torch, n, k, npad, fmt, gen), fmt
+            pw, label = random_q4_planes(torch, n, k, npad, fmt, gen, offsets), fmt + ("" if offsets else " no offsets")
         else:
             pw, label = random_q8_planes(torch, n, k, npad, fmt, gen), fmt
         x = torch.randn((m, k), device="cuda", generator=gen).to(torch.bfloat16)
+        if x_row == "zero":
+            x[3] = 0
+        elif x_row == "late-amax":
+            x[3] = x[3].clamp(-1, 1)
+            x[3, k - 11] = -6.5
+        label += f" x row 3 {x_row}" if x_row else ""
         if name == "q4k_gemv_i8":  # activations that are int8 already
             x = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda", generator=gen)
         wrapper = getattr(qmatmul, name)
@@ -270,6 +279,22 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
     gemv_case("q4_gemv", 1, *qkvup, fmt="q4_0_f32")     # f32 planes, as repack builds them
     for shape in (attn_out, ffn_down, head):
         gemv_case("q4_gemv", 1, *shape, fmt="q4_0")
+    # H at its edges, correctness only: groups of 32 and 16, f32 and bf16
+    # planes, offsets and none, M = 1, 7 and 32 (its blocks take 1, 8, 8 x
+    # 4 rows of x), the smallest K (K/2 = 8 G), half a slab at the end (K/2 =
+    # 384), a K split over a cluster of 8 with Npad = 128 x 3, and x rows of
+    # zeros or with their amax once, at the end of K
+    for fmt in ("q4_0", "q3_k", "q4_0_f32"):
+        for offsets in (True, False):
+            for m in (1, 7, 32):
+                gemv_case("q4_gemv", m, 256 if fmt == "q3_k" else 512, 300, 384, fmt=fmt, offsets=offsets,
+                          time_it=False)
+    for m in (1, 7, 32):
+        gemv_case("q4_gemv", m, 768, 600, 640, fmt="q3_k", time_it=False)
+        gemv_case("q4_gemv", m, 16384, 300, 384, fmt="q4_0_f32", offsets=m != 7, time_it=False)
+    for x_row in ("zero", "late-amax"):
+        gemv_case("q4_gemv", 7, 4096, 300, 384, fmt="q4_0", time_it=False, x_row=x_row)
+        gemv_case("q4_gemv", 7, 16384, 600, 640, fmt="q3_k", time_it=False, x_row=x_row)
     gemv_case("q4k_gemv_i8", 1, *qkvup)                 # int8 x, on no path of planar_matmul
     for m in (100, 1024):  # C over multiplied-out planes, and at the long prompt's M
         gemv_case("q4k_matmul", m, *qkvup, fmt="q4_0")
@@ -385,8 +410,8 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
 
     def train_case(b, h, h_kv, nq, nkv, d, dtype, mask_kind="causal", max_bias=0.0, time_it=True):
         """K, L and M against their plain versions on the same inputs (L and
-        M are handed K's lse and the delta of K's output; K and M the mask's
-        tile ranges, computed once, as the autograd Function does).
+        M are handed K's lse and the delta of K's output; all three the
+        mask's tile ranges, computed once, as the autograd Function does).
         mask_kind: "causal" (-1e30 above the diagonal, offset by nkv - nq),
         None, "dead-inf" / "dead-1e30" (causal, and row 7 all -inf / all
         -1e30), "dead-both" (row 7 all -1e30, row 9 all -inf; at a ragged n_kv
@@ -420,7 +445,7 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
         args = (q, k, v, mask, scale, max_bias, do, lse, delta)
         pargs = (q, k, v, mask, slopes, scale, do, lse, delta)
-        dq = flash_attn.flash_attention_bwd_dq(*args)
+        dq = flash_attn.flash_attention_bwd_dq(*args, ranges=ranges)
         dk, dv = flash_attn.flash_attention_bwd_dkv(*args, ranges=ranges)
         torch.cuda.synchronize()
         check(all(bool(torch.isfinite(t).all()) for t in (o, dq, dk, dv)), f"K/L/M {dtype}: output not finite")
@@ -449,7 +474,7 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
             lib_bwd = device_ms(torch, lambda: torch.autograd.grad(lo, (lq, lk, lv), ldo, retain_graph=True), flush, 20)
         cases = (("flash_attn_fwd_lse", fwd, lambda: flash_attn._fa_forward_lse_plain(q, k, v, mask, slopes, scale),
                   [(po, o)], lib_fwd),
-                 ("flash_attn_bwd_dq", lambda: flash_attn.flash_attention_bwd_dq(*args),
+                 ("flash_attn_bwd_dq", lambda: flash_attn.flash_attention_bwd_dq(*args, ranges=ranges),
                   lambda: flash_attn._fa_bwd_dq_plain(*pargs), [(pdq, dq)], lib_bwd),
                  ("flash_attn_bwd_dkv", lambda: flash_attn.flash_attention_bwd_dkv(*args, ranges=ranges),
                   lambda: flash_attn._fa_bwd_dkv_plain(*pargs), [(pdk, dk), (pdv, dv)], lib_bwd))
@@ -741,10 +766,10 @@ def profile_decode(torch, np, model, steps: int = 8, prompt: int = 8) -> dict:
     events = _device_events(prof)
     total_us = sum(e.self_device_time_total for e in events)
     ours = {name: sum(e.self_device_time_total for e in events if name in e.key)
-            for name in ("q4k_gemv_kernel", "q4_gemv_kernel", "q8_gemv_kernel", "quant_segments",
+            for name in ("q4k_gemv_kernel", "q4_gemv_sm90_kernel", "q8_gemv_kernel", "quant_segments",
                          "decode_attn_kernel")}
     ours = {k: v for k, v in ours.items() if v}
-    launches = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
+    launches = sum(e.count for e in prof.key_averages() if e.key.startswith("cudaLaunchKernel"))  # and ...ExC: cluster launches
     trace = dict(steps=steps, prompt=prompt, device_ms_per_token=total_us / steps / 1e3,
                  launches_per_token=launches / steps,
                  port_kernels_ms_per_token={k: v / steps / 1e3 for k, v in ours.items()},
@@ -848,7 +873,9 @@ def phase_tiny_reference(torch, np):
 
 def _kernel_class(key: str) -> str:
     """What a device kernel of a training step is, by its name: K is J's
-    wgmma kernel with its LSE flag set (or the f32 kernel's LSE instance)."""
+    wgmma kernel with its LSE flag set (or the f32 kernel's LSE instance), L
+    fa_bwd_dq_sm90_kernel (fa_bwd_dq_f32_kernel for f32), M
+    fa_bwd_dkv_sm90_kernel (fa_bwd_dkv_f32_kernel)."""
     if re.search(r"fa_sm90_kernel<\d+, \w+, true>", key) or "flash_attn_f32_kernel<true>" in key:
         return "K"
     if "fa_bwd_dq" in key:
@@ -921,7 +948,7 @@ def phase_train(torch, np) -> dict:
         shares[cls] = shares.get(cls, 0.0) + e.self_device_time_total / 1e3
     others = sorted((e for e in events if _kernel_class(e.key) == "other"), key=lambda e: -e.self_device_time_total)
     top_other = [dict(kernel=e.key[:120], ms=e.self_device_time_total / 1e3, calls=e.count) for e in others[:8]]
-    launches = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
+    launches = sum(e.count for e in prof.key_averages() if e.key.startswith("cudaLaunchKernel"))  # and ...ExC: cluster launches
     tokens = batch * seq
     flop = 6.0 * n_params * tokens
     out = dict(model="gpt2-medium", n_params=n_params, batch=batch, seq=seq, steps=steps, ms_per_step=step_ms,
@@ -1010,13 +1037,15 @@ def train_times(torch, flash_attn) -> dict:
     shape (b=8, n=512) and at GPT-2's context (b=4, n=1024), h=16, d=64,
     bf16, causal, three timings of 20 calls each: the mode that sets two
     trees side by side in one call (copy this script into the other tree and
-    run it there with --train-times).  Where the wrappers take the mask's
-    tile ranges, they are computed once beforehand, as the autograd Function
-    does once per layer."""
+    run it there with --train-times).  Where a wrapper takes the mask's tile
+    ranges (each wrapper's signature is asked, so that an older tree runs
+    too), they are computed once beforehand, as the autograd Function does
+    once per layer."""
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     takes_ranges = "ranges" in inspect.signature(flash_attn.flash_attention_fwd_lse).parameters
+    l_takes_ranges = "ranges" in inspect.signature(flash_attn.flash_attention_bwd_dq).parameters
     out = {}
     for b, n in ((8, 512), (4, 1024)):
         mk = lambda *shape: torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
@@ -1024,15 +1053,46 @@ def train_times(torch, flash_attn) -> dict:
         mask = torch.where(torch.arange(n, device="cuda")[None, :] <= torch.arange(n, device="cuda")[:, None],
                            0.0, -1e30)
         kw = dict(ranges=flash_attn.mask_ranges(mask)) if takes_ranges else {}
+        l_kw = kw if l_takes_ranges else {}
         o, lse = flash_attn.flash_attention_fwd_lse(q, k, v, mask, 0.125, 0.0, **kw)
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
         args = (q, k, v, mask, 0.125, 0.0, do, lse, delta)
         for name, call in (("K", lambda: flash_attn.flash_attention_fwd_lse(q, k, v, mask, 0.125, 0.0, **kw)),
-                           ("L", lambda: flash_attn.flash_attention_bwd_dq(*args)),
+                           ("L", lambda: flash_attn.flash_attention_bwd_dq(*args, **l_kw)),
                            ("M", lambda: flash_attn.flash_attention_bwd_dkv(*args, **kw))):
             key = f"{name} b={b} n={n}"
             out[key] = [device_ms(torch, call, flush, 20) * 1e3 for _ in range(3)]
             print(f"  {key}: " + ", ".join(f"{t:.1f}us" for t in out[key]))
+    return out
+
+
+def gemv_times(torch, qmatmul) -> dict:
+    """Kernel H's device time (µs) at GPT-J-6B's four decode shapes
+    (attn_qkvup, attn_output, ffn_down, the head) over synthesized Q4_0
+    planes (bf16 scales and offsets per 32) at M = 1 and 8, and kernel A's
+    at attn_qkvup over compact Q4_K planes (the control), three timings of
+    50 calls each, each call with its activation quantization: the mode
+    that sets two trees side by side in one call (copy this script into the
+    other tree and run it there with --gemv-times)."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    shapes = dict(attn_qkvup=(4096, 28672, 28672), attn_output=(4096, 4096, 4096), ffn_down=(16384, 4096, 4096),
+                  head=(4096, 50400, 51200))
+    out = {}
+    for label, (k, n, npad) in shapes.items():
+        pw = random_q4_planes(torch, n, k, npad, "q4_0", gen)
+        for m in (1, 8):
+            x = torch.randn((m, k), device="cuda", generator=gen).to(torch.bfloat16)
+            key = f"H {label} M={m}"
+            out[key] = [device_ms(torch, lambda: qmatmul.q4_gemv(x, pw), flush, 50) * 1e3 for _ in range(3)]
+            print(f"  {key}: " + ", ".join(f"{t:.1f}us" for t in out[key]))
+        del pw
+    pw = random_planes(torch, 28672, 4096, 28672, torch.bfloat16, gen)
+    x = torch.randn((1, 4096), device="cuda", generator=gen).to(torch.bfloat16)
+    out["A attn_qkvup M=1"] = [device_ms(torch, lambda: qmatmul.q4k_gemv_qact(x, pw), flush, 50) * 1e3
+                               for _ in range(3)]
+    print("  A attn_qkvup M=1: " + ", ".join(f"{t:.1f}us" for t in out["A attn_qkvup M=1"]))
     return out
 
 
@@ -1085,6 +1145,15 @@ def main() -> int:
             print("== 3. kernels K, L and M at the training shapes (h=16, d=64, bf16, causal), three timings each")
             times = train_times(torch, flash_attn)
             print(json.dumps(dict(card=card, train_times_us=times)))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
+
+        if sys.argv[1:] == ["--gemv-times"]:
+            print("== 3. kernel H at GPT-J-6B's decode shapes (Q4_0 planes, M = 1 and 8), kernel A beside, "
+                  "three timings each")
+            times = gemv_times(torch, qmatmul)
+            print(json.dumps(dict(card=card, gemv_times_us=times)))
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                      "count": torch.cuda.device_count()}}))
             return 0

@@ -37,7 +37,7 @@ _SIGNATURES = {
     "q4k_gemv_rows": [P, P, P, P, P, P, I, P, P, P, P, P, I, I, I, P],
     "q4k_gemv_i8": [P, P, P, P, P, P, I, P, P, P, I, I, P],
     "q4k_matmul": [P, P, P, P, P, P, I, I, P, I, I, I, P, P, P, I, P],
-    "q4_gemv": [P, P, P, P, I, P, P, P, P, P, I, I, I, I, I, P],
+    "q4_gemv": [P, P, P, P, I, P, I, I, I, I, P],
     "q8_gemv": [P, P, P, P, P, P, I, P, P, P, P, P, I, I, I, I, I, I, P],
     "q8_matmul": [P, P, P, P, P, P, I, I, I, P, I, I, I, P, P, P, I, P],
     "decode_attn": [P, P, P, P, P, P, P, P, P, I, I, I, I, ctypes.c_float, P],
@@ -47,7 +47,8 @@ _SIGNATURES = {
     "flash_split": [P, P, I, I, I, L, L, L, I, P],
     "flash_mask_ranges": [P, P, I, I, P],
     "flash_attn_fwd_lse": [P, P, P, L, L, L, L, L, L, L, L, L, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
-    "flash_attn_bwd_dq": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
+    "flash_attn_bwd_dq": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
+    "flash_attn_bwd_dq_f32": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
     "flash_attn_bwd_dkv": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
     "flash_attn_bwd_dkv_f32": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
 }

@@ -1,7 +1,8 @@
 // Shared device helpers of the port's kernels: block reductions, loads of
 // four adjacent plane columns (the planes are N-last, so four columns are one
 // aligned 4-, 8- or 16-byte word) and the int8 activation quantization that
-// runs before every GEMV.
+// runs before the GEMVs of q4k_gemv.cu and q8_gemv.cu (q4_gemv.cu quantizes
+// in its own kernel, with the same arithmetic).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -28,15 +28,15 @@ the slope), K folds those columns into every row: live rows do not change, a
 row masked -1e30 everywhere averages v over the padded length, and its LSE is
 about -1e30.  Its dead rows are those left with l = 0 (every score -inf and no
 padding): zeros, LSE +1e30 and no gradient.  q, k and v are all bf16 or all
-f32.  For bf16, K (J's kernel with its LSE rules) and M run on Hopper's wgmma
-and skip, add or read mask tiles from the mask ranges, which the autograd
-Function computes once per forward and hands to both.
+f32.  For bf16, K (J's kernel with its LSE rules), L and M run on Hopper's
+wgmma and skip, add or read mask tiles from the mask ranges, which the
+autograd Function computes once per forward and hands to all three.
 
 For CPU tensors each wrapper runs its plain PyTorch version; for CUDA tensors
 it launches its kernel (csrc/flash_attn_sm90.cu: J, its helpers and K for
 bf16; csrc/flash_attn.cu: the all-f32 sets of J and K; csrc/flash_bwd_sm90.cu:
-M for bf16; csrc/flash_attn_bwd.cu: L and M's f32 set), never the plain
-version.  `launches` counts kernel launches.
+L and M for bf16; csrc/flash_attn_bwd.cu: the f32 sets of L and M), never the
+plain version.  `launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -239,7 +239,7 @@ def split_hi_lo(x: torch.Tensor) -> torch.Tensor:
 
 
 def mask_ranges(mask: torch.Tensor) -> torch.Tensor:
-    """Helper of kernels J, K and M: the (nq, nkv) f32 mask's min and max per
+    """Helper of kernels J, K, L and M: the (nq, nkv) f32 mask's min and max per
     64 x 64 tile, (2, ceil(nq / 64), ceil(nkv / 64)) f32."""
     if not mask.is_cuda:
         return _mask_ranges_plain(mask)
@@ -377,7 +377,10 @@ def flash_attention_fwd_lse(q, k, v, mask=None, scale: float = 1.0, max_bias: fl
     return out, lse
 
 
-def _bwd_args(q, k, v, mask, max_bias, do, lse, delta):
+def _bwd_args(q, k, v, mask, max_bias, do, lse, delta, ranges):
+    """Check the backward wrappers' inputs (handed ranges too, on any
+    device); returns the type-set code, the shapes, the mask as (nq, nkv)
+    f32, the slopes and the ranges (None where none were handed)."""
     code, shapes, mask = _prepare(q, k, v, mask, _TRAIN_TYPES)
     b, h, n_q, d, h_kv, n_kv, d_v = shapes
     if tuple(do.shape) != (b, n_q, h, d_v) or do.dtype != q.dtype:
@@ -387,15 +390,19 @@ def _bwd_args(q, k, v, mask, max_bias, do, lse, delta):
             raise ValueError(f"{name} {tuple(t.shape)} {t.dtype}: want ({b}, {h}, {n_q}) float32")
     if any(t.device != q.device for t in (do, lse, delta)):
         raise ValueError("all inputs must be on one device")
-    return code, shapes, mask, _slopes_on(h, float(max_bias), q.device)
+    if ranges is not None:
+        ranges = _train_ranges(mask, ranges)
+    return code, shapes, mask, _slopes_on(h, float(max_bias), q.device), ranges
 
 
-def flash_attention_bwd_dq(q, k, v, mask, scale: float, max_bias: float, do, lse, delta) -> torch.Tensor:
-    """dq of the training attention (kernel L).  q, k, v and mask as for
-    flash_attention_fwd_lse; do (b, nq, h, d_v) the output's gradient, lse
-    (b, h, nq) from the forward, delta (b, h, nq) = rowsum(dO * O), both f32.
-    Returns dq (b, h, nq, d) in q's type."""
-    code, (b, h, n_q, d, h_kv, n_kv, d_v), mask, slopes = _bwd_args(q, k, v, mask, max_bias, do, lse, delta)
+def flash_attention_bwd_dq(q, k, v, mask, scale: float, max_bias: float, do, lse, delta,
+                           ranges=None) -> torch.Tensor:
+    """dq of the training attention (kernel L).  q, k, v, mask and ranges as
+    for flash_attention_fwd_lse; do (b, nq, h, d_v) the output's gradient,
+    lse (b, h, nq) from the forward, delta (b, h, nq) = rowsum(dO * O), both
+    f32.  Returns dq (b, h, nq, d) in q's type."""
+    code, (b, h, n_q, d, h_kv, n_kv, d_v), mask, slopes, ranges = _bwd_args(q, k, v, mask, max_bias, do, lse,
+                                                                            delta, ranges)
     if not q.is_cuda:
         return _fa_bwd_dq_plain(q, k, v, mask, slopes, float(scale), do, lse, delta)
 
@@ -404,9 +411,13 @@ def flash_attention_bwd_dq(q, k, v, mask, scale: float, max_bias: float, do, lse
     mask = None if mask is None else mask.contiguous()
     dq = torch.empty((b, h, n_q, d), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _build.lib().flash_attn_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), slopes.data_ptr(),
-                                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), code, b, h,
-                                        h_kv, n_q, n_kv, d, d_v, float(scale), stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask))
+    tail = (do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, h_kv, n_q, n_kv, d, d_v,
+            float(scale), stream)
+    if code == 0:  # all f32: the FMA kernel of csrc/flash_attn_bwd.cu
+        rc = _build.lib().flash_attn_bwd_dq_f32(*ptrs, slopes.data_ptr(), *tail)
+    else:  # bf16: the wgmma kernel of csrc/flash_bwd_sm90.cu
+        rc = _build.lib().flash_attn_bwd_dq(*ptrs, _ptr(_train_ranges(mask, ranges)), slopes.data_ptr(), *tail)
     launches["flash_attn_bwd_dq"] += 1
     _build.check(rc, "flash_attn_bwd_dq")
     return dq
@@ -414,11 +425,11 @@ def flash_attention_bwd_dq(q, k, v, mask, scale: float, max_bias: float, do, lse
 
 def flash_attention_bwd_dkv(q, k, v, mask, scale: float, max_bias: float, do, lse, delta, ranges=None):
     """dk and dv of the training attention for each q head (kernel M);
-    arguments as for flash_attention_bwd_dq, and ranges as for
-    flash_attention_fwd_lse.  Returns dk (b, h, nkv, d) and dv (b, h, nkv,
-    d_v) in k's and v's types; the heads that share a kv head are summed by
-    the caller."""
-    code, (b, h, n_q, d, h_kv, n_kv, d_v), mask, slopes = _bwd_args(q, k, v, mask, max_bias, do, lse, delta)
+    arguments as for flash_attention_bwd_dq.  Returns dk (b, h, nkv, d) and
+    dv (b, h, nkv, d_v) in k's and v's types; the heads that share a kv head
+    are summed by the caller."""
+    code, (b, h, n_q, d, h_kv, n_kv, d_v), mask, slopes, ranges = _bwd_args(q, k, v, mask, max_bias, do, lse,
+                                                                            delta, ranges)
     if not q.is_cuda:
         return _fa_bwd_dkv_plain(q, k, v, mask, slopes, float(scale), do, lse, delta)
 
@@ -434,8 +445,7 @@ def flash_attention_bwd_dkv(q, k, v, mask, scale: float, max_bias: float, do, ls
     if code == 0:  # all f32: the FMA kernel of csrc/flash_attn_bwd.cu
         rc = _build.lib().flash_attn_bwd_dkv_f32(*ptrs, slopes.data_ptr(), *tail)
     else:  # bf16: the wgmma kernel of csrc/flash_bwd_sm90.cu
-        ranges = _train_ranges(mask, ranges)
-        rc = _build.lib().flash_attn_bwd_dkv(*ptrs, _ptr(ranges), slopes.data_ptr(), *tail)
+        rc = _build.lib().flash_attn_bwd_dkv(*ptrs, _ptr(_train_ranges(mask, ranges)), slopes.data_ptr(), *tail)
     launches["flash_attn_bwd_dkv"] += 1
     _build.check(rc, "flash_attn_bwd_dkv")
     return dk, dv
@@ -445,7 +455,7 @@ class _FlashAttentionTrain(torch.autograd.Function):
     """K forward; L and M backward from the saved output and LSE
     (JAX _fa_train_fwd / _fa_train_bwd).  The mask gets no gradient.  For
     bf16 on the card the mask's tile ranges are computed once here and
-    read by K and M."""
+    read by K, L and M."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, scale: float, max_bias: float):
@@ -465,7 +475,7 @@ class _FlashAttentionTrain(torch.autograd.Function):
         do = g.contiguous()
         # delta from the stored output in its own type (the JAX o_pad), not the f32 sums
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        dq = flash_attention_bwd_dq(q, k, v, mask, ctx.scale, ctx.max_bias, do, lse, delta)
+        dq = flash_attention_bwd_dq(q, k, v, mask, ctx.scale, ctx.max_bias, do, lse, delta, ranges=ranges)
         dk, dv = flash_attention_bwd_dkv(q, k, v, mask, ctx.scale, ctx.max_bias, do, lse, delta, ranges=ranges)
         b, h_kv, n_kv, _ = k.shape
         rep = q.shape[1] // h_kv

@@ -11,10 +11,11 @@ q4 planes; "GEMV" means M <= 32 and (K/2/G) % 8 == 0
                                (kernel A, csrc/q4k_gemv.cu)
     2 <= M <= 32  q4k_gemv_rows  int8 activations with one scale per row
                                (kernel B, csrc/q4k_gemv.cu)
-  GEMV otherwise  q4_gemv      int8 activations per row over multiplied-out
-                               scale/offset planes, G 16 or 32 (kernel H,
-                               csrc/q4_gemv.cu); compact planes without a
-                               legal tile are expanded first
+  GEMV otherwise  q4_gemv      int8 activations per row, quantized in the
+                               kernel, over multiplied-out scale/offset
+                               planes, G 16 or 32 (kernel H, csrc/q4_gemv.cu);
+                               compact planes without a legal tile are
+                               expanded first
   every other M and K  q4k_matmul  bf16 weights dequantized per tile into
                                shared memory, wgmma bf16 products, f32 sums,
                                the offset term as extra product columns, over
@@ -52,7 +53,7 @@ launches = {"q4k_gemv_qact": 0, "q4k_gemv_rows": 0, "q4k_gemv_i8": 0, "q4k_matmu
             "q8_gemv": 0, "q8_gemv_sb": 0, "q8_matmul": 0}
 
 _BN = 128  # column strip of the GEMV kernels; Npad must be a multiple of it
-_SLAB = 256  # plane rows a block of the q8 and q4 GEMVs reduces per step (csrc/q8_gemv.cu, q4_gemv.cu)
+_SLAB = 256  # plane rows a block of the q8 GEMVs reduces per step (csrc/q8_gemv.cu)
 
 
 def _sb_gemv_k_tile(k2: int, G: int, sb: int) -> int | None:
@@ -312,20 +313,21 @@ def _gemv_cuda(name: str, x: torch.Tensor, pw: PlanarWeight, kt2: int = 0) -> to
     m, k = x.shape
     dev = x.device
     lib = _build.lib()
-    # K-split partial sums per column
-    if name in ("q8_gemv", "q8_gemv_sb"):
-        split = _gemv_split(k, pw.npad)
-    elif name == "q4_gemv":
-        split = _gemv_split(k // 2, pw.npad)
-    else:
-        split = k // 512
     y = torch.empty((m, pw.npad), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if name == "q4_gemv":  # quantizes x itself and splits K over a cluster: no scratch
+        rc = lib.q4_gemv(x.data_ptr(), pw.codes.data_ptr(), pw.scales.data_ptr(), _ptr(pw.offsets),
+                         int(pw.scales.dtype == torch.bfloat16), y.data_ptr(), pw.group, m, k, pw.npad, stream)
+        launches[name] += 1
+        _build.check(rc, name)
+        return y
+    # K-split partial sums per column
+    split = _gemv_split(k, pw.npad) if name in ("q8_gemv", "q8_gemv_sb") else k // 512
     # scratch of this launch alone, from the stream-ordered allocator; the
     # quantization kernel zeroes the tickets before the GEMV counts on them
     # (the int8-x entry zeroes them itself)
     partial = torch.empty((split, m, pw.npad), dtype=torch.float32, device=dev)
     tickets = torch.empty((pw.npad // _BN,), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     if name == "q4k_gemv_i8":
         rc = lib.q4k_gemv_i8(x.data_ptr(), *_plane_ptrs(pw), partial.data_ptr(), tickets.data_ptr(),
                              y.data_ptr(), k, pw.npad, stream)
@@ -336,11 +338,7 @@ def _gemv_cuda(name: str, x: torch.Tensor, pw: PlanarWeight, kt2: int = 0) -> to
     sx = torch.empty((k // kt2 if kt2 else m,), dtype=torch.float32, device=dev)
     scratch = (xq.data_ptr(), sx.data_ptr(), partial.data_ptr(), tickets.data_ptr(), y.data_ptr())
     args = (x.data_ptr(), *_plane_ptrs(pw), *scratch)
-    if name == "q4_gemv":
-        rc = lib.q4_gemv(x.data_ptr(), pw.codes.data_ptr(), pw.scales.data_ptr(), _ptr(pw.offsets),
-                         int(pw.scales.dtype == torch.bfloat16), *scratch, pw.group, m, k, pw.npad, split,
-                         stream)
-    elif pw.kind == "q8":
+    if pw.kind == "q8":
         rc = lib.q8_gemv(*args, pw.group, pw.sb, m, k, pw.npad, split, stream)
     elif kt2:
         rc = lib.q4k_gemv_qact(*args, k, pw.npad, kt2, stream)
@@ -477,7 +475,7 @@ def q4_gemv(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     nibbles with one f32 or bf16 scale (and offset) per group of G = 16 or 32
     (replaces _q4gemv_kernel, _q4gemv_off_kernel, _q4gemv_bd_kernel and
     _q4gemv_bd_off_kernel, the per-row quantization before them and the * sx
-    after)."""
+    after, all in one launch on the card)."""
     _check_planes(x, pw, "q4", max_m=GEMV_MAX_M)
     if pw.d is not None:
         raise ValueError("q4_gemv takes multiplied-out planes (expand_compact first)")
@@ -489,7 +487,7 @@ def q4_gemv(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
 
 
 def _gemv_split(rows: int, npad: int) -> int:
-    """Blocks along K of the q8 and q4 GEMVs over `rows` plane rows: one per
+    """Blocks along K of the q8 GEMVs over `rows` plane rows: one per
     256-row slab, halved while the grid keeps at least 1024 blocks (a block
     then walks several slabs and writes one partial sum, so wide weights pay
     less scratch traffic)."""

@@ -151,14 +151,16 @@ def test_row_masked_with_the_finite_sentinel_matches_jax():
 
 
 def test_backward_wrappers_and_the_function_agree():
-    """L and M called alone give what the Function's backward gives; the GQA
-    sum over the q heads of a kv head is the caller's."""
+    """L and M called alone, handed the mask's tile ranges as the Function
+    hands them, give what the Function's backward gives; the GQA sum over
+    the q heads of a kv head is the caller's."""
     q, k, v, w = (torch.from_numpy(a) for a in _make(1, 4, 2, 40, 72, 32, seed=8))
     mask = torch.from_numpy(_causal(40, 72))
-    o, lse = flash_attention_fwd_lse(q, k, v, mask, scale=0.2)
+    ranges = flash_attn.mask_ranges(mask)
+    o, lse = flash_attention_fwd_lse(q, k, v, mask, scale=0.2, ranges=ranges)
     delta = (w * o).sum(-1).transpose(1, 2).contiguous()
-    dq = flash_attn.flash_attention_bwd_dq(q, k, v, mask, 0.2, 0.0, w, lse, delta)
-    dk, dv = flash_attn.flash_attention_bwd_dkv(q, k, v, mask, 0.2, 0.0, w, lse, delta)
+    dq = flash_attn.flash_attention_bwd_dq(q, k, v, mask, 0.2, 0.0, w, lse, delta, ranges=ranges)
+    dk, dv = flash_attn.flash_attention_bwd_dkv(q, k, v, mask, 0.2, 0.0, w, lse, delta, ranges=ranges)
     assert dk.shape == (1, 4, 72, 32) and dv.shape == (1, 4, 72, 32)
     _, gq, gk, gv = _port_vjp(*(x.numpy() for x in (q, k, v, w)), mask.numpy(), "float32", scale=0.2)
     np.testing.assert_array_equal(dq.numpy(), gq)
@@ -179,6 +181,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         flash_attn.flash_attention_bwd_dq(q, k, v, None, 1.0, 0.0, w.transpose(1, 2), lse, lse)
     with pytest.raises(ValueError):  # lse of another shape
         flash_attn.flash_attention_bwd_dkv(q, k, v, None, 1.0, 0.0, w, lse[:, :, :4], lse)
+    mask = torch.zeros((8, 16))
+    with pytest.raises(ValueError):  # tile ranges of another mask
+        flash_attn.flash_attention_bwd_dq(q, k, v, mask, 1.0, 0.0, w, lse, lse,
+                                          ranges=flash_attn.mask_ranges(torch.zeros((8, 80))))
     before = dict(flash_attn.launches)
     flash_attention_train(q.requires_grad_(), k, v).sum().backward()
     assert flash_attn.launches == before  # CPU tensors: the plain versions, nothing launched
@@ -230,9 +236,10 @@ def test_gradients_at_padded_lengths_with_dead_rows_match_jax():
 
 
 def test_handed_ranges_are_checked():
-    """K and M on the card read the mask's tile ranges that the autograd
+    """K, L and M on the card read the mask's tile ranges that the autograd
     Function computes once; ranges handed over must be those of the mask's
-    (nq, nkv) tiles, and none are computed without a mask."""
+    (nq, nkv) tiles (L and M check them on any device), and none are
+    computed without a mask."""
     mask = torch.from_numpy(_causal(100, 164))
     ranges = flash_attn.mask_ranges(mask)
     assert flash_attn._train_ranges(mask, ranges) is ranges
@@ -241,3 +248,9 @@ def test_handed_ranges_are_checked():
     for bad in (ranges[:, :1], ranges.double(), ranges.transpose(1, 2)):
         with pytest.raises(ValueError):
             flash_attn._train_ranges(mask, bad)
+    q, k, v, w = (torch.from_numpy(a) for a in _make(1, 2, 2, 100, 164, 16, seed=9))
+    lse = torch.zeros((1, 2, 100))
+    for bwd in (flash_attn.flash_attention_bwd_dq, flash_attn.flash_attention_bwd_dkv):
+        bwd(q, k, v, mask, 1.0, 0.0, w, lse, lse, ranges=ranges)
+        with pytest.raises(ValueError):
+            bwd(q, k, v, mask, 1.0, 0.0, w, lse, lse, ranges=ranges[:, :1])

@@ -76,6 +76,31 @@ def test_q4_gemv_plain_matches_jax(group, offsets, dtype, k):
             np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("row", ["zero-row", "late-amax"])
+@pytest.mark.parametrize("group,offsets,dtype", [(32, True, "bfloat16"), (16, False, "float32")])
+def test_q4_gemv_quantizer_edges_match_jax(group, offsets, dtype, row):
+    """Kernel H quantizes x itself on the card, with the per-row quantizer's
+    arithmetic: at M = 7, a row of zeros (amax = 0: sx = 1, every code 0)
+    or a row whose amax occurs once, in the last 256-row slab of K's high
+    half (the last slab a block walks), among random rows."""
+    k = 2048
+    pw, jpw = _random_planes(k, group, offsets, dtype, seed=5 * group, n=128)
+    x = _x(7, k, seed=group)
+    if row == "zero-row":
+        x[3] = 0.0
+    else:
+        x[3] = np.clip(x[3], -1.0, 1.0)
+        x[3, k - 11] = -6.5
+    want = _jax_q4_gemv(x, jpw)
+    got = qmatmul.q4_gemv(torch.from_numpy(x).to(torch.bfloat16), pw)
+    assert nmse(want, got.numpy()) <= 1e-8, nmse(want, got.numpy())
+    if row == "zero-row":
+        assert not got[3].any()
+    xq, sx = qmatmul.quantize_rows(torch.from_numpy(x[3:4]).to(torch.bfloat16))
+    assert float(sx) == (1.0 if row == "zero-row" else np.float32(6.5) / np.float32(127.0))
+    assert int((xq.abs() == 127).sum()) == (0 if row == "zero-row" else 1)
+
+
 def test_q4k_gemv_i8_plain_matches_jax():
     """The int8-x entry against _q4_gemv_sb with int8 x at M = 1 (the
     _q4gemv_bd_sb_kernel body): the un-scaled sum."""
