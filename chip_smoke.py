@@ -5,7 +5,7 @@
     python3 chip_smoke.py --long-decode-profile   # phases 1, 2 and the decode profile after a long prompt only
     python3 chip_smoke.py --flash-times           # phases 1, 2 and kernel J's times at the 1024-token prefill only
     python3 chip_smoke.py --train-times           # phases 1, 2 and kernels K, L, M's times at the training shapes only
-    python3 chip_smoke.py --gemv-times            # phases 1, 2 and kernel H's times at the decode shapes (A beside) only
+    python3 chip_smoke.py --gemv-times            # phases 1, 2 and the GEMV kernels' times at the decode shapes only
 
 Phases (any failure exits non-zero without the result line):
 1. the card, as nvidia-smi reports its name and power limit;
@@ -98,9 +98,12 @@ def check(cond: bool, msg: str):
 
 
 def errors(ref, got):
+    """NMSE and the largest absolute error (a reference of zeros: NMSE 0 if
+    got is zero too, else inf)."""
     ref, got = ref.double(), got.double()
-    return (float(((ref - got) ** 2).sum() / (ref * ref).sum()),
-            float((ref - got).abs().max()))
+    sq = float(((ref - got) ** 2).sum())
+    norm = float((ref * ref).sum())
+    return (sq / norm if norm else (0.0 if sq == 0 else float("inf")), float((ref - got).abs().max()))
 
 
 def device_ms(torch, fn, flush, iters: int) -> float:
@@ -148,7 +151,8 @@ def random_q8_planes(torch, n: int, k: int, npad: int, fmt: str, gen):
     them), "q5_1" / "q5_k_synth" (f32 / bf16 scales and offsets per 32),
     "q6_k" (compact: int8 sub-scales per 16, f32 d per 256) and "q5_k"
     (compact: 6-bit sub-scale and min codes per 32, f32 d and dmin per 256),
-    as repack builds them."""
+    as repack builds them, and "q6_k_bf16" / "q5_k_bf16" (the same with
+    bf16 d and dmin)."""
     from ggml_tpu_torch.dtypes import GGMLType
     from ggml_tpu_torch.quant.planar import PlanarWeight
 
@@ -156,14 +160,14 @@ def random_q8_planes(torch, n: int, k: int, npad: int, fmt: str, gen):
     g = 16 if fmt.startswith("q6_k") else 32
     small = lambda rows, dt: ((torch.rand((rows, npad), **kw) + 0.5) * 1e-3).to(dt)
     codes = lambda lo, hi, rows: torch.randint(lo, hi, (rows, npad), dtype=torch.int8, **kw)
-    if fmt == "q6_k":
+    dd = torch.bfloat16 if fmt.endswith("_bf16") else torch.float32
+    if fmt.startswith("q6_k") and fmt != "q6_k_synth":
         return PlanarWeight(kind="q8", codes=codes(-32, 32, k), scales=codes(-128, 128, k // 16), offsets=None,
-                            group=16, n=n, k=k, orig_type=GGMLType.Q6_K, sb=16,
-                            supers=(small(k // 256, torch.float32), None))
-    if fmt == "q5_k":
+                            group=16, n=n, k=k, orig_type=GGMLType.Q6_K, sb=16, supers=(small(k // 256, dd), None))
+    if fmt.startswith("q5_k") and fmt != "q5_k_synth":
         return PlanarWeight(kind="q8", codes=codes(0, 32, k), scales=codes(0, 64, k // 32),
                             offsets=codes(0, 64, k // 32), group=32, n=n, k=k, orig_type=GGMLType.Q5_K, sb=8,
-                            supers=(small(k // 256, torch.float32), small(k // 256, torch.float32)))
+                            supers=(small(k // 256, dd), small(k // 256, dd)))
     orig, dt, affine = {"q8_0": (GGMLType.Q8_0, torch.bfloat16, False),
                         "q6_k_synth": (GGMLType.Q6_K, torch.bfloat16, False),
                         "q5_1": (GGMLType.Q5_1, torch.float32, True),
@@ -205,8 +209,10 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         check(r["nmse"] <= gate, f"{name} {r['shape']}: NMSE {r['nmse']:.3e} > {gate:g}")
 
     def gemv_case(name, m, k, n, npad, d_dtype=torch.bfloat16, fmt=None, time_it=True, offsets=True, x_row=None):
-        """x_row: row 3 of x all zeros ("zero") or with its amax once, in
-        the last 256 rows of K ("late-amax"), among random rows."""
+        """x_row: row 3 of x (row 0 at M = 1) all zeros ("zero") or with its
+        amax once, in the last 256 rows of K ("late-amax"), among random
+        rows; "tile-amax" (kernel A): tile 1 of the low half-plane all zeros
+        and the row's amax once, in tile 2 of the high half-plane."""
         if fmt is None:
             pw, label = random_planes(torch, n, k, npad, d_dtype, gen), f"d={str(d_dtype)[6:]}"
         elif fmt in ("q4_0", "q3_k", "q4_0_f32"):
@@ -214,21 +220,28 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         else:
             pw, label = random_q8_planes(torch, n, k, npad, fmt, gen), fmt
         x = torch.randn((m, k), device="cuda", generator=gen).to(torch.bfloat16)
+        r = min(3, m - 1)
+        kt2 = qmatmul._sb_gemv_k_tile(k // 2, 32, 8)
         if x_row == "zero":
-            x[3] = 0
+            x[r] = 0
         elif x_row == "late-amax":
-            x[3] = x[3].clamp(-1, 1)
-            x[3, k - 11] = -6.5
-        label += f" x row 3 {x_row}" if x_row else ""
+            x[r] = x[r].clamp(-1, 1)
+            x[r, k - 11] = -6.5
+        elif x_row == "tile-amax":
+            x[r] = x[r].clamp(-1, 1)
+            x[r, kt2:2 * kt2] = 0
+            x[r, k // 2 + 2 * kt2 + 5] = -6.5
+        label += f" x row {r} {x_row}" if x_row else ""
         if name == "q4k_gemv_i8":  # activations that are int8 already
             x = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda", generator=gen)
         wrapper = getattr(qmatmul, name)
         plain = getattr(qmatmul, PLAIN[name])
-        plain_fn = ((lambda: plain(x, pw, qmatmul._sb_gemv_k_tile(k // 2, 32, 8)))
-                    if name in ("q4k_gemv_qact", "q4k_gemv_i8") else (lambda: plain(x, pw)))
+        plain_fn = (lambda: plain(x, pw, kt2)) if name in ("q4k_gemv_qact", "q4k_gemv_i8") else (lambda: plain(x, pw))
         got = wrapper(x, pw)
         torch.cuda.synchronize()
         nmse, mae = errors(plain_fn(), got)
+        check(bool(torch.isfinite(got).all()), f"{name} {label}: values not finite")
+        check(x_row != "zero" or not got[r].any(), f"{name} {label}: a row of zeros gives a nonzero y")
         w = qmatmul.planar_dequant(pw, torch.bfloat16)
         plane = pw.plane_bytes()
         moved = plane + x.numel() * x.element_size() + m * npad * 4
@@ -296,6 +309,40 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         gemv_case("q4_gemv", 7, 4096, 300, 384, fmt="q4_0", time_it=False, x_row=x_row)
         gemv_case("q4_gemv", 7, 16384, 600, 640, fmt="q3_k", time_it=False, x_row=x_row)
     gemv_case("q4k_gemv_i8", 1, *qkvup)                 # int8 x, on no path of planar_matmul
+    # A, B, the int8-x entry, E and F at the edges of the same pipeline,
+    # correctness only: M = 1, 7 and 32; Npad = 128 x 3 and x 5; a K split
+    # over a cluster of 8 (Npad = 384 at K = 16384); the smallest K (A/B:
+    # 512, E: 8 G, F: one superblock of 256) and K ending in half a slab (E
+    # with groups of 16; F's K is whole superblocks, whole slabs); f32 and
+    # bf16 float planes, offsets and none; for A a rank with no rows (K =
+    # 4608: 9 slabs over 4), ranges across a tile's edge (K = 12288: 3 slabs
+    # a rank, 8 a tile), 4 tiles a half (K = 16384); rows of zeros, rows
+    # with their amax once in the last 256 values of K, and for A a zero
+    # tile and the amax in the third of four tiles of a half
+    for k in (512, 4608, 12288, 16384):
+        for d_dtype in (torch.bfloat16, torch.float32):
+            gemv_case("q4k_gemv_qact", 1, k, 300, 384, d_dtype, time_it=False)
+    for x_row in ("zero", "late-amax", "tile-amax"):
+        gemv_case("q4k_gemv_qact", 1, 16384, 600, 640, time_it=False, x_row=x_row)
+    for m in (7, 32):
+        for k in (512, 16384):
+            gemv_case("q4k_gemv_rows", m, k, 300, 384, torch.float32 if m == 7 else torch.bfloat16, time_it=False)
+    for x_row in ("zero", "late-amax"):
+        gemv_case("q4k_gemv_rows", 7, 16384, 600, 640, time_it=False, x_row=x_row)
+    for k in (512, 12288, 16384):
+        gemv_case("q4k_gemv_i8", 1, k, 300, 384, time_it=False)
+    for m in (1, 7, 32):
+        for fmt in ("q8_0", "q5_1", "q6_k_synth", "q5_k_synth"):  # bf16 none, f32 offsets, G 16, bf16 offsets
+            g = 16 if fmt == "q6_k_synth" else 32
+            for k in (8 * g, 4224 if g == 16 else 4608, 16384):
+                gemv_case("q8_gemv", m, k, 300, 384, fmt=fmt, time_it=False)
+        for fmt in ("q6_k", "q5_k", "q6_k_bf16", "q5_k_bf16"):
+            for k in (256, 16384):
+                gemv_case("q8_gemv_sb", m, k, 300, 384, fmt=fmt, time_it=False)
+    for x_row in ("zero", "late-amax"):
+        gemv_case("q8_gemv", 7, 4224, 600, 640, fmt="q6_k_synth", time_it=False, x_row=x_row)
+        gemv_case("q8_gemv_sb", 7, 4096, 600, 640, fmt="q6_k", time_it=False, x_row=x_row)
+        gemv_case("q8_gemv_sb", 1, 4096, 600, 640, fmt="q5_k", time_it=False, x_row=x_row)
     for m in (100, 1024):  # C over multiplied-out planes, and at the long prompt's M
         gemv_case("q4k_matmul", m, *qkvup, fmt="q4_0")
     gemv_case("q4k_matmul", 100, *qkvup, fmt="q3_k")
@@ -766,8 +813,7 @@ def profile_decode(torch, np, model, steps: int = 8, prompt: int = 8) -> dict:
     events = _device_events(prof)
     total_us = sum(e.self_device_time_total for e in events)
     ours = {name: sum(e.self_device_time_total for e in events if name in e.key)
-            for name in ("q4k_gemv_kernel", "q4_gemv_sm90_kernel", "q8_gemv_kernel", "quant_segments",
-                         "decode_attn_kernel")}
+            for name in ("gemv_sm90_kernel", "decode_attn_kernel")}
     ours = {k: v for k, v in ours.items() if v}
     launches = sum(e.count for e in prof.key_averages() if e.key.startswith("cudaLaunchKernel"))  # and ...ExC: cluster launches
     trace = dict(steps=steps, prompt=prompt, device_ms_per_token=total_us / steps / 1e3,
@@ -1067,32 +1113,36 @@ def train_times(torch, flash_attn) -> dict:
 
 
 def gemv_times(torch, qmatmul) -> dict:
-    """Kernel H's device time (µs) at GPT-J-6B's four decode shapes
-    (attn_qkvup, attn_output, ffn_down, the head) over synthesized Q4_0
-    planes (bf16 scales and offsets per 32) at M = 1 and 8, and kernel A's
-    at attn_qkvup over compact Q4_K planes (the control), three timings of
-    50 calls each, each call with its activation quantization: the mode
-    that sets two trees side by side in one call (copy this script into the
-    other tree and run it there with --gemv-times)."""
+    """Device time (µs) of the GEMV kernels at GPT-J-6B's four decode
+    shapes (attn_qkvup, attn_output, ffn_down, the head), three timings of
+    50 calls each, each call with its activation quantization: A (compact
+    Q4_K, M = 1), B (compact Q4_K, M = 8), E (Q8_0 planes), F (compact Q6_K)
+    and H (Q4_0 planes) at M = 1 and 8.  The mode that sets two trees side
+    by side in one call (copy this script into the other tree and run it
+    there with --gemv-times)."""
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     shapes = dict(attn_qkvup=(4096, 28672, 28672), attn_output=(4096, 4096, 4096), ffn_down=(16384, 4096, 4096),
                   head=(4096, 50400, 51200))
+    kernels = (("A", "q4k_gemv_qact", None, (1,)), ("B", "q4k_gemv_rows", None, (8,)),
+               ("E", "q8_gemv", "q8_0", (1, 8)), ("F", "q8_gemv_sb", "q6_k", (1, 8)), ("H", "q4_gemv", "q4_0", (1, 8)))
     out = {}
     for label, (k, n, npad) in shapes.items():
-        pw = random_q4_planes(torch, n, k, npad, "q4_0", gen)
-        for m in (1, 8):
-            x = torch.randn((m, k), device="cuda", generator=gen).to(torch.bfloat16)
-            key = f"H {label} M={m}"
-            out[key] = [device_ms(torch, lambda: qmatmul.q4_gemv(x, pw), flush, 50) * 1e3 for _ in range(3)]
-            print(f"  {key}: " + ", ".join(f"{t:.1f}us" for t in out[key]))
-        del pw
-    pw = random_planes(torch, 28672, 4096, 28672, torch.bfloat16, gen)
-    x = torch.randn((1, 4096), device="cuda", generator=gen).to(torch.bfloat16)
-    out["A attn_qkvup M=1"] = [device_ms(torch, lambda: qmatmul.q4k_gemv_qact(x, pw), flush, 50) * 1e3
-                               for _ in range(3)]
-    print("  A attn_qkvup M=1: " + ", ".join(f"{t:.1f}us" for t in out["A attn_qkvup M=1"]))
+        for kernel, name, fmt, ms in kernels:
+            if fmt is None:
+                pw = random_planes(torch, n, k, npad, torch.bfloat16, gen)
+            elif fmt == "q4_0":
+                pw = random_q4_planes(torch, n, k, npad, fmt, gen)
+            else:
+                pw = random_q8_planes(torch, n, k, npad, fmt, gen)
+            fn = getattr(qmatmul, name)
+            for m in ms:
+                x = torch.randn((m, k), device="cuda", generator=gen).to(torch.bfloat16)
+                key = f"{kernel} {label} M={m}"
+                out[key] = [device_ms(torch, lambda: fn(x, pw), flush, 50) * 1e3 for _ in range(3)]
+                print(f"  {key}: " + ", ".join(f"{t:.1f}us" for t in out[key]))
+            del pw
     return out
 
 
@@ -1150,8 +1200,7 @@ def main() -> int:
             return 0
 
         if sys.argv[1:] == ["--gemv-times"]:
-            print("== 3. kernel H at GPT-J-6B's decode shapes (Q4_0 planes, M = 1 and 8), kernel A beside, "
-                  "three timings each")
+            print("== 3. kernels A, B, E, F and H at GPT-J-6B's decode shapes (M = 1 and 8), three timings each")
             times = gemv_times(torch, qmatmul)
             print(json.dumps(dict(card=card, gemv_times_us=times)))
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1202,7 +1251,7 @@ def main() -> int:
         torch.cuda.synchronize()
         print(f"  repacked and tiled in {time.perf_counter() - t0:.1f}s")
         runs.append(phase_gptj(torch, np, "q6_k", params, dict(
-            decode="q8_gemv_sb", rows="q8_gemv_sb"), (8,), profile=False))
+            decode="q8_gemv_sb", rows="q8_gemv_sb"), (8,), profile=True))
         del params
         torch.cuda.empty_cache()
         q4_kernels = dict(decode="q4_gemv", rows="q4_gemv", matmul="q4k_matmul")

@@ -33,12 +33,12 @@ F = ctypes.c_float
 # C entry points: name -> argument types (each returns an int: a cudaError_t,
 # or for decode_attn_heads_per_block a count)
 _SIGNATURES = {
-    "q4k_gemv_qact": [P, P, P, P, P, P, I, P, P, P, P, P, I, I, I, P],
-    "q4k_gemv_rows": [P, P, P, P, P, P, I, P, P, P, P, P, I, I, I, P],
-    "q4k_gemv_i8": [P, P, P, P, P, P, I, P, P, P, I, I, P],
+    "q4k_gemv_qact": [P, P, P, P, P, P, I, P, I, I, I, P],
+    "q4k_gemv_rows": [P, P, P, P, P, P, I, P, I, I, I, P],
+    "q4k_gemv_i8": [P, P, P, P, P, P, I, P, I, I, P],
     "q4k_matmul": [P, P, P, P, P, P, I, I, P, I, I, I, P, P, P, I, P],
     "q4_gemv": [P, P, P, P, I, P, I, I, I, I, P],
-    "q8_gemv": [P, P, P, P, P, P, I, P, P, P, P, P, I, I, I, I, I, I, P],
+    "q8_gemv": [P, P, P, P, P, P, I, P, I, I, I, I, I, P],
     "q8_matmul": [P, P, P, P, P, P, I, I, I, P, I, I, I, P, P, P, I, P],
     "decode_attn": [P, P, P, P, P, P, P, P, P, I, I, I, I, ctypes.c_float, P],
     "decode_attn_heads_per_block": [I, I],

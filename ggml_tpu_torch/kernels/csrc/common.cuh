@@ -1,8 +1,6 @@
-// Shared device helpers of the port's kernels: block reductions, loads of
+// Shared device helpers of the port's kernels: block reductions and loads of
 // four adjacent plane columns (the planes are N-last, so four columns are one
-// aligned 4-, 8- or 16-byte word) and the int8 activation quantization that
-// runs before the GEMVs of q4k_gemv.cu and q8_gemv.cu (q4_gemv.cu quantizes
-// in its own kernel, with the same arithmetic).
+// aligned 4-, 8- or 16-byte word).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -53,37 +51,5 @@ __device__ __forceinline__ void load4(const int8_t* p, float v[4]) {
   const char4 t = *reinterpret_cast<const char4*>(p);
   v[0] = (float)t.x; v[1] = (float)t.y; v[2] = (float)t.z; v[3] = (float)t.w;
 }
-
-constexpr int QUANT_THREADS = 256;
-
-// x viewed as contiguous segments of L bf16 values; one int8 scale each.
-// FOLD: s = amax * f32(1/127), as the JAX M=1 kernel computes its per-tile
-// scale (XLA folds the division by the constant 127 into a multiply by its
-// reciprocal); else s = amax / 127 as the JAX per-row quantization computes
-// it.  Codes are rint(x / s) with a correctly rounded division.  Block 0
-// also zeroes this launch's column-strip tickets: the GEMV that follows on
-// the same stream counts on them.  (Internal linkage: every source that
-// includes this header launches its own copy.)
-namespace {
-template <bool FOLD>
-__global__ void __launch_bounds__(QUANT_THREADS)
-quant_segments(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ xq,
-               float* __restrict__ sx, int L, unsigned* __restrict__ tickets, int n_strips) {
-  __shared__ float scratch[32];
-  if (blockIdx.x == 0)
-    for (int i = threadIdx.x; i < n_strips; i += QUANT_THREADS) tickets[i] = 0u;
-  const size_t base = (size_t)blockIdx.x * L;
-  float amax = 0.f;
-  for (int i = threadIdx.x; i < L; i += QUANT_THREADS)
-    amax = fmaxf(amax, fabsf(__bfloat162float(x[base + i])));
-  amax = block_reduce<true>(amax, scratch);
-  const float s = amax == 0.f ? 1.f : (FOLD ? amax * (1.f / 127.f) : amax / 127.f);
-  for (int i = threadIdx.x; i < L; i += QUANT_THREADS) {
-    const float v = rintf(__fdiv_rn(__bfloat162float(x[base + i]), s));
-    xq[base + i] = (int8_t)fminf(fmaxf(v, -127.f), 127.f);
-  }
-  if (threadIdx.x == 0) sx[blockIdx.x] = s;
-}
-}  // namespace
 
 }  // namespace ggml_tpu_torch

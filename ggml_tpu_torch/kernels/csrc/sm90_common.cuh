@@ -59,6 +59,25 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// Thread-block clusters: a barrier over every thread of the cluster in two
+// halves (arrive relaxed, wait with acquire), the address of a shared-memory
+// location in another rank's copy, and a 4-byte store into it that the
+// rank's mbarrier at `bar` (also mapped) counts as received bytes
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(addr),
+               "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+
 // one box of a 2-d or 4-d tensor map (coordinates innermost first) into
 // shared memory, counted by `bar`
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {

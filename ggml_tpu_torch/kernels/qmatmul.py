@@ -7,15 +7,14 @@ The port of ggml_tpu/kernels/qmatmul.py.  `planar_matmul` dispatches as
 q4 planes; "GEMV" means M <= 32 and (K/2/G) % 8 == 0
   GEMV, compact planes (Q4_K, K % 512 == 0) with a legal superblock tile
     M == 1        q4k_gemv_qact  int8 activations with one scale per K-tile
-                               per half-plane, quantized on the device
+                               per half-plane, quantized in the kernel
                                (kernel A, csrc/q4k_gemv.cu)
-    2 <= M <= 32  q4k_gemv_rows  int8 activations with one scale per row
-                               (kernel B, csrc/q4k_gemv.cu)
-  GEMV otherwise  q4_gemv      int8 activations per row, quantized in the
-                               kernel, over multiplied-out scale/offset
-                               planes, G 16 or 32 (kernel H, csrc/q4_gemv.cu);
-                               compact planes without a legal tile are
-                               expanded first
+    2 <= M <= 32  q4k_gemv_rows  int8 activations with one scale per row,
+                               quantized in the kernel (kernel B, the same file)
+  GEMV otherwise  q4_gemv      the same per-row quantization over
+                               multiplied-out scale/offset planes, G 16 or 32
+                               (kernel H, csrc/q4_gemv.cu); compact planes
+                               without a legal tile are expanded first
   every other M and K  q4k_matmul  bf16 weights dequantized per tile into
                                shared memory, wgmma bf16 products, f32 sums,
                                the offset term as extra product columns, over
@@ -31,6 +30,8 @@ q8 planes; "GEMV" means M <= 32, G in (16, 32) and (K/G) % 8 == 0
                                planes without a legal tile are expanded first
   every other M and K  q8_matmul  the same pipeline over int8 planes
                                (kernel G, csrc/q8_matmul.cu)
+The GEMV kernels A, B, E, F, H and the int8-x entry are one pipeline
+(csrc/gemv_sm90.cuh): one launch each, no scratch, x quantized in the kernel.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and its CUDA
 kernel for CUDA tensors; it never falls back from one to the other.  The
@@ -53,7 +54,6 @@ launches = {"q4k_gemv_qact": 0, "q4k_gemv_rows": 0, "q4k_gemv_i8": 0, "q4k_matmu
             "q8_gemv": 0, "q8_gemv_sb": 0, "q8_matmul": 0}
 
 _BN = 128  # column strip of the GEMV kernels; Npad must be a multiple of it
-_SLAB = 256  # plane rows a block of the q8 GEMVs reduces per step (csrc/q8_gemv.cu)
 
 
 def _sb_gemv_k_tile(k2: int, G: int, sb: int) -> int | None:
@@ -310,40 +310,24 @@ def _plane_ptrs(pw: PlanarWeight):
 
 
 def _gemv_cuda(name: str, x: torch.Tensor, pw: PlanarWeight, kt2: int = 0) -> torch.Tensor:
+    """One launch of a GEMV kernel (csrc/gemv_sm90.cuh): it quantizes x
+    itself (the int8-x entry takes int8 x as it is) and splits K over a
+    thread-block cluster summed in shared memory, so y is all it needs."""
     m, k = x.shape
-    dev = x.device
     lib = _build.lib()
-    y = torch.empty((m, pw.npad), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if name == "q4_gemv":  # quantizes x itself and splits K over a cluster: no scratch
+    y = torch.empty((m, pw.npad), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if name == "q4_gemv":
         rc = lib.q4_gemv(x.data_ptr(), pw.codes.data_ptr(), pw.scales.data_ptr(), _ptr(pw.offsets),
                          int(pw.scales.dtype == torch.bfloat16), y.data_ptr(), pw.group, m, k, pw.npad, stream)
-        launches[name] += 1
-        _build.check(rc, name)
-        return y
-    # K-split partial sums per column
-    split = _gemv_split(k, pw.npad) if name in ("q8_gemv", "q8_gemv_sb") else k // 512
-    # scratch of this launch alone, from the stream-ordered allocator; the
-    # quantization kernel zeroes the tickets before the GEMV counts on them
-    # (the int8-x entry zeroes them itself)
-    partial = torch.empty((split, m, pw.npad), dtype=torch.float32, device=dev)
-    tickets = torch.empty((pw.npad // _BN,), dtype=torch.int32, device=dev)
-    if name == "q4k_gemv_i8":
-        rc = lib.q4k_gemv_i8(x.data_ptr(), *_plane_ptrs(pw), partial.data_ptr(), tickets.data_ptr(),
-                             y.data_ptr(), k, pw.npad, stream)
-        launches[name] += 1
-        _build.check(rc, name)
-        return y
-    xq = torch.empty((m, k), dtype=torch.int8, device=dev)
-    sx = torch.empty((k // kt2 if kt2 else m,), dtype=torch.float32, device=dev)
-    scratch = (xq.data_ptr(), sx.data_ptr(), partial.data_ptr(), tickets.data_ptr(), y.data_ptr())
-    args = (x.data_ptr(), *_plane_ptrs(pw), *scratch)
-    if pw.kind == "q8":
-        rc = lib.q8_gemv(*args, pw.group, pw.sb, m, k, pw.npad, split, stream)
-    elif kt2:
-        rc = lib.q4k_gemv_qact(*args, k, pw.npad, kt2, stream)
+    elif pw.kind == "q8":
+        rc = lib.q8_gemv(x.data_ptr(), *_plane_ptrs(pw), y.data_ptr(), pw.group, pw.sb, m, k, pw.npad, stream)
+    elif name == "q4k_gemv_qact":
+        rc = lib.q4k_gemv_qact(x.data_ptr(), *_plane_ptrs(pw), y.data_ptr(), k, pw.npad, kt2, stream)
+    elif name == "q4k_gemv_rows":
+        rc = lib.q4k_gemv_rows(x.data_ptr(), *_plane_ptrs(pw), y.data_ptr(), m, k, pw.npad, stream)
     else:
-        rc = lib.q4k_gemv_rows(*args, m, k, pw.npad, stream)
+        rc = lib.q4k_gemv_i8(x.data_ptr(), *_plane_ptrs(pw), y.data_ptr(), k, pw.npad, stream)
     launches[name] += 1
     _build.check(rc, name)
     return y
@@ -484,17 +468,6 @@ def q4_gemv(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     if not x.is_cuda:
         return _q4_gemv_plain(x, pw)
     return _gemv_cuda("q4_gemv", x, pw)
-
-
-def _gemv_split(rows: int, npad: int) -> int:
-    """Blocks along K of the q8 GEMVs over `rows` plane rows: one per
-    256-row slab, halved while the grid keeps at least 1024 blocks (a block
-    then walks several slabs and writes one partial sum, so wide weights pay
-    less scratch traffic)."""
-    split = -(-rows // _SLAB)
-    while split % 2 == 0 and (npad // _BN) * (split // 2) >= 1024:
-        split //= 2
-    return split
 
 
 def _check_q8_gemv(x: torch.Tensor, pw: PlanarWeight, compact: bool):
