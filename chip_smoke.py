@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (ggml_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --long-decode-profile   # phases 1, 2 and the decode profile after a long prompt only
-    python3 chip_smoke.py --flash-times           # phases 1, 2 and kernel J's times at the 1024-token prefill only
+    python3 chip_smoke.py --long-decode-profile   # phases 1, 2 and the decode profiles after a long prompt only
+    python3 chip_smoke.py --flash-times           # phases 1, 2 and kernel J's and its mask ranges' times only
     python3 chip_smoke.py --train-times           # phases 1, 2 and kernels K, L, M's times at the training shapes only
     python3 chip_smoke.py --gemv-times            # phases 1, 2 and the GEMV kernels' times at the decode shapes only
 
@@ -16,10 +16,14 @@ Phases (any failure exits non-zero without the result line):
    never calls it), beside the least time the card could take (bound);
 4. serve greedy requests through GPT-J-6B at its published widths
    (EleutherAI/gpt-j-6b: n_vocab 50400, E 4096, 16 heads, 28 layers, n_rot
-   64, context 2048), counting every kernel launch of each run: (a)
-   synthesized compact Q4_K planes, prompts 8, 100, 1, then a 1024-token
-   prompt through the flash prefill (J and its two helpers) and a profile of
-   decode steps after a 1088-token prompt, (b) synthesized Q8_0 planes, three
+   64, context 2048), decoding as CUDA graph replays (one capture per model,
+   made while warming up), counting every kernel launch of each run, then
+   decoding the first request again eagerly (the same ids, ms/token side by
+   side), and profiling eager and graphed decode: (a)
+   synthesized compact Q4_K planes, prompts 8, 100, 1, a seeded sampled
+   request (twice, eagerly, and with top_k = 1 against the greedy ids), then
+   a 1024-token prompt through the flash prefill (J and its two helpers) and
+   profiles of decode steps after a 1088-token prompt, (b) synthesized Q8_0 planes, three
    requests, (c) compact Q6_K planes repacked from random blocks, one
    request, (e) synthesized Q4_0 planes (multiplied-out nibble planes),
    prompts 8, 100, 1 and 1024, (f) synthesized Q3_K planes (groups of 16),
@@ -106,12 +110,16 @@ def errors(ref, got):
     return (sq / norm if norm else (0.0 if sq == 0 else float("inf")), float((ref - got).abs().max()))
 
 
-def device_ms(torch, fn, flush, iters: int) -> float:
-    """Device time of one call of fn, with L2 flushed before each call.  A
-    sleep kernel holds the GPU while the host queues every call, so host
-    launch overhead is not in the window; the flushes are timed alone and
-    subtracted."""
+def device_ms(torch, fn, flush, iters: int, by_reads: bool = False) -> float:
+    """Device time of one call of fn, with L2 flushed before each call by
+    writing `flush` (which leaves L2 full of dirty lines: every line a call
+    reads evicts one that is written back), or, by_reads, by summing it
+    (clean lines).  A sleep kernel holds the GPU while the host queues every
+    call, so host launch overhead is not in the window; the flushes are
+    timed alone and subtracted."""
+    clear = (lambda: flush.view(torch.float32).sum()) if by_reads else flush.zero_
     fn()
+    clear()
     torch.cuda.synchronize()
 
     def window(body):
@@ -124,8 +132,8 @@ def device_ms(torch, fn, flush, iters: int) -> float:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    both = window(lambda: (flush.zero_(), fn()))
-    alone = window(flush.zero_)
+    both = window(lambda: (clear(), fn()))
+    alone = window(clear)
     return max(both - alone, 0.0)
 
 
@@ -377,9 +385,8 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         the bf16 rate.  The library call takes one type, so "mixed" is timed
         against SDPA on q and k rounded to bf16: it computes less.  q, k and v
         are head views of (b, n, h, d) tensors, as the model hands them over.
-        The mixed causal cases that are timed also hold J's two helpers
-        against their plain versions: the hi/lo split of k bit for bit, the
-        mask ranges exactly."""
+        The mixed causal cases that are timed also hold J's split helper
+        against its plain version, bit for bit (the mask ranges: ranges_case)."""
         qk_type = torch.float32 if types == "mixed" else getattr(torch, types)
         v_type = torch.bfloat16 if types == "mixed" else qk_type
         mk = lambda dt, b_, n_, h_: torch.randn((b_, n_, h_, d), device="cuda", generator=gen).to(dt).transpose(1, 2)
@@ -422,30 +429,55 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         if not (time_it and causal and types == "mixed"):
             return
         label = f"b={b} h={h} nq={nq} nkv={nkv} d={d}"
-
-        def exact(name, got, want):
-            check(all(torch.equal(g, w) for g, w in zip(got, want)), f"{name} {label}: not equal to its plain version")
-            return dict(nmse=0.0, max_abs_err=0.0)
-
         split = lambda: flash_attn.split_hi_lo(k)
         split_plain = lambda: flash_attn._split_hi_lo_plain(k)
+        check(torch.equal(split(), split_plain()), f"flash_split {label}: not equal to its plain version")
         t_split = k.numel() * 8 / HBM_BYTES_PER_S * 1e3  # f32 in, two bf16 planes out
-        record("flash_split", dict(shape=f"k f32, {label}", **exact("flash_split", [split()], [split_plain()]),
+        record("flash_split", dict(shape=f"k f32, {label}", nmse=0.0, max_abs_err=0.0,
                                    ms=device_ms(torch, split, flush, 20), plain_ms=device_ms(torch, split_plain, flush, 5),
                                    library_ms=None, bound_ms=t_split, bound_by="bytes"))
-        ranges = lambda: flash_attn.mask_ranges(mask)
-        ranges_plain = lambda: flash_attn._mask_ranges_plain(mask)
-        t_ranges = (mask.numel() + ranges().numel()) * 4 / HBM_BYTES_PER_S * 1e3
-        record("flash_mask_ranges", dict(shape=f"causal mask ({nq}, {nkv})",
-                                         **exact("flash_mask_ranges", [ranges()], [ranges_plain()]),
-                                         ms=device_ms(torch, ranges, flush, 20),
-                                         plain_ms=device_ms(torch, ranges_plain, flush, 5), library_ms=None,
-                                         bound_ms=t_ranges, bound_by="bytes"))
+
+    def ranges_case(nq, nkv, kind, time_it=False):
+        """J's helper flash_mask_ranges against its plain version, exactly.
+        kind: "causal" (the models' mask), "random" (normal values: every
+        tile has its own min and max), "misaligned" (random, the mask 4
+        bytes past a 16-byte boundary: the scalar path, as any nkv % 4 !=
+        0).  Bound: the mask read once, the ranges written once.  Library:
+        amin and amax over the tile view (nq/64, 64, nkv/64, 64), two calls
+        (nq and nkv multiples of 64)."""
+        if kind == "causal":
+            mask = torch.where(torch.arange(nkv, device="cuda")[None, :] <= torch.arange(nq, device="cuda")[:, None],
+                               0.0, -1e30)
+        elif kind == "random":
+            mask = torch.randn((nq, nkv), device="cuda", generator=gen)
+        else:
+            mask = torch.randn(nq * nkv + 1, device="cuda", generator=gen)[1:].view(nq, nkv)
+        call = lambda: flash_attn.mask_ranges(mask)
+        plain_fn = lambda: flash_attn._mask_ranges_plain(mask)
+        check(torch.equal(call(), plain_fn()), f"flash_mask_ranges ({nq}, {nkv}) {kind}: not equal to its plain version")
+        lib = None
+        if time_it and nq % 64 == 0 and nkv % 64 == 0:
+            tiles = mask.view(nq // 64, 64, nkv // 64, 64)
+            lib = device_ms(torch, lambda: (tiles.amin(dim=(1, 3)), tiles.amax(dim=(1, 3))), flush, 20)
+        n_out = 2 * -(-nq // 64) * -(-nkv // 64)
+        record("flash_mask_ranges", dict(shape=f"{kind} mask ({nq}, {nkv})", nmse=0.0, max_abs_err=0.0,
+                                         ms=device_ms(torch, call, flush, 20) if time_it else None,
+                                         plain_ms=device_ms(torch, plain_fn, flush, 5) if time_it else None,
+                                         library_ms=lib, bound_ms=(mask.numel() + n_out) * 4 / HBM_BYTES_PER_S * 1e3,
+                                         bound_by="bytes"))
 
     for types in ("mixed", "bfloat16"):
         flash_case(1, 16, 16, 1024, 1024, 256, types)   # the 1024-token prefill of GPT-J (a bf16 model: mixed)
         flash_case(1, 16, 16, 2048, 2048, 256, types)   # the full context
         flash_case(1, 4, 4, 100, 100, 128, types)       # the tiny model's heads, ragged tiles
+    # the mask ranges at the long prefill's shape (and the full context), then
+    # exactness only at ragged shapes: ragged tiles on the 16-byte path (1000,
+    # 64 x 80), and the scalar path (nkv % 4 != 0, a misaligned mask)
+    ranges_case(1024, 1024, "causal", time_it=True)
+    ranges_case(2048, 2048, "causal", time_it=True)
+    for nq, nkv, kind in ((1000, 1000, "causal"), (1000, 1000, "random"), (64, 80, "random"), (37, 53, "random"),
+                          (130, 1001, "random"), (200, 200, "misaligned")):
+        ranges_case(nq, nkv, kind)
     # correctness only: GQA, ALiBi, softcap, ragged lengths, no mask
     flash_case(2, 8, 2, 37, 53, 64, "float32", max_bias=8.0, softcap=30.0, time_it=False)
     flash_case(1, 4, 4, 37, 53, 64, "float32", causal=False, time_it=False)
@@ -617,18 +649,16 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
     return results
 
 
-def _launch_tables():
-    from ggml_tpu_torch.kernels import decode_attn, flash_attn, qmatmul
-
-    return qmatmul.launches, decode_attn.launches, flash_attn.launches
-
-
 def launch_counts() -> dict:
-    return {k: v for table in _launch_tables() for k, v in table.items()}
+    from ggml_tpu_torch.models.common import launch_tables
+
+    return {k: v for table in launch_tables() for k, v in table.items()}
 
 
 def reset_launches():
-    for table in _launch_tables():
+    from ggml_tpu_torch.models.common import launch_tables
+
+    for table in launch_tables():
         for k in table:
             table[k] = 0
 
@@ -665,13 +695,21 @@ def q6k_planes_like(torch, np, params: dict) -> dict:
 
 
 def phase_gptj(torch, np, label: str, params: dict, kernels: dict, prompts, profile: bool, max_seq: int = 256,
-               long_decode_profile: int = 0):
+               long_decode_profile: int = 0, sampled: bool = False):
     """GPT-J-6B at published widths over `params`: one greedy request of 64
-    tokens per prompt length, every launch counted; with long_decode_profile,
-    a profile of decode steps after a prompt of that length.  kernels names the
-    wrapper each step must go through: "decode" (M=1), "rows" (2..32-token
-    prefill), "matmul" (longer prefill).  A prompt of flash_min_seq (1024)
-    tokens or more must also go through the flash kernel once per layer."""
+    tokens per prompt length, decoded as CUDA graph replays (the default on
+    the card), every launch counted (a replay adds its captured step's
+    launches); the graphs are captured while each prompt length is warmed up,
+    once per model and cache type, and no request captures again.  Then the
+    first request decodes again eagerly (graph=False): the same ids, eager
+    and graphed ms/token side by side.  With long_decode_profile, profiles of
+    decode steps after a prompt of that length; with sampled, a seeded
+    sampled request twice (equal ids, eager and graphed alike) and with
+    top_k = 1 (the greedy ids).  kernels names the wrapper each step must go
+    through: "decode" (M=1), "rows" (2..32-token prefill), "matmul" (longer
+    prefill).  A prompt of flash_min_seq (1024) tokens or more must also go
+    through the flash kernel and its split once per layer, and the mask
+    ranges once per prefill."""
     from ggml_tpu_torch.models import gptj
     from ggml_tpu_torch.quant.planar import PlanarWeight
 
@@ -680,9 +718,11 @@ def phase_gptj(torch, np, label: str, params: dict, kernels: dict, prompts, prof
     print(f"  {label}: {plane_bytes / 1e9:.3f} GB of planes read per decode token, bound at "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: {plane_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms/token")
     model = gptj.GPTJ(params, cfg, max_seq=max_seq, device="cuda")
-    for t in prompts:  # warm-up of each path: first-use allocations and library handles
+    for t in prompts:  # warm-up of each path: first-use allocations, library handles, the decode graph
         model.generate(np.arange(t)[None], 4)
     torch.cuda.synchronize()
+    captures = lambda: sum(g.captures for g in model.decode_graphs.values())
+    captured = captures()
 
     n_gen, per_layer = 64, 3
     layers = cfg.n_layer
@@ -692,16 +732,7 @@ def phase_gptj(torch, np, label: str, params: dict, kernels: dict, prompts, prof
     for t in prompts:
         before = launch_counts()
         prompt = rng.integers(0, cfg.n_vocab, (1, t))
-        cache = model.new_cache(torch.bfloat16)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache, n_past = model.prefill(cache, prompt)
-        first = torch.argmax(logits, dim=-1, keepdim=True)
-        finite = bool(torch.isfinite(logits).all())
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        cache, ids = model.decode_greedy(cache, first, n_past, n_gen - 1)
-        t2 = time.perf_counter()
+        first, ids, t0, t1, t2, finite, event_ms = greedy_request(torch, model, prompt, n_gen - 1, graph=True)
         after = launch_counts()
         delta = {k: after[k] - before[k] for k in after}
         steps = n_gen - 1 + (1 if t == 1 else 0)  # a 1-token prompt is a decode step too
@@ -710,32 +741,111 @@ def phase_gptj(torch, np, label: str, params: dict, kernels: dict, prompts, prof
         want["decode_attn"] = layers * steps
         if t > 1:
             want[kernels["rows" if t <= 32 else "matmul"]] += per_layer * layers + 1
-        if t >= cfg.flash_min_seq:  # J and its two helpers (a bf16 model hands over f32 q and k)
-            want["flash_attn"] = want["flash_split"] = want["flash_mask_ranges"] = layers
-        toks = [int(first[0, 0])] + ids[:, 0].tolist()
+        if t >= cfg.flash_min_seq:  # J and its split per layer (a bf16 model hands over f32 q and k), the ranges once
+            want["flash_attn"] = want["flash_split"] = layers
+            want["flash_mask_ranges"] = 1
+        toks = [first] + ids
         check(finite, f"{label}, prompt {t}: prefill logits not finite")
         check(len(toks) == n_gen and all(0 <= x < cfg.n_vocab for x in toks), f"{label}, prompt {t}: tokens {toks}")
         check(delta == want, f"{label}, prompt {t}: launches {delta}, want {want}")
         dec_ms = (t2 - t1) * 1e3 / (n_gen - 1)
         req = dict(model=label, prompt=t, prefill_ms=(t1 - t0) * 1e3, decode_ms_per_token=dec_ms,
+                   decode_event_ms_per_token=event_ms,
                    decode_tok_per_s=1e3 / dec_ms, plane_gb_per_s=plane_bytes / (dec_ms * 1e-3) / 1e9,
-                   launches=delta, first_tokens=toks[:8])
+                   launches=delta, first_tokens=toks[:8], prompt_tokens=prompt, ids=toks)
         requests.append(req)
         print(f"  request prompt={t:4d}: prefill {req['prefill_ms']:.1f} ms, decode "
-              f"{dec_ms:.2f} ms/token ({req['decode_tok_per_s']:.1f} tok/s, "
+              f"{dec_ms:.2f} ms/token graphed ({event_ms:.2f} between CUDA events; {req['decode_tok_per_s']:.1f} tok/s, "
               f"{req['plane_gb_per_s']:.0f} GB/s of planes), launches {delta}")
     counts = launch_counts()
+    check(captures() == captured == 1, f"{label}: {captured} decode graphs captured while warming up, "
+          f"{captures()} after the requests; want 1 and no capture per request")
     long_prompt = max(prompts) >= cfg.flash_min_seq
     roles = {"decode"} | {"rows" if t <= 32 else "matmul" for t in prompts if t > 1}
     flash = ["flash_attn", "flash_split", "flash_mask_ranges"] if long_prompt else []
     for name in {*(kernels[r] for r in roles), "decode_attn", *flash}:
         check(counts[name] > 0, f"{label}: {name} was never launched on its main path")
+
+    # the first request again, eagerly: the same kernels in the same order
+    req = requests[0]
+    _, ids, _, t1, t2, _, _ = greedy_request(torch, model, req["prompt_tokens"], n_gen - 1, graph=False)
+    eager_ms = (t2 - t1) * 1e3 / (n_gen - 1)
+    check(ids == req["ids"][1:], f"{label}, prompt {req['prompt']}: eager ids {ids[:8]}... differ from the "
+          f"graphed {req['ids'][1:9]}...")
+    req["eager_decode_ms_per_token"] = eager_ms
+    print(f"  prompt={req['prompt']}: decode eager {eager_ms:.2f} / graphed {req['decode_ms_per_token']:.2f} "
+          f"ms/token, the same {len(ids)} ids; decode graphs captured: {captures()}")
+    sampling = sampled_requests(torch, model, req, n_gen) if sampled else None
+    for r in requests:
+        del r["prompt_tokens"], r["ids"]
     trace = profile_decode(torch, np, model) if profile else None
+    graphed = profile_decode_graphed(torch, np, model) if profile else None
     prefill_trace = profile_prefill(torch, np, model, max(prompts)) if profile and long_prompt else None
     long_trace = profile_decode(torch, np, model, prompt=long_decode_profile) if long_decode_profile else None
+    long_graphed = profile_decode_graphed(torch, np, model, prompt=long_decode_profile) if long_decode_profile else None
     flash_nmse = flash_against_plain_attention(torch, np, model, max(prompts)) if long_prompt else None
-    return dict(counts=counts, requests=requests, plane_bytes=plane_bytes, decode_trace=trace,
-                prefill_trace=prefill_trace, long_decode_trace=long_trace, flash_vs_plain_attention=flash_nmse)
+    return dict(counts=counts, requests=requests, plane_bytes=plane_bytes, decode_graph_captures=captures(),
+                sampled=sampling, decode_trace=trace, graphed_decode_trace=graphed, prefill_trace=prefill_trace,
+                long_decode_trace=long_trace, long_graphed_decode_trace=long_graphed,
+                flash_vs_plain_attention=flash_nmse)
+
+
+def greedy_request(torch, model, prompt, n: int, graph: bool):
+    """Prefill `prompt`, then n greedy decode steps: (first token, the n ids,
+    host clock before the prefill, after it, after the decode, logits
+    finite, the decode's device ms/token between two CUDA events)."""
+    cache = model.new_cache(torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache, n_past = model.prefill(cache, prompt)
+    first = torch.argmax(logits, dim=-1, keepdim=True)
+    finite = bool(torch.isfinite(logits).all())
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    start.record()
+    cache, ids = model.decode_greedy(cache, first, n_past, n, graph=graph)
+    end.record()
+    t2 = time.perf_counter()
+    end.synchronize()
+    return int(first[0, 0]), ids[:, 0].tolist(), t0, t1, t2, finite, start.elapsed_time(end) / n
+
+
+def sampled_requests(torch, model, req: dict, n_gen: int) -> dict:
+    """Sampled decode on the card (after the launch counters are read): the
+    prompt of `req` (a greedy request), the first token drawn from the
+    prefill logits and n_gen - 1 more by the graphed sampled loop, at
+    temperature 0.8, top_k 40, top_p 0.95 from a generator seeded 1234: run
+    twice, the same ids; eagerly, the same ids again (the same kernels and
+    the same draws); with top_k = 1, the greedy request's ids."""
+    from ggml_tpu_torch.sampling import sample_top_k_top_p
+
+    def run(top_k, graph=True):
+        logits, cache, n_past = model.prefill(model.new_cache(torch.bfloat16), req["prompt_tokens"])
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1234)
+        kw = dict(temperature=0.8, top_k=top_k, top_p=0.95)
+        first, gen = sample_top_k_top_p(logits, gen, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, ids = model.decode_sampled(cache, first.reshape(-1, 1), n_past, n_gen - 1, gen, graph=graph, **kw)
+        ms = (time.perf_counter() - t0) * 1e3 / (n_gen - 1)
+        return [int(first[0])] + ids[:, 0].tolist(), ms
+
+    runs = [run(40), run(40)]
+    eager, eager_ms = run(40, graph=False)
+    greedy_ids, _ = run(1)
+    ids = runs[0][0]
+    check(len(ids) == n_gen and all(0 <= x < model.cfg.n_vocab for x in ids), f"sampled decode: ids {ids}")
+    check(runs[1][0] == ids, f"sampled decode, seed 1234 twice: {ids[:8]}... then {runs[1][0][:8]}...")
+    check(eager == ids, f"sampled decode, eager against graphed: {eager[:8]}... against {ids[:8]}...")
+    check(greedy_ids == req["ids"], f"sampled decode with top_k=1: {greedy_ids[:8]}..., greedy {req['ids'][:8]}...")
+    distinct = len(set(ids))
+    print(f"  sampled request (temperature 0.8, top_k 40, top_p 0.95, seed 1234), prompt={req['prompt']}: "
+          f"{n_gen} ids, {distinct} distinct, the same twice ({runs[0][1]:.2f}, {runs[1][1]:.2f} ms/token graphed; "
+          f"eager {eager_ms:.2f}, the same ids); top_k=1 gives the greedy ids")
+    return dict(ids=ids[:16], distinct=distinct, graphed_ms_per_token=[r[1] for r in runs],
+                eager_ms_per_token=eager_ms, same_twice=True, eager_equal=True, top_k_1_is_greedy=True)
 
 
 def flash_against_plain_attention(torch, np, model, t: int) -> float:
@@ -798,9 +908,10 @@ def profile_prefill(torch, np, model, t: int) -> dict:
 
 def profile_decode(torch, np, model, steps: int = 8, prompt: int = 8) -> dict:
     """Device time per decode token by kernel, from a torch.profiler trace of
-    `steps` decode steps after a `prompt`-token prompt (the launch counters
-    are read before this, so these launches are not counted as the main
-    path's).  Prints decode attention D's share of the device time."""
+    `steps` eager decode steps (graph=False: every launch shows) after a
+    `prompt`-token prompt (the launch counters are read before this, so
+    these launches are not counted as the main path's).  Prints decode
+    attention D's share of the device time."""
     from torch.profiler import ProfilerActivity, profile
 
     cache = model.new_cache(torch.bfloat16)
@@ -808,7 +919,7 @@ def profile_decode(torch, np, model, steps: int = 8, prompt: int = 8) -> dict:
     first = torch.argmax(logits, dim=-1, keepdim=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.decode_greedy(cache, first, n_past, steps)
+        model.decode_greedy(cache, first, n_past, steps, graph=False)
         torch.cuda.synchronize()
     events = _device_events(prof)
     total_us = sum(e.self_device_time_total for e in events)
@@ -821,12 +932,52 @@ def profile_decode(torch, np, model, steps: int = 8, prompt: int = 8) -> dict:
                  port_kernels_ms_per_token={k: v / steps / 1e3 for k, v in ours.items()},
                  other_device_ms_per_token=(total_us - sum(ours.values())) / steps / 1e3,
                  decode_attn_share=ours.get("decode_attn_kernel", 0.0) / total_us)
-    print(f"  profiled {steps} decode steps at pos {prompt}..{prompt + steps - 1}: decode attention D "
+    print(f"  profiled {steps} eager decode steps at pos {prompt}..{prompt + steps - 1}: decode attention D "
           f"{trace['port_kernels_ms_per_token'].get('decode_attn_kernel', 0.0):.3f} ms/token, "
           f"{trace['decode_attn_share'] * 100:.1f} % of the device time")
-    print(f"  profiled {steps} decode steps: device busy {trace['device_ms_per_token']:.3f} ms/token, "
+    print(f"  profiled {steps} eager decode steps: device busy {trace['device_ms_per_token']:.3f} ms/token, "
           f"{trace['launches_per_token']:.0f} kernel launches/token; port kernels "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in trace["port_kernels_ms_per_token"].items())
+          + f"; other ops {trace['other_device_ms_per_token']:.3f} ms")
+    return trace
+
+
+def profile_decode_graphed(torch, np, model, steps: int = 32, prompt: int = 8) -> dict:
+    """The graphed decode loop after a `prompt`-token prompt: host ms/token
+    of `steps` replays on the host's clock (the cache rows copied in and out
+    included), then, over the same request again under torch.profiler,
+    device busy per token (copies included) and the graph launches; the
+    card's idle share of a token is 1 - busy / host.  After the launch
+    counters are read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def request():
+        logits, cache, n_past = model.prefill(model.new_cache(torch.bfloat16), np.arange(prompt)[None])
+        first = torch.argmax(logits, dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        return cache, first, n_past
+
+    cache, first, n_past = request()
+    t0 = time.perf_counter()
+    model.decode_greedy(cache, first, n_past, steps)  # returns the ids to the host: the card is done
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    cache, first, n_past = request()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.decode_greedy(cache, first, n_past, steps)
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    total_us = sum(e.self_device_time_total for e in events)
+    ours = {name: sum(e.self_device_time_total for e in events if name in e.key) / steps / 1e3
+            for name in ("gemv_sm90_kernel", "decode_attn_kernel")}
+    graph_launches = sum(e.count for e in prof.key_averages() if e.key.startswith("cudaGraphLaunch"))
+    busy = total_us / steps / 1e3
+    trace = dict(steps=steps, prompt=prompt, host_ms_per_token=host_ms, device_ms_per_token=busy,
+                 idle_share=1.0 - busy / host_ms, graph_launches_per_token=graph_launches / steps,
+                 port_kernels_ms_per_token=ours, other_device_ms_per_token=busy - sum(ours.values()))
+    print(f"  graphed decode, {steps} steps at pos {prompt}..{prompt + steps - 1}: host {host_ms:.3f} ms/token, "
+          f"device busy {busy:.3f} ms/token (idle {trace['idle_share'] * 100:.1f} %), "
+          f"{trace['graph_launches_per_token']:.2f} graph launches/token; port kernels "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items())
           + f"; other ops {trace['other_device_ms_per_token']:.3f} ms")
     return trace
 
@@ -941,9 +1092,9 @@ def phase_train(torch, np) -> dict:
     bf16 forward and backward over f32 masters, bf16 moments, the fused
     sparse cross entropy, flash attention) on a repeating pattern of random
     token ids from token_windows: 1 warm step, 6 timed ones with every launch
-    counted (24 layers: exactly 24 of each of K, L and M a step, and 24 of
-    flash_mask_ranges, once per layer forward for K and M), then one
-    profiled step (after the counters are read)."""
+    counted (24 layers: exactly 24 of each of K, L and M a step, and one
+    flash_mask_ranges a step, once per forward for every layer's K, L and
+    M), then one profiled step (after the counters are read)."""
     from torch.profiler import ProfilerActivity, profile
 
     from ggml_tpu_torch.models import gpt2
@@ -976,8 +1127,9 @@ def phase_train(torch, np) -> dict:
     counts = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses += [float(m["loss"]) for m in metrics]
-    per_step = TRAIN + ("flash_mask_ranges",)  # each once per layer: the ranges by the forward, for K and M
-    want = {k: (cfg.n_layer * steps if k in per_step else 0) for k in counts}
+    per_step = TRAIN + ("flash_mask_ranges",)
+    # K, L and M once per layer; the ranges once per forward, handed to every layer's K, L and M
+    want = {k: (cfg.n_layer * steps if k in TRAIN else steps if k == "flash_mask_ranges" else 0) for k in counts}
     check(counts == want, f"GPT-2-medium training: launches {counts}, want {want}")
     check(all(np.isfinite(losses)), f"GPT-2-medium training: losses {losses}")
     check(losses[-1] < losses[0], f"GPT-2-medium training: the loss did not fall: {losses}")
@@ -1060,9 +1212,13 @@ def phase_tiny_train(torch, np) -> dict:
 
 def flash_times(torch, flash_attn) -> dict:
     """Kernel J's device time (µs) at GPT-J's 1024-token prefill, f32 q/k
-    with a bf16 v and all bf16, three timings of 20 calls each: the mode
-    that sets two trees side by side in one call (copy this script into
-    the other tree and run it there with --flash-times)."""
+    with a bf16 v and all bf16 (each call computes its mask ranges), then its
+    helper flash_mask_ranges alone on the 1024 x 1024 causal mask, and
+    beside it the floor of this timing: a PyTorch kernel that writes one
+    float; those two also with L2 flushed by reads (no dirty lines to write
+    back); three timings of 20 calls each.  The mode that sets two trees side
+    by side in one call (copy this script into the other tree and run it
+    there with --flash-times)."""
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
@@ -1075,6 +1231,13 @@ def flash_times(torch, flash_attn) -> dict:
         call = lambda: flash_attn.flash_attention(q, k, v, mask=mask, scale=1 / 16)
         out[types] = [device_ms(torch, call, flush, 20) * 1e3 for _ in range(3)]
         print(f"  J {types}: " + ", ".join(f"{t:.1f}us" for t in out[types]))
+    one = torch.empty(1, device="cuda")
+    for by_reads in (False, True):
+        for key, call in (("flash_mask_ranges 1024x1024", lambda: flash_attn.mask_ranges(mask)),
+                          ("floor: one float written", one.zero_)):
+            key += ", L2 flushed by reads" if by_reads else ""
+            out[key] = [device_ms(torch, call, flush, 20, by_reads) * 1e3 for _ in range(3)]
+            print(f"  {key}: " + ", ".join(f"{t:.2f}us" for t in out[key]))
     return out
 
 
@@ -1184,7 +1347,7 @@ def main() -> int:
                 print("  " + line.strip())
 
         if sys.argv[1:] == ["--flash-times"]:
-            print("== 3. kernel J at the 1024-token prefill (h=16, d=256, causal), three timings each")
+            print("== 3. kernel J and its mask ranges at the 1024-token prefill (h=16, d=256, causal), three timings each")
             times = flash_times(torch, flash_attn)
             print(json.dumps(dict(card=card, flash_times_us=times)))
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1217,7 +1380,8 @@ def main() -> int:
             model = gptj.GPTJ(params, cfg, max_seq=2048, device="cuda")
             model.generate(np.arange(1088)[None], 4)  # warm-up of the path
             trace = profile_decode(torch, np, model, prompt=1088)
-            print(json.dumps(dict(card=card, long_decode_trace=trace)))
+            graphed = profile_decode_graphed(torch, np, model, prompt=1088)
+            print(json.dumps(dict(card=card, long_decode_trace=trace, long_graphed_decode_trace=graphed)))
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                      "count": torch.cuda.device_count()}}))
             return 0
@@ -1236,7 +1400,7 @@ def main() -> int:
         q4k_kernels = dict(decode="q4k_gemv_qact", rows="q4k_gemv_rows", matmul="q4k_matmul")
         print("== 4a. GPT-J-6B Q4_K (synthesized compact planes), three greedy requests, then a 1024-token prompt")
         params = synth(GGMLType.Q4_K)
-        runs.append(phase_gptj(torch, np, "q4_k", params, q4k_kernels, (8, 100, 1), profile=True))
+        runs.append(phase_gptj(torch, np, "q4_k", params, q4k_kernels, (8, 100, 1), profile=True, sampled=True))
         runs.append(phase_gptj(torch, np, "q4_k long", params, q4k_kernels, (1024,), profile=False, max_seq=2048,
                                long_decode_profile=1088))
         del params

@@ -29,13 +29,17 @@ launches = {"decode_attn": 0}
 _CHUNK = 64  # keys per block of the CUDA kernel
 
 _counters: dict = {}  # device -> int32 arrival counters, zero between launches
+_retired: list = []  # buffers a larger one replaced: a captured decode graph may still use them
 
 
 def _zeroed_counters(n: int, device) -> torch.Tensor:
     """At least n int32 arrival counters on `device`, zero: each launch
-    leaves the ones it used at zero, so one buffer serves every launch."""
+    leaves the ones it used at zero, so one buffer serves every launch (and
+    every replay of a CUDA graph that captured one, on one stream)."""
     buf = _counters.get(device)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _retired.append(buf)
         buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
         _counters[device] = buf
     return buf

@@ -15,8 +15,9 @@ the bf16 and f32-q/k sets run on Hopper's wgmma (csrc/flash_attn_sm90.cu)
 after two helper kernels: `split_hi_lo` writes f32 k as hi and lo bf16
 planes (the kernel splits q itself as it reads it), and `mask_ranges` gives
 each 64 x 64 tile of the mask its min and max, from which the kernel skips,
-adds a constant or reads the mask.  q, k and v may be head views with
-contiguous rows (no copy is made of them).
+adds a constant or reads the mask (a model computes the ranges once per
+forward and hands them to every layer's call).  q, k and v may be head views
+with contiguous rows (no copy is made of them).
 
 K, L and M are the port of `flash_attention_train` (`_fa_forward_lse`,
 `_fa_train_bwd`): the same function without softcap, differentiable, with a
@@ -30,7 +31,8 @@ about -1e30.  Its dead rows are those left with l = 0 (every score -inf and no
 padding): zeros, LSE +1e30 and no gradient.  q, k and v are all bf16 or all
 f32.  For bf16, K (J's kernel with its LSE rules), L and M run on Hopper's
 wgmma and skip, add or read mask tiles from the mask ranges, which the
-autograd Function computes once per forward and hands to all three.
+model hands over (once per forward for all its layers) or the autograd
+Function computes once per call, for all three.
 
 For CPU tensors each wrapper runs its plain PyTorch version; for CUDA tensors
 it launches its kernel (csrc/flash_attn_sm90.cu: J, its helpers and K for
@@ -277,12 +279,16 @@ def _prepare(q, k, v, mask, types: dict):
 
 
 def flash_attention(q, k, v, mask=None, scale: float = 1.0, max_bias: float = 0.0,
-                    logit_softcap: float = 0.0) -> torch.Tensor:
+                    logit_softcap: float = 0.0, ranges=None) -> torch.Tensor:
     """Fused attention (kernel J).  q (b, h, nq, d), k (b, h_kv, nkv, d), v
     (b, h_kv, nkv, d_v), all bf16, all f32, or f32 q and k with bf16 v; mask
-    (nq', nkv) additive f32 with nq' >= nq, or None.  Returns (b, nq, h, d_v)
-    in q's type."""
+    (nq', nkv) additive f32 with nq' >= nq, or None; ranges: mask_ranges of
+    the mask's first nq rows where the caller has them (checked on any
+    device; the bf16 and mixed sets on the card read them, else this call
+    computes them).  Returns (b, nq, h, d_v) in q's type."""
     types, (b, h, n_q, d, h_kv, n_kv, d_v), mask = _prepare(q, k, v, mask, _TYPES)
+    if ranges is not None:
+        ranges = _train_ranges(mask, ranges)
     slopes = _slopes_on(h, float(max_bias), q.device)
     softcap = float(logit_softcap)
     score_scale = float(scale / softcap) if softcap != 0.0 else float(scale)
@@ -300,7 +306,7 @@ def flash_attention(q, k, v, mask=None, scale: float = 1.0, max_bias: float = 0.
                                          out.data_ptr(), None, b, h, h_kv, n_q, n_kv, d, d_v, score_scale, softcap,
                                          stream)
     else:
-        ranges = None if mask is None else mask_ranges(mask)
+        ranges = _train_ranges(mask, ranges)
         v, v_st = _row_strides(v, 8)
         if types == 2:  # f32 q, split by the kernel as it reads it; f32 k as hi and lo planes
             q, q_st = _row_strides(q, 4)
@@ -454,15 +460,16 @@ def flash_attention_bwd_dkv(q, k, v, mask, scale: float, max_bias: float, do, ls
 class _FlashAttentionTrain(torch.autograd.Function):
     """K forward; L and M backward from the saved output and LSE
     (JAX _fa_train_fwd / _fa_train_bwd).  The mask gets no gradient.  For
-    bf16 on the card the mask's tile ranges are computed once here and
-    read by K, L and M."""
+    bf16 on the card K, L and M read the mask's tile ranges: those handed
+    over (checked), else computed once here."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, scale: float, max_bias: float):
+    def forward(ctx, q, k, v, mask, scale: float, max_bias: float, ranges):
         # one contiguous copy of each head view, shared by K, L and M
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         code, _, mask2 = _prepare(q, k, v, mask, _TRAIN_TYPES)
-        ranges = mask_ranges(mask2) if mask2 is not None and q.is_cuda and code == 1 else None
+        if ranges is not None or (mask2 is not None and q.is_cuda and code == 1):
+            ranges = _train_ranges(mask2, ranges)
         o, lse = flash_attention_fwd_lse(q, k, v, mask, scale, max_bias, ranges=ranges)
         ctx.save_for_backward(q, k, v, mask, o, lse, ranges)
         ctx.scale, ctx.max_bias = scale, max_bias
@@ -482,11 +489,15 @@ class _FlashAttentionTrain(torch.autograd.Function):
         if rep > 1:  # GQA: each q head's dk/dv, in k's type, summed onto its kv head
             dk = dk.view(b, h_kv, rep, n_kv, -1).sum(2).to(k.dtype)
             dv = dv.view(b, h_kv, rep, n_kv, -1).sum(2).to(v.dtype)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
-def flash_attention_train(q, k, v, mask=None, scale: float = 1.0, max_bias: float = 0.0) -> torch.Tensor:
+def flash_attention_train(q, k, v, mask=None, scale: float = 1.0, max_bias: float = 0.0,
+                          ranges=None) -> torch.Tensor:
     """Differentiable fused attention, the training path: flash_attention's
-    semantics and layout without softcap, q, k and v all bf16 or all f32.
-    Returns (b, nq, h, d_v) in q's type; gradients flow to q, k and v."""
-    return _FlashAttentionTrain.apply(q, k, v, mask, float(scale), float(max_bias))
+    semantics and layout without softcap, q, k and v all bf16 or all f32;
+    ranges: mask_ranges of the mask where the caller has them (a model
+    computes them once per forward for all its layers), else the bf16 set on
+    the card computes them once here for K, L and M.  Returns (b, nq, h,
+    d_v) in q's type; gradients flow to q, k and v."""
+    return _FlashAttentionTrain.apply(q, k, v, mask, float(scale), float(max_bias), ranges)

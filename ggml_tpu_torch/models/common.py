@@ -1,5 +1,6 @@
-"""Shared model plumbing: the KV cache, layer norm, linear layers and the
-greedy generation loop (port of ggml_tpu/models/common.py)."""
+"""Shared model plumbing: the KV cache, layer norm, linear layers, the
+generation loop and the on-device decode loop, greedy or sampled, eager or
+replayed as a CUDA graph (port of ggml_tpu/models/common.py)."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ import functools
 import numpy as np
 import torch
 
-_SAMPLING_TODO = "sampled generation is not ported yet (ROADMAP.md, sampling and the CLI)"
+from ..sampling import greedy, sample_top_k_top_p
 
 
 def init_layer_cache(n_layer: int, batch: int, n_kv_head: int, max_seq: int, head_dim: int,
@@ -63,17 +64,216 @@ def linear(x, w, b=None):
 
 
 def generate(model, prompt_tokens: np.ndarray, n_tokens: int, sampler=None, key=None) -> list[int]:
-    """Greedy generation shared by the model wrappers: prefill, then the
-    on-device decode loop.  The tokens stay on the device until the end, so
-    the loop never waits for the host.  Returns the n_tokens generated ids of
-    the first sequence, as the JAX generate does."""
-    if sampler is not None:
-        raise NotImplementedError(_SAMPLING_TODO)
+    """Generation shared by the model wrappers: prefill, then greedy decode
+    through model.decode_greedy (the on-device loop), or, with a sampler,
+    the host loop of the JAX generate: sampler(logits (b, n_vocab), key) ->
+    (tokens (b,), key), e.g. lambda l, g: sample_top_k_top_p(l, g) with key
+    a torch.Generator on the model's device, then one decode step per token
+    (none after the last).  Returns the n_tokens generated ids of the first
+    sequence, as the JAX generate does."""
     cache = model.new_cache()
     logits, cache, n_past = model.prefill(cache, prompt_tokens)
-    first = torch.argmax(logits, dim=-1, keepdim=True)
-    if n_tokens <= 1:
-        return first[0, :n_tokens].tolist()
-    cache, toks = model.decode_greedy(cache, first, n_past, n_tokens - 1)
-    return [int(first[0, 0])] + toks[:, 0].tolist()
+    if sampler is None:
+        first = torch.argmax(logits, dim=-1, keepdim=True)
+        if n_tokens <= 1:
+            return first[0, :n_tokens].tolist()
+        cache, toks = model.decode_greedy(cache, first, n_past, n_tokens - 1)
+        return [int(first[0, 0])] + toks[:, 0].tolist()
+    out = []
+    for i in range(n_tokens):
+        tok, key = sampler(logits, key)
+        out.append(int(tok[0]))
+        if i + 1 < n_tokens:
+            logits, cache = model.decode_step(cache, tok.reshape(-1, 1), n_past)
+            n_past += 1
+    return out
 
+
+def launch_tables() -> list[dict]:
+    """The kernel modules' launch counters (each wrapper adds one where it
+    launches its kernel; a decode graph adds its step's once per replay)."""
+    from ..kernels import decode_attn, flash_attn, qmatmul
+
+    return [qmatmul.launches, decode_attn.launches, flash_attn.launches]
+
+
+class _DecodeState:
+    """The decode loop's carry on the device (the JAX scan's carry, less the
+    cache): the token fed next (b, 1), its position (0-d int32, which the
+    decode attention kernel reads itself), the step index (1,) and the ids
+    written so far (n, b)."""
+
+    def __init__(self, batch: int, n: int, device):
+        self.tok = torch.zeros((batch, 1), dtype=torch.long, device=device)
+        self.pos = torch.zeros((), dtype=torch.int32, device=device)
+        self.step = torch.zeros((1,), dtype=torch.long, device=device)
+        self.out = torch.zeros((n, batch), dtype=torch.long, device=device)
+
+    def start(self, first_token, n_past: int):
+        self.tok.copy_(torch.as_tensor(first_token).reshape(self.tok.shape))
+        self.pos.fill_(n_past)
+        self.step.zero_()
+
+
+def _decode_step(model, state: _DecodeState, cache, pick):
+    """One step of the decode loop, reading no value on the host: the logits
+    of state.tok at state.pos (its cache row written), the next token by
+    pick(logits) into out[step] and tok; then pos and step advance."""
+    nxt = pick(model.decode_logits(cache, state.tok, state.pos))
+    state.out.index_copy_(0, state.step, nxt.view(1, -1))
+    state.tok.copy_(nxt.view(-1, 1))
+    state.pos += 1
+    state.step += 1
+
+
+def _sampler(generator, temperature, top_k: int, top_p):
+    return lambda logits: sample_top_k_top_p(logits, generator, temperature, top_k, top_p)[0]
+
+
+class DecodeGraph:
+    """The port of the jitted lax.scan decode loop: one decode step captured
+    as a CUDA graph and replayed once per token, so the host makes one graph
+    launch a token instead of the step's kernel launches.
+
+    A graph binds addresses, so its step runs over buffers this object owns:
+    the carry and a cache of the model's batch, max_seq and `cache_dtype`.
+    A request copies its cache rows [0, n_past) in and the rows it decodes
+    back out (the step never reads a row past its position before writing
+    it), and later requests replay the same graphs: one for greedy decode and
+    one per top_k for sampled decode, whose temperature and top_p are device
+    scalars here and whose draws come from a generator registered with the
+    graph, set to the request's generator's state before the replays and
+    copied back after.  The kernels' launch counters do not move during a
+    replay: each graph keeps what its captured step added to them and adds
+    that once per replay.  A capture that fails raises."""
+
+    def __init__(self, model, cache_dtype):
+        if model.device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a model on the card, not on {model.device}")
+        dev = model.device
+        self.model = model
+        self.cache = model.new_cache(cache_dtype)
+        self.state = _DecodeState(model.batch, model.max_seq, dev)
+        self.temperature = torch.ones((), dtype=torch.float32, device=dev)
+        self.top_p = torch.ones((), dtype=torch.float32, device=dev)
+        self.generator = torch.Generator(device=dev)
+        self.graphs: dict = {}  # None (greedy) or top_k -> (CUDAGraph, launches of one step per table)
+        self.captures = 0
+
+    def _capture(self, top_k):
+        graph = torch.cuda.CUDAGraph()
+        pick = greedy
+        if top_k is not None:
+            if not hasattr(graph, "register_generator_state"):
+                raise NotImplementedError(f"torch {torch.__version__} cannot register a generator with a CUDA "
+                                          "graph: sampled decode cannot be graphed")
+            graph.register_generator_state(self.generator)
+            pick = _sampler(self.generator, self.temperature, top_k, self.top_p)
+        step = lambda: _decode_step(self.model, self.state, self.cache, pick)
+        # warm-up outside the capture: builds the kernel library and fills
+        # every first-use cache (RoPE frequencies, the decode attention's
+        # arrival counters, library handles), on a side stream as PyTorch
+        # asks; it writes rows 0 and 1 of the static cache, which no request
+        # reads before writing them
+        self.state.start(torch.zeros_like(self.state.tok), 0)
+        side = torch.cuda.Stream(self.model.device)
+        side.wait_stream(torch.cuda.current_stream(self.model.device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                step()
+        torch.cuda.current_stream(self.model.device).wait_stream(side)
+        tables = launch_tables()
+        before = [dict(t) for t in tables]
+        with torch.cuda.graph(graph):  # capture_error_mode "global": a forbidden call fails the capture
+            step()
+        per_step = []
+        for table, was in zip(tables, before):  # the capture launched nothing: its counts move to the replays
+            per_step.append({k: table[k] - was[k] for k in table})
+            table.update(was)
+        self.captures += 1
+        return graph, per_step
+
+    def run(self, cache, first_token, n_past: int, n_tokens: int, sampling=None) -> np.ndarray:
+        """Decode n_tokens from first_token at position n_past over the
+        caller's cache (rows [n_past, n_past + n_tokens) written back);
+        sampling: None (greedy) or (generator, temperature, top_k, top_p).
+        Returns the ids (n_tokens, b)."""
+        if len(cache) != len(self.cache) or any(
+                c.shape != s.shape or c.dtype != s.dtype or c.device != s.device
+                for layer, static in zip(cache, self.cache) for c, s in zip(layer, static)):
+            raise ValueError("the cache does not match the model's (batch, max_seq, dtype, device)")
+        top_k = None
+        if sampling is not None:
+            generator, temperature, top_k, top_p = sampling
+            if generator.device != self.generator.device:
+                raise ValueError(f"the generator is on {generator.device}, the model on {self.generator.device}")
+        entry = self.graphs.get(top_k)
+        if entry is None:
+            entry = self.graphs[top_k] = self._capture(top_k)
+        graph, per_step = entry
+        for layer, static in zip(cache, self.cache):
+            for c, s in zip(layer, static):
+                s[:, :, :n_past].copy_(c[:, :, :n_past])
+        self.state.start(first_token, n_past)
+        if sampling is not None:
+            self.temperature.fill_(temperature)
+            self.top_p.fill_(top_p)
+            self.generator.set_state(generator.get_state())
+        for _ in range(n_tokens):
+            graph.replay()
+        if sampling is not None:
+            generator.set_state(self.generator.get_state())
+        for table, counts in zip(launch_tables(), per_step):
+            for k, n in counts.items():
+                table[k] += n * n_tokens
+        rows = slice(n_past, n_past + n_tokens)
+        for layer, static in zip(cache, self.cache):
+            for c, s in zip(layer, static):
+                c[:, :, rows].copy_(s[:, :, rows])
+        return self.state.out[:n_tokens].cpu().numpy()
+
+
+def decode_loop(model, cache, first_token, n_past: int, n_tokens: int, *, graph=None, sampling=None):
+    """The on-device decode loop of the model wrappers (the JAX
+    decode_loop / make_sampled_decode scan): n_tokens steps from first_token
+    (b, 1) at position n_past, each token chosen on the device, greedy or,
+    with sampling = (generator, temperature, top_k, top_p), drawn by
+    sample_top_k_top_p.  graph: replay a captured step (DecodeGraph, one per
+    cache dtype on the model, kept in model.decode_graphs); the default on
+    the card, and True on a CPU model raises.  graph=False steps eagerly over
+    the caller's cache.  The host waits only for the returned ids.  Returns
+    (cache, ids (n_tokens, b) numpy)."""
+    model._check_room(n_past, n_tokens)
+    if graph is None:
+        graph = model.device.type == "cuda"
+    if graph:
+        dtype = cache[0][0].dtype
+        if dtype not in model.decode_graphs:
+            model.decode_graphs[dtype] = DecodeGraph(model, dtype)
+        return cache, model.decode_graphs[dtype].run(cache, first_token, n_past, n_tokens, sampling)
+    state = _DecodeState(model.batch, n_tokens, model.device)
+    state.start(first_token, n_past)
+    pick = greedy
+    if sampling is not None:
+        generator, temperature, top_k, top_p = sampling
+        scalar = lambda x: torch.as_tensor(x, dtype=torch.float32, device=model.device)
+        pick = _sampler(generator, scalar(temperature), top_k, scalar(top_p))
+    for _ in range(n_tokens):
+        _decode_step(model, state, cache, pick)
+    return cache, state.out.cpu().numpy()
+
+
+def make_sampled_decode(model):
+    """The on-device sampled decode loop (top-k/top-p/temperature inside the
+    loop, the draws from a torch.Generator on the model's device: the JAX
+    scan with its PRNG key in the carry), graphed on the card: one graph per
+    top_k.  Returns decode_sampled(cache, first_token, n_past, n_tokens,
+    generator, temperature=0.8, top_k=40, top_p=0.95, graph=None) ->
+    (cache, ids (n_tokens, b))."""
+
+    def decode_sampled(cache, first_token, n_past, n_tokens, generator, temperature=0.8, top_k=40, top_p=0.95,
+                       graph=None):
+        return decode_loop(model, cache, first_token, n_past, n_tokens, graph=graph,
+                           sampling=(generator, float(temperature), int(top_k), float(top_p)))
+
+    return decode_sampled

@@ -24,7 +24,8 @@ import torch
 
 from ..dtypes import GGMLType, is_quantized
 from ..gguf import GGUFFile
-from .common import cache_write, causal_mask, init_layer_cache, layer_norm as _layer_norm, linear as _linear
+from .common import (cache_write, causal_mask, decode_loop, init_layer_cache, layer_norm as _layer_norm,
+                     linear as _linear)
 
 
 @dataclass(frozen=True)
@@ -155,7 +156,12 @@ def forward(params: dict, cfg: GPT2Config, tokens: torch.Tensor, pos_start: torc
     x = embd[tokens] + params["position_embd.weight"][positions]
 
     scale = 1.0 / np.sqrt(cfg.head_dim)
-    if not flash:
+    if flash:  # every layer reads the same mask: its tile ranges once per forward
+        from ..kernels.flash_attn import flash_attention_train, mask_ranges
+
+        mask = causal_mask(t, x.device)
+        ranges = mask_ranges(mask)
+    else:
         max_seq = cache[0][0].shape[-2]
         rows = cache_len.to(torch.long) + torch.arange(t, device=tokens.device)  # cache rows written
         kv_pos = torch.arange(max_seq, device=x.device)[None, None, None, :]
@@ -171,9 +177,7 @@ def forward(params: dict, cfg: GPT2Config, tokens: torch.Tensor, pos_start: torc
 
         q, k, v = heads(q), heads(k), heads(v)  # (b, h, t, d)
         if flash:
-            from ..kernels.flash_attn import flash_attention_train
-
-            out = flash_attention_train(q, k, v, mask=causal_mask(t, x.device), scale=scale)  # (b, t, h, d)
+            out = flash_attention_train(q, k, v, mask=mask, scale=scale, ranges=ranges)  # (b, t, h, d)
             out = out.reshape(b, t, cfg.n_embd).to(x.dtype)
         else:
             kc, vc = cache[i]
@@ -205,6 +209,7 @@ class GPT2:
         self.max_seq = max_seq
         self.batch = batch
         self.device = torch.device(device)
+        self.decode_graphs: dict = {}  # cache dtype -> common.DecodeGraph, made at the first graphed decode
 
     @classmethod
     def from_gguf(cls, path, dtype=torch.float32, keep_quantized: bool = False, device="cuda", **kw):
@@ -230,28 +235,22 @@ class GPT2:
         logits, cache = forward(self.params, self.cfg, tokens, zero.expand(tokens.shape[0]), cache, zero)
         return logits[:, -1, :], cache, t
 
+    def decode_logits(self, cache, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """Logits (b, n_vocab) of tokens (b, 1) at position pos, a 0-d int32
+        tensor on the model's device; their cache rows are written in place."""
+        return forward(self.params, self.cfg, tokens, pos.expand(tokens.shape[0]), cache, pos)[0][:, -1, :]
+
     def decode_step(self, cache, token, n_past: int):
         """token (b, 1): returns (logits (b, n_vocab), cache)."""
         self._check_room(n_past, 1)
         token = torch.as_tensor(token).to(self.device, torch.long).reshape(-1, 1)
-        pos = torch.full((), n_past, dtype=torch.int32, device=self.device)
-        logits, cache = forward(self.params, self.cfg, token, pos.expand(token.shape[0]), cache, pos)
-        return logits[:, -1, :], cache
+        return self.decode_logits(cache, token, torch.full((), n_past, dtype=torch.int32, device=self.device)), cache
 
-    def decode_greedy(self, cache, first_token, n_past: int, n_tokens: int):
-        """n_tokens greedy steps from first_token at position n_past; the
-        position and tokens stay on the device until the ids (n_tokens, b)
-        are returned as numpy."""
-        self._check_room(n_past, n_tokens)
-        tok = torch.as_tensor(first_token).to(self.device, torch.long).reshape(-1, 1)
-        pos = torch.full((), n_past, dtype=torch.int32, device=self.device)
-        out = torch.empty((n_tokens, tok.shape[0]), dtype=torch.long, device=self.device)
-        for i in range(n_tokens):
-            logits, cache = forward(self.params, self.cfg, tok, pos.expand(tok.shape[0]), cache, pos)
-            tok = torch.argmax(logits[:, -1, :], dim=-1, keepdim=True)
-            out[i] = tok[:, 0]
-            pos += 1
-        return cache, out.cpu().numpy()
+    def decode_greedy(self, cache, first_token, n_past: int, n_tokens: int, graph=None):
+        """n_tokens greedy steps from first_token at position n_past, as one
+        CUDA graph replay a token on the card (graph=False: eagerly; see
+        common.decode_loop).  Returns (cache, ids (n_tokens, b) numpy)."""
+        return decode_loop(self, cache, first_token, n_past, n_tokens, graph=graph)
 
     def generate(self, prompt_tokens: np.ndarray, n_tokens: int, sampler=None, key=None) -> list[int]:
         from .common import generate

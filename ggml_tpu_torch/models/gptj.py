@@ -11,8 +11,10 @@ the first n_rot dims (ggml rope mode 0), biased mlp and biased untied lm head.
 - single-token steps run attention through kernels.decode_attn, prompts of
   flash_min_seq tokens or more through kernels.flash_attn;
 - the KV cache is written in place (the JAX package donates it to XLA);
-- decode is a plain Python loop whose position and tokens stay on the device,
-  so it never waits for the host until the ids are returned.
+- decode keeps its position and tokens on the device and, on the card, runs
+  as one CUDA graph replay a token (models/common.DecodeGraph, the JAX
+  package's jitted scan), so it never waits for the host until the ids are
+  returned.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import torch
 
 from ..dtypes import GGMLType
 from ..gguf import GGUFFile
-from .common import cache_write, causal_mask, init_layer_cache, layer_norm as _layer_norm, linear as _linear
+from .common import (cache_write, causal_mask, decode_loop, init_layer_cache, layer_norm as _layer_norm,
+                     linear as _linear, make_sampled_decode)
 
 
 @dataclass(frozen=True)
@@ -65,11 +68,12 @@ def config_from_gguf(g: GGUFFile) -> GPTJConfig:
     )
 
 
-@functools.lru_cache(maxsize=8)
+@functools.cache
 def _inv_freq(n_rot: int, base: float, device: torch.device) -> torch.Tensor:
     """RoPE frequencies, computed in float64 on the host as the JAX package
     does, copied to the device once (a host-to-device copy per step would
-    make the decode loop wait for the device)."""
+    make the decode loop wait for the device).  Never evicted: a captured
+    decode graph reads the tensor."""
     half = n_rot // 2
     return torch.from_numpy((base ** (-2.0 * np.arange(half) / n_rot)).astype(np.float32)).to(device)
 
@@ -143,6 +147,15 @@ def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torc
     rope = _rope_deinterleaved if cfg.rope_deinterleaved else _rope_interleaved
     cos, sin = rope_angles(positions, cfg.n_rot)
     rows = cache_len.to(torch.long) + torch.arange(t, device=tokens.device)  # cache rows written
+    flash = t > 1 and prefill and (cfg.use_flash_prefill or t >= cfg.flash_min_seq)
+    if flash:
+        # prefill from an empty cache attends the current tokens only, through
+        # the flash kernel (the cache holds no history by contract); every
+        # layer reads the same mask, so its tile ranges are computed once
+        from ..kernels.flash_attn import flash_attention, mask_ranges
+
+        mask = causal_mask(t, x.device)
+        ranges = mask_ranges(mask)
     for i in range(cfg.n_layer):
         pre = f"blk.{i}."
         h = _layer_norm(x, params[pre + "attn_norm.weight"], params[pre + "attn_norm.bias"], cfg.eps)
@@ -177,15 +190,11 @@ def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torc
 
         if fuse_decode:
             pass
-        elif t > 1 and prefill and (cfg.use_flash_prefill or t >= cfg.flash_min_seq):
-            # prefill from an empty cache: attend the current tokens only,
-            # through the flash kernel (the cache holds no history by contract)
-            from ..kernels.flash_attn import flash_attention
-
+        elif flash:
             # in a bf16 model RoPE leaves q and k in f32 beside a bf16 v; they
             # go in as they are (the scores come from the f32 values, as in
             # the JAX kernel) and the output comes back in f32
-            out = flash_attention(q, k, v, mask=causal_mask(t, x.device), scale=scale)
+            out = flash_attention(q, k, v, mask=mask, scale=scale, ranges=ranges)
             attn_out = out.reshape(b, t, cfg.n_embd).to(compute_dtype)
         else:
             # plain f32 attention over the whole cache window (gptj.py:213-222)
@@ -215,7 +224,7 @@ def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torc
 
 
 class GPTJ:
-    """Inference wrapper: prefill + on-device greedy decode."""
+    """Inference wrapper: prefill + on-device greedy or sampled decode."""
 
     def __init__(self, params: dict, cfg: GPTJConfig, max_seq: int = 2048, batch: int = 1,
                  device="cuda"):
@@ -224,6 +233,7 @@ class GPTJ:
         self.max_seq = max_seq
         self.batch = batch
         self.device = torch.device(device)
+        self.decode_graphs: dict = {}  # cache dtype -> common.DecodeGraph, made at the first graphed decode
 
     @classmethod
     def from_gguf(cls, path, dtype=torch.bfloat16, rope_deinterleaved: bool = True, device="cuda", **kw):
@@ -267,20 +277,27 @@ class GPTJ:
                          prefill=True)
         return logits[:, -1, :], cache, t
 
-    def decode_greedy(self, cache, first_token, n_past: int, n_tokens: int):
-        """Generate n_tokens greedily from first_token at position n_past.
-        The position and the tokens live on the device; the host waits only
-        for the returned ids (n_tokens, b) numpy."""
-        self._check_room(n_past, n_tokens)
-        tok = torch.as_tensor(first_token).to(self.device, torch.long).reshape(-1, 1)
-        pos = torch.full((), n_past, dtype=torch.int32, device=self.device)
-        out = torch.empty((n_tokens, tok.shape[0]), dtype=torch.long, device=self.device)
-        for i in range(n_tokens):
-            logits = forward(self.params, self.cfg, tok, pos.expand(tok.shape[0]), cache, pos)
-            tok = torch.argmax(logits[:, -1, :], dim=-1, keepdim=True)
-            out[i] = tok[:, 0]
-            pos += 1
-        return cache, out.cpu().numpy()
+    def decode_logits(self, cache, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """Logits (b, n_vocab) of tokens (b, 1) at position pos, a 0-d int32
+        tensor on the model's device; their cache rows are written in place."""
+        return forward(self.params, self.cfg, tokens, pos.expand(tokens.shape[0]), cache, pos)[:, -1, :]
+
+    def decode_step(self, cache, token, n_past: int):
+        """token (b, 1) at position n_past: returns (logits (b, n_vocab), cache)."""
+        self._check_room(n_past, 1)
+        token = torch.as_tensor(token).to(self.device, torch.long).reshape(-1, 1)
+        return self.decode_logits(cache, token, torch.full((), n_past, dtype=torch.int32, device=self.device)), cache
+
+    def decode_greedy(self, cache, first_token, n_past: int, n_tokens: int, graph=None):
+        """Generate n_tokens greedily from first_token at position n_past, as
+        one CUDA graph replay a token on the card (graph=False: eagerly; see
+        common.decode_loop).  Returns (cache, ids (n_tokens, b) numpy)."""
+        return decode_loop(self, cache, first_token, n_past, n_tokens, graph=graph)
+
+    def decode_sampled(self, cache, first_token, n_past: int, n_tokens: int, key, **sampler_kw):
+        """On-device top-k/top-p sampled decode, key a torch.Generator on the
+        model's device (see common.make_sampled_decode)."""
+        return make_sampled_decode(self)(cache, first_token, n_past, n_tokens, key, **sampler_kw)
 
     def generate(self, prompt_tokens: np.ndarray, n_tokens: int, sampler=None, key=None):
         from .common import generate

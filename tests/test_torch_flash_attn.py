@@ -167,6 +167,23 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     assert flash_attn.launches == before  # CPU tensors: the plain version, nothing launched
 
 
+def test_handed_ranges_are_checked():
+    """J on the card reads the mask's tile ranges, which a model computes
+    once per forward for all its layers: handed ranges give what the call's
+    own ranges give, in every type set, and ranges that are not the mask's
+    (nq, nkv) tiles raise on any device."""
+    q, k, v = (torch.from_numpy(a) for a in _make(1, 4, 4, 100, 164, 64, seed=12))
+    mask = torch.from_numpy(_offset_causal(100, 164, 64, fill=-1e30))
+    ranges = flash_attn.mask_ranges(mask)
+    for q_, k_, v_ in ((q, k, v), (q, k, v.bfloat16()), (q.bfloat16(), k.bfloat16(), v.bfloat16())):
+        want = flash_attention(q_, k_, v_, mask=mask, scale=0.125)
+        assert torch.equal(flash_attention(q_, k_, v_, mask=mask, scale=0.125, ranges=ranges), want)
+    for bad in (ranges[:, :1], ranges.double(), ranges.transpose(1, 2),
+                flash_attn.mask_ranges(torch.zeros((100, 100)))):
+        with pytest.raises(ValueError):
+            flash_attention(q, k, v, mask=mask, ranges=bad)
+
+
 def test_split_hi_lo_planes():
     """Helper of J: f32 k as bf16 planes (2, b, h, n, d), hi = bf16(x) and
     lo = bf16(x - hi), bit for bit; hi + lo gives x back to 2^-16 of |x|.

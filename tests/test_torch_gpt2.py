@@ -20,6 +20,7 @@ from ggml_tpu.models.common import causal_mask as jax_causal_mask
 from ggml_tpu.opt.finetune import make_lm_model_fn as jax_make_lm_model_fn
 from ggml_tpu.opt.optimizer import LOSS_TYPES as JAX_LOSS_TYPES
 from ggml_tpu_torch.convert import params_from_numpy
+from ggml_tpu_torch.kernels import flash_attn
 from ggml_tpu_torch.models import gpt2
 from ggml_tpu_torch.opt.finetune import make_lm_model_fn
 from ggml_tpu_torch.opt.optimizer import LOSS_TYPES
@@ -104,6 +105,55 @@ def test_generate_gives_the_jax_greedy_tokens(models):
     want, _ = jm.decode_step(jcache, jnp.array([[9]], jnp.int32), n)
     got, _ = m.decode_step(cache, np.array([[9]]), n)
     assert got.shape == (1, SHAPE["n_vocab"]) and nmse(np.asarray(want), got.numpy()) <= 1e-10
+
+
+def test_decode_loop_matches_stepwise(models):
+    """The on-device decode loop (the step a CUDA graph captures, run eagerly
+    on the CPU) gives the ids of decode_step by hand; graph=True needs the
+    card."""
+    _, _, cfg, params = models
+    m = gpt2.GPT2(params, cfg, max_seq=24, device="cpu")
+    prompt = np.array([[5, 17, 3, 60, 22]])
+    logits, cache, n = m.prefill(m.new_cache(), prompt)
+    first = torch.argmax(logits, dim=-1, keepdim=True)
+    _, ids = m.decode_greedy(cache, first, n, 8, graph=False)
+    _, cache, _ = m.prefill(m.new_cache(), prompt)
+    tok, want = first, []
+    for pos in range(n, n + 8):
+        logits, cache = m.decode_step(cache, tok, pos)
+        tok = torch.argmax(logits, dim=-1, keepdim=True)
+        want.append(int(tok))
+    assert ids.shape == (8, 1) and ids[:, 0].tolist() == want
+    with pytest.raises(ValueError):
+        m.decode_greedy(m.new_cache(), first, n, 2, graph=True)
+
+
+def test_training_forward_computes_the_mask_ranges_once(models, monkeypatch):
+    """train_flash computes the mask's tile ranges once per forward and hands
+    the same tensor to every layer's K, L and M; logits and gradients are
+    those of the old forward, whose layers were handed none."""
+    _, _, cfg, params = models
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, SHAPE["n_vocab"], (B, T)))
+    zero = torch.zeros((), dtype=torch.int32)
+
+    def run():
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        logits, _ = gpt2.forward(leaves, cfg, tokens, zero.expand(B), None, zero, train_flash=True)
+        logits.square().mean().backward()
+        return [logits.detach()] + [leaves[k].grad for k in sorted(leaves)]
+
+    want = run()
+    handed, masks = [], []
+    attention, ranges_of = flash_attn.flash_attention_train, flash_attn.mask_ranges
+
+    def old_attention(*args, ranges=None, **kw):
+        handed.append(ranges)
+        return attention(*args, **kw)
+
+    monkeypatch.setattr(flash_attn, "flash_attention_train", old_attention)
+    monkeypatch.setattr(flash_attn, "mask_ranges", lambda mask: masks.append(mask) or ranges_of(mask))
+    assert all(torch.equal(g, w) for g, w in zip(run(), want))
+    assert len(masks) == 1 and len(handed) == SHAPE["n_layer"] and all(r is handed[0] for r in handed)
 
 
 def test_gelu_fp16_matches_jax():

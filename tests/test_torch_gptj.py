@@ -22,7 +22,9 @@ import jax.numpy as jnp
 from ggml_tpu.dtypes import GGMLType as JGGMLType
 from ggml_tpu.models import gptj as jgptj
 from ggml_tpu_torch.convert import params_from_numpy
+from ggml_tpu_torch.kernels import flash_attn
 from ggml_tpu_torch.models import gptj
+from ggml_tpu_torch.sampling import sample_top_k_top_p
 from tests.test_torch_rules import nmse, params_to_numpy
 
 CFG = dict(n_vocab=512, n_ctx=256, n_embd=512, n_head=4, n_layer=2, n_rot=32,
@@ -111,8 +113,9 @@ def test_greedy_decode_matches_jax(models):
 
 
 def test_decode_loop_matches_stepwise(models):
-    """The wrapper's on-device loop (position and tokens kept on the device)
-    gives the ids of stepping forward() by hand."""
+    """The wrapper's on-device loop (position, tokens, step index and ids
+    kept on the device: the step a CUDA graph captures, run eagerly on the
+    CPU) gives the ids of stepping forward() by hand."""
     _, tm = models
     prompt = _prompt(5)
     cache = tm.new_cache(dtype=torch.float32)
@@ -128,6 +131,8 @@ def test_decode_loop_matches_stepwise(models):
         want.append(int(tok))
         pos += 1
     assert ids.shape == (16, 1) and ids[:, 0].tolist() == want
+    with pytest.raises(ValueError):  # a CUDA graph needs the card
+        tm.decode_greedy(tm.new_cache(torch.float32), first, n_past, 2, graph=True)
 
     # generate: prefill + the same loop over the model's default (bf16) cache
     logits, cache, n_past = tm.prefill(tm.new_cache(), prompt)
@@ -136,12 +141,37 @@ def test_decode_loop_matches_stepwise(models):
     assert tm.generate(prompt, 17) == [int(first)] + ids[:, 0].tolist()
 
 
+def test_flash_prefill_computes_the_mask_ranges_once(models, monkeypatch):
+    """The flash prefill computes the mask's tile ranges once per forward and
+    hands the same tensor to every layer; its logits are those of the old
+    forward, whose flash calls were handed none."""
+    _, tm = models
+    cfg = dataclasses.replace(tm.cfg, use_flash_prefill=True)
+    toks = torch.from_numpy(_prompt(40)).long()
+    zero = torch.zeros((), dtype=torch.int32)
+    run = lambda: gptj.forward(tm.params, cfg, toks, zero.expand(1), tm.new_cache(torch.float32), zero, prefill=True)
+    want = run()
+    handed, masks = [], []
+    attention, ranges_of = flash_attn.flash_attention, flash_attn.mask_ranges
+
+    def old_attention(*args, ranges=None, **kw):
+        handed.append(ranges)
+        return attention(*args, **kw)
+
+    monkeypatch.setattr(flash_attn, "flash_attention", old_attention)
+    monkeypatch.setattr(flash_attn, "mask_ranges", lambda mask: masks.append(mask) or ranges_of(mask))
+    assert torch.equal(run(), want)
+    assert len(masks) == 1 and len(handed) == CFG["n_layer"] and all(r is handed[0] for r in handed)
+    assert torch.equal(handed[0], ranges_of(masks[0]))
+
+
 def test_generate_and_limits(models):
     _, tm = models
     out = tm.generate(_prompt(3), 6)
     assert len(out) == 6 and all(0 <= t < CFG["n_vocab"] for t in out)
-    with pytest.raises(NotImplementedError):
-        tm.generate(_prompt(3), 4, sampler=lambda logits, key: (logits, key))
+    sampled = tm.generate(_prompt(3), 4, sampler=lambda logits, gen: sample_top_k_top_p(logits, gen, top_k=8),
+                          key=torch.Generator().manual_seed(0))
+    assert len(sampled) == 4 and all(0 <= t < CFG["n_vocab"] for t in sampled)
     with pytest.raises(ValueError):
         tm.decode_greedy(tm.new_cache(torch.float32), torch.zeros((1, 1), dtype=torch.long),
                          MAX_SEQ - 2, 3)

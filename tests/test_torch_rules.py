@@ -82,7 +82,7 @@ def test_port_modules_listed():
                  "ggml_tpu_torch.kernels.flash_attn",
                  "ggml_tpu_torch.models.gptj", "ggml_tpu_torch.models.gpt2", "ggml_tpu_torch.convert",
                  "ggml_tpu_torch.opt.dataset", "ggml_tpu_torch.opt.optimizer", "ggml_tpu_torch.opt.finetune",
-                 "ggml_tpu_torch.cli.finetune"):
+                 "ggml_tpu_torch.cli.finetune", "ggml_tpu_torch.sampling"):
         assert want in names
 
 
