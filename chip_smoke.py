@@ -6,6 +6,7 @@
     python3 chip_smoke.py --flash-times           # phases 1, 2 and kernel J's and its mask ranges' times only
     python3 chip_smoke.py --train-times           # phases 1, 2 and kernels K, L, M's times at the training shapes only
     python3 chip_smoke.py --gemv-times            # phases 1, 2 and the GEMV kernels' times at the decode shapes only
+    python3 chip_smoke.py --front-end             # phases 1, 2 and the text front end (4i) only
 
 Phases (any failure exits non-zero without the result line):
 1. the card, as nvidia-smi reports its name and power limit;
@@ -36,7 +37,12 @@ Phases (any failure exits non-zero without the result line):
    moments, fused cross entropy, flash attention through kernels K, L, M),
    counting every launch, and profile one step; (h) a tiny f32 GPT-2 on the
    card against the same model on the CPU: loss, every gradient through the
-   flash kernels, 3 AdamW steps;
+   flash kernels, 3 AdamW steps; (i) the text front end: write a GPT-J-6B
+   GGUF (Q4_K blocks, a byte-level BPE vocabulary of 50400 entries), run
+   `python -m ggml_tpu_torch.cli.generate --quantized` on it, then load it
+   here: the CLI's greedy text, a seeded sampled request twice, a grammar-
+   constrained request, perplexity through the planes and dense bf16, and
+   the dense model's graphed decode beside its floor;
 5. one JSON line listing every kernel, then the result line.
 
 Runs only where torch.cuda.is_available(); it imports nothing of JAX.
@@ -971,9 +977,12 @@ def profile_decode_graphed(torch, np, model, steps: int = 32, prompt: int = 8) -
             for name in ("gemv_sm90_kernel", "decode_attn_kernel")}
     graph_launches = sum(e.count for e in prof.key_averages() if e.key.startswith("cudaGraphLaunch"))
     busy = total_us / steps / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
     trace = dict(steps=steps, prompt=prompt, host_ms_per_token=host_ms, device_ms_per_token=busy,
                  idle_share=1.0 - busy / host_ms, graph_launches_per_token=graph_launches / steps,
-                 port_kernels_ms_per_token=ours, other_device_ms_per_token=busy - sum(ours.values()))
+                 port_kernels_ms_per_token=ours, other_device_ms_per_token=busy - sum(ours.values()),
+                 top_kernels_ms_per_token={e.key[:80]: e.self_device_time_total / steps / 1e3 for e in top},
+                 top_kernels_calls_per_token={e.key[:80]: e.count / steps for e in top})
     print(f"  graphed decode, {steps} steps at pos {prompt}..{prompt + steps - 1}: host {host_ms:.3f} ms/token, "
           f"device busy {busy:.3f} ms/token (idle {trace['idle_share'] * 100:.1f} %), "
           f"{trace['graph_launches_per_token']:.2f} graph launches/token; port kernels "
@@ -1210,6 +1219,219 @@ def phase_tiny_train(torch, np) -> dict:
     return dict(loss_nmse=loss_nmse, worst_grad_nmse=grad_nmse, worst_param_nmse_after_3_steps=param_nmse)
 
 
+# the text the phase-4i vocabulary learns its merges from, its prompts and its
+# perplexity stream
+FRONT_END_TEXT = (
+    "The river had been rising for three days when the ferryman decided that the old boat would make one more "
+    "crossing before the bridge was closed. He checked the ropes, counted the oars, and looked at the grey sky "
+    "as if it owed him an answer. On the far bank a small crowd was waiting: a teacher with a bag of books, two "
+    "farmers who wanted to sell their apples in town, a girl carrying a cage with a sleeping cat, and a "
+    "traveller nobody knew. It is not far, the ferryman said, and the water is slower than it looks. Nobody "
+    "believed him, but everybody climbed in. Halfway across, the current turned the boat around twice, and the "
+    "apples rolled from one side to the other while the cat woke up and complained about it. The teacher "
+    "started to read aloud, partly to calm the children and partly to calm herself, a story about a city built "
+    "on islands where people travelled only by water and measured the time of day by the colour of the waves. "
+    "When they reached the other side, the traveller paid with a coin that none of them had seen before, "
+    "thanked the ferryman in a language he did not know, and walked into the rain. In the years that followed, "
+    "people in the village told the story many times, and each time the river was a little wider, the storm a "
+    "little darker, and the coin a little brighter, until the children believed that the ferryman had once "
+    "carried a king. He never corrected them. He only said that every crossing is different, that the water "
+    "remembers nothing, and that a good boat is worth more than a fast one."
+)
+# lowercase words and spaces: the placeholder tokens of the phase-4i
+# vocabulary are lowercase words, so random weights meet it within the
+# sampler's scan of 512 candidates
+FRONT_END_GRAMMAR = "root ::= [a-z] [a-z ]*"
+
+
+def _placeholders(taken: set, n: int) -> list[str]:
+    """n lowercase pseudo-words not in `taken`, every other one after a space
+    symbol: the rest of a byte-level vocabulary of word pieces."""
+    out, i = [], 0
+    while len(out) < n:
+        word, j = "", i
+        while True:
+            word = chr(ord("a") + j % 26) + word
+            j = j // 26 - 1
+            if j < 0:
+                break
+        tok = ("\u0120" if i % 2 else "") + word
+        if tok not in taken:
+            out.append(tok)
+        i += 1
+    return out
+
+
+def phase_front_end(torch, np) -> dict:
+    """4i: the text front end at GPT-J-6B's published widths, from a GGUF
+    file this phase writes with the port's writer (Q4_K blocks from
+    random_blocks, F32 norms and biases, a byte-level BPE vocabulary of 50400
+    entries: the 256 byte symbols, the merges learned from FRONT_END_TEXT,
+    lowercase placeholder words, <|endoftext|> at 50256).  The generate CLI
+    runs as a user runs it (a subprocess, --quantized --top-k 1 --verbose);
+    then in this process, counting launches, the Q4_K model from the same
+    file: the greedy text the CLI printed, a sampled request twice (the CLI's
+    decode: the graphed sampled loop), a grammar-constrained request (the
+    eager host loop), perplexity over 3072 tokens at window 1024, stride 512;
+    then the file loaded dense bf16 (the CLI's default load): the same
+    perplexity (|dppl|/ppl < 1 %) and a graphed greedy decode beside its
+    floor.  The file lives in a temporary directory removed at the end."""
+    import os
+    import shutil
+    import tempfile
+
+    from ggml_tpu_torch.cli import generate as cli
+    from ggml_tpu_torch.grammar import GrammarSampler
+    from ggml_tpu_torch.models import gptj
+    from ggml_tpu_torch.models.registry import load_model
+    from ggml_tpu_torch.ppl import perplexity
+    from ggml_tpu_torch.quant.planar import PlanarWeight
+    from ggml_tpu_torch.tokenizer import BPETokenizer, byte_level_vocab, learn_merges
+
+    cfg = gptj.GPTJConfig()  # EleutherAI/gpt-j-6b
+    merges = learn_merges(FRONT_END_TEXT, 100_000)  # until every word is one symbol
+    tokens = byte_level_vocab(merges)
+    eos = 50256
+    fill = _placeholders(set(tokens), cfg.n_vocab - len(tokens) - 1)
+    tokens = tokens + fill[: eos - len(tokens)] + ["<|endoftext|>"] + fill[eos - len(tokens):]
+    check(len(tokens) == cfg.n_vocab and tokens[eos] == "<|endoftext|>" and len(set(tokens)) == len(tokens),
+          f"vocabulary of {len(tokens)} entries")
+    tok = BPETokenizer(tokens, merges)
+    prompt = " ".join(FRONT_END_TEXT.split()[:48])
+    prompt_ids = np.asarray([tok.encode(prompt)], np.int32)
+    check(prompt_ids.shape[1] > 32 and tok.decode(prompt_ids[0]) == prompt, f"prompt of {prompt_ids.shape[1]} tokens")
+    stream = np.asarray(tok.encode(FRONT_END_TEXT) * 16, np.int32)[:3072]
+    check(len(stream) == 3072, f"perplexity stream of {len(stream)} tokens")
+    out = dict(n_merges=len(merges), prompt_tokens=int(prompt_ids.shape[1]))
+
+    tmp = tempfile.mkdtemp(prefix="gptj6b-gguf-")
+    try:
+        path = os.path.join(tmp, "gpt-j-6b-q4_k.gguf")
+        t0 = time.perf_counter()
+        gptj.write_random_gguf(path, cfg, seed=0, tokenizer=dict(model="gpt2", tokens=tokens, merges=merges,
+                                                                   eos_token_id=eos))
+        out["gguf_write_s"], out["gguf_bytes"] = time.perf_counter() - t0, os.path.getsize(path)
+        print(f"  wrote {out['gguf_bytes'] / 1e9:.3f} GB of GGUF ({len(merges)} merges) in {out['gguf_write_s']:.1f}s")
+
+        # the CLI as a user runs it
+        cmd = [sys.executable, "-m", "ggml_tpu_torch.cli.generate", path, "-p", prompt, "-n", "64", "--quantized",
+               "--top-k", "1", "--seed", "0", "--verbose"]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        out["cli_wall_s"] = time.perf_counter() - t0
+        check(r.returncode == 0, f"the generate CLI exited {r.returncode}:\n{r.stderr[-4000:]}")
+        load = re.search(r"load time =\s*([\d.]+) ms", r.stderr)
+        pred = re.search(r"predict time =\s*([\d.]+) ms / ([\d.]+) ms per token", r.stderr)
+        check(load is not None and pred is not None, f"no timing lines in the CLI's stderr:\n{r.stderr[-2000:]}")
+        out["cli_load_s"], out["cli_predict_ms"], out["cli_ms_per_token"] = (
+            float(load[1]) / 1e3, float(pred[1]), float(pred[2]))
+        report = re.findall(r"^\s+(q4|q8)\s+K=(\d+)\s+N=(\d+)\s+(gemv-M|matmul-M) -> (.+)$", r.stderr, re.M)
+        out["cli_report"] = [" ".join(x) for x in report]
+        check({(c, p) for *_, c, p in report} == {("gemv-M", "q4k_gemv_qact"), ("matmul-M", "q4k_matmul")},
+              f"kernel report {report}")
+        print(f"  CLI (python -m ggml_tpu_torch.cli.generate --quantized --top-k 1 -n 64): exit 0 in "
+              f"{out['cli_wall_s']:.1f}s, load {out['cli_load_s']:.1f}s, predict {out['cli_predict_ms']:.1f} ms = "
+              f"{out['cli_ms_per_token']:.2f} ms/token (prefill and graph capture included); report: "
+              + "; ".join(out["cli_report"]))
+
+        # the same file in this process, every launch counted
+        reset_launches()
+        t0 = time.perf_counter()
+        model = gptj.GPTJ.from_gguf(path, max_seq=512, device="cuda")  # the CLI's max_seq
+        torch.cuda.synchronize()
+        out["q4k_load_s"] = time.perf_counter() - t0
+        plane_bytes = sum(v.plane_bytes() for k, v in model.params.items()
+                          if isinstance(v, PlanarWeight) and k != "token_embd.weight")
+        ids = model.generate(prompt_ids, 64)
+        check(r.stdout == prompt + tok.decode(ids) + "\n", f"CLI text {r.stdout[-200:]!r} differs from "
+              f"{prompt + tok.decode(ids)!r}")
+        first, rest, t0, t1, t2, finite, event_ms = greedy_request(torch, model, prompt_ids, 63, graph=True)
+        check(finite and [first] + rest == ids, "a second greedy request gave other ids")
+        out["q4k_prefill_ms"], out["q4k_ms_per_token"] = (t1 - t0) * 1e3, (t2 - t1) * 1e3 / 63
+        out["q4k_plane_floor_ms"] = plane_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"  Q4_K from the file: loaded in {out['q4k_load_s']:.1f}s; the CLI's text again; prefill "
+              f"{out['q4k_prefill_ms']:.1f} ms, graphed decode {out['q4k_ms_per_token']:.2f} ms/token "
+              f"({event_ms:.2f} between CUDA events; plane floor {out['q4k_plane_floor_ms']:.3f})")
+
+        sampled = []
+        for _ in range(2):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(1234)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = cli.decode(model, prompt_ids, 64, gen, temperature=0.8, top_k=40, top_p=0.95)
+            sampled.append((got, (time.perf_counter() - t0) * 1e3 / 64))
+        check(sampled[0][0] == sampled[1][0] and len(sampled[0][0]) == 64, "the seeded sampled request did not repeat")
+        out["sampled_ms_per_token"] = [ms for _, ms in sampled]
+        out["sampled_text"] = tok.decode(sampled[0][0])[:120]
+        print(f"  sampled (temperature 0.8, top_k 40, top_p 0.95, seed 1234) twice: the same text, "
+              f"{sampled[0][1]:.2f} and {sampled[1][1]:.2f} ms/token with the prefill (the first captures its graph)")
+
+        sampler = GrammarSampler(FRONT_END_GRAMMAR, tok, eos_id=eos)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gids = model.generate(prompt_ids, 16, sampler=sampler)
+        out["grammar_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / 16
+        while gids and gids[-1] == eos:
+            gids = gids[:-1]
+        text = tok.decode(gids)
+        check(len(gids) > 0 and re.fullmatch(r"[a-z][a-z ]*", text) is not None, f"grammar output {text!r}")
+        out["grammar_text"] = text
+        print(f"  grammar {FRONT_END_GRAMMAR!r}, 16 tokens: {text!r}, {out['grammar_ms_per_token']:.2f} ms/token "
+              "(the eager host loop, prefill included)")
+
+        def ppl_of(m):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p = perplexity(gptj.forward, m.params, m.cfg, stream, window=1024, stride=512,
+                           init_cache_fn=gptj.init_cache, cache_dtype=torch.bfloat16, device="cuda")
+            return p, time.perf_counter() - t0
+
+        out["ppl_q4k"], out["ppl_q4k_s"] = ppl_of(model)
+
+        t0 = time.perf_counter()
+        dense = load_model(path, device="cuda")  # the CLI's default: dense bf16, max_seq 512
+        torch.cuda.synchronize()
+        out["dense_load_s"] = time.perf_counter() - t0
+        out["ppl_dense"], out["ppl_dense_s"] = ppl_of(dense)
+        rel = abs(out["ppl_q4k"] - out["ppl_dense"]) / out["ppl_dense"]
+        out["ppl_rel_delta"] = rel
+        check(np.isfinite(out["ppl_q4k"]) and np.isfinite(out["ppl_dense"]) and rel < 0.01,
+              f"perplexity Q4_K planes {out['ppl_q4k']}, dense bf16 {out['ppl_dense']}")
+        print(f"  perplexity over {len(stream)} tokens (window 1024, stride 512): Q4_K planes {out['ppl_q4k']:.3f} "
+              f"({out['ppl_q4k_s']:.2f}s), dense bf16 {out['ppl_dense']:.3f} ({out['ppl_dense_s']:.2f}s), "
+              f"|dppl|/ppl {rel:.2e}")
+
+        dense_bytes = sum(v.numel() * v.element_size() for k, v in dense.params.items()
+                          if v.dim() == 2 and k != "token_embd.weight")
+        dense.generate(prompt_ids, 4)  # captures the dense decode graph
+        first, rest, t0, t1, t2, finite, event_ms = greedy_request(torch, dense, prompt_ids, 63, graph=True)
+        check(finite and len(rest) == 63, "dense greedy decode")
+        out["dense_ms_per_token"], out["dense_event_ms_per_token"] = (t2 - t1) * 1e3 / 63, event_ms
+        out["dense_bytes_per_token"] = dense_bytes
+        out["dense_floor_ms"] = dense_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"  dense bf16 from the file: loaded in {out['dense_load_s']:.1f}s; graphed greedy decode "
+              f"{out['dense_ms_per_token']:.2f} ms/token ({event_ms:.2f} between CUDA events) against a floor of "
+              f"{out['dense_floor_ms']:.3f} ({dense_bytes / 1e9:.3f} GB a token at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+        counts = launch_counts()
+        for name in ("q4k_gemv_qact", "q4k_matmul", "decode_attn", "flash_attn", "flash_split", "flash_mask_ranges"):
+            check(counts[name] > 0, f"front end: {name} was never launched on its path")
+        out["counts"] = counts
+        print(f"  launches in this process: {counts}")
+        for label, m in (("Q4_K from the file", model), ("dense bf16", dense)):
+            print(f"  {label}:")
+            trace = profile_decode_graphed(torch, np, m, prompt=prompt_ids.shape[1])
+            out[f"{label.split()[0].lower()}_graphed_trace"] = trace
+            print("    top kernels (ms, calls per token): " + "; ".join(
+                f"{k} {v:.3f}, {trace['top_kernels_calls_per_token'][k]:.0f}"
+                for k, v in trace["top_kernels_ms_per_token"].items()))
+        del model, dense
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def flash_times(torch, flash_attn) -> dict:
     """Kernel J's device time (µs) at GPT-J's 1024-token prefill, f32 q/k
     with a bf16 v and all bf16 (each call computes its mask ranges), then its
@@ -1370,6 +1592,14 @@ def main() -> int:
                                                      "count": torch.cuda.device_count()}}))
             return 0
 
+        if sys.argv[1:] == ["--front-end"]:
+            print("== 4i. the text front end: GPT-J-6B from a Q4_K GGUF file, the generate CLI, perplexity")
+            front = phase_front_end(torch, np)
+            print(json.dumps(dict(card=card, front_end=front)))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
+
         if sys.argv[1:] == ["--long-decode-profile"]:
             print("== 4. GPT-J-6B Q4_K (synthesized compact planes), decode after a 1088-token prompt, profiled")
             from ggml_tpu_torch.dtypes import GGMLType
@@ -1435,6 +1665,8 @@ def main() -> int:
         runs.append(phase_train(torch, np))
         print("== 4h. tiny f32 GPT-2 training on the card against the CPU")
         tiny["gpt2_train"] = phase_tiny_train(torch, np)
+        print("== 4i. the text front end: GPT-J-6B from a Q4_K GGUF file, the generate CLI, perplexity")
+        runs.append(phase_front_end(torch, np))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -10,8 +10,11 @@ ggml_tpu_torch` light):
                                          Q8_0, Q5_0, Q5_1, Q5_K, Q6_K
     ggml_tpu_torch.planar_matmul         quantized matmul through the CUDA kernels
     ggml_tpu_torch.fused_decode_attention  single-token attention kernel
-    ggml_tpu_torch.models.gptj           GPT-J (greedy generation)
+    ggml_tpu_torch.models.gptj           GPT-J (greedy and sampled generation)
+    ggml_tpu_torch.models.registry       load_model / load_tokenizer from a GGUF file
     ggml_tpu_torch.params_from_numpy     weights carried over from ggml_tpu
+
+Command lines: python -m ggml_tpu_torch.cli.{generate,gguf_dump,finetune}.
 """
 
 __version__ = "0.1.0"

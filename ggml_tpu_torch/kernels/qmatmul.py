@@ -549,6 +549,31 @@ def select_kernel(pw: PlanarWeight, m: int) -> str:
     return "q8_gemv"  # compact planes with no legal tile are expanded first
 
 
+# kernel-selection observability (qmatmul.py:875-900, the GGML_SCHED_DEBUG
+# assignment-dump idiom): planar_matmul records on the host which wrappers
+# each (kind, K, N, M class) site ran, in the order of first use (the gemv-M
+# class holds two wrappers for the compact Q4_K planes: M = 1 and 2..32).  A
+# captured decode graph records at its capture; a replay runs no Python and
+# records nothing.
+_selection_log: dict[tuple, list[str]] = {}
+
+
+def kernel_selection_report() -> list[str]:
+    """One line per distinct matmul site run so far: which kernels ran.
+    Printed by `python -m ggml_tpu_torch.cli.generate --verbose`; reset with
+    _selection_log.clear()."""
+    return [
+        f"{kind:>3} K={k:<6} N={n:<6} {mclass:>7} -> {', '.join(paths)}"
+        for (kind, k, n, mclass), paths in sorted(_selection_log.items())
+    ]
+
+
+def _record_selection(kind: str, k: int, n: int, m: int, path: str):
+    paths = _selection_log.setdefault((kind, k, n, "gemv-M" if m <= GEMV_MAX_M else "matmul-M"), [])
+    if path not in paths:
+        paths.append(path)
+
+
 def planar_matmul(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     """y = x @ W^T with W a planar-repacked quantized weight.
 
@@ -562,6 +587,7 @@ def planar_matmul(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
         raise ValueError(f"K mismatch: x {k} vs weight {pw.k}")
     xb = x.reshape(-1, k).to(torch.bfloat16)
     name = select_kernel(pw, xb.shape[0])
+    _record_selection(pw.kind, k, pw.n, xb.shape[0], name)
     if name in ("q8_gemv", "q4_gemv") and pw.d is not None:
         pw = expand_compact(pw)
     y = _WRAPPERS[name](xb, pw)

@@ -16,6 +16,8 @@ Linear weights are (out_features, in_features), applied as x @ W^T.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any
 
@@ -66,11 +68,16 @@ def load_params(g: GGUFFile, dtype=torch.float32, keep_quantized: bool = False, 
     gather.  Ported plane layouts: Q4_0, Q4_1, Q2_K, Q3_K, Q4_K (packed nibbles
     where (K/2) % G == 0, else int8), Q5_0, Q5_1, Q8_0, Q5_K, Q6_K (int8); any
     other quantized type (the IQ* and TQ* families) raises NotImplementedError.
+
+    The tensors are dequantized or repacked in numpy on up to 8 threads (numpy
+    releases the interpreter lock in the array work): a 6B model's Q4_K file
+    takes minutes on one core.  Each tensor's result does not depend on the
+    order, and the dict keeps the file's order.
     """
     from ..quant.planar import repack
 
-    params: dict[str, Any] = {}
-    for name, info in g.tensors.items():
+    def load(item) -> list:
+        name, info = item
         is_matmul_weight = (
             name.endswith(".weight")
             and len(info.shape) == 2
@@ -80,11 +87,16 @@ def load_params(g: GGUFFile, dtype=torch.float32, keep_quantized: bool = False, 
         if keep_quantized and is_matmul_weight and is_quantized(info.ggml_type):
             n, k = info.shape
             pw = repack(g.tensor_bytes(name), GGMLType(info.ggml_type), (int(n), int(k)))
-            params[name] = pw.to(device)
+            out = [(name, pw.to(device))]
             if name == "token_embd.weight":  # dense copy for the row gather
-                params["token_embd.weight@dense"] = torch.from_numpy(g.to_float32(name)).to(device, dtype)
-        else:
-            params[name] = torch.from_numpy(g.to_float32(name)).to(device, dtype)
+                out.append(("token_embd.weight@dense", torch.from_numpy(g.to_float32(name)).to(device, dtype)))
+            return out
+        return [(name, torch.from_numpy(g.to_float32(name)).to(device, dtype))]
+
+    params: dict[str, Any] = {}
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        for pairs in pool.map(load, g.tensors.items()):
+            params.update(pairs)
     return params
 
 

@@ -30,6 +30,7 @@ from ..dtypes import GGMLType
 from ..gguf import GGUFFile
 from .common import (cache_write, causal_mask, decode_loop, init_layer_cache, layer_norm as _layer_norm,
                      linear as _linear, make_sampled_decode)
+from .gpt2 import _gelu_fp16
 
 
 @dataclass(frozen=True)
@@ -45,7 +46,7 @@ class GPTJConfig:
     # use_flash_prefill) take the flash-attention prefill
     use_flash_prefill: bool = False
     flash_min_seq: int = 1024
-    # the reference CPU's fp16-table gelu (GGML_GELU_FP16); not ported yet
+    # the reference CPU's fp16-table gelu (GGML_GELU_FP16): out = fp16(gelu(fp16(x)))
     gelu_fp16: bool = False
     # q/k weight columns were permuted at load (rope_permutation) so RoPE
     # runs deinterleaved — see _rope_deinterleaved
@@ -213,8 +214,9 @@ def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torc
         else:
             ff = _linear(h, params[pre + "ffn_up.weight"], params[pre + "ffn_up.bias"])
         if cfg.gelu_fp16:
-            raise NotImplementedError("gelu_fp16 (the reference CPU's fp16 gelu table) is not ported yet")
-        ff = 0.5 * ff * (1.0 + torch.tanh(0.79788456080286535588 * ff * (1.0 + 0.044715 * ff * ff)))
+            ff = _gelu_fp16(ff)
+        else:
+            ff = 0.5 * ff * (1.0 + torch.tanh(0.79788456080286535588 * ff * (1.0 + 0.044715 * ff * ff)))
         ff = _linear(ff, params[pre + "ffn_down.weight"], params[pre + "ffn_down.bias"])
 
         x = x + attn_out + ff
@@ -236,16 +238,18 @@ class GPTJ:
         self.decode_graphs: dict = {}  # cache dtype -> common.DecodeGraph, made at the first graphed decode
 
     @classmethod
-    def from_gguf(cls, path, dtype=torch.bfloat16, rope_deinterleaved: bool = True, device="cuda", **kw):
-        """Load a GGUF file; its quantized matmul weights (Q4_0, Q4_1, Q2_K,
-        Q3_K, Q4_K, Q8_0, Q5_0, Q5_1, Q5_K, Q6_K, alone or mixed) stay planes
-        on `device`."""
+    def from_gguf(cls, path, dtype=torch.bfloat16, keep_quantized: bool = True, rope_deinterleaved: bool = True,
+                  device="cuda", **kw):
+        """Load a GGUF file onto `device`: its quantized matmul weights (Q4_0,
+        Q4_1, Q2_K, Q3_K, Q4_K, Q8_0, Q5_0, Q5_1, Q5_K, Q6_K, alone or mixed)
+        stay planes, or, with keep_quantized=False, every tensor is
+        dequantized to `dtype`."""
         from ..quant.planar import PlanarWeight, permute_output_columns
         from .gpt2 import load_params  # same GGUF tensor-naming loader
 
         with GGUFFile(path) as g:
             cfg = config_from_gguf(g)
-            params = load_params(g, dtype, keep_quantized=True, device=device)
+            params = load_params(g, dtype, keep_quantized=keep_quantized, device=device)
         if rope_deinterleaved:
             # on-load q/k column permutation -> contiguous-slice RoPE on the
             # decode hot path (exact: see _rope_deinterleaved)
@@ -401,3 +405,58 @@ def synth_quantized_params(cfg: GPTJConfig, ggml_type: GGMLType = GGMLType.Q4_K,
         p[pre + "ffn_up.bias"] = zeros_4e
         p[pre + "ffn_down.bias"] = zeros_e
     return p
+
+
+def write_random_gguf(path, cfg: GPTJConfig, seed: int = 0, tokenizer: dict | None = None):
+    """Write a GPT-J GGUF file as tools/convert_hf_gptj.py lays one out, its
+    2-D matmul weights Q4_K blocks from quant/reference.random_blocks, the
+    norms (ones) and biases (zeros) F32 — a file for running the GGUF path at
+    any width without a checkpoint.  Each block's d is drawn in [4e-5,
+    1.2e-4) and its dmin is 7.5 d, which centres its weights d * (sc * q -
+    7.5 m) on zero with a std of about 258 d = 0.02, a trained model's
+    scale.  tokenizer: GGUF tokenizer.ggml.* keys (without the prefix) ->
+    values, written as they are."""
+    from ..gguf import GGUFWriter
+    from ..quant.reference import random_blocks
+
+    rng = np.random.default_rng(seed)
+    w = GGUFWriter()
+    w.add_string("general.architecture", "gptj")
+    for key, val in (("context_length", cfg.n_ctx), ("embedding_length", cfg.n_embd),
+                     ("attention.head_count", cfg.n_head), ("block_count", cfg.n_layer),
+                     ("vocab_size", cfg.n_vocab), ("rope.dimension_count", cfg.n_rot)):
+        w.add_u32(f"gptj.{key}", val)
+    for key, val in (tokenizer or {}).items():
+        if isinstance(val, str):
+            w.add_string(f"tokenizer.ggml.{key}", val)
+        elif isinstance(val, int):
+            w.add_u32(f"tokenizer.ggml.{key}", val)
+        else:
+            w.add_array(f"tokenizer.ggml.{key}", val)
+
+    def q4k(name, n, k):
+        b = random_blocks(GGMLType.Q4_K, n * k // 256, rng, scale=8e-5)
+        d = b[:, 0:2].copy().view("<f2").astype(np.float32)
+        b[:, 2:4] = (d * np.float32(7.5)).astype("<f2").view(np.uint8)
+        w.add_tensor(name, b, GGMLType.Q4_K, raw_shape_ne=(k, n))
+
+    def f32(name, value, n):
+        w.add_tensor(name, np.full((n,), value, np.float32))
+
+    E = cfg.n_embd
+    q4k("token_embd.weight", cfg.n_vocab, E)
+    f32("output_norm.weight", 1.0, E)
+    f32("output_norm.bias", 0.0, E)
+    q4k("output.weight", cfg.n_vocab, E)
+    f32("output.bias", 0.0, cfg.n_vocab)
+    for i in range(cfg.n_layer):
+        pre = f"blk.{i}."
+        f32(pre + "attn_norm.weight", 1.0, E)
+        f32(pre + "attn_norm.bias", 0.0, E)
+        for name in ("attn_q", "attn_k", "attn_v", "attn_output"):
+            q4k(pre + name + ".weight", E, E)
+        q4k(pre + "ffn_up.weight", 4 * E, E)
+        f32(pre + "ffn_up.bias", 0.0, 4 * E)
+        q4k(pre + "ffn_down.weight", E, 4 * E)
+        f32(pre + "ffn_down.bias", 0.0, E)
+    w.write(path)

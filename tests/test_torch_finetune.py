@@ -17,9 +17,11 @@ from ggml_tpu.models import gpt2 as jax_gpt2
 from ggml_tpu.opt import AdamWConfig as JaxAdamWConfig
 from ggml_tpu.opt import finetune as jax_finetune
 from ggml_tpu_torch.cli import finetune as cli
+from ggml_tpu_torch.dtypes import GGMLType
 from ggml_tpu_torch.gguf import GGUFFile, GGUFWriter
 from ggml_tpu_torch.models import gpt2
 from ggml_tpu_torch.opt import AdamWConfig, finetune
+from ggml_tpu_torch.quant.reference import random_blocks
 
 SHAPE = dict(n_vocab=64, n_ctx=32, n_embd=32, n_head=4, n_layer=2)
 
@@ -50,7 +52,8 @@ def tiny_gguf(tmp_path_factory):
 def test_gguf_writer_writes_the_jax_bytes(tmp_path, alignment):
     rng = np.random.default_rng(0)
     tensors = {"a": rng.standard_normal((3, 5)).astype(np.float32), "b": rng.standard_normal(7).astype(np.float32),
-               "c": rng.standard_normal((4, 2, 6)).astype(np.float32)}
+               "c": rng.standard_normal((4, 2, 6)).astype(np.float32),
+               "q": random_blocks(GGMLType.Q4_K, 6, rng)}
     files = []
     for cls in (JaxGGUFWriter, GGUFWriter):
         w = cls(alignment=alignment)
@@ -65,11 +68,15 @@ def test_gguf_writer_writes_the_jax_bytes(tmp_path, alignment):
         w.add_tensor("b", tensors["b"])
         w.add_tensor("c", tensors["c"], 1)  # F16
         w.add_tensor("h", tensors["a"].astype(np.float16))
+        w.add_tensor("q", tensors["q"], GGMLType.Q4_K, raw_shape_ne=(512, 3))  # Q4_K blocks as they are
         files.append(tmp_path / f"{cls.__module__.split('.')[0]}.gguf")
         w.write(files[-1])
     assert files[0].read_bytes() == files[1].read_bytes()
     with pytest.raises(NotImplementedError):
         GGUFWriter().add_tensor("q", tensors["a"], 12)  # Q4_K
+    for bad in (dict(), dict(raw_shape_ne=(512, 2))):  # raw bytes need their ne, and all of their bytes
+        with pytest.raises(ValueError):
+            GGUFWriter().add_tensor("q", tensors["q"], 12, **bad)
 
 
 def test_finetune_matches_jax_and_the_output_loads_in_both(tiny_gguf, tmp_path):

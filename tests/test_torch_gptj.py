@@ -182,6 +182,23 @@ def test_generate_and_limits(models):
     assert logits.shape == (1, 4, CFG["n_vocab"]) and bool(torch.isfinite(logits).all())
     with pytest.raises(NotImplementedError):  # per-slot cache positions: batched serving, a later slice
         gptj.forward(tm.params, tm.cfg, toks, zero.expand(1), tm.new_cache(torch.float32), zero.expand(1))
-    with pytest.raises(NotImplementedError):
-        gptj.forward(tm.params, dataclasses.replace(tm.cfg, gelu_fp16=True), toks, zero.expand(1),
-                     tm.new_cache(torch.float32), zero, prefill=True)
+
+
+def test_gelu_fp16_logits_match_jax(models):
+    """GPT-J with the reference CPU's fp16-table gelu (gelu_fp16=True) against
+    the JAX forward run op by op, a 5-token prefill, at the tolerance of
+    test_torch_gpt2.py test_gelu_fp16_matches_jax: logits NMSE <= 1e-10 (XLA's
+    tanh differs from torch's by f32 ulps, which may move an fp16 rounding of
+    gelu; on this model none moves); the logits differ from the model's
+    without it."""
+    jm, tm = models
+    prompt = _prompt(5)
+    jcfg, cfg = dataclasses.replace(jm.cfg, gelu_fp16=True), dataclasses.replace(tm.cfg, gelu_fp16=True)
+    want, _ = jgptj.forward(jm.params, jcfg, jnp.asarray(prompt), jnp.zeros((1,), jnp.int32),
+                            jm.new_cache(dtype=jnp.float32), jnp.int32(0), prefill=True)
+    zero = torch.zeros((), dtype=torch.int32)
+    got = gptj.forward(tm.params, cfg, torch.from_numpy(prompt).long(), zero.expand(1),
+                       tm.new_cache(dtype=torch.float32), zero, prefill=True).numpy()
+    assert nmse(np.asarray(want), got) <= 1e-10
+    plain, _ = _port_prefill(tm, prompt)
+    assert nmse(plain, got) > 0

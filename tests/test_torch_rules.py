@@ -67,6 +67,30 @@ def params_to_numpy(params: dict) -> dict:
             for k, v in params.items()}
 
 
+def tiny_gpt2_gguf(path, shape: dict, tokens: list[str], merges: list[str], seed: int = 9, **meta):
+    """A GPT-2 GGUF of f32 weights from the JAX init_random_params (numpy
+    draws), written by the port's writer, with a byte-level vocabulary and
+    the tokenizer.ggml.* integers in meta (eos_token_id, ...)."""
+    from ggml_tpu.models import gpt2 as jgpt2
+    from ggml_tpu_torch.gguf import GGUFWriter
+
+    params = jgpt2.init_random_params(jgpt2.GPT2Config(**shape), seed=seed)
+    w = GGUFWriter()
+    w.add_string("general.architecture", "gpt2")
+    for key, field in (("vocab_size", "n_vocab"), ("context_length", "n_ctx"), ("embedding_length", "n_embd"),
+                       ("attention.head_count", "n_head"), ("block_count", "n_layer")):
+        w.add_u32(f"gpt2.{key}", shape[field])
+    w.add_string("tokenizer.ggml.model", "gpt2")
+    w.add_array("tokenizer.ggml.tokens", tokens)
+    w.add_array("tokenizer.ggml.merges", merges)
+    for key, val in meta.items():
+        w.add_u32(f"tokenizer.ggml.{key}", val)
+    for name, p in params.items():
+        w.add_tensor(name, np.asarray(p))
+    w.write(path)
+    return path
+
+
 def _port_modules() -> list[str]:
     import ggml_tpu_torch
 
@@ -82,7 +106,9 @@ def test_port_modules_listed():
                  "ggml_tpu_torch.kernels.flash_attn",
                  "ggml_tpu_torch.models.gptj", "ggml_tpu_torch.models.gpt2", "ggml_tpu_torch.convert",
                  "ggml_tpu_torch.opt.dataset", "ggml_tpu_torch.opt.optimizer", "ggml_tpu_torch.opt.finetune",
-                 "ggml_tpu_torch.cli.finetune", "ggml_tpu_torch.sampling"):
+                 "ggml_tpu_torch.cli.finetune", "ggml_tpu_torch.sampling", "ggml_tpu_torch.tokenizer",
+                 "ggml_tpu_torch.grammar", "ggml_tpu_torch.ppl", "ggml_tpu_torch.models.registry",
+                 "ggml_tpu_torch.cli.generate", "ggml_tpu_torch.cli.gguf_dump"):
         assert want in names
 
 
@@ -104,12 +130,17 @@ def test_port_imports_no_jax(target):
 def test_entry_points_default_to_cuda():
     from ggml_tpu_torch.convert import params_from_numpy
     from ggml_tpu_torch.cli import finetune as cli
-    from ggml_tpu_torch.models import common, gpt2, gptj
+    from ggml_tpu_torch.cli import generate, gguf_dump
+    from ggml_tpu_torch.models import common, gpt2, gptj, registry
     from ggml_tpu_torch.opt import finetune
+    from ggml_tpu_torch.ppl import perplexity
 
     for fn in (gptj.GPTJ.__init__, gptj.GPTJ.from_gguf, gptj.synth_quantized_params,
                gptj.init_cache, common.init_layer_cache, gpt2.load_params, params_from_numpy,
-               gpt2.GPT2.__init__, gpt2.GPT2.from_gguf, gpt2.init_random_params, gpt2.init_cache, finetune):
+               gpt2.GPT2.__init__, gpt2.GPT2.from_gguf, gpt2.init_random_params, gpt2.init_cache, finetune,
+               registry.load_model, perplexity):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
     assert cli.parser().parse_args(["in.gguf", "out.gguf", "--tokens", "t.npy"]).device == "cuda"
+    assert generate.parser().parse_args(["m.gguf"]).device == "cuda"
+    assert not hasattr(gguf_dump.parser().parse_args(["m.gguf"]), "device")  # reads the file on the host only
 
