@@ -7,6 +7,7 @@
     python3 chip_smoke.py --train-times           # phases 1, 2 and kernels K, L, M's times at the training shapes only
     python3 chip_smoke.py --gemv-times            # phases 1, 2 and the GEMV kernels' times at the decode shapes only
     python3 chip_smoke.py --front-end             # phases 1, 2 and the text front end (4i) only
+    python3 chip_smoke.py --qlora                 # phases 1, 2, the GGUF writer and QLoRA fine-tuning (4j) only
 
 Phases (any failure exits non-zero without the result line):
 1. the card, as nvidia-smi reports its name and power limit;
@@ -42,7 +43,12 @@ Phases (any failure exits non-zero without the result line):
    `python -m ggml_tpu_torch.cli.generate --quantized` on it, then load it
    here: the CLI's greedy text, a seeded sampled request twice, a grammar-
    constrained request, perplexity through the planes and dense bf16, and
-   the dense model's graphed decode beside its floor;
+   the dense model's graphed decode beside its floor; (j) QLoRA fine-tuning
+   of GPT-J-6B from the same file: the base as Q4_K planes, finetune_lora
+   (rank 8, batch 4 x 128, 8 AdamW steps) through kernel C (exactly 169
+   launches a step), finite falling losses, the adapter GGUF round trip, the
+   base unchanged, peak memory, a profiled step by class; then a tiny GPT-J
+   QLoRA run on the card against the CPU and a checkpoint resume on the card;
 5. one JSON line listing every kernel, then the result line.
 
 Runs only where torch.cuda.is_available(); it imports nothing of JAX.
@@ -57,6 +63,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -357,6 +364,10 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         gemv_case("q8_gemv", 7, 4224, 600, 640, fmt="q6_k_synth", time_it=False, x_row=x_row)
         gemv_case("q8_gemv_sb", 7, 4096, 600, 640, fmt="q6_k", time_it=False, x_row=x_row)
         gemv_case("q8_gemv_sb", 1, 4096, 600, 640, fmt="q5_k", time_it=False, x_row=x_row)
+    # C at QLoRA's M = 512 (batch 4 x 128) over the GGUF file's shapes (q, k,
+    # v, attn_output; ffn_up; ffn_down; the head) and the fused qkvup's
+    for shape in (attn_out, (4096, 16384, 16384), ffn_down, head, qkvup):
+        gemv_case("q4k_matmul", 512, *shape)
     for m in (100, 1024):  # C over multiplied-out planes, and at the long prompt's M
         gemv_case("q4k_matmul", m, *qkvup, fmt="q4_0")
     gemv_case("q4k_matmul", 100, *qkvup, fmt="q3_k")
@@ -870,7 +881,7 @@ def flash_against_plain_attention(torch, np, model, t: int) -> float:
     def logits(**changes):
         cfg = dataclasses.replace(model.cfg, n_layer=1, **changes)
         cache = gptj.init_cache(cfg, 1, model.max_seq, torch.bfloat16, model.device)
-        return gptj.forward(model.params, cfg, prompt, zero.expand(1), cache, zero, prefill=True)
+        return gptj.forward(model.params, cfg, prompt, zero.expand(1), cache, zero, prefill=True)[0]
 
     nmse, _ = errors(logits(flash_min_seq=1 << 30), logits())
     print(f"  {t}-token prefill over one layer at full width, flash against plain attention, logits at every "
@@ -1038,7 +1049,7 @@ def phase_tiny_reference(torch, np):
                 cache = gptj.init_cache(cfg, 1, 64, torch.bfloat16, dev)
                 zero = torch.zeros((), dtype=torch.int32, device=dev)
                 runs.append([gptj.forward(params, run_cfg, prompt.to(dev), zero.expand(1), cache, zero,
-                                          prefill=True)[:, -1].cpu(), cache, dev])
+                                          prefill=True)[0][:, -1].cpu(), cache, dev])
             nm, _ = errors(runs[0][0], runs[1][0])
             check(nm <= gate, f"tiny GPT-J {label}, prefill {t}: card vs CPU NMSE {nm:.2e} > {gate:g}")
             worst = 0.0
@@ -1048,7 +1059,7 @@ def phase_tiny_reference(torch, np):
                 for params, (_, cache, dev) in zip((cpu_params, gpu_params), runs):
                     pos = torch.tensor(t + step, dtype=torch.int32, device=dev)
                     step_logits.append(gptj.forward(params, cfg, torch.tensor([[tok]], device=dev),
-                                                    pos.expand(1), cache, pos)[0, -1].cpu())
+                                                    pos.expand(1), cache, pos)[0][0, -1].cpu())
                 nm_step, _ = errors(*step_logits)
                 worst = max(worst, nm_step)
                 tok = int(torch.argmax(step_logits[0]))
@@ -1068,7 +1079,7 @@ def phase_tiny_reference(torch, np):
         for run_cfg in (cfg, flash_cfg):
             zero = torch.zeros((), dtype=torch.int32, device="cuda")
             logits.append(gptj.forward(params, dataclasses.replace(run_cfg, n_layer=depth), prompt, zero.expand(1),
-                                       gptj.init_cache(cfg, 1, 64), zero, prefill=True).float())
+                                       gptj.init_cache(cfg, 1, 64), zero, prefill=True)[0].float())
         nms.append(errors(*logits)[0])
     check(nms[0] <= 1e-4, f"tiny bf16 GPT-J, flash against plain-attention prefill over one layer: NMSE {nms[0]:.2e} > 1e-4")
     out["q4_0 bf16 flash vs plain attention"] = dict(one_layer_nmse=nms[0], two_layer_nmse=nms[1])
@@ -1262,31 +1273,20 @@ def _placeholders(taken: set, n: int) -> list[str]:
     return out
 
 
-def phase_front_end(torch, np) -> dict:
-    """4i: the text front end at GPT-J-6B's published widths, from a GGUF
-    file this phase writes with the port's writer (Q4_K blocks from
-    random_blocks, F32 norms and biases, a byte-level BPE vocabulary of 50400
-    entries: the 256 byte symbols, the merges learned from FRONT_END_TEXT,
-    lowercase placeholder words, <|endoftext|> at 50256).  The generate CLI
-    runs as a user runs it (a subprocess, --quantized --top-k 1 --verbose);
-    then in this process, counting launches, the Q4_K model from the same
-    file: the greedy text the CLI printed, a sampled request twice (the CLI's
-    decode: the graphed sampled loop), a grammar-constrained request (the
-    eager host loop), perplexity over 3072 tokens at window 1024, stride 512;
-    then the file loaded dense bf16 (the CLI's default load): the same
-    perplexity (|dppl|/ppl < 1 %) and a graphed greedy decode beside its
-    floor.  The file lives in a temporary directory removed at the end."""
-    import os
-    import shutil
-    import tempfile
+GPTJ6B_GGUF = "gpt-j-6b-q4_k.gguf"
 
-    from ggml_tpu_torch.cli import generate as cli
-    from ggml_tpu_torch.grammar import GrammarSampler
+
+def write_gptj6b_gguf(np, tmp: str) -> tuple:
+    """The GGUF file phases 4i and 4j read, written into the directory tmp
+    with the port's writer: GPT-J-6B's published widths, Q4_K blocks from
+    random_blocks, F32 norms and biases, a byte-level BPE vocabulary of 50400
+    entries (the 256 byte symbols, the merges learned from FRONT_END_TEXT,
+    lowercase placeholder words, <|endoftext|> at 50256).  Returns (path,
+    dict(n_merges, gguf_write_s, gguf_bytes), tokens, merges, eos)."""
+    import os
+
     from ggml_tpu_torch.models import gptj
-    from ggml_tpu_torch.models.registry import load_model
-    from ggml_tpu_torch.ppl import perplexity
-    from ggml_tpu_torch.quant.planar import PlanarWeight
-    from ggml_tpu_torch.tokenizer import BPETokenizer, byte_level_vocab, learn_merges
+    from ggml_tpu_torch.tokenizer import byte_level_vocab, learn_merges
 
     cfg = gptj.GPTJConfig()  # EleutherAI/gpt-j-6b
     merges = learn_merges(FRONT_END_TEXT, 100_000)  # until every word is one symbol
@@ -1296,139 +1296,391 @@ def phase_front_end(torch, np) -> dict:
     tokens = tokens + fill[: eos - len(tokens)] + ["<|endoftext|>"] + fill[eos - len(tokens):]
     check(len(tokens) == cfg.n_vocab and tokens[eos] == "<|endoftext|>" and len(set(tokens)) == len(tokens),
           f"vocabulary of {len(tokens)} entries")
+    path = os.path.join(tmp, GPTJ6B_GGUF)
+    t0 = time.perf_counter()
+    gptj.write_random_gguf(path, cfg, seed=0, tokenizer=dict(model="gpt2", tokens=tokens, merges=merges,
+                                                               eos_token_id=eos))
+    info = dict(n_merges=len(merges), gguf_write_s=time.perf_counter() - t0, gguf_bytes=os.path.getsize(path))
+    print(f"  wrote {info['gguf_bytes'] / 1e9:.3f} GB of GGUF ({len(merges)} merges) in {info['gguf_write_s']:.1f}s")
+    return path, info, tokens, merges, eos
+
+
+def phase_front_end(torch, np, written: tuple) -> dict:
+    """4i: the text front end at GPT-J-6B's published widths, from the GGUF
+    file write_gptj6b_gguf wrote (`written` is what it returned).  The generate CLI
+    runs as a user runs it (a subprocess, --quantized --top-k 1 --verbose);
+    then in this process, counting launches, the Q4_K model from the same
+    file: the greedy text the CLI printed, a sampled request twice (the CLI's
+    decode: the graphed sampled loop), a grammar-constrained request (the
+    eager host loop), perplexity over 3072 tokens at window 1024, stride 512;
+    then the file loaded dense bf16 (the CLI's default load): the same
+    perplexity (|dppl|/ppl < 1 %) and a graphed greedy decode beside its
+    floor."""
+    from ggml_tpu_torch.cli import generate as cli
+    from ggml_tpu_torch.grammar import GrammarSampler
+    from ggml_tpu_torch.models import gptj
+    from ggml_tpu_torch.models.registry import load_model
+    from ggml_tpu_torch.ppl import perplexity
+    from ggml_tpu_torch.quant.planar import PlanarWeight
+    from ggml_tpu_torch.tokenizer import BPETokenizer
+
+    path, _, tokens, merges, eos = written
     tok = BPETokenizer(tokens, merges)
     prompt = " ".join(FRONT_END_TEXT.split()[:48])
     prompt_ids = np.asarray([tok.encode(prompt)], np.int32)
     check(prompt_ids.shape[1] > 32 and tok.decode(prompt_ids[0]) == prompt, f"prompt of {prompt_ids.shape[1]} tokens")
     stream = np.asarray(tok.encode(FRONT_END_TEXT) * 16, np.int32)[:3072]
     check(len(stream) == 3072, f"perplexity stream of {len(stream)} tokens")
-    out = dict(n_merges=len(merges), prompt_tokens=int(prompt_ids.shape[1]))
+    out = dict(written[1], prompt_tokens=int(prompt_ids.shape[1]))
 
-    tmp = tempfile.mkdtemp(prefix="gptj6b-gguf-")
-    try:
-        path = os.path.join(tmp, "gpt-j-6b-q4_k.gguf")
-        t0 = time.perf_counter()
-        gptj.write_random_gguf(path, cfg, seed=0, tokenizer=dict(model="gpt2", tokens=tokens, merges=merges,
-                                                                   eos_token_id=eos))
-        out["gguf_write_s"], out["gguf_bytes"] = time.perf_counter() - t0, os.path.getsize(path)
-        print(f"  wrote {out['gguf_bytes'] / 1e9:.3f} GB of GGUF ({len(merges)} merges) in {out['gguf_write_s']:.1f}s")
+    # the CLI as a user runs it
+    cmd = [sys.executable, "-m", "ggml_tpu_torch.cli.generate", path, "-p", prompt, "-n", "64", "--quantized",
+           "--top-k", "1", "--seed", "0", "--verbose"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    out["cli_wall_s"] = time.perf_counter() - t0
+    check(r.returncode == 0, f"the generate CLI exited {r.returncode}:\n{r.stderr[-4000:]}")
+    load = re.search(r"load time =\s*([\d.]+) ms", r.stderr)
+    pred = re.search(r"predict time =\s*([\d.]+) ms / ([\d.]+) ms per token", r.stderr)
+    check(load is not None and pred is not None, f"no timing lines in the CLI's stderr:\n{r.stderr[-2000:]}")
+    out["cli_load_s"], out["cli_predict_ms"], out["cli_ms_per_token"] = (
+        float(load[1]) / 1e3, float(pred[1]), float(pred[2]))
+    report = re.findall(r"^\s+(q4|q8)\s+K=(\d+)\s+N=(\d+)\s+(gemv-M|matmul-M) -> (.+)$", r.stderr, re.M)
+    out["cli_report"] = [" ".join(x) for x in report]
+    check({(c, p) for *_, c, p in report} == {("gemv-M", "q4k_gemv_qact"), ("matmul-M", "q4k_matmul")},
+          f"kernel report {report}")
+    print(f"  CLI (python -m ggml_tpu_torch.cli.generate --quantized --top-k 1 -n 64): exit 0 in "
+          f"{out['cli_wall_s']:.1f}s, load {out['cli_load_s']:.1f}s, predict {out['cli_predict_ms']:.1f} ms = "
+          f"{out['cli_ms_per_token']:.2f} ms/token (prefill and graph capture included); report: "
+          + "; ".join(out["cli_report"]))
 
-        # the CLI as a user runs it
-        cmd = [sys.executable, "-m", "ggml_tpu_torch.cli.generate", path, "-p", prompt, "-n", "64", "--quantized",
-               "--top-k", "1", "--seed", "0", "--verbose"]
-        t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        out["cli_wall_s"] = time.perf_counter() - t0
-        check(r.returncode == 0, f"the generate CLI exited {r.returncode}:\n{r.stderr[-4000:]}")
-        load = re.search(r"load time =\s*([\d.]+) ms", r.stderr)
-        pred = re.search(r"predict time =\s*([\d.]+) ms / ([\d.]+) ms per token", r.stderr)
-        check(load is not None and pred is not None, f"no timing lines in the CLI's stderr:\n{r.stderr[-2000:]}")
-        out["cli_load_s"], out["cli_predict_ms"], out["cli_ms_per_token"] = (
-            float(load[1]) / 1e3, float(pred[1]), float(pred[2]))
-        report = re.findall(r"^\s+(q4|q8)\s+K=(\d+)\s+N=(\d+)\s+(gemv-M|matmul-M) -> (.+)$", r.stderr, re.M)
-        out["cli_report"] = [" ".join(x) for x in report]
-        check({(c, p) for *_, c, p in report} == {("gemv-M", "q4k_gemv_qact"), ("matmul-M", "q4k_matmul")},
-              f"kernel report {report}")
-        print(f"  CLI (python -m ggml_tpu_torch.cli.generate --quantized --top-k 1 -n 64): exit 0 in "
-              f"{out['cli_wall_s']:.1f}s, load {out['cli_load_s']:.1f}s, predict {out['cli_predict_ms']:.1f} ms = "
-              f"{out['cli_ms_per_token']:.2f} ms/token (prefill and graph capture included); report: "
-              + "; ".join(out["cli_report"]))
+    # the same file in this process, every launch counted
+    reset_launches()
+    t0 = time.perf_counter()
+    model = gptj.GPTJ.from_gguf(path, max_seq=512, device="cuda")  # the CLI's max_seq
+    torch.cuda.synchronize()
+    out["q4k_load_s"] = time.perf_counter() - t0
+    plane_bytes = sum(v.plane_bytes() for k, v in model.params.items()
+                      if isinstance(v, PlanarWeight) and k != "token_embd.weight")
+    ids = model.generate(prompt_ids, 64)
+    check(r.stdout == prompt + tok.decode(ids) + "\n", f"CLI text {r.stdout[-200:]!r} differs from "
+          f"{prompt + tok.decode(ids)!r}")
+    first, rest, t0, t1, t2, finite, event_ms = greedy_request(torch, model, prompt_ids, 63, graph=True)
+    check(finite and [first] + rest == ids, "a second greedy request gave other ids")
+    out["q4k_prefill_ms"], out["q4k_ms_per_token"] = (t1 - t0) * 1e3, (t2 - t1) * 1e3 / 63
+    out["q4k_plane_floor_ms"] = plane_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"  Q4_K from the file: loaded in {out['q4k_load_s']:.1f}s; the CLI's text again; prefill "
+          f"{out['q4k_prefill_ms']:.1f} ms, graphed decode {out['q4k_ms_per_token']:.2f} ms/token "
+          f"({event_ms:.2f} between CUDA events; plane floor {out['q4k_plane_floor_ms']:.3f})")
 
-        # the same file in this process, every launch counted
-        reset_launches()
-        t0 = time.perf_counter()
-        model = gptj.GPTJ.from_gguf(path, max_seq=512, device="cuda")  # the CLI's max_seq
-        torch.cuda.synchronize()
-        out["q4k_load_s"] = time.perf_counter() - t0
-        plane_bytes = sum(v.plane_bytes() for k, v in model.params.items()
-                          if isinstance(v, PlanarWeight) and k != "token_embd.weight")
-        ids = model.generate(prompt_ids, 64)
-        check(r.stdout == prompt + tok.decode(ids) + "\n", f"CLI text {r.stdout[-200:]!r} differs from "
-              f"{prompt + tok.decode(ids)!r}")
-        first, rest, t0, t1, t2, finite, event_ms = greedy_request(torch, model, prompt_ids, 63, graph=True)
-        check(finite and [first] + rest == ids, "a second greedy request gave other ids")
-        out["q4k_prefill_ms"], out["q4k_ms_per_token"] = (t1 - t0) * 1e3, (t2 - t1) * 1e3 / 63
-        out["q4k_plane_floor_ms"] = plane_bytes / HBM_BYTES_PER_S * 1e3
-        print(f"  Q4_K from the file: loaded in {out['q4k_load_s']:.1f}s; the CLI's text again; prefill "
-              f"{out['q4k_prefill_ms']:.1f} ms, graphed decode {out['q4k_ms_per_token']:.2f} ms/token "
-              f"({event_ms:.2f} between CUDA events; plane floor {out['q4k_plane_floor_ms']:.3f})")
-
-        sampled = []
-        for _ in range(2):
-            gen = torch.Generator(device="cuda")
-            gen.manual_seed(1234)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = cli.decode(model, prompt_ids, 64, gen, temperature=0.8, top_k=40, top_p=0.95)
-            sampled.append((got, (time.perf_counter() - t0) * 1e3 / 64))
-        check(sampled[0][0] == sampled[1][0] and len(sampled[0][0]) == 64, "the seeded sampled request did not repeat")
-        out["sampled_ms_per_token"] = [ms for _, ms in sampled]
-        out["sampled_text"] = tok.decode(sampled[0][0])[:120]
-        print(f"  sampled (temperature 0.8, top_k 40, top_p 0.95, seed 1234) twice: the same text, "
-              f"{sampled[0][1]:.2f} and {sampled[1][1]:.2f} ms/token with the prefill (the first captures its graph)")
-
-        sampler = GrammarSampler(FRONT_END_GRAMMAR, tok, eos_id=eos)
+    sampled = []
+    for _ in range(2):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1234)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        gids = model.generate(prompt_ids, 16, sampler=sampler)
-        out["grammar_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / 16
-        while gids and gids[-1] == eos:
-            gids = gids[:-1]
-        text = tok.decode(gids)
-        check(len(gids) > 0 and re.fullmatch(r"[a-z][a-z ]*", text) is not None, f"grammar output {text!r}")
-        out["grammar_text"] = text
-        print(f"  grammar {FRONT_END_GRAMMAR!r}, 16 tokens: {text!r}, {out['grammar_ms_per_token']:.2f} ms/token "
-              "(the eager host loop, prefill included)")
+        got = cli.decode(model, prompt_ids, 64, gen, temperature=0.8, top_k=40, top_p=0.95)
+        sampled.append((got, (time.perf_counter() - t0) * 1e3 / 64))
+    check(sampled[0][0] == sampled[1][0] and len(sampled[0][0]) == 64, "the seeded sampled request did not repeat")
+    out["sampled_ms_per_token"] = [ms for _, ms in sampled]
+    out["sampled_text"] = tok.decode(sampled[0][0])[:120]
+    print(f"  sampled (temperature 0.8, top_k 40, top_p 0.95, seed 1234) twice: the same text, "
+          f"{sampled[0][1]:.2f} and {sampled[1][1]:.2f} ms/token with the prefill (the first captures its graph)")
 
-        def ppl_of(m):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            p = perplexity(gptj.forward, m.params, m.cfg, stream, window=1024, stride=512,
-                           init_cache_fn=gptj.init_cache, cache_dtype=torch.bfloat16, device="cuda")
-            return p, time.perf_counter() - t0
+    sampler = GrammarSampler(FRONT_END_GRAMMAR, tok, eos_id=eos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gids = model.generate(prompt_ids, 16, sampler=sampler)
+    out["grammar_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / 16
+    while gids and gids[-1] == eos:
+        gids = gids[:-1]
+    text = tok.decode(gids)
+    check(len(gids) > 0 and re.fullmatch(r"[a-z][a-z ]*", text) is not None, f"grammar output {text!r}")
+    out["grammar_text"] = text
+    print(f"  grammar {FRONT_END_GRAMMAR!r}, 16 tokens: {text!r}, {out['grammar_ms_per_token']:.2f} ms/token "
+          "(the eager host loop, prefill included)")
 
-        out["ppl_q4k"], out["ppl_q4k_s"] = ppl_of(model)
-
-        t0 = time.perf_counter()
-        dense = load_model(path, device="cuda")  # the CLI's default: dense bf16, max_seq 512
+    def ppl_of(m):
         torch.cuda.synchronize()
-        out["dense_load_s"] = time.perf_counter() - t0
-        out["ppl_dense"], out["ppl_dense_s"] = ppl_of(dense)
-        rel = abs(out["ppl_q4k"] - out["ppl_dense"]) / out["ppl_dense"]
-        out["ppl_rel_delta"] = rel
-        check(np.isfinite(out["ppl_q4k"]) and np.isfinite(out["ppl_dense"]) and rel < 0.01,
-              f"perplexity Q4_K planes {out['ppl_q4k']}, dense bf16 {out['ppl_dense']}")
-        print(f"  perplexity over {len(stream)} tokens (window 1024, stride 512): Q4_K planes {out['ppl_q4k']:.3f} "
-              f"({out['ppl_q4k_s']:.2f}s), dense bf16 {out['ppl_dense']:.3f} ({out['ppl_dense_s']:.2f}s), "
-              f"|dppl|/ppl {rel:.2e}")
+        t0 = time.perf_counter()
+        p = perplexity(gptj.forward, m.params, m.cfg, stream, window=1024, stride=512,
+                       init_cache_fn=gptj.init_cache, cache_dtype=torch.bfloat16, device="cuda")
+        return p, time.perf_counter() - t0
 
-        dense_bytes = sum(v.numel() * v.element_size() for k, v in dense.params.items()
-                          if v.dim() == 2 and k != "token_embd.weight")
-        dense.generate(prompt_ids, 4)  # captures the dense decode graph
-        first, rest, t0, t1, t2, finite, event_ms = greedy_request(torch, dense, prompt_ids, 63, graph=True)
-        check(finite and len(rest) == 63, "dense greedy decode")
-        out["dense_ms_per_token"], out["dense_event_ms_per_token"] = (t2 - t1) * 1e3 / 63, event_ms
-        out["dense_bytes_per_token"] = dense_bytes
-        out["dense_floor_ms"] = dense_bytes / HBM_BYTES_PER_S * 1e3
-        print(f"  dense bf16 from the file: loaded in {out['dense_load_s']:.1f}s; graphed greedy decode "
-              f"{out['dense_ms_per_token']:.2f} ms/token ({event_ms:.2f} between CUDA events) against a floor of "
-              f"{out['dense_floor_ms']:.3f} ({dense_bytes / 1e9:.3f} GB a token at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
-        counts = launch_counts()
-        for name in ("q4k_gemv_qact", "q4k_matmul", "decode_attn", "flash_attn", "flash_split", "flash_mask_ranges"):
-            check(counts[name] > 0, f"front end: {name} was never launched on its path")
-        out["counts"] = counts
-        print(f"  launches in this process: {counts}")
-        for label, m in (("Q4_K from the file", model), ("dense bf16", dense)):
-            print(f"  {label}:")
-            trace = profile_decode_graphed(torch, np, m, prompt=prompt_ids.shape[1])
-            out[f"{label.split()[0].lower()}_graphed_trace"] = trace
-            print("    top kernels (ms, calls per token): " + "; ".join(
-                f"{k} {v:.3f}, {trace['top_kernels_calls_per_token'][k]:.0f}"
-                for k, v in trace["top_kernels_ms_per_token"].items()))
-        del model, dense
-        torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    out["ppl_q4k"], out["ppl_q4k_s"] = ppl_of(model)
+
+    t0 = time.perf_counter()
+    dense = load_model(path, device="cuda")  # the CLI's default: dense bf16, max_seq 512
+    torch.cuda.synchronize()
+    out["dense_load_s"] = time.perf_counter() - t0
+    out["ppl_dense"], out["ppl_dense_s"] = ppl_of(dense)
+    rel = abs(out["ppl_q4k"] - out["ppl_dense"]) / out["ppl_dense"]
+    out["ppl_rel_delta"] = rel
+    check(np.isfinite(out["ppl_q4k"]) and np.isfinite(out["ppl_dense"]) and rel < 0.01,
+          f"perplexity Q4_K planes {out['ppl_q4k']}, dense bf16 {out['ppl_dense']}")
+    print(f"  perplexity over {len(stream)} tokens (window 1024, stride 512): Q4_K planes {out['ppl_q4k']:.3f} "
+          f"({out['ppl_q4k_s']:.2f}s), dense bf16 {out['ppl_dense']:.3f} ({out['ppl_dense_s']:.2f}s), "
+          f"|dppl|/ppl {rel:.2e}")
+
+    dense_bytes = sum(v.numel() * v.element_size() for k, v in dense.params.items()
+                      if v.dim() == 2 and k != "token_embd.weight")
+    dense.generate(prompt_ids, 4)  # captures the dense decode graph
+    first, rest, t0, t1, t2, finite, event_ms = greedy_request(torch, dense, prompt_ids, 63, graph=True)
+    check(finite and len(rest) == 63, "dense greedy decode")
+    out["dense_ms_per_token"], out["dense_event_ms_per_token"] = (t2 - t1) * 1e3 / 63, event_ms
+    out["dense_bytes_per_token"] = dense_bytes
+    out["dense_floor_ms"] = dense_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"  dense bf16 from the file: loaded in {out['dense_load_s']:.1f}s; graphed greedy decode "
+          f"{out['dense_ms_per_token']:.2f} ms/token ({event_ms:.2f} between CUDA events) against a floor of "
+          f"{out['dense_floor_ms']:.3f} ({dense_bytes / 1e9:.3f} GB a token at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    counts = launch_counts()
+    for name in ("q4k_gemv_qact", "q4k_matmul", "decode_attn", "flash_attn", "flash_split", "flash_mask_ranges"):
+        check(counts[name] > 0, f"front end: {name} was never launched on its path")
+    out["counts"] = counts
+    print(f"  launches in this process: {counts}")
+    for label, m in (("Q4_K from the file", model), ("dense bf16", dense)):
+        print(f"  {label}:")
+        trace = profile_decode_graphed(torch, np, m, prompt=prompt_ids.shape[1])
+        out[f"{label.split()[0].lower()}_graphed_trace"] = trace
+        print("    top kernels (ms, calls per token): " + "; ".join(
+            f"{k} {v:.3f}, {trace['top_kernels_calls_per_token'][k]:.0f}"
+            for k, v in trace["top_kernels_ms_per_token"].items()))
+    del model, dense
+    torch.cuda.empty_cache()
+    return out
+
+
+# 4j: QLoRA fine-tuning of GPT-J-6B at the JAX finetune CLI's default shape
+# (lr 1e-3, the JAX finetune_lora's default: at 1e-2 the losses rose after
+# the first step, 11.72 -> 9.45 -> 11.78 ... 11.81, PERF.md)
+QLORA = dict(rank=8, batch=4, seq=128, steps=8, lr=1e-3)
+# autograd nodes of the plain attention's backward (its forward runs in the
+# "gptj.attention" range)
+_ATTENTION_BACKWARD = ("BmmBackward0", "SoftmaxBackward0", "WhereBackward0", "IndexCopyBackward0")
+
+
+def tensor_checksums(torch, params: dict, chunk: int = 1 << 26) -> list:
+    """One position-weighted sum of the bytes of each tensor in params (every
+    plane of a PlanarWeight): a changed byte moves its sum.  Summed in
+    chunks of 64 MB (int64 partials: 8 bytes a byte)."""
+    from ggml_tpu_torch.quant.planar import PlanarWeight
+
+    sums = []
+    for v in params.values():
+        for t in (v.buffers() if isinstance(v, PlanarWeight) else (v,)):
+            b = t.contiguous().reshape(-1).view(torch.uint8)
+            acc = torch.zeros((), dtype=torch.int64, device=b.device)
+            for i in range(0, b.numel(), chunk):
+                c = b[i:i + chunk].to(torch.int64)
+                acc += (c * (torch.arange(i, i + c.numel(), device=b.device, dtype=torch.int64) % 65521 + 1)).sum()
+            sums.append(acc)
+    return [int(a) for a in sums]
+
+
+def _qlora_class(event, kernel: str) -> str:
+    """What a device kernel of a QLoRA step computes, from its name and the
+    ranges and autograd nodes around the op that launched it."""
+    if "q4k_matmul_kernel" in kernel or "qmatmul_xsum_kernel" in kernel:
+        return "C"
+    e = event
+    while e is not None:
+        if e.name == "planar_matmul.bwd_dequant":
+            return "backward dequant"
+        if e.name == "planar_matmul.bwd_product":
+            return "backward products"
+        if e.name == "gptj.attention" or e.name.endswith(_ATTENTION_BACKWARD):
+            return "attention"
+        e = e.cpu_parent
+    return "other"
+
+
+_QLORA_RANGES = ("planar_matmul.bwd_dequant", "planar_matmul.bwd_product", "gptj.attention")
+
+
+def qlora_step_breakdown(prof) -> tuple:
+    """(device busy ms, {class: ms}) of a profiled step: every device kernel
+    (and copy) booked to the class of the op that launched it.  Busy leaves
+    out the device-side spans of the named ranges, which cover the same
+    kernels again."""
+    busy = sum(e.self_device_time_total for e in _device_events(prof)
+               if e.key not in _QLORA_RANGES and not getattr(e, "is_user_annotation", False)) / 1e3
+    ms = {}
+    for e in prof.events():
+        for k in getattr(e, "kernels", ()):
+            cls = _qlora_class(e, k.name)
+            ms[cls] = ms.get(cls, 0.0) + k.duration / 1e3
+    return busy, ms
+
+
+def _adapters_agree(ref: dict, got: dict, what: str) -> dict:
+    """The adapter gate of the card-against-CPU and resume checks: every
+    `a` within NMSE 1e-6, every `b` within NMSE 1e-3 with at most one
+    element in 1000 farther than 1e-4.  AdamW's first step moves each
+    element of b (zero at init) by lr times the sign of its gradient, so a
+    gradient element near zero whose sign differs with the order of f32 sums
+    moves by 2 lr, and a's later gradients (which read b) with it: PR 12's
+    first card run read a at NMSE 3.3e-8 with one b element off."""
+    worst_a = max(errors(ref[n]["a"].cpu(), got[n]["a"].cpu())[0] for n in ref)
+    worst_b = max(errors(ref[n]["b"].cpu(), got[n]["b"].cpu())[0] for n in ref)
+    far = sum(int(((ref[n]["b"].cpu() - got[n]["b"].cpu()).abs() > 1e-4).sum()) for n in ref)
+    total = sum(ref[n]["b"].numel() for n in ref)
+    exact = all(bool((ref[n][k].cpu() == got[n][k].cpu()).all()) for n in ref for k in "ab")
+    check(set(ref) == set(got) and worst_a <= 1e-6 and worst_b <= 1e-3 and far <= total // 1000,
+          f"{what}: adapters a NMSE {worst_a:.2e}, b NMSE {worst_b:.2e}, {far} of {total} b elements off by > 1e-4")
+    return dict(worst_a_nmse=worst_a, worst_b_nmse=worst_b, b_elements_off=far, b_elements=total, bit_exact=exact)
+
+
+def phase_qlora(torch, np, path: str, tmp: str) -> dict:
+    """4j: QLoRA fine-tuning of GPT-J-6B from the GGUF file phase 4i read
+    (every matmul weight Q4_K): the base loaded as planes on the card, then
+    finetune_lora(keep_quantized=True, rank 8) at the JAX finetune CLI's
+    default shape, batch 4 x 128 tokens, 8 AdamW steps at lr 1e-3 on a
+    repeated pattern of 61 random ids, every launch counted: kernel C computes
+    each forward's 169 quantized linears at M = 512 (6 a layer and the head),
+    exactly 169 launches a step, and nothing else of the port's kernels runs;
+    the backward dequantizes the planes to bf16 and multiplies in f32
+    (planar_matmul's backward, plain PyTorch as in the JAX package).  Checks:
+    finite losses, the last below the first, the adapter through
+    save_lora_gguf / load_lora_gguf / wrap_lora over the same base gives
+    Optimizer.eval's loss within 1e-6 relative, the base's bytes unchanged
+    (checksums before and after).  Then one profiled step (device time by
+    class: C, backward dequant, backward products, attention, other), a tiny
+    GPT-J Q4_K QLoRA run on the card against the CPU, and a checkpoint resume
+    on the card."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ggml_tpu_torch.checkpoint import load_optimizer, save_optimizer
+    from ggml_tpu_torch.gguf import GGUFFile
+    from ggml_tpu_torch.models import gpt2, gptj
+    from ggml_tpu_torch.opt import AdamWConfig, Optimizer, finetune_lora, make_lm_model_fn, token_windows
+    from ggml_tpu_torch.opt.lora import init_lora, load_lora_gguf, save_lora_gguf, wrap_lora
+    from ggml_tpu_torch.quant.planar import PlanarWeight
+
+    import gc
+
+    rank, batch, seq, steps, lr = (QLORA[k] for k in ("rank", "batch", "seq", "steps", "lr"))
+    out = dict(QLORA)
+    # earlier phases' models can outlive them in reference cycles (a model and
+    # its decode graphs): free them, so this phase's memory is its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["allocated_before_gb"] = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with GGUFFile(path) as g:
+        base = gpt2.load_params(g, torch.float32, keep_quantized=True, device="cuda")
+        cfg = gptj.config_from_gguf(g)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    planes = [k for k, v in base.items() if isinstance(v, PlanarWeight) and k != "token_embd.weight"]
+    check(len(planes) == 6 * cfg.n_layer + 1, f"{len(planes)} quantized linears")
+    t0 = time.perf_counter()
+    before = tensor_checksums(torch, base)
+    out["checksum_s"] = time.perf_counter() - t0
+    print(f"  loaded {len(planes)} quantized linears as planes and the dense embedding in {out['load_s']:.1f}s "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, {out['allocated_before_gb']:.2f} before); "
+          f"{len(before)} checksums in {out['checksum_s']:.1f}s")
+
+    pattern = np.random.default_rng(12).integers(0, cfg.n_vocab, 61)
+    toks = np.resize(pattern, batch * seq * steps + 1).astype(np.int32)
+    stamps = []
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses, trained = finetune_lora(path, toks, rank=rank, keep_quantized=True, seq_len=seq, batch=batch,
+                                    steps=steps, adamw=AdamWConfig(alpha=lr), base=base, device="cuda",
+                                    log=lambda line: stamps.append(time.perf_counter()))  # after steps 0 and 7
+    out["run_s"] = time.perf_counter() - t0
+    counts = launch_counts()
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["losses"], out["counts"] = losses, counts
+    out["first_step_ms"] = (stamps[0] - t0) * 1e3
+    out["host_ms_per_step"] = (stamps[1] - stamps[0]) * 1e3 / (steps - 1)
+    print(f"  finetune_lora: {steps} steps in {out['run_s']:.1f}s, step 0 {out['first_step_ms']:.0f} ms, then "
+          f"{out['host_ms_per_step']:.1f} ms/step on the host's clock (the loss read back every step); peak "
+          f"memory {out['peak_memory_gb']:.2f} GB; q4k_matmul launches {counts['q4k_matmul']} "
+          f"({counts['q4k_matmul'] // steps} a step)")
+    print(f"  losses {[round(v, 4) for v in losses]}")
+    want = {k: (len(planes) * steps if k == "q4k_matmul" else 0) for k in counts}
+    check(counts == want, f"QLoRA: launches {counts}, want {want}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"QLoRA losses {losses}")
+    check(tensor_checksums(torch, base) == before, "QLoRA: the base planes changed")
+
+    fn = make_lm_model_fn(gptj, cfg, seq, batch)
+    model_fn = lambda p, t, frozen: fn(wrap_lora(frozen, p, 1.0), t)  # alpha = rank
+    x, y = token_windows(toks, seq).get_batch(0, batch)
+    opt = Optimizer(model_fn, trained, loss_type="cross_entropy_sparse", adamw=AdamWConfig(alpha=lr), frozen=base)
+    adapter = os.path.join(tmp, "qlora-adapter.gguf")
+    save_lora_gguf(adapter, trained, alpha=float(rank), base_arch="gptj")
+    loaded, alpha = load_lora_gguf(adapter)
+    reloaded = Optimizer(model_fn, {k: {kk: v.cuda() for kk, v in ab.items()} for k, ab in loaded.items()},
+                         loss_type="cross_entropy_sparse", frozen=base)
+    l_mem, l_file = float(opt.eval(x, y)["loss"]), float(reloaded.eval(x, y)["loss"])
+    out["adapter_bytes"], out["eval_loss"], out["eval_loss_reloaded"] = os.path.getsize(adapter), l_mem, l_file
+    check(alpha == rank and abs(l_mem - l_file) <= 1e-6 * abs(l_mem),
+          f"adapter round trip: alpha {alpha}, eval loss {l_mem} in memory, {l_file} from the file")
+    print(f"  adapter GGUF {out['adapter_bytes'] / 1e6:.2f} MB ({len(loaded)} adapters): Optimizer.eval loss "
+          f"{l_mem:.6f} in memory, {l_file:.6f} from the file; the base's bytes unchanged")
+    del reloaded
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt.step(x, y)
+        torch.cuda.synchronize()
+        prof_host_ms = (time.perf_counter() - t0) * 1e3
+    busy, by_class = qlora_step_breakdown(prof)
+    booked = sum(by_class.values())
+    out["profiled_step"] = dict(host_ms=prof_host_ms, device_busy_ms=busy, ms_by_class=by_class,
+                                unbooked_ms=busy - booked, idle_share=1.0 - busy / out["host_ms_per_step"])
+    print(f"  profiled step: {prof_host_ms:.1f} ms on the host's clock (profiler on), device busy {busy:.1f} ms "
+          f"(idle {out['profiled_step']['idle_share'] * 100:.1f} % of the unprofiled step); "
+          + ", ".join(f"{k} {v:.1f} ms ({v / busy * 100:.1f} %)" for k, v in sorted(by_class.items()))
+          + f"; not booked to an op {busy - booked:.1f} ms")
+    del opt, base, trained
+    torch.cuda.empty_cache()
+
+    # a tiny GPT-J Q4_K on the card (kernel C at M = 128) against the CPU (plain versions)
+    tcfg = gptj.GPTJConfig(n_vocab=256, n_ctx=128, n_embd=256, n_head=4, n_layer=2, n_rot=32)
+    tiny = os.path.join(tmp, "tiny-gptj-q4k.gguf")
+    gptj.write_random_gguf(tiny, tcfg, seed=3)
+    ttoks = np.resize(np.random.default_rng(0).integers(0, tcfg.n_vocab, 13), 2 * 64 * 6 + 1).astype(np.int32)
+    runs = {dev: finetune_lora(tiny, ttoks, rank=4, keep_quantized=True, seq_len=64, batch=2, steps=3,
+                               adamw=AdamWConfig(alpha=1e-3), device=dev) for dev in ("cpu", "cuda")}
+    dl = float(np.abs(np.array(runs["cpu"][0]) - np.array(runs["cuda"][0])).max())
+    check(dl <= 1e-4, f"tiny QLoRA, card against CPU: losses {runs['cpu'][0]} and {runs['cuda'][0]}")
+    out["tiny_card_vs_cpu"] = dict(loss_max_abs_diff=dl, **_adapters_agree(runs["cpu"][1], runs["cuda"][1],
+                                                                            "tiny QLoRA, card against CPU"))
+    print(f"  tiny GPT-J Q4_K QLoRA, 3 steps, card against CPU: losses within {dl:.2e}; "
+          + ", ".join(f"{k} {v}" for k, v in out["tiny_card_vs_cpu"].items() if k != "loss_max_abs_diff"))
+
+    # checkpoint resume on the card: 6 steps against 4, save, a fresh optimizer loading it, 2 more
+    with GGUFFile(tiny) as g:
+        tbase = gpt2.load_params(g, torch.float32, keep_quantized=True, device="cuda")
+    tfn = make_lm_model_fn(gptj, tcfg, 64, 2)
+    lora0 = init_lora(tbase, 4)
+    ds = token_windows(ttoks, 64)
+    batches = [ds.get_batch(i, 2) for i in range(6)]
+    make = lambda: Optimizer(lambda p, t, f: tfn(wrap_lora(f, p, 1.0), t), lora0, loss_type="cross_entropy_sparse",
+                             adamw=AdamWConfig(alpha=1e-2), frozen=tbase)
+    whole = make()
+    lw = [float(whole.step(*b)["loss"]) for b in batches]
+    part = make()
+    for b in batches[:4]:
+        part.step(*b)
+    ck = os.path.join(tmp, "step4.gguf")
+    save_optimizer(ck, part)
+    resumed = make()
+    load_optimizer(ck, resumed)
+    lres = [float(resumed.step(*b)["loss"]) for b in batches[4:]]
+    dl = max(abs(a - b) for a, b in zip(lw[4:], lres))
+    check(int(resumed.state["t"]) == 6 and dl <= 1e-4, f"resume on the card: losses {lw[4:]} and {lres}")
+    out["resume"] = dict(loss_max_abs_diff=dl, **_adapters_agree(whole.params, resumed.params,
+                                                                 "resume on the card"))
+    print(f"  checkpoint resume on the card (tiny QLoRA, 4 steps, save, load, 2 more against 6): losses 5-6 "
+          f"within {dl:.2e}; " + ", ".join(f"{k} {v}" for k, v in out["resume"].items() if k != "loss_max_abs_diff"))
     return out
 
 
@@ -1594,8 +1846,18 @@ def main() -> int:
 
         if sys.argv[1:] == ["--front-end"]:
             print("== 4i. the text front end: GPT-J-6B from a Q4_K GGUF file, the generate CLI, perplexity")
-            front = phase_front_end(torch, np)
+            with tempfile.TemporaryDirectory(prefix="gptj6b-gguf-") as tmp:
+                front = phase_front_end(torch, np, write_gptj6b_gguf(np, tmp))
             print(json.dumps(dict(card=card, front_end=front)))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
+
+        if sys.argv[1:] == ["--qlora"]:
+            print("== 4j. QLoRA fine-tuning of GPT-J-6B from a Q4_K GGUF file, batch 4 x 128, rank 8")
+            with tempfile.TemporaryDirectory(prefix="gptj6b-gguf-") as tmp:
+                qlora = phase_qlora(torch, np, write_gptj6b_gguf(np, tmp)[0], tmp)
+            print(json.dumps(dict(card=card, qlora=qlora)))
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                      "count": torch.cuda.device_count()}}))
             return 0
@@ -1665,8 +1927,12 @@ def main() -> int:
         runs.append(phase_train(torch, np))
         print("== 4h. tiny f32 GPT-2 training on the card against the CPU")
         tiny["gpt2_train"] = phase_tiny_train(torch, np)
-        print("== 4i. the text front end: GPT-J-6B from a Q4_K GGUF file, the generate CLI, perplexity")
-        runs.append(phase_front_end(torch, np))
+        with tempfile.TemporaryDirectory(prefix="gptj6b-gguf-") as tmp:
+            print("== 4i. the text front end: GPT-J-6B from a Q4_K GGUF file, the generate CLI, perplexity")
+            written = write_gptj6b_gguf(np, tmp)
+            runs.append(phase_front_end(torch, np, written))
+            print("== 4j. QLoRA fine-tuning of GPT-J-6B from the same file, batch 4 x 128, rank 8")
+            runs.append(phase_qlora(torch, np, written[0], tmp))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

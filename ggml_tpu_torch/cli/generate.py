@@ -41,7 +41,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--verbose", action="store_true",
                     help="print the kernel-selection report (which kernel each matmul site ran) "
                          "after generation")
-    ap.add_argument("--lora", default=None, help="adapter GGUF (not ported)")
+    ap.add_argument("--lora", default=None,
+                    help="adapter GGUF (cli.finetune --lora-out) merged into the dense weights at load, "
+                         "on the rows it was trained for")
     ap.add_argument("--grammar", default=None,
                     help="GBNF grammar file constraining generation "
                          "(llama.cpp grammars; host-side sampling)")
@@ -76,8 +78,8 @@ def decode(model, ids: np.ndarray, n: int, generator, temperature: float = 0.8, 
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.lora:
-        raise NotImplementedError("--lora is not ported yet (ROADMAP.md, LoRA/QLoRA)")
+    if args.lora and args.quantized:
+        raise SystemExit("--lora merges into dense weights; drop --quantized")
 
     import torch
 
@@ -98,6 +100,10 @@ def main(argv=None):
     t_load0 = time.perf_counter()
     m = load_model(args.model, arch=arch, keep_quantized=args.quantized, max_seq=args.max_seq, batch=1,
                    device=args.device)
+    if args.lora:
+        from ggml_tpu_torch.opt.lora import apply_lora_to_params
+
+        m.params = apply_lora_to_params(m.params, args.lora, cfg=m.cfg)
     t_load = time.perf_counter() - t_load0
 
     if tok is not None:

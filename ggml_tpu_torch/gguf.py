@@ -221,11 +221,17 @@ class GGUFWriter:
     def add_u32(self, key, val):
         self.add_value(key, GGUFValueType.UINT32, int(val))
 
+    def add_i32(self, key, val):
+        self.add_value(key, GGUFValueType.INT32, int(val))
+
     def add_u64(self, key, val):
         self.add_value(key, GGUFValueType.UINT64, int(val))
 
     def add_f32(self, key, val):
         self.add_value(key, GGUFValueType.FLOAT32, float(val))
+
+    def add_bool(self, key, val):
+        self.add_value(key, GGUFValueType.BOOL, bool(val))
 
     def add_string(self, key, val):
         self.add_value(key, GGUFValueType.STRING, str(val))

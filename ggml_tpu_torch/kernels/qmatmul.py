@@ -581,7 +581,42 @@ def planar_matmul(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     Every kernel takes all the rows in one launch (the matmul kernels tile M
     in their grid), so rows above 512 are not cut into chunks as the JAX
     package cuts them; each row's result is the same either way.
+
+    Differentiable with respect to x (_PlanarMatmul, the JAX custom VJP
+    _planar_matmul_d): dx = dy @ dequant(W), the weight dequantized in the
+    backward only; the planes are frozen and get no gradient (QLoRA).
     """
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _PlanarMatmul.apply(x, pw)
+    return _planar_matmul_fwd(x, pw)
+
+
+class _PlanarMatmul(torch.autograd.Function):
+    """planar_matmul under autograd (qmatmul.py:955-984).  The forward is
+    planar_matmul's kernels and saves only the weight (the output has x's
+    type, so the gradient has it too).  The backward dequantizes the planes
+    to bf16, as the JAX backward does, and multiplies the bf16-rounded
+    gradient with them in f32 (bf16 x bf16 products are exact in f32; the
+    caller keeps TF32 off): the JAX einsum's bf16 operands with f32
+    accumulation (preferred_element_type=f32), returned in the gradient's
+    type."""
+
+    @staticmethod
+    def forward(ctx, x, pw):
+        ctx.pw = pw
+        return _planar_matmul_fwd(x, pw)
+
+    @staticmethod
+    def backward(ctx, g):
+        pw = ctx.pw
+        with torch.profiler.record_function("planar_matmul.bwd_dequant"):
+            wd = planar_dequant(pw, torch.bfloat16)[:, : pw.n]
+        with torch.profiler.record_function("planar_matmul.bwd_product"):
+            dx = torch.matmul(g.to(torch.bfloat16).float(), wd.float().t())
+        return dx.to(g.dtype), None
+
+
+def _planar_matmul_fwd(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     *batch, k = x.shape
     if k != pw.k:
         raise ValueError(f"K mismatch: x {k} vs weight {pw.k}")

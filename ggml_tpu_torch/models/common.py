@@ -46,17 +46,51 @@ def layer_norm(x, w, b, eps):
     return (x - m) / torch.sqrt(v + eps) * w + b
 
 
+class LoRAWeight:
+    """A weight with a low-rank adapter riding it: W_eff = base + scale·B@A
+    (port of ggml_tpu/models/common.py LoRAWeight).
+
+    The QLoRA shape: `base` stays a PlanarWeight (frozen planes on the card,
+    read by the fused kernels; gradients reach the activations through
+    planar_matmul's backward) while `a` (r, k) and `b` (n, r) are small dense
+    trainables.  linear() applies the adapter as (x @ Aᵀ) @ Bᵀ, rank-r
+    products that never form B@A.  Works over dense bases too."""
+
+    def __init__(self, base, a, b, scale: float = 1.0):
+        self.base = base
+        self.a = a
+        self.b = b
+        self.scale = scale
+
+    @property
+    def shape(self):  # ggml orientation (N, K)
+        return (self.b.shape[0], self.a.shape[1])
+
+    @property
+    def ndim(self):
+        return 2
+
+
 def linear(x, w, b=None):
-    """Dense or planar-quantized matmul: y = x @ W^T (+ b).  A dense f32
-    product runs in full f32: the caller keeps TF32 off, as the JAX package
-    pins Precision.HIGHEST."""
+    """Dense, planar-quantized or LoRA-adapted matmul: y = x @ W^T (+ b).  A
+    dense f32 product runs in full f32: the caller keeps TF32 off, as the JAX
+    package pins Precision.HIGHEST.  x and a dense W of two types meet in
+    the promoted type, as in the JAX einsum (a LoRA adapter merged into
+    one weight of a bf16 model makes that weight f32)."""
     from ..quant.planar import PlanarWeight
 
-    if isinstance(w, PlanarWeight):
+    if isinstance(w, LoRAWeight):
+        out = linear(x, w.base)
+        lo = torch.matmul(x, w.a.to(x.dtype).t())
+        out = out + w.scale * torch.matmul(lo, w.b.to(x.dtype).t())
+    elif isinstance(w, PlanarWeight):
         from ..kernels.qmatmul import planar_matmul
 
         out = planar_matmul(x, w)
     else:
+        if x.dtype != w.dtype:
+            dt = torch.promote_types(x.dtype, w.dtype)
+            x, w = x.to(dt), w.to(dt)
         out = torch.matmul(x, w.t())
     if b is not None:
         out = out + b

@@ -127,12 +127,16 @@ def init_cache(cfg: GPTJConfig, batch: int, max_seq: int, dtype=torch.bfloat16, 
 
 
 def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torch.Tensor,
-            cache: list, cache_len: torch.Tensor, *, prefill: bool = False) -> torch.Tensor:
-    """tokens (b, t) -> logits (b, t, n_vocab); the cache is updated in place.
+            cache: list, cache_len: torch.Tensor, *, prefill: bool = False):
+    """tokens (b, t) -> (logits (b, t, n_vocab), cache); the cache is updated
+    in place and returned, as the JAX forward returns its new cache.
 
     pos_start (b,) and cache_len (0-d) are integer tensors on the model's
     device.  prefill=True asserts that the cache is empty below pos_start —
-    only then may a flash path attend just the current tokens."""
+    only then may a flash path attend just the current tokens.  Differentiable
+    (training from an empty cache, opt/finetune.make_lm_model_fn): with t > 1
+    and prefill=False attention is the plain f32 attention over the cache
+    window, whose rows autograd reads back through the in-place writes."""
     from ..kernels.decode_attn import fused_decode_attention
 
     b, t = tokens.shape
@@ -198,14 +202,16 @@ def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torc
             out = flash_attention(q, k, v, mask=mask, scale=scale, ranges=ranges)
             attn_out = out.reshape(b, t, cfg.n_embd).to(compute_dtype)
         else:
-            # plain f32 attention over the whole cache window (gptj.py:213-222)
-            att = torch.matmul(q.float(), kc.float().transpose(-1, -2)) * scale
-            kv_pos = torch.arange(max_seq, device=x.device)[None, None, None, :]
-            q_pos = positions[:, None, :, None]
-            att = torch.where(kv_pos <= q_pos, att, torch.full((), float("-inf"), device=x.device))
-            att = torch.softmax(att, dim=-1).to(vc.dtype)
-            out = torch.matmul(att, vc)
-            attn_out = out.transpose(1, 2).reshape(b, t, cfg.n_embd).to(compute_dtype)
+            # plain f32 attention over the whole cache window (gptj.py:213-222),
+            # a named range for the profiler (the training step's breakdown)
+            with torch.profiler.record_function("gptj.attention"):
+                att = torch.matmul(q.float(), kc.float().transpose(-1, -2)) * scale
+                kv_pos = torch.arange(max_seq, device=x.device)[None, None, None, :]
+                q_pos = positions[:, None, :, None]
+                att = torch.where(kv_pos <= q_pos, att, torch.full((), float("-inf"), device=x.device))
+                att = torch.softmax(att, dim=-1).to(vc.dtype)
+                out = torch.matmul(att, vc)
+                attn_out = out.transpose(1, 2).reshape(b, t, cfg.n_embd).to(compute_dtype)
         attn_out = _linear(attn_out, params[pre + "attn_output.weight"])
 
         # parallel residual: mlp reads the SAME normed input (main.cpp:538-541)
@@ -222,7 +228,7 @@ def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torc
         x = x + attn_out + ff
 
     x = _layer_norm(x, params["output_norm.weight"], params["output_norm.bias"], cfg.eps)
-    return _linear(x, params["output.weight"], params.get("output.bias"))
+    return _linear(x, params["output.weight"], params.get("output.bias")), cache
 
 
 class GPTJ:
@@ -277,14 +283,14 @@ class GPTJ:
         t = tokens.shape[1]
         self._check_room(0, t)
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
-        logits = forward(self.params, self.cfg, tokens, zero.expand(tokens.shape[0]), cache, zero,
-                         prefill=True)
+        logits, cache = forward(self.params, self.cfg, tokens, zero.expand(tokens.shape[0]), cache, zero,
+                                prefill=True)
         return logits[:, -1, :], cache, t
 
     def decode_logits(self, cache, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         """Logits (b, n_vocab) of tokens (b, 1) at position pos, a 0-d int32
         tensor on the model's device; their cache rows are written in place."""
-        return forward(self.params, self.cfg, tokens, pos.expand(tokens.shape[0]), cache, pos)[:, -1, :]
+        return forward(self.params, self.cfg, tokens, pos.expand(tokens.shape[0]), cache, pos)[0][:, -1, :]
 
     def decode_step(self, cache, token, n_past: int):
         """token (b, 1) at position n_past: returns (logits (b, n_vocab), cache)."""

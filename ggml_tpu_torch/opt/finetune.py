@@ -4,7 +4,9 @@ example).
 
 make_lm_model_fn builds the model function the Optimizer trains: the family
 forward from an empty cache, optionally in bf16 over f32 master weights and
-through the flash-attention training kernels.  Ported families: gpt2.
+(GPT-2) through the flash-attention training kernels.  Ported families: gpt2,
+gptj.  Checkpoints go through checkpoint.py (atomic publish, bit-exact
+resume).
 """
 
 from __future__ import annotations
@@ -19,7 +21,6 @@ from .optimizer import AdamWConfig, Optimizer
 
 # the families the JAX package finetunes, with the ROADMAP.md item that ports them
 _NOT_PORTED = {
-    "gptj": "GPT-J training (its forward returns no cache and is not held against JAX under autograd)",
     "llama": "the llama family", "qwen2": "the llama family", "qwen3": "the llama family",
     "qwen2moe": "the llama family", "qwen3moe": "the llama family",
     "deepseek2": "the other families", "gemma2": "the other families", "phi2": "the other families",
@@ -30,6 +31,10 @@ _NOT_PORTED = {
 def _family(arch: str):
     if arch == "gpt2":
         from ..models import gpt2 as fam
+
+        return fam
+    if arch == "gptj":
+        from ..models import gptj as fam
 
         return fam
     if arch in _NOT_PORTED:
@@ -48,19 +53,23 @@ def make_lm_model_fn(fam, cfg, seq_len: int, batch: int, compute_dtype=None, cas
     in f32); None keeps the whole pass in f32.  cast_logits_f32=False keeps
     the logits in the compute type, for the fused cross entropy.
     train_flash=True: attention through the flash-attention training kernels
-    (O(seq) residuals); no cache is allocated for prompts longer than one
-    token.  remat_policy (jax.checkpoint policies) has no counterpart yet."""
+    (O(seq) residuals; GPT-2, whose forward takes the flag); no cache is
+    allocated for prompts longer than one token.  remat_policy
+    (jax.checkpoint policies) has no counterpart yet.  params may hold
+    PlanarWeight and LoRAWeight values (QLoRA), which no cast touches."""
     if remat_policy:
         raise NotImplementedError("rematerialization (remat_policy) is not ported yet (ROADMAP.md, remat)")
 
     def model_fn(params, tokens):
         if compute_dtype is not None:
-            params = {k: v.to(compute_dtype) if v.dtype == torch.float32 else v for k, v in params.items()}
+            params = {k: v.to(compute_dtype) if getattr(v, "dtype", None) == torch.float32 else v
+                      for k, v in params.items()}
         b, t = tokens.shape
         cache = (None if train_flash and t > 1 else
                  fam.init_cache(cfg, b, seq_len, compute_dtype or torch.float32, device=tokens.device))
         zero = torch.zeros((), dtype=torch.int32, device=tokens.device)
-        logits, _ = fam.forward(params, cfg, tokens, zero.expand(b), cache, zero, train_flash=train_flash)
+        kw = {"train_flash": True} if train_flash else {}
+        logits, _ = fam.forward(params, cfg, tokens, zero.expand(b), cache, zero, **kw)
         return logits.float() if cast_logits_f32 else logits
 
     return model_fn
@@ -103,14 +112,14 @@ def save_params_gguf(path, params: dict, metadata: dict, half: bool = False):
 
 def finetune(model_path, tokens, *, arch: str | None = None, seq_len: int = 64, batch: int = 2,
              steps: int = 100, adamw: AdamWConfig | None = None, mesh=None, seed: int = 0, out_path=None,
-             checkpoint_path=None, log=None, device="cuda"):
+             checkpoint_path=None, checkpoint_every: int = 0, log=None, device="cuda"):
     """Next-token finetuning loop in f32 through the cache-window attention.
     Returns (losses, opt).  tokens: flat int array of training token ids;
-    out_path: write the trained weights as GGUF."""
+    out_path: write the trained weights as GGUF; checkpoint_path +
+    checkpoint_every: the optimizer state every checkpoint_every steps as
+    <checkpoint_path>/step<N>.gguf (checkpoint.py, atomic)."""
     if mesh is not None:
         raise NotImplementedError("data-parallel finetuning is not ported yet (ROADMAP.md, parallel/)")
-    if checkpoint_path:
-        raise NotImplementedError("optimizer checkpoints are not ported yet (ROADMAP.md, checkpoint.py)")
     with GGUFFile(model_path) as g:
         arch = arch or g.metadata.get("general.architecture", "gpt2")
         fam = _family(arch)
@@ -136,6 +145,10 @@ def finetune(model_path, tokens, *, arch: str | None = None, seq_len: int = 64, 
         losses.append(float(metrics["loss"]))
         if log is not None and (step % 10 == 0 or step == steps - 1):
             log(f"step {step:5d}  loss {losses[-1]:.4f}")
+        if checkpoint_path and checkpoint_every and (step + 1) % checkpoint_every == 0:
+            from ..checkpoint import save_optimizer
+
+            save_optimizer(f"{checkpoint_path}/step{step + 1}.gguf", opt)
     if out_path is not None:
         save_params_gguf(out_path, opt.params, metadata)
     return losses, opt

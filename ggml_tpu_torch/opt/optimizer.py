@@ -8,7 +8,9 @@ wd * p, moments updated in f32 and rounded to state_dtype on store.  That is
 not torch.optim.AdamW, which places eps and the decoupled decay elsewhere.
 The state (params, m, v, g_acc, t, i_acc) lives on the parameters' device
 and is updated in place (the JAX step donates it); t stays on the device, so
-a step never waits for the host.  Where the JAX step decides on the device
+a step never waits for the host.  params is a dict of tensors, or of such
+dicts (the JAX package takes any pytree; LoRA trains {weight name: {"a",
+"b"}}), and m, v and g_acc keep its nesting.  Where the JAX step decides on the device
 whether an accumulation period is complete, the port counts the micro-steps
 on the host too and decides there.
 """
@@ -132,8 +134,20 @@ def _adamw_apply(cfg: AdamWConfig, params: list, m: list, v: list, g: list, t: t
             p.copy_(new)
 
 
+def _leaves(tree: dict) -> list:
+    """The tensors of a nested dict, depth first in insertion order."""
+    out = []
+    for v in tree.values():
+        out.extend(_leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def _tree_map(fn, tree: dict) -> dict:
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
 class Optimizer:
-    """Train and eval steps over a dict of parameter tensors.
+    """Train and eval steps over a (nested) dict of parameter tensors.
 
     model_fn(params, inputs) -> outputs (logits for classification), or
     model_fn(params, inputs, frozen) where `frozen` holds tensors that are not
@@ -156,15 +170,15 @@ class Optimizer:
         self.cfg = adamw
         self.opt_period = int(opt_period)
         self.classify = classify
-        params = {k: p.detach().clone() for k, p in params.items()}
-        self.device = next(iter(params.values())).device
+        params = _tree_map(lambda p: p.detach().clone(), params)
+        self.device = _leaves(params)[0].device
         sdt = torch.bfloat16 if adamw.state_dtype == "bfloat16" else torch.float32
         self.state = {
             "params": params,
-            "m": {k: torch.zeros_like(p, dtype=sdt) for k, p in params.items()},
-            "v": {k: torch.zeros_like(p, dtype=sdt) for k, p in params.items()},
+            "m": _tree_map(lambda p: torch.zeros_like(p, dtype=sdt), params),
+            "v": _tree_map(lambda p: torch.zeros_like(p, dtype=sdt), params),
             # accumulated in f32 whatever the moments' type
-            "g_acc": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
+            "g_acc": _tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
             "t": torch.zeros((), dtype=torch.int32, device=self.device),  # optimizer steps taken
             "i_acc": torch.zeros((), dtype=torch.int32, device=self.device),  # position in opt_period
         }
@@ -192,12 +206,12 @@ class Optimizer:
         calls).  Returns {'loss': 0-d tensor, 'ncorrect': 0-d tensor, 'n': int}."""
         inputs, labels = self._batch(inputs), self._batch(labels)
         st = self.state
-        keys = list(st["params"])
-        leaves = {k: p.detach().requires_grad_(True) for k, p in st["params"].items()}
+        leaves = _tree_map(lambda p: p.detach().requires_grad_(True), st["params"])
         loss, ncorrect, n = self._loss_and_metrics(leaves, inputs, labels)
-        grads = torch.autograd.grad(loss, [leaves[k] for k in keys], allow_unused=True)
-        grads = [torch.zeros_like(leaves[k]) if g is None else g.float() for k, g in zip(keys, grads)]
-        pick = lambda name: [st[name][k] for k in keys]
+        flat = _leaves(leaves)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g.float() for p, g in zip(flat, grads)]
+        pick = lambda name: _leaves(st[name])
         if self.opt_period == 1:
             _adamw_apply(self.cfg, pick("params"), pick("m"), pick("v"), grads, st["t"])
         else:
@@ -222,8 +236,8 @@ class Optimizer:
         return self.state["params"]
 
     def state_dict(self) -> dict:
-        """The full optimizer state: params, m, v, g_acc (dicts of tensors),
-        t and i_acc (0-d int32 tensors)."""
+        """The full optimizer state: params, m, v, g_acc (dicts of tensors,
+        nested as params), t and i_acc (0-d int32 tensors)."""
         return self.state
 
     def load_state_dict(self, state: dict):

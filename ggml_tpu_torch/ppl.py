@@ -37,7 +37,7 @@ def perplexity(forward_fn, params, cfg, tokens: np.ndarray, window: int = 256, s
         cache = init_cache_fn(cfg, 1, window, cache_dtype, device)
         with torch.no_grad():
             out = forward_fn(params, cfg, toks[None, :], zero.expand(1), cache, zero, prefill=True)
-            logits = out[0] if isinstance(out, tuple) else out  # GPT-2 also returns its cache
+            logits = out[0] if isinstance(out, tuple) else out  # the families return (logits, cache)
             logp = torch.log_softmax(logits[0].float(), dim=-1)
             nll = -torch.gather(logp[:-1], -1, toks[1:, None])[:, 0]  # (window-1,)
         # score each token exactly once: the first window scores everything,

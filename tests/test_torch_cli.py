@@ -171,8 +171,8 @@ def test_registry_refuses_what_it_has_not(gpt2_path):
 
 
 def test_cli_refuses_lora_and_a_missing_card(gpt2_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main([str(gpt2_path), "--lora", "adapter.gguf", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="quantized"):  # --lora merges into dense weights (test_torch_lora.py)
+        cli.main([str(gpt2_path), "--lora", "adapter.gguf", "--quantized", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         cli.main([str(gpt2_path), "-n", "2"])  # no --device: the card, never a quiet CPU run

@@ -4,12 +4,18 @@ weights come from init_random_params (no transformers).
 
 The GGUF writer writes the JAX writer's bytes.  finetune trains in f32 through
 the cache-window attention in both packages: over 10 steps the losses agree
-within 1e-4 (f32 sums in another order, amplified by AdamW's normalization).
+within 1e-4 (f32 sums in another order, amplified by AdamW's normalization),
+for GPT-2 and for a tiny f32 GPT-J (test_gptj_finetune_matches_jax).
 The output GGUF loads in both packages with the trained weights bit for bit.
+The CLI runs full-weight training, LoRA (--lora-rank) and checkpoints
+(--checkpoint-dir, --checkpoint-every); --dp, llama and falcon still raise.
 """
 
 import numpy as np
 import pytest
+import torch
+
+import jax.numpy as jnp
 
 from ggml_tpu.gguf import GGUFFile as JaxGGUFFile
 from ggml_tpu.gguf import GGUFWriter as JaxGGUFWriter
@@ -22,6 +28,7 @@ from ggml_tpu_torch.gguf import GGUFFile, GGUFWriter
 from ggml_tpu_torch.models import gpt2
 from ggml_tpu_torch.opt import AdamWConfig, finetune
 from ggml_tpu_torch.quant.reference import random_blocks
+from tests.test_torch_rules import tiny_gptj_f32_gguf
 
 SHAPE = dict(n_vocab=64, n_ctx=32, n_embd=32, n_head=4, n_layer=2)
 
@@ -108,18 +115,67 @@ def test_cli_runs_on_the_cpu(tiny_gguf, tmp_path, capsys):
             "--steps", "2", "--device", "cpu"]
     cli.main(args)
     assert out.exists() and "final loss" in capsys.readouterr().out
-    for extra in (["--dp", "2"], ["--lora-rank", "4"], ["--checkpoint-dir", str(tmp_path)]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            cli.main(args + extra)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cli.main(args + ["--dp", "2"])
+    cli.main(args + ["--lora-rank", "4", "--lora-out", str(tmp_path / "adapter.gguf")])
+    assert (tmp_path / "adapter.gguf").exists() and "+ adapter" in capsys.readouterr().out
+    ckpts = tmp_path / "ckpts"
+    cli.main(args + ["--checkpoint-dir", str(ckpts), "--checkpoint-every", "1"])
+    assert sorted(p.name for p in ckpts.iterdir()) == ["step1.gguf", "step2.gguf"]
 
 
 def test_finetune_rejects_families_and_options_not_ported(tiny_gguf):
     from ggml_tpu_torch.opt.finetune import _family
 
-    for arch in ("gptj", "llama", "falcon"):
+    assert _family("gptj").__name__ == "ggml_tpu_torch.models.gptj"
+    for arch in ("llama", "falcon"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             _family(arch)
     with pytest.raises(ValueError):
         _family("nope")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        finetune(str(tiny_gguf), _pattern(100), steps=1, checkpoint_path="x", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        finetune(str(tiny_gguf), _pattern(100), steps=1, mesh=object(), device="cpu")
+
+
+def test_finetune_checkpoints_resume_the_run(tiny_gguf, tmp_path):
+    """checkpoint_path + checkpoint_every write step<N>.gguf; the optimizer
+    loaded from step2 and stepped on the batches of steps 3-4 ends where the
+    4-step run ended, bit for bit."""
+    from ggml_tpu_torch.checkpoint import latest_checkpoint, load_optimizer
+    from ggml_tpu_torch.opt import token_windows
+
+    toks = _pattern(400)
+    _, opt = finetune(str(tiny_gguf), toks, seq_len=16, batch=4, steps=4, checkpoint_path=str(tmp_path),
+                      checkpoint_every=2, device="cpu")
+    assert latest_checkpoint(tmp_path) == (tmp_path / "step4.gguf", 4)
+    _, resumed = finetune(str(tiny_gguf), toks, seq_len=16, batch=4, steps=0, device="cpu")
+    load_optimizer(tmp_path / "step2.gguf", resumed)
+    ds = token_windows(toks, 16)
+    rng = np.random.default_rng(0)
+    ds.shuffle(rng)  # the loop's first shuffle; its 6 batches of 4 cover steps 0-5
+    for step in (2, 3):
+        resumed.step(*ds.get_batch(step, 4))
+    for name, p in opt.params.items():
+        assert torch.equal(resumed.params[name], p), name
+
+
+def test_gptj_finetune_matches_jax(tmp_path):
+    """Full-weight finetuning of a tiny f32 GPT-J (2 layers, n_embd 256), the
+    masked attention over the cache window under autograd: 10 steps within
+    1e-4 of JAX's losses, and the trained model loads in both packages."""
+    from ggml_tpu.models import gptj as jax_gptj
+    from ggml_tpu_torch.models import gptj
+
+    cfg = gptj.GPTJConfig(n_vocab=256, n_ctx=128, n_embd=256, n_head=4, n_layer=2, n_rot=32)
+    path = tiny_gptj_f32_gguf(tmp_path / "gptj.gguf", cfg, seed=2)
+    toks = _pattern(400)
+    want, _ = jax_finetune(str(path), toks, seq_len=32, batch=4, steps=10, adamw=JaxAdamWConfig(alpha=3e-3))
+    out = tmp_path / "trained.gguf"
+    got, opt = finetune(str(path), toks, seq_len=32, batch=4, steps=10, adamw=AdamWConfig(alpha=3e-3),
+                        out_path=out, device="cpu")
+    assert len(got) == 10 and np.abs(np.array(want) - np.array(got)).max() <= 1e-4, (want, got)
+    assert got[-1] < 0.8 * got[0]
+    prompt = np.array([[7, 11, 23]], np.int32)
+    jm = jax_gptj.GPTJ.from_gguf(str(out), dtype=jnp.float32, keep_quantized=False, max_seq=16)
+    m = gptj.GPTJ.from_gguf(out, dtype=torch.float32, keep_quantized=False, max_seq=16, device="cpu")
+    assert m.generate(prompt, 6) == [int(t) for t in jm.generate(prompt, 6)]

@@ -56,8 +56,8 @@ def _jax_prefill(jm, prompt):
 def _port_prefill(tm, prompt):
     cache = tm.new_cache(dtype=torch.float32)
     zero = torch.zeros((), dtype=torch.int32)
-    logits = gptj.forward(tm.params, tm.cfg, torch.from_numpy(prompt).long(), zero.expand(1), cache,
-                          zero, prefill=True)
+    logits, cache = gptj.forward(tm.params, tm.cfg, torch.from_numpy(prompt).long(), zero.expand(1), cache,
+                                 zero, prefill=True)
     return logits.numpy(), cache
 
 
@@ -96,7 +96,7 @@ def greedy_decode_both(jm, tm, prompt, n_steps: int):
     for n_past in range(t, t + n_steps):
         jl, jcache = jgptj.forward(jm.params, jm.cfg, jnp.asarray([[jtok]], jnp.int32),
                                    jnp.full((1,), n_past, jnp.int32), jcache, jnp.int32(n_past))
-        tl = gptj.forward(tm.params, tm.cfg, torch.tensor([[ttok]]), pos.expand(1), tcache, pos).numpy()
+        tl = gptj.forward(tm.params, tm.cfg, torch.tensor([[ttok]]), pos.expand(1), tcache, pos)[0].numpy()
         pos += 1
         jl = np.asarray(jl)
         jtok, ttok = int(np.argmax(jl[0, -1])), int(np.argmax(tl[0, -1]))
@@ -126,7 +126,7 @@ def test_decode_loop_matches_stepwise(models):
     _, cache = _port_prefill(tm, prompt)
     tok, pos, want = first, torch.tensor(n_past, dtype=torch.int32), []
     for _ in range(16):
-        logits = gptj.forward(tm.params, tm.cfg, tok, pos.expand(1), cache, pos)
+        logits, cache = gptj.forward(tm.params, tm.cfg, tok, pos.expand(1), cache, pos)
         tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
         want.append(int(tok))
         pos += 1
@@ -149,7 +149,8 @@ def test_flash_prefill_computes_the_mask_ranges_once(models, monkeypatch):
     cfg = dataclasses.replace(tm.cfg, use_flash_prefill=True)
     toks = torch.from_numpy(_prompt(40)).long()
     zero = torch.zeros((), dtype=torch.int32)
-    run = lambda: gptj.forward(tm.params, cfg, toks, zero.expand(1), tm.new_cache(torch.float32), zero, prefill=True)
+    run = lambda: gptj.forward(tm.params, cfg, toks, zero.expand(1), tm.new_cache(torch.float32), zero,
+                               prefill=True)[0]
     want = run()
     handed, masks = [], []
     attention, ranges_of = flash_attn.flash_attention, flash_attn.mask_ranges
@@ -178,7 +179,8 @@ def test_generate_and_limits(models):
     zero = torch.zeros((), dtype=torch.int32)
     toks = torch.zeros((1, 4), dtype=torch.long)
     flash = dataclasses.replace(tm.cfg, use_flash_prefill=True)
-    logits = gptj.forward(tm.params, flash, toks, zero.expand(1), tm.new_cache(torch.float32), zero, prefill=True)
+    logits, _ = gptj.forward(tm.params, flash, toks, zero.expand(1), tm.new_cache(torch.float32), zero,
+                             prefill=True)
     assert logits.shape == (1, 4, CFG["n_vocab"]) and bool(torch.isfinite(logits).all())
     with pytest.raises(NotImplementedError):  # per-slot cache positions: batched serving, a later slice
         gptj.forward(tm.params, tm.cfg, toks, zero.expand(1), tm.new_cache(torch.float32), zero.expand(1))
@@ -198,7 +200,7 @@ def test_gelu_fp16_logits_match_jax(models):
                             jm.new_cache(dtype=jnp.float32), jnp.int32(0), prefill=True)
     zero = torch.zeros((), dtype=torch.int32)
     got = gptj.forward(tm.params, cfg, torch.from_numpy(prompt).long(), zero.expand(1),
-                       tm.new_cache(dtype=torch.float32), zero, prefill=True).numpy()
+                       tm.new_cache(dtype=torch.float32), zero, prefill=True)[0].numpy()
     assert nmse(np.asarray(want), got) <= 1e-10
     plain, _ = _port_prefill(tm, prompt)
     assert nmse(plain, got) > 0

@@ -162,7 +162,7 @@ def test_flash_prefill_matches_jax_and_the_plain_attention(models):
     tcache = tm.new_cache(dtype=torch.float32)
     zero = torch.zeros((), dtype=torch.int32)
     got = gptj.forward(tm.params, dataclasses.replace(tm.cfg, use_flash_prefill=True),
-                       torch.from_numpy(prompt).long(), zero.expand(1), tcache, zero, prefill=True).numpy()
+                       torch.from_numpy(prompt).long(), zero.expand(1), tcache, zero, prefill=True)[0].numpy()
     assert_same_choice(want, got, "flash prefill 40")
     plain, plain_cache = _port_prefill(tm, prompt)
     assert nmse(plain, got) <= 1e-5
@@ -219,7 +219,7 @@ def test_bf16_model_flash_prefill_matches_jax(monkeypatch):
                                 jnp.int32(0), prefill=True)
         got = gptj.forward(tparams, dataclasses.replace(tcfg, use_flash_prefill=flash),
                            torch.from_numpy(prompt).long(), zero.expand(1),
-                           gptj.init_cache(tcfg, 1, MAX_SEQ, torch.bfloat16, "cpu"), zero, prefill=True)
+                           gptj.init_cache(tcfg, 1, MAX_SEQ, torch.bfloat16, "cpu"), zero, prefill=True)[0]
         assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
         err[flash] = nmse(np.asarray(want.astype(jnp.float32)), got.float().numpy())
     assert seen == [(torch.float32, torch.float32, torch.bfloat16)] * LAYERS

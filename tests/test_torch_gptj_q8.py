@@ -79,7 +79,7 @@ def teacher_forced_decode(jm, tm, prompt, n_steps: int):
         tok = int(np.argmax(np.asarray(jl)[0, -1]))
         jl, jcache = jgptj.forward(jm.params, jm.cfg, jnp.asarray([[tok]], jnp.int32),
                                    jnp.full((1,), n_past, jnp.int32), jcache, jnp.int32(n_past))
-        tl = gptj.forward(tm.params, tm.cfg, torch.tensor([[tok]]), pos.expand(1), tcache, pos).numpy()
+        tl = gptj.forward(tm.params, tm.cfg, torch.tensor([[tok]]), pos.expand(1), tcache, pos)[0].numpy()
         pos += 1
         yield jl, tl
 

@@ -91,6 +91,24 @@ def tiny_gpt2_gguf(path, shape: dict, tokens: list[str], merges: list[str], seed
     return path
 
 
+def tiny_gptj_f32_gguf(path, cfg, seed: int):
+    """A GPT-J GGUF of f32 weights: the port's write_random_gguf Q4_K file
+    (written beside it) dequantized, its metadata carried over."""
+    from ggml_tpu_torch.gguf import GGUFFile, GGUFWriter
+    from ggml_tpu_torch.models import gptj
+
+    q4k = path.with_suffix(".q4k.gguf")
+    gptj.write_random_gguf(q4k, cfg, seed=seed)
+    w = GGUFWriter()
+    with GGUFFile(q4k) as g:
+        for key, val in g.metadata.items():
+            (w.add_string if isinstance(val, str) else w.add_u32)(key, val)
+        for name in g.tensors:
+            w.add_tensor(name, g.to_float32(name))
+    w.write(path)
+    return path
+
+
 def _port_modules() -> list[str]:
     import ggml_tpu_torch
 
@@ -108,7 +126,8 @@ def test_port_modules_listed():
                  "ggml_tpu_torch.opt.dataset", "ggml_tpu_torch.opt.optimizer", "ggml_tpu_torch.opt.finetune",
                  "ggml_tpu_torch.cli.finetune", "ggml_tpu_torch.sampling", "ggml_tpu_torch.tokenizer",
                  "ggml_tpu_torch.grammar", "ggml_tpu_torch.ppl", "ggml_tpu_torch.models.registry",
-                 "ggml_tpu_torch.cli.generate", "ggml_tpu_torch.cli.gguf_dump"):
+                 "ggml_tpu_torch.cli.generate", "ggml_tpu_torch.cli.gguf_dump", "ggml_tpu_torch.opt.lora",
+                 "ggml_tpu_torch.checkpoint"):
         assert want in names
 
 
@@ -132,13 +151,14 @@ def test_entry_points_default_to_cuda():
     from ggml_tpu_torch.cli import finetune as cli
     from ggml_tpu_torch.cli import generate, gguf_dump
     from ggml_tpu_torch.models import common, gpt2, gptj, registry
-    from ggml_tpu_torch.opt import finetune
+    from ggml_tpu_torch.checkpoint import load_params
+    from ggml_tpu_torch.opt import finetune, finetune_lora
     from ggml_tpu_torch.ppl import perplexity
 
     for fn in (gptj.GPTJ.__init__, gptj.GPTJ.from_gguf, gptj.synth_quantized_params,
                gptj.init_cache, common.init_layer_cache, gpt2.load_params, params_from_numpy,
                gpt2.GPT2.__init__, gpt2.GPT2.from_gguf, gpt2.init_random_params, gpt2.init_cache, finetune,
-               registry.load_model, perplexity):
+               finetune_lora, load_params, registry.load_model, perplexity):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
     assert cli.parser().parse_args(["in.gguf", "out.gguf", "--tokens", "t.npy"]).device == "cuda"
     assert generate.parser().parse_args(["m.gguf"]).device == "cuda"
