@@ -8,6 +8,7 @@
     python3 chip_smoke.py --gemv-times            # phases 1, 2 and the GEMV kernels' times at the decode shapes only
     python3 chip_smoke.py --front-end             # phases 1, 2 and the text front end (4i) only
     python3 chip_smoke.py --qlora                 # phases 1, 2, the GGUF writer and QLoRA fine-tuning (4j) only
+    python3 chip_smoke.py --iquants               # phases 1, 2 and GPT-J-6B from IQ4_XS, IQ1_M, TQ2_0 files (4k) only
 
 Phases (any failure exits non-zero without the result line):
 1. the card, as nvidia-smi reports its name and power limit;
@@ -16,6 +17,9 @@ Phases (any failure exits non-zero without the result line):
    GPT-J-6B shapes of the main paths, and time kernel, plain version and one
    library call computing the same function (a yardstick only; the port
    never calls it), beside the least time the card could take (bound);
+   kernel G also over IQ1_M (groups of 8, offsets) and TQ2_0 (groups of
+   256) planes repacked from random blocks, at M = 1, 8, 100 and 1024, and
+   E over IQ2_XS and IQ1_S planes;
 4. serve greedy requests through GPT-J-6B at its published widths
    (EleutherAI/gpt-j-6b: n_vocab 50400, E 4096, 16 heads, 28 layers, n_rot
    64, context 2048), decoding as CUDA graph replays (one capture per model,
@@ -31,7 +35,8 @@ Phases (any failure exits non-zero without the result line):
    prompts 8, 100, 1 and 1024, (f) synthesized Q3_K planes (groups of 16),
    one request; then (d) hold a tiny GPT-J on the card against the same model
    on the CPU for a Q4_K, a Q8_0, a mixed Q4_K/Q6_K, a Q4_0 and a mixed
-   Q4_1/Q2_K/Q3_K parameter set, and a flash prefill; (g) train GPT-2-medium
+   Q4_1/Q2_K/Q3_K parameter set, a GGUF file mixing all eleven IQ* and TQ*
+   types, and a flash prefill; (g) train GPT-2-medium
    at its published widths (openai-community/gpt2-medium: n_vocab 50257, E
    1024, 16 heads, 24 layers, tied head) for 1 + 6 AdamW steps of batch 8 x
    512 as bench.py's train mode composes them (bf16 over f32 masters, bf16
@@ -49,6 +54,13 @@ Phases (any failure exits non-zero without the result line):
    launches a step), finite falling losses, the adapter GGUF round trip, the
    base unchanged, peak memory, a profiled step by class; then a tiny GPT-J
    QLoRA run on the card against the CPU and a checkpoint resume on the card;
+   (k) GPT-J-6B from three GGUF files written with every 2-D weight in one
+   type, IQ4_XS (E at decode), IQ1_M and TQ2_0 (G at every M, 169 launches a
+   decode token), each loaded as planes (as `generate --quantized` loads
+   it) and deleted: the load, greedy requests from prompts of 8 and 100
+   (IQ1_M also 1024, through J and G at M = 1024) as graph replays, the
+   first again eagerly (the same ids), ms/token beside the plane-byte
+   floor, a profiled graphed token by class;
 5. one JSON line listing every kernel, then the result line.
 
 Runs only where torch.cuda.is_available(); it imports nothing of JAX.
@@ -60,6 +72,7 @@ import copy
 import dataclasses
 import inspect
 import json
+import os
 import re
 import subprocess
 import sys
@@ -197,6 +210,31 @@ def random_q8_planes(torch, n: int, k: int, npad: int, fmt: str, gen):
                         offsets=-8 * small(k // g, dt) if affine else None, group=g, n=n, k=k, orig_type=orig)
 
 
+def iq_planes(torch, np, slabs: dict, n: int, k: int, npad: int, fmt: str):
+    """A weight of an IQ* or TQ* type on the card, as repack builds it
+    (multiplied-out int8 planes, f32 scales and offsets).  fmt: the type's
+    name in lower case ("iq1_m", "tq2_0", ...), "_bf16" at the end for bf16
+    scale and offset planes.  A slab of 1024 rows is repacked with the
+    port's repack from random blocks once per type and K (cached in slabs),
+    then tiled along N on the card and rotated by n columns: the host
+    repacks 4 to 17 M weights, not N x K."""
+    from ggml_tpu_torch.dtypes import GGMLType, get_type_traits
+    from ggml_tpu_torch.quant import reference
+    from ggml_tpu_torch.quant.planar import PlanarWeight, repack
+
+    t = GGMLType[fmt.removesuffix("_bf16").upper()]
+    if (t, k) not in slabs:
+        rng = np.random.default_rng(7 * int(t) + k)
+        raw = reference.random_blocks(t, 1024 * k // get_type_traits(t).block_size, rng, scale=1e-3)
+        slabs[t, k] = repack(raw, t, (1024, k)).to("cuda")
+    base = slabs[t, k]
+    dt = torch.bfloat16 if fmt.endswith("_bf16") else torch.float32
+    tile = lambda a, dtype=None: None if a is None else torch.roll(
+        a.repeat(1, -(-npad // 1024))[:, :npad], n % 1024, dims=-1).to(dtype or a.dtype).contiguous()
+    return PlanarWeight(kind="q8", codes=tile(base.codes), scales=tile(base.scales, dt),
+                        offsets=tile(base.offsets, dt), group=base.group, n=n, k=k, orig_type=t)
+
+
 def random_q4_planes(torch, n: int, k: int, npad: int, fmt: str, gen, offsets: bool = True):
     """A q4 weight with multiplied-out random scale and offset planes (or
     none) on the card.  fmt: "q4_0" / "q3_k" (bf16 planes per 32 / 16 codes,
@@ -216,9 +254,12 @@ def random_q4_planes(torch, n: int, k: int, npad: int, fmt: str, gen, offsets: b
 
 def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
     """Each kernel against its plain version at the main path's shapes."""
+    import numpy as np
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     results = {name: [] for name in SOURCES}
+    slabs = {}  # iq_planes' repacked slabs
 
     def record(name, r, gate=None):
         gate = GATE[name] if gate is None else gate
@@ -238,6 +279,9 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
             pw, label = random_planes(torch, n, k, npad, d_dtype, gen), f"d={str(d_dtype)[6:]}"
         elif fmt in ("q4_0", "q3_k", "q4_0_f32"):
             pw, label = random_q4_planes(torch, n, k, npad, fmt, gen, offsets), fmt + ("" if offsets else " no offsets")
+        elif fmt.startswith(("iq", "tq")):
+            pw = iq_planes(torch, np, slabs, n, k, npad, fmt)
+            label = f"{fmt} (G={pw.group}{', offsets' if pw.offsets is not None else ''})"
         else:
             pw, label = random_q8_planes(torch, n, k, npad, fmt, gen), fmt
         x = torch.randn((m, k), device="cuda", generator=gen).to(torch.bfloat16)
@@ -389,6 +433,26 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         gemv_case("q8_matmul", m, 4128, 300, 384, fmt="q8_0", time_it=False)
         gemv_case("q8_matmul", m, 512, 600, 640, fmt="q6_k", time_it=False)
         gemv_case("q8_matmul", m, 512, 600, 640, fmt="q5_k_synth", time_it=False)
+    # G at the groups of IQ1_M (8, with offsets) and TQ2_0 (256), over planes
+    # repacked from random blocks: decode's M = 1 (these groups take G at
+    # every M), 8, prefill's 100 and the long prompt's 1024 on attn_qkvup;
+    # M = 1 on ffn_down and attn_output, whose 32 tiles split K over 4
+    # blocks; then E over IQ2_XS (groups of 16) and IQ1_S (groups of 32,
+    # offsets) planes at M = 1 and 8
+    for fmt in ("iq1_m", "tq2_0"):
+        for m in (1, 8, 100, 1024):
+            gemv_case("q8_matmul", m, *qkvup, fmt=fmt)
+        gemv_case("q8_matmul", 1, *ffn_down, fmt=fmt)
+        gemv_case("q8_matmul", 1, *attn_out, fmt=fmt)
+    for fmt in ("iq2_xs", "iq1_s"):
+        for m in (1, 8):
+            gemv_case("q8_gemv", m, *qkvup, fmt=fmt)
+    # and at their edges, correctness only: one row and a ragged row tile,
+    # f32 and bf16 planes, Npad = 128 x 5, a K of two stages
+    for m in (1, 33):
+        for fmt in ("iq1_m", "tq2_0", "iq1_m_bf16", "tq2_0_bf16"):
+            gemv_case("q8_matmul", m, 256, 600, 640, fmt=fmt, time_it=False)
+    slabs.clear()
 
     def flash_case(b, h, h_kv, nq, nkv, d, types, causal=True, max_bias=0.0, softcap=0.0, time_it=True,
                    dead_row=None):
@@ -731,7 +795,10 @@ def phase_gptj(torch, np, label: str, params: dict, kernels: dict, prompts, prof
     from ggml_tpu_torch.quant.planar import PlanarWeight
 
     cfg = gptj.random_config("6b")
-    plane_bytes = sum(v.plane_bytes() for v in params.values() if isinstance(v, PlanarWeight))
+    # the planes a decode token reads (a GGUF file's token embedding also
+    # has planes, beside its dense copy for the row gather)
+    plane_bytes = sum(v.plane_bytes() for k, v in params.items()
+                      if isinstance(v, PlanarWeight) and k != "token_embd.weight")
     print(f"  {label}: {plane_bytes / 1e9:.3f} GB of planes read per decode token, bound at "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: {plane_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms/token")
     model = gptj.GPTJ(params, cfg, max_seq=max_seq, device="cuda")
@@ -741,7 +808,10 @@ def phase_gptj(torch, np, label: str, params: dict, kernels: dict, prompts, prof
     captures = lambda: sum(g.captures for g in model.decode_graphs.values())
     captured = captures()
 
-    n_gen, per_layer = 64, 3
+    n_gen = 64
+    # quantized linears a layer: 3 for the synthesized fused qkvup, 6 from a
+    # GGUF file (q, k, v, attn_output, ffn_up, ffn_down apart)
+    per_layer = sum(1 for k, v in params.items() if k.startswith("blk.0.") and isinstance(v, PlanarWeight))
     layers = cfg.n_layer
     rng = np.random.default_rng(0)
     reset_launches()
@@ -985,7 +1055,8 @@ def profile_decode_graphed(torch, np, model, steps: int = 32, prompt: int = 8) -
     events = _device_events(prof)
     total_us = sum(e.self_device_time_total for e in events)
     ours = {name: sum(e.self_device_time_total for e in events if name in e.key) / steps / 1e3
-            for name in ("gemv_sm90_kernel", "decode_attn_kernel")}
+            for name in ("gemv_sm90_kernel", "q8_matmul_kernel", "qmatmul_xsum_kernel", "decode_attn_kernel")}
+    ours = {k: v for k, v in ours.items() if v}
     graph_launches = sum(e.count for e in prof.key_averages() if e.key.startswith("cudaGraphLaunch"))
     busy = total_us / steps / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
@@ -1008,7 +1079,10 @@ def phase_tiny_reference(torch, np):
     synthesized Q4_K, synthesized Q8_0, Q4_K with Q6_K ffn_down and
     output.weight (compact planes repacked from random blocks), synthesized
     Q4_0, and Q4_1 with Q2_K ffn_down and Q3_K attn_output and output.weight
-    (nibble planes repacked from random blocks); the Q4_0 set also prefills
+    (nibble planes repacked from random blocks), and a GGUF file whose 14
+    matmul weights cycle through the eleven IQ* and TQ* types (write_random_gguf
+    (types=), loaded with GPTJ.from_gguf: IQ1_M's groups of 8 and the TQ
+    types' 256 take kernel G at every M); the Q4_0 set also prefills
     through the flash kernel (use_flash_prefill).  Prefill of 40 tokens has
     no int8 activations: NMSE <= 1e-5 (bf16 product order).
     The int8 paths: the card sums in f32 in another order than the CPU, and a
@@ -1034,11 +1108,18 @@ def phase_tiny_reference(torch, np):
                            ("blk.0.ffn_down.weight", GGMLType.Q2_K, 3e-4), ("blk.1.ffn_down.weight", GGMLType.Q2_K, 3e-4)):
         n, k = nibbles[name].n, nibbles[name].k
         nibbles[name] = repack(reference.random_blocks(t, n * k // 256, rng, scale=scale), t, (n, k))
+    with tempfile.TemporaryDirectory(prefix="tiny-iq-") as tmp:
+        path = f"{tmp}/tiny-iq.gguf"
+        names = gptj.matmul_weight_names(cfg)
+        gptj.write_random_gguf(path, cfg, seed=7,
+                               types={n: GGMLType[IQ_TYPES[i % len(IQ_TYPES)]] for i, n in enumerate(names)})
+        iq_mix = gptj.GPTJ.from_gguf(path, dtype=torch.float32, device="cpu").params
     out = {}
     flash_cfg = dataclasses.replace(cfg, use_flash_prefill=True)
     for label, cpu_params, run_cfg in (
             ("q4_k", synth(GGMLType.Q4_K), cfg), ("q8_0", synth(GGMLType.Q8_0), cfg), ("q4_k+q6_k", mixed, cfg),
             ("q4_0", synth(GGMLType.Q4_0), cfg), ("q4_1+q2_k+q3_k", nibbles, cfg),
+            ("eleven IQ*/TQ* types", iq_mix, cfg),
             ("q4_0 flash prefill", synth(GGMLType.Q4_0), flash_cfg)):
         # Module.to moves in place: copy the planar weights before moving them
         gpu_params = {k: copy.deepcopy(v).to("cuda") for k, v in cpu_params.items()}
@@ -1283,8 +1364,6 @@ def write_gptj6b_gguf(np, tmp: str) -> tuple:
     entries (the 256 byte symbols, the merges learned from FRONT_END_TEXT,
     lowercase placeholder words, <|endoftext|> at 50256).  Returns (path,
     dict(n_merges, gguf_write_s, gguf_bytes), tokens, merges, eos)."""
-    import os
-
     from ggml_tpu_torch.models import gptj
     from ggml_tpu_torch.tokenizer import byte_level_vocab, learn_merges
 
@@ -1547,8 +1626,6 @@ def phase_qlora(torch, np, path: str, tmp: str) -> dict:
     class: C, backward dequant, backward products, attention, other), a tiny
     GPT-J Q4_K QLoRA run on the card against the CPU, and a checkpoint resume
     on the card."""
-    import os
-
     from torch.profiler import ProfilerActivity, profile
 
     from ggml_tpu_torch.checkpoint import load_optimizer, save_optimizer
@@ -1682,6 +1759,70 @@ def phase_qlora(torch, np, path: str, tmp: str) -> dict:
     print(f"  checkpoint resume on the card (tiny QLoRA, 4 steps, save, load, 2 more against 6): losses 5-6 "
           f"within {dl:.2e}; " + ", ".join(f"{k} {v}" for k, v in out["resume"].items() if k != "loss_max_abs_diff"))
     return out
+
+
+# the eleven IQ* and TQ* GGUF types, in the order phase 4d's tiny file cycles them
+IQ_TYPES = ("IQ4_NL", "IQ4_XS", "IQ3_S", "IQ3_XXS", "IQ2_S", "IQ2_XS", "IQ2_XXS", "IQ1_M", "IQ1_S", "TQ2_0", "TQ1_0")
+
+
+def phase_iquants(torch, np, tmp: str, card: str) -> list:
+    """4k: GPT-J-6B at its published widths from three GGUF files written
+    into tmp by write_random_gguf with every 2-D weight in one type: IQ4_XS
+    (groups of 32: E at decode, G at prefill), IQ1_M (groups of 8 with
+    offsets) and TQ2_0 (groups of 256), which take G at every M.  Each file
+    loads as planes through GPTJ.from_gguf (what `generate --quantized`
+    does), is deleted, and serves greedy requests through phase_gptj
+    (prompts 8 and 100; IQ1_M also 1024, through J and G at M = 1024):
+    graph replays, the first request again eagerly with the same ids, exact
+    launch counts (q, k, v and ffn_up apart: 169 linears a decode token),
+    ms/token beside the plane-byte floor, and profiled decode tokens by
+    class."""
+    import gc
+
+    from ggml_tpu_torch.dtypes import GGMLType
+    from ggml_tpu_torch.models import gptj
+    from ggml_tpu_torch.quant.planar import PlanarWeight
+
+    cfg = gptj.GPTJConfig()  # EleutherAI/gpt-j-6b
+    e_kernels = dict(decode="q8_gemv", rows="q8_gemv", matmul="q8_matmul")
+    g_kernels = dict(decode="q8_matmul", rows="q8_matmul", matmul="q8_matmul")
+    runs = []
+    for t, kernels, prompts, max_seq in ((GGMLType.IQ4_XS, e_kernels, (8, 100), 256),
+                                         (GGMLType.IQ1_M, g_kernels, (8, 100, 1024), 2048),
+                                         (GGMLType.TQ2_0, g_kernels, (8, 100), 256)):
+        label = t.name.lower()
+        path = os.path.join(tmp, f"gpt-j-6b-{label}.gguf")
+        t0 = time.perf_counter()
+        gptj.write_random_gguf(path, cfg, seed=0, types=dict.fromkeys(gptj.matmul_weight_names(cfg), t))
+        write_s, gguf_bytes = time.perf_counter() - t0, os.path.getsize(path)
+        t0 = time.perf_counter()
+        model = gptj.GPTJ.from_gguf(path, max_seq=max_seq, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        os.remove(path)
+        print(f"  {t.name}: wrote {gguf_bytes / 1e9:.3f} GB of GGUF in {write_s:.1f}s, loaded as planes in "
+              f"{load_s:.1f}s ({card})")
+        run = phase_gptj(torch, np, label, model.params, kernels, prompts, profile=True, max_seq=max_seq)
+        req = run["requests"][0]  # prompt 8: its prefill of 8 tokens is one launch of each linear too
+        linears = sum(1 for k, v in model.params.items() if isinstance(v, PlanarWeight) and k != "token_embd.weight")
+        per_token = {k: (v - (linears if k == kernels["rows"] else 0)) / 63 for k, v in req["launches"].items() if v}
+        graphed = run["graphed_decode_trace"]
+        run.update(type=t.name, gguf_write_s=write_s, gguf_bytes=gguf_bytes, load_s=load_s,
+                   launches_per_decode_token=per_token, floor_ms=run["plane_bytes"] / HBM_BYTES_PER_S * 1e3)
+        check(per_token[kernels["decode"]] == linears == 169, f"{label}: launches per decode token {per_token}")
+        print(f"  {t.name} ({card}): load {load_s:.1f}s; launches a decode token {per_token}; graphed decode "
+              + ", ".join(f"{r['decode_ms_per_token']:.3f}" for r in run["requests"])
+              + f" ms/token (prompts {', '.join(str(r['prompt']) for r in run['requests'])}; eager "
+              f"{req['eager_decode_ms_per_token']:.3f}, the same ids) against a floor of {run['floor_ms']:.3f} "
+              f"({run['plane_bytes'] / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); a graphed token: host "
+              f"{graphed['host_ms_per_token']:.3f} ms, device busy {graphed['device_ms_per_token']:.3f}, "
+              + ", ".join(f"{k} {v:.3f}" for k, v in graphed["port_kernels_ms_per_token"].items())
+              + f", other ops {graphed['other_device_ms_per_token']:.3f}")
+        runs.append(run)
+        del model, run
+        gc.collect()  # a model and its decode graphs form a reference cycle
+        torch.cuda.empty_cache()
+    return runs
 
 
 def flash_times(torch, flash_attn) -> dict:
@@ -1862,6 +2003,15 @@ def main() -> int:
                                                      "count": torch.cuda.device_count()}}))
             return 0
 
+        if sys.argv[1:] == ["--iquants"]:
+            print("== 4k. GPT-J-6B from IQ4_XS, IQ1_M and TQ2_0 GGUF files")
+            with tempfile.TemporaryDirectory(prefix="gptj6b-gguf-") as tmp:
+                iq = phase_iquants(torch, np, tmp, card)
+            print(json.dumps(dict(card=card, iquants=iq)))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
+
         if sys.argv[1:] == ["--long-decode-profile"]:
             print("== 4. GPT-J-6B Q4_K (synthesized compact planes), decode after a 1088-token prompt, profiled")
             from ggml_tpu_torch.dtypes import GGMLType
@@ -1933,6 +2083,9 @@ def main() -> int:
             runs.append(phase_front_end(torch, np, written))
             print("== 4j. QLoRA fine-tuning of GPT-J-6B from the same file, batch 4 x 128, rank 8")
             runs.append(phase_qlora(torch, np, written[0], tmp))
+            os.remove(written[0])
+            print("== 4k. GPT-J-6B from IQ4_XS, IQ1_M and TQ2_0 GGUF files")
+            runs += phase_iquants(torch, np, tmp, card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -119,3 +119,8 @@ def is_quantized(t: GGMLType) -> bool:
 
 def bf16_bits_to_fp32(bits: np.ndarray) -> np.ndarray:
     return (np.asarray(bits, dtype=np.uint16).astype(np.uint32) << np.uint32(16)).view(np.float32)
+
+
+def fp16_bits_to_fp32(bits: np.ndarray) -> np.ndarray:
+    """IEEE half bit patterns (uint16) -> float32 (IQ1_M's composite scale)."""
+    return np.asarray(bits, dtype=np.uint16).view(np.float16).astype(np.float32)

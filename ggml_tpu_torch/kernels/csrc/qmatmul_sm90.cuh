@@ -12,7 +12,9 @@
 //
 // Bound on the H100: at M=100 the plane bytes at 3.35 TB/s (qkvup: 23.9 us
 // over nibble planes, 40.9 over int8 planes); at M=1024 the 2 M K N bf16
-// products at 989 TFLOP/s (243.2 us).
+// products at 989 TFLOP/s (243.2 us).  At M=1 (the decode of IQ1_M, TQ1_0
+// and TQ2_0, whose groups the GEMVs do not take) the plane bytes: qkvup 70.1
+// us over IQ1_M planes (2 bytes a weight), 35.6 over TQ2_0 planes.
 //
 // Design.
 // - The product runs transposed, y^T = W^T x^T, so that the weights, which
@@ -26,9 +28,16 @@
 //   device memory once.
 // - A weight stage is 128 values of K in two sub-tiles of 64, each an x box
 //   and 4 k16 steps: 64 rows of a nibble plane (each byte serves both
-//   sub-tiles), 128 rows of an int8 plane.  Stages go through a ring of
+//   sub-tiles), 128 rows of an int8 plane.  A sub-tile's scale box holds its
+//   64 / G group rows: 8 at groups of 8, where a k16 step's fragment rows k,
+//   k + 1 and k + 8, k + 9 lie in two groups and take a scale pair each
+//   (Frag); one row at groups of 256, which a 64-row sub-tile never crosses.  Stages go through a ring of
 //   shared-memory slots (as many as fit, up to 8): the producer's one thread
-//   starts TMA boxes (x, zero rows past M and zero columns past K; the raw
+//   starts TMA boxes (x, zero columns past K, and zero rows past M in the
+//   last row tile; below 128 rows the box is M rows and the tile's other
+//   rows keep what the slot held, which only y's unwritten rows read: TMA's
+//   zero fill of rows outside the tensor costs time, and with 127 of them
+//   G at M = 1 ran slower than at M = 100 over the same planes; the raw
 //   code tile, also swizzled so that the consumers' reads do not collide;
 //   the scale rows, and d of compact planes) that an mbarrier counts, and
 //   refills a slot once all 8 consumer warps have released it.
@@ -90,6 +99,7 @@ struct QmArgs {
   int ng, ngp;       // groups K/G, and Gp
   int sb;            // groups per superblock (compact planes)
   int ndo;           // rows of dmin an offset stage's 64 groups span (compact planes)
+  int xshort;        // bytes an x (or xs) box falls short of QM_XBOX: (128 - M) rows where M < 128
   int split;         // blocks along the stages of a tile
   int stages, slot;  // the ring: slots, and bytes a slot
 };
@@ -100,17 +110,20 @@ struct QmArgs {
 // + k2, so a stage reads 64 code rows for both sub-tiles; else one int8 code
 // a weight, 128 code rows, 64 a sub-tile.  COMPACT: the scale plane holds
 // int8 sub-scale codes (times d), the offset plane int8 min codes (times
-// -dmin); else both hold ST values.  G: 16 or 32 codes a scale.
+// -dmin); else both hold ST values.  G: 16 or 32 codes a scale; int8 planes
+// with multiplied-out scales also 8 (IQ1_M) and 256 (TQ1_0, TQ2_0).
 template <bool Q4, bool COMPACT, typename ST, int G>
 struct QmPolicy {
+  static_assert(G == 16 || G == 32 || (!Q4 && !COMPACT && (G == 8 || G == 256)), "group size");
   static constexpr int NSUB = 2;                            // x boxes a weight stage
   static constexpr int CODE_ROWS = Q4 ? QM_BK : 2 * QM_BK;  // plane rows a stage
   static constexpr int CODES = CODE_ROWS * QM_BN;           // bytes of its code tile (one byte a code)
   static constexpr int ES = COMPACT ? 1 : (int)sizeof(ST);  // bytes of a scale or offset
-  static constexpr int S_BOX = (QM_BK / G) * QM_BN * ES;    // a sub-tile's scale rows
+  static constexpr int S_ROWS = G < QM_BK ? QM_BK / G : 1;  // scale rows a sub-tile spans
+  static constexpr int S_BOX = S_ROWS * QM_BN * ES;         // a sub-tile's scale rows
   static constexpr int O_BOX = QM_BK * QM_BN * ES;          // an offset stage's 64 group rows
   // compact planes: the superblock scales d of a stage's groups (one row a group at most)
-  static constexpr int D_BOX = COMPACT ? (QM_BK / G) * QM_BN * (int)sizeof(ST) : 0;
+  static constexpr int D_BOX = COMPACT ? S_ROWS * QM_BN * (int)sizeof(ST) : 0;
   static constexpr int MAIN_BYTES = NSUB * QM_XBOX + CODES + NSUB * S_BOX + NSUB * D_BOX;
   // xs hi and lo boxes, the offsets, and (compact planes) `ndo` rows of dmin
   static constexpr int OFF_BYTES = 2 * QM_XBOX + O_BOX;
@@ -134,7 +147,7 @@ __device__ __forceinline__ float magic_f32(uint32_t w, int j) {
 // Frag: the A fragment of one k16 step from w01 = codes of rows k, k + 1
 // and w89 = rows k + 8, k + 9 (bytes: column c, c + 1 of the first row,
 // then of the second), scaled by e (columns c and c + 1: fragment rows g
-// and g + 8).
+// and g + 8); at groups of 8 the rows of w89 take a pair of their own.
 // Each weight is bf16(f32(q) * e) as the TPU kernel rounds it; lower k in
 // the low half of a register.
 //  - nibbles with bf16 scales: the two codes of a register go into bf16
@@ -143,7 +156,7 @@ __device__ __forceinline__ float magic_f32(uint32_t w, int j) {
 //  - nibbles with f32 scales: 2^23 + q as f32 (a byte permute) and one f32
 //    fma (2^23 + q) e - 2^23 e, exact, then the rounding to bf16;
 //  - int8 codes: biased by 128 first; 2^23 + q + 128 less 2^23 + 128 is q
-//    (exact), times e, then the rounding to bf16.
+//    (exact), times e (e8 for w89), then the rounding to bf16.
 template <bool Q4, bool BF16>
 struct Frag;
 
@@ -189,17 +202,22 @@ struct Frag<true, false> {
   }
 };
 
-// int8 codes (any scale type); the bytes come biased by 128
+// int8 codes (any scale type); the bytes come biased by 128.  s scales the
+// rows of w01, s8 those of w89 (the same pair but at groups of 8)
 template <bool BF16>
 struct Frag<false, BF16> {
-  float2 s;
-  __device__ __forceinline__ void set(float2 e) { s = e; }
+  float2 s, s8;
+  __device__ __forceinline__ void set(float2 e) { s = s8 = e; }
+  __device__ __forceinline__ void set(float2 e, float2 e8) {
+    s = e;
+    s8 = e8;
+  }
   __device__ __forceinline__ float q(uint32_t w, int j) const { return magic_f32(w, j) - 8388736.f; }
   __device__ __forceinline__ void build(uint32_t w01, uint32_t w89, uint32_t (&a)[4]) const {
     a[0] = pack2_bf16(q(w01, 0) * s.x, q(w01, 2) * s.x);
     a[1] = pack2_bf16(q(w01, 1) * s.y, q(w01, 3) * s.y);
-    a[2] = pack2_bf16(q(w89, 0) * s.x, q(w89, 2) * s.x);
-    a[3] = pack2_bf16(q(w89, 1) * s.y, q(w89, 3) * s.y);
+    a[2] = pack2_bf16(q(w89, 0) * s8.x, q(w89, 2) * s8.x);
+    a[3] = pack2_bf16(q(w89, 1) * s8.y, q(w89, 3) * s8.y);
   }
 };
 
@@ -267,7 +285,10 @@ __device__ __forceinline__ void build_weights(const QmArgs& a, const unsigned ch
         f[h].set(make_float2(dv.x * sc.x, dv.y * sc.y));
       } else if constexpr (Q4 && sizeof(ST) == 2) {  // the bf16 pair as stored
         f[h].set(*reinterpret_cast<const uint32_t*>(srows + h * P::S_BOX + ((rk / G) * QM_BN + th.c0) * 2));
-      } else {
+      } else if constexpr (G == 8) {  // rows k, k + 1 in group 2 kk of the box, k + 8, k + 9 in the next
+        const ST* sr = reinterpret_cast<const ST*>(srows + h * P::S_BOX) + (rk / 8) * QM_BN + th.c0;
+        f[h].set(pair(sr), pair(sr + QM_BN));
+      } else {  // at groups of 256 the box's one row (rk / G = 0)
         f[h].set(pair(reinterpret_cast<const ST*>(srows + h * P::S_BOX) + (rk / G) * QM_BN + th.c0));
       }
     }
@@ -434,7 +455,7 @@ __device__ __forceinline__ void qmm_body(const QmArgs& a, const QmMaps& maps) {
         unsigned char* slot = ring.base + pos.s * a.slot;
         if (j < a.n_main) {
           const int r0 = j * P::CODE_ROWS;
-          mbar_expect(full, P::MAIN_BYTES);
+          mbar_expect(full, P::MAIN_BYTES - P::NSUB * a.xshort);
           unsigned char* codes = slot + P::NSUB * QM_XBOX;
           tma_load(codes, &maps.codes, full, n0, r0);
 #pragma unroll
@@ -451,7 +472,7 @@ __device__ __forceinline__ void qmm_body(const QmArgs& a, const QmMaps& maps) {
           }
         } else {
           const int g0 = (j - a.n_main) * QM_BK;
-          mbar_expect(full, P::OFF_BYTES + (COMPACT ? a.ndo * QM_BN * (int)sizeof(ST) : 0));
+          mbar_expect(full, P::OFF_BYTES - 2 * a.xshort + (COMPACT ? a.ndo * QM_BN * (int)sizeof(ST) : 0));
           tma_load(slot, &maps.xs, full, g0, m0);
           tma_load(slot + QM_XBOX, &maps.xs, full, a.ngp + g0, m0);
           tma_load(slot + 2 * QM_XBOX, &maps.offsets, full, n0, g0);
@@ -547,7 +568,8 @@ __device__ __forceinline__ void qmm_body(const QmArgs& a, const QmMaps& maps) {
 }
 
 // The group sums of x: xs (M, 2 Gp) bf16 = [hi | lo] of the f32 sum of each
-// row's G consecutive values, zero for groups past K/G.
+// row's G consecutive values, zero for groups past K/G; a thread a group,
+// one 16-byte load per 8 values (one at groups of 8).
 template <int G>
 __global__ void __launch_bounds__(256) qmatmul_xsum_kernel(const __nv_bfloat16* __restrict__ x,
                                                            __nv_bfloat16* __restrict__ xs, int M, int K, int ng,
@@ -609,6 +631,8 @@ int qmm_launch(void (*kernel)(QmArgs, QmMaps), const QmPlanes& p, cudaStream_t s
   a.sb = p.sb;
   a.split = p.split;
   a.ndo = COMPACT ? (63 / p.sb + 2 < 64 ? 63 / p.sb + 2 : 64) : 0;
+  const int xrows = p.M < QM_BM ? p.M : QM_BM;  // rows of an x box
+  a.xshort = (QM_BM - xrows) * 128;
   // the ring: slots as large as the larger kind of stage, as many as fit (the
   // barriers, flag and alignment take the last 1280 bytes), up to 8
   const int off_bytes = P::OFF_BYTES + a.ndo * QM_BN * (int)sizeof(ST);
@@ -627,16 +651,16 @@ int qmm_launch(void (*kernel)(QmArgs, QmMaps), const QmPlanes& p, cudaStream_t s
   const CUtensorMapDataType plane_type = COMPACT ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : st_type;
   const long long plane_row = (long long)p.Npad * P::ES;
   QmMaps maps{};
-  bool ok = make_map_2d(&maps.x, p.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.M, p.K, (long long)p.K * 2, 64, QM_BM,
+  bool ok = make_map_2d(&maps.x, p.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.M, p.K, (long long)p.K * 2, 64, xrows,
                         CU_TENSOR_MAP_SWIZZLE_128B) &&
             make_map_2d(&maps.codes, p.codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.krows, p.Npad, p.Npad, QM_BN, P::CODE_ROWS,
                         CU_TENSOR_MAP_SWIZZLE_128B) &&
             make_map_2d(&maps.scales, p.scales, plane_type, (long long)(Q4 ? 2 : 1) * a.krows / G, p.Npad, plane_row,
-                        QM_BN, QM_BK / G, CU_TENSOR_MAP_SWIZZLE_NONE);
+                        QM_BN, P::S_ROWS, CU_TENSOR_MAP_SWIZZLE_NONE);
   // compact planes: d and dmin, one row a superblock (of 256 weights for nibbles, sb groups for int8)
   const long long sup_rows = Q4 ? p.K / 256 : a.ng / (p.sb > 0 ? p.sb : 1);
   if (ok && COMPACT)
-    ok = make_map_2d(&maps.d, p.d, st_type, sup_rows, p.Npad, (long long)p.Npad * sizeof(ST), QM_BN, QM_BK / G,
+    ok = make_map_2d(&maps.d, p.d, st_type, sup_rows, p.Npad, (long long)p.Npad * sizeof(ST), QM_BN, P::S_ROWS,
                      CU_TENSOR_MAP_SWIZZLE_NONE) &&
          (p.offsets == nullptr || make_map_2d(&maps.dmin, p.dmin, st_type, sup_rows, p.Npad,
                                               (long long)p.Npad * sizeof(ST), QM_BN, a.ndo,
@@ -644,7 +668,7 @@ int qmm_launch(void (*kernel)(QmArgs, QmMaps), const QmPlanes& p, cudaStream_t s
   if (ok && p.offsets != nullptr)
     ok = make_map_2d(&maps.offsets, p.offsets, plane_type, a.ng, p.Npad, plane_row, QM_BN, QM_BK,
                      CU_TENSOR_MAP_SWIZZLE_NONE) &&
-         make_map_2d(&maps.xs, p.xs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.M, 2LL * a.ngp, 4LL * a.ngp, 64, QM_BM,
+         make_map_2d(&maps.xs, p.xs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.M, 2LL * a.ngp, 4LL * a.ngp, 64, xrows,
                      CU_TENSOR_MAP_SWIZZLE_128B);
   if (!ok) return (int)cudaErrorInvalidValue;  // no cuTensorMapEncodeTiled, or a layout TMA cannot describe
 

@@ -29,7 +29,10 @@ q8 planes; "GEMV" means M <= 32, G in (16, 32) and (K/G) % 8 == 0
                                planes (kernel E, csrc/q8_gemv.cu); compact
                                planes without a legal tile are expanded first
   every other M and K  q8_matmul  the same pipeline over int8 planes
-                               (kernel G, csrc/q8_matmul.cu)
+                               (kernel G, csrc/q8_matmul.cu); at every M
+                               over multiplied-out planes in groups of 8
+                               (IQ1_M) and 256 (TQ1_0, TQ2_0), which the
+                               GEMVs do not take
 The GEMV kernels A, B, E, F, H and the int8-x entry are one pipeline
 (csrc/gemv_sm90.cuh): one launch each, no scratch, x quantized in the kernel.
 
@@ -259,8 +262,9 @@ _FLOAT_PLANES = (torch.float32, torch.bfloat16)
 
 
 def _check_planes(x: torch.Tensor, pw: PlanarWeight, kind: str, max_m: int | None = None,
-                  x_dtype=torch.bfloat16):
-    """Raise on what the kernels of `kind` planes do not take."""
+                  x_dtype=torch.bfloat16, groups=(16, 32)):
+    """Raise on what the kernels of `kind` planes do not take (groups: the
+    group sizes of the caller's kernel)."""
     if pw.kind != kind:
         raise ValueError(f"a {kind} kernel was given {pw.kind} planes")
     if x.dim() != 2 or x.shape[1] != pw.k:
@@ -272,9 +276,9 @@ def _check_planes(x: torch.Tensor, pw: PlanarWeight, kind: str, max_m: int | Non
     if kind == "q4" and pw.d is not None and pw.k % 512:
         raise ValueError(f"K={pw.k} is not a multiple of 512")
     k_step = 64 if kind == "q4" else 32  # a 32-row step of the code planes (32 rows of each half-plane for q4)
-    if pw.group not in (16, 32) or pw.k % k_step:
-        raise ValueError(f"group {pw.group} / K={pw.k}: the {kind} kernels take groups of 16 or 32 "
-                         f"and K % {k_step} == 0")
+    if pw.group not in groups or pw.k % k_step or pw.k % pw.group:
+        raise ValueError(f"group {pw.group} / K={pw.k}: this {kind} kernel takes groups of "
+                         f"{', '.join(map(str, groups))} and K a multiple of {k_step} and of the group")
     planes = list(pw.buffers())
     if any(t.device != x.device for t in planes):
         raise ValueError("x and the weight planes are on different devices")
@@ -359,14 +363,23 @@ def matmul_plan(kind: str, m: int, k: int, npad: int, group: int, has_offsets: b
                 split=split)
 
 
-_counters: dict = {}  # device -> int32 arrival counters of the split matmuls, zero between launches
+# device -> int32 arrival counters of the split matmuls, zero between launches.
+# A captured decode graph keeps the buffer's address (IQ1_M and TQ decode
+# split attn_output and ffn_down at M = 1), so the buffer is sound on one
+# stream only, as kernel D's is: launches on two streams at once would share
+# counters.
+_counters: dict = {}
+_retired: list = []  # buffers a larger one replaced: a captured decode graph may still use them
 
 
 def _zeroed_counters(n: int, device) -> torch.Tensor:
     """At least n int32 arrival counters on `device`, zero: each launch
-    leaves the ones it used at zero, so one buffer serves every launch."""
+    leaves the ones it used at zero, so one buffer serves every launch (and
+    every replay of a CUDA graph that captured one, on one stream)."""
     buf = _counters.get(device)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _retired.append(buf)
         buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
         _counters[device] = buf
     return buf
@@ -502,11 +515,15 @@ def q8_gemv_sb(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     return _gemv_cuda("q8_gemv_sb", x, pw)
 
 
+_Q8_MATMUL_GROUPS = (8, 16, 32, 256)  # multiplied-out planes; compact planes: 16 and 32
+
+
 def q8_matmul(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     """Kernel G: x (M, K) bf16 -> y (M, Npad) f32, dequantizing bf16 weight
-    tiles from int8 planes, compact or multiplied out (replaces _q8_kernel,
-    _effective_planes and the xsum @ eff_o side product)."""
-    _check_planes(x, pw, "q8")
+    tiles from int8 planes, compact (groups of 16 or 32) or multiplied out
+    (groups of 8, 16, 32 or 256; K a multiple of 256 at 256) (replaces
+    _q8_kernel, _effective_planes and the xsum @ eff_o side product)."""
+    _check_planes(x, pw, "q8", groups=_Q8_MATMUL_GROUPS if pw.d is None else (16, 32))
     if not x.is_cuda:
         return _q8_matmul_plain(x, pw)
     return _matmul_cuda("q8_matmul", x, pw)
@@ -552,9 +569,10 @@ def select_kernel(pw: PlanarWeight, m: int) -> str:
 # kernel-selection observability (qmatmul.py:875-900, the GGML_SCHED_DEBUG
 # assignment-dump idiom): planar_matmul records on the host which wrappers
 # each (kind, K, N, M class) site ran, in the order of first use (the gemv-M
-# class holds two wrappers for the compact Q4_K planes: M = 1 and 2..32).  A
-# captured decode graph records at its capture; a replay runs no Python and
-# records nothing.
+# class holds two wrappers for the compact Q4_K planes: M = 1 and 2..32).
+# The IQ* and TQ* types are q8 sites: IQ1_M, TQ1_0 and TQ2_0 report
+# q8_matmul in both classes.  A captured decode graph records at its
+# capture; a replay runs no Python and records nothing.
 _selection_log: dict[tuple, list[str]] = {}
 
 

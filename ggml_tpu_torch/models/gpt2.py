@@ -24,7 +24,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..dtypes import GGMLType, is_quantized
+from ..dtypes import GGMLType
 from ..gguf import GGUFFile
 from .common import (cache_write, causal_mask, decode_loop, init_layer_cache, layer_norm as _layer_norm,
                      linear as _linear)
@@ -65,16 +65,18 @@ def load_params(g: GGUFFile, dtype=torch.float32, keep_quantized: bool = False, 
     loads).  keep_quantized=True: 2-D quantized matmul weights are repacked to
     planes (quant/planar.py) and stay packed in device memory, consumed by the
     fused kernels; the token embedding is additionally kept dense for the row
-    gather.  Ported plane layouts: Q4_0, Q4_1, Q2_K, Q3_K, Q4_K (packed nibbles
-    where (K/2) % G == 0, else int8), Q5_0, Q5_1, Q8_0, Q5_K, Q6_K (int8); any
-    other quantized type (the IQ* and TQ* families) raises NotImplementedError.
+    gather.  Every type of planar_types() repacks: Q4_0, Q4_1, Q2_K, Q3_K,
+    Q4_K (packed nibbles where (K/2) % G == 0, else int8), Q5_0, Q5_1, Q8_0,
+    Q5_K, Q6_K and the IQ* and TQ* types (int8).  A quantized type without
+    planes is dequantized to `dtype`, as the JAX loader does, and one without
+    a dequantizer either raises NotImplementedError.
 
     The tensors are dequantized or repacked in numpy on up to 8 threads (numpy
     releases the interpreter lock in the array work): a 6B model's Q4_K file
     takes minutes on one core.  Each tensor's result does not depend on the
     order, and the dict keeps the file's order.
     """
-    from ..quant.planar import repack
+    from ..quant.planar import planar_types, repack
 
     def load(item) -> list:
         name, info = item
@@ -84,7 +86,7 @@ def load_params(g: GGUFFile, dtype=torch.float32, keep_quantized: bool = False, 
             and "norm" not in name
             and name != "position_embd.weight"
         )
-        if keep_quantized and is_matmul_weight and is_quantized(info.ggml_type):
+        if keep_quantized and is_matmul_weight and GGMLType(info.ggml_type) in planar_types():
             n, k = info.shape
             pw = repack(g.tensor_bytes(name), GGMLType(info.ggml_type), (int(n), int(k)))
             out = [(name, pw.to(device))]

@@ -247,9 +247,9 @@ class GPTJ:
     def from_gguf(cls, path, dtype=torch.bfloat16, keep_quantized: bool = True, rope_deinterleaved: bool = True,
                   device="cuda", **kw):
         """Load a GGUF file onto `device`: its quantized matmul weights (Q4_0,
-        Q4_1, Q2_K, Q3_K, Q4_K, Q8_0, Q5_0, Q5_1, Q5_K, Q6_K, alone or mixed)
-        stay planes, or, with keep_quantized=False, every tensor is
-        dequantized to `dtype`."""
+        Q4_1, Q2_K, Q3_K, Q4_K, Q8_0, Q5_0, Q5_1, Q5_K, Q6_K, the IQ* and TQ*
+        types, alone or mixed) stay planes, or, with keep_quantized=False,
+        every tensor is dequantized to `dtype`."""
         from ..quant.planar import PlanarWeight, permute_output_columns
         from .gpt2 import load_params  # same GGUF tensor-naming loader
 
@@ -329,6 +329,11 @@ def random_config(scale: str = "6b") -> GPTJConfig:
     raise ValueError(scale)
 
 
+# the types synth_quantized_params builds planes for
+_SYNTH_TYPES = {GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_0,
+                GGMLType.Q5_1, GGMLType.Q8_0, GGMLType.Q5_K, GGMLType.Q6_K}
+
+
 def synth_quantized_params(cfg: GPTJConfig, ggml_type: GGMLType = GGMLType.Q4_K, seed: int = 0,
                            dtype=torch.bfloat16, device="cuda", use_q4: bool | None = None) -> dict:
     """A full parameter set with weights ALREADY in planes (random codes,
@@ -347,11 +352,12 @@ def synth_quantized_params(cfg: GPTJConfig, ggml_type: GGMLType = GGMLType.Q4_K,
 
     Each layer holds one (7E x E) qkv+ffn_up weight, the JAX default layout:
     with the parallel residual, qkv and ffn_up read the same h."""
-    from ..quant.planar import _Q4_PLANE_TYPES, PlanarWeight, _compact_applicable, planar_types
+    from ..quant.planar import _Q4_PLANE_TYPES, PlanarWeight, _compact_applicable
 
     ggml_type = GGMLType(ggml_type)
-    if ggml_type not in planar_types():
-        raise NotImplementedError(f"synthetic {ggml_type.name} planes are not ported yet (ROADMAP.md)")
+    if ggml_type not in _SYNTH_TYPES:
+        raise NotImplementedError(f"synthetic {ggml_type.name} planes are not ported (the IQ* and TQ* types load "
+                                  "from GGUF files: write_random_gguf(types=))")
     if use_q4 is None:
         use_q4 = ggml_type in _Q4_PLANE_TYPES
     elif use_q4 and ggml_type not in _Q4_PLANE_TYPES:
@@ -413,17 +419,61 @@ def synth_quantized_params(cfg: GPTJConfig, ggml_type: GGMLType = GGMLType.Q4_K,
     return p
 
 
-def write_random_gguf(path, cfg: GPTJConfig, seed: int = 0, tokenizer: dict | None = None):
+# The block scale d that random_blocks draws (in [s/2, 3s/2)) for each type
+# write_random_gguf writes: weights of about a trained model's std, 0.02,
+# measured over random blocks of each type.
+_RANDOM_GGUF_SCALE = {
+    GGMLType.Q4_K: 8e-5, GGMLType.IQ4_NL: 2.9e-4, GGMLType.IQ4_XS: 1.5e-5, GGMLType.IQ3_S: 1.3e-4,
+    GGMLType.IQ3_XXS: 1.3e-4, GGMLType.IQ2_S: 3.4e-4, GGMLType.IQ2_XS: 3.4e-4, GGMLType.IQ2_XXS: 3.6e-4,
+    GGMLType.IQ1_M: 2.7e-3, GGMLType.IQ1_S: 2.7e-3, GGMLType.TQ2_0: 2.7e-2, GGMLType.TQ1_0: 2.3e-2,
+}
+
+
+def matmul_weight_names(cfg: GPTJConfig) -> list[str]:
+    """The 2-D matmul weights of a GPT-J GGUF file, in file order."""
+    names = ["token_embd.weight", "output.weight"]
+    for i in range(cfg.n_layer):
+        names += [f"blk.{i}.{nm}.weight" for nm in ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_up", "ffn_down")]
+    return names
+
+
+def _random_weight_blocks(t: GGMLType, n: int, k: int, rng) -> np.ndarray:
+    """Random blocks of an (n, k) weight of type t with zero-mean weights of
+    std about 0.02: Q4_K's dmin is 7.5 d; TQ2_0's code 3 (the value +2,
+    which its quantizer never writes) becomes 1 (the value 0)."""
+    from ..dtypes import get_type_traits
+    from ..quant.reference import random_blocks
+
+    if t not in _RANDOM_GGUF_SCALE:
+        raise ValueError(f"write_random_gguf writes Q4_K and the IQ* and TQ* types, not {t.name}")
+    b = random_blocks(t, n * k // get_type_traits(t).block_size, rng, scale=_RANDOM_GGUF_SCALE[t])
+    if t == GGMLType.Q4_K:
+        d = b[:, 0:2].copy().view("<f2").astype(np.float32)
+        b[:, 2:4] = (d * np.float32(7.5)).astype("<f2").view(np.uint8)
+    elif t == GGMLType.TQ2_0:
+        qs = b[:, 0:64]
+        b[:, 0:64] = qs & ~(((qs >> 1) & qs & 0x55) << 1)
+    return b
+
+
+def write_random_gguf(path, cfg: GPTJConfig, seed: int = 0, tokenizer: dict | None = None,
+                      types: dict | None = None):
     """Write a GPT-J GGUF file as tools/convert_hf_gptj.py lays one out, its
-    2-D matmul weights Q4_K blocks from quant/reference.random_blocks, the
-    norms (ones) and biases (zeros) F32 — a file for running the GGUF path at
-    any width without a checkpoint.  Each block's d is drawn in [4e-5,
-    1.2e-4) and its dmin is 7.5 d, which centres its weights d * (sc * q -
-    7.5 m) on zero with a std of about 258 d = 0.02, a trained model's
-    scale.  tokenizer: GGUF tokenizer.ggml.* keys (without the prefix) ->
+    2-D matmul weights blocks from quant/reference.random_blocks, the norms
+    (ones) and biases (zeros) F32 — a file for running the GGUF path at any
+    width without a checkpoint.
+
+    types: a map from weight names (matmul_weight_names) to types; Q4_K for
+    a weight it does not name.
+    Each block's d is drawn in [s/2, 3s/2) (random_blocks) with s chosen
+    so that the weights have a std of about 0.02, a trained model's scale:
+    Q4_K 8e-5 (with dmin = 7.5 d, which centres d * (sc * q - 7.5 m) on
+    zero), IQ4_NL 2.9e-4, IQ4_XS 1.5e-5, IQ3_S and IQ3_XXS 1.3e-4, IQ2_S and
+    IQ2_XS 3.4e-4, IQ2_XXS 3.6e-4, IQ1_M and IQ1_S 2.7e-3, TQ1_0 2.3e-2,
+    TQ2_0 2.7e-2 (its codes ternary: -1, 0, 0, 1 for the four 2-bit
+    values).  tokenizer: GGUF tokenizer.ggml.* keys (without the prefix) ->
     values, written as they are."""
     from ..gguf import GGUFWriter
-    from ..quant.reference import random_blocks
 
     rng = np.random.default_rng(seed)
     w = GGUFWriter()
@@ -440,29 +490,27 @@ def write_random_gguf(path, cfg: GPTJConfig, seed: int = 0, tokenizer: dict | No
         else:
             w.add_array(f"tokenizer.ggml.{key}", val)
 
-    def q4k(name, n, k):
-        b = random_blocks(GGMLType.Q4_K, n * k // 256, rng, scale=8e-5)
-        d = b[:, 0:2].copy().view("<f2").astype(np.float32)
-        b[:, 2:4] = (d * np.float32(7.5)).astype("<f2").view(np.uint8)
-        w.add_tensor(name, b, GGMLType.Q4_K, raw_shape_ne=(k, n))
+    def weight(name, n, k):
+        t = GGMLType((types or {}).get(name, GGMLType.Q4_K))
+        w.add_tensor(name, _random_weight_blocks(t, n, k, rng), t, raw_shape_ne=(k, n))
 
     def f32(name, value, n):
         w.add_tensor(name, np.full((n,), value, np.float32))
 
     E = cfg.n_embd
-    q4k("token_embd.weight", cfg.n_vocab, E)
+    weight("token_embd.weight", cfg.n_vocab, E)
     f32("output_norm.weight", 1.0, E)
     f32("output_norm.bias", 0.0, E)
-    q4k("output.weight", cfg.n_vocab, E)
+    weight("output.weight", cfg.n_vocab, E)
     f32("output.bias", 0.0, cfg.n_vocab)
     for i in range(cfg.n_layer):
         pre = f"blk.{i}."
         f32(pre + "attn_norm.weight", 1.0, E)
         f32(pre + "attn_norm.bias", 0.0, E)
         for name in ("attn_q", "attn_k", "attn_v", "attn_output"):
-            q4k(pre + name + ".weight", E, E)
-        q4k(pre + "ffn_up.weight", 4 * E, E)
+            weight(pre + name + ".weight", E, E)
+        weight(pre + "ffn_up.weight", 4 * E, E)
         f32(pre + "ffn_up.bias", 0.0, 4 * E)
-        q4k(pre + "ffn_down.weight", E, 4 * E)
+        weight(pre + "ffn_down.weight", E, 4 * E)
         f32(pre + "ffn_down.bias", 0.0, E)
     w.write(path)

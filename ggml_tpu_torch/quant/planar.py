@@ -17,10 +17,12 @@ or, COMPACT, for Q4_K at K % 512 == 0 (G=32, sb=8):
   offsets (K/32, Npad) int8     6-bit min codes, natural group order
   d, dmin (2, K/512, Npad)      per-superblock fp32 (repack) or bf16 (synth)
 
-q8 planes (Q8_0, Q5_0, Q5_1, Q5_K, Q6_K; Q4_K with force_q8):
+q8 planes (Q8_0, Q5_0, Q5_1, Q5_K, Q6_K, the IQ* and TQ* types; Q4_K with
+force_q8):
   codes   (K, Npad) int8
   scales  (K/G, Npad)         effective scale, fp32 (repack) or bf16 (synth)
   offsets (K/G, Npad) or None effective offset of the affine types
+                              (IQ1_S, IQ1_M: scale times their +-1/8 delta)
 or, COMPACT, for the K-quants at K % 256 == 0 (Q5_K: G=32, sb=8, affine;
 Q6_K: G=16, sb=16, signed sub-scales, no offsets):
   scales  (K/G, Npad) int8      sub-scale codes
@@ -29,8 +31,12 @@ Q6_K: G=16, sb=16, signed sub-scales, no offsets):
 with s = d * scales and o = -dmin * offsets rebuilt in f32 by the kernels,
 exactly the reference block factoring (src/ggml-common.h:279-320).
 
-The IQ* and TQ* types raise NotImplementedError until their slice is ported
-(ROADMAP.md).
+Groups of the i-quants and ternary types, as the JAX package factors them:
+32 for IQ4_NL, IQ4_XS, IQ2_XXS, IQ3_XXS, IQ3_S and IQ1_S; 16 for IQ2_XS and
+IQ2_S; 8 for IQ1_M; 256 for TQ1_0 and TQ2_0.  Their codes are the grid
+values times their signs (-127..113 for the IQ4 types).  The JAX package
+holds them as multiplied-out int8 planes with f32 scales, and so does the
+port: an IQ1_M weight takes 2 bytes of planes (1 + 0.5 + 0.5).
 """
 
 from __future__ import annotations
@@ -44,7 +50,6 @@ from . import reference as R
 
 F32 = np.float32
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, the remaining GGUF types)"
 
 
 # Per-type plane extractors: (nb, type_size) uint8 raw blocks ->
@@ -100,6 +105,66 @@ def _planes_q4_k(b):
     return q, d[:, None] * sc.astype(F32), -dmin[:, None] * m.astype(F32), G
 
 
+def _planes_iq4_nl(b):
+    q = np.concatenate([R.KVALUES_IQ4NL[b[:, 2:18] & 0xF], R.KVALUES_IQ4NL[b[:, 2:18] >> 4]], axis=1)
+    return q.astype(np.int16), R._f16(b, 0)[:, None], None, 32
+
+
+def _planes_iq4_xs(b):
+    s, q = R._iq4xs_parts(b)
+    return q.astype(np.int16), s, None, 32
+
+
+def _signed_grid(parts, G):
+    s, grid, signs = parts
+    return (grid.astype(np.int16) * signs.astype(np.int16)).reshape(len(grid), 256), s.reshape(len(s), -1), None, G
+
+
+def _planes_iq2_xxs(b):
+    return _signed_grid(R._iq2xxs_parts(b), 32)
+
+
+def _planes_iq2_xs(b):
+    return _signed_grid(R._iq2xs_parts(b), 16)
+
+
+def _planes_iq2_s(b):
+    return _signed_grid(R._iq2s_parts(b), 16)
+
+
+def _planes_iq3_xxs(b):
+    return _signed_grid(R._iq3xxs_parts(b), 32)
+
+
+def _planes_iq3_s(b):
+    return _signed_grid(R._iq3s_parts(b), 32)
+
+
+def _planes_iq1_s(b):
+    s, delta, grid = R._iq1s_parts(b)
+    return grid.astype(np.int16), s, s * delta, 32
+
+
+def _planes_iq1_m(b):
+    dl, delta, grid = R._iq1m_parts(b)
+    nb = len(b)
+    return grid.astype(np.int16), dl.reshape(nb, 32), (dl * delta).reshape(nb, 32), 8
+
+
+def _ternary_planes(w, d):
+    """Codes -1..1 of a ternary block back from its dequantized values."""
+    dd = np.where(d == 0, F32(1.0), d)
+    return np.rint(w / dd[:, None]).astype(np.int16), d[:, None], None, 256
+
+
+def _planes_tq1_0(b):
+    return _ternary_planes(R.dequant_tq1_0(b), R._f16(b, 52))
+
+
+def _planes_tq2_0(b):
+    return _ternary_planes(R.dequant_tq2_0(b), R._f16(b, 64))
+
+
 # Compact extractors keep the superblock structure FACTORED: integer
 # sub-scale/min codes per group plus d/dmin per 256-element superblock ->
 #   q, sc int8, m int8 or None, d (nb,), dmin (nb,) or None, G, groups per superblock
@@ -139,6 +204,17 @@ _PLANES = {
     GGMLType.Q5_1: _planes_q5_1,
     GGMLType.Q8_0: _planes_q8_0,
     GGMLType.Q4_K: _planes_q4_k,
+    GGMLType.IQ4_NL: _planes_iq4_nl,
+    GGMLType.IQ4_XS: _planes_iq4_xs,
+    GGMLType.IQ2_XXS: _planes_iq2_xxs,
+    GGMLType.IQ2_XS: _planes_iq2_xs,
+    GGMLType.IQ2_S: _planes_iq2_s,
+    GGMLType.IQ3_XXS: _planes_iq3_xxs,
+    GGMLType.IQ3_S: _planes_iq3_s,
+    GGMLType.IQ1_S: _planes_iq1_s,
+    GGMLType.IQ1_M: _planes_iq1_m,
+    GGMLType.TQ1_0: _planes_tq1_0,
+    GGMLType.TQ2_0: _planes_tq2_0,
 }
 
 # Types whose codes fit an unsigned 4-bit plane (0..15).
@@ -206,7 +282,7 @@ def repack(raw: np.ndarray, ggml_type: GGMLType, shape: tuple[int, int],
     n, k = shape
     ggml_type = GGMLType(ggml_type)
     if ggml_type not in planar_types():
-        raise NotImplementedError(f"repack {ggml_type.name}: {_NOT_PORTED}")
+        raise NotImplementedError(f"repack {ggml_type.name}: no planes for this type")
     compact = _compact_applicable(ggml_type, k, force_q8)
     tt = get_type_traits(ggml_type)
     blocks = np.asarray(raw).reshape(n * (k // tt.block_size), tt.type_size)

@@ -1,23 +1,45 @@
 """Reference dequantization in NumPy — the port's own copy of the parts of
 ggml_tpu/quant/reference.py the ported slices need: the scalar float types
-and the block decodes of Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K
-and Q6_K (reference: src/ggml-quants.c dequantize_row_*, block layouts
-src/ggml-common.h).  The IQ* and TQ* formats raise NotImplementedError until
-their slice is ported (ROADMAP.md, "the remaining GGUF types").
+and the block decodes of Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K,
+Q6_K, the ternary TQ1_0 and TQ2_0 and the i-quants IQ2_XXS, IQ2_XS, IQ2_S,
+IQ3_XXS, IQ3_S, IQ1_S, IQ1_M, IQ4_NL and IQ4_XS (reference:
+src/ggml-quants.c dequantize_row_*, block layouts src/ggml-common.h).  The
+i-quant codebooks are the port's own copy of the JAX package's grid file
+(data/iq_grids.npz, byte for byte).
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
-from ..dtypes import QK_K, GGMLType, bf16_bits_to_fp32, get_type_traits
+from ..dtypes import QK_K, GGMLType, bf16_bits_to_fp32, fp16_bits_to_fp32, get_type_traits
 
 F32 = np.float32
+_GRIDS = np.load(os.path.join(os.path.dirname(__file__), "data", "iq_grids.npz"))
+# codebook tables (format-defining constants, reference: src/ggml-common.h:461-1589)
+KMASK_IQ2XS = _GRIDS["kmask_iq2xs"]
+KSIGNS_IQ2XS = _GRIDS["ksigns_iq2xs"]
+IQ2XXS_GRID = _GRIDS["iq2xxs_grid"].view(np.uint8).reshape(256, 8)
+IQ2XS_GRID = _GRIDS["iq2xs_grid"].view(np.uint8).reshape(512, 8)
+IQ2S_GRID = _GRIDS["iq2s_grid"].view(np.uint8).reshape(1024, 8)
+IQ3XXS_GRID = _GRIDS["iq3xxs_grid"].view(np.uint8).reshape(256, 4)
+IQ3S_GRID = _GRIDS["iq3s_grid"].view(np.uint8).reshape(512, 4)
+IQ1S_GRID = _GRIDS["iq1s_grid"].view(np.int8).reshape(2048, 8)
+KVALUES_IQ4NL = np.array(
+    [-127, -104, -83, -65, -49, -35, -22, -10, 1, 13, 25, 38, 53, 69, 89, 113], dtype=np.int8
+)  # reference: src/ggml-quants.c:2434
+IQ1S_DELTA = F32(0.125)  # reference: src/ggml-common.h:1072
 
 
 def _f16(blocks: np.ndarray, off: int) -> np.ndarray:
     """fp16 scalar field at byte offset -> (nb,) float32."""
     return np.ascontiguousarray(blocks[:, off : off + 2]).view("<f2").astype(F32).reshape(-1)
+
+
+def _u16(blocks: np.ndarray, off: int, n: int = 1) -> np.ndarray:
+    return np.ascontiguousarray(blocks[:, off : off + 2 * n]).view("<u2").reshape(len(blocks), n)
 
 
 def _u32(blocks: np.ndarray, off: int, n: int = 1) -> np.ndarray:
@@ -196,6 +218,222 @@ def dequant_q6_k(b):
     return d * scales[:, _Q6_SC].astype(F32) * _q6k_codes(b).astype(F32)
 
 
+# --- ternary ----------------------------------------------------------------
+
+_POW3 = np.array([1, 3, 9, 27, 81, 243], dtype=np.uint8)
+
+
+def _trits(qs, n: int):
+    """Trit n (0, 1 or 2) of each base-3 packed byte, minus 1."""
+    q = (qs * _POW3[n]).astype(np.uint8)
+    return ((q.astype(np.uint16) * 3) >> 8).astype(np.int16) - 1
+
+
+def dequant_tq1_0(b):
+    nb = len(b)
+    qs = b[:, 0:48]
+    qh = b[:, 48:52]
+    d = _f16(b, 52)[:, None]
+    out = np.empty((nb, QK_K), dtype=F32)
+    # first 32-byte chunk: 5 trits per byte, elements laid out m + 32*n
+    for n in range(5):
+        out[:, 32 * n : 32 * (n + 1)] = _trits(qs[:, 0:32], n).astype(F32)
+    for n in range(5):
+        out[:, 160 + 16 * n : 160 + 16 * (n + 1)] = _trits(qs[:, 32:48], n).astype(F32)
+    for n in range(4):
+        out[:, 240 + 4 * n : 240 + 4 * (n + 1)] = _trits(qh, n).astype(F32)
+    return out * d
+
+
+def dequant_tq2_0(b):
+    # element 128 h + 32 j + l is bits 2 j of byte 32 h + l
+    qs = b[:, 0:64].reshape(len(b), 2, 1, 32)
+    d = _f16(b, 64)[:, None]
+    q = ((qs >> np.array([0, 2, 4, 6], np.uint8)[:, None]) & 3).astype(np.int8).reshape(len(b), QK_K) - 1
+    return q.astype(F32) * d
+
+
+# --- i-quants ---------------------------------------------------------------
+
+
+def _signs_for(bits7: np.ndarray) -> np.ndarray:
+    """(...,) 7-bit sign codes -> (..., 8) +1/-1 float32 via ksigns/kmask."""
+    signs = KSIGNS_IQ2XS[bits7]
+    return np.where((signs[..., None] & KMASK_IQ2XS) != 0, F32(-1.0), F32(1.0))
+
+
+def _bit_signs(signs_b):
+    """(...,) sign bytes -> (..., 8) +1/-1 float32, bit j the sign of value j."""
+    return np.where((signs_b[..., None] & KMASK_IQ2XS) != 0, F32(-1.0), F32(1.0))
+
+
+def _iq2xxs_parts(b):
+    """IQ2_XXS: (nb, 8) f32 scale per 32, (nb, 8, 4, 8) grid values, signs."""
+    nb = len(b)
+    d = _f16(b, 0)
+    q16 = _u16(b, 2, 32).reshape(nb, 8, 2, 2)  # (nb, ib32, aux32 idx, u16 pair)
+    aux32 = q16[..., 0].astype(np.uint32) | (q16[..., 1].astype(np.uint32) << 16)  # (nb, 8, 2)
+    aux8 = np.ascontiguousarray(aux32[..., 0]).view(np.uint8).reshape(nb, 8, 4)
+    db = d[:, None] * (F32(0.5) + (aux32[..., 1] >> 28).astype(F32)) * F32(0.25)  # (nb, 8)
+    shifts = (7 * np.arange(4))[None, None, :]
+    return db, IQ2XXS_GRID[aux8], _signs_for((aux32[..., 1:2] >> shifts) & 127)
+
+
+def dequant_iq2_xxs(b):
+    db, grid, signs = _iq2xxs_parts(b)
+    return (db[:, :, None, None] * grid.astype(F32) * signs).reshape(len(b), QK_K)
+
+
+def _half_scales(d, scales):
+    """IQ2_XS/IQ2_S: 4-bit scale codes, two a byte -> (nb, 8, 2) f32 scales of 16 values."""
+    sc = np.stack([scales & 0xF, scales >> 4], axis=-1).astype(F32)
+    return d[:, None, None] * (F32(0.5) + sc) * F32(0.25)
+
+
+def _iq2xs_parts(b):
+    nb = len(b)
+    q16 = _u16(b, 2, 32).reshape(nb, 8, 4)
+    return _half_scales(_f16(b, 0), b[:, 66:74]), IQ2XS_GRID[q16 & 511], _signs_for(q16 >> 9)
+
+
+def dequant_iq2_xs(b):
+    db, grid, signs = _iq2xs_parts(b)
+    db_l = db[:, :, np.arange(4) // 2]  # (nb, 8, 4)
+    return (db_l[..., None] * grid.astype(F32) * signs).reshape(len(b), QK_K)
+
+
+def _iq2s_parts(b):
+    nb = len(b)
+    qs = b[:, 2:34].reshape(nb, 8, 4)
+    qh = b[:, 66:74]
+    l = np.arange(4)
+    idx = qs.astype(np.int32) | ((qh[:, :, None].astype(np.int32) << (8 - 2 * l)) & 0x300)
+    return _half_scales(_f16(b, 0), b[:, 74:82]), IQ2S_GRID[idx], _bit_signs(b[:, 34:66].reshape(nb, 8, 4))
+
+
+def dequant_iq2_s(b):
+    db, grid, signs = _iq2s_parts(b)
+    db_l = db[:, :, np.arange(4) // 2]
+    return (db_l[..., None] * grid.astype(F32) * signs).reshape(len(b), QK_K)
+
+
+def _iq3xxs_parts(b):
+    nb = len(b)
+    d = _f16(b, 0)
+    qs = b[:, 2:66].reshape(nb, 8, 8)  # 8 grid-bytes per ib32
+    aux32 = _u32(b, 66, 8)  # scales and signs, one u32 per ib32
+    db = d[:, None] * (F32(0.5) + (aux32 >> 28).astype(F32)) * F32(0.5)  # (nb, 8)
+    shifts = (7 * np.arange(4))[None, None, :]
+    # pairs of 4-value rows
+    return db, IQ3XXS_GRID[qs].reshape(nb, 8, 4, 8), _signs_for((aux32[..., None] >> shifts) & 127)
+
+
+def dequant_iq3_xxs(b):
+    db, grid, signs = _iq3xxs_parts(b)
+    return (db[:, :, None, None] * grid.astype(F32) * signs).reshape(len(b), QK_K)
+
+
+def _iq3s_parts(b):
+    """Per ib32 (8 of them): 8 qs bytes, 1 qh byte, 4 sign bytes, a 4-bit scale."""
+    nb = len(b)
+    d = _f16(b, 0)
+    qs = b[:, 2:66].reshape(nb, 8, 8)
+    qh = b[:, 66:74]
+    scales = b[:, 106:110]
+    sc_pair = np.stack([scales & 0xF, scales >> 4], axis=-1).reshape(nb, 8)  # per ib32
+    db = d[:, None] * (1 + 2 * sc_pair).astype(F32)  # (nb, 8)
+    l = np.arange(4)
+    idx1 = qs[:, :, 0::2].astype(np.int32) | ((qh[:, :, None].astype(np.int32) << (8 - 2 * l)) & 256)
+    idx2 = qs[:, :, 1::2].astype(np.int32) | ((qh[:, :, None].astype(np.int32) << (7 - 2 * l)) & 256)
+    grid = np.concatenate([IQ3S_GRID[idx1], IQ3S_GRID[idx2]], axis=-1)  # (nb, 8, 4, 8) j: 0-3 idx1, 4-7 idx2
+    return db, grid, _bit_signs(b[:, 74:106].reshape(nb, 8, 4))
+
+
+def dequant_iq3_s(b):
+    db, grid, signs = _iq3s_parts(b)
+    return (db[:, :, None, None] * grid.astype(F32) * signs).reshape(len(b), QK_K)
+
+
+def _iq1s_parts(b):
+    """IQ1_S: (nb, 8) scale and delta per 32, (nb, 256) grid values -1..1."""
+    nb = len(b)
+    d = _f16(b, 0)
+    qs = b[:, 2:34].reshape(nb, 8, 4)
+    qh = _u16(b, 34, 8)  # (nb, 8)
+    dl = d[:, None] * (2 * ((qh >> 12) & 7) + 1).astype(F32)  # (nb, 8)
+    delta = np.where((qh & 0x8000) != 0, -IQ1S_DELTA, IQ1S_DELTA)  # (nb, 8)
+    l = np.arange(4)
+    idx = qs.astype(np.int32) | (((qh[:, :, None].astype(np.int32) >> (3 * l)) & 7) << 8)
+    return dl, delta, IQ1S_GRID[idx].reshape(nb, QK_K)
+
+
+def dequant_iq1_s(b):
+    dl, delta, grid = _iq1s_parts(b)
+    nb = len(b)
+    return (dl[:, :, None] * (grid.reshape(nb, 8, 32).astype(F32) + delta[:, :, None])).reshape(nb, QK_K)
+
+
+def iq1m_d(b) -> np.ndarray:
+    """IQ1_M's block scale: an fp16 whose four nibbles are the top nibbles of
+    the four u16 scale words at bytes 48-55 (reference: src/ggml-quants.c
+    dequantize_row_iq1_m)."""
+    sc = _u16(b, 48, 4)
+    bits = (sc[:, 0] >> 12) | ((sc[:, 1] >> 8) & 0x00F0) | ((sc[:, 2] >> 4) & 0x0F00) | (sc[:, 3] & 0xF000)
+    return fp16_bits_to_fp32(bits.astype(np.uint16))
+
+
+def _iq1m_parts(b):
+    """IQ1_M: (nb, 8, 4) scale and delta per 8 values, (nb, 256) grid values."""
+    nb = len(b)
+    qs = b[:, 0:32].reshape(nb, 8, 4)
+    qh = b[:, 32:48].reshape(nb, 8, 2)
+    sc = _u16(b, 48, 4)  # (nb, 4)
+    d = iq1m_d(b)
+    ib = np.arange(8)
+    dl1 = d[:, None] * (2 * ((sc[:, ib // 2] >> (6 * (ib % 2) + 0)) & 0x7) + 1).astype(F32)
+    dl2 = d[:, None] * (2 * ((sc[:, ib // 2] >> (6 * (ib % 2) + 3)) & 0x7) + 1).astype(F32)
+    dl = np.stack([dl1, dl1, dl2, dl2], axis=-1)  # (nb, 8, 4) per l
+    idx = np.empty((nb, 8, 4), dtype=np.int32)
+    delta = np.empty((nb, 8, 4), dtype=F32)
+    for l, (byte, shift, sign) in enumerate(((0, 8, 0x08), (0, 4, 0x80), (1, 8, 0x08), (1, 4, 0x80))):
+        idx[..., l] = qs[..., l] | ((qh[..., byte].astype(np.int32) << shift) & 0x700)
+        delta[..., l] = np.where((qh[..., byte] & sign) != 0, -IQ1S_DELTA, IQ1S_DELTA)
+    return dl, delta, IQ1S_GRID[idx].reshape(nb, QK_K)
+
+
+def dequant_iq1_m(b):
+    dl, delta, grid = _iq1m_parts(b)
+    nb = len(b)
+    return (dl[..., None] * (grid.reshape(nb, 8, 4, 8).astype(F32) + delta[..., None])).reshape(nb, QK_K)
+
+
+def dequant_iq4_nl(b):
+    d = _f16(b, 0)[:, None]
+    qs = b[:, 2:18]
+    return d * np.concatenate([KVALUES_IQ4NL[qs & 0xF], KVALUES_IQ4NL[qs >> 4]], axis=1).astype(F32)
+
+
+def _iq4xs_parts(b):
+    """IQ4_XS: (nb, 8) f32 scale per 32, (nb, 256) int8 values."""
+    nb = len(b)
+    d = _f16(b, 0)
+    scales_h = _u16(b, 2).reshape(-1)
+    scales_l = b[:, 4:8]
+    qs = b[:, 8:136].reshape(nb, 8, 16)
+    ib = np.arange(8)
+    ls = ((scales_l[:, ib // 2] >> (4 * (ib % 2))) & 0xF).astype(np.int32) | (
+        ((scales_h[:, None].astype(np.int32) >> (2 * ib)) & 3) << 4
+    )
+    vals = np.concatenate([KVALUES_IQ4NL[qs & 0xF], KVALUES_IQ4NL[qs >> 4]], axis=-1)  # (nb, 8, 32)
+    return d[:, None] * (ls - 32).astype(F32), vals.reshape(nb, QK_K)
+
+
+def dequant_iq4_xs(b):
+    dl, vals = _iq4xs_parts(b)
+    nb = len(b)
+    return (dl[:, :, None] * vals.reshape(nb, 8, 32).astype(F32)).reshape(nb, QK_K)
+
+
 _DEQUANT = {
     GGMLType.Q4_0: dequant_q4_0,
     GGMLType.Q4_1: dequant_q4_1,
@@ -207,13 +445,29 @@ _DEQUANT = {
     GGMLType.Q4_K: dequant_q4_k,
     GGMLType.Q5_K: dequant_q5_k,
     GGMLType.Q6_K: dequant_q6_k,
+    GGMLType.TQ1_0: dequant_tq1_0,
+    GGMLType.TQ2_0: dequant_tq2_0,
+    GGMLType.IQ2_XXS: dequant_iq2_xxs,
+    GGMLType.IQ2_XS: dequant_iq2_xs,
+    GGMLType.IQ2_S: dequant_iq2_s,
+    GGMLType.IQ3_XXS: dequant_iq3_xxs,
+    GGMLType.IQ3_S: dequant_iq3_s,
+    GGMLType.IQ1_S: dequant_iq1_s,
+    GGMLType.IQ1_M: dequant_iq1_m,
+    GGMLType.IQ4_NL: dequant_iq4_nl,
+    GGMLType.IQ4_XS: dequant_iq4_xs,
 }
 
-# byte offsets of the fp16 fields of each ported block format
+# byte offsets of the fp16 fields of each ported block format; IQ1_M's block
+# scale is spread over the top nibbles of its scale words (iq1m_d)
 _F16_FIELDS = {
     GGMLType.Q4_0: (0,), GGMLType.Q4_1: (0, 2), GGMLType.Q2_K: (80, 82), GGMLType.Q3_K: (108,),
     GGMLType.Q5_0: (0,), GGMLType.Q5_1: (0, 2), GGMLType.Q8_0: (0,),
     GGMLType.Q4_K: (0, 2), GGMLType.Q5_K: (0, 2), GGMLType.Q6_K: (208,),
+    GGMLType.TQ1_0: (52,), GGMLType.TQ2_0: (64,),
+    GGMLType.IQ2_XXS: (0,), GGMLType.IQ2_XS: (0,), GGMLType.IQ2_S: (0,), GGMLType.IQ3_XXS: (0,),
+    GGMLType.IQ3_S: (0,), GGMLType.IQ1_S: (0,), GGMLType.IQ4_NL: (0,), GGMLType.IQ4_XS: (0,),
+    GGMLType.IQ1_M: (),
 }
 
 
@@ -226,9 +480,13 @@ def random_blocks(ggml_type: GGMLType, n_blocks: int, rng: np.random.Generator,
     t = GGMLType(ggml_type)
     tr = get_type_traits(t)
     b = rng.integers(0, 256, (n_blocks, tr.type_size), dtype=np.uint8)
+    draw = lambda: ((rng.random(n_blocks, dtype=F32) + F32(0.5)) * F32(scale)).astype("<f2")
     for off in _F16_FIELDS[t]:
-        vals = ((rng.random(n_blocks, dtype=F32) + F32(0.5)) * F32(scale)).astype("<f2")
-        b[:, off : off + 2] = vals.view(np.uint8).reshape(n_blocks, 2)
+        b[:, off : off + 2] = draw().view(np.uint8).reshape(n_blocks, 2)
+    if t == GGMLType.IQ1_M:  # nibble i of d into the top nibble of scale word i (byte 49 + 2 i)
+        bits = draw().view(np.uint16)
+        for i in range(4):
+            b[:, 49 + 2 * i] = (b[:, 49 + 2 * i] & 0x0F) | (((bits >> (4 * i)) & 0xF) << 4).astype(np.uint8)
     return b
 
 
@@ -244,8 +502,7 @@ def dequantize(data: np.ndarray, ggml_type: GGMLType, n_elements: int) -> np.nda
     if t == GGMLType.BF16:
         return bf16_bits_to_fp32(data.view("<u2")[:n_elements])
     if t not in _DEQUANT:
-        raise NotImplementedError(
-            f"dequantize {t.name}: not ported yet (ROADMAP.md, the remaining GGUF types)")
+        raise NotImplementedError(f"dequantize {t.name}: no dequantizer for this type")
     tr = get_type_traits(t)
     if n_elements % tr.block_size:
         raise ValueError(f"{t.name}: {n_elements} elements is not whole blocks")

@@ -12,6 +12,7 @@ greedy tokens of both sides equal, each side decoding its own tokens.
 """
 
 import dataclasses
+import weakref
 
 import numpy as np
 import pytest
@@ -46,11 +47,20 @@ def _prompt(t: int):
     return np.random.default_rng(t).integers(0, CFG["n_vocab"], (1, t)).astype(np.int32)
 
 
+_JAX_PREFILLS = weakref.WeakKeyDictionary()  # JAX model -> {prompt: (logits, cache)}
+
+
 def _jax_prefill(jm, prompt):
-    """JAX prefill through its forward run op by op."""
-    cache = jm.new_cache(dtype=jnp.float32)
-    return jgptj.forward(jm.params, jm.cfg, jnp.asarray(prompt), jnp.zeros((1,), jnp.int32), cache,
-                         jnp.int32(0), prefill=True)
+    """JAX prefill through its forward run op by op.  Kept per model and
+    prompt, so that a prefill test and a decode test of one prompt share one
+    JAX run (its arrays are immutable, and forward donates no buffer)."""
+    runs = _JAX_PREFILLS.setdefault(jm, {})
+    key = (prompt.shape, prompt.tobytes())
+    if key not in runs:
+        cache = jm.new_cache(dtype=jnp.float32)
+        runs[key] = jgptj.forward(jm.params, jm.cfg, jnp.asarray(prompt), jnp.zeros((1,), jnp.int32), cache,
+                                  jnp.int32(0), prefill=True)
+    return runs[key]
 
 
 def _port_prefill(tm, prompt):

@@ -105,12 +105,12 @@ def test_plane_bytes_and_module_moves():
 
 def test_unported_planes_raise():
     raw = random_raw(GGMLType.Q4_K, N, 768, seed=1)
-    with pytest.raises(NotImplementedError):  # the IQ* and TQ* types: a later slice
-        planar.repack(raw, GGMLType.IQ4_NL, (N, 768))
+    with pytest.raises(NotImplementedError):  # types without planes (the IQ* and TQ* types have them now)
+        planar.repack(raw, GGMLType.Q8_1, (N, 768))
     with pytest.raises(NotImplementedError):
-        planar.repack(raw, GGMLType.TQ1_0, (N, 768))
-    with pytest.raises(NotImplementedError):
-        reference.dequantize(raw, GGMLType.IQ4_NL, 32)
+        planar.repack(raw, GGMLType.Q8_K, (N, 768))
+    with pytest.raises(NotImplementedError):  # and without a dequantizer
+        reference.dequantize(raw, GGMLType.Q8_1, 32)
     q4 = planar.repack(random_raw(GGMLType.Q4_K, N, 512, seed=1), GGMLType.Q4_K, (N, 512))
     with pytest.raises(ValueError):  # compact q4 planes are the Q4_K factoring only: groups of 32 with min codes
         PlanarWeight("q4", q4.codes, q4.scales, None, 32, N, 512, GGMLType.Q4_K, supers=(q4.d, None))

@@ -108,8 +108,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         qmatmul.q4k_gemv_rows(x, flat)
     with pytest.raises(ValueError):
         qmatmul.q4_gemv(x, pw)
-    with pytest.raises(NotImplementedError):  # the IQ* types: a later slice
-        repack(raw, GGMLType.IQ4_NL, (N, 512))
+    with pytest.raises(NotImplementedError):  # a type without planes (the IQ* types have them now)
+        repack(raw, GGMLType.Q8_1, (N, 512))
 
 
 @pytest.mark.parametrize("kind,m,k,npad,group,offsets", [
@@ -148,7 +148,7 @@ def test_matmul_plan_is_legal(kind, m, k, npad, group, offsets):
 def test_check_planes_accepts_what_it_did():
     """The matmul wrappers take every shape they took before (any M, K % 64
     for nibble planes, K % 32 for int8 planes, groups of 16 and 32) and
-    refuse the same others."""
+    refuse the others they refused but groups of 8 and 256 over int8 planes."""
     from ggml_tpu_torch.quant.planar import PlanarWeight
 
     def q4(k, g, n=256):
@@ -169,5 +169,5 @@ def test_check_planes_accepts_what_it_did():
         qmatmul.q4k_matmul(torch.zeros((1, 96), dtype=torch.bfloat16), q4(96, 16))
     with pytest.raises(ValueError):  # K % 32 != 0 over int8 planes
         qmatmul.q8_matmul(torch.zeros((1, 48), dtype=torch.bfloat16), q8(48, 16))
-    with pytest.raises(ValueError):  # groups of 8 are a later slice's
-        qmatmul.q8_matmul(torch.zeros((1, 64), dtype=torch.bfloat16), q8(64, 8))
+    with pytest.raises(ValueError):  # groups of 64 (8 and 256 are taken now: test_torch_iquants.py)
+        qmatmul.q8_matmul(torch.zeros((1, 128), dtype=torch.bfloat16), q8(128, 64))

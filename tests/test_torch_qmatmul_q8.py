@@ -181,7 +181,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         qmatmul.q8_gemv(torch.zeros((1, 128), dtype=torch.bfloat16), k128)
     codes = torch.zeros((256, 128), dtype=torch.int8)
     g8 = PlanarWeight("q8", codes, torch.ones((32, 128)), None, 8, 128, 256, GGMLType.Q8_0)
-    with pytest.raises(ValueError):  # groups of 8: a type outside the ported ones
-        qmatmul.q8_matmul(torch.zeros((1, 256), dtype=torch.bfloat16), g8)
+    with pytest.raises(ValueError):  # groups of 8: the GEMV refuses them (G takes them: test_torch_iquants.py)
+        qmatmul.q8_gemv(torch.zeros((1, 256), dtype=torch.bfloat16), g8)
     with pytest.raises(ValueError):  # planar_matmul checks K before it dispatches
         qmatmul.planar_matmul(torch.zeros((1, 256)), q8_0)
