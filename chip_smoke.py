@@ -9,6 +9,7 @@
     python3 chip_smoke.py --front-end             # phases 1, 2 and the text front end (4i) only
     python3 chip_smoke.py --qlora                 # phases 1, 2, the GGUF writer and QLoRA fine-tuning (4j) only
     python3 chip_smoke.py --iquants               # phases 1, 2 and GPT-J-6B from IQ4_XS, IQ1_M, TQ2_0 files (4k) only
+    python3 chip_smoke.py --llama                 # phases 1, 2 and Llama-3-8B from a Q4_K GGUF file (4l) only
 
 Phases (any failure exits non-zero without the result line):
 1. the card, as nvidia-smi reports its name and power limit;
@@ -19,7 +20,10 @@ Phases (any failure exits non-zero without the result line):
    never calls it), beside the least time the card could take (bound);
    kernel G also over IQ1_M (groups of 8, offsets) and TQ2_0 (groups of
    256) planes repacked from random blocks, at M = 1, 8, 100 and 1024, and
-   E over IQ2_XS and IQ1_S planes;
+   E over IQ2_XS and IQ1_S planes; A, B, C, F, G, H and J also at the
+   Llama-3-8B shapes GPT-J never reached (N = 1024 and 14336, ffn_down's K =
+   14336 over expanded planes for H, the 128256-row Q6_K head, J under GQA
+   32/8 at d = 128);
 4. serve greedy requests through GPT-J-6B at its published widths
    (EleutherAI/gpt-j-6b: n_vocab 50400, E 4096, 16 heads, 28 layers, n_rot
    64, context 2048), decoding as CUDA graph replays (one capture per model,
@@ -54,13 +58,26 @@ Phases (any failure exits non-zero without the result line):
    launches a step), finite falling losses, the adapter GGUF round trip, the
    base unchanged, peak memory, a profiled step by class; then a tiny GPT-J
    QLoRA run on the card against the CPU and a checkpoint resume on the card;
-   (k) GPT-J-6B from three GGUF files written with every 2-D weight in one
-   type, IQ4_XS (E at decode), IQ1_M and TQ2_0 (G at every M, 169 launches a
-   decode token), each loaded as planes (as `generate --quantized` loads
-   it) and deleted: the load, greedy requests from prompts of 8 and 100
+   (k) GPT-J-6B (8 of its 28 layers; all 28 with --iquants) from three GGUF
+   files written with every 2-D weight in one type, IQ4_XS (E at decode),
+   IQ1_M and TQ2_0 (G at every M, 6 launches a layer and one a decode
+   token), each loaded as planes (as `generate --quantized` loads it) and
+   deleted: the load, greedy requests from prompts of 8 and 100
    (IQ1_M also 1024, through J and G at M = 1024) as graph replays, the
    first again eagerly (the same ids), ms/token beside the plane-byte
-   floor, a profiled graphed token by class;
+   floor, a profiled graphed token by class; (l) Llama-3-8B at its
+   published widths (meta-llama/Meta-Llama-3-8B: vocab 128256, E 4096, 32
+   layers, 32 heads over 8 kv heads, n_ff 14336, rope base 500000) from a
+   4.65 GB GGUF file of Q4_K weights with a Q6_K head and a 128256-entry
+   byte-level BPE vocabulary: the load, greedy requests from prompts of 8
+   and 100 as graph replays (225 planar launches a decode token: A on 192
+   linears, H on 32 ffn_down over planes expanded on every call, F on the
+   head), the first again eagerly (the same ids), a seeded sampled request,
+   a 1024-token prefill through J and C, flash against plain attention over
+   one layer, the generate CLI as a subprocess (its text equals this
+   process's greedy text), a profiled prefill and decode by class, then
+   tiny Llamas (a Q4_K/Q6_K file, six dense variants, the flash prefill
+   under GQA) on the card against the CPU;
 5. one JSON line listing every kernel, then the result line.
 
 Runs only where torch.cuda.is_available(); it imports nothing of JAX.
@@ -120,6 +137,14 @@ GATE = {"q4k_gemv_qact": 1e-6, "q4k_gemv_rows": 1e-6, "q4k_matmul": 1e-5, "decod
 
 class SmokeFailure(Exception):
     pass
+
+
+_START = time.perf_counter()
+
+
+def stage(title: str):
+    """A phase's header, with the seconds since the script started."""
+    print(f"== {title} [{time.perf_counter() - _START:.1f}s]", flush=True)
 
 
 def check(cond: bool, msg: str):
@@ -256,6 +281,8 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
     """Each kernel against its plain version at the main path's shapes."""
     import numpy as np
 
+    from ggml_tpu_torch.quant.planar import expand_compact
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     results = {name: [] for name in SOURCES}
@@ -279,6 +306,8 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
             pw, label = random_planes(torch, n, k, npad, d_dtype, gen), f"d={str(d_dtype)[6:]}"
         elif fmt in ("q4_0", "q3_k", "q4_0_f32"):
             pw, label = random_q4_planes(torch, n, k, npad, fmt, gen, offsets), fmt + ("" if offsets else " no offsets")
+        elif fmt == "q4_k_expanded":  # compact Q4_K planes multiplied out, as planar_matmul hands them to H
+            pw, label = expand_compact(random_planes(torch, n, k, npad, torch.float32, gen)), "q4_k expanded (f32)"
         elif fmt.startswith(("iq", "tq")):
             pw = iq_planes(torch, np, slabs, n, k, npad, fmt)
             label = f"{fmt} (G={pw.group}{', offsets' if pw.offsets is not None else ''})"
@@ -453,6 +482,24 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         for fmt in ("iq1_m", "tq2_0", "iq1_m_bf16", "tq2_0_bf16"):
             gemv_case("q8_matmul", m, 256, 600, 640, fmt=fmt, time_it=False)
     slabs.clear()
+    # Llama-3-8B from a Q4_K file with a Q6_K head (phase 4l), the shapes
+    # GPT-J never reached: A on k and v (N = 1024) and ffn_gate/ffn_up (N =
+    # 14336), B on those at prompt 8; H on ffn_down (K = 14336: no compact
+    # tile, so the planes are expanded to f32 first) at decode and prompt 8;
+    # F on the 128256-row head; C at K = 14336 (ffn_down) and N = 14336 at
+    # prompt 100 and the 1024-token prefill; G on the head there, and at K = 14336
+    l_kv, l_ffn, l_down, l_head = (4096, 1024, 1024), (4096, 14336, 14336), (14336, 4096, 4096), (4096, 128256, 129024)
+    gemv_case("q4k_gemv_qact", 1, *l_kv, d_dtype=torch.float32)
+    gemv_case("q4k_gemv_qact", 1, *l_ffn, d_dtype=torch.float32)
+    gemv_case("q4k_gemv_rows", 8, *l_ffn, d_dtype=torch.float32)
+    for m in (1, 8):
+        gemv_case("q4_gemv", m, *l_down, fmt="q4_k_expanded")
+        gemv_case("q8_gemv_sb", m, *l_head, fmt="q6_k")
+    for m in (100, 1024):
+        gemv_case("q4k_matmul", m, *l_down, d_dtype=torch.float32)
+        gemv_case("q4k_matmul", m, *l_ffn, d_dtype=torch.float32)
+        gemv_case("q8_matmul", m, *l_head, fmt="q6_k")
+    gemv_case("q8_matmul", 100, *l_down, fmt="q6_k")
 
     def flash_case(b, h, h_kv, nq, nkv, d, types, causal=True, max_bias=0.0, softcap=0.0, time_it=True,
                    dead_row=None):
@@ -551,6 +598,7 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         flash_case(1, 16, 16, 1024, 1024, 256, types)   # the 1024-token prefill of GPT-J (a bf16 model: mixed)
         flash_case(1, 16, 16, 2048, 2048, 256, types)   # the full context
         flash_case(1, 4, 4, 100, 100, 128, types)       # the tiny model's heads, ragged tiles
+    flash_case(1, 32, 8, 1024, 1024, 128, "mixed")      # Llama-3-8B's 1024-token prefill: GQA 32/8, d = 128
     # the mask ranges at the long prefill's shape (and the full context), then
     # exactness only at ragged shapes: ragged tiles on the 16-byte path (1000,
     # 64 x 80), and the scalar path (nkv % 4 != 0, a misaligned mask)
@@ -776,8 +824,9 @@ def q6k_planes_like(torch, np, params: dict) -> dict:
 
 
 def phase_gptj(torch, np, label: str, params: dict, kernels: dict, prompts, profile: bool, max_seq: int = 256,
-               long_decode_profile: int = 0, sampled: bool = False):
-    """GPT-J-6B at published widths over `params`: one greedy request of 64
+               long_decode_profile: int = 0, sampled: bool = False, cfg=None):
+    """GPT-J-6B at published widths (cfg, the whole model by default) over
+    `params`: one greedy request of 64
     tokens per prompt length, decoded as CUDA graph replays (the default on
     the card), every launch counted (a replay adds its captured step's
     launches); the graphs are captured while each prompt length is warmed up,
@@ -794,7 +843,7 @@ def phase_gptj(torch, np, label: str, params: dict, kernels: dict, prompts, prof
     from ggml_tpu_torch.models import gptj
     from ggml_tpu_torch.quant.planar import PlanarWeight
 
-    cfg = gptj.random_config("6b")
+    cfg = cfg or gptj.random_config("6b")
     # the planes a decode token reads (a GGUF file's token embedding also
     # has planes, beside its dense copy for the row gather)
     plane_bytes = sum(v.plane_bytes() for k, v in params.items()
@@ -904,7 +953,9 @@ def sampled_requests(torch, model, req: dict, n_gen: int) -> dict:
     prefill logits and n_gen - 1 more by the graphed sampled loop, at
     temperature 0.8, top_k 40, top_p 0.95 from a generator seeded 1234: run
     twice, the same ids; eagerly, the same ids again (the same kernels and
-    the same draws); with top_k = 1, the greedy request's ids."""
+    the same draws); with top_k = 1, the greedy request's ids, or the same
+    ids up to a step where the largest logit is tied and top_k = 1 takes
+    another of the tied (bf16 logits over 128256 entries tie)."""
     from ggml_tpu_torch.sampling import sample_top_k_top_p
 
     def run(top_k, graph=True):
@@ -926,13 +977,28 @@ def sampled_requests(torch, model, req: dict, n_gen: int) -> dict:
     check(len(ids) == n_gen and all(0 <= x < model.cfg.n_vocab for x in ids), f"sampled decode: ids {ids}")
     check(runs[1][0] == ids, f"sampled decode, seed 1234 twice: {ids[:8]}... then {runs[1][0][:8]}...")
     check(eager == ids, f"sampled decode, eager against graphed: {eager[:8]}... against {ids[:8]}...")
-    check(greedy_ids == req["ids"], f"sampled decode with top_k=1: {greedy_ids[:8]}..., greedy {req['ids'][:8]}...")
+    tie = None
+    if greedy_ids != req["ids"]:
+        # top_k = 1 keeps every logit tied with the largest (the JAX sampler's
+        # rule); the greedy loop takes the first: the two may part only where
+        # the largest logit is tied, and both picks must be such maxima
+        tie = next(i for i, (a, b) in enumerate(zip(greedy_ids, req["ids"])) if a != b)
+        logits, cache, n_past = model.prefill(model.new_cache(torch.bfloat16), req["prompt_tokens"])
+        for j, tok in enumerate(req["ids"][:tie]):
+            logits, cache = model.decode_step(cache, [[tok]], n_past + j)
+        top = logits[0].max()
+        check(bool(logits[0, greedy_ids[tie]] == top) and bool(logits[0, req["ids"][tie]] == top),
+              f"sampled decode with top_k=1: {greedy_ids[:8]}..., greedy {req['ids'][:8]}...: they part at step "
+              f"{tie}, where the logits of the two picks are {float(logits[0, greedy_ids[tie]])} and "
+              f"{float(logits[0, req['ids'][tie]])}, the largest {float(top)}")
     distinct = len(set(ids))
     print(f"  sampled request (temperature 0.8, top_k 40, top_p 0.95, seed 1234), prompt={req['prompt']}: "
           f"{n_gen} ids, {distinct} distinct, the same twice ({runs[0][1]:.2f}, {runs[1][1]:.2f} ms/token graphed; "
-          f"eager {eager_ms:.2f}, the same ids); top_k=1 gives the greedy ids")
+          f"eager {eager_ms:.2f}, the same ids); top_k=1 gives the greedy ids"
+          + ("" if tie is None else f" up to step {tie}, where it takes another of the tied largest logits"))
     return dict(ids=ids[:16], distinct=distinct, graphed_ms_per_token=[r[1] for r in runs],
-                eager_ms_per_token=eager_ms, same_twice=True, eager_equal=True, top_k_1_is_greedy=True)
+                eager_ms_per_token=eager_ms, same_twice=True, eager_equal=True, top_k_1_is_greedy=tie is None,
+                top_k_1_parts_at_a_tie=tie)
 
 
 def flash_against_plain_attention(torch, np, model, t: int) -> float:
@@ -1765,8 +1831,8 @@ def phase_qlora(torch, np, path: str, tmp: str) -> dict:
 IQ_TYPES = ("IQ4_NL", "IQ4_XS", "IQ3_S", "IQ3_XXS", "IQ2_S", "IQ2_XS", "IQ2_XXS", "IQ1_M", "IQ1_S", "TQ2_0", "TQ1_0")
 
 
-def phase_iquants(torch, np, tmp: str, card: str) -> list:
-    """4k: GPT-J-6B at its published widths from three GGUF files written
+def phase_iquants(torch, np, tmp: str, card: str, n_layer: int = 28) -> list:
+    """4k: GPT-J-6B at its published widths (n_layer of its 28 layers) from three GGUF files written
     into tmp by write_random_gguf with every 2-D weight in one type: IQ4_XS
     (groups of 32: E at decode, G at prefill), IQ1_M (groups of 8 with
     offsets) and TQ2_0 (groups of 256), which take G at every M.  Each file
@@ -1774,7 +1840,8 @@ def phase_iquants(torch, np, tmp: str, card: str) -> list:
     does), is deleted, and serves greedy requests through phase_gptj
     (prompts 8 and 100; IQ1_M also 1024, through J and G at M = 1024):
     graph replays, the first request again eagerly with the same ids, exact
-    launch counts (q, k, v and ffn_up apart: 169 linears a decode token),
+    launch counts (q, k, v and ffn_up apart: 6 linears a layer and the head
+    a decode token, 169 at 28 layers),
     ms/token beside the plane-byte floor, and profiled decode tokens by
     class."""
     import gc
@@ -1783,7 +1850,7 @@ def phase_iquants(torch, np, tmp: str, card: str) -> list:
     from ggml_tpu_torch.models import gptj
     from ggml_tpu_torch.quant.planar import PlanarWeight
 
-    cfg = gptj.GPTJConfig()  # EleutherAI/gpt-j-6b
+    cfg = dataclasses.replace(gptj.GPTJConfig(), n_layer=n_layer)  # EleutherAI/gpt-j-6b
     e_kernels = dict(decode="q8_gemv", rows="q8_gemv", matmul="q8_matmul")
     g_kernels = dict(decode="q8_matmul", rows="q8_matmul", matmul="q8_matmul")
     runs = []
@@ -1802,15 +1869,18 @@ def phase_iquants(torch, np, tmp: str, card: str) -> list:
         os.remove(path)
         print(f"  {t.name}: wrote {gguf_bytes / 1e9:.3f} GB of GGUF in {write_s:.1f}s, loaded as planes in "
               f"{load_s:.1f}s ({card})")
-        run = phase_gptj(torch, np, label, model.params, kernels, prompts, profile=True, max_seq=max_seq)
+        run = phase_gptj(torch, np, label, model.params, kernels, prompts, profile=True, max_seq=max_seq, cfg=cfg)
         req = run["requests"][0]  # prompt 8: its prefill of 8 tokens is one launch of each linear too
         linears = sum(1 for k, v in model.params.items() if isinstance(v, PlanarWeight) and k != "token_embd.weight")
         per_token = {k: (v - (linears if k == kernels["rows"] else 0)) / 63 for k, v in req["launches"].items() if v}
         graphed = run["graphed_decode_trace"]
         run.update(type=t.name, gguf_write_s=write_s, gguf_bytes=gguf_bytes, load_s=load_s,
-                   launches_per_decode_token=per_token, floor_ms=run["plane_bytes"] / HBM_BYTES_PER_S * 1e3)
-        check(per_token[kernels["decode"]] == linears == 169, f"{label}: launches per decode token {per_token}")
-        print(f"  {t.name} ({card}): load {load_s:.1f}s; launches a decode token {per_token}; graphed decode "
+                   launches_per_decode_token=per_token, floor_ms=run["plane_bytes"] / HBM_BYTES_PER_S * 1e3,
+                   n_layer=cfg.n_layer)
+        check(per_token[kernels["decode"]] == linears == 6 * cfg.n_layer + 1,
+              f"{label}: launches per decode token {per_token}")
+        print(f"  {t.name} ({card}, {cfg.n_layer} layers): load {load_s:.1f}s; launches a decode token {per_token}; "
+              "graphed decode "
               + ", ".join(f"{r['decode_ms_per_token']:.3f}" for r in run["requests"])
               + f" ms/token (prompts {', '.join(str(r['prompt']) for r in run['requests'])}; eager "
               f"{req['eager_decode_ms_per_token']:.3f}, the same ids) against a floor of {run['floor_ms']:.3f} "
@@ -1823,6 +1893,442 @@ def phase_iquants(torch, np, tmp: str, card: str) -> list:
         gc.collect()  # a model and its decode graphs form a reference cycle
         torch.cuda.empty_cache()
     return runs
+
+
+# 4l: the Llama family at Llama-3-8B's published widths, from a Q4_K GGUF file
+LLAMA3_8B_GGUF = "meta-llama-3-8b-q4_k.gguf"
+# planar launches of one Llama-3-8B decode token by wrapper: A on the 192
+# linears at K = 4096 (q, k, v, attn_output, ffn_gate, ffn_up), H on the 32
+# ffn_down (K = 14336: expanded planes), F on the Q6_K head
+LLAMA_DECODE_LAUNCHES = {"q4k_gemv_qact": 192, "q4_gemv": 32, "q8_gemv_sb": 1}
+
+
+def write_llama3_8b_gguf(np, tmp: str) -> tuple:
+    """The GGUF file phase 4l reads, written into the directory tmp with the
+    port's writer (models/llama.write_random_gguf): Llama-3-8B's published
+    widths, every 2-D weight Q4_K but output.weight Q6_K (as llama.cpp's
+    Q4_K_S and Q4_K_M files keep the head), F32 norms, a byte-level BPE
+    vocabulary of 128256 entries (tokenizer.ggml.model gpt2, as Llama 3's
+    files have: the 256 byte symbols, the merges learned from
+    FRONT_END_TEXT, lowercase placeholder words, then <|begin_of_text|> at
+    128000, <|end_of_text|> at 128001 and reserved special tokens).  Returns
+    (path, dict(gguf_write_s, gguf_bytes), tokens, merges)."""
+    from ggml_tpu_torch.dtypes import GGMLType
+    from ggml_tpu_torch.models import llama
+    from ggml_tpu_torch.tokenizer import byte_level_vocab, learn_merges
+
+    cfg = llama.llama3_8b_config()
+    merges = learn_merges(FRONT_END_TEXT, 100_000)  # until every word is one symbol
+    tokens = byte_level_vocab(merges)
+    bos, eos = 128000, 128001
+    tokens = (tokens + _placeholders(set(tokens), bos - len(tokens)) + ["<|begin_of_text|>", "<|end_of_text|>"]
+              + [f"<|reserved_special_token_{i}|>" for i in range(cfg.n_vocab - bos - 2)])
+    check(len(tokens) == cfg.n_vocab and len(set(tokens)) == len(tokens), f"vocabulary of {len(tokens)} entries")
+    path = os.path.join(tmp, LLAMA3_8B_GGUF)
+    t0 = time.perf_counter()
+    llama.write_random_gguf(path, cfg, seed=0, types={"output.weight": GGMLType.Q6_K},
+                            tokenizer=dict(model="gpt2", tokens=tokens, merges=merges, bos_token_id=bos,
+                                           eos_token_id=eos))
+    info = dict(gguf_write_s=time.perf_counter() - t0, gguf_bytes=os.path.getsize(path))
+    print(f"  wrote {info['gguf_bytes'] / 1e9:.3f} GB of GGUF ({len(merges)} merges) in {info['gguf_write_s']:.1f}s")
+    return path, info, tokens, merges
+
+
+# a graphed token's kernels by class: the GEMV pipeline's instances by their
+# plane layout (Planes<nibbles, compact, ...>), C and G by name, and, in an
+# eager profile, the ops inside the expansion and attention ranges
+_GEMV_CLASS = {("true", "true"): "A", ("true", "false"): "H", ("false", "true"): "F", ("false", "false"): "E"}
+
+
+_LLAMA_RANGES = ("planar_matmul.expand_compact", "llama.attention")
+
+
+def _llama_class(event, kernel: str) -> str:
+    m = re.search(r"Planes<(true|false), (true|false)", kernel)
+    if m:
+        return _GEMV_CLASS[m[1], m[2]]
+    if "q4k_matmul_kernel" in kernel or "qmatmul_xsum_kernel" in kernel:
+        return "C"
+    if "q8_matmul_kernel" in kernel:
+        return "G"
+    while event is not None:
+        if event.name == "planar_matmul.expand_compact":
+            return "H expansions"
+        if event.name == "llama.attention":
+            return "attention"
+        event = event.cpu_parent
+    return "other"
+
+
+def profile_llama_decode(torch, np, model, steps: int = 32, prompt: int = 8) -> dict:
+    """Llama decode after a `prompt`-token prompt (after the launch counters
+    are read): host ms/token of `steps` graphed replays, then under
+    torch.profiler the same request again: device busy a token (copies
+    included), the idle share 1 - busy / host, and busy by class from the
+    kernels' names (A, H, F; the expansions and the attention's ops are
+    PyTorch kernels in "other" there); then 8 eager steps, where the ops
+    of the ranges planar_matmul.expand_compact and llama.attention are
+    booked to "H expansions" and "attention"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def request():
+        logits, cache, n_past = model.prefill(model.new_cache(torch.bfloat16), np.arange(prompt)[None])
+        first = torch.argmax(logits, dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        return cache, first, n_past
+
+    cache, first, n_past = request()
+    t0 = time.perf_counter()
+    model.decode_greedy(cache, first, n_past, steps)  # returns the ids to the host: the card is done
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    cache, first, n_past = request()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.decode_greedy(cache, first, n_past, steps)
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / steps / 1e3
+    graphed = {}
+    for e in events:
+        cls = _llama_class(None, e.key)
+        graphed[cls] = graphed.get(cls, 0.0) + e.self_device_time_total / steps / 1e3
+    cache, first, n_past = request()
+    eager_steps = 8
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.decode_greedy(cache, first, n_past, eager_steps, graph=False)
+        torch.cuda.synchronize()
+    # the two ranges from the kernels the profiler ties to the ops that
+    # launched them (it ties no kernel to a cudaLaunchKernelExC, the GEMVs'
+    # launch), every other class from the device events by name
+    eager = {}
+    for e in _device_events(prof):
+        if e.key in _LLAMA_RANGES or getattr(e, "is_user_annotation", False):
+            continue  # a range's device span: its kernels, and the gaps between them
+        cls = _llama_class(None, e.key)
+        eager[cls] = eager.get(cls, 0.0) + e.self_device_time_total / eager_steps / 1e3
+    for e in prof.events():
+        for k in getattr(e, "kernels", ()):
+            cls = _llama_class(e, k.name)
+            if cls in ("H expansions", "attention"):
+                eager[cls] = eager.get(cls, 0.0) + k.duration / eager_steps / 1e3
+                eager["other"] -= k.duration / eager_steps / 1e3
+    launches = sum(e.count for e in prof.key_averages() if e.key.startswith("cudaLaunchKernel")) / eager_steps
+    trace = dict(steps=steps, prompt=prompt, host_ms_per_token=host_ms, device_ms_per_token=busy,
+                 idle_share=1.0 - busy / host_ms, graphed_ms_per_token_by_class=graphed,
+                 eager_ms_per_token_by_class=eager, eager_launches_per_token=launches)
+    fmt = lambda d: ", ".join(f"{k} {v:.3f}" for k, v in sorted(d.items(), key=lambda kv: -kv[1]))
+    print(f"  graphed decode, {steps} steps at pos {prompt}..{prompt + steps - 1}: host {host_ms:.3f} ms/token, "
+          f"device busy {busy:.3f} (idle {trace['idle_share'] * 100:.1f} %); by class (ms/token): {fmt(graphed)}")
+    print(f"  eager decode, {eager_steps} steps, {launches:.0f} kernel launches/token; device ms/token by class: "
+          f"{fmt(eager)}")
+    return trace
+
+
+def llama_flash_against_plain_attention(torch, np, model, t: int) -> dict:
+    """flash_against_plain_attention for a Llama: logits at every position
+    of a t-token prefill over the model's first layer at full width, through
+    J (f32 q and k, bf16 v, p rounded to bf16 before it is normalized), and
+    through the plain GQA attention over the cache window (flash_min_seq out
+    of reach) twice: over the model's bf16 cache (the decode path: k read
+    back rounded to bf16, the normalized p rounded to bf16) and over an f32
+    cache (k, p and the product in f32: the reference).  Gate: J against the
+    f32 reference, NMSE <= 1e-4; J against the bf16 path and the bf16 path
+    against the reference are printed (the second is the plain path's own
+    rounding)."""
+    from ggml_tpu_torch.models import llama
+
+    prompt = torch.from_numpy(np.random.default_rng(t).integers(0, model.cfg.n_vocab, (1, t))).to(model.device)
+    zero = torch.zeros((), dtype=torch.int32, device=model.device)
+
+    def logits(cache_dtype=torch.bfloat16, **changes):
+        cfg = dataclasses.replace(model.cfg, n_layer=1, **changes)
+        cache = llama.init_cache(cfg, 1, model.max_seq, cache_dtype, model.device)
+        return llama.forward(model.params, cfg, prompt, zero.expand(1), cache, zero, prefill=True)[0]
+
+    flash, plain, ref = logits(), logits(flash_min_seq=1 << 30), logits(torch.float32, flash_min_seq=1 << 30)
+    out = dict(flash_vs_f32_plain=errors(ref, flash)[0], flash_vs_bf16_plain=errors(plain, flash)[0],
+               bf16_plain_vs_f32_plain=errors(ref, plain)[0])
+    print(f"  {t}-token prefill over one layer at full width, logits at every position: flash against the plain "
+          f"attention over an f32 cache NMSE {out['flash_vs_f32_plain']:.2e}, against the plain attention over the "
+          f"bf16 cache {out['flash_vs_bf16_plain']:.2e}; the bf16-cache plain attention against the f32 one "
+          f"{out['bf16_plain_vs_f32_plain']:.2e}")
+    check(out["flash_vs_f32_plain"] <= 1e-4,
+          f"Llama flash prefill against plain f32 attention over one layer: NMSE "
+          f"{out['flash_vs_f32_plain']:.2e} > 1e-4")
+    return out
+
+
+def tiny_llama_params(torch, cfg, seed: int, biases: bool = False, tied: bool = False) -> dict:
+    """Random f32 parameters of a small llama-family model on the CPU (norm
+    weights near 1; q/k/v biases and per-head q/k norms where asked)."""
+    gen = torch.Generator().manual_seed(seed)
+    w = lambda *shape, s=0.05: torch.randn(shape, generator=gen) * s
+    near_one = lambda n: 1 + 0.1 * torch.randn((n,), generator=gen)
+    E, hd = cfg.n_embd, cfg.head_dim
+    p = {"token_embd.weight": w(cfg.n_vocab, E, s=0.5), "output_norm.weight": near_one(E)}
+    if not tied:
+        p["output.weight"] = w(cfg.n_vocab, E)
+    for i in range(cfg.n_layer):
+        pre = f"blk.{i}."
+        p[pre + "attn_norm.weight"] = near_one(E)
+        for name, n in (("attn_q", cfg.n_head * hd), ("attn_k", cfg.n_head_kv * hd), ("attn_v", cfg.n_head_kv * hd)):
+            p[pre + name + ".weight"] = w(n, E)
+            if biases:
+                p[pre + name + ".bias"] = w(n, s=0.1)
+        if cfg.qk_norm:
+            p[pre + "attn_q_norm.weight"], p[pre + "attn_k_norm.weight"] = near_one(hd), near_one(hd)
+        p[pre + "attn_output.weight"] = w(E, cfg.n_head * hd)
+        p[pre + "ffn_norm.weight"] = near_one(E)
+        p[pre + "ffn_gate.weight"], p[pre + "ffn_up.weight"] = w(cfg.n_ff, E), w(cfg.n_ff, E)
+        p[pre + "ffn_down.weight"] = w(E, cfg.n_ff)
+    return p
+
+
+def phase_tiny_llama(torch, np, tmp: str) -> dict:
+    """Tiny Llamas on the card (kernels, cuBLAS) against the same weights on
+    the CPU (plain versions), fed the same tokens: a GGUF file of Q4_K
+    weights with a Q6_K head (E 512, GQA 4/2, head_dim 128, n_ff 10240:
+    ffn_down's planes are expanded for H, as at 8B), prefill of 40 tokens (C,
+    G: NMSE <= 5e-5; GPT-J's 1e-5 read 1.02e-5 here: every activation is
+    rounded to bf16 before a product, a last-bit difference of the card's
+    sums, rsqrt, sin or cos flips some of those roundings, and the SwiGLU
+    over 10240 columns spreads them; against JAX on the CPU the same prefill
+    reads 3.1e-6), then 8 decode steps (A, H, F) over the cache rows that
+    prefill wrote (<= 2e-3: those rows differ by the same roundings, and
+    each int8 activation code a difference moves costs 1e-4 to 4e-4;
+    7.35e-4 was read), and of 5 (B, H, F: integer sums) with 8 decode steps
+    (<= 5e-4, as GPT-J's); then dense f32 variants (qwen2 biases with a tied output,
+    qwen3 q/k norms with head_dim 48, granite scales, smollm3 NoPE, ernie4_5
+    interleaved RoPE, YaRN) with 6-token prompts and 3 decode steps (<=
+    5e-4); then the Q4_K model in bf16 on the card, flash prefill against its
+    own plain-attention prefill over an f32 cache, over one layer (<= 1e-4),
+    and over its bf16 cache (printed)."""
+    from ggml_tpu_torch.dtypes import GGMLType
+    from ggml_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(n_vocab=512, n_ctx=128, n_embd=512, n_head=4, n_head_kv=2, n_layer=2, n_ff=10240,
+                            rope_base=500000.0)
+    path = os.path.join(tmp, "tiny-llama-q4_k.gguf")
+    llama.write_random_gguf(path, cfg, seed=3, types={"output.weight": GGMLType.Q6_K})
+    q4k = llama.Llama.from_gguf(path, dtype=torch.float32, device="cpu").params
+    base = dict(n_vocab=96, n_ctx=128, n_embd=128, n_head=4, n_head_kv=2, n_layer=2, n_ff=192, rope_base=500000.0)
+    dense = {"qwen2 biases, tied": ({}, dict(biases=True, tied=True)),
+             "qwen3 q/k norm, head_dim 48": (dict(n_embd=96, qk_norm=True, head_dim_override=48), {}),
+             "granite scales": (dict(embd_scale=12.0, resid_scale=0.22, attn_scale=0.0078125, logit_scale=8.0), {}),
+             "smollm3 NoPE": (dict(nope_interval=2), {}), "ernie4_5 interleaved": (dict(rope_interleaved=True), {}),
+             "yarn": (dict(rope_scaling="yarn", rope_scale=4.0, n_ctx_orig=32), {})}
+    sets = [("q4_k+q6_k file", q4k, cfg, ((40, 5e-5, 2e-3), (5, 5e-4, 5e-4)), 8)]
+    for i, (label, (over, opts)) in enumerate(dense.items()):
+        vcfg = llama.LlamaConfig(**dict(base, **over))
+        sets.append((label, tiny_llama_params(torch, vcfg, seed=10 + i, **opts), vcfg, ((6, 5e-4, 5e-4),), 3))
+    out = {}
+    for label, cpu_params, run_cfg, prompts, n_steps in sets:
+        gpu_params = {k: copy.deepcopy(v).to("cuda") for k, v in cpu_params.items()}
+        for t, gate, step_gate in prompts:
+            prompt = torch.from_numpy(np.random.default_rng(t).integers(0, run_cfg.n_vocab, (1, t)))
+            runs = []
+            for params, dev in ((cpu_params, "cpu"), (gpu_params, "cuda")):
+                cache = llama.init_cache(run_cfg, 1, 64, torch.float32, dev)
+                zero = torch.zeros((), dtype=torch.int32, device=dev)
+                runs.append([llama.forward(params, run_cfg, prompt.to(dev), zero.expand(1), cache, zero,
+                                           prefill=True)[0][:, -1].cpu(), cache, dev])
+            nm, _ = errors(runs[0][0], runs[1][0])
+            check(nm <= gate, f"tiny Llama {label}, prefill {t}: card vs CPU NMSE {nm:.2e} > {gate:g}")
+            worst, tok = 0.0, int(torch.argmax(runs[0][0]))
+            for step in range(n_steps):
+                step_logits = []
+                for params, (_, cache, dev) in zip((cpu_params, gpu_params), runs):
+                    pos = torch.tensor(t + step, dtype=torch.int32, device=dev)
+                    step_logits.append(llama.forward(params, run_cfg, torch.tensor([[tok]], device=dev),
+                                                     pos.expand(1), cache, pos)[0][0, -1].cpu())
+                worst = max(worst, errors(*step_logits)[0])
+                tok = int(torch.argmax(step_logits[0]))
+            check(worst <= step_gate, f"tiny Llama {label}, decode after {t}: card vs CPU NMSE {worst:.2e} > "
+                  f"{step_gate:g}")
+            out[f"{label}/{t}"] = dict(prefill_nmse=nm, decode_worst_nmse=worst)
+            print(f"  tiny Llama {label}, prompt {t}: prefill NMSE {nm:.2e}, {n_steps} decode steps worst NMSE "
+                  f"{worst:.2e}")
+
+    # the bf16 flash kernel under GQA inside the model, against the plain
+    # attention's prefill over an f32 cache and over the bf16 cache, one layer
+    # and two (see llama_flash_against_plain_attention)
+    params = llama.Llama.from_gguf(path, dtype=torch.bfloat16, device="cuda").params
+    prompt = torch.from_numpy(np.random.default_rng(40).integers(0, cfg.n_vocab, (1, 40))).cuda()
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    nms = {}
+    for depth in (1, cfg.n_layer):
+        run = lambda cache_dtype, **kw: llama.forward(
+            params, dataclasses.replace(cfg, n_layer=depth, **kw), prompt, zero.expand(1),
+            llama.init_cache(cfg, 1, 64, cache_dtype), zero, prefill=True)[0].float()
+        flash, plain, ref = run(torch.bfloat16, use_flash_prefill=True), run(torch.bfloat16), run(torch.float32)
+        nms[depth] = dict(flash_vs_f32_plain=errors(ref, flash)[0], flash_vs_bf16_plain=errors(plain, flash)[0],
+                          bf16_plain_vs_f32_plain=errors(ref, plain)[0])
+    check(nms[1]["flash_vs_f32_plain"] <= 1e-4, f"tiny bf16 Llama, flash against plain f32 attention over one layer: "
+          f"NMSE {nms[1]['flash_vs_f32_plain']:.2e}")
+    out["q4_k bf16 flash vs plain attention"] = nms
+    print(f"  tiny bf16 Llama q4_k (GQA 4/2), prompt 40, flash prefill on the card over one layer / two: against "
+          f"the plain attention over an f32 cache NMSE {nms[1]['flash_vs_f32_plain']:.2e} / "
+          f"{nms[2]['flash_vs_f32_plain']:.2e}, over the bf16 cache {nms[1]['flash_vs_bf16_plain']:.2e} / "
+          f"{nms[2]['flash_vs_bf16_plain']:.2e}")
+    return out
+
+
+def phase_llama(torch, np, tmp: str, card: str) -> dict:
+    """4l: Llama-3-8B at its published widths (meta-llama/Meta-Llama-3-8B
+    config.json: vocab 128256, E 4096, 32 layers, 32 heads over 8 kv heads,
+    head_dim 128, n_ff 14336, rope base 500000, context 8192, untied head)
+    from the Q4_K GGUF file write_llama3_8b_gguf writes into tmp, loaded as
+    planes through Llama.from_gguf (what `generate --quantized` does):
+    greedy requests of 64 tokens from prompts of 8 and 100 decoded as graph
+    replays with exact launch counts (225 planar launches a decode token,
+    LLAMA_DECODE_LAUNCHES), the first again eagerly (the same ids), a seeded
+    sampled request (twice, eagerly, and with top_k = 1 against the greedy
+    ids), a 1024-token prefill at max_seq 2048 through J (32 launches with
+    their split, the mask ranges once) and C, flash against plain attention
+    over one layer, the generate CLI as a subprocess (its text against this
+    process's greedy text at the CLI's max_seq), a profiled prefill and
+    profiled decode by class; then tiny Llamas on the card against the CPU."""
+    import gc
+
+    from ggml_tpu_torch.models import llama
+    from ggml_tpu_torch.quant.planar import PlanarWeight
+    from ggml_tpu_torch.tokenizer import BPETokenizer
+
+    gc.collect()  # earlier phases' models and their decode graphs form reference cycles
+    torch.cuda.empty_cache()
+    path, info, tokens, merges = write_llama3_8b_gguf(np, tmp)
+    out = dict(info)
+    t0 = time.perf_counter()
+    model = llama.Llama.from_gguf(path, max_seq=2048, device="cuda")
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    cfg = model.cfg
+    want_cfg = llama.llama3_8b_config()
+    check(dataclasses.replace(cfg, rms_eps=want_cfg.rms_eps) == want_cfg, f"config {cfg}")
+    planar = {k: v for k, v in model.params.items() if isinstance(v, PlanarWeight) and k != "token_embd.weight"}
+    check(len(planar) == 7 * cfg.n_layer + 1, f"{len(planar)} planar linears")
+    plane_bytes = sum(v.plane_bytes() for v in planar.values())
+    out.update(plane_bytes=plane_bytes, floor_ms=plane_bytes / HBM_BYTES_PER_S * 1e3)
+    print(f"  loaded as planes in {out['load_s']:.1f}s ({card}); {plane_bytes / 1e9:.3f} GB of planes read per "
+          f"decode token: floor {out['floor_ms']:.3f} ms/token at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    for t in (8, 100, 1024):  # warm-up of each path: first-use allocations, library handles, the decode graph
+        model.generate(np.arange(t)[None], 4)
+    torch.cuda.synchronize()
+    captures = lambda m: sum(g.captures for g in m.decode_graphs.values())
+    captured = captures(model)
+
+    n_gen, linears = 64, 7 * cfg.n_layer
+    rng = np.random.default_rng(0)
+    reset_launches()
+    requests = []
+    for t in (8, 100):
+        before = launch_counts()
+        prompt = rng.integers(0, cfg.n_vocab, (1, t))
+        first, ids, t0, t1, t2, finite, event_ms = greedy_request(torch, model, prompt, n_gen - 1, graph=True)
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        want = dict.fromkeys(delta, 0)
+        for k, n in LLAMA_DECODE_LAUNCHES.items():
+            want[k] += n * (n_gen - 1)
+        if t <= 32:  # B on the K = 4096 linears, H on ffn_down, F on the head
+            want["q4k_gemv_rows"] += linears - cfg.n_layer
+            want["q4_gemv"] += cfg.n_layer
+            want["q8_gemv_sb"] += 1
+        else:  # C on every Q4_K linear, G on the head
+            want["q4k_matmul"] += linears
+            want["q8_matmul"] += 1
+        toks = [first] + ids
+        check(finite and len(toks) == n_gen and all(0 <= x < cfg.n_vocab for x in toks),
+              f"Llama-3-8B, prompt {t}: tokens {toks[:8]}..., finite {finite}")
+        check(delta == want, f"Llama-3-8B, prompt {t}: launches {delta}, want {want}")
+        dec_ms = (t2 - t1) * 1e3 / (n_gen - 1)
+        req = dict(prompt=t, prefill_ms=(t1 - t0) * 1e3, decode_ms_per_token=dec_ms, decode_event_ms_per_token=event_ms,
+                   plane_gb_per_s=plane_bytes / (dec_ms * 1e-3) / 1e9, launches=delta, first_tokens=toks[:8],
+                   prompt_tokens=prompt, ids=toks)
+        requests.append(req)
+        print(f"  request prompt={t:4d}: prefill {req['prefill_ms']:.1f} ms, decode {dec_ms:.3f} ms/token graphed "
+              f"({event_ms:.3f} between CUDA events; {req['plane_gb_per_s']:.0f} GB/s of planes)")
+    decode_only = dict(requests[0]["launches"])
+    decode_only["q4k_gemv_rows"] -= linears - cfg.n_layer
+    decode_only["q4_gemv"] -= cfg.n_layer
+    decode_only["q8_gemv_sb"] -= 1
+    per_token = {k: v / (n_gen - 1) for k, v in decode_only.items() if v}
+    out["launches_per_decode_token"] = per_token
+    print(f"  launches a decode token: {per_token} ({sum(per_token.values()):.0f} planar kernels; each H call "
+          "expands its compact planes first)")
+
+    before = launch_counts()
+    prompt = rng.integers(0, cfg.n_vocab, (1, 1024))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _, _ = model.prefill(model.new_cache(torch.bfloat16), prompt)
+    finite = bool(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    out["prefill_1024_ms"] = (time.perf_counter() - t0) * 1e3
+    delta = {k: v - before[k] for k, v in launch_counts().items()}
+    want = dict.fromkeys(delta, 0)
+    want.update(q4k_matmul=linears, q8_matmul=1, flash_attn=cfg.n_layer, flash_split=cfg.n_layer, flash_mask_ranges=1)
+    check(finite and delta == want, f"Llama-3-8B 1024-token prefill: launches {delta}, want {want}, finite {finite}")
+    print(f"  1024-token prefill (max_seq 2048): {out['prefill_1024_ms']:.1f} ms, launches {delta}")
+    counts = launch_counts()
+    check(captures(model) == captured == 1, f"Llama-3-8B: {captures(model)} decode graphs captured, want 1")
+    for name in ("q4k_gemv_qact", "q4k_gemv_rows", "q4k_matmul", "q4_gemv", "q8_gemv_sb", "q8_matmul", "flash_attn",
+                 "flash_split", "flash_mask_ranges"):
+        check(counts[name] > 0, f"Llama-3-8B: {name} was never launched on its main path")
+    out["counts"] = counts
+
+    req = requests[0]  # the first request again, eagerly: the same kernels in the same order
+    _, ids, _, t1, t2, _, _ = greedy_request(torch, model, req["prompt_tokens"], n_gen - 1, graph=False)
+    req["eager_decode_ms_per_token"] = (t2 - t1) * 1e3 / (n_gen - 1)
+    check(ids == req["ids"][1:], f"Llama-3-8B, prompt 8: eager ids {ids[:8]}... differ from the graphed "
+          f"{req['ids'][1:9]}...")
+    print(f"  prompt=8: decode eager {req['eager_decode_ms_per_token']:.2f} / graphed {req['decode_ms_per_token']:.3f} "
+          f"ms/token, the same {len(ids)} ids")
+    out["sampled"] = sampled_requests(torch, model, req, n_gen)
+    for r in requests:
+        del r["prompt_tokens"], r["ids"]
+    out["requests"] = requests
+    out["flash_vs_plain_attention"] = llama_flash_against_plain_attention(torch, np, model, 1024)
+
+    # the CLI as a user runs it, on the same file
+    tok = BPETokenizer(tokens, merges)
+    text = " ".join(FRONT_END_TEXT.split()[:48])
+    prompt_ids = np.asarray([tok.encode(text)], np.int32)
+    cmd = [sys.executable, "-m", "ggml_tpu_torch.cli.generate", path, "-p", text, "-n", "16", "--quantized",
+           "--top-k", "1", "--seed", "0", "--verbose"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    out["cli_wall_s"] = time.perf_counter() - t0
+    check(r.returncode == 0, f"the generate CLI exited {r.returncode}:\n{r.stderr[-4000:]}")
+    load = re.search(r"load time =\s*([\d.]+) ms", r.stderr)
+    check(load is not None, f"no load time in the CLI's stderr:\n{r.stderr[-2000:]}")
+    out["cli_load_s"] = float(load[1]) / 1e3
+    report = re.findall(r"^\s+(q4|q8)\s+K=(\d+)\s+N=(\d+)\s+(gemv-M|matmul-M) -> (.+)$", r.stderr, re.M)
+    out["cli_report"] = [" ".join(x) for x in report]
+    kernel_of = {(kind, int(k), c): p for kind, k, _, c, p in report}
+    check(len(report) == 10 and kernel_of == {
+        ("q4", 4096, "gemv-M"): "q4k_gemv_qact", ("q4", 4096, "matmul-M"): "q4k_matmul",
+        ("q4", 14336, "gemv-M"): "q4_gemv", ("q4", 14336, "matmul-M"): "q4k_matmul",
+        ("q8", 4096, "gemv-M"): "q8_gemv_sb", ("q8", 4096, "matmul-M"): "q8_matmul"}, f"kernel report {report}")
+    same = llama.Llama(model.params, cfg, max_seq=512, device="cuda")  # the CLI's max_seq
+    ids = same.generate(prompt_ids, 16)
+    check(r.stdout == text + tok.decode(ids) + "\n", f"CLI text {r.stdout[-200:]!r} differs from "
+          f"{text + tok.decode(ids)!r}")
+    del same
+    print(f"  CLI (python -m ggml_tpu_torch.cli.generate --quantized --top-k 1 -n 16): exit 0 in "
+          f"{out['cli_wall_s']:.1f}s, load {out['cli_load_s']:.1f}s, the text of this process's greedy request; "
+          "report: " + "; ".join(out["cli_report"]))
+
+    out["prefill_trace"] = profile_prefill(torch, np, model, 1024)
+    out["decode_trace"] = profile_llama_decode(torch, np, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.remove(path)
+    out["tiny"] = phase_tiny_llama(torch, np, tmp)
+    print(f"  Llama-3-8B ({card}): load {out['load_s']:.1f}s; graphed decode "
+          + ", ".join(f"{r['decode_ms_per_token']:.3f}" for r in requests)
+          + f" ms/token (prompts 8, 100; eager {req['eager_decode_ms_per_token']:.2f}) against a floor of "
+          f"{out['floor_ms']:.3f}; 1024-token prefill {out['prefill_1024_ms']:.1f} ms")
+    return out
 
 
 def flash_times(torch, flash_attn) -> dict:
@@ -1945,7 +2451,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False  # bf16 GEMMs sum in f32, as XLA's
 
     try:
-        print("== 1. card")
+        stage("1. card")
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, timeout=60)
         check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
@@ -1953,7 +2459,7 @@ def main() -> int:
         print(card)
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-        print("== 2. build")
+        stage("2. build")
         t0 = time.perf_counter()
         _build.lib()
         print(f"  kernels built and loaded in {time.perf_counter() - t0:.1f}s")
@@ -1962,7 +2468,7 @@ def main() -> int:
                 print("  " + line.strip())
 
         if sys.argv[1:] == ["--flash-times"]:
-            print("== 3. kernel J and its mask ranges at the 1024-token prefill (h=16, d=256, causal), three timings each")
+            stage("3. kernel J and its mask ranges at the 1024-token prefill (h=16, d=256, causal), three timings each")
             times = flash_times(torch, flash_attn)
             print(json.dumps(dict(card=card, flash_times_us=times)))
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1970,7 +2476,7 @@ def main() -> int:
             return 0
 
         if sys.argv[1:] == ["--train-times"]:
-            print("== 3. kernels K, L and M at the training shapes (h=16, d=64, bf16, causal), three timings each")
+            stage("3. kernels K, L and M at the training shapes (h=16, d=64, bf16, causal), three timings each")
             times = train_times(torch, flash_attn)
             print(json.dumps(dict(card=card, train_times_us=times)))
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1978,7 +2484,7 @@ def main() -> int:
             return 0
 
         if sys.argv[1:] == ["--gemv-times"]:
-            print("== 3. kernels A, B, E, F and H at GPT-J-6B's decode shapes (M = 1 and 8), three timings each")
+            stage("3. kernels A, B, E, F and H at GPT-J-6B's decode shapes (M = 1 and 8), three timings each")
             times = gemv_times(torch, qmatmul)
             print(json.dumps(dict(card=card, gemv_times_us=times)))
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1986,7 +2492,7 @@ def main() -> int:
             return 0
 
         if sys.argv[1:] == ["--front-end"]:
-            print("== 4i. the text front end: GPT-J-6B from a Q4_K GGUF file, the generate CLI, perplexity")
+            stage("4i. the text front end: GPT-J-6B from a Q4_K GGUF file, the generate CLI, perplexity")
             with tempfile.TemporaryDirectory(prefix="gptj6b-gguf-") as tmp:
                 front = phase_front_end(torch, np, write_gptj6b_gguf(np, tmp))
             print(json.dumps(dict(card=card, front_end=front)))
@@ -1995,7 +2501,7 @@ def main() -> int:
             return 0
 
         if sys.argv[1:] == ["--qlora"]:
-            print("== 4j. QLoRA fine-tuning of GPT-J-6B from a Q4_K GGUF file, batch 4 x 128, rank 8")
+            stage("4j. QLoRA fine-tuning of GPT-J-6B from a Q4_K GGUF file, batch 4 x 128, rank 8")
             with tempfile.TemporaryDirectory(prefix="gptj6b-gguf-") as tmp:
                 qlora = phase_qlora(torch, np, write_gptj6b_gguf(np, tmp)[0], tmp)
             print(json.dumps(dict(card=card, qlora=qlora)))
@@ -2004,7 +2510,7 @@ def main() -> int:
             return 0
 
         if sys.argv[1:] == ["--iquants"]:
-            print("== 4k. GPT-J-6B from IQ4_XS, IQ1_M and TQ2_0 GGUF files")
+            stage("4k. GPT-J-6B from IQ4_XS, IQ1_M and TQ2_0 GGUF files")
             with tempfile.TemporaryDirectory(prefix="gptj6b-gguf-") as tmp:
                 iq = phase_iquants(torch, np, tmp, card)
             print(json.dumps(dict(card=card, iquants=iq)))
@@ -2012,8 +2518,17 @@ def main() -> int:
                                                      "count": torch.cuda.device_count()}}))
             return 0
 
+        if sys.argv[1:] == ["--llama"]:
+            stage("4l. Llama-3-8B from a Q4_K GGUF file (Q6_K head)")
+            with tempfile.TemporaryDirectory(prefix="llama3-8b-gguf-") as tmp:
+                run = phase_llama(torch, np, tmp, card)
+            print(json.dumps(dict(card=card, llama=run)))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
+
         if sys.argv[1:] == ["--long-decode-profile"]:
-            print("== 4. GPT-J-6B Q4_K (synthesized compact planes), decode after a 1088-token prompt, profiled")
+            stage("4. GPT-J-6B Q4_K (synthesized compact planes), decode after a 1088-token prompt, profiled")
             from ggml_tpu_torch.dtypes import GGMLType
             from ggml_tpu_torch.models import gptj
 
@@ -2028,7 +2543,7 @@ def main() -> int:
                                                      "count": torch.cuda.device_count()}}))
             return 0
 
-        print("== 3. kernels against their plain versions")
+        stage("3. kernels against their plain versions")
         flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
         kernel_results = phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush)
         del flush
@@ -2040,18 +2555,18 @@ def main() -> int:
         synth = lambda t: gptj.synth_quantized_params(cfg, t, seed=0, dtype=torch.bfloat16, device="cuda")
         runs = []
         q4k_kernels = dict(decode="q4k_gemv_qact", rows="q4k_gemv_rows", matmul="q4k_matmul")
-        print("== 4a. GPT-J-6B Q4_K (synthesized compact planes), three greedy requests, then a 1024-token prompt")
+        stage("4a. GPT-J-6B Q4_K (synthesized compact planes), three greedy requests, then a 1024-token prompt")
         params = synth(GGMLType.Q4_K)
         runs.append(phase_gptj(torch, np, "q4_k", params, q4k_kernels, (8, 100, 1), profile=True, sampled=True))
         runs.append(phase_gptj(torch, np, "q4_k long", params, q4k_kernels, (1024,), profile=False, max_seq=2048,
                                long_decode_profile=1088))
         del params
         torch.cuda.empty_cache()
-        print("== 4b. GPT-J-6B Q8_0 (synthesized int8 planes), three greedy requests")
+        stage("4b. GPT-J-6B Q8_0 (synthesized int8 planes), three greedy requests")
         params = synth(GGMLType.Q8_0)
         runs.append(phase_gptj(torch, np, "q8_0", params, dict(
             decode="q8_gemv", rows="q8_gemv", matmul="q8_matmul"), (8, 100, 1), profile=True))
-        print("== 4c. GPT-J-6B Q6_K (compact planes repacked from random blocks), one greedy request")
+        stage("4c. GPT-J-6B Q6_K (compact planes repacked from random blocks), one greedy request")
         t0 = time.perf_counter()
         params = q6k_planes_like(torch, np, params)
         torch.cuda.synchronize()
@@ -2061,31 +2576,35 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
         q4_kernels = dict(decode="q4_gemv", rows="q4_gemv", matmul="q4k_matmul")
-        print("== 4e. GPT-J-6B Q4_0 (synthesized multiplied-out nibble planes), context 2048, four greedy requests")
+        stage("4e. GPT-J-6B Q4_0 (synthesized multiplied-out nibble planes), context 2048, four greedy requests")
         params = synth(GGMLType.Q4_0)
         runs.append(phase_gptj(torch, np, "q4_0", params, q4_kernels, (8, 100, 1, 1024), profile=True, max_seq=2048))
         del params
         torch.cuda.empty_cache()
-        print("== 4f. GPT-J-6B Q3_K (synthesized nibble planes, groups of 16), one greedy request")
+        stage("4f. GPT-J-6B Q3_K (synthesized nibble planes, groups of 16), one greedy request")
         params = synth(GGMLType.Q3_K)
         runs.append(phase_gptj(torch, np, "q3_k", params, q4_kernels, (8,), profile=False))
         del params
         torch.cuda.empty_cache()
-        print("== 4d. tiny GPT-J on the card against the CPU")
+        stage("4d. tiny GPT-J on the card against the CPU")
         tiny = phase_tiny_reference(torch, np)
-        print("== 4g. GPT-2-medium training, batch 8 x 512, bf16 over f32 masters, AdamW, flash attention")
+        stage("4g. GPT-2-medium training, batch 8 x 512, bf16 over f32 masters, AdamW, flash attention")
         runs.append(phase_train(torch, np))
-        print("== 4h. tiny f32 GPT-2 training on the card against the CPU")
+        stage("4h. tiny f32 GPT-2 training on the card against the CPU")
         tiny["gpt2_train"] = phase_tiny_train(torch, np)
         with tempfile.TemporaryDirectory(prefix="gptj6b-gguf-") as tmp:
-            print("== 4i. the text front end: GPT-J-6B from a Q4_K GGUF file, the generate CLI, perplexity")
+            stage("4i. the text front end: GPT-J-6B from a Q4_K GGUF file, the generate CLI, perplexity")
             written = write_gptj6b_gguf(np, tmp)
             runs.append(phase_front_end(torch, np, written))
-            print("== 4j. QLoRA fine-tuning of GPT-J-6B from the same file, batch 4 x 128, rank 8")
+            stage("4j. QLoRA fine-tuning of GPT-J-6B from the same file, batch 4 x 128, rank 8")
             runs.append(phase_qlora(torch, np, written[0], tmp))
             os.remove(written[0])
-            print("== 4k. GPT-J-6B from IQ4_XS, IQ1_M and TQ2_0 GGUF files")
-            runs += phase_iquants(torch, np, tmp, card)
+            # at 8 of its 28 layers in the whole run, which 4l would otherwise
+            # take past 700 s (--iquants runs all 28)
+            stage("4k. GPT-J-6B (8 of its 28 layers) from IQ4_XS, IQ1_M and TQ2_0 GGUF files")
+            runs += phase_iquants(torch, np, tmp, card, n_layer=8)
+            stage("4l. Llama-3-8B from a Q4_K GGUF file (Q6_K head)")
+            runs.append(phase_llama(torch, np, tmp, card))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2093,7 +2612,7 @@ def main() -> int:
         traceback.print_exc()
         return 1
 
-    print("== 5. summary")
+    stage("5. summary")
     kernels = []
     # q4k_gemv_i8 lies on no path of planar_matmul (at M=1 that hands bf16 x to
     # q4k_gemv_qact), so its launches are 0; phase 3 holds it against its plain version

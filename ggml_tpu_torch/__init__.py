@@ -11,6 +11,7 @@ ggml_tpu_torch` light):
     ggml_tpu_torch.planar_matmul         quantized matmul through the CUDA kernels
     ggml_tpu_torch.fused_decode_attention  single-token attention kernel
     ggml_tpu_torch.models.gptj           GPT-J (greedy and sampled generation)
+    ggml_tpu_torch.models.llama          the Llama family (GQA, RMSNorm, SwiGLU, rotate-half RoPE)
     ggml_tpu_torch.models.registry       load_model / load_tokenizer from a GGUF file
     ggml_tpu_torch.opt                   AdamW training, finetune, LoRA / QLoRA (finetune_lora)
     ggml_tpu_torch.checkpoint            optimizer state to and from a GGUF file

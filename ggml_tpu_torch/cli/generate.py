@@ -4,6 +4,7 @@ main; flags mirror examples/common.cpp gpt_params).
 
 Usage:
   python -m ggml_tpu_torch.cli.generate model.gguf -p "Hello" -n 64 --top-k 40 --top-p 0.95 --temp 0.8
+  python -m ggml_tpu_torch.cli.generate model-00001-of-00003.gguf ...                # a split file: its first shard
   python -m ggml_tpu_torch.cli.generate model.gguf -p "Hello" --quantized --verbose   # planes, kernel report
   python -m ggml_tpu_torch.cli.generate model.gguf -p "Hello" --device cpu            # plain versions, CPU
 
@@ -97,6 +98,9 @@ def main(argv=None):
         arch = args.arch or g.metadata.get("general.architecture", "gpt2")
         tok = load_tokenizer(g)
         eos_meta = g.metadata.get("tokenizer.ggml.eos_token_id", -1)
+    if args.lora and arch not in ("gpt2", "gptj"):
+        raise NotImplementedError(f"--lora on a {arch} file: finetuning the families beyond gpt2 and gptj is not "
+                                  "ported yet (ROADMAP.md, section 1)")
     t_load0 = time.perf_counter()
     m = load_model(args.model, arch=arch, keep_quantized=args.quantized, max_seq=args.max_seq, batch=1,
                    device=args.device)

@@ -3,7 +3,9 @@
 
 The reader mmaps the file and exposes tensors as zero-copy numpy views over
 the aligned data blob; `to_float32()` dequantizes through
-ggml_tpu_torch.quant.reference.  The writer writes F32 and F16 tensors (what
+ggml_tpu_torch.quant.reference.  Opening the first shard of a split model
+(llama.cpp's gguf-split convention, <prefix>-00001-of-0000N.gguf) merges
+the siblings' tensor tables, so every consumer sees one file.  The writer writes F32 and F16 tensors (what
 finetuning saves) and blocks of any type already quantized (raw_shape_ne),
 byte for byte as the JAX package's writer does.
 
@@ -18,6 +20,7 @@ import enum
 import io
 import mmap
 import os
+import re
 import struct
 from dataclasses import dataclass
 
@@ -160,8 +163,6 @@ class GGUFFile:
             key = r.string()
             vt = GGUFValueType(r.u32())
             self.metadata[key] = r.value(vt)
-        if int(self.metadata.get("split.count", 0) or 0) > 1:
-            raise NotImplementedError("multi-shard GGUF files are not ported yet (ROADMAP.md)")
         self.tensors: dict[str, GGUFTensorInfo] = {}
         for _ in range(n_tensors):
             name = r.string()
@@ -181,8 +182,38 @@ class GGUFFile:
                 raise ValueError(f"tensor {t.name}: misaligned offset {t.offset}")
             if self.data_offset + t.offset + t.n_bytes > len(self._mm):
                 raise ValueError(f"tensor {t.name} extends past end of file")
+        self._open_shards()
+
+    def _open_shards(self):
+        """Merge the tensor tables of a split model's other shards into the
+        first shard's (ggml_tpu/gguf.py:178-202): siblings
+        <prefix>-0000i-of-0000N.gguf with split.no i - 1; tensor_bytes reads
+        each tensor from the shard that holds it."""
+        self._shards: dict[str, GGUFFile] = {}
+        self._shard_files: list[GGUFFile] = []
+        n_split = int(self.metadata.get("split.count", 0) or 0)
+        if n_split <= 1 or int(self.metadata.get("split.no", 0)) != 0:
+            return
+        m = re.match(r"^(.*)-(\d{5})-of-(\d{5})\.gguf$", self.path)
+        if m is None:
+            raise ValueError(f"{self.path}: split.count={n_split} but the filename does not follow "
+                             "<prefix>-00001-of-0000N.gguf")
+        prefix, _, total = m.groups()
+        for i in range(1, n_split):
+            sib_path = f"{prefix}-{i + 1:05d}-of-{total}.gguf"
+            sib = GGUFFile(sib_path)
+            self._shard_files.append(sib)
+            if int(sib.metadata.get("split.no", -1)) != i:
+                raise ValueError(f"{sib_path}: unexpected split.no")
+            for name, info in sib.tensors.items():
+                if name in self.tensors:
+                    raise ValueError(f"duplicate tensor {name} in {sib_path}")
+                self.tensors[name] = info
+                self._shards[name] = sib
 
     def close(self):
+        for sib in getattr(self, "_shard_files", ()):
+            sib.close()
         self._mm.close()
         self._f.close()
 
@@ -193,7 +224,10 @@ class GGUFFile:
         self.close()
 
     def tensor_bytes(self, name: str) -> np.ndarray:
-        """Raw packed bytes as a zero-copy uint8 view."""
+        """Raw packed bytes as a zero-copy uint8 view (from the shard that
+        holds the tensor)."""
+        if name in self._shards:
+            return self._shards[name].tensor_bytes(name)
         t = self.tensors[name]
         start = self.data_offset + t.offset
         return np.frombuffer(self._mm, dtype=np.uint8, count=t.n_bytes, offset=start)

@@ -642,6 +642,7 @@ def _planar_matmul_fwd(x: torch.Tensor, pw: PlanarWeight) -> torch.Tensor:
     name = select_kernel(pw, xb.shape[0])
     _record_selection(pw.kind, k, pw.n, xb.shape[0], name)
     if name in ("q8_gemv", "q4_gemv") and pw.d is not None:
-        pw = expand_compact(pw)
+        with torch.profiler.record_function("planar_matmul.expand_compact"):  # every call, as the JAX dispatch
+            pw = expand_compact(pw)
     y = _WRAPPERS[name](xb, pw)
     return y[:, : pw.n].reshape(*batch, pw.n).to(x.dtype)

@@ -423,7 +423,7 @@ def synth_quantized_params(cfg: GPTJConfig, ggml_type: GGMLType = GGMLType.Q4_K,
 # write_random_gguf writes: weights of about a trained model's std, 0.02,
 # measured over random blocks of each type.
 _RANDOM_GGUF_SCALE = {
-    GGMLType.Q4_K: 8e-5, GGMLType.IQ4_NL: 2.9e-4, GGMLType.IQ4_XS: 1.5e-5, GGMLType.IQ3_S: 1.3e-4,
+    GGMLType.Q4_K: 8e-5, GGMLType.Q6_K: 1.4e-5, GGMLType.IQ4_NL: 2.9e-4, GGMLType.IQ4_XS: 1.5e-5, GGMLType.IQ3_S: 1.3e-4,
     GGMLType.IQ3_XXS: 1.3e-4, GGMLType.IQ2_S: 3.4e-4, GGMLType.IQ2_XS: 3.4e-4, GGMLType.IQ2_XXS: 3.6e-4,
     GGMLType.IQ1_M: 2.7e-3, GGMLType.IQ1_S: 2.7e-3, GGMLType.TQ2_0: 2.7e-2, GGMLType.TQ1_0: 2.3e-2,
 }
@@ -445,7 +445,7 @@ def _random_weight_blocks(t: GGMLType, n: int, k: int, rng) -> np.ndarray:
     from ..quant.reference import random_blocks
 
     if t not in _RANDOM_GGUF_SCALE:
-        raise ValueError(f"write_random_gguf writes Q4_K and the IQ* and TQ* types, not {t.name}")
+        raise ValueError(f"write_random_gguf writes Q4_K, Q6_K and the IQ* and TQ* types, not {t.name}")
     b = random_blocks(t, n * k // get_type_traits(t).block_size, rng, scale=_RANDOM_GGUF_SCALE[t])
     if t == GGMLType.Q4_K:
         d = b[:, 0:2].copy().view("<f2").astype(np.float32)
@@ -468,7 +468,7 @@ def write_random_gguf(path, cfg: GPTJConfig, seed: int = 0, tokenizer: dict | No
     Each block's d is drawn in [s/2, 3s/2) (random_blocks) with s chosen
     so that the weights have a std of about 0.02, a trained model's scale:
     Q4_K 8e-5 (with dmin = 7.5 d, which centres d * (sc * q - 7.5 m) on
-    zero), IQ4_NL 2.9e-4, IQ4_XS 1.5e-5, IQ3_S and IQ3_XXS 1.3e-4, IQ2_S and
+    zero), Q6_K 1.4e-5, IQ4_NL 2.9e-4, IQ4_XS 1.5e-5, IQ3_S and IQ3_XXS 1.3e-4, IQ2_S and
     IQ2_XS 3.4e-4, IQ2_XXS 3.6e-4, IQ1_M and IQ1_S 2.7e-3, TQ1_0 2.3e-2,
     TQ2_0 2.7e-2 (its codes ternary: -1, 0, 0, 1 for the four 2-bit
     values).  tokenizer: GGUF tokenizer.ggml.* keys (without the prefix) ->
