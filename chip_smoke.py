@@ -10,6 +10,7 @@
     python3 chip_smoke.py --qlora                 # phases 1, 2, the GGUF writer and QLoRA fine-tuning (4j) only
     python3 chip_smoke.py --iquants               # phases 1, 2 and GPT-J-6B from IQ4_XS, IQ1_M, TQ2_0 files (4k) only
     python3 chip_smoke.py --llama                 # phases 1, 2 and Llama-3-8B from a Q4_K GGUF file (4l) only
+    python3 chip_smoke.py --serve                 # phases 1, 2 and serving (4m: the Engine, the HTTP server) only
 
 Phases (any failure exits non-zero without the result line):
 1. the card, as nvidia-smi reports its name and power limit;
@@ -58,7 +59,7 @@ Phases (any failure exits non-zero without the result line):
    launches a step), finite falling losses, the adapter GGUF round trip, the
    base unchanged, peak memory, a profiled step by class; then a tiny GPT-J
    QLoRA run on the card against the CPU and a checkpoint resume on the card;
-   (k) GPT-J-6B (8 of its 28 layers; all 28 with --iquants) from three GGUF
+   (k) GPT-J-6B (4 of its 28 layers; all 28 with --iquants) from three GGUF
    files written with every 2-D weight in one type, IQ4_XS (E at decode),
    IQ1_M and TQ2_0 (G at every M, 6 launches a layer and one a decode
    token), each loaded as planes (as `generate --quantized` loads it) and
@@ -77,7 +78,15 @@ Phases (any failure exits non-zero without the result line):
    one layer, the generate CLI as a subprocess (its text equals this
    process's greedy text), a profiled prefill and decode by class, then
    tiny Llamas (a Q4_K/Q6_K file, six dense variants, the flash prefill
-   under GQA) on the card against the CPU;
+   under GQA) on the card against the CPU; (m) serving through
+   serve.Engine: bench_serve's mix on 4a's GPT-J-6B Q4_K planes (8 slots,
+   max_seq 256, bucket 32; 24 requests of 4-30-token prompts x 32 new),
+   timed and profiled, with exact B and C launches, each request alone and
+   the mix at horizon 1 giving the same ids; then, on 4l's Llama-3-8B, 4
+   slots at max_seq 2048 with per-request temperature 0 and 0.8 and a
+   1100-token prompt through J at b = 4, exact B, H, F, C and J launches,
+   and the HTTP server (cli/server.py) in process answering concurrent
+   plain and streamed requests;
 5. one JSON line listing every kernel, then the result line.
 
 Runs only where torch.cuda.is_available(); it imports nothing of JAX.
@@ -500,6 +509,17 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         gemv_case("q4k_matmul", m, *l_ffn, d_dtype=torch.float32)
         gemv_case("q8_matmul", m, *l_head, fmt="q6_k")
     gemv_case("q8_matmul", 100, *l_down, fmt="q6_k")
+    # serving (phase 4m): GPT-J's engine step at M = 8 also takes B on
+    # attn_output and the head, its (8, 32) admission C at M = 256; Llama's
+    # step at M = 4 takes B, H and F, its (4, 1120) admission C at M = 4480
+    gemv_case("q4k_gemv_rows", 8, 4096, 4096, 4096)
+    gemv_case("q4k_gemv_rows", 8, 4096, 50400, 51200)
+    gemv_case("q4k_matmul", 256, 4096, 28672, 28672)
+    gemv_case("q4k_matmul", 256, 16384, 4096, 4096)
+    gemv_case("q4k_gemv_rows", 4, *l_ffn, d_dtype=torch.float32)
+    gemv_case("q4_gemv", 4, *l_down, fmt="q4_k_expanded")
+    gemv_case("q8_gemv_sb", 4, *l_head, fmt="q6_k")
+    gemv_case("q4k_matmul", 4480, *l_ffn, d_dtype=torch.float32)
 
     def flash_case(b, h, h_kv, nq, nkv, d, types, causal=True, max_bias=0.0, softcap=0.0, time_it=True,
                    dead_row=None):
@@ -599,6 +619,7 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         flash_case(1, 16, 16, 2048, 2048, 256, types)   # the full context
         flash_case(1, 4, 4, 100, 100, 128, types)       # the tiny model's heads, ragged tiles
     flash_case(1, 32, 8, 1024, 1024, 128, "mixed")      # Llama-3-8B's 1024-token prefill: GQA 32/8, d = 128
+    flash_case(4, 32, 8, 1120, 1120, 128, "mixed")      # serving's (4, 1120) admission of Llama-3-8B (phase 4m)
     # the mask ranges at the long prefill's shape (and the full context), then
     # exactness only at ragged shapes: ragged tiles on the 16-byte path (1000,
     # 64 x 80), and the scalar path (nkv % 4 != 0, a misaligned mask)
@@ -2172,7 +2193,7 @@ def phase_tiny_llama(torch, np, tmp: str) -> dict:
     return out
 
 
-def phase_llama(torch, np, tmp: str, card: str) -> dict:
+def phase_llama(torch, np, tmp: str, card: str, serve: bool = False) -> dict:
     """4l: Llama-3-8B at its published widths (meta-llama/Meta-Llama-3-8B
     config.json: vocab 128256, E 4096, 32 layers, 32 heads over 8 kv heads,
     head_dim 128, n_ff 14336, rope base 500000, context 8192, untied head)
@@ -2319,6 +2340,9 @@ def phase_llama(torch, np, tmp: str, card: str) -> dict:
 
     out["prefill_trace"] = profile_prefill(torch, np, model, 1024)
     out["decode_trace"] = profile_llama_decode(torch, np, model)
+    if serve:
+        stage("4m. serving: Llama-3-8B (the same model), 4 slots, and the HTTP server")
+        out["serve"] = phase_serve_llama(torch, np, model, path, tokens, merges, card)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2328,6 +2352,339 @@ def phase_llama(torch, np, tmp: str, card: str) -> dict:
           + ", ".join(f"{r['decode_ms_per_token']:.3f}" for r in requests)
           + f" ms/token (prompts 8, 100; eager {req['eager_decode_ms_per_token']:.2f}) against a floor of "
           f"{out['floor_ms']:.3f}; 1024-token prefill {out['prefill_1024_ms']:.1f} ms")
+    return out
+
+
+# 4m: serving through serve.Engine (continuous batching) and cli/server.py.
+# bench_serve's mix (bench.py:771-812): GPT-J-6B Q4_K, 8 slots, max_seq 256,
+# bucket 32, a warm request, then 24 requests of 4-30-token prompts x 32 new
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW, SERVE_BUCKET = 8, 24, 32, 32
+# planar launches of one engine step (M = slots) by wrapper: GPT-J's
+# synthesized planes take B on all 85 linears; Llama-3-8B's file takes B on
+# the 192 K = 4096 linears, H on the 32 ffn_down (expanded planes), F on the head
+GPTJ_STEP_LAUNCHES = {"q4k_gemv_rows": 85}
+LLAMA_STEP_LAUNCHES = {"q4k_gemv_rows": 192, "q4_gemv": 32, "q8_gemv_sb": 1}
+
+
+def _engine_delta(eng, before: dict) -> dict:
+    return {k: getattr(eng, k) - v for k, v in before.items()}
+
+
+def _engine_marks(eng) -> dict:
+    return dict(decode_steps=eng.decode_steps, replays=eng.replays, captures=eng.captures,
+                prefill_count=eng.prefill_count)
+
+
+def _prefill_spans(eng) -> int:
+    return sum(1 for kind, _, _ in eng.events if kind == "prefill")
+
+
+def _first_step_logits(torch, np, eng, prompt, bucket: int):
+    """The logits the engine's first step computes for `prompt` alone in slot
+    0 (admitted through the batched prefill, then the re-decode of its last
+    token at position t - 1 among max_batch rows), read by calling the
+    family forward once over the engine's cache and state as _steps does."""
+    rid = eng.submit(prompt, 1)
+    eng._admit(bucket)
+    eng._load_state(np.array([s is not None for s in eng.slots]), eng._slot_budget())
+    with torch.no_grad():
+        logits, _ = eng._fwd(eng.model.params, eng.cfg, eng._tok, eng._np, eng.cache, eng._np)
+    eng.cancel(rid)
+    eng.slots = [None] * eng.max_batch
+    return logits[0, -1].float()
+
+
+def profile_serve(torch, eng, prompts, max_new: int) -> dict:
+    """One wave of the mix (its first max_batch requests: one batched
+    prefill, then their decode) under torch.profiler, after the launch
+    counters are read: the host's time, the device's busy time (kernels,
+    copies, fills) and so the card's idle share, busy time by class (B: the
+    GEMV pipeline; C with its group sums; the rest: attention, norms, GELU,
+    RoPE, casts, cache writes), and the graph launches.  The profiler's own
+    cost on the host (about 1500 eager launches a prefill) counts as idle."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_all = time.perf_counter()
+    for p in prompts[:eng.max_batch]:
+        eng.submit(p, max_new)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(bucket=SERVE_BUCKET)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    events = _device_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    by = {name: sum(e.self_device_time_total for e in events if name in e.key) / 1e3
+          for name in ("gemv_sm90_kernel", "q4k_matmul_kernel", "qmatmul_xsum_kernel", "fa_sm90_kernel")}
+    by = {k: v for k, v in by.items() if v}
+    trace = dict(requests=min(len(prompts), eng.max_batch), host_ms=host_ms, device_busy_ms=busy,
+                 idle_share=1 - busy / host_ms, port_kernels_ms=by, other_device_ms=busy - sum(by.values()),
+                 graph_launches=sum(e.count for e in prof.key_averages() if e.key.startswith("cudaGraphLaunch")),
+                 profile_s=time.perf_counter() - t_all)
+    print(f"  profiled one wave ({trace['requests']} requests): host {host_ms:.1f} ms, device busy {busy:.1f} ms "
+          f"(idle {trace['idle_share'] * 100:.1f} %), {trace['graph_launches']} graph launches; "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in by.items())
+          + f"; other {trace['other_device_ms']:.1f} ms ({trace['profile_s']:.1f}s with the trace's processing)")
+    eng.events.clear()
+    return trace
+
+
+def phase_serve_gptj(torch, np, params: dict, card: str) -> dict:
+    """4m (GPT-J-6B): bench_serve's mix through serve.Engine over phase 4a's
+    synthesized Q4_K planes.  A warm request (a 16-token prompt, 2 new: the
+    decode graph of 16 steps captured), then 24 requests of 4-30-token
+    prompts x 32 new from seed 0, timed on the host clock with CUDA events
+    around every tick and batched prefill (device ms inside them; the idle
+    share is what they leave of the host's time), with exact launch counts:
+    B (85 a step at M = 8) and C (84 a batched prefill at M = 8 x 32: no
+    head, whose logits would be dropped), no other kernel, no capture.  Then: each request alone through the same
+    engine (the same ids: the engine's invariant), a request's slot rows
+    after a single and after a grouped admission (equal: both are one (8,
+    32) prefill), one wave again under torch.profiler (the idle share; the
+    events' spans also hold the card's waits for an eager prefill's
+    launches), the whole mix through an engine at horizon 1 (the same ids),
+    and the first step's logits against b = 1 prefill logits."""
+    import gc
+
+    from ggml_tpu_torch.models import gptj
+    from ggml_tpu_torch.serve import Engine
+
+    cfg = gptj.random_config("6b")
+    model = gptj.GPTJ(params, cfg, max_seq=256, device="cuda")
+    rng = np.random.default_rng(0)
+    eng = Engine(model, max_batch=SERVE_SLOTS, max_seq=256, cache_dtype=torch.bfloat16, record_events=True)
+    t0 = time.perf_counter()
+    eng.submit(rng.integers(0, cfg.n_vocab, 16).tolist(), 2)
+    eng.run(bucket=SERVE_BUCKET)
+    torch.cuda.synchronize()
+    out = dict(warm_s=time.perf_counter() - t0, captures_while_warming=eng.captures, horizon=eng._hb)
+    check(eng.captures == 1 and eng._hb == 16, f"GPT-J serving: {eng.captures} captures at horizon {eng._hb}")
+    eng.event_ms()
+    prompts = [rng.integers(0, cfg.n_vocab, int(rng.integers(4, 30))).tolist() for _ in range(SERVE_REQUESTS)]
+    reset_launches()
+    marks = _engine_marks(eng)
+    rids = [eng.submit(p, SERVE_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run(bucket=SERVE_BUCKET)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    waves = _prefill_spans(eng)
+    ev = eng.event_ms()
+    delta = _engine_delta(eng, marks)
+    ids = [res[r] for r in rids]
+    n_tok = sum(len(x) for x in ids)
+    check(all(len(x) == SERVE_NEW and all(0 <= t < cfg.n_vocab for t in x) for x in ids),
+          f"GPT-J serving: lengths {[len(x) for x in ids]}")
+    want = dict.fromkeys(counts, 0)
+    for k, n in GPTJ_STEP_LAUNCHES.items():
+        want[k] += n * delta["decode_steps"]
+    want["q4k_matmul"] += 3 * cfg.n_layer * waves  # a batched prefill runs no head
+    check(counts == want and delta["captures"] == 0 and delta["prefill_count"] == SERVE_REQUESTS,
+          f"GPT-J serving: launches {counts}, want {want}; {delta}, {waves} batched prefills")
+    busy = ev.get("tick", 0.0) + ev.get("prefill", 0.0)
+    out.update(requests=SERVE_REQUESTS, tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall, engine=delta,
+               batched_prefills=waves, tick_ms=ev.get("tick", 0.0), prefill_ms=ev.get("prefill", 0.0),
+               ms_per_step=ev.get("tick", 0.0) / delta["decode_steps"], idle_share=1 - busy / (wall * 1e3),
+               launches=counts, counts=counts)
+    print(f"  GPT-J-6B Q4_K, {SERVE_SLOTS} slots ({card}): {SERVE_REQUESTS} requests, {n_tok} tokens in "
+          f"{wall * 1e3:.1f} ms: {out['tok_per_s']:.1f} tok/s; {delta['decode_steps']} steps in {delta['replays']} "
+          f"graph replays, {out['ms_per_step']:.3f} ms a step on the card ({ev.get('tick', 0.0):.1f} ms), "
+          f"{waves} batched prefills {ev.get('prefill', 0.0):.1f} ms, idle {out['idle_share'] * 100:.1f} %; "
+          f"launches {counts}; warm-up with its capture {out['warm_s']:.1f}s")
+
+    out["profile"] = profile_serve(torch, eng, prompts, SERVE_NEW)
+    # the engine's invariant on the card: each request alone, through the same engine
+    t0 = time.perf_counter()
+    for p, got in zip(prompts, ids):
+        rid = eng.submit(p, SERVE_NEW)
+        alone = eng.run(bucket=SERVE_BUCKET)[rid]
+        check(alone == got, f"GPT-J serving: prompt of {len(p)} alone {alone[:8]}... batched {got[:8]}...")
+    out["alone_s"] = time.perf_counter() - t0
+    # a single and a grouped admission write the same rows (one (8, 32) prefill each)
+    rows = []
+    for group in (prompts[:1], prompts[:SERVE_SLOTS]):
+        for p in group:
+            eng.submit(p, 1)
+        eng._admit(SERVE_BUCKET)
+        rows.append([(k[0, :, :len(prompts[0])].clone(), v[0, :, :len(prompts[0])].clone()) for k, v in eng.cache])
+        eng.slots = [None] * eng.max_batch
+    out["grouped_admission_rows_equal"] = all(torch.equal(a, b) for la, lb in zip(*rows) for a, b in zip(la, lb))
+    check(out["grouped_admission_rows_equal"], "GPT-J serving: a grouped admission's rows differ from a single one's")
+    # the first step's logits against b = 1 prefill logits, held as
+    # assert_same_choice holds a position (NMSE <= 1e-6, the same argmax
+    # unless the top two are within 1e-3) where both sides run the same
+    # kernels: a 4-token prompt at bucket 4 (the engine's (8, 4) prefill and
+    # b = 1's (1, 4) one both take B, int8 activations per row).  At bucket
+    # 32 the engine's prompt rows take C (bf16 activations, M = 256) and b =
+    # 1's take B: recorded over one layer and the whole depth (28 layers of
+    # random weights carry a rounding far, as flash_against_plain_attention
+    # found), not gated
+    p = prompts[0]
+    one = gptj.GPTJ(params, dataclasses.replace(cfg, n_layer=1), max_seq=256, device="cuda")
+    eng_one = Engine(one, max_batch=SERVE_SLOTS, max_seq=256, cache_dtype=torch.bfloat16)
+    out["first_step_vs_b1"] = {}
+    for label, m, e, q, bucket in (("B both sides, 28 layers", model, eng, p[:4], 4),
+                                   ("C against B, 28 layers", model, eng, p, SERVE_BUCKET),
+                                   ("C against B, 1 layer", one, eng_one, p, SERVE_BUCKET)):
+        step = _first_step_logits(torch, np, e, q, bucket)
+        solo = m.prefill(m.new_cache(torch.bfloat16), np.asarray([q]))[0][0].float()
+        top2 = torch.topk(solo, 2).values
+        out["first_step_vs_b1"][label] = dict(prompt=len(q), nmse=errors(solo, step)[0],
+                                              top2_gap=float(top2[0] - top2[1]),
+                                              same_argmax=bool(step.argmax() == solo.argmax()))
+    gate = out["first_step_vs_b1"]["B both sides, 28 layers"]
+    check(gate["nmse"] <= 1e-6 and (gate["same_argmax"] or gate["top2_gap"] <= 1e-3),
+          f"GPT-J serving: first step against b = 1 prefill logits, the same kernels: {gate}")
+    print(f"  each request alone through the same engine: the same ids ({out['alone_s']:.1f}s); a grouped "
+          f"admission's rows equal a single one's; first step against b = 1 prefill logits {out['first_step_vs_b1']}")
+    del eng, one, eng_one
+    gc.collect()
+
+    h1 = Engine(model, max_batch=SERVE_SLOTS, max_seq=256, cache_dtype=torch.bfloat16, horizon=1)
+    h1.submit(prompts[0], 2)  # warm: the capture of its one-step graph
+    h1.run(bucket=SERVE_BUCKET)
+    r1 = [h1.submit(p, SERVE_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res1 = h1.run(bucket=SERVE_BUCKET)
+    torch.cuda.synchronize()
+    out["horizon1_tok_per_s"] = n_tok / (time.perf_counter() - t0)
+    check([res1[r] for r in r1] == ids, "GPT-J serving: horizon 1 ids differ from horizon 16's")
+    print(f"  horizon 1: the same ids, {out['horizon1_tok_per_s']:.1f} tok/s ({h1.captures} capture)")
+    del h1, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_llama(torch, np, model, path: str, tokens: list, merges: list, card: str) -> dict:
+    """4m (Llama-3-8B): serve.Engine over phase 4l's model (not loaded
+    again), 4 slots at max_seq 2048, bucket 32.  A warm request (the decode
+    graph of per-request sampling captured), then four requests
+    at once: temperature 0 from prompts of 8, 100 and 1100 tokens and
+    temperature 0.8 (top_p 0.95) from 8, 32 new each: three batched
+    prefills ((4, 32), (4, 128) and (4, 1120): J at b = 4 over 1120 rows,
+    C at M = 4480), exact launch counts (B 192, H 32, F 1 a step; C 224 a
+    prefill; J and its split 32, the mask ranges once); the greedy requests
+    equal the same request alone through the engine, the sampled one is in
+    the vocabulary.  Then the HTTP server (cli/server.ServerState over the
+    same file and model, 4 slots, max_seq 512) in this process: two prompts
+    asked concurrently with and without streaming, the streamed text equal
+    to the plain one."""
+    import gc
+    import threading
+    import urllib.request
+
+    from ggml_tpu_torch.cli import server
+    from ggml_tpu_torch.serve import Engine
+    from ggml_tpu_torch.tokenizer import BPETokenizer
+
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    eng = Engine(model, max_batch=4, max_seq=2048, cache_dtype=torch.bfloat16, record_events=True, seed=7)
+    t0 = time.perf_counter()
+    eng.submit(rng.integers(0, cfg.n_vocab, 8).tolist(), 2, sampling={"temperature": 0.0})
+    eng.run(bucket=SERVE_BUCKET)
+    torch.cuda.synchronize()
+    out = dict(warm_s=time.perf_counter() - t0)
+    eng.event_ms()
+    plan = [(8, 0.0), (100, 0.0), (1100, 0.0), (8, 0.8)]
+    prompts = [rng.integers(0, cfg.n_vocab, t).tolist() for t, _ in plan]
+    reset_launches()
+    marks = _engine_marks(eng)
+    rids = [eng.submit(p, SERVE_NEW, sampling={"temperature": temp, "top_p": 0.95}) for p, (_, temp) in
+            zip(prompts, plan)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run(bucket=SERVE_BUCKET)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    waves = _prefill_spans(eng)
+    ev = eng.event_ms()
+    delta = _engine_delta(eng, marks)
+    ids = [res[r] for r in rids]
+    check(all(len(x) == SERVE_NEW and all(0 <= t < cfg.n_vocab for t in x) for x in ids),
+          f"Llama serving: {[len(x) for x in ids]} ids")
+    want = dict.fromkeys(counts, 0)
+    for k, n in LLAMA_STEP_LAUNCHES.items():
+        want[k] += n * delta["decode_steps"]
+    want.update(q4k_matmul=7 * cfg.n_layer * waves, flash_attn=cfg.n_layer, flash_split=cfg.n_layer,
+                flash_mask_ranges=1)
+    check(waves == 3 and counts == want and delta["captures"] == 0,
+          f"Llama serving: launches {counts}, want {want}; {delta}, {waves} batched prefills")
+    for p, (t, temp), got in zip(prompts, plan, ids):
+        if temp == 0.0:
+            rid = eng.submit(p, SERVE_NEW, sampling={"temperature": 0.0})
+            alone = eng.run(bucket=SERVE_BUCKET)[rid]
+            check(alone == got, f"Llama serving: prompt of {t} alone {alone[:8]}... batched {got[:8]}...")
+    out.update(wall_s=wall, tokens=sum(len(x) for x in ids), tok_per_s=sum(len(x) for x in ids) / wall,
+               engine=delta, batched_prefills=waves, tick_ms=ev.get("tick", 0.0), prefill_ms=ev.get("prefill", 0.0),
+               ms_per_step=ev.get("tick", 0.0) / delta["decode_steps"],
+               idle_share=1 - (ev.get("tick", 0.0) + ev.get("prefill", 0.0)) / (wall * 1e3), launches=counts,
+               counts=counts, sampled_ids=ids[3][:8], sampled_distinct=len(set(ids[3])))
+    print(f"  Llama-3-8B, 4 slots ({card}): prompts 8, 100, 1100 (temperature 0) and 8 (0.8): {out['tokens']} "
+          f"tokens in {wall * 1e3:.1f} ms; {delta['decode_steps']} steps, {out['ms_per_step']:.3f} ms a step on the "
+          f"card; 3 batched prefills {out['prefill_ms']:.1f} ms (J at b = 4); launches {counts}; greedy requests "
+          f"alone give the same ids; sampled {out['sampled_distinct']} distinct of {SERVE_NEW}")
+    del eng
+    gc.collect()
+
+    state = server.ServerState(path, max_batch=4, max_seq=512, model=model)
+    httpd = server.serve(state, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    tok = BPETokenizer(tokens, merges)
+    words = FRONT_END_TEXT.split()
+    texts = [" ".join(words[:12]), " ".join(words[20:60])]
+    replies = {}
+
+    def ask(key, text, stream):
+        body = json.dumps({"prompt": text, "max_tokens": 16, "temperature": 0, "stream": stream}).encode()
+        req = urllib.request.Request(base + "/v1/completions", body, {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            if not stream:
+                replies[key] = json.loads(r.read())["choices"][0]
+                return
+            parts, fin = [], None
+            for line in r:
+                line = line.decode().strip()
+                if line.startswith("data: ") and line[6:] != "[DONE]":
+                    ch = json.loads(line[6:])["choices"][0]
+                    parts.append(ch["text"])
+                    fin = ch["finish_reason"] or fin
+            replies[key] = dict(text="".join(parts), finish_reason=fin)
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(base + "/health", timeout=60) as r:
+            check(json.loads(r.read()) == {"status": "ok"}, "server: /health")
+        threads = [threading.Thread(target=ask, args=((i, s), text, s)) for i, text in enumerate(texts)
+                   for s in (False, True)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=150)
+    finally:
+        httpd.shutdown()
+        state.shutdown()
+    out["http_s"] = time.perf_counter() - t0
+    check(state.error is None, f"server: the engine thread stopped: {state.error!r}")
+    check(len(replies) == 4, f"server: {len(replies)} of 4 replies")
+    for i, text in enumerate(texts):
+        plain, streamed = replies[(i, False)], replies[(i, True)]
+        check(plain["text"] == streamed["text"] and plain["finish_reason"] == streamed["finish_reason"],
+              f"server: streamed {streamed} differs from {plain}")
+        check(plain["finish_reason"] in ("length", "stop"), f"server: reply {plain}")
+    out["http"] = dict(replies=[replies[(i, False)]["text"][:60] for i in range(len(texts))],
+                       captures=state.engine.captures, prompt_tokens=[len(tok.encode(t)) for t in texts])
+    print(f"  HTTP server (4 slots, max_seq 512, the same model): 2 prompts x (plain, streamed) asked at once "
+          f"answered in {out['http_s']:.1f}s, each stream equal to its plain reply")
+    del state
+    gc.collect()
     return out
 
 
@@ -2527,6 +2884,30 @@ def main() -> int:
                                                      "count": torch.cuda.device_count()}}))
             return 0
 
+        if sys.argv[1:] == ["--serve"]:
+            from ggml_tpu_torch.dtypes import GGMLType
+            from ggml_tpu_torch.models import gptj, llama
+
+            stage("4m. serving: GPT-J-6B Q4_K (synthesized compact planes), 8 slots, bench_serve's mix")
+            params = gptj.synth_quantized_params(gptj.random_config("6b"), GGMLType.Q4_K, seed=0,
+                                                 dtype=torch.bfloat16, device="cuda")
+            served = dict(gptj=phase_serve_gptj(torch, np, params, card))
+            del params
+            torch.cuda.empty_cache()
+            stage("4m. serving: Llama-3-8B from a Q4_K GGUF file (Q6_K head), 4 slots, and the HTTP server")
+            with tempfile.TemporaryDirectory(prefix="llama3-8b-gguf-") as tmp:
+                path, _, tokens, merges = write_llama3_8b_gguf(np, tmp)
+                t0 = time.perf_counter()
+                model = llama.Llama.from_gguf(path, max_seq=2048, device="cuda")
+                torch.cuda.synchronize()
+                print(f"  loaded as planes in {time.perf_counter() - t0:.1f}s")
+                served["llama"] = phase_serve_llama(torch, np, model, path, tokens, merges, card)
+                del model
+            print(json.dumps(dict(card=card, serve=served)))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
+
         if sys.argv[1:] == ["--long-decode-profile"]:
             stage("4. GPT-J-6B Q4_K (synthesized compact planes), decode after a 1088-token prompt, profiled")
             from ggml_tpu_torch.dtypes import GGMLType
@@ -2560,6 +2941,8 @@ def main() -> int:
         runs.append(phase_gptj(torch, np, "q4_k", params, q4k_kernels, (8, 100, 1), profile=True, sampled=True))
         runs.append(phase_gptj(torch, np, "q4_k long", params, q4k_kernels, (1024,), profile=False, max_seq=2048,
                                long_decode_profile=1088))
+        stage("4m. serving: GPT-J-6B Q4_K (the same planes), 8 slots, bench_serve's mix")
+        runs.append(phase_serve_gptj(torch, np, params, card))
         del params
         torch.cuda.empty_cache()
         stage("4b. GPT-J-6B Q8_0 (synthesized int8 planes), three greedy requests")
@@ -2599,12 +2982,13 @@ def main() -> int:
             stage("4j. QLoRA fine-tuning of GPT-J-6B from the same file, batch 4 x 128, rank 8")
             runs.append(phase_qlora(torch, np, written[0], tmp))
             os.remove(written[0])
-            # at 8 of its 28 layers in the whole run, which 4l would otherwise
-            # take past 700 s (--iquants runs all 28)
-            stage("4k. GPT-J-6B (8 of its 28 layers) from IQ4_XS, IQ1_M and TQ2_0 GGUF files")
-            runs += phase_iquants(torch, np, tmp, card, n_layer=8)
+            # at 4 of its 28 layers in the whole run, which 4l and 4m would
+            # otherwise take past 700 s (--iquants runs all 28)
+            stage("4k. GPT-J-6B (4 of its 28 layers) from IQ4_XS, IQ1_M and TQ2_0 GGUF files")
+            runs += phase_iquants(torch, np, tmp, card, n_layer=4)
             stage("4l. Llama-3-8B from a Q4_K GGUF file (Q6_K head)")
-            runs.append(phase_llama(torch, np, tmp, card))
+            runs.append(phase_llama(torch, np, tmp, card, serve=True))
+            runs.append(runs[-1].pop("serve"))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -23,12 +23,54 @@ def init_layer_cache(n_layer: int, batch: int, n_kv_head: int, max_seq: int, hea
     return [(mk(), mk()) for _ in range(n_layer)]
 
 
-def cache_write(cache_layer: torch.Tensor, kv: torch.Tensor, rows: torch.Tensor):
-    """Write kv (b, h, t, d) into cache_layer (b, h, S, d) IN PLACE at the t
-    positions `rows` (a long tensor on the cache's device, cache_len ..
-    cache_len+t-1, shared by every sequence of the batch), so the write needs
-    no host value.  The caller keeps the rows below S."""
-    cache_layer.index_copy_(2, rows, kv.to(cache_layer.dtype))
+def cache_leaf(cache) -> torch.Tensor:
+    """The first K buffer: it carries the cache's dtype, shape and device."""
+    return cache[0][0]
+
+
+def cache_slot(cache, i: int, width: int = 1) -> list:
+    """Views of slots [i, i + width) of every layer's buffers (the batch axis):
+    the per-slot view of continuous batching."""
+    return [(k[i:i + width], v[i:i + width]) for k, v in cache]
+
+
+def cache_set_slot(cache, slot_cache, i: int):
+    """Copy slot_cache (w, h, S', d) per buffer into slots [i, i + w) of cache,
+    rows [0, S') (S' <= S: a shorter slot cache fills the first rows), IN
+    PLACE; returns cache, which the JAX cache_set_slot returns anew.  A host
+    slot cache (a preemption snapshot) is copied to the card here."""
+    for big, small in zip(cache, slot_cache):
+        for b, s in zip(big, small):
+            b[i:i + s.shape[0], :, :s.shape[2]].copy_(s)
+    return cache
+
+
+def cache_rows(cache_len: torch.Tensor, t: int, max_seq: int) -> torch.Tensor:
+    """The cache rows that t new tokens at cache_len write, as a long tensor
+    on cache_len's device: (t,) for a 0-d position shared by the batch, (b, t)
+    for a (b,) vector of per-row positions (continuous batching).  The start
+    is clamped to [0, max_seq - t], as JAX's dynamic_update_slice clamps it,
+    so no write leaves the cache (an index past S would raise a device-side
+    assert in PyTorch).  Computed once per forward, reading no host value."""
+    start = cache_len.to(torch.long).clamp(0, max_seq - t)
+    ar = torch.arange(t, device=cache_len.device)
+    return start + ar if start.dim() == 0 else start[:, None] + ar[None, :]
+
+
+def cache_write(cache_layer: torch.Tensor, kv: torch.Tensor, cache_len: torch.Tensor,
+                rows: torch.Tensor | None = None):
+    """Write kv (b, h, t, d) into cache_layer (b, h, S, d) IN PLACE at
+    position cache_len: 0-d (every sequence of the batch at one position) or
+    (b,) (one position per row, the JAX vmapped dynamic_update_slice).  rows:
+    cache_rows(cache_len, t, S), which a forward computes once for all its
+    layers.  Nothing is read on the host, so a CUDA graph captures the write."""
+    if rows is None:
+        rows = cache_rows(cache_len, kv.shape[2], cache_layer.shape[2])
+    kv = kv.to(cache_layer.dtype)
+    if rows.dim() == 1:
+        cache_layer.index_copy_(2, rows, kv)
+    else:
+        cache_layer.scatter_(2, rows[:, None, :, None].expand(kv.shape), kv)
 
 
 @functools.lru_cache(maxsize=4)

@@ -26,7 +26,7 @@ import torch
 
 from ..dtypes import GGMLType
 from ..gguf import GGUFFile
-from .common import (cache_write, causal_mask, decode_loop, init_layer_cache, layer_norm as _layer_norm,
+from .common import (cache_rows, cache_write, causal_mask, decode_loop, init_layer_cache, layer_norm as _layer_norm,
                      linear as _linear)
 
 
@@ -152,19 +152,21 @@ def _gelu_fp16(x):
 
 
 def forward(params: dict, cfg: GPT2Config, tokens: torch.Tensor, pos_start: torch.Tensor, cache,
-            cache_len: torch.Tensor, *, prefill: bool = False, train_flash: bool = False):
+            cache_len: torch.Tensor, *, prefill: bool = False, train_flash: bool = False,
+            need_logits: bool = True):
     """One step over tokens (b, t): returns (logits (b, t, n_vocab), cache).
 
-    pos_start (b,) and cache_len (0-d) are integer tensors on the model's
-    device; the cache is written in place.  prefill is accepted for
-    signature parity with the other families (attention always reads the
-    cache window here).  train_flash=True (training from an empty cache,
-    t > 1): attention runs through flash_attention_train and the cache is
-    neither read nor written; it may be None then."""
+    pos_start (b,) and cache_len are integer tensors on the model's device,
+    cache_len 0-d (the whole batch at one position) or (b,) (a position per
+    row: the serving engine's step); the cache is written in place.
+    need_logits=False skips the final norm and the head: (None, cache).
+    prefill is accepted for signature parity with the other families
+    (attention always reads the cache window here).  train_flash=True
+    (training from an empty cache, t > 1): attention runs through
+    flash_attention_train and the cache is neither read nor written; it may
+    be None then."""
     b, t = tokens.shape
     flash = train_flash and t > 1
-    if not flash and cache_len.dim() != 0:
-        raise NotImplementedError("per-slot cache positions (batched serving) are not ported yet (ROADMAP.md)")
     positions = pos_start[:, None] + torch.arange(t, device=tokens.device)[None, :]
     embd = params.get("token_embd.weight@dense", params["token_embd.weight"])
     x = embd[tokens] + params["position_embd.weight"][positions]
@@ -177,7 +179,7 @@ def forward(params: dict, cfg: GPT2Config, tokens: torch.Tensor, pos_start: torc
         ranges = mask_ranges(mask)
     else:
         max_seq = cache[0][0].shape[-2]
-        rows = cache_len.to(torch.long) + torch.arange(t, device=tokens.device)  # cache rows written
+        rows = cache_rows(cache_len, t, max_seq)  # cache rows written
         kv_pos = torch.arange(max_seq, device=x.device)[None, None, None, :]
         visible = kv_pos <= positions[:, None, :, None]
     for i in range(cfg.n_layer):
@@ -195,8 +197,8 @@ def forward(params: dict, cfg: GPT2Config, tokens: torch.Tensor, pos_start: torc
             out = out.reshape(b, t, cfg.n_embd).to(x.dtype)
         else:
             kc, vc = cache[i]
-            cache_write(kc, k, rows)
-            cache_write(vc, v, rows)
+            cache_write(kc, k, cache_len, rows)
+            cache_write(vc, v, cache_len, rows)
             # attention over the full cache with the causal and length mask
             att = torch.matmul(q.float(), kc.float().transpose(-1, -2)) * scale
             att = torch.where(visible, att, torch.full((), float("-inf"), device=x.device))
@@ -210,6 +212,8 @@ def forward(params: dict, cfg: GPT2Config, tokens: torch.Tensor, pos_start: torc
         h = gelu(_linear(h, params[pre + "ffn_up.weight"], params[pre + "ffn_up.bias"]))
         x = x + _linear(h, params[pre + "ffn_down.weight"], params[pre + "ffn_down.bias"])
 
+    if not need_logits:
+        return None, cache
     x = _layer_norm(x, params["output_norm.weight"], params["output_norm.bias"], cfg.eps)
     return _linear(x, params["token_embd.weight"]), cache  # tied lm head
 

@@ -28,7 +28,7 @@ import torch
 
 from ..dtypes import GGMLType
 from ..gguf import GGUFFile
-from .common import (cache_write, causal_mask, decode_loop, init_layer_cache, layer_norm as _layer_norm,
+from .common import (cache_rows, cache_write, causal_mask, decode_loop, init_layer_cache, layer_norm as _layer_norm,
                      linear as _linear, make_sampled_decode)
 from .gpt2 import _gelu_fp16
 
@@ -127,21 +127,24 @@ def init_cache(cfg: GPTJConfig, batch: int, max_seq: int, dtype=torch.bfloat16, 
 
 
 def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torch.Tensor,
-            cache: list, cache_len: torch.Tensor, *, prefill: bool = False):
+            cache: list, cache_len: torch.Tensor, *, prefill: bool = False, need_logits: bool = True):
     """tokens (b, t) -> (logits (b, t, n_vocab), cache); the cache is updated
     in place and returned, as the JAX forward returns its new cache.
 
-    pos_start (b,) and cache_len (0-d) are integer tensors on the model's
-    device.  prefill=True asserts that the cache is empty below pos_start —
-    only then may a flash path attend just the current tokens.  Differentiable
+    pos_start (b,) and cache_len are integer tensors on the model's device;
+    cache_len is 0-d (the whole batch at one position) or (b,) (a position
+    per row: the serving engine's step, which attends in plain PyTorch as
+    the JAX forward does; kernel D takes only t == 1, b == 1 at a 0-d
+    position, gptj.py:179).  need_logits=False skips the final norm and the
+    head and returns (None, cache).  prefill=True asserts that the cache is
+    empty below pos_start — only then may a flash path attend just the
+    current tokens.  Differentiable
     (training from an empty cache, opt/finetune.make_lm_model_fn): with t > 1
     and prefill=False attention is the plain f32 attention over the cache
     window, whose rows autograd reads back through the in-place writes."""
     from ..kernels.decode_attn import fused_decode_attention
 
     b, t = tokens.shape
-    if cache_len.dim() != 0:
-        raise NotImplementedError("per-slot cache positions (batched serving) are not ported yet (ROADMAP.md)")
     max_seq = cache[0][0].shape[-2]
     positions = pos_start[:, None] + torch.arange(t, device=tokens.device)[None, :]
     embd = params.get("token_embd.weight@dense", params["token_embd.weight"])
@@ -151,7 +154,7 @@ def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torc
     scale = 1.0 / np.sqrt(cfg.head_dim)
     rope = _rope_deinterleaved if cfg.rope_deinterleaved else _rope_interleaved
     cos, sin = rope_angles(positions, cfg.n_rot)
-    rows = cache_len.to(torch.long) + torch.arange(t, device=tokens.device)  # cache rows written
+    rows = cache_rows(cache_len, t, max_seq)  # cache rows written
     flash = t > 1 and prefill and (cfg.use_flash_prefill or t >= cfg.flash_min_seq)
     if flash:
         # prefill from an empty cache attends the current tokens only, through
@@ -182,7 +185,7 @@ def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torc
         v = heads(v).transpose(1, 2)
         kc, vc = cache[i]
 
-        fuse_decode = t == 1 and b == 1
+        fuse_decode = t == 1 and b == 1 and cache_len.dim() == 0
         if fuse_decode:
             # single-token decode: the attention block runs as ONE kernel per
             # layer over the PRE-update cache with the new row inserted
@@ -190,8 +193,8 @@ def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torc
                                          v.to(cache_dtype).contiguous(), kc, vc, cache_len, scale=scale)
             attn_out = out.transpose(1, 2).reshape(b, t, cfg.n_embd).to(compute_dtype)
 
-        cache_write(kc, k, rows)
-        cache_write(vc, v, rows)
+        cache_write(kc, k, cache_len, rows)
+        cache_write(vc, v, cache_len, rows)
 
         if fuse_decode:
             pass
@@ -227,6 +230,8 @@ def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torc
 
         x = x + attn_out + ff
 
+    if not need_logits:
+        return None, cache
     x = _layer_norm(x, params["output_norm.weight"], params["output_norm.bias"], cfg.eps)
     return _linear(x, params["output.weight"], params.get("output.bias")), cache
 

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from ..dtypes import GGMLType
 from ..gguf import GGUFFile
-from .common import (cache_write, causal_mask, decode_loop, init_layer_cache, linear as _linear,
+from .common import (cache_rows, cache_write, causal_mask, decode_loop, init_layer_cache, linear as _linear,
                      make_sampled_decode)
 from .gptj import _random_weight_blocks, _rope_interleaved, rope_angles
 
@@ -190,19 +190,21 @@ def _no_experts(cfg: LlamaConfig):
 
 
 def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, pos_start: torch.Tensor, cache: list,
-            cache_len: torch.Tensor, *, prefill: bool = False):
+            cache_len: torch.Tensor, *, prefill: bool = False, need_logits: bool = True):
     """tokens (b, t) -> (logits (b, t, n_vocab), cache); the cache is written
     in place and returned (llama.py:304-393).
 
-    pos_start (b,) and cache_len (0-d) are integer tensors on the model's
-    device.  prefill=True asserts that the cache is empty below pos_start:
-    only then may the flash path attend just the current tokens.  A
-    multi-token step against a populated cache leaves it False and attends
-    over the cache window."""
+    pos_start (b,) and cache_len are integer tensors on the model's device;
+    cache_len is 0-d (the whole batch at one position) or (b,) (a position
+    per row: the serving engine's step, each row written at its own position
+    and masked by kv_pos <= q_pos).  prefill=True asserts that the cache is
+    empty below pos_start: only then may the flash path attend just the
+    current tokens.  A multi-token step against a populated cache leaves it
+    False and attends over the cache window.  need_logits=False skips the
+    final norm and the head and returns (None, cache): a prefill that only
+    fills the cache (serve.Engine's admission)."""
     _no_experts(cfg)
     b, t = tokens.shape
-    if cache_len.dim() != 0:
-        raise NotImplementedError("per-slot cache positions (batched serving) are not ported yet (ROADMAP.md)")
     dev = tokens.device
     max_seq = cache[0][0].shape[-2]
     positions = pos_start[:, None] + torch.arange(t, device=dev)[None, :]
@@ -216,7 +218,7 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, pos_start: tor
     scale = cfg.attn_scale or 1.0 / np.sqrt(hd)
     res = (lambda y: y) if cfg.resid_scale == 1.0 else (lambda y: cfg.resid_scale * y)
     cos, sin = rope_angles(positions, hd, cfg.rope_base) if cfg.rope_interleaved else _rope_half_angles(positions, cfg)
-    rows = cache_len.to(torch.long) + torch.arange(t, device=dev)  # cache rows written
+    rows = cache_rows(cache_len, t, max_seq)  # cache rows written
     flash = t > 1 and prefill and (cfg.use_flash_prefill or t >= cfg.flash_min_seq)
     if flash:
         # prefill from an empty cache attends the current tokens only, through
@@ -245,8 +247,8 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, pos_start: tor
                 q, k = _rope_half(q, cos, sin), _rope_half(k, cos, sin)
         q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         kc, vc = cache[i]
-        cache_write(kc, k, rows)
-        cache_write(vc, v, rows)
+        cache_write(kc, k, cache_len, rows)
+        cache_write(vc, v, cache_len, rows)
         if flash:
             # in a bf16 model RoPE leaves q and k in f32 beside a bf16 v; they
             # go in as they are, and the output comes back in q's type
@@ -272,6 +274,8 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, pos_start: tor
         up = _linear(h, params[pre + "ffn_up.weight"])
         x = x + res(_linear(F.silu(gate) * up, params[pre + "ffn_down.weight"]))
 
+    if not need_logits:
+        return None, cache
     x = _rms_norm(x, params["output_norm.weight"], cfg.rms_eps)
     # a tied output multiplies by the token embedding (its dense copy, where
     # the embedding is planes)

@@ -3,9 +3,11 @@ examples/common.cpp:655-753 gpt_sample_top_k_top_p).
 
 The filtering runs on the logits' device as tensor ops, so the decode loop
 can sample inside a captured CUDA graph (models/common.DecodeGraph): no value
-goes back to the host.  Temperature and top_p may be Python numbers or 0-d
-f32 tensors on that device (what a graph keeps in its static buffers); top_k
-is a shape and stays a Python int.  Draws come from an explicit
+goes back to the host.  Temperature and top_p may be Python numbers, 0-d
+f32 tensors on that device (what a graph keeps in its static buffers) or
+(batch, 1) f32 tensors, one value a row (serve.Engine's per-request
+sampling, as the JAX engine passes them); top_k is a shape and stays a
+Python int.  Draws come from an explicit
 torch.Generator on the logits' device.  JAX's and torch's random streams
 differ, so the tests hold the filter against JAX and the draws against the
 distribution it defines.

@@ -1,0 +1,740 @@
+"""Continuous-batching generation engine: the serving control plane (port of
+ggml_tpu/serve.py, its dense path; reference analog: the seq-id KV cache of
+examples/gpt-2/main-batched.cpp:41-145).
+
+A fixed pool of max_batch KV-cache slots in ONE static cache that the engine
+owns and writes in place (where the JAX engine donates its cache to XLA);
+per-slot positions (the families' forward with a (b,) cache_len); admission
+when slots free up, one batched prefill per prompt bucket; greedy, sampled
+with the engine's sampler, or per-request temperature and top_p, all chosen
+on the device.  The decode step runs h steps a tick over static (token,
+position, alive, budget, temperature, top_p) buffers with the EOS, budget
+and window stops applied on the device (JAX's jitted step_scan); on the card
+those h steps are ONE CUDA graph replay (one capture per (h, sampled)), and
+run()'s pipelined stretch enqueues tick t+1 before it reads tick t's tokens,
+which reach the host through pinned memory behind an event.
+
+The engine's invariant (docs/serving.md): every request emits what it would
+emit alone.  Batching, admission order and preemption change no id.
+
+Not ported yet (ROADMAP.md): paged KV with its prefix cache, chunked prefill,
+speculative decoding (draft=), the q8 KV cache, forward_fn and cache_put
+(tensor-parallel serving).
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import os
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from .models.common import cache_set_slot, cache_slot, init_layer_cache, launch_tables
+from .sampling import sample_top_k_top_p
+
+@dataclass
+class _PrefillShare:
+    """Lazily computed shared prefill of forked requests (the shared-prefix
+    batching of examples/gpt-2/main-batched.cpp:81-145: one prompt evaluated
+    once, its KV cache copied into every fork's slot)."""
+
+    logits: Any = None  # (1, vocab) last-position logits, or None (bucket padding)
+    cache: Any = None  # single-slot cache
+    t: int = 0
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray  # (t,) int32
+    max_new_tokens: int
+    out: list = field(default_factory=list)
+    done: bool = False
+    on_token: Callable | None = None  # streaming callback (rid, token, done)
+    priority: int = 0  # lower = more urgent
+    preempted: int = 0  # times evicted back to the queue
+    # per-request sampling overrides ({"temperature", "top_p"}; top_k is
+    # engine-static): temperature == 0 means exact greedy for this request
+    sampling: dict | None = None
+    share: _PrefillShare | None = None  # forked-generation prefill share
+    # device->host KV snapshot taken at eviction: {"cache": host slot cache
+    # (rows [0, n_past)), "n_past": int, "cur_tok": int}; resume restores it
+    # instead of re-prefilling the sequence
+    snapshot: dict | None = None
+
+    @property
+    def seq(self) -> np.ndarray:
+        """Prompt plus generated-so-far: the prefill input on (re)admission."""
+        if not self.out:
+            return self.prompt
+        return np.concatenate([self.prompt, np.asarray(self.out, np.int32)])
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, section 1: serving)")
+
+
+class Engine:
+    """model: a Llama, GPTJ or GPT2 wrapper (params, cfg, device) whose family
+    forward(params, cfg, tokens, pos_start, cache, cache_len) takes per-row
+    cache_len vectors.  max_batch slots share one cache of max_seq rows.
+
+    sampler: None = greedy argmax; or keyword arguments of
+    sampling.sample_top_k_top_p (temperature, top_k, top_p) applied per slot
+    on the device with the engine's torch.Generator (seeded by seed, on the
+    model's device: the JAX engine's PRNGKey(seed); the two draw different
+    streams from the same distribution).  horizon: decode steps a tick
+    (default GGML_TPU_TICK_HORIZON or 16), rounded down to a power of two.
+    record_events: bracket every tick and batched prefill on the card with
+    CUDA events (event_ms() sums them).  paged, draft, prefill_chunk, a q8 KV
+    cache_dtype, forward_fn and cache_put raise NotImplementedError."""
+
+    def __init__(self, model, max_batch: int = 4, max_seq: int = 512, eos_id: int = -1,
+                 cache_dtype=torch.bfloat16, sampler: dict | None = None, seed: int = 0,
+                 paged=None, draft=None, draft_k: int = 4,
+                 forward_fn=None, cache_put=None, prefill_chunk: int | None = None,
+                 horizon: int | None = None, record_events: bool = False):
+        from .models import gpt2, gptj, llama
+
+        if isinstance(model, llama.Llama):
+            self._fwd = llama.forward
+        elif isinstance(model, gptj.GPTJ):
+            self._fwd = gptj.forward
+        elif isinstance(model, gpt2.GPT2):
+            self._fwd = gpt2.forward
+        else:
+            raise TypeError(f"Engine cannot drive {type(model).__name__}")
+        for flag, what in ((paged is not None, "paged KV (paged=)"),
+                           (draft is not None, "speculative decoding (draft=)"),
+                           (bool(prefill_chunk), "chunked prefill (prefill_chunk=)"),
+                           (not isinstance(cache_dtype, torch.dtype), f"the {cache_dtype!r} KV cache"),
+                           (forward_fn is not None, "a custom engine forward (forward_fn=)"),
+                           (cache_put is not None, "a placed KV cache (cache_put=)")):
+            if flag:
+                raise _not_ported(what)
+        del draft_k
+        self.model = model
+        self.cfg = cfg = model.cfg
+        self.device = dev = model.device
+        self.max_batch = B = max_batch
+        self.max_seq = max_seq
+        self.eos_id = eos_id
+        n_kv = getattr(cfg, "n_head_kv", cfg.n_head)
+        self._make_cache = lambda b, rows=max_seq: init_layer_cache(cfg.n_layer, b, n_kv, rows, cfg.head_dim,
+                                                                     cache_dtype, dev)
+        # the engine's one cache: never rebound; prefills and restores copy
+        # into it, steps write their rows in place
+        self.cache = self._make_cache(B)
+        self.tick_horizon = (horizon if horizon is not None
+                             else int(os.environ.get("GGML_TPU_TICK_HORIZON", "16")))
+        self._hb = 1  # largest power of two <= horizon: one graph per sampling mode
+        while self._hb * 2 <= self.tick_horizon:
+            self._hb *= 2
+
+        self.sampler = dict(sampler) if sampler else None
+        self.generator = torch.Generator(device=dev)
+        self.generator.manual_seed(seed)
+        scalar = lambda x: torch.tensor(float(x), dtype=torch.float32, device=dev)
+        # the engine sampler's floats as device scalars: a captured graph
+        # reads them, and a Python float would be copied to the card inside it
+        self._sampler_kw = None if self.sampler is None else {
+            k: (scalar(v) if k in ("temperature", "top_p") else v) for k, v in self.sampler.items()}
+        # per-request sampling (the server path): slot-vector temperature and
+        # top_p with an engine-static top_k; temperature 0 is exact greedy.
+        # Switched on by the first submit(sampling=...)
+        base = self.sampler or {}
+        self._default_temp = float(base.get("temperature", 1.0)) if self.sampler else 0.0
+        self._default_topp = float(base.get("top_p", 0.9)) if self.sampler else 1.0
+        self._slot_top_k = int(base.get("top_k", 40))
+        self._slot_temp = np.full(B, self._default_temp, np.float32)
+        self._slot_topp = np.full(B, self._default_topp, np.float32)
+        self._any_slot_sampling = False
+
+        # the decode state on the device: static buffers a captured graph
+        # reads and writes; the host writes them with copy_ and index_copy_
+        # only, never rebinding them
+        self._tok = torch.zeros((B, 1), dtype=torch.long, device=dev)
+        self._np = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self._alive = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self._budget = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self._temp = torch.ones((B, 1), dtype=torch.float32, device=dev)
+        self._topp = torch.ones((B, 1), dtype=torch.float32, device=dev)
+        self._outs = torch.zeros((self._hb, B), dtype=torch.long, device=dev)
+        self._graphs: dict = {}  # (h, sampled) -> (CUDAGraph, launches of its h steps per table)
+        self.captures = 0
+        self.replays = 0
+        self.decode_steps = 0  # forward steps run: eagerly, warming a capture up, or h per replay
+        self.record_events = record_events
+        self.events: list = []  # (kind, start, end) CUDA events, with record_events
+
+        self.slots: list[Request | None] = [None] * B
+        self.n_past = np.zeros(B, np.int32)
+        self.cur_tok = np.zeros(B, np.int32)
+        self.queue: collections.deque[Request] = collections.deque()
+        self._rid = 0
+        self.prefill_count = 0  # observability (and the shared-prefill tests)
+
+    # -- public API -------------------------------------------------------------
+
+    def submit(self, prompt, max_new_tokens: int, on_token=None, priority: int = 0,
+               sampling: dict | None = None) -> int:
+        """on_token: optional streaming callback (rid, token, done) invoked as
+        each token is produced.  priority: lower is more urgent; when all
+        slots are busy, an arriving more urgent request preempts the least
+        urgent running one (its KV is spilled to the host and restored on
+        resume).  sampling: per-request {"temperature", "top_p"} overrides
+        (top_k is engine-static); temperature == 0 -> exact greedy."""
+        prompt = self._check_prompt(prompt)
+        if sampling is not None:
+            bad = set(sampling) - {"temperature", "top_p"}
+            if bad:
+                raise ValueError(f"unknown sampling keys: {sorted(bad)}")
+            self._any_slot_sampling = True
+        self._rid += 1
+        self.queue.append(Request(self._rid, prompt, max_new_tokens, on_token=on_token, priority=priority,
+                                  sampling=sampling))
+        return self._rid
+
+    def submit_many(self, prompt, n: int, max_new_tokens: int, on_token=None, priority: int = 0,
+                    sampling: dict | None = None) -> list[int]:
+        """Fork n sampled continuations of ONE prompt: the prompt is prefilled
+        once and its KV cache copied into every fork's slot (the shared-prefix
+        batching of main-batched.cpp:81-145).  sampling: as in submit()."""
+        prompt = self._check_prompt(prompt)
+        if sampling is not None:
+            self._any_slot_sampling = True
+        share = _PrefillShare()
+        rids = []
+        for _ in range(n):
+            self._rid += 1
+            self.queue.append(Request(self._rid, prompt, max_new_tokens, on_token=on_token, priority=priority,
+                                      share=share, sampling=sampling))
+            rids.append(self._rid)
+        return rids
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a queued or in-flight request; its slot frees on the next
+        run() sweep.  Returns True if the request was found."""
+        for req in list(self.queue):
+            if req.rid == rid:
+                self.queue.remove(req)
+                return True
+        for s in self.slots:
+            if s is not None and s.rid == rid and not s.done:
+                s.done = True
+                return True
+        return False
+
+    def run(self, bucket: int = 32, abort_callback=None) -> dict[int, list[int]]:
+        """Drive to completion; returns {rid: generated token ids}.
+        abort_callback: checked per tick, True stops early.  With a horizon
+        above 1 the engine decodes in pipelined stretches: tick t+1 is
+        enqueued from the device-resident state before tick t's tokens are
+        read, and admission rides inside the stretch."""
+        results: dict[int, list[int]] = {}
+        scan_mode = self._hb > 1
+        aborted = False
+        while (self.queue or any(s is not None for s in self.slots)) and not aborted:
+            if abort_callback is not None and abort_callback():
+                break
+            self._admit(bucket)
+            if scan_mode:
+                aborted = self._run_scan_stretch(abort_callback, results, bucket)
+            else:
+                self._tick()
+            for i, s in enumerate(self.slots):
+                if s is not None and s.done:
+                    results[s.rid] = s.out
+                    self.slots[i] = None
+        return results
+
+    def event_ms(self) -> dict:
+        """Device ms inside the recorded spans by kind ("tick", "prefill"):
+        waits for the card, then clears the record."""
+        out: dict = {}
+        if self.events:
+            torch.cuda.synchronize(self.device)
+        for kind, start, end in self.events:
+            out[kind] = out.get(kind, 0.0) + start.elapsed_time(end)
+        self.events.clear()
+        return out
+
+    # -- the device step ----------------------------------------------------------
+
+    def _check_prompt(self, prompt) -> np.ndarray:
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if len(prompt) >= self.max_seq:
+            raise ValueError(f"prompt length {len(prompt)} exceeds engine max_seq {self.max_seq}")
+        return prompt
+
+    def _put(self, buf: torch.Tensor, values, index: torch.Tensor | None = None):
+        """Write host values into a device buffer without a host wait: through
+        pinned memory, asynchronously on the card (PyTorch keeps the pinned
+        block until the copy has run).  index: write only those rows."""
+        src = self._to_device(values, buf.dtype)
+        if index is None:
+            buf.copy_(src.reshape(buf.shape))
+        else:
+            buf.index_copy_(0, index, src.reshape((-1,) + buf.shape[1:]))
+
+    def _to_device(self, values, dtype=torch.long) -> torch.Tensor:
+        """Host values as a tensor on the model's device, copied from pinned
+        memory without a host wait."""
+        t = torch.as_tensor(np.asarray(values), dtype=dtype)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _pick(self, logits, sampled: bool, temp=None, topp=None):
+        """(b, vocab) logits -> (b,) ids on the device: per slot (temperature
+        and top_p (b, 1), greedy where the temperature is 0), with the
+        engine's sampler, or greedy."""
+        if sampled:
+            temp = self._temp if temp is None else temp
+            topp = self._topp if topp is None else topp
+            drawn, _ = sample_top_k_top_p(logits, self.generator, temperature=temp,
+                                          top_k=min(self._slot_top_k, logits.shape[-1]), top_p=topp)
+            return torch.where(temp[:, 0] > 0, drawn, torch.argmax(logits, dim=-1))
+        if self._sampler_kw is not None:
+            return sample_top_k_top_p(logits, self.generator, **self._sampler_kw)[0]
+        return torch.argmax(logits, dim=-1)
+
+    def _steps(self, h: int, sampled: bool):
+        """h decode steps over the static buffers (JAX's step_scan): each
+        feeds every slot's token at its own position, picks the next, masks
+        dead slots' tokens to 0 and applies the EOS, budget and window stops
+        on the device.  Dead slots ride along at frozen positions, writing a
+        junk row there that no live query reads.  Reads no host value."""
+        for j in range(h):
+            logits, _ = self._fwd(self.model.params, self.cfg, self._tok, self._np, self.cache, self._np)
+            nxt = torch.where(self._alive, self._pick(logits[:, -1, :], sampled), 0)
+            self._outs[j].copy_(nxt)
+            live = self._alive.to(torch.int32)
+            self._np += live
+            self._budget -= live
+            self._alive &= (nxt != self.eos_id) & (self._budget > 0) & (self._np < self.max_seq - 1)
+            self._tok.copy_(nxt[:, None])
+
+    def _capture(self, h: int, sampled: bool):
+        """Capture _steps(h, sampled) as a CUDA graph (models/common.DecodeGraph's
+        discipline): a warm-up on a side stream first (kernel library,
+        first-use caches), with the state buffers and the generator restored
+        after it (its rows at and past each slot's position are rewritten by
+        the real steps before any query reads them); the generator is
+        registered with the graph; the capture's launch counts move to the
+        replays.  A capture that fails raises."""
+        graph = torch.cuda.CUDAGraph()
+        if sampled or self._sampler_kw is not None:
+            if not hasattr(graph, "register_generator_state"):
+                raise NotImplementedError(f"torch {torch.__version__} cannot register a generator with a CUDA graph: "
+                                          "a sampled engine cannot be graphed")
+            graph.register_generator_state(self.generator)
+        state = (self._tok, self._np, self._alive, self._budget)
+        saved = [b.clone() for b in state]
+        rng = self.generator.get_state()
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._steps(h, sampled)
+        cur.wait_stream(side)
+        self.decode_steps += h
+        for b, s in zip(state, saved):
+            b.copy_(s)
+        self.generator.set_state(rng)
+        tables = launch_tables()
+        before = [dict(t) for t in tables]
+        with torch.cuda.graph(graph):  # capture_error_mode "global": a forbidden call fails the capture
+            self._steps(h, sampled)
+        per_tick = []
+        for table, was in zip(tables, before):  # the capture launched nothing: its counts move to the replays
+            per_tick.append({k: table[k] - was[k] for k in table})
+            table.update(was)
+        self.captures += 1
+        return graph, per_tick
+
+    @contextlib.contextmanager
+    def _span(self, kind: str):
+        if not (self.record_events and self.device.type == "cuda"):
+            yield
+            return
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        self.events.append((kind, start, end))
+
+    def _dispatch(self, sampled: bool):
+        """Enqueue one tick of h steps; returns a handle for _fetch.  On the
+        card: one graph replay, its (h, B) ids copied to pinned host memory
+        behind an event, nothing waited for."""
+        h = self._hb
+        with torch.no_grad():
+            if self.device.type != "cuda":
+                self._steps(h, sampled)
+                self.decode_steps += h
+                return self._outs[:h].clone(), None
+            key = (h, sampled)
+            if key not in self._graphs:
+                self._graphs[key] = self._capture(h, sampled)
+            graph, per_tick = self._graphs[key]
+            with self._span("tick"):
+                graph.replay()
+            for table, counts in zip(launch_tables(), per_tick):
+                for k, n in counts.items():
+                    table[k] += n
+            self.replays += 1
+            self.decode_steps += h
+            host = torch.empty((h, self.max_batch), dtype=torch.long, pin_memory=True)
+            host.copy_(self._outs[:h], non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            return host, done
+
+    @staticmethod
+    def _fetch(handle) -> np.ndarray:
+        host, done = handle
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
+
+    def _load_state(self, alive: np.ndarray, budget: np.ndarray):
+        """The host's decode state into the device buffers (all slots)."""
+        self._put(self._tok, self.cur_tok)
+        self._put(self._np, self.n_past)
+        self._put(self._alive, alive)
+        self._put(self._budget, budget)
+        self._put(self._temp, self._slot_temp)
+        self._put(self._topp, self._slot_topp)
+
+    # -- internals ----------------------------------------------------------------
+
+    def _slot_budget(self) -> np.ndarray:
+        """(B,) remaining token budget per slot (0 for empty/done slots)."""
+        return np.array([(s.max_new_tokens - len(s.out)) if (s is not None and not s.done) else 0
+                         for s in self.slots], np.int32)
+
+    def _consume_scan_outs(self, outs: np.ndarray, rids=None) -> bool:
+        """Apply one fetched tick (h, B) to the host state with the SAME stop
+        rules the device applied (EOS / budget / window), emitting the
+        streaming callbacks.  rids: per-slot request ids at dispatch time (a
+        slot freed and re-admitted while the tick was in flight ignores the
+        old lane's masked tokens).  Returns True when any slot is done."""
+        for j in range(outs.shape[0]):
+            for i, s in enumerate(self.slots):
+                if s is None or s.done:
+                    continue
+                if rids is not None and s.rid != rids[i]:
+                    continue  # slot re-admitted mid-flight
+                self.n_past[i] += 1
+                tok = int(outs[j, i])
+                s.out.append(tok)
+                self.cur_tok[i] = tok
+                if tok == self.eos_id or len(s.out) >= s.max_new_tokens or self.n_past[i] >= self.max_seq - 1:
+                    s.done = True
+                if s.on_token is not None:
+                    s.on_token(s.rid, tok, s.done)
+        return any(s is not None and s.done for s in self.slots)
+
+    def _sim_tick(self, n_past, budget, alive, h: int):
+        """Advance the host's prediction of the alive slots by one in-flight
+        tick with the budget and window rules (EOS is unpredictable: an EOS'd
+        slot wastes its lane for at most one extra tick)."""
+        emit = np.minimum(h, np.minimum(budget, self.max_seq - 1 - n_past))
+        emit = np.where(alive, np.maximum(emit, 0), 0)
+        n_past = n_past + emit
+        budget = budget - emit
+        alive = alive & (budget > 0) & (n_past < self.max_seq - 1)
+        return n_past, budget, alive
+
+    def _stretch_admit(self, bucket: int, sampled: bool):
+        """Admission without draining the pipeline: pop batchable fresh
+        requests for the free slots and run their batched prefill, enqueued
+        after the in-flight tick on the same stream (it reads no host value).
+        Returns (admitted [(slot, req, t)], must_break): must_break when the
+        most urgent queued request needs the out-of-stretch path (a snapshot,
+        a fork share, an over-window sequence or a sampling-mode flip)."""
+        admitted: list[tuple[int, Request, int]] = []
+        must_break = False
+        for i in range(self.max_batch):
+            if self.slots[i] is not None or not self.queue:
+                continue
+            req = min(self.queue, key=lambda r: r.priority)
+            if (req.snapshot is not None or req.share is not None or len(req.seq) >= self.max_seq
+                    or bool(self._any_slot_sampling) != sampled):
+                must_break = True
+                break
+            self.queue.remove(req)
+            self.slots[i] = req
+            self._slot_sampling_set(i, req)
+            admitted.append((i, req, len(req.seq)))
+        self._prefill_groups(admitted, bucket)
+        return admitted, must_break
+
+    def _scatter_slot_state(self, admitted):
+        """Overwrite the device decode state of freshly admitted slots only
+        (the others are ahead of the host while a tick is in flight)."""
+        idx = self._to_device([i for i, _, _ in admitted])
+        self._put(self._tok, [self.cur_tok[i] for i, _, _ in admitted], idx)
+        self._put(self._np, [self.n_past[i] for i, _, _ in admitted], idx)
+        self._alive.index_fill_(0, idx, True)
+        self._put(self._budget, [req.max_new_tokens - len(req.out) for _, req, _ in admitted], idx)
+        self._put(self._temp, self._slot_temp)
+        self._put(self._topp, self._slot_topp)
+
+    def _run_scan_stretch(self, abort_callback=None, results=None, bucket: int = 32) -> bool:
+        """Pipelined multi-step decode: the (token, n_past, alive, budget)
+        state stays on the device across ticks and tick t+1 is enqueued before
+        tick t's ids are read, so the host's bookkeeping overlaps the card.
+        With `results`, admission rides the pipeline too: finished slots are
+        swept in place and queued fresh requests prefill behind the in-flight
+        tick, their decode state scattered into the buffers (each in-flight
+        tick carries a slot -> rid snapshot).  Returns True if the abort
+        callback fired."""
+        alive_h = np.array([s is not None and not s.done for s in self.slots])
+        if not alive_h.any():
+            return False
+        hb = self._hb
+        budget_h = self._slot_budget()
+        self._load_state(alive_h, budget_h)
+        sampled = bool(self._any_slot_sampling)
+        # host prediction of the slots alive after the in-flight tick (exact
+        # for budget and window, optimistic for EOS)
+        p_np, p_budget, p_alive = self.n_past.copy(), budget_h.copy(), alive_h.copy()
+        pending = None  # (handle, rid snapshot)
+
+        def rid_snapshot():
+            return [s.rid if s is not None else -1 for s in self.slots]
+
+        def drain():
+            if pending is not None:
+                self._consume_scan_outs(self._fetch(pending[0]), pending[1])
+
+        def sweep():
+            for i, s in enumerate(self.slots):
+                if s is not None and s.done:
+                    results[s.rid] = s.out
+                    self.slots[i] = None
+
+        while True:
+            if abort_callback is not None and abort_callback():
+                drain()
+                return True
+            must_break = False
+            if results is not None and self.queue and any(s is None for s in self.slots):
+                admitted, must_break = self._stretch_admit(bucket, sampled)
+                if admitted:
+                    self._scatter_slot_state(admitted)
+                    # new slots enter the prediction; the in-flight tick never
+                    # advances them (dead lanes at its dispatch)
+                    for i, req, _t in admitted:
+                        p_np[i] = self.n_past[i]
+                        p_budget[i] = req.max_new_tokens - len(req.out)
+                        p_alive[i] = True
+            if must_break:
+                drain()
+                if results is not None:
+                    sweep()
+                return False
+            newtick = None
+            if p_alive.any():
+                newtick = (self._dispatch(sampled), rid_snapshot())
+                p_np, p_budget, p_alive = self._sim_tick(p_np, p_budget, p_alive, hb)
+            if pending is not None:
+                finished = self._consume_scan_outs(self._fetch(pending[0]), pending[1])
+                if finished:
+                    # resync the prediction from the real post-consume state
+                    p_alive = np.array([s is not None and not s.done for s in self.slots])
+                    p_budget = self._slot_budget()
+                    p_np = self.n_past.copy()
+                    if newtick is not None:
+                        p_np, p_budget, p_alive = self._sim_tick(p_np, p_budget, p_alive, hb)
+                    if results is not None:
+                        sweep()  # free slots; the next iteration admits in the pipe
+                    elif self.queue:
+                        if newtick is not None:
+                            self._consume_scan_outs(self._fetch(newtick[0]), newtick[1])
+                        return False
+                if self.queue and not all(s is None or s.done for s in self.slots):
+                    # an urgent arrival (submitted from a streaming callback)
+                    # outranking a running slot must not wait out the stretch
+                    head = min(self.queue, key=lambda r: r.priority)
+                    running = [s for s in self.slots if s is not None and not s.done]
+                    if running and max(r.priority for r in running) > head.priority:
+                        if newtick is not None:
+                            self._consume_scan_outs(self._fetch(newtick[0]), newtick[1])
+                        if results is not None:
+                            sweep()
+                        return False
+            pending = newtick
+            if pending is None:
+                if results is not None:
+                    sweep()
+                return False
+
+    def _snapshot_slot(self, i: int, req: Request):
+        """Device->host KV eviction: spill the slot's rows [0, n_past) (the
+        next step writes row n_past) so resume restores them instead of
+        re-prefilling the sequence."""
+        n_past = int(self.n_past[i])
+        if n_past <= 0:
+            return
+        host = [(k[:, :, :n_past].cpu(), v[:, :, :n_past].cpu()) for k, v in cache_slot(self.cache, i)]
+        req.snapshot = {"cache": host, "n_past": n_past, "cur_tok": int(self.cur_tok[i])}
+
+    def _resume_from_snapshot(self, i: int, req: Request):
+        """Restore an evicted slot's KV from its host snapshot."""
+        snap = req.snapshot
+        cache_set_slot(self.cache, snap["cache"], i)
+        self.slots[i] = req
+        self._slot_sampling_set(i, req)
+        self.n_past[i] = snap["n_past"]
+        self.cur_tok[i] = snap["cur_tok"]
+        req.snapshot = None
+
+    def _preempt_for_priority(self):
+        """If the most urgent queued request outranks the least urgent running
+        one and no slot is free, evict that slot back to the queue with its
+        KV snapshotted to the host."""
+        if not self.queue or any(s is None for s in self.slots):
+            return
+        head = min(self.queue, key=lambda r: r.priority)
+        running = [(i, s) for i, s in enumerate(self.slots) if s is not None and not s.done]
+        if not running:
+            return
+        i, worst = max(running, key=lambda kv: kv[1].priority)
+        if worst.priority > head.priority:
+            worst.preempted += 1
+            self._snapshot_slot(i, worst)
+            self.queue.append(worst)
+            self.slots[i] = None
+
+    def _bucket(self, t: int, bucket: int) -> int:
+        return min(self.max_seq, -(-t // bucket) * bucket)
+
+    def _prefill(self, seq, bucket: int):
+        """Single-slot bucketed prefill (a fork group's shared prompt);
+        returns (last logits | None, slot cache of tb rows, t, tb).  logits
+        is None when the bucket padded past t (the caller re-decodes the true
+        last token), and then the head is not run at all."""
+        t = len(seq)
+        tb = self._bucket(t, bucket)
+        toks = np.zeros((1, tb), np.int64)
+        toks[0, :t] = seq
+        slot_cache = self._make_cache(1, tb)
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.prefill_count += 1
+        with torch.no_grad(), self._span("prefill"):
+            logits, _ = self._fwd(self.model.params, self.cfg, self._to_device(toks), zero.expand(1), slot_cache, zero,
+                                  prefill=True, need_logits=t == tb)
+        return (logits[:, -1, :] if t == tb else None), slot_cache, t, tb
+
+    def _slot_sampling_set(self, i: int, req: Request):
+        """Install the slot's sampling parameters when it takes slot i."""
+        s = req.sampling or {}
+        self._slot_temp[i] = float(s.get("temperature", self._default_temp))
+        self._slot_topp[i] = float(s.get("top_p", self._default_topp))
+
+    def _emit_first(self, req: Request, i: int, logits):
+        """Sample or argmax the first post-prefill token for slot i."""
+        sampled = bool(self._any_slot_sampling)
+        with torch.no_grad():
+            temp = self._to_device(self._slot_temp[i:i + 1, None], torch.float32)
+            topp = self._to_device(self._slot_topp[i:i + 1, None], torch.float32)
+            tok = int(self._pick(logits, sampled, temp, topp)[0])
+        self.cur_tok[i] = tok
+        req.out.append(tok)
+        if tok == self.eos_id or len(req.out) >= req.max_new_tokens:
+            req.done = True
+        if req.on_token is not None:
+            req.on_token(req.rid, tok, req.done)
+
+    def _admit(self, bucket: int):
+        self._preempt_for_priority()
+        # plain fresh prefills batch into ONE prefill per bucket size;
+        # snapshots and forks keep the per-request path
+        deferred: list[tuple[int, Request, int]] = []
+        for i in range(self.max_batch):
+            if self.slots[i] is None and self.queue:
+                req = min(self.queue, key=lambda r: r.priority)  # stable: first min
+                self.queue.remove(req)
+                if req.snapshot is not None:  # evicted mid-run: restore its KV
+                    self._resume_from_snapshot(i, req)
+                    continue
+                seq = req.seq  # the prompt, or prompt + output when resuming
+                t = len(seq)
+                if t >= self.max_seq:  # cannot resume within the window
+                    req.done = True
+                    self.slots[i] = req
+                    continue
+                if req.share is None:
+                    self.slots[i] = req
+                    self._slot_sampling_set(i, req)
+                    deferred.append((i, req, t))
+                    continue
+                if req.share.cache is None:  # the first of the fork group
+                    req.share.logits, req.share.cache, req.share.t, _ = self._prefill(seq, bucket)
+                logits, slot_cache, t = req.share.logits, req.share.cache, req.share.t
+                cache_set_slot(self.cache, slot_cache, i)
+                self.slots[i] = req
+                self._slot_sampling_set(i, req)
+                self.n_past[i] = t
+                if logits is not None:
+                    self._emit_first(req, i, logits)
+                else:
+                    # bucket padding wrote junk past t: re-decode the true
+                    # last token for position-exact logits
+                    self.n_past[i] = t - 1
+                    self.cur_tok[i] = int(seq[-1])
+        self._prefill_groups(deferred, bucket)
+
+    def _prefill_groups(self, admitted, bucket: int):
+        groups: dict[int, list] = {}
+        for item in admitted:
+            groups.setdefault(self._bucket(item[2], bucket), []).append(item)
+        for tb in sorted(groups):
+            self._prefill_into_slots(groups[tb], tb)
+
+    def _prefill_into_slots(self, group, tb: int):
+        """ONE (max_batch, tb) prefill admits every request of `group` [(slot,
+        req, t)] over a fresh multi-slot cache of tb rows (rows the engine
+        cache has at [0, tb)), then copies the group's rows into its slots
+        in place.  Rows past the group are dropped explicitly (JAX drops them
+        through out-of-range scatter indices; a PyTorch index past the end
+        would raise).  The head is not run: the prefill's logits are never
+        read (XLA drops them from the JAX program).  Nothing is read on the
+        host, so admission rides inside a pipelined stretch."""
+        B = self.max_batch
+        toks = np.zeros((B, tb), np.int64)
+        for r, (i, req, t) in enumerate(group):
+            toks[r, :t] = req.seq
+        slot_cache = self._make_cache(B, tb)
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        idx = self._to_device([i for i, _, _ in group])
+        n = len(group)
+        with torch.no_grad(), self._span("prefill"):
+            self._fwd(self.model.params, self.cfg, self._to_device(toks), zero.expand(B), slot_cache, zero,
+                      prefill=True, need_logits=False)
+            for big, small in zip(self.cache, slot_cache):
+                for b, s in zip(big, small):
+                    b[:, :, :tb].index_copy_(0, idx, s[:n])
+        self.prefill_count += n
+        for i, req, t in group:
+            # re-decode the true last token for position-exact logits (its
+            # row is rewritten identically): the first token comes from the
+            # batched step, and admission never reads the card
+            self.n_past[i] = t - 1
+            self.cur_tok[i] = int(req.seq[-1])
+
+    def _tick(self):
+        """One tick (h steps) from the host state, read back at once: the
+        path of direct _admit/_tick use (the server's loop, the tests)."""
+        active = np.array([s is not None and not s.done for s in self.slots])
+        if not active.any():
+            return
+        self._load_state(active, self._slot_budget())
+        self._consume_scan_outs(self._fetch(self._dispatch(bool(self._any_slot_sampling))))

@@ -192,8 +192,10 @@ def test_generate_and_limits(models):
     logits, _ = gptj.forward(tm.params, flash, toks, zero.expand(1), tm.new_cache(torch.float32), zero,
                              prefill=True)
     assert logits.shape == (1, 4, CFG["n_vocab"]) and bool(torch.isfinite(logits).all())
-    with pytest.raises(NotImplementedError):  # per-slot cache positions: batched serving, a later slice
-        gptj.forward(tm.params, tm.cfg, toks, zero.expand(1), tm.new_cache(torch.float32), zero.expand(1))
+    # per-slot cache positions (batched serving): a (b,) cache_len gives the 0-d position's logits bit for bit
+    per_row, _ = gptj.forward(tm.params, tm.cfg, toks, zero.expand(1), tm.new_cache(torch.float32), zero.expand(1))
+    shared, _ = gptj.forward(tm.params, tm.cfg, toks, zero.expand(1), tm.new_cache(torch.float32), zero)
+    assert torch.equal(per_row, shared)
 
 
 def test_gelu_fp16_logits_match_jax(models):
