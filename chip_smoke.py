@@ -10,7 +10,8 @@
     python3 chip_smoke.py --qlora                 # phases 1, 2, the GGUF writer and QLoRA fine-tuning (4j) only
     python3 chip_smoke.py --iquants               # phases 1, 2 and GPT-J-6B from IQ4_XS, IQ1_M, TQ2_0 files (4k) only
     python3 chip_smoke.py --llama                 # phases 1, 2 and Llama-3-8B from a Q4_K GGUF file (4l) only
-    python3 chip_smoke.py --serve                 # phases 1, 2 and serving (4m: the Engine, the HTTP server) only
+    python3 chip_smoke.py --serve                 # phases 1, 2 and serving (4m: the Engine, the HTTP server; 4n: the
+                                                  # paged, chunked and q8 KV engines) only
 
 Phases (any failure exits non-zero without the result line):
 1. the card, as nvidia-smi reports its name and power limit;
@@ -86,7 +87,16 @@ Phases (any failure exits non-zero without the result line):
    slots at max_seq 2048 with per-request temperature 0 and 0.8 and a
    1100-token prompt through J at b = 4, exact B, H, F, C and J launches,
    and the HTTP server (cli/server.py) in process answering concurrent
-   plain and streamed requests;
+   plain and streamed requests; (n) serving at long prompts and over pages
+   on 4a's planes: bench.py's serve_long mix through a chunked engine
+   (chunks of 256: C at M = 2048, no head), serve_paged's mix through a
+   paged engine with the prefix cache (its stretches as CUDA graph
+   replays), exact launches, tok/s, ms a step and the idle share, each
+   request alone equal to itself in the mix, published pages bit for bit,
+   paged against dense, eviction under page pressure with host snapshots;
+   the q8 KV cache on bench_serve's mix (its codes against the plain
+   quantizer); then 4l's Llama-3-8B through a paged and a chunked engine at
+   4 slots;
 5. one JSON line listing every kernel, then the result line.
 
 Runs only where torch.cuda.is_available(); it imports nothing of JAX.
@@ -520,6 +530,9 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
     gemv_case("q4_gemv", 4, *l_down, fmt="q4_k_expanded")
     gemv_case("q8_gemv_sb", 4, *l_head, fmt="q6_k")
     gemv_case("q4k_matmul", 4480, *l_ffn, d_dtype=torch.float32)
+    # chunked serving (phase 4n): GPT-J's (8, 256) chunk dispatch takes C at M = 2048
+    for shape in (qkvup, attn_out, ffn_down):
+        gemv_case("q4k_matmul", 2048, *shape)
 
     def flash_case(b, h, h_kv, nq, nkv, d, types, causal=True, max_bias=0.0, softcap=0.0, time_it=True,
                    dead_row=None):
@@ -2343,6 +2356,8 @@ def phase_llama(torch, np, tmp: str, card: str, serve: bool = False) -> dict:
     if serve:
         stage("4m. serving: Llama-3-8B (the same model), 4 slots, and the HTTP server")
         out["serve"] = phase_serve_llama(torch, np, model, path, tokens, merges, card)
+        stage("4n. serving: Llama-3-8B (the same model), 4 slots, paged and chunked engines")
+        out["serve_paged_chunked"] = phase_serve_llama_paged(torch, np, model, card)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2367,12 +2382,17 @@ LLAMA_STEP_LAUNCHES = {"q4k_gemv_rows": 192, "q4_gemv": 32, "q8_gemv_sb": 1}
 
 
 def _engine_delta(eng, before: dict) -> dict:
-    return {k: getattr(eng, k) - v for k, v in before.items()}
+    return {k: v - before[k] for k, v in _engine_marks(eng).items()}
 
 
 def _engine_marks(eng) -> dict:
-    return dict(decode_steps=eng.decode_steps, replays=eng.replays, captures=eng.captures,
-                prefill_count=eng.prefill_count)
+    marks = dict(decode_steps=eng.decode_steps, replays=eng.replays, captures=eng.captures,
+                 prefill_count=eng.prefill_count, chunk_dispatches=eng.chunk_dispatches,
+                 cached_prefix_tokens=eng.cached_prefix_tokens)
+    if eng.paged is not None:
+        scan = eng._paged_scan
+        marks.update(paged_replays=scan.replays, paged_steps=scan.steps, paged_captures=scan.captures)
+    return marks
 
 
 def _prefill_spans(eng) -> int:
@@ -2688,6 +2708,449 @@ def phase_serve_llama(torch, np, model, path: str, tokens: list, merges: list, c
     return out
 
 
+# 4n: serving at long prompts and over pages: bench.py's serve_long
+# (:970-1027: GPT-J-6B Q4_K, 8 slots, max_seq 1152, chunks of 256, 16
+# prompts of 256-1024 tokens from seed 0 x 64 new) and serve_paged
+# (:1029-1088: pages of 64, max_seq 1024, 8 x 16 + 8 pages, the prefix
+# cache; 16 requests, the even ones a shared 256-token prefix plus 8-64
+# tokens, the odd ones 64-256 tokens, x 32 new), both after two warm passes;
+# the q8 KV cache on bench_serve's mix; Llama-3-8B's paged and chunked engines
+LONG_SLOTS, LONG_SEQ, LONG_CHUNK, LONG_NEW, LONG_LENS = 8, 1152, 256, 64, (256, 1025)
+PAGED_SEQ, PAGE, PAGED_NEW, PAGED_SHARED, PRESSURE_PAGES = 1024, 64, 32, 256, 24
+PAGED_TAILS = ((8, 64), (64, 256))  # the even requests' tokens after the shared prefix, the odd ones' tokens
+LLAMA_TAILS, LLAMA_OTHER = (20, 40, 9, 33), 100  # 4n (c): tokens after the shared prefix; one unshared prompt
+
+
+class _Forwards:
+    """Records each family forward an engine runs outside its graphs (the
+    prefills, chunk dispatches and suffix prefills) as (rows M, head run)."""
+
+    def __init__(self, eng):
+        self.eng, self.fwd, self.calls = eng, eng._fwd, []
+        eng._fwd = self
+
+    def __call__(self, params, cfg, tokens, *args, need_logits=True, **kw):
+        self.calls.append((tokens.shape[0] * tokens.shape[1], need_logits))
+        return self.fwd(params, cfg, tokens, *args, need_logits=need_logits, **kw)
+
+    def close(self):
+        self.eng._fwd = self.fwd
+
+
+def planar_launches(params: dict, m: int, head: bool, times: int = 1, into: dict | None = None) -> dict:
+    """The launches of `times` forwards at M rows by wrapper: every planar
+    linear's kernel at M (qmatmul.select_kernel, as planar_matmul picks it),
+    the head only where it runs."""
+    from ggml_tpu_torch.kernels import qmatmul
+    from ggml_tpu_torch.quant.planar import PlanarWeight
+
+    out = {} if into is None else into
+    for key, w in params.items():
+        if isinstance(w, PlanarWeight) and key != "token_embd.weight" and (head or key != "output.weight"):
+            name = qmatmul.select_kernel(w, m)
+            out[name] = out.get(name, 0) + times
+    return out
+
+
+def timed_mix(torch, eng, prompts, n_new: int, bucket: int = SERVE_BUCKET) -> dict:
+    """One pass of a mix through an engine: every request submitted, then
+    run() timed on the host clock ending in a sync, with the launch counts,
+    the engine's counters and event spans, and the forwards run outside a
+    graph.  The exact launches: those forwards' planar linears plus each
+    decode step's (all linears at M = max_batch)."""
+    reset_launches()
+    marks = _engine_marks(eng)
+    rec = _Forwards(eng)
+    rids = [eng.submit(p, n_new) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        res = eng.run(bucket=bucket)
+        torch.cuda.synchronize()
+    finally:
+        rec.close()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in launch_counts().items() if v}
+    delta = _engine_delta(eng, marks)
+    want = planar_launches(eng.model.params, eng.max_batch, True, delta["decode_steps"])
+    for m, head in rec.calls:
+        planar_launches(eng.model.params, m, head, into=want)
+    ids = [res[r] for r in rids]
+    ev = eng.event_ms()
+    busy = sum(ev.values())
+    check(counts == {k: v for k, v in want.items() if v} and delta["captures"] == 0
+          and delta.get("paged_captures", 0) == 0, f"launches {counts}, want {want}; {delta}")
+    check(all(len(x) == n_new for x in ids), f"lengths {[len(x) for x in ids]}")
+    tokens = sum(len(x) for x in ids)
+    return dict(ids=ids, wall_s=wall, tokens=tokens, tok_per_s=tokens / wall, counts=counts, engine=delta,
+                event_ms=ev, idle_share=1 - busy / (wall * 1e3), forwards=len(rec.calls))
+
+
+def profile_device(torch, fn) -> dict:
+    """fn() once under torch.profiler after a sync: host ms, device busy ms
+    and busy ms by class (B: the GEMV pipeline; C with its group sums; GEMM:
+    cuBLAS, the f32 attention products; the rest: gathers, copies, casts,
+    softmax, norms, GELU, RoPE, cache writes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+    by = {"B": 0.0, "C": 0.0, "GEMM": 0.0, "other": 0.0}
+    for e in _device_events(prof):
+        key = e.key
+        if re.fullmatch(r"(gptj|llama)\.attention|planar_matmul\..*", key):
+            continue  # a record_function range: a device event spanning its kernels and the gaps between them
+        library = any(t in key.lower() for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas"))
+        cls = ("B" if "gemv_sm90_kernel" in key else "C" if ("q4k_matmul_kernel" in key or "qmatmul_xsum" in key)
+               else "GEMM" if library else "other")
+        by[cls] += e.self_device_time_total / 1e3
+    busy = sum(by.values())
+    return dict(host_ms=host, busy_ms=busy, by_class_ms=by, idle_share=1 - busy / host)
+
+
+def _run_ids(eng, prompts, n_new: int, bucket: int = SERVE_BUCKET) -> list:
+    rids = [eng.submit(p, n_new) for p in prompts]
+    res = eng.run(bucket=bucket)
+    return [res[r] for r in rids]
+
+
+def phase_serve_long(torch, np, params: dict, card: str) -> dict:
+    """4n (a): serve_long's mix through a chunked engine over 4a's planes:
+    each (8, 256) chunk dispatch C at M = 2048 (84 launches, no head), each
+    step B at M = 8 (85); tok/s, the device ms of the chunk dispatches and
+    the ticks, the idle share; every request equal to itself alone through
+    the same engine (the engine's invariant); 4 against the unchunked
+    bucketed engine, counted (C sees other M there: not gated)."""
+    import gc
+
+    from ggml_tpu_torch.models import gptj
+    from ggml_tpu_torch.serve import Engine
+
+    cfg = gptj.random_config("6b")
+    model = gptj.GPTJ(params, cfg, max_seq=LONG_SEQ, device="cuda")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(*LONG_LENS, 2 * LONG_SLOTS)
+    prompts = [rng.integers(0, cfg.n_vocab, int(n)).tolist() for n in lens]
+    eng = Engine(model, max_batch=LONG_SLOTS, max_seq=LONG_SEQ, cache_dtype=torch.bfloat16,
+                 prefill_chunk=LONG_CHUNK, record_events=True)
+    t0 = time.perf_counter()
+    for _ in range(2):  # warm passes: the capture, first-use allocations
+        _run_ids(eng, prompts, LONG_NEW)
+    torch.cuda.synchronize()
+    eng.event_ms()
+    out = dict(warm_s=time.perf_counter() - t0, prompt_tokens=int(lens.sum()))
+    out.update(timed_mix(torch, eng, prompts, LONG_NEW))
+    ev, delta = out["event_ms"], out["engine"]
+    out.update(chunk_ms=ev.get("chunk", 0.0), tick_ms=ev.get("tick", 0.0), install_ms=ev.get("prefill", 0.0),
+               ms_per_chunk_dispatch=ev.get("chunk", 0.0) / max(1, delta["chunk_dispatches"]),
+               ms_per_step=ev.get("tick", 0.0) / max(1, delta["decode_steps"]))
+    check(delta["chunk_dispatches"] > 0 and delta["prefill_count"] == len(prompts), f"serve_long: {delta}")
+    print(f"  serve_long, GPT-J-6B Q4_K, {LONG_SLOTS} slots, max_seq {LONG_SEQ}, chunks of {LONG_CHUNK} ({card}): "
+          f"{len(prompts)} prompts ({out['prompt_tokens']} tokens) x {LONG_NEW}: {out['tokens']} tokens in "
+          f"{out['wall_s'] * 1e3:.1f} ms, {out['tok_per_s']:.1f} tok/s; {delta['chunk_dispatches']} chunk dispatches "
+          f"{out['chunk_ms']:.1f} ms ({out['ms_per_chunk_dispatch']:.2f} each), {delta['decode_steps']} steps "
+          f"{out['tick_ms']:.1f} ms ({out['ms_per_step']:.3f} a step), installs {out['install_ms']:.1f} ms, idle "
+          f"{out['idle_share'] * 100:.1f} %; launches {out['counts']}; warm passes {out['warm_s']:.1f}s")
+    t0 = time.perf_counter()
+    for p, got in zip(prompts, out["ids"]):
+        alone = _run_ids(eng, [p], LONG_NEW)[0]
+        check(alone == got, f"serve_long: prompt of {len(p)} alone {alone[:8]}... in the mix {got[:8]}...")
+    out["alone_s"] = time.perf_counter() - t0
+    toks = torch.as_tensor(np.asarray([p[:LONG_CHUNK] for p in prompts[:LONG_SLOTS]]), device=eng.device)
+    pos = torch.full((), LONG_CHUNK, dtype=torch.int32, device=eng.device)
+    out["chunk_profile"] = profile_device(torch, lambda: eng._fwd(
+        model.params, cfg, toks, pos.expand(LONG_SLOTS), eng._chunk_cache, pos, need_logits=False))
+    prof = out["chunk_profile"]
+    print(f"  one ({LONG_SLOTS}, {LONG_CHUNK}) chunk dispatch profiled: host {prof['host_ms']:.1f} ms, device busy "
+          f"{prof['busy_ms']:.1f} ms: " + ", ".join(f"{k} {v:.1f}" for k, v in prof["by_class_ms"].items()))
+    ids = out.pop("ids")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = Engine(model, max_batch=LONG_SLOTS, max_seq=LONG_SEQ, cache_dtype=torch.bfloat16)
+    unchunked = _run_ids(base, prompts[:4], LONG_NEW)
+    out["equal_to_unchunked"] = sum(a == b for a, b in zip(unchunked, ids[:4]))
+    print(f"  each request alone through the chunked engine: the same ids ({out['alone_s']:.1f}s); "
+          f"{out['equal_to_unchunked']} of 4 equal to the unchunked bucketed engine's (not gated)")
+    del base, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_paged(torch, np, params: dict, card: str) -> dict:
+    """4n (b): serve_paged's mix through a paged engine with the prefix
+    cache over 4a's planes: tok/s, ms a paged step (events around each
+    stretch's graph replay), the idle share, the prefix-cache hits, exact
+    launches (each prefill's and suffix prefill's linears at its M, B at M
+    = 8 a step) and the stretch captures (one per h).  Checks: the pages a
+    hit attaches hold, bit for bit, the rows of the prefill that published
+    them; every request equals itself on a second hit pass; the first paged
+    step's logits against the dense forward over the same admitted rows
+    (NMSE <= 1e-5), the dense engine's ids counted; and a pool too small for
+    the mix evicts (snapshots and resumes) with every request finishing
+    with the ids of its unevicted run, one prefill a request."""
+    import gc
+
+    from ggml_tpu_torch.models import gptj
+    from ggml_tpu_torch.paged_kv import PagedConfig, paged_gather
+    from ggml_tpu_torch.serve import Engine
+
+    cfg = gptj.random_config("6b")
+    model = gptj.GPTJ(params, cfg, max_seq=PAGED_SEQ, device="cuda")
+    per_seq = PAGED_SEQ // PAGE
+    pcfg = PagedConfig(n_pages=LONG_SLOTS * per_seq + 8, page_size=PAGE, max_pages_per_seq=per_seq,
+                       prefix_cache=True)
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.n_vocab, PAGED_SHARED).tolist()
+    prompts = [shared + rng.integers(0, cfg.n_vocab, int(rng.integers(*PAGED_TAILS[0]))).tolist() if i % 2 == 0
+               else rng.integers(0, cfg.n_vocab, int(rng.integers(*PAGED_TAILS[1]))).tolist()
+               for i in range(2 * LONG_SLOTS)]
+    eng = Engine(model, max_batch=LONG_SLOTS, max_seq=PAGED_SEQ, cache_dtype=torch.bfloat16, paged=pcfg,
+                 record_events=True)
+    t0 = time.perf_counter()
+    warm = [_run_ids(eng, prompts, PAGED_NEW) for _ in range(2)]  # pass 1 publishes, pass 2 hits
+    torch.cuda.synchronize()
+    eng.event_ms()
+    out = dict(warm_s=time.perf_counter() - t0)
+    eng.cached_prefix_tokens = 0
+    out.update(timed_mix(torch, eng, prompts, PAGED_NEW))
+    ev, delta = out["event_ms"], out["engine"]
+    scan = eng._paged_scan
+    out.update(paged_ms=ev.get("paged", 0.0), prefill_ms=ev.get("prefill", 0.0),
+               ms_per_paged_step=ev.get("paged", 0.0) / max(1, delta["paged_steps"]),
+               hits_tokens=delta["cached_prefix_tokens"], stretch_captures=scan.captures,
+               stretch_horizons=sorted(scan.graphs), eager_steps=delta["decode_steps"] - delta["paged_steps"])
+    # every even request attaches the shared prefix; a prompt seen in a warm
+    # pass also attaches its own published pages
+    check(delta["cached_prefix_tokens"] >= PAGED_SHARED * LONG_SLOTS, f"serve_paged: hits {delta}")
+    check(scan.captures == len(scan.graphs) and delta["paged_replays"] > 0, f"serve_paged: {delta}")
+    out["equal_to_hit_pass"] = out["ids"] == warm[1]
+    out["equal_to_publishing_pass"] = sum(a == b for a, b in zip(out["ids"], warm[0]))
+    check(out["equal_to_hit_pass"], "serve_paged: a hit pass's ids differ from the next one's")
+    print(f"  serve_paged, GPT-J-6B Q4_K, {LONG_SLOTS} slots, pages of {PAGE}, {pcfg.n_pages} pages ({card}): "
+          f"{len(prompts)} requests x {PAGED_NEW}: {out['tokens']} tokens in {out['wall_s'] * 1e3:.1f} ms, "
+          f"{out['tok_per_s']:.1f} tok/s; {delta['paged_steps']} steps in {delta['paged_replays']} stretch replays "
+          f"{out['paged_ms']:.1f} ms ({out['ms_per_paged_step']:.3f} a step), {out['eager_steps']} eager steps, "
+          f"{delta['prefill_count']} prefills {out['prefill_ms']:.1f} ms, idle {out['idle_share'] * 100:.1f} %; "
+          f"prefix hits {out['hits_tokens']} tokens; {scan.captures} stretch captures (h = {out['stretch_horizons']});"
+          f" launches {out['counts']}; the same ids as the last hit pass, {out['equal_to_publishing_pass']} of "
+          f"{len(prompts)} as the publishing pass")
+
+    # the published pages of the shared prefix against the publisher's prefill rows
+    pages = eng.mgr.match_prefix(prompts[0])[:PAGED_SHARED // PAGE]
+    check(len(pages) == PAGED_SHARED // PAGE, f"serve_paged: {len(pages)} published pages")
+    with torch.no_grad():
+        _, slot_cache, _, _ = eng._prefill(prompts[0], SERVE_BUCKET)
+    idx = torch.tensor(pages, device=eng.device)
+    out["published_pages_bit_exact"] = all(
+        torch.equal(paged_gather(pool, idx), buf[0, :, :PAGED_SHARED]) for layer, rows in zip(eng.mgr.pools, slot_cache)
+        for pool, buf in zip(layer, rows))
+    check(out["published_pages_bit_exact"], "serve_paged: published pages differ from the publisher's prefill rows")
+    del slot_cache
+
+    # the first paged step against the dense forward over the same admitted rows
+    for p in prompts[:LONG_SLOTS]:
+        eng.submit(p, 1)
+    eng._admit(SERVE_BUCKET)
+    mgr = eng.mgr
+    active = np.array([s is not None for s in eng.slots])
+    dev = lambda a, dt=torch.long: torch.as_tensor(np.asarray(a)).to(eng.device, dt)
+    wpage, woff = mgr.step_coords(active)
+    tables, n_past, tok = dev(mgr.tables), dev(mgr.lengths), dev(eng.cur_tok.reshape(-1, 1))
+    with torch.no_grad():
+        dense = [(paged_gather(kp, tables), paged_gather(vp, tables)) for kp, vp in mgr.pools]
+        want = gptj.forward(model.params, cfg, tok, n_past, dense, n_past)[0][:, -1].float()
+    del dense
+    step = []
+    out["step_profile"] = profile_device(torch, lambda: step.append(eng._paged_step(
+        model.params, mgr.pools, tok, n_past, tables, dev(wpage), dev(woff), dev(active, torch.bool))[0].float()))
+    got = step[0]
+    prof = out["step_profile"]
+    print(f"  one paged step profiled (eager): host {prof['host_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in prof["by_class_ms"].items()))
+    out["paged_vs_dense_first_step_nmse"] = errors(want, got)[0]
+    check(out["paged_vs_dense_first_step_nmse"] <= 1e-5, f"serve_paged: paged against dense {out}")
+    for i in range(eng.max_batch):
+        eng.slots[i] = None
+        mgr.release(i)
+    ids = out.pop("ids")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_eng = Engine(model, max_batch=LONG_SLOTS, max_seq=PAGED_SEQ, cache_dtype=torch.bfloat16)
+    out["equal_to_dense_engine"] = sum(a == b for a, b in zip(_run_ids(dense_eng, prompts, PAGED_NEW), ids))
+    del dense_eng
+    gc.collect()
+    print(f"  published pages equal the publisher's prefill rows bit for bit; first paged step against the dense "
+          f"forward over the same rows NMSE {out['paged_vs_dense_first_step_nmse']:.2e}; {out['equal_to_dense_engine']}"
+          f" of {len(prompts)} requests equal to the dense engine's ids (not gated: batched prefills at other M)")
+
+    # page pressure: a pool of 24 pages for a mix whose 8 slots hold up to 48
+    plain = dict(max_batch=LONG_SLOTS, max_seq=PAGED_SEQ, cache_dtype=torch.bfloat16)
+    ref = Engine(model, paged=PagedConfig(pcfg.n_pages, PAGE, per_seq), **plain)
+    want_ids = _run_ids(ref, prompts, PAGED_NEW)
+    del ref
+    small = Engine(model, paged=PagedConfig(PRESSURE_PAGES, PAGE, per_seq), **plain)
+    evicted = []
+    evict = small._evict
+    small._evict = lambda i, req: evicted.append(req.rid) or evict(i, req)
+    t0 = time.perf_counter()
+    got_ids = _run_ids(small, prompts, PAGED_NEW)
+    out["pressure"] = dict(evictions=len(evicted), requests_evicted=len(set(evicted)), wall_s=time.perf_counter() - t0,
+                           prefills=small.prefill_count, free_pages=small.mgr.free_pages())
+    check(got_ids == want_ids and len(evicted) > 0 and small.prefill_count == len(prompts)
+          and small.mgr.free_pages() == PRESSURE_PAGES, f"serve_paged under page pressure: {out['pressure']}")
+    print(f"  {PRESSURE_PAGES} pages under pressure: {len(evicted)} evictions of {len(set(evicted))} requests (host "
+          f"snapshots, resumed), every request finished with the ids of its unevicted run, one prefill each "
+          f"({out['pressure']['wall_s']:.1f}s)")
+    del small, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_q8(torch, np, params: dict, card: str) -> dict:
+    """4n (d): the q8 KV cache on bench_serve's mix through GPT-J-6B at 8
+    slots: the KV bytes against bf16's, tok/s with exact launches, one
+    layer's codes and scales on the card against the plain quantizer on the
+    host over the same bf16 rows (the bf16 engine's, admitted at the same
+    M), the ids against the bf16 cache's counted (another result by design:
+    not gated)."""
+    import gc
+
+    from ggml_tpu_torch.models import common, gptj
+    from ggml_tpu_torch.serve import Engine
+
+    cfg = gptj.random_config("6b")
+    model = gptj.GPTJ(params, cfg, max_seq=256, device="cuda")
+    rng = np.random.default_rng(0)
+    warm = rng.integers(0, cfg.n_vocab, 16).tolist()
+    prompts = [rng.integers(0, cfg.n_vocab, int(rng.integers(4, 30))).tolist() for _ in range(SERVE_REQUESTS)]
+    engines = {}
+    for dt in ("q8_kv", torch.bfloat16):
+        e = engines[str(dt)] = Engine(model, max_batch=SERVE_SLOTS, max_seq=256, cache_dtype=dt, record_events=True)
+        _run_ids(e, [warm], 2)
+        e.event_ms()
+    q8, bf = engines["q8_kv"], engines["torch.bfloat16"]
+    kv_bytes = sum(c.nbytes for layer in q8.cache for c in layer)
+    bf_bytes = sum(c.nbytes for layer in bf.cache for c in layer)
+    # one layer's codes and scales against the plain quantizer over the bf16 rows
+    for e in (q8, bf):
+        e.submit(prompts[0], 1)
+        e._admit(SERVE_BUCKET)
+    t = len(prompts[0])
+    rows = bf.cache[0][0][0, :, :t].cpu()
+    codes, scales = common._quantize_rows(rows)
+    got_c, got_s = q8.cache[0][0].codes[0, :, :t].cpu(), q8.cache[0][0].scales[0, :, :t].cpu()
+    diff = (got_c.to(torch.int16) - codes.to(torch.int16)).abs()
+    rel = float(((got_s - scales).abs() / scales.clamp(min=1e-30)).max())
+    out = dict(kv_bytes=kv_bytes, bf16_kv_bytes=bf_bytes, kv_ratio=kv_bytes / bf_bytes, codes_off=int((diff > 0).sum()),
+               codes_max_diff=int(diff.max()), scales_max_rel=rel)
+    check(int(diff.max()) <= 1 and rel <= 1e-7, f"q8 KV: codes and scales against the plain quantizer {out}")
+    for e in (q8, bf):
+        e.cancel(e.slots[0].rid)
+        e.slots = [None] * e.max_batch
+        e.event_ms()  # that admission's span is not the mix's
+    # the first step's logits, q8 against bf16 over the same prompt (each
+    # engine's own cache), over 28 layers and over one: not gated
+    one = gptj.GPTJ(params, dataclasses.replace(cfg, n_layer=1), max_seq=256, device="cuda")
+    out["first_step_q8_vs_bf16_nmse"] = {}
+    for label, m in (("28 layers", model), ("1 layer", one)):
+        e8 = q8 if m is model else Engine(m, max_batch=SERVE_SLOTS, max_seq=256, cache_dtype="q8_kv")
+        e16 = bf if m is model else Engine(m, max_batch=SERVE_SLOTS, max_seq=256, cache_dtype=torch.bfloat16)
+        a, b = (_first_step_logits(torch, np, e, prompts[0], SERVE_BUCKET) for e in (e16, e8))
+        out["first_step_q8_vs_bf16_nmse"][label] = errors(a, b)[0]
+        for e in (e8, e16):
+            e.event_ms()
+    del one
+    out.update(timed_mix(torch, q8, prompts, SERVE_NEW))
+    ev, delta = out["event_ms"], out["engine"]
+    out["ms_per_step"] = ev.get("tick", 0.0) / max(1, delta["decode_steps"])
+    bf_ids = _run_ids(bf, prompts, SERVE_NEW)
+    out["equal_to_bf16"] = sum(a == b for a, b in zip(out.pop("ids"), bf_ids))
+    print(f"  q8 KV cache, GPT-J-6B Q4_K, {SERVE_SLOTS} slots, bench_serve's mix ({card}): KV {kv_bytes / 1e9:.3f} GB "
+          f"against bf16's {bf_bytes / 1e9:.3f} ({out['kv_ratio']:.3f}x); {out['tokens']} tokens in "
+          f"{out['wall_s'] * 1e3:.1f} ms, {out['tok_per_s']:.1f} tok/s, {out['ms_per_step']:.3f} ms a step, idle "
+          f"{out['idle_share'] * 100:.1f} %; layer 0's codes against the plain quantizer: {out['codes_off']} off by "
+          f"{out['codes_max_diff']}, scales within {rel:.1e}; {out['equal_to_bf16']} of {SERVE_REQUESTS} requests "
+          f"give the bf16 cache's ids (not gated); first step's logits against bf16's NMSE "
+          f"{out['first_step_q8_vs_bf16_nmse']}; launches {out['counts']}")
+    del q8, bf, engines, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_4n(torch, np, params: dict, card: str) -> dict:
+    """4n's GPT-J-6B parts over 4a's planes: serve_long, serve_paged, the q8
+    KV cache."""
+    stage("4n. serving: serve_long's mix, GPT-J-6B Q4_K, 8 slots, chunked prefill (chunks of 256)")
+    out = dict(serve_long=phase_serve_long(torch, np, params, card))
+    stage("4n. serving: serve_paged's mix, GPT-J-6B Q4_K, 8 slots, paged KV (pages of 64) with the prefix cache")
+    out["serve_paged"] = phase_serve_paged(torch, np, params, card)
+    stage("4n. serving: the q8 KV cache on bench_serve's mix, GPT-J-6B Q4_K, 8 slots")
+    out["serve_q8"] = phase_serve_q8(torch, np, params, card)
+    return out
+
+
+def phase_serve_llama_paged(torch, np, model, card: str) -> dict:
+    """4n (c): Llama-3-8B (4l's model) at 4 slots through a paged engine
+    (pages of 64, max_seq 1024, the prefix cache) and a chunked engine
+    (chunks of 256): four requests sharing a 256-token prefix and one of 100
+    tokens x 16 new, a warm pass each, then a timed pass with exact launches
+    (a paged step: B on 192 linears at M = 4, H on 32 ffn_down, F on the
+    head) and ms a step beside 4m's dense engine."""
+    import gc
+
+    from ggml_tpu_torch.paged_kv import PagedConfig
+    from ggml_tpu_torch.serve import Engine
+
+    cfg = model.cfg
+    rng = np.random.default_rng(2)
+    shared = rng.integers(0, cfg.n_vocab, PAGED_SHARED).tolist()
+    prompts = [shared + rng.integers(0, cfg.n_vocab, n).tolist() for n in LLAMA_TAILS]
+    prompts.append(rng.integers(0, cfg.n_vocab, LLAMA_OTHER).tolist())
+    per_seq = PAGED_SEQ // PAGE
+    n_new = 16
+    out = {}
+    counts: dict = {}
+    kinds = (("paged", dict(paged=PagedConfig(4 * per_seq + per_seq, PAGE, per_seq, prefix_cache=True))),
+             ("chunked", dict(prefill_chunk=LONG_CHUNK)))
+    for label, kw in kinds:
+        eng = Engine(model, max_batch=4, max_seq=PAGED_SEQ, cache_dtype=torch.bfloat16, record_events=True, **kw)
+        _run_ids(eng, prompts, n_new)
+        torch.cuda.synchronize()
+        eng.event_ms()
+        eng.cached_prefix_tokens = 0
+        run = timed_mix(torch, eng, prompts, n_new)
+        ev, delta = run["event_ms"], run["engine"]
+        span, steps = (("paged", delta["paged_steps"]) if label == "paged" else ("tick", delta["decode_steps"]))
+        run["ms_per_step"] = ev.get(span, 0.0) / max(1, steps)
+        if label == "paged":
+            check(delta["cached_prefix_tokens"] >= PAGED_SHARED * 4, f"Llama paged: hits {delta}")
+        for k, v in run["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+        out[label] = run
+        print(f"  Llama-3-8B {label}, 4 slots ({card}): {run['tokens']} tokens in {run['wall_s'] * 1e3:.1f} ms, "
+              f"{run['tok_per_s']:.1f} tok/s, {run['ms_per_step']:.3f} ms a step on the card (4m's dense engine: "
+              f"12.54-12.56), idle {run['idle_share'] * 100:.1f} %; prefix hits {delta['cached_prefix_tokens']}; "
+              f"launches {run['counts']}")
+        del eng
+        gc.collect()
+    out["paged_equal_chunked"] = sum(a == b for a, b in zip(out["paged"].pop("ids"), out["chunked"].pop("ids")))
+    out["counts"] = counts
+    print(f"  {out['paged_equal_chunked']} of {len(prompts)} requests give the same ids through both engines "
+          "(not gated: suffix prefills and chunks take C and B at other M)")
+    torch.cuda.empty_cache()
+    return out
+
+
 def flash_times(torch, flash_attn) -> dict:
     """Kernel J's device time (µs) at GPT-J's 1024-token prefill, f32 q/k
     with a bf16 v and all bf16 (each call computes its mask ranges), then its
@@ -2892,6 +3355,7 @@ def main() -> int:
             params = gptj.synth_quantized_params(gptj.random_config("6b"), GGMLType.Q4_K, seed=0,
                                                  dtype=torch.bfloat16, device="cuda")
             served = dict(gptj=phase_serve_gptj(torch, np, params, card))
+            served.update(phase_serve_4n(torch, np, params, card))
             del params
             torch.cuda.empty_cache()
             stage("4m. serving: Llama-3-8B from a Q4_K GGUF file (Q6_K head), 4 slots, and the HTTP server")
@@ -2902,6 +3366,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 print(f"  loaded as planes in {time.perf_counter() - t0:.1f}s")
                 served["llama"] = phase_serve_llama(torch, np, model, path, tokens, merges, card)
+                stage("4n. serving: Llama-3-8B (the same model), 4 slots, paged and chunked engines")
+                served["llama_paged_chunked"] = phase_serve_llama_paged(torch, np, model, card)
                 del model
             print(json.dumps(dict(card=card, serve=served)))
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2943,6 +3409,7 @@ def main() -> int:
                                long_decode_profile=1088))
         stage("4m. serving: GPT-J-6B Q4_K (the same planes), 8 slots, bench_serve's mix")
         runs.append(phase_serve_gptj(torch, np, params, card))
+        runs += phase_serve_4n(torch, np, params, card).values()
         del params
         torch.cuda.empty_cache()
         stage("4b. GPT-J-6B Q8_0 (synthesized int8 planes), three greedy requests")
@@ -2989,6 +3456,7 @@ def main() -> int:
             stage("4l. Llama-3-8B from a Q4_K GGUF file (Q6_K head)")
             runs.append(phase_llama(torch, np, tmp, card, serve=True))
             runs.append(runs[-1].pop("serve"))
+            runs.append(runs[-2].pop("serve_paged_chunked"))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -3,6 +3,7 @@ ggml_tpu/cli/server.py; the llama.cpp `llama-server` analog), stdlib-only
 (ThreadingHTTPServer + SSE).
 
     python -m ggml_tpu_torch.cli.server model.gguf --port 8080 --max-batch 8 [--quantized] [--device cpu]
+        [--paged [--page-size 16] [--n-pages N]] [--prefix-cache]
 
 Endpoints:
   GET  /health               -> {"status": "ok"}
@@ -86,7 +87,7 @@ class ServerState:
         eng = self.engine
         try:
             if eng.device.type == "cuda":  # the device the cache lives on ("cuda" names no index)
-                torch.cuda.set_device(eng.cache[0][0].device)
+                torch.cuda.set_device((eng.cache or eng.mgr.pools)[0][0].device)
             while not self._stop.is_set():
                 with self._lock:
                     busy = bool(eng.queue) or any(s is not None for s in eng.slots)
@@ -96,6 +97,8 @@ class ServerState:
                         for i, s in enumerate(eng.slots):
                             if s is not None and s.done:
                                 eng.slots[i] = None
+                                if eng.paged is not None:
+                                    eng.mgr.release(i)
                 if not busy:
                     time.sleep(0.005)
         except BaseException as e:  # the handlers waiting on this thread answer 500 with it
@@ -348,23 +351,37 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default=None)
     ap.add_argument("--quantized", action="store_true", help="keep weights packed (the CUDA kernels)")
     ap.add_argument("--embed-model", default=None, help="BERT-family GGUF served at /v1/embeddings (not ported)")
-    ap.add_argument("--paged", action="store_true", help="paged KV cache (not ported)")
-    ap.add_argument("--prefix-cache", action="store_true", help="automatic prefix caching (not ported)")
+    ap.add_argument("--paged", action="store_true", help="paged KV cache")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--n-pages", type=int, default=0, help="page pool size (default: max_batch x max_seq worth)")
+    ap.add_argument("--prefix-cache", action="store_true", help="automatic prefix caching (implies --paged)")
     ap.add_argument("--device", default="cuda")
     return ap
 
 
+def paged_config(args):
+    """The PagedConfig of --paged / --prefix-cache (None without them): pages
+    of --page-size tokens, max_seq worth a sequence, --n-pages or max_batch
+    sequences plus one in the pool."""
+    if not (args.paged or args.prefix_cache):
+        return None
+    from ..paged_kv import PagedConfig
+
+    per_seq = -(-args.max_seq // args.page_size)
+    return PagedConfig(page_size=args.page_size, n_pages=args.n_pages or args.max_batch * per_seq + per_seq,
+                       max_pages_per_seq=per_seq, prefix_cache=args.prefix_cache)
+
+
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.paged or args.prefix_cache:
-        raise NotImplementedError("paged KV and the prefix cache are not ported yet (ROADMAP.md, section 1)")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the port runs on the card (--device cpu runs the plain versions)")
     # dense products sum as the JAX package's do under XLA (as cli.generate sets them)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     state = ServerState(args.model, max_batch=args.max_batch, max_seq=args.max_seq, arch=args.arch,
-                        quantized=args.quantized, embed_model=args.embed_model, device=args.device)
+                        quantized=args.quantized, embed_model=args.embed_model, paged=paged_config(args),
+                        device=args.device)
     httpd = serve(state, args.host, args.port)
     print(f"listening on http://{args.host}:{args.port} (model {state.model_id}, batch {args.max_batch})", flush=True)
     try:

@@ -12,13 +12,90 @@ import torch
 from ..sampling import greedy, sample_top_k_top_p
 
 
+class QuantKV:
+    """The int8-quantized KV cache buffer: codes (B, H, S, D) int8 and one f32
+    scale per (B, H, S) row (B, H, S, 1), the llama.cpp `-ctk q8_0` analog
+    (ggml_tpu/models/common.py QuantKV).  It answers the few tensor calls the
+    forwards and the engine make on a cache buffer (shape, dtype, device,
+    nbytes, slicing the leading three axes, copy_, index_copy_, to) over both
+    leaves; `dtype` is the type rows are cast to before they are quantized
+    (bf16, as in JAX)."""
+
+    def __init__(self, codes: torch.Tensor, scales: torch.Tensor):
+        self.codes = codes
+        self.scales = scales
+
+    @property
+    def shape(self):
+        return self.codes.shape
+
+    @property
+    def dtype(self):
+        return torch.bfloat16
+
+    @property
+    def device(self):
+        return self.codes.device
+
+    @property
+    def nbytes(self) -> int:
+        return self.codes.nbytes + self.scales.nbytes
+
+    def dequant(self) -> torch.Tensor:
+        """The dense bf16 view: codes times scales, both in bf16 (as JAX's)."""
+        return self.codes.to(torch.bfloat16) * self.scales.to(torch.bfloat16)
+
+    def __getitem__(self, idx):
+        return QuantKV(self.codes[idx], self.scales[idx])
+
+    def copy_(self, other: "QuantKV"):
+        self.codes.copy_(other.codes)
+        self.scales.copy_(other.scales)
+        return self
+
+    def index_copy_(self, dim: int, index: torch.Tensor, other: "QuantKV"):
+        self.codes.index_copy_(dim, index, other.codes)
+        self.scales.index_copy_(dim, index, other.scales)
+        return self
+
+    def to(self, *args, **kw) -> "QuantKV":
+        """Moves both leaves (a device argument); their types stay."""
+        return QuantKV(self.codes.to(*args, **kw), self.scales.to(*args, **kw))
+
+
+QUANT_KV_DTYPE = "q8_kv"  # pass as the cache dtype to quantize the KV cache
+
+
+def _quantize_rows(kv: torch.Tensor):
+    """kv (b, h, t, d) -> (int8 codes, (b, h, t, 1) f32 scales): scale =
+    amax / 127, codes round(kv / max(scale, 1e-12)) half to even (JAX's
+    _quantize_rows).  The division is by a tensor: on the card PyTorch turns
+    a division by a number into a multiply by its reciprocal."""
+    kf = kv.float()
+    amax = kf.abs().amax(dim=-1, keepdim=True)
+    scale = amax / torch.full_like(amax, 127.0)
+    codes = torch.round(kf / torch.clamp(scale, min=1e-12)).to(torch.int8)
+    return codes, scale
+
+
+def dequant_cache(c):
+    """The dense view of a cache buffer: a QuantKV as bf16, a tensor as it is."""
+    return c.dequant() if isinstance(c, QuantKV) else c
+
+
 def init_layer_cache(n_layer: int, batch: int, n_kv_head: int, max_seq: int, head_dim: int,
                      dtype=torch.bfloat16, device="cuda") -> list:
     """KV cache as a list of per-layer (k, v) pairs, each (B, H, S, D).
 
     Where the JAX package donates the cache to its jitted step so that XLA
     updates it in place, the port writes the rows in place itself
-    (cache_write); the buffers are allocated once per sequence."""
+    (cache_write); the buffers are allocated once per sequence.
+    dtype=QUANT_KV_DTYPE ("q8_kv") stores int8 codes and per-row scales
+    (QuantKV) in place of a dense buffer."""
+    if dtype == QUANT_KV_DTYPE:
+        mk = lambda: QuantKV(torch.zeros((batch, n_kv_head, max_seq, head_dim), dtype=torch.int8, device=device),
+                             torch.zeros((batch, n_kv_head, max_seq, 1), dtype=torch.float32, device=device))
+        return [(mk(), mk()) for _ in range(n_layer)]
     mk = lambda: torch.zeros((batch, n_kv_head, max_seq, head_dim), dtype=dtype, device=device)
     return [(mk(), mk()) for _ in range(n_layer)]
 
@@ -63,10 +140,17 @@ def cache_write(cache_layer: torch.Tensor, kv: torch.Tensor, cache_len: torch.Te
     position cache_len: 0-d (every sequence of the batch at one position) or
     (b,) (one position per row, the JAX vmapped dynamic_update_slice).  rows:
     cache_rows(cache_len, t, S), which a forward computes once for all its
-    layers.  Nothing is read on the host, so a CUDA graph captures the write."""
+    layers.  Nothing is read on the host, so a CUDA graph captures the write.
+    A QuantKV buffer quantizes the rows (cast to bf16 first, as the JAX
+    forwards cast them to the cache's dtype) and writes codes and scales."""
     if rows is None:
         rows = cache_rows(cache_len, kv.shape[2], cache_layer.shape[2])
     kv = kv.to(cache_layer.dtype)
+    if isinstance(cache_layer, QuantKV):
+        codes, scales = _quantize_rows(kv)
+        cache_write(cache_layer.codes, codes, cache_len, rows)
+        cache_write(cache_layer.scales, scales, cache_len, rows)
+        return
     if rows.dim() == 1:
         cache_layer.index_copy_(2, rows, kv)
     else:

@@ -28,8 +28,8 @@ import torch
 
 from ..dtypes import GGMLType
 from ..gguf import GGUFFile
-from .common import (cache_rows, cache_write, causal_mask, decode_loop, init_layer_cache, layer_norm as _layer_norm,
-                     linear as _linear, make_sampled_decode)
+from .common import (QuantKV, cache_rows, cache_write, causal_mask, decode_loop, dequant_cache, init_layer_cache,
+                     layer_norm as _layer_norm, linear as _linear, make_sampled_decode)
 from .gpt2 import _gelu_fp16
 
 
@@ -185,7 +185,7 @@ def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torc
         v = heads(v).transpose(1, 2)
         kc, vc = cache[i]
 
-        fuse_decode = t == 1 and b == 1 and cache_len.dim() == 0
+        fuse_decode = t == 1 and b == 1 and cache_len.dim() == 0 and not isinstance(kc, QuantKV)
         if fuse_decode:
             # single-token decode: the attention block runs as ONE kernel per
             # layer over the PRE-update cache with the new row inserted
@@ -205,15 +205,17 @@ def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torc
             out = flash_attention(q, k, v, mask=mask, scale=scale, ranges=ranges)
             attn_out = out.reshape(b, t, cfg.n_embd).to(compute_dtype)
         else:
-            # plain f32 attention over the whole cache window (gptj.py:213-222),
-            # a named range for the profiler (the training step's breakdown)
+            # plain f32 attention over the whole cache window (gptj.py:211-222;
+            # a q8 cache dequantized on read), a named range for the profiler
+            # (the training step's breakdown)
             with torch.profiler.record_function("gptj.attention"):
-                att = torch.matmul(q.float(), kc.float().transpose(-1, -2)) * scale
+                kd, vd = dequant_cache(kc), dequant_cache(vc)
+                att = torch.matmul(q.float(), kd.float().transpose(-1, -2)) * scale
                 kv_pos = torch.arange(max_seq, device=x.device)[None, None, None, :]
                 q_pos = positions[:, None, :, None]
                 att = torch.where(kv_pos <= q_pos, att, torch.full((), float("-inf"), device=x.device))
-                att = torch.softmax(att, dim=-1).to(vc.dtype)
-                out = torch.matmul(att, vc)
+                att = torch.softmax(att, dim=-1).to(vd.dtype)
+                out = torch.matmul(att, vd)
                 attn_out = out.transpose(1, 2).reshape(b, t, cfg.n_embd).to(compute_dtype)
         attn_out = _linear(attn_out, params[pre + "attn_output.weight"])
 

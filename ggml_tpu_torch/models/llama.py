@@ -36,8 +36,8 @@ import torch.nn.functional as F
 
 from ..dtypes import GGMLType
 from ..gguf import GGUFFile
-from .common import (cache_rows, cache_write, causal_mask, decode_loop, init_layer_cache, linear as _linear,
-                     make_sampled_decode)
+from .common import (cache_rows, cache_write, causal_mask, decode_loop, dequant_cache, init_layer_cache,
+                     linear as _linear, make_sampled_decode)
 from .gptj import _random_weight_blocks, _rope_interleaved, rope_angles
 
 
@@ -255,16 +255,18 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, pos_start: tor
             out = flash_attention(q, k, v, mask=mask, scale=scale, ranges=ranges)
             attn_out = out.reshape(b, t, cfg.n_head * hd).to(dt)
         else:
-            # grouped-query attention in f32 over the whole cache window: each
-            # kv head serves the rep query heads beside it, whose rows are
-            # stacked so that every product is one batched matmul
+            # grouped-query attention in f32 over the whole cache window (a q8
+            # cache dequantized on read, llama.py:362-375): each kv head serves
+            # the rep query heads beside it, whose rows are stacked so that
+            # every product is one batched matmul
             with torch.profiler.record_function("llama.attention"):
+                kd, vd = dequant_cache(kc), dequant_cache(vc)
                 qg = q.reshape(b, n_kv, rep * t, hd).float()
-                att = torch.matmul(qg, kc.float().transpose(-1, -2)) * scale
+                att = torch.matmul(qg, kd.float().transpose(-1, -2)) * scale
                 att = att.view(b, n_kv, rep, t, max_seq)
                 att = torch.where(visible, att, torch.full((), float("-inf"), device=dev))
-                att = torch.softmax(att, dim=-1).to(vc.dtype)
-                out = torch.matmul(att.view(b, n_kv, rep * t, max_seq), vc)
+                att = torch.softmax(att, dim=-1).to(vd.dtype)
+                out = torch.matmul(att.view(b, n_kv, rep * t, max_seq), vd)
                 out = out.view(b, cfg.n_head, t, hd).transpose(1, 2)
                 attn_out = out.reshape(b, t, cfg.n_head * hd).to(dt)
         x = x + res(_linear(attn_out, params[pre + "attn_output.weight"]))

@@ -1,5 +1,5 @@
 """Continuous-batching generation engine: the serving control plane (port of
-ggml_tpu/serve.py, its dense path; reference analog: the seq-id KV cache of
+ggml_tpu/serve.py; reference analog: the seq-id KV cache of
 examples/gpt-2/main-batched.cpp:41-145).
 
 A fixed pool of max_batch KV-cache slots in ONE static cache that the engine
@@ -14,12 +14,21 @@ those h steps are ONE CUDA graph replay (one capture per (h, sampled)), and
 run()'s pipelined stretch enqueues tick t+1 before it reads tick t's tokens,
 which reach the host through pinned memory behind an event.
 
+The other paths of the JAX engine that the port has:
+- paged KV (paged=PagedConfig): a shared page pool (paged_kv.py) in place of
+  the dense cache, with the prefix cache (prompts that share page-aligned
+  prefixes prefill only their suffix), eviction under page pressure, and
+  greedy stretches of h steps as one CUDA graph replay;
+- chunked prefill (prefill_chunk=C): prompts prefill in chunks of C tokens
+  over a populated cache, batched as (max_batch, C) dispatches;
+- the q8 KV cache (cache_dtype="q8_kv"): int8 codes and per-row scales
+  (models/common.QuantKV), dequantized on read.
+
 The engine's invariant (docs/serving.md): every request emits what it would
 emit alone.  Batching, admission order and preemption change no id.
 
-Not ported yet (ROADMAP.md): paged KV with its prefix cache, chunked prefill,
-speculative decoding (draft=), the q8 KV cache, forward_fn and cache_put
-(tensor-parallel serving).
+Not ported yet (ROADMAP.md): speculative decoding (draft=), forward_fn and
+cache_put (tensor-parallel serving).
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from .models.common import cache_set_slot, cache_slot, init_layer_cache, launch_tables
+from .models.common import QUANT_KV_DTYPE, cache_set_slot, cache_slot, init_layer_cache, launch_tables
 from .sampling import sample_top_k_top_p
 
 @dataclass
@@ -89,9 +98,15 @@ class Engine:
     model's device: the JAX engine's PRNGKey(seed); the two draw different
     streams from the same distribution).  horizon: decode steps a tick
     (default GGML_TPU_TICK_HORIZON or 16), rounded down to a power of two.
-    record_events: bracket every tick and batched prefill on the card with
-    CUDA events (event_ms() sums them).  paged, draft, prefill_chunk, a q8 KV
-    cache_dtype, forward_fn and cache_put raise NotImplementedError."""
+    record_events: bracket every tick, prefill, chunk dispatch and paged
+    stretch on the card with CUDA events (event_ms() sums them).
+
+    paged: a paged_kv.PagedConfig: KV memory becomes a shared page pool
+    (capacity = the sum of live contexts); slots that run out of pages evict
+    the least urgent running request back to the queue.  prefill_chunk: C
+    tokens a prefill dispatch.  cache_dtype="q8_kv": the int8 KV cache (dense
+    engine only).  Each is checked against serving_matrix.features_for.
+    draft, forward_fn and cache_put raise NotImplementedError."""
 
     def __init__(self, model, max_batch: int = 4, max_seq: int = 512, eos_id: int = -1,
                  cache_dtype=torch.bfloat16, sampler: dict | None = None, seed: int = 0,
@@ -99,6 +114,7 @@ class Engine:
                  forward_fn=None, cache_put=None, prefill_chunk: int | None = None,
                  horizon: int | None = None, record_events: bool = False):
         from .models import gpt2, gptj, llama
+        from .serving_matrix import features_for
 
         if isinstance(model, llama.Llama):
             self._fwd = llama.forward
@@ -108,15 +124,21 @@ class Engine:
             self._fwd = gpt2.forward
         else:
             raise TypeError(f"Engine cannot drive {type(model).__name__}")
-        for flag, what in ((paged is not None, "paged KV (paged=)"),
-                           (draft is not None, "speculative decoding (draft=)"),
-                           (bool(prefill_chunk), "chunked prefill (prefill_chunk=)"),
-                           (not isinstance(cache_dtype, torch.dtype), f"the {cache_dtype!r} KV cache"),
+        for flag, what in ((draft is not None, "speculative decoding (draft=)"),
                            (forward_fn is not None, "a custom engine forward (forward_fn=)"),
                            (cache_put is not None, "a placed KV cache (cache_put=)")):
             if flag:
                 raise _not_ported(what)
         del draft_k
+        if not (isinstance(cache_dtype, torch.dtype) or cache_dtype == QUANT_KV_DTYPE):
+            raise ValueError(f"cache_dtype {cache_dtype!r}: a torch dtype or {QUANT_KV_DTYPE!r}")
+        # feature x family gate (serving_matrix): an unsupported combination
+        # fails here with the matrix's answer
+        feats = features_for(model)
+        for flag, feat in ((paged is not None, "paged_kv"), (cache_dtype == QUANT_KV_DTYPE, "q8_kv"),
+                           (bool(prefill_chunk), "chunked_prefill")):
+            if flag and not feats[feat]:
+                raise TypeError(f"{type(model).__name__} does not support '{feat}' (serving_matrix.py)")
         self.model = model
         self.cfg = cfg = model.cfg
         self.device = dev = model.device
@@ -126,14 +148,32 @@ class Engine:
         n_kv = getattr(cfg, "n_head_kv", cfg.n_head)
         self._make_cache = lambda b, rows=max_seq: init_layer_cache(cfg.n_layer, b, n_kv, rows, cfg.head_dim,
                                                                      cache_dtype, dev)
-        # the engine's one cache: never rebound; prefills and restores copy
-        # into it, steps write their rows in place
-        self.cache = self._make_cache(B)
         self.tick_horizon = (horizon if horizon is not None
                              else int(os.environ.get("GGML_TPU_TICK_HORIZON", "16")))
         self._hb = 1  # largest power of two <= horizon: one graph per sampling mode
         while self._hb * 2 <= self.tick_horizon:
             self._hb *= 2
+        self.paged = paged
+        self.mgr = None
+        if paged is not None:
+            from .paged_kv import PagedKVManager, make_paged_decode_scan, make_paged_decode_step
+
+            if cache_dtype == QUANT_KV_DTYPE:
+                raise ValueError("the q8 KV cache is dense-engine only (the page pools keep their own dtype)")
+            if paged.page_size * paged.max_pages_per_seq < max_seq:
+                raise ValueError("paged logical window smaller than max_seq")
+            self.mgr = PagedKVManager(cfg.n_layer, n_kv, cfg.head_dim, B, paged, cache_dtype, dev)
+            self._paged_step = make_paged_decode_step(model, paged, forward_fn=self._fwd)
+            self._paged_scan = make_paged_decode_scan(self._paged_step, B, paged.max_pages_per_seq, self._hb, dev)
+            self.cache = None
+        else:
+            # the engine's one cache: never rebound; prefills and restores
+            # copy into it, steps write their rows in place
+            self.cache = self._make_cache(B)
+        self.prefill_chunk = prefill_chunk
+        self._chunk_cache = None  # the (max_batch, max_seq) cache of chunked waves: made once, reused
+        self.chunk_dispatches = 0
+        self.cached_prefix_tokens = 0  # prefix-cache observability
 
         self.sampler = dict(sampler) if sampler else None
         self.generator = torch.Generator(device=dev)
@@ -236,7 +276,7 @@ class Engine:
         enqueued from the device-resident state before tick t's tokens are
         read, and admission rides inside the stretch."""
         results: dict[int, list[int]] = {}
-        scan_mode = self._hb > 1
+        scan_mode = self.paged is None and self._hb > 1
         aborted = False
         while (self.queue or any(s is not None for s in self.slots)) and not aborted:
             if abort_callback is not None and abort_callback():
@@ -250,10 +290,13 @@ class Engine:
                 if s is not None and s.done:
                     results[s.rid] = s.out
                     self.slots[i] = None
+                    if self.paged is not None:
+                        self.mgr.release(i)
         return results
 
     def event_ms(self) -> dict:
-        """Device ms inside the recorded spans by kind ("tick", "prefill"):
+        """Device ms inside the recorded spans by kind ("tick", "prefill",
+        "chunk", "paged"):
         waits for the card, then clears the record."""
         out: dict = {}
         if self.events:
@@ -472,7 +515,12 @@ class Engine:
             self.slots[i] = req
             self._slot_sampling_set(i, req)
             admitted.append((i, req, len(req.seq)))
-        self._prefill_groups(admitted, bucket)
+        if admitted and self.prefill_chunk:
+            # one wave of (max_batch, C) chunk dispatches: a long prompt
+            # admitted mid-stretch costs ceil(t / C) bounded dispatches
+            self._prefill_into_slots_chunked(admitted)
+        else:
+            self._prefill_groups(admitted, bucket)
         return admitted, must_break
 
     def _scatter_slot_state(self, admitted):
@@ -578,23 +626,43 @@ class Engine:
 
     def _snapshot_slot(self, i: int, req: Request):
         """Device->host KV eviction: spill the slot's rows [0, n_past) (the
-        next step writes row n_past) so resume restores them instead of
-        re-prefilling the sequence."""
-        n_past = int(self.n_past[i])
+        next step writes row n_past), or its pages [0, ceil(n_past / page)),
+        so that resume restores them instead of re-prefilling the sequence."""
+        n_past = int(self.mgr.lengths[i]) if self.paged is not None else int(self.n_past[i])
         if n_past <= 0:
             return
-        host = [(k[:, :, :n_past].cpu(), v[:, :, :n_past].cpu()) for k, v in cache_slot(self.cache, i)]
+        # a copy also where the cache is on the CPU (there .cpu() would alias it)
+        spill = lambda x: x.to("cpu", copy=True)
+        if self.paged is None:
+            host = [(spill(k[:, :, :n_past]), spill(v[:, :, :n_past])) for k, v in cache_slot(self.cache, i)]
+        else:
+            pages = -(-n_past // self.paged.page_size)
+            host = [(spill(k), spill(v)) for k, v in self.mgr.gather_prefix(i, pages)]
         req.snapshot = {"cache": host, "n_past": n_past, "cur_tok": int(self.cur_tok[i])}
 
-    def _resume_from_snapshot(self, i: int, req: Request):
-        """Restore an evicted slot's KV from its host snapshot."""
+    def _resume_from_snapshot(self, i: int, req: Request) -> bool:
+        """Restore an evicted slot's KV from its host snapshot.  Returns False
+        (the request queued again) while its pages are not available."""
         snap = req.snapshot
-        cache_set_slot(self.cache, snap["cache"], i)
+        t = snap["n_past"]
+        if self.paged is not None:
+            need = -(-(t + 1) // self.paged.page_size)
+            if need > self.mgr.free_pages():
+                if self.mgr.free_pages() == self.paged.n_pages:
+                    raise ValueError(f"snapshot of {t} tokens cannot fit an empty page pool "
+                                     f"({self.paged.n_pages} pages)")
+                self.queue.append(req)
+                return False
+            assert self.mgr.ensure_capacity(i, t + 1)
+            self.mgr.install_prefill(i, snap["cache"], t)
+        else:
+            cache_set_slot(self.cache, snap["cache"], i)
         self.slots[i] = req
         self._slot_sampling_set(i, req)
-        self.n_past[i] = snap["n_past"]
+        self.n_past[i] = t
         self.cur_tok[i] = snap["cur_tok"]
         req.snapshot = None
+        return True
 
     def _preempt_for_priority(self):
         """If the most urgent queued request outranks the least urgent running
@@ -608,30 +676,87 @@ class Engine:
             return
         i, worst = max(running, key=lambda kv: kv[1].priority)
         if worst.priority > head.priority:
-            worst.preempted += 1
-            self._snapshot_slot(i, worst)
-            self.queue.append(worst)
-            self.slots[i] = None
+            self._evict(i, worst)
+
+    def _evict(self, i: int, req: Request):
+        req.preempted += 1
+        self._snapshot_slot(i, req)
+        self.queue.append(req)
+        self.slots[i] = None
+        if self.paged is not None:
+            self.mgr.release(i)
 
     def _bucket(self, t: int, bucket: int) -> int:
         return min(self.max_seq, -(-t // bucket) * bucket)
 
+    def _page_rows(self, t: int) -> int:
+        """Rows of a slot cache that install_prefill reads for t tokens: whole
+        pages (0 on a dense engine)."""
+        return 0 if self.paged is None else -(-t // self.paged.page_size) * self.paged.page_size
+
     def _prefill(self, seq, bucket: int):
-        """Single-slot bucketed prefill (a fork group's shared prompt);
-        returns (last logits | None, slot cache of tb rows, t, tb).  logits
-        is None when the bucket padded past t (the caller re-decodes the true
-        last token), and then the head is not run at all."""
+        """Single-slot prefill (a fork group's shared prompt, a paged
+        admission); returns (last logits | None, slot cache, t, tb).  Bucketed:
+        logits is None when the bucket padded past t (the caller re-decodes
+        the true last token), and then the head is not run at all.  The slot
+        cache has tb rows, or the whole pages of t on a paged engine.  With
+        prefill_chunk the prompt runs in chunks (_prefill_chunked)."""
+        if self.prefill_chunk:
+            return self._prefill_chunked(seq)
         t = len(seq)
         tb = self._bucket(t, bucket)
         toks = np.zeros((1, tb), np.int64)
         toks[0, :t] = seq
-        slot_cache = self._make_cache(1, tb)
+        slot_cache = self._make_cache(1, max(tb, self._page_rows(t)))
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
         self.prefill_count += 1
         with torch.no_grad(), self._span("prefill"):
             logits, _ = self._fwd(self.model.params, self.cfg, self._to_device(toks), zero.expand(1), slot_cache, zero,
                                   prefill=True, need_logits=t == tb)
         return (logits[:, -1, :] if t == tb else None), slot_cache, t, tb
+
+    def _prefill_suffix(self, seq, pre_len: int, slot: int, bucket: int):
+        """Prefix-cache hit: the shared pages hold the KV of positions [0,
+        pre_len).  Seed a dense slot cache with them in one pass, then run the
+        populated-cache forward over the suffix alone.  Returns (last logits |
+        None, slot cache), with _prefill's bucket-padding contract."""
+        t = len(seq)
+        st = t - pre_len
+        sb = min(self.max_seq - pre_len, -(-st // bucket) * bucket)
+        toks = np.zeros((1, sb), np.int64)
+        toks[0, :st] = seq[pre_len:]
+        slot_cache = self._make_cache(1, max(pre_len + sb, self._page_rows(t)))
+        pos = self._to_device([pre_len], torch.int32)
+        self.prefill_count += 1
+        self.cached_prefix_tokens += pre_len
+        with torch.no_grad(), self._span("prefill"):
+            for (kc, vc), (kd, vd) in zip(slot_cache, self.mgr.gather_prefix(slot, pre_len // self.paged.page_size)):
+                kc[:, :, :pre_len].copy_(kd)
+                vc[:, :, :pre_len].copy_(vd)
+            logits, _ = self._fwd(self.model.params, self.cfg, self._to_device(toks), pos, slot_cache, pos,
+                                  need_logits=st == sb)
+        return (logits[:, -1, :] if st == sb else None), slot_cache
+
+    def _prefill_chunked(self, seq):
+        """Fixed-chunk prefill of one prompt (forks, paged admission):
+        ceil(t / C) populated-cache steps of C tokens over a max_seq-row slot
+        cache (positions carried by cache_len, the pad masked by position), no
+        head.  Returns (None, slot cache, t, t): the caller re-decodes the last
+        token for position-exact logits, as after bucket padding."""
+        C = self.prefill_chunk
+        t = len(seq)
+        slot_cache = self._make_cache(1, max(self.max_seq, self._page_rows(t)))
+        self.prefill_count += 1
+        with torch.no_grad():
+            for a in range(0, t, C):
+                chunk = np.zeros((1, C), np.int64)
+                chunk[0, :min(C, t - a)] = seq[a:a + C]
+                pos = self._to_device([a], torch.int32)
+                with self._span("chunk"):
+                    self._fwd(self.model.params, self.cfg, self._to_device(chunk), pos, slot_cache, pos,
+                              need_logits=False)
+                self.chunk_dispatches += 1
+        return None, slot_cache, t, t
 
     def _slot_sampling_set(self, i: int, req: Request):
         """Install the slot's sampling parameters when it takes slot i."""
@@ -655,42 +780,80 @@ class Engine:
 
     def _admit(self, bucket: int):
         self._preempt_for_priority()
-        # plain fresh prefills batch into ONE prefill per bucket size;
-        # snapshots and forks keep the per-request path
+        # plain fresh dense prefills batch into ONE prefill per bucket size
+        # (or one chunked wave); snapshots, forks and every paged admission
+        # (its pages, its prefix) keep the per-request path
+        batchable = self.paged is None
         deferred: list[tuple[int, Request, int]] = []
         for i in range(self.max_batch):
-            if self.slots[i] is None and self.queue:
-                req = min(self.queue, key=lambda r: r.priority)  # stable: first min
-                self.queue.remove(req)
-                if req.snapshot is not None:  # evicted mid-run: restore its KV
-                    self._resume_from_snapshot(i, req)
+            if self.slots[i] is not None or not self.queue:
+                continue
+            req = min(self.queue, key=lambda r: r.priority)  # stable: first min
+            self.queue.remove(req)
+            if req.snapshot is not None:  # evicted mid-run: restore its KV
+                self._resume_from_snapshot(i, req)
+                continue
+            seq = req.seq  # the prompt, or prompt + output when resuming
+            t = len(seq)
+            if t >= self.max_seq:  # cannot resume within the window
+                req.done = True
+                self.slots[i] = req
+                continue
+            if batchable and req.share is None:
+                self.slots[i] = req
+                self._slot_sampling_set(i, req)
+                deferred.append((i, req, t))
+                continue
+            matched = 0
+            if self.paged is not None:
+                # reserve the prompt and one decode step BEFORE prefilling, so
+                # a request that cannot get pages waits without re-prefilling;
+                # attach published pages covering a page-aligned prefix (keep
+                # at least one suffix token for the next-token logits)
+                ps = self.paged.page_size
+                pages = self.mgr.match_prefix(seq) if req.share is None else []
+                pages = pages[:max(0, (t - 1) // ps)]
+                matched = len(pages)
+                need = -(-(t + 1) // ps) - matched
+                if need > self.mgr.free_pages():
+                    if self.mgr.free_pages() == self.paged.n_pages:
+                        raise ValueError(f"request of {t} tokens cannot fit an empty page pool "
+                                         f"({self.paged.n_pages} pages)")
+                    self.queue.append(req)  # wait for pages
                     continue
-                seq = req.seq  # the prompt, or prompt + output when resuming
-                t = len(seq)
-                if t >= self.max_seq:  # cannot resume within the window
-                    req.done = True
-                    self.slots[i] = req
-                    continue
-                if req.share is None:
-                    self.slots[i] = req
-                    self._slot_sampling_set(i, req)
-                    deferred.append((i, req, t))
-                    continue
+                if matched:
+                    self.mgr.attach_prefix(i, pages)
+            if req.share is not None and not req.out:
                 if req.share.cache is None:  # the first of the fork group
                     req.share.logits, req.share.cache, req.share.t, _ = self._prefill(seq, bucket)
                 logits, slot_cache, t = req.share.logits, req.share.cache, req.share.t
+            elif matched:
+                assert self.mgr.ensure_capacity(i, t + 1)
+                logits, slot_cache = self._prefill_suffix(seq, matched * self.paged.page_size, i, bucket)
+            else:
+                logits, slot_cache, t, _ = self._prefill(seq, bucket)
+            if self.paged is not None:
+                assert self.mgr.ensure_capacity(i, t + 1)
+                self.mgr.install_prefill(i, slot_cache, t, from_page=matched)
+                self.mgr.publish_prefix(i, req.prompt)
+            else:
                 cache_set_slot(self.cache, slot_cache, i)
-                self.slots[i] = req
-                self._slot_sampling_set(i, req)
-                self.n_past[i] = t
-                if logits is not None:
-                    self._emit_first(req, i, logits)
-                else:
-                    # bucket padding wrote junk past t: re-decode the true
-                    # last token for position-exact logits
-                    self.n_past[i] = t - 1
-                    self.cur_tok[i] = int(seq[-1])
-        self._prefill_groups(deferred, bucket)
+            self.slots[i] = req
+            self._slot_sampling_set(i, req)
+            self.n_past[i] = t
+            if logits is not None:
+                self._emit_first(req, i, logits)
+            else:
+                # bucket padding wrote junk past t: re-decode the true last
+                # token for position-exact logits
+                self.n_past[i] = t - 1
+                self.cur_tok[i] = int(seq[-1])
+            if self.paged is not None:
+                self.mgr.lengths[i] = self.n_past[i]
+        if deferred and self.prefill_chunk:
+            self._prefill_into_slots_chunked(deferred)
+        else:
+            self._prefill_groups(deferred, bucket)
 
     def _prefill_groups(self, admitted, bucket: int):
         groups: dict[int, list] = {}
@@ -730,11 +893,110 @@ class Engine:
             self.n_past[i] = t - 1
             self.cur_tok[i] = int(req.seq[-1])
 
+    def _prefill_into_slots_chunked(self, group):
+        """Batched chunked admission: every request of `group` [(slot, req,
+        t)] prefills in ceil(max t / C) (max_batch, C) dispatches over the
+        engine's multi-slot chunk cache, then one copy installs the group's
+        rows into its slots.  The chunk cache is made once and reused (JAX
+        makes a fresh one a wave): its rows past each prompt hold junk the
+        attention masks by position.  A dispatch runs no head.  Nothing is
+        read on the host, so a wave rides inside a pipelined stretch."""
+        B, C = self.max_batch, self.prefill_chunk
+        maxt = max(t for _, _, t in group)
+        if self._chunk_cache is None:
+            self._chunk_cache = self._make_cache(B)
+        idx = self._to_device([i for i, _, _ in group])
+        n = len(group)
+        with torch.no_grad():
+            for a in range(0, maxt, C):
+                toks = np.zeros((B, C), np.int64)
+                for r, (i, req, t) in enumerate(group):
+                    seg = req.seq[a:a + C]
+                    toks[r, :len(seg)] = seg
+                pos = torch.full((), a, dtype=torch.int32, device=self.device)
+                with self._span("chunk"):
+                    self._fwd(self.model.params, self.cfg, self._to_device(toks), pos.expand(B), self._chunk_cache,
+                              pos, need_logits=False)
+                self.chunk_dispatches += 1
+            rows = min(self.max_seq, -(-maxt // C) * C)
+            with self._span("prefill"):
+                for big, small in zip(self.cache, self._chunk_cache):
+                    for b, s in zip(big, small):
+                        b[:, :, :rows].index_copy_(0, idx, s[:n, :, :rows])
+        self.prefill_count += n
+        for i, req, t in group:  # the re-decode contract of _prefill_into_slots
+            self.n_past[i] = t - 1
+            self.cur_tok[i] = int(req.seq[-1])
+
+    def _evict_for_pages(self, need_slot: int) -> bool:
+        """Free pages by preempting the least urgent OTHER running slot (its
+        KV snapshotted to the host)."""
+        victims = [(j, s) for j, s in enumerate(self.slots) if s is not None and not s.done and j != need_slot]
+        if not victims:
+            return False
+        j, worst = max(victims, key=lambda kv: kv[1].priority)
+        self._evict(j, worst)
+        return True
+
     def _tick(self):
-        """One tick (h steps) from the host state, read back at once: the
-        path of direct _admit/_tick use (the server's loop, the tests)."""
+        """One tick from the host state, read back at once: the path of
+        direct _admit/_tick use (the server's loop, the tests) and of every
+        paged tick.  Dense: h steps (one graph replay on the card).  Paged:
+        each live slot's next page first (evicting under pressure), then a
+        greedy stretch of h steps when every live slot has room for them, or
+        one step."""
         active = np.array([s is not None and not s.done for s in self.slots])
+        if self.paged is not None:
+            for i in np.nonzero(active)[0]:
+                i = int(i)
+                if self.slots[i] is None:  # evicted for an earlier slot's page
+                    continue
+                while not self.mgr.ensure_capacity(i, int(self.mgr.lengths[i]) + 1):
+                    if not self._evict_for_pages(i):  # nothing left to evict: requeue this request too
+                        self._evict(i, self.slots[i])
+                        break
+            active &= np.array([s is not None for s in self.slots])
+            if active.any():
+                self._paged_tick(active)
+            return
         if not active.any():
             return
         self._load_state(active, self._slot_budget())
         self._consume_scan_outs(self._fetch(self._dispatch(bool(self._any_slot_sampling))))
+
+    def _paged_tick(self, active: np.ndarray):
+        """Greedy stretch: h steps as one scan (one graph replay on the card)
+        when no slot samples and every live slot has budget and window for h
+        tokens and the pages for them (h halves until it fits); else one
+        paged step, its ids picked on the device as the dense step picks."""
+        mgr, B = self.mgr, self.max_batch
+        live = [i for i in range(B) if active[i]]
+        if not self._any_slot_sampling and self._hb > 1:
+            budgets = self._slot_budget()
+            win = self.paged.max_pages_per_seq * self.paged.page_size
+            room = min((min(int(budgets[i]), win - 1 - int(mgr.lengths[i])) for i in live), default=0)
+            h = self._hb
+            while h > 1 and h > room:
+                h //= 2
+            if h > 1 and all(mgr.ensure_capacity(i, int(mgr.lengths[i]) + h) for i in live):
+                wpages, woffs = mgr.step_coords_multi(active, h)
+                outs = self._paged_scan(self.model.params, mgr.pools, self.cur_tok.reshape(-1, 1), mgr.lengths,
+                                        mgr.tables, wpages, woffs, active, h, put=self._put, span=self._span)
+                self.decode_steps += h
+                self._consume_scan_outs(outs)
+                for i in live:  # rewind the page views the scan advanced past a stop
+                    mgr.lengths[i] = self.n_past[i]
+                return
+        wpage, woff = mgr.step_coords(active)
+        dev = lambda a, dt=torch.long: self._to_device(a, dt)
+        sampled = bool(self._any_slot_sampling)
+        with torch.no_grad():
+            logits, _ = self._paged_step(self.model.params, mgr.pools, dev(self.cur_tok.reshape(-1, 1)),
+                                         dev(mgr.lengths), dev(mgr.tables), dev(wpage), dev(woff),
+                                         dev(active, torch.bool))
+            temp, topp = (dev(self._slot_temp[:, None], torch.float32),
+                          dev(self._slot_topp[:, None], torch.float32)) if sampled else (None, None)
+            nxt = self._pick(logits, sampled, temp, topp).cpu().numpy()
+        self.decode_steps += 1
+        mgr.lengths[active] += 1
+        self._consume_scan_outs(np.where(active, nxt, 0)[None])

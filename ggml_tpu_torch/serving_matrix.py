@@ -1,0 +1,32 @@
+"""Serving feature x model family: which Engine features drive which of the
+port's families (port of ggml_tpu/serving_matrix.py, its predicates for the
+three families the port has: Llama, GPT-J and GPT-2).
+
+Under the JAX predicates none of the three is stateful (recurrent or
+hybrid), so each takes chunked prefill, paged KV, the prefix cache,
+speculative decoding and forks; the q8 KV cache needs a dequant-on-read in
+the family forward, which Llama and GPT-J have and GPT-2 has not.  The
+Engine checks its flags against this table, as JAX's does (serve.py:247-258).
+Speculative decoding is in the table but not ported yet: the Engine refuses
+draft= on its own (ROADMAP.md, section 1).
+"""
+
+from __future__ import annotations
+
+FEATURES = (
+    "dense",            # continuous-batching dense-KV engine path
+    "chunked_prefill",  # fixed-chunk prefill (Engine(prefill_chunk=C))
+    "paged_kv",         # shared page-pool KV (Engine(paged=PagedConfig(...)))
+    "prefix_cache",     # automatic prefix caching (a paged engine feature)
+    "speculative",      # draft + verify ticks (Engine(draft=...))
+    "q8_kv",            # int8-quantized dense KV cache (cache_dtype="q8_kv")
+    "forks",            # shared-prefix n > 1 completions
+)
+
+
+def features_for(model) -> dict[str, bool]:
+    """The features a constructed model wrapper supports (the predicates the
+    Engine constructor enforces).  No family of the port is stateful."""
+    from .models import gptj, llama
+
+    return {f: True for f in FEATURES} | {"q8_kv": isinstance(model, (llama.Llama, gptj.GPTJ))}

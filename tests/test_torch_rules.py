@@ -128,7 +128,8 @@ def test_port_modules_listed():
                  "ggml_tpu_torch.grammar", "ggml_tpu_torch.ppl", "ggml_tpu_torch.models.registry",
                  "ggml_tpu_torch.cli.generate", "ggml_tpu_torch.cli.gguf_dump", "ggml_tpu_torch.opt.lora",
                  "ggml_tpu_torch.checkpoint", "ggml_tpu_torch.models.llama", "ggml_tpu_torch.ops.core",
-                 "ggml_tpu_torch.serve", "ggml_tpu_torch.cli.server"):
+                 "ggml_tpu_torch.serve", "ggml_tpu_torch.cli.server", "ggml_tpu_torch.paged_kv",
+                 "ggml_tpu_torch.serving_matrix"):
         assert want in names
 
 
@@ -154,13 +155,14 @@ def test_entry_points_default_to_cuda():
     from ggml_tpu_torch.models import common, gpt2, gptj, llama, registry
     from ggml_tpu_torch.checkpoint import load_params
     from ggml_tpu_torch.opt import finetune, finetune_lora
+    from ggml_tpu_torch.paged_kv import PagedKVManager
     from ggml_tpu_torch.ppl import perplexity
 
     for fn in (gptj.GPTJ.__init__, gptj.GPTJ.from_gguf, gptj.synth_quantized_params,
                gptj.init_cache, common.init_layer_cache, gpt2.load_params, params_from_numpy,
                gpt2.GPT2.__init__, gpt2.GPT2.from_gguf, gpt2.init_random_params, gpt2.init_cache, finetune,
                finetune_lora, load_params, registry.load_model, perplexity, llama.Llama.__init__,
-               llama.Llama.from_gguf, llama.init_cache, server.ServerState.__init__):
+               llama.Llama.from_gguf, llama.init_cache, server.ServerState.__init__, PagedKVManager.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
     assert cli.parser().parse_args(["in.gguf", "out.gguf", "--tokens", "t.npy"]).device == "cuda"
     assert generate.parser().parse_args(["m.gguf"]).device == "cuda"

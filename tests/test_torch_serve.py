@@ -2,7 +2,10 @@
 the per-row forward of Llama, GPT-J and GPT-2 against the JAX forward run
 op by op, the Engine against JAX's Engine on the same GGUF files, and the
 Engine against the port's own solo path (the engine's invariant,
-docs/serving.md: every request emits what it would emit alone).
+docs/serving.md: every request emits what it would emit alone).  The paged,
+chunked and q8 paths: tests/test_torch_paged.py and
+tests/test_torch_serve_chunked.py; the engine on Q4_K planes:
+tests/test_torch_serve_q4.py.
 
 The tiny models are f32 GGUF files written by the port's writer and loaded
 by both packages (no Pallas kernel runs on the JAX side: dense weights,
@@ -392,11 +395,18 @@ def test_window_edge_and_small_admission_group(tiny_llama):
 
 
 def test_engine_refuses_what_is_not_ported(tiny_llama):
+    """Speculative decoding, a custom forward and a placed cache raise, as do
+    the paged steps of the families not ported (paged KV, chunked prefill
+    and the q8 cache: tests/test_torch_paged.py, test_torch_serve_chunked.py)."""
+    from ggml_tpu_torch.paged_kv import PagedConfig, make_paged_decode_step
+
     m = tiny_llama
-    for kw in (dict(paged=object()), dict(draft=m), dict(prefill_chunk=8), dict(cache_dtype="q8_kv"),
-               dict(forward_fn=llama.forward), dict(cache_put=lambda c: c)):
+    for kw in (dict(draft=m), dict(forward_fn=llama.forward), dict(cache_put=lambda c: c)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             Engine(m, max_batch=2, max_seq=MAX_SEQ, **kw)
+    for family in ("Gemma2", "Phi3", "Deepseek"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            make_paged_decode_step(type(family, (), {})(), PagedConfig(n_pages=4, page_size=4, max_pages_per_seq=2))
     with pytest.raises(TypeError):
         Engine(object(), max_batch=2)
     eng = Engine(m, max_batch=2, max_seq=MAX_SEQ)

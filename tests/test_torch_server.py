@@ -209,6 +209,37 @@ def test_what_is_not_ported(servers, tmp_path):
     assert e.value.code == 400
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         server.ServerState("unused.gguf", embed_model="bert.gguf", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        server.main(["unused.gguf", "--paged", "--device", "cpu"])
     assert server.parser().parse_args(["m.gguf"]).device == "cuda"
+    assert server.paged_config(server.parser().parse_args(["m.gguf"])) is None
+    pcfg = server.paged_config(server.parser().parse_args(["m.gguf", "--prefix-cache", "--max-seq", "100"]))
+    assert (pcfg.page_size, pcfg.max_pages_per_seq, pcfg.n_pages, pcfg.prefix_cache) == (16, 7, 4 * 7 + 7, True)
+
+
+def test_paged_prefix_cache_over_http_matches_jax(servers):
+    """--paged --prefix-cache (tests/test_prefix_cache.py's server test): a
+    prompt of two full pages and two tokens asked twice of the port's paged
+    server and of JAX's paged server on the same file: the same text each
+    time, the second answer from the published pages."""
+    from ggml_tpu import paged_kv as jpaged
+    from ggml_tpu_torch import paged_kv
+
+    path = str(servers[3])
+    args = server.parser().parse_args([path, "--prefix-cache", "--page-size", "4", "--max-seq", "64"])
+    state = server.ServerState(path, max_batch=2, max_seq=64, cache_dtype=torch.float32, device="cpu",
+                               paged=server.paged_config(args))
+    assert isinstance(state.engine.mgr, paged_kv.PagedKVManager)
+    jstate = jserver.ServerState(path, max_batch=2, max_seq=64, cache_dtype=jnp.float32, paged=jpaged.PagedConfig(
+        page_size=4, n_pages=2 * 16 + 16, max_pages_per_seq=16, prefix_cache=True))
+    (httpd, base), (jhttpd, jbase) = _start(state, server), _start(jstate, jserver)
+    body = {"prompt": [3, 14, 15, 92, 65, 35, 89, 79, 32, 38], "max_tokens": 5, "temperature": 0}
+    try:
+        texts = []
+        for b in (base, jbase, base, jbase):
+            texts.append(_post(b, "/v1/completions", body)["choices"][0]["text"])
+    finally:
+        for h, s in ((httpd, state), (jhttpd, jstate)):
+            h.shutdown()
+            s.shutdown()
+    assert texts == [texts[1]] * 4
+    assert state.engine.cached_prefix_tokens == jstate.engine.cached_prefix_tokens == 8
+    assert state.engine.mgr.free_pages() == state.engine.paged.n_pages == 4 * 16 + 16
