@@ -12,6 +12,7 @@
     python3 chip_smoke.py --llama                 # phases 1, 2 and Llama-3-8B from a Q4_K GGUF file (4l) only
     python3 chip_smoke.py --serve                 # phases 1, 2 and serving (4m: the Engine, the HTTP server; 4n: the
                                                   # paged, chunked and q8 KV engines) only
+    python3 chip_smoke.py --train                 # phases 1, 2 and training (4g, 4h, 4o, 4p, 4q) only
 
 Phases (any failure exits non-zero without the result line):
 1. the card, as nvidia-smi reports its name and power limit;
@@ -50,7 +51,8 @@ Phases (any failure exits non-zero without the result line):
    counting every launch, and profile one step; (h) a tiny f32 GPT-2 on the
    card against the same model on the CPU: loss, every gradient through the
    flash kernels, 3 AdamW steps; (i) the text front end: write a GPT-J-6B
-   GGUF (Q4_K blocks, a byte-level BPE vocabulary of 50400 entries), run
+   GGUF (Q4_K blocks, a byte-level BPE vocabulary of 50400 entries; 4 of
+   its 28 layers in the whole run, all 28 with --front-end and --qlora), run
    `python -m ggml_tpu_torch.cli.generate --quantized` on it, then load it
    here: the CLI's greedy text, a seeded sampled request twice, a grammar-
    constrained request, perplexity through the planes and dense bf16, and
@@ -96,7 +98,18 @@ Phases (any failure exits non-zero without the result line):
    paged against dense, eviction under page pressure with host snapshots;
    the q8 KV cache on bench_serve's mix (its codes against the plain
    quantizer); then 4l's Llama-3-8B through a paged and a chunked engine at
-   4 slots;
+   4 slots; (o) QLoRA of GPT-J-6B on 4a's planes at bench_qlora's shape
+   (rank 16 on its six targets, batch 2 x 512, lr 1e-4), without remat and
+   with its dots_with_no_batch_dims_saveable: ms/step, tokens/s, peak
+   memory, exact C launches (85 a step, 169 with remat), the first step
+   equal across the two; (p) QLoRA of Llama-3-8B from 4l's file (rank 16,
+   the default targets, batch 2 x 512) without and with remat: exact C and
+   G launches, a profiled step by class, peak memory, the adapter round
+   trip, then generate --lora as a subprocess on its widths cut to 2
+   layers against this process's merged model; (q) MNIST through opt.fit
+   (fc and cnn, validation accuracy > 0.92), bench_mnist's eval µs/image,
+   the GGUF round trip; and in (g), GPT-2-large at bench_train's 774m shape
+   (batch 4 x 512) without and with remat: K twice a layer under remat;
 5. one JSON line listing every kernel, then the result line.
 
 Runs only where torch.cuda.is_available(); it imports nothing of JAX.
@@ -1370,6 +1383,66 @@ def phase_train(torch, np) -> dict:
     return out
 
 
+def phase_train_774m(torch, np) -> dict:
+    """4g, GPT-2-large at bench_train's 774m shape (bench.py:615-621,
+    638-642; openai-community/gpt2-large: n_vocab 50257, E 1280, 20 heads,
+    36 layers, context 512 there): batch 4 x 512, bf16 over f32 masters,
+    bf16 moments, the fused sparse cross entropy, flash attention; without
+    remat and with bench's policy, 1 warm step and 4 timed each.  K, L and M
+    once per layer and the mask ranges once a forward (36, 36, 36, 1 a
+    step); with remat K runs again in every layer's recomputed forward (72
+    a step), the mask ranges (computed before the layers) are not
+    recomputed.  Checks: exact launches, finite losses, the first step's
+    loss and the parameters after it equal across the runs, the peak lower
+    with remat."""
+    import gc
+
+    from ggml_tpu_torch.models import gpt2
+    from ggml_tpu_torch.opt import AdamWConfig, Optimizer, make_lm_model_fn
+
+    cfg = gpt2.GPT2Config(n_vocab=50257, n_ctx=512, n_embd=1280, n_head=20, n_layer=36)
+    batch, seq, steps = 4, 512, 4
+    t0 = time.perf_counter()
+    params = gpt2.init_random_params(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in params.values())
+    rng = np.random.default_rng(0)
+    x, y = (torch.from_numpy(rng.integers(0, cfg.n_vocab, (batch, seq))).cuda() for _ in range(2))
+    torch.cuda.synchronize()
+    out = dict(model="gpt2-large", n_params=n_params, batch=batch, seq=seq, steps=steps, remat=REMAT, runs={},
+               counts={}, setup_s=time.perf_counter() - t0)
+    per_step = {}
+    for policy in (None, REMAT):
+        name = policy or "none"
+        gc.collect()
+        torch.cuda.empty_cache()
+        model_fn = make_lm_model_fn(gpt2, cfg, seq, batch, compute_dtype=torch.bfloat16, cast_logits_f32=False,
+                                    remat_policy=policy, train_flash=True)
+        opt = Optimizer(model_fn, params, loss_type="cross_entropy_sparse_fused",
+                        adamw=AdamWConfig(state_dtype="bfloat16"), classify=False)
+        run = timed_training(torch, np, opt, x, y, steps)
+        per_step[name] = {k: v // steps for k, v in run["counts"].items() if v}
+        k_per_step = cfg.n_layer * (2 if policy else 1)
+        want = {k: 0 for k in run["counts"]}
+        want.update(flash_attn_fwd_lse=k_per_step * steps, flash_attn_bwd_dq=cfg.n_layer * steps,
+                    flash_attn_bwd_dkv=cfg.n_layer * steps, flash_mask_ranges=steps)
+        check(run["counts"] == want, f"GPT-2-large, remat {name}: launches {run['counts']}, want {want}")
+        check(all(np.isfinite(run["losses"])), f"GPT-2-large, remat {name}: losses {run['losses']}")
+        flop = 6.0 * n_params * batch * seq
+        run["mfu"] = flop / (run["ms_per_step"] * 1e-3) / PEAK_OPS["bf16"]
+        for k, v in run["counts"].items():
+            out["counts"][k] = out["counts"].get(k, 0) + v
+        out["runs"][name] = run
+        del opt
+    del params
+    out["remat_against_none"] = compare_remat(torch, "GPT-2-large", out["runs"], exact=True)
+    out["launches_per_step"] = per_step
+    _remat_line(f"GPT-2-large ({n_params / 1e6:.0f} M parameters, 4 x 512)", out["runs"], per_step)
+    print(f"  remat against none: {out['remat_against_none']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_tiny_train(torch, np) -> dict:
     """A tiny f32 GPT-2 (2 layers, E 64, 4 heads, seq 64) on the card (f32
     kernels K, L, M) against the same model on the CPU (plain versions): the
@@ -1457,17 +1530,18 @@ def _placeholders(taken: set, n: int) -> list[str]:
 GPTJ6B_GGUF = "gpt-j-6b-q4_k.gguf"
 
 
-def write_gptj6b_gguf(np, tmp: str) -> tuple:
+def write_gptj6b_gguf(np, tmp: str, n_layer: int = 28) -> tuple:
     """The GGUF file phases 4i and 4j read, written into the directory tmp
-    with the port's writer: GPT-J-6B's published widths, Q4_K blocks from
-    random_blocks, F32 norms and biases, a byte-level BPE vocabulary of 50400
-    entries (the 256 byte symbols, the merges learned from FRONT_END_TEXT,
-    lowercase placeholder words, <|endoftext|> at 50256).  Returns (path,
-    dict(n_merges, gguf_write_s, gguf_bytes), tokens, merges, eos)."""
+    with the port's writer: GPT-J-6B's published widths (n_layer of its 28
+    layers), Q4_K blocks from random_blocks, F32 norms and biases, a
+    byte-level BPE vocabulary of 50400 entries (the 256 byte symbols, the
+    merges learned from FRONT_END_TEXT, lowercase placeholder words,
+    <|endoftext|> at 50256).  Returns (path, dict(n_merges, gguf_write_s,
+    gguf_bytes, n_layer), tokens, merges, eos)."""
     from ggml_tpu_torch.models import gptj
     from ggml_tpu_torch.tokenizer import byte_level_vocab, learn_merges
 
-    cfg = gptj.GPTJConfig()  # EleutherAI/gpt-j-6b
+    cfg = gptj.GPTJConfig(n_layer=n_layer)  # EleutherAI/gpt-j-6b
     merges = learn_merges(FRONT_END_TEXT, 100_000)  # until every word is one symbol
     tokens = byte_level_vocab(merges)
     eos = 50256
@@ -1479,7 +1553,8 @@ def write_gptj6b_gguf(np, tmp: str) -> tuple:
     t0 = time.perf_counter()
     gptj.write_random_gguf(path, cfg, seed=0, tokenizer=dict(model="gpt2", tokens=tokens, merges=merges,
                                                                eos_token_id=eos))
-    info = dict(n_merges=len(merges), gguf_write_s=time.perf_counter() - t0, gguf_bytes=os.path.getsize(path))
+    info = dict(n_merges=len(merges), gguf_write_s=time.perf_counter() - t0, gguf_bytes=os.path.getsize(path),
+                n_layer=n_layer)
     print(f"  wrote {info['gguf_bytes'] / 1e9:.3f} GB of GGUF ({len(merges)} merges) in {info['gguf_write_s']:.1f}s")
     return path, info, tokens, merges, eos
 
@@ -1661,19 +1736,21 @@ def _qlora_class(event, kernel: str) -> str:
     ranges and autograd nodes around the op that launched it."""
     if "q4k_matmul_kernel" in kernel or "qmatmul_xsum_kernel" in kernel:
         return "C"
+    if "q8_matmul_kernel" in kernel:
+        return "G"
     e = event
     while e is not None:
         if e.name == "planar_matmul.bwd_dequant":
             return "backward dequant"
         if e.name == "planar_matmul.bwd_product":
             return "backward products"
-        if e.name == "gptj.attention" or e.name.endswith(_ATTENTION_BACKWARD):
+        if e.name in ("gptj.attention", "llama.attention") or e.name.endswith(_ATTENTION_BACKWARD):
             return "attention"
         e = e.cpu_parent
     return "other"
 
 
-_QLORA_RANGES = ("planar_matmul.bwd_dequant", "planar_matmul.bwd_product", "gptj.attention")
+_QLORA_RANGES = ("planar_matmul.bwd_dequant", "planar_matmul.bwd_product", "gptj.attention", "llama.attention")
 
 
 def qlora_step_breakdown(prof) -> tuple:
@@ -1858,6 +1935,404 @@ def phase_qlora(torch, np, path: str, tmp: str) -> dict:
                                                                  "resume on the card"))
     print(f"  checkpoint resume on the card (tiny QLoRA, 4 steps, save, load, 2 more against 6): losses 5-6 "
           f"within {dl:.2e}; " + ", ".join(f"{k} {v}" for k, v in out["resume"].items() if k != "loss_max_abs_diff"))
+    return out
+
+
+# bench_qlora's shape (bench.py:681-770): rank 16, batch 2 x 512, lr 1e-4,
+# its six targets, the fused sparse cross entropy on the logits as they come
+QLORA_BENCH = dict(rank=16, batch=2, seq=512, steps=6, lr=1e-4)
+QLORA_BENCH_TARGETS = ("attn_qkvup.weight", "attn_qkv.weight", "attn_output.weight", "ffn_up.weight",
+                       "ffn_down.weight", "output.weight")
+# bench_qlora's and bench_train-774m's default rematerialization (bench.py:638-642, 722-728)
+REMAT = "dots_with_no_batch_dims_saveable"
+
+
+def _clone_tree(torch, tree):
+    return {k: _clone_tree(torch, v) if isinstance(v, dict) else v.detach().clone() for k, v in tree.items()}
+
+
+def timed_training(torch, np, opt, x, y, steps: int) -> dict:
+    """1 warm step, then `steps` timed ones on the host's clock around steps
+    that end in a sync (no loss read back in between), every launch of the
+    timed steps counted; peak memory (max_memory_allocated after
+    reset_peak_memory_stats before the warm step) and the same less what
+    was allocated when the run began; the first step's loss and the
+    parameters after it (the run-against-run check)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    first = opt.step(x, y)
+    out = dict(first_loss=float(first["loss"]), after_first=_clone_tree(torch, opt.params))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = [opt.step(x, y) for _ in range(steps)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    out.update(ms_per_step=ms, tokens_per_s=x.numel() / (ms * 1e-3), counts=launch_counts(),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_above_start_gb=(torch.cuda.max_memory_allocated() - start) / 1e9,
+               losses=[out["first_loss"]] + [float(m["loss"]) for m in metrics])
+    out["forward_backward_peak_gb"] = forward_backward_peak(torch, opt, x, y)
+    return out
+
+
+def forward_backward_peak(torch, opt, x, y) -> float:
+    """GB allocated at the peak of one forward and backward of opt's model
+    and loss (no update, launches not counted) above what was allocated
+    before it: what remat moves.  A step's own peak may come later, in the
+    update (AdamW's f32 copies of every parameter and moment), after the
+    activations are freed."""
+    from ggml_tpu_torch.opt.optimizer import _leaves, _tree_map
+
+    before = launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    leaves = _tree_map(lambda p: p.detach().requires_grad_(True), opt.params)
+    outputs = opt.model_fn(leaves, x) if opt.frozen is None else opt.model_fn(leaves, x, opt.frozen)
+    grads = torch.autograd.grad(opt.loss_fn(outputs, y), _leaves(leaves))
+    del outputs, grads
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - start) / 1e9
+    from ggml_tpu_torch.models.common import launch_tables
+
+    for table in launch_tables():  # the counts stay those of the timed steps
+        for k in table:
+            table[k] = before[k]
+    return peak
+
+
+def profiled_training_step(torch, opt, x, y) -> dict:
+    """One step under torch.profiler (after the counters were read): host ms,
+    device busy ms and busy ms by class (qlora_step_breakdown)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt.step(x, y)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+    busy, by_class = qlora_step_breakdown(prof)
+    return dict(host_ms=host, device_busy_ms=busy, ms_by_class=by_class, unbooked_ms=busy - sum(by_class.values()))
+
+
+def compare_remat(torch, label: str, runs: dict, exact: bool) -> dict:
+    """Each run with remat against the run without ("none"): the first
+    step's loss (the same forward: equal bit for bit where the card's
+    kernels are deterministic at these shapes, gated at 1e-6 relative), the
+    parameters after one step (bit for bit, or within the adapter gate),
+    and the forward and backward's peak memory lower with remat."""
+    plain = runs["none"]
+    out = {}
+    for name, remat in runs.items():
+        if name == "none":
+            continue
+        l0, l1 = plain["first_loss"], remat["first_loss"]
+        check(abs(l0 - l1) <= 1e-6 * abs(l0), f"{label}: the first step's loss {l0} without remat, {l1} with {name}")
+        same = _clone_equal(torch, plain["after_first"], remat["after_first"])
+        out[name] = dict(first_loss_bit_exact=l0 == l1, params_after_first_step_bit_exact=same)
+        if not same:
+            check(not exact, f"{label}: the parameters after one step differ with {name}")
+            out[name].update(_adapters_agree(plain["after_first"], remat["after_first"], f"{label}, {name}"))
+        check(remat["forward_backward_peak_gb"] < plain["forward_backward_peak_gb"],
+              f"{label}: a forward and backward's peak {remat['forward_backward_peak_gb']:.2f} GB with {name}, "
+              f"{plain['forward_backward_peak_gb']:.2f} without")
+    for run in runs.values():
+        del run["after_first"]
+    return out
+
+
+def _clone_equal(torch, a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(_clone_equal(torch, a[k], b[k]) if isinstance(a[k], dict)
+                                    else bool(torch.equal(a[k], b[k])) for k in a)
+
+
+def _remat_line(label: str, runs: dict, per_step: dict):
+    for name, r in runs.items():
+        took = f" ({r['run_s']:.1f}s in all)" if "run_s" in r else ""
+        print(f"  {label}, remat {name}{took}: {r['ms_per_step']:.1f} ms/step on the host's clock "
+              f"({r['tokens_per_s']:.0f} tokens/s), peak memory {r['peak_memory_gb']:.2f} GB "
+              f"({r['peak_above_start_gb']:.2f} above the run's start; a forward and backward "
+              f"{r['forward_backward_peak_gb']:.2f} above its start), launches a step {per_step[name]}, "
+              f"losses {[round(v, 4) for v in r['losses']]}")
+
+
+def _profile_lines(runs: dict):
+    for name, r in runs.items():
+        p = r["profiled_step"]
+        print(f"  profiled step, remat {name}: {p['host_ms']:.1f} ms on the host's clock (profiler on), device busy "
+              f"{p['device_busy_ms']:.1f} ms; " + ", ".join(f"{k} {v:.1f} ms ({v / p['device_busy_ms'] * 100:.1f} %)"
+                                                            for k, v in sorted(p["ms_by_class"].items()))
+              + f"; not booked to an op {p['unbooked_ms']:.1f} ms")
+
+
+def phase_qlora_bench(torch, np, params: dict, card: str) -> dict:
+    """4o: QLoRA of GPT-J-6B Q4_K at bench_qlora's shape (bench.py:681-770)
+    over synthesized compact planes (bf16 embedding and norms, as 4a holds
+    them): rank 16 on bench's six targets (the fused qkvup, attn_output,
+    ffn_down, the head), batch 2 x 512 seeded random ids, lr 1e-4, the
+    fused sparse cross entropy on bf16 logits, the base as the Optimizer's
+    `frozen`; run without remat and with bench's policy: 1 warm step and 6
+    timed, and one profiled step (device busy by class); then once more
+    under nothing_saveable, which recomputes the same kernels without the
+    selective policy's dispatch mode (the host's cost of that mode).  C
+    runs on every linear at M = 1024, 85 a forward; with remat again on the
+    84 layer linears in the backward (tests/test_torch_remat.py: every
+    layer linear, not the head), 169 a step.  Checks: finite losses, the
+    exact launches, the first step's loss and the adapters after it equal
+    across the runs, a forward and backward's peak lower with remat, the
+    base's bytes unchanged."""
+    import gc
+
+    from ggml_tpu_torch.models import gptj
+    from ggml_tpu_torch.opt import AdamWConfig, Optimizer, make_lm_model_fn
+    from ggml_tpu_torch.opt.lora import init_lora, wrap_lora
+
+    rank, batch, seq, steps, lr = (QLORA_BENCH[k] for k in ("rank", "batch", "seq", "steps", "lr"))
+    cfg = gptj.random_config("6b")
+    rng = np.random.default_rng(0)
+    x, y = (torch.from_numpy(rng.integers(0, cfg.n_vocab, (batch, seq))).cuda() for _ in range(2))
+    before = tensor_checksums(torch, params)
+    forward = planar_launches(params, batch * seq, head=True)
+    recomputed = planar_launches(params, batch * seq, head=False)
+    check(forward == {"q4k_matmul": 85} and recomputed == {"q4k_matmul": 84}, f"kernels at M = {batch * seq}: "
+          f"{forward}, {recomputed}")
+    out = dict(QLORA_BENCH, targets=list(QLORA_BENCH_TARGETS), remat=REMAT, card=card, runs={}, counts={})
+    per_step = {}
+    for policy in (None, REMAT, "nothing_saveable"):
+        name = policy or "none"
+        gc.collect()
+        torch.cuda.empty_cache()
+        lora = init_lora(params, rank, targets=QLORA_BENCH_TARGETS)
+        lm_fn = make_lm_model_fn(gptj, cfg, seq, batch, cast_logits_f32=False, remat_policy=policy)
+        opt = Optimizer(lambda p, t, frozen: lm_fn(wrap_lora(frozen, p, 1.0), t), lora,
+                        loss_type="cross_entropy_sparse_fused", adamw=AdamWConfig(alpha=lr), classify=False,
+                        frozen=params)
+        run = timed_training(torch, np, opt, x, y, steps)
+        per_step[name] = {k: v // steps for k, v in run["counts"].items() if v}
+        want = {k: 0 for k in run["counts"]}
+        want["q4k_matmul"] = (85 + (84 if policy else 0)) * steps
+        check(run["counts"] == want, f"4o, remat {name}: launches {run['counts']}, want {want}")
+        check(all(np.isfinite(run["losses"])), f"4o, remat {name}: losses {run['losses']}")
+        for k, v in run["counts"].items():
+            out["counts"][k] = out["counts"].get(k, 0) + v
+        run["profiled_step"] = profiled_training_step(torch, opt, x, y)
+        run["adapters"] = len(lora)
+        out["runs"][name] = run
+        del opt, lora
+    out["remat_against_none"] = compare_remat(torch, "4o", out["runs"], exact=False)
+    check(tensor_checksums(torch, params) == before, "4o: the base planes changed")
+    out["launches_per_step"] = per_step
+    _remat_line("GPT-J-6B Q4_K QLoRA (rank 16, 2 x 512)", out["runs"], per_step)
+    _profile_lines(out["runs"])
+    print(f"  remat against none: {out['remat_against_none']}; the base's bytes unchanged ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+LLAMA_QLORA = dict(rank=16, batch=2, seq=512, steps=6, lr=1e-3)  # finetune_lora's defaults but rank and shape
+
+
+def phase_qlora_llama(torch, np, path: str, tmp: str, card: str) -> dict:
+    """4p: QLoRA of Llama-3-8B from phase 4l's Q4_K file (Q6_K head), as
+    finetune_lora composes it: the base through load_params(keep_quantized=
+    True) (f32 embedding and norms, Q4_K planes, the Q6_K head as int8
+    planes), rank 16 on DEFAULT_TARGETS (q, k, v, attn_output, ffn_gate,
+    ffn_up, ffn_down: 224 adapters), f32 logits and the sparse cross entropy,
+    lr 1e-3, batch 2 x 512 seeded random ids; run without remat and with
+    bench's policy: 1 warm step, 6 timed, one profiled (device time by
+    class: C, G, backward dequant, backward products, attention, other).
+    C on all 224 linears at M = 1024 (ffn_down's K = 14336 planes too), G
+    on the head: 224 C and 1 G a step, 448 C with remat (the head is not
+    recomputed).  Checks: finite losses, exact launches, the first step's
+    loss and the adapters after it across the two runs, the peak lower with
+    remat, the base's bytes unchanged, the adapter round trip
+    (save_lora_gguf, load_lora_gguf, wrap_lora) giving Optimizer.eval's
+    loss within 1e-6 relative.  Then generate --lora as a subprocess on a
+    Llama-3-8B-width file cut to 2 layers, with the trained adapters of
+    layers 0 and 1: its greedy ids equal this process's over merge_lora'd
+    dense bf16 weights."""
+    import gc
+
+    from ggml_tpu_torch.dtypes import GGMLType
+    from ggml_tpu_torch.gguf import GGUFFile
+    from ggml_tpu_torch.models import gpt2, llama
+    from ggml_tpu_torch.opt import AdamWConfig, Optimizer, make_lm_model_fn
+    from ggml_tpu_torch.opt.lora import (apply_lora_to_params, init_lora, load_lora_gguf, save_lora_gguf,
+                                         wrap_lora)
+    from ggml_tpu_torch.quant.planar import PlanarWeight
+
+    rank, batch, seq, steps, lr = (LLAMA_QLORA[k] for k in ("rank", "batch", "seq", "steps", "lr"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(LLAMA_QLORA, remat=REMAT, card=card, runs={}, counts={})
+    t0 = time.perf_counter()
+    with GGUFFile(path) as g:
+        base = gpt2.load_params(g, torch.float32, keep_quantized=True, device="cuda")
+        cfg = llama.config_from_gguf(g)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    planar = [k for k, v in base.items() if isinstance(v, PlanarWeight) and k != "token_embd.weight"]
+    check(len(planar) == 7 * cfg.n_layer + 1, f"{len(planar)} planar linears")
+    m = batch * seq
+    forward, recomputed = planar_launches(base, m, head=True), planar_launches(base, m, head=False)
+    check(forward == {"q4k_matmul": 224, "q8_matmul": 1} and recomputed == {"q4k_matmul": 224},
+          f"kernels at M = {m}: {forward}, {recomputed}")
+    kinds = {}
+    for k in planar:
+        pw = base[k]
+        kind = f"{pw.kind} {'compact' if pw.d is not None else 'planes'} K={pw.k}"
+        kinds[kind] = kinds.get(kind, 0) + 1
+    out["plane_kinds"] = kinds
+    before = tensor_checksums(torch, base)
+    print(f"  loaded as planes with load_params(keep_quantized=True) in {out['load_s']:.1f}s "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB on the card); plane kinds {kinds}; at M = {m}: "
+          f"{forward} a forward")
+    rng = np.random.default_rng(1)
+    x, y = (torch.from_numpy(rng.integers(0, cfg.n_vocab, (batch, seq))).cuda() for _ in range(2))
+    per_step = {}
+    for policy in (None, REMAT):
+        name = policy or "none"
+        gc.collect()
+        torch.cuda.empty_cache()
+        lora = init_lora(base, rank)
+        lm_fn = make_lm_model_fn(llama, cfg, seq, batch, remat_policy=policy)
+        model_fn = lambda p, t, frozen: lm_fn(wrap_lora(frozen, p, 1.0), t)  # alpha = rank
+        opt = Optimizer(model_fn, lora, loss_type="cross_entropy_sparse", adamw=AdamWConfig(alpha=lr), frozen=base)
+        t0 = time.perf_counter()
+        run = timed_training(torch, np, opt, x, y, steps)
+        per_step[name] = {k: v // steps for k, v in run["counts"].items() if v}
+        want = {k: 0 for k in run["counts"]}
+        want.update(q4k_matmul=(224 + (224 if policy else 0)) * steps, q8_matmul=steps)
+        check(run["counts"] == want, f"4p, remat {name}: launches {run['counts']}, want {want}")
+        check(all(np.isfinite(run["losses"])), f"4p, remat {name}: losses {run['losses']}")
+        for k, v in run["counts"].items():
+            out["counts"][k] = out["counts"].get(k, 0) + v
+        run["profiled_step"] = profiled_training_step(torch, opt, x, y)
+        run["adapters"] = len(lora)
+        run["run_s"] = time.perf_counter() - t0  # the warm, timed and profiled steps and the peak's pass
+        out["runs"][name] = run
+        if policy:
+            trained = _clone_tree(torch, opt.params)
+            adapter = os.path.join(tmp, "llama-qlora-adapter.gguf")
+            save_lora_gguf(adapter, trained, alpha=float(rank), base_arch="llama")
+            loaded, alpha = load_lora_gguf(adapter)
+            reloaded = Optimizer(model_fn, {k: {kk: v.cuda() for kk, v in ab.items()} for k, ab in loaded.items()},
+                                 loss_type="cross_entropy_sparse", frozen=base)
+            l_mem, l_file = float(opt.eval(x, y)["loss"]), float(reloaded.eval(x, y)["loss"])
+            out.update(adapter_bytes=os.path.getsize(adapter), eval_loss=l_mem, eval_loss_reloaded=l_file)
+            check(alpha == rank and abs(l_mem - l_file) <= 1e-6 * abs(l_mem),
+                  f"4p adapter round trip: alpha {alpha}, eval loss {l_mem} in memory, {l_file} from the file")
+            del reloaded
+        del opt, lora
+    out["remat_against_none"] = compare_remat(torch, "4p", out["runs"], exact=False)
+    check(tensor_checksums(torch, base) == before, "4p: the base planes changed")
+    out["launches_per_step"] = per_step
+    _remat_line("Llama-3-8B Q4_K QLoRA (rank 16, 2 x 512)", out["runs"], per_step)
+    _profile_lines(out["runs"])
+    print(f"  adapter GGUF {out['adapter_bytes'] / 1e6:.2f} MB: Optimizer.eval loss {out['eval_loss']:.6f} in memory, "
+          f"{out['eval_loss_reloaded']:.6f} from the file; remat against none: {out['remat_against_none']}")
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # generate --lora on Llama-3-8B's widths cut to 2 layers (a dense merge of
+    # 32 layers would take minutes), with the trained adapters of layers 0 and 1
+    cut = dataclasses.replace(cfg, n_layer=2)
+    small = os.path.join(tmp, "llama3-8b-2-layers.gguf")
+    t0 = time.perf_counter()
+    llama.write_random_gguf(small, cut, seed=0, types={"output.weight": GGMLType.Q6_K})
+    small_adapter = os.path.join(tmp, "llama-2-layers-adapter.gguf")
+    save_lora_gguf(small_adapter, {k: v for k, v in trained.items() if k.startswith(("blk.0.", "blk.1."))},
+                   alpha=float(rank), base_arch="llama")
+    out["lora_file_write_s"] = time.perf_counter() - t0
+    prompt = [int(t) for t in np.random.default_rng(2).integers(0, cfg.n_vocab, 8)]
+    text = " ".join(map(str, prompt))
+    cmd = [sys.executable, "-m", "ggml_tpu_torch.cli.generate", small, "-p", text, "-n", "16", "--top-k", "1",
+           "--seed", "0", "--lora", small_adapter]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    out["lora_cli_wall_s"] = time.perf_counter() - t0
+    check(r.returncode == 0 and r.stdout.startswith(text), f"generate --lora exited {r.returncode}:\n"
+          f"{r.stderr[-4000:]}")
+    cli_ids = [int(t) for t in r.stdout[len(text):].split()]
+    t0 = time.perf_counter()
+    model = llama.Llama.from_gguf(small, keep_quantized=False, max_seq=512, device="cuda")  # the CLI's load
+    model.params = apply_lora_to_params(model.params, small_adapter, cfg=model.cfg)
+    out["lora_load_merge_s"] = time.perf_counter() - t0
+    ids = model.generate(np.asarray([prompt]), 16)
+    check(cli_ids == ids, f"generate --lora ids {cli_ids}, in process {ids}")
+    out["lora_cli_ids"] = ids
+    del model
+    print(f"  generate --lora (Llama-3-8B widths, 2 layers, dense bf16 + the adapters of layers 0-1): files written "
+          f"in {out['lora_file_write_s']:.1f}s, the CLI exit 0 in {out['lora_cli_wall_s']:.1f}s, loaded and merged "
+          f"here in {out['lora_load_merge_s']:.1f}s; its 16 greedy ids equal this process's")
+    for f in (small, small_adapter):
+        os.remove(f)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mnist(torch, np, tmp: str, card: str) -> dict:
+    """4q: MNIST through opt.fit at the JAX package's tests/test_mnist.py
+    settings: synthetic_mnist n 2048 seed 1, batch 256, val_split 0.125,
+    the fc model 4 epochs at lr 1e-3 and the cnn 3 epochs at 3e-3 (AdamW,
+    cross entropy), each gated at validation accuracy > 0.92; then
+    bench_mnist's eval (bench.py:231-259): init_fc(0) over 10000 seeded
+    images, one batch, µs/image on the host's clock with the logits back
+    on the host (three timings), and the same for the cnn; a reference-
+    format GGUF of the trained parameters written from the card and loaded
+    back onto it bit for bit.  No kernel of the port runs here (cuBLAS,
+    cuDNN: JAX's MNIST runs no Pallas kernel either)."""
+    from ggml_tpu_torch.models import mnist
+    from ggml_tpu_torch.opt import AdamWConfig, Dataset, Optimizer, fit
+
+    images, onehot, _ = mnist.synthetic_mnist(2048, seed=1)
+    evals = torch.from_numpy(np.random.default_rng(0).random((10000, 28, 28)).astype(np.float32)).cuda()
+    out = dict(card=card, n=2048, batch=256, val_split=0.125)
+    reset_launches()
+    for kind, init, fwd, epochs, lr in (("fc", mnist.init_fc, mnist.fc_forward, 4, 1e-3),
+                                        ("cnn", mnist.init_cnn, mnist.cnn_forward, 3, 3e-3)):
+        opt = Optimizer(fwd, init(0, device="cuda"), loss_type="cross_entropy", adamw=AdamWConfig(alpha=lr))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train, ev = fit(opt, Dataset(images, onehot), batch_size=256, epochs=epochs, val_split=0.125, silent=True)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        acc, acc_unc = ev.accuracy()
+        loss, loss_unc = ev.loss()
+        check(acc > 0.92, f"MNIST {kind}: validation accuracy {acc}")
+        path = os.path.join(tmp, f"mnist-{kind}.gguf")
+        mnist.save_gguf(opt.params, path)
+        back = mnist.load_gguf(path, device="cuda")
+        check(all(torch.equal(back[k], v) for k, v in opt.params.items()), f"MNIST {kind}: the GGUF round trip")
+        os.remove(path)
+        params = init(0, device="cuda")
+        with torch.no_grad():
+            fwd(params, evals).cpu()  # warm: cuBLAS and cuDNN handles, the algorithm choice
+            us = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits = fwd(params, evals).cpu()
+                us.append((time.perf_counter() - t0) / evals.shape[0] * 1e6)
+        check(logits.shape == (10000, 10) and bool(torch.isfinite(logits).all()), f"MNIST {kind} eval logits")
+        finite = lambda v: v if np.isfinite(v) else None  # one validation batch: no stderr of its loss
+        out[kind] = dict(epochs=epochs, lr=lr, fit_s=fit_s, val_accuracy=acc, val_accuracy_stderr=finite(acc_unc),
+                         val_loss=loss, val_loss_stderr=finite(loss_unc), train_loss_last_epoch=train.loss()[0],
+                         eval_us_per_image=us, gguf_round_trip="bit for bit")
+        print(f"  {kind}: fit {epochs} epochs in {fit_s:.2f}s, validation accuracy {acc * 100:.2f} +- "
+              f"{acc_unc * 100:.2f} %, loss {loss:.4f} +- {loss_unc:.4f}; eval of 10000 images "
+              + ", ".join(f"{u:.4f}" for u in us) + f" us/image ({card}); GGUF round trip bit for bit")
+    out["counts"] = launch_counts()
+    check(not any(out["counts"].values()), f"MNIST launched the port's kernels: {out['counts']}")
     return out
 
 
@@ -2206,7 +2681,7 @@ def phase_tiny_llama(torch, np, tmp: str) -> dict:
     return out
 
 
-def phase_llama(torch, np, tmp: str, card: str, serve: bool = False) -> dict:
+def phase_llama(torch, np, tmp: str, card: str, serve: bool = False, train: bool = False) -> dict:
     """4l: Llama-3-8B at its published widths (meta-llama/Meta-Llama-3-8B
     config.json: vocab 128256, E 4096, 32 layers, 32 heads over 8 kv heads,
     head_dim 128, n_ff 14336, rope base 500000, context 8192, untied head)
@@ -2361,6 +2836,9 @@ def phase_llama(torch, np, tmp: str, card: str, serve: bool = False) -> dict:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    if train:
+        stage("4p. QLoRA of Llama-3-8B from the same file, rank 16, batch 2 x 512, with and without remat")
+        out["qlora"] = phase_qlora_llama(torch, np, path, tmp, card)
     os.remove(path)
     out["tiny"] = phase_tiny_llama(torch, np, tmp)
     print(f"  Llama-3-8B ({card}): load {out['load_s']:.1f}s; graphed decode "
@@ -3329,6 +3807,34 @@ def main() -> int:
                                                      "count": torch.cuda.device_count()}}))
             return 0
 
+        if sys.argv[1:] == ["--train"]:
+            from ggml_tpu_torch.dtypes import GGMLType
+            from ggml_tpu_torch.models import gptj
+
+            train = {}
+            stage("4g. GPT-2-medium training, batch 8 x 512, bf16 over f32 masters, AdamW, flash attention")
+            train["gpt2_medium"] = phase_train(torch, np)
+            stage("4g. GPT-2-large training at bench_train's 774m shape, batch 4 x 512, with and without remat")
+            train["gpt2_large"] = phase_train_774m(torch, np)
+            stage("4h. tiny f32 GPT-2 training on the card against the CPU")
+            train["tiny_gpt2"] = phase_tiny_train(torch, np)
+            stage("4o. QLoRA of GPT-J-6B Q4_K (synthesized compact planes) at bench_qlora's shape")
+            params = gptj.synth_quantized_params(gptj.random_config("6b"), GGMLType.Q4_K, seed=0,
+                                                 dtype=torch.bfloat16, device="cuda")
+            train["qlora_gptj"] = phase_qlora_bench(torch, np, params, card)
+            del params
+            with tempfile.TemporaryDirectory(prefix="llama3-8b-gguf-") as tmp:
+                stage("4p. QLoRA of Llama-3-8B from a Q4_K GGUF file (Q6_K head), rank 16, batch 2 x 512")
+                path = write_llama3_8b_gguf(np, tmp)[0]
+                train["qlora_llama"] = phase_qlora_llama(torch, np, path, tmp, card)
+                os.remove(path)
+                stage("4q. MNIST: fc and cnn through opt.fit, bench_mnist's eval")
+                train["mnist"] = phase_mnist(torch, np, tmp, card)
+            print(json.dumps(dict(card=card, train=train)))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
+
         if sys.argv[1:] == ["--iquants"]:
             stage("4k. GPT-J-6B from IQ4_XS, IQ1_M and TQ2_0 GGUF files")
             with tempfile.TemporaryDirectory(prefix="gptj6b-gguf-") as tmp:
@@ -3410,6 +3916,8 @@ def main() -> int:
         stage("4m. serving: GPT-J-6B Q4_K (the same planes), 8 slots, bench_serve's mix")
         runs.append(phase_serve_gptj(torch, np, params, card))
         runs += phase_serve_4n(torch, np, params, card).values()
+        stage("4o. QLoRA of GPT-J-6B Q4_K (the same planes) at bench_qlora's shape, with and without remat")
+        runs.append(phase_qlora_bench(torch, np, params, card))
         del params
         torch.cuda.empty_cache()
         stage("4b. GPT-J-6B Q8_0 (synthesized int8 planes), three greedy requests")
@@ -3440,13 +3948,23 @@ def main() -> int:
         tiny = phase_tiny_reference(torch, np)
         stage("4g. GPT-2-medium training, batch 8 x 512, bf16 over f32 masters, AdamW, flash attention")
         runs.append(phase_train(torch, np))
+        stage("4g. GPT-2-large training at bench_train's 774m shape, batch 4 x 512, with and without remat")
+        runs.append(phase_train_774m(torch, np))
         stage("4h. tiny f32 GPT-2 training on the card against the CPU")
         tiny["gpt2_train"] = phase_tiny_train(torch, np)
+        with tempfile.TemporaryDirectory(prefix="mnist-") as tmp:
+            stage("4q. MNIST: fc and cnn through opt.fit, bench_mnist's eval")
+            runs.append(phase_mnist(torch, np, tmp, card))
         with tempfile.TemporaryDirectory(prefix="gptj6b-gguf-") as tmp:
-            stage("4i. the text front end: GPT-J-6B from a Q4_K GGUF file, the generate CLI, perplexity")
-            written = write_gptj6b_gguf(np, tmp)
+            # 4i and 4j at 4 of GPT-J's 28 layers in the whole run, which 4p's
+            # training of Llama-3-8B would otherwise take past 1000 s (loading
+            # the 28-layer file three times and 4j's once took 187 s of PR 17's
+            # first whole run; --front-end and --qlora run all 28)
+            stage("4i. the text front end: GPT-J-6B (4 of its 28 layers) from a Q4_K GGUF file, the generate CLI, "
+                  "perplexity")
+            written = write_gptj6b_gguf(np, tmp, n_layer=4)
             runs.append(phase_front_end(torch, np, written))
-            stage("4j. QLoRA fine-tuning of GPT-J-6B from the same file, batch 4 x 128, rank 8")
+            stage("4j. QLoRA fine-tuning of GPT-J-6B (4 layers) from the same file, batch 4 x 128, rank 8")
             runs.append(phase_qlora(torch, np, written[0], tmp))
             os.remove(written[0])
             # at 4 of its 28 layers in the whole run, which 4l and 4m would
@@ -3454,9 +3972,8 @@ def main() -> int:
             stage("4k. GPT-J-6B (4 of its 28 layers) from IQ4_XS, IQ1_M and TQ2_0 GGUF files")
             runs += phase_iquants(torch, np, tmp, card, n_layer=4)
             stage("4l. Llama-3-8B from a Q4_K GGUF file (Q6_K head)")
-            runs.append(phase_llama(torch, np, tmp, card, serve=True))
-            runs.append(runs[-1].pop("serve"))
-            runs.append(runs[-2].pop("serve_paged_chunked"))
+            llama_run = phase_llama(torch, np, tmp, card, serve=True, train=True)
+            runs += [llama_run, llama_run.pop("serve"), llama_run.pop("serve_paged_chunked"), llama_run.pop("qlora")]
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -13,7 +13,9 @@ ggml_tpu_torch` light):
     ggml_tpu_torch.models.gptj           GPT-J (greedy and sampled generation)
     ggml_tpu_torch.models.llama          the Llama family (GQA, RMSNorm, SwiGLU, rotate-half RoPE)
     ggml_tpu_torch.models.registry       load_model / load_tokenizer from a GGUF file
-    ggml_tpu_torch.opt                   AdamW training, finetune, LoRA / QLoRA (finetune_lora)
+    ggml_tpu_torch.models.mnist          the MNIST fc and cnn models (ggml-opt's training example)
+    ggml_tpu_torch.opt                   AdamW training, fit / epoch (opt.fit), finetune (remat),
+                                         LoRA / QLoRA (finetune_lora)
     ggml_tpu_torch.checkpoint            optimizer state to and from a GGUF file
     ggml_tpu_torch.params_from_numpy     weights carried over from ggml_tpu
 

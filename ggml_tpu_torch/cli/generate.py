@@ -98,9 +98,6 @@ def main(argv=None):
         arch = args.arch or g.metadata.get("general.architecture", "gpt2")
         tok = load_tokenizer(g)
         eos_meta = g.metadata.get("tokenizer.ggml.eos_token_id", -1)
-    if args.lora and arch not in ("gpt2", "gptj"):
-        raise NotImplementedError(f"--lora on a {arch} file: finetuning the families beyond gpt2 and gptj is not "
-                                  "ported yet (ROADMAP.md, section 1)")
     t_load0 = time.perf_counter()
     m = load_model(args.model, arch=arch, keep_quantized=args.quantized, max_seq=args.max_seq, batch=1,
                    device=args.device)

@@ -223,6 +223,17 @@ def linear(x, w, b=None):
     return out
 
 
+def run_layers(layer, n_layer: int, x, remat=None):
+    """x through layer(i, x) for i in range(n_layer): the layer loop of the
+    family forwards.  remat(layer, i, x), where a training forward hands one
+    (opt.finetune._remat), runs a layer rematerialized: its backward runs
+    its forward again just before it, so one layer's recomputed activations
+    are alive at a time."""
+    for i in range(n_layer):
+        x = layer(i, x) if remat is None else remat(layer, i, x)
+    return x
+
+
 def generate(model, prompt_tokens: np.ndarray, n_tokens: int, sampler=None, key=None) -> list[int]:
     """Generation shared by the model wrappers: prefill, then greedy decode
     through model.decode_greedy (the on-device loop), or, with a sampler,

@@ -27,7 +27,7 @@ import torch
 from ..dtypes import GGMLType
 from ..gguf import GGUFFile
 from .common import (cache_rows, cache_write, causal_mask, decode_loop, init_layer_cache, layer_norm as _layer_norm,
-                     linear as _linear)
+                     linear as _linear, run_layers)
 
 
 @dataclass(frozen=True)
@@ -58,6 +58,9 @@ def config_from_gguf(g: GGUFFile) -> GPT2Config:
     )
 
 
+_CHUNK_ROWS = 8192  # rows a dequantization job of load_params takes at most
+
+
 def load_params(g: GGUFFile, dtype=torch.float32, keep_quantized: bool = False, device="cuda") -> dict:
     """Load GGUF tensors onto `device`.
 
@@ -73,32 +76,58 @@ def load_params(g: GGUFFile, dtype=torch.float32, keep_quantized: bool = False, 
 
     The tensors are dequantized or repacked in numpy on up to 8 threads (numpy
     releases the interpreter lock in the array work): a 6B model's Q4_K file
-    takes minutes on one core.  Each tensor's result does not depend on the
-    order, and the dict keeps the file's order.
+    takes minutes on one core.  A tensor of more than _CHUNK_ROWS rows is
+    dequantized in chunks of rows, a job each: the embedding or head of a
+    128256-entry vocabulary would otherwise hold one thread for half a
+    minute.  Each tensor's result does not depend on the order, and the
+    dict keeps the file's order.
     """
+    from ..dtypes import row_size
     from ..quant.planar import planar_types, repack
+    from ..quant.reference import dequantize
 
-    def load(item) -> list:
-        name, info = item
-        is_matmul_weight = (
-            name.endswith(".weight")
-            and len(info.shape) == 2
-            and "norm" not in name
-            and name != "position_embd.weight"
-        )
-        if keep_quantized and is_matmul_weight and GGMLType(info.ggml_type) in planar_types():
-            n, k = info.shape
-            pw = repack(g.tensor_bytes(name), GGMLType(info.ggml_type), (int(n), int(k)))
-            out = [(name, pw.to(device))]
-            if name == "token_embd.weight":  # dense copy for the row gather
-                out.append(("token_embd.weight@dense", torch.from_numpy(g.to_float32(name)).to(device, dtype)))
-            return out
-        return [(name, torch.from_numpy(g.to_float32(name)).to(device, dtype))]
+    def planes(name, info):
+        n, k = info.shape
+        return repack(g.tensor_bytes(name), GGMLType(info.ggml_type), (int(n), int(k))).to(device)
 
-    params: dict[str, Any] = {}
+    def rows(name, info, out, r0: int, r1: int):
+        """Rows [r0, r1) of a 2-D tensor dequantized into out."""
+        t, k = GGMLType(info.ggml_type), int(info.shape[1])
+        rb = row_size(t, k)
+        out[r0:r1] = dequantize(g.tensor_bytes(name)[r0 * rb:r1 * rb], t, (r1 - r0) * k).reshape(r1 - r0, k)
+
+    def dense(pool, name, info):
+        """A future of the tensor on `device`, or the array its row chunks fill."""
+        if len(info.shape) != 2 or info.shape[0] <= _CHUNK_ROWS:
+            return pool.submit(lambda: torch.from_numpy(g.to_float32(name)).to(device, dtype))
+        out = np.empty(tuple(int(d) for d in info.shape), np.float32)
+        return out, [pool.submit(rows, name, info, out, r, min(r + _CHUNK_ROWS, out.shape[0]))
+                     for r in range(0, out.shape[0], _CHUNK_ROWS)]
+
+    def result(job):
+        if not isinstance(job, tuple):
+            return job.result()
+        out, chunks = job
+        for c in chunks:
+            c.result()
+        return torch.from_numpy(out).to(device, dtype)
+
+    jobs = []  # (key, job) in the file's order
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
-        for pairs in pool.map(load, g.tensors.items()):
-            params.update(pairs)
+        for name, info in g.tensors.items():
+            is_matmul_weight = (
+                name.endswith(".weight")
+                and len(info.shape) == 2
+                and "norm" not in name
+                and name != "position_embd.weight"
+            )
+            if keep_quantized and is_matmul_weight and GGMLType(info.ggml_type) in planar_types():
+                jobs.append((name, pool.submit(planes, name, info)))
+                if name == "token_embd.weight":  # dense copy for the row gather
+                    jobs.append(("token_embd.weight@dense", dense(pool, name, info)))
+            else:
+                jobs.append((name, dense(pool, name, info)))
+        params: dict[str, Any] = {key: result(job) for key, job in jobs}
     return params
 
 
@@ -153,7 +182,7 @@ def _gelu_fp16(x):
 
 def forward(params: dict, cfg: GPT2Config, tokens: torch.Tensor, pos_start: torch.Tensor, cache,
             cache_len: torch.Tensor, *, prefill: bool = False, train_flash: bool = False,
-            need_logits: bool = True):
+            need_logits: bool = True, layer_remat=None):
     """One step over tokens (b, t): returns (logits (b, t, n_vocab), cache).
 
     pos_start (b,) and cache_len are integer tensors on the model's device,
@@ -164,7 +193,8 @@ def forward(params: dict, cfg: GPT2Config, tokens: torch.Tensor, pos_start: torc
     (attention always reads the cache window here).  train_flash=True
     (training from an empty cache, t > 1): attention runs through
     flash_attention_train and the cache is neither read nor written; it may
-    be None then."""
+    be None then.  layer_remat: each layer rematerialized
+    (common.run_layers)."""
     b, t = tokens.shape
     flash = train_flash and t > 1
     positions = pos_start[:, None] + torch.arange(t, device=tokens.device)[None, :]
@@ -182,7 +212,7 @@ def forward(params: dict, cfg: GPT2Config, tokens: torch.Tensor, pos_start: torc
         rows = cache_rows(cache_len, t, max_seq)  # cache rows written
         kv_pos = torch.arange(max_seq, device=x.device)[None, None, None, :]
         visible = kv_pos <= positions[:, None, :, None]
-    for i in range(cfg.n_layer):
+    def layer(i, x):
         pre = f"blk.{i}."
         h = _layer_norm(x, params[pre + "attn_norm.weight"], params[pre + "attn_norm.bias"], cfg.eps)
         qkv = _linear(h, params[pre + "attn_qkv.weight"], params[pre + "attn_qkv.bias"])
@@ -210,8 +240,9 @@ def forward(params: dict, cfg: GPT2Config, tokens: torch.Tensor, pos_start: torc
         h = _layer_norm(x, params[pre + "ffn_norm.weight"], params[pre + "ffn_norm.bias"], cfg.eps)
         gelu = _gelu_fp16 if cfg.gelu_fp16 else _gelu
         h = gelu(_linear(h, params[pre + "ffn_up.weight"], params[pre + "ffn_up.bias"]))
-        x = x + _linear(h, params[pre + "ffn_down.weight"], params[pre + "ffn_down.bias"])
+        return x + _linear(h, params[pre + "ffn_down.weight"], params[pre + "ffn_down.bias"])
 
+    x = run_layers(layer, cfg.n_layer, x, layer_remat)
     if not need_logits:
         return None, cache
     x = _layer_norm(x, params["output_norm.weight"], params["output_norm.bias"], cfg.eps)

@@ -29,7 +29,7 @@ import torch
 from ..dtypes import GGMLType
 from ..gguf import GGUFFile
 from .common import (QuantKV, cache_rows, cache_write, causal_mask, decode_loop, dequant_cache, init_layer_cache,
-                     layer_norm as _layer_norm, linear as _linear, make_sampled_decode)
+                     layer_norm as _layer_norm, linear as _linear, make_sampled_decode, run_layers)
 from .gpt2 import _gelu_fp16
 
 
@@ -127,7 +127,8 @@ def init_cache(cfg: GPTJConfig, batch: int, max_seq: int, dtype=torch.bfloat16, 
 
 
 def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torch.Tensor,
-            cache: list, cache_len: torch.Tensor, *, prefill: bool = False, need_logits: bool = True):
+            cache: list, cache_len: torch.Tensor, *, prefill: bool = False, need_logits: bool = True,
+            layer_remat=None):
     """tokens (b, t) -> (logits (b, t, n_vocab), cache); the cache is updated
     in place and returned, as the JAX forward returns its new cache.
 
@@ -141,7 +142,8 @@ def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torc
     current tokens.  Differentiable
     (training from an empty cache, opt/finetune.make_lm_model_fn): with t > 1
     and prefill=False attention is the plain f32 attention over the cache
-    window, whose rows autograd reads back through the in-place writes."""
+    window, whose rows autograd reads back through the in-place writes.
+    layer_remat: each layer rematerialized (common.run_layers)."""
     from ..kernels.decode_attn import fused_decode_attention
 
     b, t = tokens.shape
@@ -164,7 +166,7 @@ def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torc
 
         mask = causal_mask(t, x.device)
         ranges = mask_ranges(mask)
-    for i in range(cfg.n_layer):
+    def layer(i, x):
         pre = f"blk.{i}."
         h = _layer_norm(x, params[pre + "attn_norm.weight"], params[pre + "attn_norm.bias"], cfg.eps)
 
@@ -230,8 +232,9 @@ def forward(params: dict, cfg: GPTJConfig, tokens: torch.Tensor, pos_start: torc
             ff = 0.5 * ff * (1.0 + torch.tanh(0.79788456080286535588 * ff * (1.0 + 0.044715 * ff * ff)))
         ff = _linear(ff, params[pre + "ffn_down.weight"], params[pre + "ffn_down.bias"])
 
-        x = x + attn_out + ff
+        return x + attn_out + ff
 
+    x = run_layers(layer, cfg.n_layer, x, layer_remat)
     if not need_logits:
         return None, cache
     x = _layer_norm(x, params["output_norm.weight"], params["output_norm.bias"], cfg.eps)

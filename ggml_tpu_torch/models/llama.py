@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from ..dtypes import GGMLType
 from ..gguf import GGUFFile
 from .common import (cache_rows, cache_write, causal_mask, decode_loop, dequant_cache, init_layer_cache,
-                     linear as _linear, make_sampled_decode)
+                     linear as _linear, make_sampled_decode, run_layers)
 from .gptj import _random_weight_blocks, _rope_interleaved, rope_angles
 
 
@@ -190,7 +190,7 @@ def _no_experts(cfg: LlamaConfig):
 
 
 def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, pos_start: torch.Tensor, cache: list,
-            cache_len: torch.Tensor, *, prefill: bool = False, need_logits: bool = True):
+            cache_len: torch.Tensor, *, prefill: bool = False, need_logits: bool = True, layer_remat=None):
     """tokens (b, t) -> (logits (b, t, n_vocab), cache); the cache is written
     in place and returned (llama.py:304-393).
 
@@ -202,7 +202,8 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, pos_start: tor
     current tokens.  A multi-token step against a populated cache leaves it
     False and attends over the cache window.  need_logits=False skips the
     final norm and the head and returns (None, cache): a prefill that only
-    fills the cache (serve.Engine's admission)."""
+    fills the cache (serve.Engine's admission).  layer_remat: each layer
+    rematerialized (common.run_layers)."""
     _no_experts(cfg)
     b, t = tokens.shape
     dev = tokens.device
@@ -230,7 +231,7 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, pos_start: tor
         ranges = mask_ranges(mask)
     else:  # which cache rows each query row sees, the same for every layer
         visible = torch.arange(max_seq, device=dev)[None, None, None, None, :] <= positions[:, None, None, :, None]
-    for i in range(cfg.n_layer):
+    def layer(i, x):
         pre = f"blk.{i}."
         h = _rms_norm(x, params[pre + "attn_norm.weight"], cfg.rms_eps)
         # qkv biases where the file has them (qwen2, seed_oss)
@@ -274,8 +275,9 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, pos_start: tor
         h = _rms_norm(x, params[pre + "ffn_norm.weight"], cfg.rms_eps)
         gate = _linear(h, params[pre + "ffn_gate.weight"])
         up = _linear(h, params[pre + "ffn_up.weight"])
-        x = x + res(_linear(F.silu(gate) * up, params[pre + "ffn_down.weight"]))
+        return x + res(_linear(F.silu(gate) * up, params[pre + "ffn_down.weight"]))
 
+    x = run_layers(layer, cfg.n_layer, x, layer_remat)
     if not need_logits:
         return None, cache
     x = _rms_norm(x, params["output_norm.weight"], cfg.rms_eps)

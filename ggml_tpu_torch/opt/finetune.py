@@ -5,8 +5,10 @@ example).
 make_lm_model_fn builds the model function the Optimizer trains: the family
 forward from an empty cache, optionally in bf16 over f32 master weights and
 (GPT-2) through the flash-attention training kernels.  Ported families: gpt2,
-gptj.  Checkpoints go through checkpoint.py (atomic publish, bit-exact
-resume).
+gptj and the dense llama family (llama, qwen2, qwen3).  remat_policy runs
+each layer under torch.utils.checkpoint, the counterpart of jax.checkpoint
+(see _remat).  Checkpoints go through checkpoint.py (atomic publish,
+bit-exact resume).
 """
 
 from __future__ import annotations
@@ -21,10 +23,10 @@ from .optimizer import AdamWConfig, Optimizer
 
 # the families the JAX package finetunes, with the ROADMAP.md item that ports them
 _NOT_PORTED = {
-    "llama": "the llama family", "qwen2": "the llama family", "qwen3": "the llama family",
-    "qwen2moe": "the llama family", "qwen3moe": "the llama family",
-    "deepseek2": "the other families", "gemma2": "the other families", "phi2": "the other families",
-    "gptneox": "the other families", "falcon": "the other families",
+    "qwen2moe": "section 1 item 4, the MoE block", "qwen3moe": "section 1 item 4, the MoE block",
+    "deepseek2": "section 1 item 6, the other families", "gemma2": "section 1 item 6, the other families",
+    "phi2": "section 1 item 6, the other families", "gptneox": "section 1 item 6, the other families",
+    "falcon": "section 1 item 6, the other families",
 }
 
 
@@ -37,10 +39,83 @@ def _family(arch: str):
         from ..models import gptj as fam
 
         return fam
+    if arch in ("llama", "qwen2", "qwen3"):
+        from ..models import llama as fam
+
+        return fam
     if arch in _NOT_PORTED:
         raise NotImplementedError(f"finetuning {arch} is not ported yet (ROADMAP.md, {_NOT_PORTED[arch]})")
     raise ValueError("finetune supports gpt2/gptj/llama(+qwen2/3, qwen*moe)/deepseek2/"
                      f"gemma2/phi2/gptneox/falcon, not {arch}")
+
+
+# the argument-free policies of jax.checkpoint_policies, under both of their
+# names; the aten products each saves (a "dot" is a dot_general: torch's
+# mm and addmm are the products without batch dims, bmm and baddbmm the
+# batched ones, such as the attention's)
+_NO_BATCH_DOTS = ("mm", "addmm")
+_DOTS = _NO_BATCH_DOTS + ("bmm", "baddbmm")
+_REMAT_SAVES = {
+    "everything_saveable": None, "nothing_saveable": (),
+    "dots_saveable": _DOTS, "checkpoint_dots": _DOTS,
+    "dots_with_no_batch_dims_saveable": _NO_BATCH_DOTS, "checkpoint_dots_with_no_batch_dims": _NO_BATCH_DOTS,
+}
+
+
+def _remat(policy: str):
+    """The per-layer wrapper (models/common.run_layers) that rematerializes a
+    training forward as jax.checkpoint(model_fn, policy=getattr(
+    jax.checkpoint_policies, policy)) does, or None for everything_saveable,
+    which saves all (no remat).
+
+    Each layer runs under torch.utils.checkpoint (non-reentrant): the
+    forward keeps its inputs, and the backward runs the layer's forward
+    again for what it needs.  The "dots" policies also keep the outputs of
+    the products they name, through selective checkpointing (a policy over
+    aten ops), so those are not recomputed; everything else is, the
+    hand-written kernels included, as JAX recomputes a pallas_call's output
+    (it is not a dot): the planar matmuls' kernels (C, G) and the training
+    flash forward (K) run again in the backward, on every layer's linears.
+    Outside the layers nothing is recomputed: JAX does not recompute the
+    head either, as only the loss reads its output.  Values never change,
+    only memory and launches.
+
+    Per layer, where JAX wraps the whole model function: PyTorch's
+    checkpoint recomputes a region's whole forward at the first use of any
+    of its saved tensors, so one region over the model would hold every
+    recomputed activation at once and lower no peak (a CPU run of a 12-layer
+    GPT-2 read a higher peak with it than without), where XLA schedules
+    JAX's recompute layer by layer beside the backward.  The layer inputs
+    are kept beside what the policy keeps, and each layer's forward runs
+    again whole, so the kernels run again exactly where JAX's do.  The
+    training forwards draw no random numbers, so the recompute needs no
+    saved RNG state (preserve_rng_state=False)."""
+    if policy not in _REMAT_SAVES:  # a name JAX lacks, or one of its policy factories (save_only_these_names...)
+        raise ValueError(f"remat_policy {policy!r} is not an argument-free jax.checkpoint_policies policy; "
+                         f"one of {sorted(_REMAT_SAVES)}")
+    saves = _REMAT_SAVES[policy]
+    if saves is None:
+        return None
+    from torch.utils.checkpoint import (CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+                                       set_checkpoint_early_stop)
+
+    kw = {}
+    if saves:
+        ops = {getattr(torch.ops.aten, name).default for name in saves}
+
+        def keep(ctx, op, *args, **kwargs):
+            return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
+
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(keep)
+
+    def remat_layer(layer, i, x):
+        # the whole layer again: left to stop early, the recompute would end
+        # at the last op that saves a tensor, before ffn_down's kernel, whose
+        # output JAX recomputes (the next layer's input needs it there)
+        with set_checkpoint_early_stop(False):
+            return checkpoint(layer, i, x, use_reentrant=False, preserve_rng_state=False, **kw)
+
+    return remat_layer
 
 
 def make_lm_model_fn(fam, cfg, seq_len: int, batch: int, compute_dtype=None, cast_logits_f32: bool = True,
@@ -54,11 +129,13 @@ def make_lm_model_fn(fam, cfg, seq_len: int, batch: int, compute_dtype=None, cas
     the logits in the compute type, for the fused cross entropy.
     train_flash=True: attention through the flash-attention training kernels
     (O(seq) residuals; GPT-2, whose forward takes the flag); no cache is
-    allocated for prompts longer than one token.  remat_policy
-    (jax.checkpoint policies) has no counterpart yet.  params may hold
-    PlanarWeight and LoRAWeight values (QLoRA), which no cast touches."""
-    if remat_policy:
-        raise NotImplementedError("rematerialization (remat_policy) is not ported yet (ROADMAP.md, remat)")
+    allocated for prompts longer than one token.  remat_policy: the name of
+    an argument-free jax.checkpoint_policies policy (everything_saveable,
+    nothing_saveable, dots_saveable, dots_with_no_batch_dims_saveable, and
+    the checkpoint_dots aliases), under which every layer is
+    rematerialized (see _remat).  params may hold PlanarWeight and
+    LoRAWeight values (QLoRA), which no cast touches."""
+    remat = _remat(remat_policy) if remat_policy else None
 
     def model_fn(params, tokens):
         if compute_dtype is not None:
@@ -69,6 +146,8 @@ def make_lm_model_fn(fam, cfg, seq_len: int, batch: int, compute_dtype=None, cas
                  fam.init_cache(cfg, b, seq_len, compute_dtype or torch.float32, device=tokens.device))
         zero = torch.zeros((), dtype=torch.int32, device=tokens.device)
         kw = {"train_flash": True} if train_flash else {}
+        if remat is not None:
+            kw["layer_remat"] = remat
         logits, _ = fam.forward(params, cfg, tokens, zero.expand(b), cache, zero, **kw)
         return logits.float() if cast_logits_f32 else logits
 

@@ -8,7 +8,8 @@ within 1e-4 (f32 sums in another order, amplified by AdamW's normalization),
 for GPT-2 and for a tiny f32 GPT-J (test_gptj_finetune_matches_jax).
 The output GGUF loads in both packages with the trained weights bit for bit.
 The CLI runs full-weight training, LoRA (--lora-rank) and checkpoints
-(--checkpoint-dir, --checkpoint-every); --dp, llama and falcon still raise.
+(--checkpoint-dir, --checkpoint-every); --dp, qwen2moe and falcon still raise
+(llama, qwen2 and qwen3 train: tests/test_torch_llama_train.py).
 """
 
 import numpy as np
@@ -128,8 +129,10 @@ def test_finetune_rejects_families_and_options_not_ported(tiny_gguf):
     from ggml_tpu_torch.opt.finetune import _family
 
     assert _family("gptj").__name__ == "ggml_tpu_torch.models.gptj"
-    for arch in ("llama", "falcon"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for arch in ("llama", "qwen2", "qwen3"):
+        assert _family(arch).__name__ == "ggml_tpu_torch.models.llama"
+    for arch, item in (("qwen2moe", "the MoE block"), ("falcon", "the other families")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, section 1 item ., {item}"):
             _family(arch)
     with pytest.raises(ValueError):
         _family("nope")

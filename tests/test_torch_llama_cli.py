@@ -78,13 +78,22 @@ def test_cli_text_is_the_greedy_text_and_the_tokenizer_jax_s(gguf_path, capsys):
     assert out == PROMPT + tok.decode(gen) + "\n" and len(gen) == 10
 
 
-def test_registry_and_cli_flags_on_a_llama_file(gguf_path, capsys):
+def test_registry_and_cli_flags_on_a_llama_file(gguf_path, tmp_path, capsys):
     m = registry.load_model(gguf_path, arch="qwen2", device="cpu", max_seq=32)
     assert isinstance(m, llama.Llama) and m.max_seq == 32 and m.params["blk.0.attn_q.weight"].dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         registry.load_model(gguf_path, arch="qwen3moe", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main([str(gguf_path), "--lora", "adapter.gguf", "--device", "cpu"])
+    # --lora merges into the dense weights (its text against JAX's: tests/test_torch_llama_train.py)
+    from ggml_tpu_torch.opt import lora
+
+    adapter = tmp_path / "adapter.gguf"
+    ab = {"a": torch.ones((2, 256)) * 0.1, "b": torch.ones((256, 2)) * 0.1}
+    lora.save_lora_gguf(adapter, {"blk.0.attn_q.weight": ab, "blk.1.ffn_down.weight": {
+        "a": torch.ones((2, 512)) * 0.1, "b": ab["b"]}}, alpha=2.0, base_arch="llama")
+    text = _run_cli(capsys, [str(gguf_path), "-p", PROMPT, "-n", "4", "--top-k", "1", "--lora", str(adapter)])
+    assert text.startswith(PROMPT)
+    with pytest.raises(SystemExit, match="quantized"):
+        cli.main([str(gguf_path), "--lora", str(adapter), "--quantized", "--device", "cpu"])
     seeded = [str(gguf_path), "-p", PROMPT, "-n", "4", "--quantized", "--seed", "3", "--top-k", "40"]
     assert _run_cli(capsys, seeded) == _run_cli(capsys, seeded)
 
@@ -131,3 +140,20 @@ def test_llamacpp_permuted_load_matches_jax(gguf_path):
         assert isinstance(tm.params[name], torch.Tensor) and tm.params[name].shape == jm.params[name].shape
         np.testing.assert_array_equal(tm.params[name].numpy(), np.asarray(jm.params[name]))
     assert isinstance(tm.params["blk.0.attn_v.weight"], PlanarWeight)
+
+
+def test_load_params_in_row_chunks_is_the_whole_tensor(gguf_path, monkeypatch):
+    """A tensor of more than _CHUNK_ROWS rows is dequantized in chunks of
+    rows (jobs of their own): the result is the whole tensor's, bit for
+    bit, dense and as the embedding's dense copy beside its planes."""
+    from ggml_tpu_torch.models import gpt2
+
+    monkeypatch.setattr(gpt2, "_CHUNK_ROWS", 100)  # the embedding (269 rows) in 3 chunks, ffn_gate/up in 6
+    with GGUFFile(gguf_path) as g:
+        dense = gpt2.load_params(g, torch.float32, device="cpu")
+        planar = gpt2.load_params(g, torch.float32, keep_quantized=True, device="cpu")
+        assert list(dense) == list(g.tensors)
+        for name in g.tensors:
+            np.testing.assert_array_equal(dense[name].numpy(), g.to_float32(name), err_msg=name)
+        np.testing.assert_array_equal(planar["token_embd.weight@dense"].numpy(), g.to_float32("token_embd.weight"))
+    assert list(planar)[:2] == ["token_embd.weight", "token_embd.weight@dense"]
