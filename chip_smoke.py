@@ -13,6 +13,7 @@
     python3 chip_smoke.py --serve                 # phases 1, 2 and serving (4m: the Engine, the HTTP server; 4n: the
                                                   # paged, chunked and q8 KV engines) only
     python3 chip_smoke.py --train                 # phases 1, 2 and training (4g, 4h, 4o, 4p, 4q) only
+    python3 chip_smoke.py --spec                  # phases 1, 2 and speculative decoding (4r) only
 
 Phases (any failure exits non-zero without the result line):
 1. the card, as nvidia-smi reports its name and power limit;
@@ -109,7 +110,20 @@ Phases (any failure exits non-zero without the result line):
    layers against this process's merged model; (q) MNIST through opt.fit
    (fc and cnn, validation accuracy > 0.92), bench_mnist's eval µs/image,
    the GGUF round trip; and in (g), GPT-2-large at bench_train's 774m shape
-   (batch 4 x 512) without and with remat: K twice a layer under remat;
+   (batch 4 x 512) without and with remat: K twice a layer under remat; (r)
+   speculative decoding on 4a's planes: bench_spec's shape (a 2-layer
+   self-draft, k = 7, 192 tokens, with bench's pinned-argmax bias, with a
+   two-token bias whose rounds accept part of their drafts, and without a
+   bias) against plain graphed decode, the sampled decoder, and
+   bench_spec_serve's mix (8 slots, k = 4: greedy and sampled against the
+   plain engine; dense and paged with the two-token bias), exact launches
+   a round, every token the argmax of its own verify row and every round
+   at the position of its history (the replayed rounds, or the rows the
+   engines' rounds computed, read as they ran), splits from plain greedy
+   reported with both rows; then 4l's Llama-3-8B through a paged engine
+   with the prefix cache and a 2-layer self-draft at 4 slots, pinned (the
+   final norm zeroed: ids equal) and not, its paged verify held against
+   llama.forward over the gathered windows;
 5. one JSON line listing every kernel, then the result line.
 
 Runs only where torch.cuda.is_available(); it imports nothing of JAX.
@@ -2833,6 +2847,9 @@ def phase_llama(torch, np, tmp: str, card: str, serve: bool = False, train: bool
         out["serve"] = phase_serve_llama(torch, np, model, path, tokens, merges, card)
         stage("4n. serving: Llama-3-8B (the same model), 4 slots, paged and chunked engines")
         out["serve_paged_chunked"] = phase_serve_llama_paged(torch, np, model, card)
+        stage("4r. speculative serving: Llama-3-8B (the same model), 4 slots, paged with the prefix cache, "
+              "2-layer self-draft")
+        out["spec"] = phase_spec_llama(torch, np, model, card)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3201,18 +3218,22 @@ LLAMA_TAILS, LLAMA_OTHER = (20, 40, 9, 33), 100  # 4n (c): tokens after the shar
 
 class _Forwards:
     """Records each family forward an engine runs outside its graphs (the
-    prefills, chunk dispatches and suffix prefills) as (rows M, head run)."""
+    prefills, chunk dispatches and suffix prefills) as (rows M, head run).
+    attr "_draft_fwd" with only_prefill: the draft's prefills (its eager
+    steps on a paged engine are counted by round)."""
 
-    def __init__(self, eng):
-        self.eng, self.fwd, self.calls = eng, eng._fwd, []
-        eng._fwd = self
+    def __init__(self, eng, attr: str = "_fwd", only_prefill: bool = False):
+        self.eng, self.attr, self.only_prefill, self.calls = eng, attr, only_prefill, []
+        self.fwd = getattr(eng, attr)
+        setattr(eng, attr, self)
 
     def __call__(self, params, cfg, tokens, *args, need_logits=True, **kw):
-        self.calls.append((tokens.shape[0] * tokens.shape[1], need_logits))
+        if kw.get("prefill") or not self.only_prefill:
+            self.calls.append((tokens.shape[0] * tokens.shape[1], need_logits))
         return self.fwd(params, cfg, tokens, *args, need_logits=need_logits, **kw)
 
     def close(self):
-        self.eng._fwd = self.fwd
+        setattr(self.eng, self.attr, self.fwd)
 
 
 def planar_launches(params: dict, m: int, head: bool, times: int = 1, into: dict | None = None) -> dict:
@@ -3629,6 +3650,712 @@ def phase_serve_llama_paged(torch, np, model, card: str) -> dict:
     return out
 
 
+# 4r: speculative decoding.  bench_spec (bench.py:836-904): GPT-J-6B Q4_K
+# with _spec_bias_params' output bias, a 2-layer self-draft over the target's
+# tensors, k = 7, 192 tokens from token 11 at n_past 0, max_seq 256;
+# bench_spec_serve (:907-968): 8 slots, 24 requests of 4-30-token prompts
+# from default_rng(0) x 32 new, k = 4, the same draft, max_seq 256, bucket
+# 32, two warm passes, greedy and sampled (temperature 0.7, top_k 40, top_p 0.95)
+SPEC_K, SPEC_TOKENS, SPEC_FIRST, SPEC_DRAFT_LAYERS, SPEC_SERVE_K = 7, 192, 11, 2, 4
+SPEC_PARTIAL_PROMPT = 32  # 4r (a)'s partial run: random prompt tokens before the first
+SPEC_SAMPLER = {"temperature": 0.7, "top_k": 40, "top_p": 0.95}
+
+
+def spec_partial_params(torch, params: dict, n_vocab: int) -> dict:
+    """A draft that agrees in part: an f32 output bias of 1e4 on tokens 7
+    and 11 alike (far above the logits of random weights, so that both
+    models always answer one of the two; f32 at 1e4 keeps the raw logits to
+    1e-3), and the 2-layer draft and the 28-layer target pick the same one
+    about as often as not: rounds accept some of their drafts.  The planes
+    are shared; the logits less the bias are the raw ones."""
+    bias = torch.zeros((n_vocab,), dtype=torch.float32, device="cuda")
+    bias[torch.tensor([7, 11], device="cuda")] = 1.0e4
+    return dict(params) | {"output.bias": bias}
+
+
+def spec_bias_params(torch, params: dict, n_vocab: int) -> dict:
+    """bench.py's _spec_bias_params: an f32 output bias that pins the argmax
+    (3e5, 2e5, 1e5 on tokens 7, 11, 23, far above the logits of random
+    weights), so that draft and target agree by construction and the run
+    measures the machinery at its ceiling.  The planes are shared."""
+    bias = torch.zeros((n_vocab,), dtype=torch.float32, device="cuda")
+    bias[torch.tensor([7, 11, 23], device="cuda")] = torch.tensor([3.0e5, 2.0e5, 1.0e5], device="cuda")
+    return dict(params) | {"output.bias": bias}
+
+
+def layer_launches(params: dict, n_layer: int, m: int, head: bool, times: int = 1, into: dict | None = None) -> dict:
+    """planar_launches over the first n_layer layers only (a draft that is a
+    prefix of the target's layers over its tensors), the head where it runs."""
+    from ggml_tpu_torch.kernels import qmatmul
+    from ggml_tpu_torch.quant.planar import PlanarWeight
+
+    out = {} if into is None else into
+    for key, w in params.items():
+        if not isinstance(w, PlanarWeight) or key == "token_embd.weight" or (key == "output.weight" and not head):
+            continue
+        if key.startswith("blk.") and int(key.split(".")[1]) >= n_layer:
+            continue
+        name = qmatmul.select_kernel(w, m)
+        out[name] = out.get(name, 0) + times
+    return out
+
+
+def spec_round_launches(target, draft, k: int, b: int) -> dict:
+    """The launches of one speculative round over b slots: k draft steps at
+    M = b with the head, the step that writes d_k's row without it, the
+    verify at M = b (k + 1); GPT-J's draft steps at b = 1 and one position
+    take the decode attention (kernel D) in each layer."""
+    from ggml_tpu_torch.models import gptj
+
+    out = layer_launches(draft.params, draft.cfg.n_layer, b, True, k)
+    layer_launches(draft.params, draft.cfg.n_layer, b, False, 1, into=out)
+    layer_launches(target.params, target.cfg.n_layer, b * (k + 1), True, 1, into=out)
+    if b == 1 and isinstance(draft, gptj.GPTJ):
+        out["decode_attn"] = draft.cfg.n_layer * (k + 1)
+    return out
+
+
+def teacher_forced_verify(torch, model, tokens: list, accepted: list, k: int, keep: int | None = None,
+                          start: int = 0, cache=None) -> dict:
+    """The verify rows of a speculative run replayed: round r starts at
+    position p (p_0 = start, p_r+1 = p_r + accepted_r + 1) and runs the
+    target over tokens[p:p + k + 1] (zero-padded) at p over one cache (a
+    fresh one, or `cache` prefilled with tokens[:start]), the call the
+    decoder makes; row j <= accepted_r is the row the real verify computed
+    (its inputs are the accepted tokens, its cache rows those of the
+    accepted history; rows past it are rewritten by the next round).
+    Returns {emitted index: (argmax, top-2 gap)} and, for index `keep`,
+    the row."""
+    from ggml_tpu_torch.speculative import _forward_for
+
+    cache = model.new_cache() if cache is None else cache
+    out, row = {}, None
+    p = start
+    with torch.no_grad():
+        for a in accepted:
+            seq = (tokens[p:p + k + 1] + [0] * (k + 1))[:k + 1]
+            pos = torch.full((), p, dtype=torch.int32, device=model.device)
+            logits = _forward_for(model)(model.params, model.cfg, torch.tensor([seq], device=model.device),
+                                         pos.expand(1), cache, pos)[0][0].float()
+            best = torch.argmax(logits[:a + 1], dim=-1)  # the first of tied maxima, as the decoder's argmax
+            top = torch.topk(logits[:a + 1], 2, dim=-1).values
+            for j in range(a + 1):
+                out[p - start + j] = (int(best[j]), float(top[j, 0] - top[j, 1]))
+                if p - start + j == keep:
+                    row = logits[j].clone()
+            p += a + 1
+    return out, row
+
+
+def plain_logits_at(torch, model, tokens: list, q: int, start: int = 0, cache=None, batch: int = 1):
+    """The logits a plain decode step computes for emitted index q: eager
+    steps over tokens[start..start + q] from a fresh cache or `cache`
+    (prefilled with tokens[:start]): kernels A and D, as the graph.  batch
+    2: the same steps over the sequence twice (M = 2: kernel B, the verify's
+    route; the prefix prefilled at b = 2)."""
+    from ggml_tpu_torch.speculative import _forward_for
+
+    fwd = _forward_for(model)
+    if batch > 1:
+        cache = [(kc.repeat(batch, 1, 1, 1), vc.repeat(batch, 1, 1, 1)) for kc, vc in model.new_cache()]
+    elif cache is None:
+        cache = model.new_cache()
+    dev = model.device
+    with torch.no_grad():
+        if batch > 1 and start:
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            fwd(model.params, model.cfg, torch.tensor([tokens[:start]] * batch, device=dev), zero.expand(batch),
+                cache, zero, prefill=True, need_logits=False)
+        for i in range(start, start + q + 1):
+            pos = torch.full((), i, dtype=torch.int32, device=dev)
+            logits, _ = fwd(model.params, model.cfg, torch.tensor([[tokens[i]]] * batch, device=dev),
+                            pos.expand(batch), cache, pos)
+    return logits[0, -1].float()
+
+
+class SpecTap:
+    """The verify rows a greedy speculative engine's rounds computed, read
+    as they ran.  Installed before the engine's first tick (so that every
+    capture holds it), it wraps the engine's round: each round's verify
+    inputs (tokens (B, k + 1), positions (B,)) and logits (B, k + 1, V) are
+    copied into static f32 buffers (one copy each a round, inside the
+    round's graph), and each fetched stretch is read from them before the
+    engine consumes it: per request its rounds as (position, tokens fed,
+    n_acc, block, the argmax of each row, and with keep_rows the rows).
+    reference(eng, tokens, positions) -> logits: a verify of the same
+    inputs by another route over the engine's pools or cache as they stand
+    after the replay; its NMSE against the engine's rows of live slots is
+    kept a round (paged engines: one round a replay)."""
+
+    def __init__(self, torch, eng, reference=None, keep_rows: bool = False):
+        from ggml_tpu_torch.serve import SPEC_STRETCH
+
+        r = 1 if eng.paged is not None else SPEC_STRETCH
+        b, t, v = eng.max_batch, eng.draft_k + 1, eng.cfg.n_vocab
+        self.logits = torch.zeros((r, b, t, v), dtype=torch.float32, device=eng.device)
+        self.tokens = torch.zeros((r, b, t), dtype=torch.long, device=eng.device)
+        self.pos = torch.zeros((r, b), dtype=torch.long, device=eng.device)
+        self.eng, self.reference, self.keep_rows, self.i = eng, reference, keep_rows, 0
+        self.rounds: dict = {}
+        self.first: dict = {}  # request -> its first token emitted by a round (check)
+        self.nmse: list = []
+        self.saved = {name: getattr(eng, name) for name in
+                      ("_spec_round", "_spec_rounds", "_spec_paged_round", "_consume_spec_blocks")}
+        spec_round, consume = self.saved["_spec_round"], self.saved["_consume_spec_blocks"]
+
+        def tapped_round(sampled, verify):
+            def tapped_verify(seq, pos):
+                out = verify(seq, pos)
+                self.logits[self.i].copy_(out)
+                self.tokens[self.i].copy_(seq)
+                self.pos[self.i].copy_(pos)
+                self.i += 1
+                return out
+            return spec_round(sampled, tapped_verify)
+
+        def restart(fn):
+            def run(*args):
+                self.i = 0
+                return fn(*args)
+            return run
+
+        def tapped_consume(blocks, n_accs, active):
+            self._take(torch, blocks, n_accs, active)
+            return consume(blocks, n_accs, active)
+
+        eng._spec_round = tapped_round
+        eng._spec_rounds = restart(self.saved["_spec_rounds"])
+        eng._spec_paged_round = restart(self.saved["_spec_paged_round"])
+        eng._consume_spec_blocks = tapped_consume
+
+    def _take(self, torch, blocks, n_accs, active):
+        eng, r = self.eng, blocks.shape[0]
+        best = self.logits[:r].argmax(dim=-1).cpu().numpy()  # the first of tied maxima, as the engine's argmax
+        tokens, pos = self.tokens[:r].cpu().numpy(), self.pos[:r].cpu().numpy()
+        live = [i for i, s in enumerate(eng.slots) if s is not None and not s.done and active[i]]
+        if self.reference is not None and live:
+            with torch.no_grad():
+                ref = self.reference(eng, self.tokens[0], self.pos[0].to(torch.int32)).float()
+            self.nmse.append(max(errors(ref[i], self.logits[0, i])[0] for i in live))
+        for j in range(r):
+            for i in live:
+                self.rounds.setdefault(eng.slots[i].rid, []).append(dict(
+                    pos=int(pos[j, i]), tokens=tokens[j, i].tolist(), n_acc=int(n_accs[j, i]),
+                    block=blocks[j, i].tolist(), argmax=best[j, i].tolist(),
+                    rows=self.logits[j, i].clone() if self.keep_rows else None))
+
+    def close(self):
+        for name, fn in self.saved.items():
+            setattr(self.eng, name, fn)
+
+    def check(self, prompts, rids, ids, k: int) -> dict:
+        """The rounds against the emitted ids, exactly: round by round from
+        the prompt's end (at its last token where the admission re-decodes
+        it, emitting token 0; past it where the prefill emitted token 0),
+        each round's position and first token those of the history so far,
+        its drafts fed, and each emitted token the argmax of its own verify
+        row; the rounds that accepted some but not all of their drafts
+        counted."""
+        bad, rounds, partial, accepted = [], 0, 0, 0
+        for rid, prompt, out in zip(rids, prompts, ids):
+            mine = self.rounds.get(rid, [])
+            redecode = bool(mine) and mine[0]["pos"] == len(prompt) - 1
+            toks, p, e = list(prompt) + list(out), len(prompt) - redecode, 1 - redecode
+            self.first[rid] = e
+            for rd in mine:
+                if e >= len(out):
+                    break
+                n = rd["n_acc"]
+                rounds += 1
+                partial += 0 < n < k
+                accepted += n
+                if rd["pos"] != p or rd["tokens"][0] != toks[p]:
+                    bad.append(f"request {rid}: a round at position {rd['pos']} feeding {rd['tokens'][0]}, want "
+                               f"{p} feeding {toks[p]}")
+                for j in range(min(n + 1, len(out) - e)):
+                    if not rd["block"][j] == out[e + j] == rd["argmax"][j]:
+                        bad.append(f"request {rid}, token {e + j}: emitted {out[e + j]}, block {rd['block'][j]}, "
+                                   f"its verify row's argmax {rd['argmax'][j]}")
+                    if j < n and rd["tokens"][j + 1] != rd["block"][j]:
+                        bad.append(f"request {rid}: draft {j + 1} fed {rd['tokens'][j + 1]}, accepted {rd['block'][j]}")
+                p, e = p + n + 1, e + n + 1
+            if e < len(out):
+                bad.append(f"request {rid}: its rounds cover {e} of {len(out)} tokens")
+        return dict(bad=bad, rounds=rounds, partial_rounds=partial, acceptance=accepted / max(1, rounds * k),
+                    reference_nmse=max(self.nmse, default=None))
+
+    def row(self, rid, q: int):
+        """The verify row that emitted token q of request rid (keep_rows,
+        after check; None for a token the prefill emitted)."""
+        e = self.first[rid]
+        if q < e:
+            return None
+        for rd in self.rounds[rid]:
+            if e + rd["n_acc"] >= q:
+                return rd["rows"][q - e]
+            e += rd["n_acc"] + 1
+        raise KeyError(q)
+
+
+def gathered_reference(fwd):
+    """A verify of a paged engine's round by another route: the family's
+    dense forward over the slots' windows gathered from the pools (the
+    tables the round used), at the round's positions; it writes the round's
+    rows into its copy as the paged step wrote them into the pages."""
+    from ggml_tpu_torch.paged_kv import paged_gather
+
+    def ref(eng, tokens, pos):
+        views = [(paged_gather(kp, eng._ptables), paged_gather(vp, eng._ptables)) for kp, vp in eng.mgr.pools]
+        return fwd(eng.model.params, eng.cfg, tokens, pos, views, pos)[0]
+
+    return ref
+
+
+def tapped_run(torch, eng, prompts, n_new: int, reference=None, keep_rows: bool = False):
+    """One pass of a mix through a speculative engine under a SpecTap
+    (installed before the engine's first tick); returns (ids, request ids,
+    the tap's check, the tap)."""
+    tap = SpecTap(torch, eng, reference, keep_rows)
+    try:
+        rids = [eng.submit(p, n_new) for p in prompts]
+        res = eng.run(bucket=SERVE_BUCKET)
+    finally:
+        tap.close()
+    ids = [res[r] for r in rids]
+    return ids, rids, tap.check(prompts, rids, ids, eng.draft_k), tap
+
+
+def phase_spec_gptj(torch, np, params: dict, card: str) -> dict:
+    """4r (a): bench_spec's shape on 4a's planes.  Plain graphed greedy
+    decode of 192 tokens in the same process, then the speculative decoder
+    (one round a CUDA graph replay, replayed in groups) over a 2-layer
+    self-draft at k = 7: ids, rounds, the acceptance rate, ms a round,
+    ms/token against plain, the exact launches a round (A: 7 GEMVs a draft
+    step and 6 for the step that writes d_k's row; D: 2 a draft step; B: 85
+    for the verify's 8 rows), each emitted token the argmax of its verify
+    row (the rounds replayed over the emitted tokens from a fresh cache: the
+    same calls, so the same rows where the decoder kept its positions and
+    caches right).  Three outputs: bench's pinned-argmax bias from token 11
+    at n_past 0 (every draft accepted; the ids equal plain greedy's); the
+    two-token bias of spec_partial_params after a 32-token random prompt
+    (from token 11 alone both models repeat token 7), whose rounds must
+    accept some of their drafts (at least one round, an acceptance strictly
+    between 0 and 1); and no bias from token 11 (none accepted).  The
+    verify's rows take B (int8 activations per row) where plain decode takes
+    A (per K-tile); where the ids part from plain greedy, the plain row there
+    must give the plain id as its argmax, and its route difference to the
+    verify row (NMSE of the logits less the bias), the two candidates'
+    margins on both rows and the same step at M = 2 (B's route) are
+    reported."""
+    from ggml_tpu_torch.models import gptj
+    from ggml_tpu_torch.speculative import make_speculative_decoder
+
+    cfg = gptj.random_config("6b")
+    k, n = SPEC_K, SPEC_TOKENS
+    out, problems = dict(counts={}), []
+    prompt = np.random.default_rng(0).integers(0, cfg.n_vocab, SPEC_PARTIAL_PROMPT).tolist()
+    variants = (("bias", spec_bias_params(torch, params, cfg.n_vocab), []),
+                ("partial", spec_partial_params(torch, params, cfg.n_vocab), prompt), ("no_bias", params, []))
+    clone = lambda c: [(kc.clone(), vc.clone()) for kc, vc in c]
+    for label, p, pre in variants:
+        target = gptj.GPTJ(p, cfg, max_seq=256, device="cuda")
+        mem = torch.cuda.memory_allocated()
+        draft = gptj.GPTJ(p, dataclasses.replace(cfg, n_layer=SPEC_DRAFT_LAYERS), max_seq=256, device="cuda")
+        check(torch.cuda.memory_allocated() == mem, "GPT-J spec: building the self-draft allocated memory")
+        tc0, dc0, first, start = target.new_cache(), draft.new_cache(), SPEC_FIRST, 0
+        if pre:
+            with torch.no_grad():
+                tlog, tc0, start = target.prefill(tc0, np.asarray([pre]))
+                draft.prefill(dc0, np.asarray([pre]))
+            first = int(torch.argmax(tlog[0]))
+        target.decode_greedy(clone(tc0), np.asarray([[first]]), start, n)  # warm: the decode graph
+        cache = clone(tc0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, plain = target.decode_greedy(cache, np.asarray([[first]]), start, n)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3 / n
+        plain = plain[:, 0].tolist()
+        dec = make_speculative_decoder(target, draft, k=k, max_new=n)
+        dec(clone(tc0), clone(dc0), first, start)  # warm: the round's capture
+        tc, dc = clone(tc0), clone(dc0)
+        reset_launches()
+        replays0 = dec.replays
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, rounds, tc, dc = dec(tc, dc, first, start)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {key: v for key, v in launch_counts().items() if v}
+        replays = dec.replays - replays0
+        per_round = spec_round_launches(target, draft, k, 1)
+        want = {key: v * replays for key, v in per_round.items()}
+        check(counts == want and replays == rounds and dec.captures == 1,
+              f"GPT-J spec ({label}): launches {counts}, want {want}; {replays} replays for {rounds} rounds")
+        ids = ids.tolist()
+        accepted = dec.accepted.tolist()
+        check(len(accepted) == rounds and sum(a + 1 for a in accepted) >= n, f"GPT-J spec: accepted {accepted}")
+        eager_ms = None
+        if label == "bias":  # the same rounds eagerly on the card, timed beside the graphed ones
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager, _, _, _ = dec(target.new_cache(), draft.new_cache(), SPEC_FIRST, 0, graph=False)
+            torch.cuda.synchronize()
+            eager_ms = (time.perf_counter() - t0) * 1e3 / n
+            check(eager.tolist() == ids and dec.accepted.tolist() == accepted, "GPT-J spec: eager rounds differ")
+            out["sampled"] = spec_sampled_decoder(torch, target, draft, k, n)
+        tokens = pre + [first] + ids
+        split = next((i for i in range(n) if ids[i] != plain[i]), None)
+        rows, row = teacher_forced_verify(torch, target, tokens, accepted, k, keep=split, start=start,
+                                          cache=clone(tc0))
+        wrong = [i for i in range(n) if rows[i][0] != ids[i]]
+        if wrong:
+            problems.append(f"GPT-J spec ({label}): tokens {wrong[:8]} are not the argmax of their verify rows")
+        partial = sum(1 for a in accepted if 0 < a < k)
+        run = dict(rounds=rounds, acceptance=(n / rounds - 1) / k, mean_accepted=float(np.mean(accepted)),
+                   partial_rounds=partial, prompt=len(pre), ties_emitted=sum(1 for i in range(n) if rows[i][1] == 0.0),
+                   eager_ms_per_token=eager_ms, wall_ms=wall * 1e3, ms_per_round=wall * 1e3 / rounds,
+                   ms_per_token=wall * 1e3 / n, plain_ms_per_token=plain_ms, speedup=plain_ms / (wall * 1e3 / n),
+                   per_round=per_round, replays=replays, equal_to_plain=split is None, counts=counts)
+        if label == "partial" and not (partial and 0 < run["acceptance"] < 1):
+            problems.append(f"GPT-J spec (partial): no round accepted part of its drafts: {accepted}")
+        if split is not None:
+            bias = p["output.bias"].float() if "output.bias" in p else 0.0
+            history = pre + [first] + plain
+            plain_row = plain_logits_at(torch, target, history, split, start, clone(tc0))
+            plain_argmax = int(torch.argmax(plain_row))
+            plain_row = plain_row - bias
+            b_row = plain_logits_at(torch, target, history, split, start, batch=2) - bias
+            row = row - bias
+            a, b = plain[split], ids[split]
+            nmse, max_abs = errors(plain_row, row)
+            run["split"] = dict(step=split, plain_id=a, spec_id=b, plain_row_argmax=plain_argmax,
+                                plain_row_margin=float(plain_row[a] - plain_row[b]),
+                                verify_row_margin=float(row[b] - row[a]), plain_against_verify_nmse=nmse,
+                                max_abs=max_abs, m2_against_verify_nmse=errors(b_row, row)[0],
+                                m2_against_plain_nmse=errors(b_row, plain_row)[0])
+            if label == "bias" or run["split"]["plain_row_argmax"] != a:
+                problems.append(f"GPT-J spec ({label}): the ids part from plain greedy at step {split}: {run['split']}")
+        for key, v in counts.items():
+            out["counts"][key] = out["counts"].get(key, 0) + v
+        out[label] = run
+        print(f"  GPT-J-6B Q4_K spec, {label} ({card}): {n} tokens after {len(pre) or 'no'} prompt tokens in {rounds} "
+              f"rounds (acceptance {run['acceptance']:.3f}, {partial} rounds accepting part of their drafts), "
+              f"{run['ms_per_round']:.3f} ms a round, {run['ms_per_token']:.3f} ms/token against plain {plain_ms:.3f} "
+              f"({run['speedup']:.2f}x)" + (f", eager {eager_ms:.3f}" if eager_ms else "")
+              + f"; launches a round {per_round}; {n - len(wrong)} of {n} tokens the argmax of their verify row "
+              f"({run['ties_emitted']} at exact ties); " + ("ids equal plain greedy" if split is None
+                                                              else f"split {run['split']}"))
+        del target, draft, dec, tc, dc, cache, tc0, dc0
+    check(not problems, "; ".join(problems))
+    return out
+
+
+def spec_sampled_decoder(torch, target, draft, k: int, n: int) -> dict:
+    """The sampled speculative decoder (rejection sampling, its round a CUDA
+    graph with the draws from a generator registered with it) at bench_spec's
+    shape: the same ids twice from one seed, graphed and eager, tokens in the
+    vocabulary, the acceptance rate."""
+    from ggml_tpu_torch.speculative import make_speculative_decoder_sampled
+
+    dec = make_speculative_decoder_sampled(target, draft, k=k, max_new=n, sampler=SPEC_SAMPLER)
+    runs = []
+    for graph in (True, True, False):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, rounds, _, _, _ = dec(target.new_cache(), draft.new_cache(), SPEC_FIRST, 0, gen, graph=graph)
+        torch.cuda.synchronize()
+        runs.append((ids.tolist(), rounds, (time.perf_counter() - t0) * 1e3 / n))
+    (ids, rounds, _), again, eager = runs
+    check(again[:2] == (ids, rounds) and eager[:2] == (ids, rounds) and all(0 <= t < target.cfg.n_vocab for t in ids),
+          f"GPT-J sampled spec: runs from one seed differ: {runs}")
+    out = dict(rounds=rounds, acceptance=(n / rounds - 1) / k, ms_per_token=again[2], eager_ms_per_token=eager[2],
+               captures=dec.captures)
+    print(f"  sampled decoder ({SPEC_SAMPLER}): the same ids twice and eagerly from one seed, {rounds} rounds "
+          f"(acceptance {out['acceptance']:.3f}), {again[2]:.3f} ms/token graphed, {eager[2]:.3f} eager")
+    return out
+
+
+def spec_timed_mix(torch, eng, prompts, n_new: int, bucket: int = SERVE_BUCKET) -> dict:
+    """timed_mix for a speculative engine: the exact launches are those of
+    its rounds (spec_round_launches, max_batch rows) plus every prefill of
+    the target and the draft outside the graphs."""
+    reset_launches()
+    marks = _engine_marks(eng)
+    rounds0, drafted0, accepted0 = eng.spec_rounds, eng.spec_drafted, eng.spec_accepted
+    rec, drec = _Forwards(eng), _Forwards(eng, "_draft_fwd", only_prefill=True)
+    rids = [eng.submit(p, n_new) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        res = eng.run(bucket=bucket)
+        torch.cuda.synchronize()
+    finally:
+        rec.close()
+        drec.close()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in launch_counts().items() if v}
+    delta = _engine_delta(eng, marks)
+    rounds = eng.spec_rounds - rounds0
+    want = {key: v * rounds for key, v in spec_round_launches(eng.model, eng.draft, eng.draft_k, eng.max_batch).items()}
+    for m, head in rec.calls:
+        planar_launches(eng.model.params, m, head, into=want)
+    for m, head in drec.calls:
+        layer_launches(eng.draft.params, eng.draft.cfg.n_layer, m, head, into=want)
+    ids = [res[r] for r in rids]
+    ev = eng.event_ms()
+    busy = sum(ev.values())
+    check(counts == {k: v for k, v in want.items() if v} and delta["captures"] == 0,
+          f"spec launches {counts}, want {want}; {delta}")
+    check(all(len(x) == n_new for x in ids), f"lengths {[len(x) for x in ids]}")
+    tokens = sum(len(x) for x in ids)
+    drafted = eng.spec_drafted - drafted0
+    return dict(ids=ids, wall_s=wall, tokens=tokens, tok_per_s=tokens / wall, counts=counts, engine=delta,
+                rounds=rounds, replays=delta["replays"], acceptance=(eng.spec_accepted - accepted0) / max(1, drafted),
+                event_ms=ev, idle_share=1 - busy / (wall * 1e3), forwards=len(rec.calls) + len(drec.calls))
+
+
+def phase_spec_serve(torch, np, params: dict, card: str) -> dict:
+    """4r (b): bench_spec_serve's mix on 4a's planes with the pinned-argmax
+    bias: the plain engine, the greedy speculative engine (its stretches of
+    4 rounds one CUDA graph replay each) and the sampled one, two warm passes
+    each, then a timed pass with exact launches (a round: B on 7 draft
+    linears x 4 steps and 6 for the last, C on 85 for the verify at M = 40)
+    and the acceptance rate; greedy ids equal the plain engine's."""
+    import gc
+
+    from ggml_tpu_torch.models import gptj
+    from ggml_tpu_torch.serve import Engine
+
+    cfg = gptj.random_config("6b")
+    biased = spec_bias_params(torch, params, cfg.n_vocab)
+    model = gptj.GPTJ(biased, cfg, max_seq=256, device="cuda")
+    draft = gptj.GPTJ(biased, dataclasses.replace(cfg, n_layer=SPEC_DRAFT_LAYERS), max_seq=256, device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.n_vocab, int(rng.integers(4, 30))).tolist() for _ in range(SERVE_REQUESTS)]
+    out = dict(counts={})
+    spec = dict(draft=draft, draft_k=SPEC_SERVE_K)
+    for label, kw in (("plain", {}), ("greedy", spec), ("sampled", dict(spec, sampler=SPEC_SAMPLER))):
+        eng = Engine(model, max_batch=SERVE_SLOTS, max_seq=256, cache_dtype=torch.bfloat16, record_events=True, **kw)
+        t0 = time.perf_counter()
+        for _ in range(2):  # warm passes: the graphs' captures
+            _run_ids(eng, prompts, SERVE_NEW)
+        torch.cuda.synchronize()
+        eng.event_ms()
+        warm = time.perf_counter() - t0
+        run = (timed_mix if label == "plain" else spec_timed_mix)(torch, eng, prompts, SERVE_NEW)
+        run["warm_s"] = warm
+        if label != "plain":
+            ev = run["event_ms"]
+            run["ms_per_round"] = ev.get("spec", 0.0) / max(1, run["rounds"])
+        for key, v in run["counts"].items():
+            out["counts"][key] = out["counts"].get(key, 0) + v
+        out[label] = run
+        print(f"  GPT-J-6B Q4_K {label} engine, {SERVE_SLOTS} slots, k = {SPEC_SERVE_K} ({card}): {run['tokens']} tokens "
+              f"in {run['wall_s'] * 1e3:.1f} ms, {run['tok_per_s']:.1f} tok/s, idle {run['idle_share'] * 100:.1f} %"
+              + ("" if label == "plain" else f"; {run['rounds']} rounds in {run['replays']} replays, "
+                 f"{run['ms_per_round']:.3f} ms a round, acceptance {run['acceptance']:.3f}")
+              + f"; launches {run['counts']}; warm passes {warm:.1f}s")
+        del eng
+        gc.collect()
+    check(out["greedy"]["ids"] == out["plain"]["ids"], "GPT-J spec serving: greedy ids differ from the plain engine's")
+    for label in ("plain", "greedy", "sampled"):
+        out[label].pop("ids")
+    del model, draft
+    out.update(spec_serve_partial(torch, np, params, prompts, card))
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_serve_partial(torch, np, params: dict, prompts, card: str) -> dict:
+    """bench_spec_serve's mix with spec_partial_params' two-token bias, so
+    that rounds accept some of their drafts, through a dense engine (4
+    rounds a graph replay) and a paged one (pages of 64, one round a graph
+    replay, its verify the generic adapter over gptj.forward), each under a
+    SpecTap, one pass: every round's position and fed tokens those of the
+    emitted history and every emitted token the argmax of the verify row
+    it came from (exact); rounds that accept part of their drafts, and an
+    acceptance strictly between 0 and 1; the paged verify's rows against
+    gptj.forward over the gathered windows, NMSE <= 1e-5 (the gate of 4n's
+    paged step against the dense forward)."""
+    import gc
+
+    from ggml_tpu_torch.models import gptj
+    from ggml_tpu_torch.paged_kv import PagedConfig
+    from ggml_tpu_torch.serve import Engine
+
+    cfg = gptj.random_config("6b")
+    biased = spec_partial_params(torch, params, cfg.n_vocab)
+    model = gptj.GPTJ(biased, cfg, max_seq=256, device="cuda")
+    draft = gptj.GPTJ(biased, dataclasses.replace(cfg, n_layer=SPEC_DRAFT_LAYERS), max_seq=256, device="cuda")
+    per_seq = 256 // PAGE
+    out, problems = {}, []
+    kinds = (("partial", {}, None),
+             ("partial_paged", dict(paged=PagedConfig(SERVE_SLOTS * per_seq + per_seq, PAGE, per_seq)),
+              gathered_reference(gptj.forward)))
+    for label, kw, reference in kinds:
+        eng = Engine(model, max_batch=SERVE_SLOTS, max_seq=256, cache_dtype=torch.bfloat16, draft=draft,
+                     draft_k=SPEC_SERVE_K, **kw)
+        t0 = time.perf_counter()
+        ids, _, run, tap = tapped_run(torch, eng, prompts, SERVE_NEW, reference)
+        run["wall_s"] = time.perf_counter() - t0
+        run["bad"] = run["bad"][:8]
+        run["ids"] = ids
+        if run["bad"] or not (run["partial_rounds"] and 0 < run["acceptance"] < 1):
+            problems.append(f"GPT-J spec serving ({label}): {run}")
+        if reference is not None and not run["reference_nmse"] <= 1e-5:
+            problems.append(f"GPT-J spec serving ({label}): the paged verify against gptj.forward over the gathered "
+                            f"windows, NMSE {run['reference_nmse']}")
+        out[label] = run
+        print(f"  GPT-J-6B Q4_K {label} engine ({card}): {run['rounds']} rounds of live slots, "
+              f"{run['partial_rounds']} accepting part of their drafts, acceptance {run['acceptance']:.3f}; every "
+              f"round's position and fed tokens those of the history, every token the argmax of its verify row: "
+              f"{not run['bad']}" + ("" if reference is None else f"; the verify against the dense forward over the "
+                                     f"gathered windows NMSE {run['reference_nmse']:.2e}")
+              + f" ({run['wall_s']:.1f}s, with the capture and the checks)")
+        del eng, tap  # the tap's buffers live as long as the graphs that write them
+        gc.collect()
+    out["partial_equal_paged"] = sum(a == b for a, b in zip(out["partial"].pop("ids"), out["partial_paged"].pop("ids")))
+    print(f"  {out['partial_equal_paged']} of {len(prompts)} requests give the same ids through both partial engines "
+          "(not gated: prefills and verifies at other M)")
+    del model, draft
+    check(not problems, "; ".join(problems))
+    return out
+
+
+def phase_spec(torch, np, params: dict, card: str) -> dict:
+    stage("4r. speculative serving: bench_spec_serve's mix, GPT-J-6B Q4_K, 8 slots, k = 4, greedy and sampled")
+    out = dict(spec_serve=phase_spec_serve(torch, np, params, card))
+    stage("4r. speculative decoding: bench_spec's shape, GPT-J-6B Q4_K, 2-layer self-draft, k = 7, 192 tokens")
+    out["spec"] = phase_spec_gptj(torch, np, params, card)
+    return out
+
+
+def phase_spec_llama(torch, np, model, card: str) -> dict:
+    """4r (c): Llama-3-8B (4l's model) at 4 slots through a paged engine
+    with the prefix cache (4n (c)'s prompts: four sharing a 256-token prefix
+    and one of 100, x 16 new) without and with a 2-layer self-draft (k = 4:
+    the verify's 20 rows take B, H and F as a step's 4 do), each a checked
+    pass (the speculative one under a SpecTap) and a timed one, exact
+    launches, tok/s and the acceptance rate.  The speculative engine's
+    rounds, exactly: every round's position and fed tokens those of the
+    emitted history, every emitted token the argmax of its own paged verify
+    row; its paged verify's rows against llama.forward over the windows
+    gathered from the pools at the same shape (B = 4, T = 5), NMSE <= 1e-5 a
+    round (the gate of 4n's paged step against the dense forward).  Pinned:
+    the final norm's weight zeroed (the Llama head has no bias to pin with,
+    as bench's _spec_bias_params pins GPT-J's), every logit 0 and the argmax
+    token 0 on both paths: the ids equal the plain engine's and every draft
+    is accepted (the bookkeeping of full rounds; the rows' values are not
+    tested there).  Random weights: no draft accepted; a plain step and a
+    verify attend and multiply at other shapes over histories written by
+    other shapes, so the ids part from the plain engine's at near-ties;
+    where the checked passes part, the candidates' margin on the verify row
+    that emitted the speculative id is reported (the plain engine's row is
+    not read).  A first pass and a later one take other prefix hits, so
+    their ids may part too."""
+    import gc
+
+    from ggml_tpu_torch.models import llama
+    from ggml_tpu_torch.paged_kv import PagedConfig
+    from ggml_tpu_torch.serve import Engine
+
+    cfg = model.cfg
+    rng = np.random.default_rng(2)
+    shared = rng.integers(0, cfg.n_vocab, PAGED_SHARED).tolist()
+    prompts = [shared + rng.integers(0, cfg.n_vocab, n).tolist() for n in LLAMA_TAILS]
+    prompts.append(rng.integers(0, cfg.n_vocab, LLAMA_OTHER).tolist())
+    per_seq = PAGED_SEQ // PAGE
+    out, problems = dict(counts={}), []
+    pinned = dict(model.params) | {"output_norm.weight": torch.zeros_like(model.params["output_norm.weight"])}
+    for variant, params in (("pinned", pinned), ("random", model.params)):
+        target = llama.Llama(params, cfg, max_seq=model.max_seq, device="cuda")
+        mem = torch.cuda.memory_allocated()
+        draft = llama.Llama(params, dataclasses.replace(cfg, n_layer=SPEC_DRAFT_LAYERS), max_seq=PAGED_SEQ,
+                            device="cuda")
+        check(torch.cuda.memory_allocated() == mem, "Llama spec: building the self-draft allocated memory")
+        runs = {}
+        for label, kw in (("paged", {}), ("paged_spec", dict(draft=draft, draft_k=SPEC_SERVE_K))):
+            eng = Engine(target, max_batch=4, max_seq=PAGED_SEQ, cache_dtype=torch.bfloat16, record_events=True,
+                         paged=PagedConfig(4 * per_seq + per_seq, PAGE, per_seq, prefix_cache=True), **kw)
+            if label == "paged":
+                first_pass = _run_ids(eng, prompts, 16)
+            else:
+                tapped = tapped_run(torch, eng, prompts, 16, gathered_reference(llama.forward),
+                                    keep_rows=variant == "random")
+            torch.cuda.synchronize()
+            eng.event_ms()
+            eng.cached_prefix_tokens = 0
+            run = (timed_mix if label == "paged" else spec_timed_mix)(torch, eng, prompts, 16)
+            check(run["engine"]["cached_prefix_tokens"] >= PAGED_SHARED * 4, f"Llama spec: hits {run['engine']}")
+            if label == "paged_spec":
+                run["ms_per_round"] = run["event_ms"].get("spec", 0.0) / max(1, run["rounds"])
+                ids, rids, taken, tap = tapped
+                run["checked"] = dict(taken, bad=taken["bad"][:8])
+                if taken["bad"] or not taken["reference_nmse"] <= 1e-5:
+                    problems.append(f"Llama spec ({variant}): {run['checked']}")
+            for key, v in run["counts"].items():
+                out["counts"][key] = out["counts"].get(key, 0) + v
+            runs[label] = run
+            print(f"  Llama-3-8B {variant} {label}, 4 slots ({card}): {run['tokens']} tokens in "
+                  f"{run['wall_s'] * 1e3:.1f} ms, {run['tok_per_s']:.1f} tok/s, prefix hits "
+                  f"{run['engine']['cached_prefix_tokens']}"
+                  + ("" if label == "paged" else f", {run['rounds']} rounds ({run['ms_per_round']:.3f} ms a round on "
+                     f"the card), acceptance {run['acceptance']:.3f}; checked pass: every round's position and fed "
+                     f"tokens those of the history and every token the argmax of its verify row: "
+                     f"{not run['checked']['bad']}, the paged verify against llama.forward over the gathered windows "
+                     f"NMSE {run['checked']['reference_nmse']:.2e} at most") + f"; launches {run['counts']}")
+            del eng  # before the tap, whose buffers its graphs write
+            gc.collect()
+        plain, spec = runs["paged"].pop("ids"), runs["paged_spec"].pop("ids")
+        runs["equal_requests"] = sum(a == b for a, b in zip(plain, spec))
+        if variant == "pinned":
+            if plain != spec or runs["paged_spec"]["acceptance"] != 1.0:
+                problems.append(f"Llama spec (pinned): ids equal {runs['equal_requests']} of {len(prompts)}, "
+                                f"acceptance {runs['paged_spec']['acceptance']}")
+        else:  # the checked passes (the first of each engine: the same prefix hits) where they part
+            runs["splits"] = []
+            runs["first_pass_equal_requests"] = sum(a == b for a, b in zip(first_pass, ids))
+            runs["passes_equal"] = dict(plain=sum(a == b for a, b in zip(first_pass, plain)),
+                                        spec=sum(a == b for a, b in zip(ids, spec)))
+            for rid, a, b in zip(rids, first_pass, ids):
+                q = next((i for i in range(len(a)) if a[i] != b[i]), None)
+                row = None if q is None else tap.row(rid, q)
+                if row is not None:
+                    top = torch.topk(row, 2).values
+                    runs["splits"].append(dict(step=q, plain_id=a[q], spec_id=b[q],
+                                               verify_row_margin=float(row[b[q]] - row[a[q]]),
+                                               verify_row_top2_gap=float(top[0] - top[1])))
+                elif q is not None:
+                    runs["splits"].append(dict(step=q, plain_id=a[q], spec_id=b[q]))
+        del tapped, tap
+        print(f"  {variant}: {runs['equal_requests']} of {len(prompts)} requests give the same ids with and without "
+              f"the draft" + ("" if variant == "pinned" else f" ({runs['first_pass_equal_requests']} in the checked "
+                              f"passes; where those part, the candidates on the verify row: {runs['splits']}; "
+                              f"first and timed passes equal in {runs['passes_equal']} requests)"))
+        if variant == "random":  # rejection-sampling rounds over the pages, graphed
+            sampled = []
+            for _ in range(2):
+                eng = Engine(target, max_batch=4, max_seq=PAGED_SEQ, cache_dtype=torch.bfloat16, seed=5,
+                             paged=PagedConfig(4 * per_seq + per_seq, PAGE, per_seq, prefix_cache=True), draft=draft,
+                             draft_k=SPEC_SERVE_K, sampler=SPEC_SAMPLER)
+                sampled.append((_run_ids(eng, prompts, 16), eng.spec_accepted / max(1, eng.spec_drafted),
+                                eng.captures))
+                del eng
+                gc.collect()
+            check(sampled[0] == sampled[1] and all(len(x) == 16 for x in sampled[0][0]),
+                  "Llama sampled paged spec: two runs from one seed differ")
+            runs["sampled_acceptance"] = sampled[0][1]
+            print(f"  sampled paged engine ({SPEC_SAMPLER}): the same ids twice from one seed, acceptance "
+                  f"{sampled[0][1]:.3f}, {sampled[0][2]} capture")
+        out[variant] = runs
+        del target, draft
+    torch.cuda.empty_cache()
+    check(not problems, "; ".join(problems))
+    return out
+
+
 def flash_times(torch, flash_attn) -> dict:
     """Kernel J's device time (µs) at GPT-J's 1024-token prefill, f32 q/k
     with a bf16 v and all bf16 (each call computes its mask ranges), then its
@@ -3880,6 +4607,29 @@ def main() -> int:
                                                      "count": torch.cuda.device_count()}}))
             return 0
 
+        if sys.argv[1:] == ["--spec"]:
+            from ggml_tpu_torch.dtypes import GGMLType
+            from ggml_tpu_torch.models import gptj, llama
+
+            with tempfile.TemporaryDirectory(prefix="llama3-8b-gguf-") as tmp:
+                path = write_llama3_8b_gguf(np, tmp)[0]
+                t0 = time.perf_counter()
+                model = llama.Llama.from_gguf(path, max_seq=2048, device="cuda")
+                torch.cuda.synchronize()
+                print(f"  Llama-3-8B loaded as planes in {time.perf_counter() - t0:.1f}s")
+                stage("4r. speculative serving: Llama-3-8B, 4 slots, paged with the prefix cache, 2-layer self-draft")
+                spec = dict(spec_llama=phase_spec_llama(torch, np, model, card))
+                del model
+            torch.cuda.empty_cache()
+            params = gptj.synth_quantized_params(gptj.random_config("6b"), GGMLType.Q4_K, seed=0,
+                                                 dtype=torch.bfloat16, device="cuda")
+            spec.update(phase_spec(torch, np, params, card))
+            del params
+            print(json.dumps(dict(card=card, spec=spec)))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
+
         if sys.argv[1:] == ["--long-decode-profile"]:
             stage("4. GPT-J-6B Q4_K (synthesized compact planes), decode after a 1088-token prompt, profiled")
             from ggml_tpu_torch.dtypes import GGMLType
@@ -3916,6 +4666,7 @@ def main() -> int:
         stage("4m. serving: GPT-J-6B Q4_K (the same planes), 8 slots, bench_serve's mix")
         runs.append(phase_serve_gptj(torch, np, params, card))
         runs += phase_serve_4n(torch, np, params, card).values()
+        runs += phase_spec(torch, np, params, card).values()
         stage("4o. QLoRA of GPT-J-6B Q4_K (the same planes) at bench_qlora's shape, with and without remat")
         runs.append(phase_qlora_bench(torch, np, params, card))
         del params
@@ -3973,7 +4724,8 @@ def main() -> int:
             runs += phase_iquants(torch, np, tmp, card, n_layer=4)
             stage("4l. Llama-3-8B from a Q4_K GGUF file (Q6_K head)")
             llama_run = phase_llama(torch, np, tmp, card, serve=True, train=True)
-            runs += [llama_run, llama_run.pop("serve"), llama_run.pop("serve_paged_chunked"), llama_run.pop("qlora")]
+            runs += [llama_run, llama_run.pop("serve"), llama_run.pop("serve_paged_chunked"), llama_run.pop("spec"),
+                     llama_run.pop("qlora")]
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

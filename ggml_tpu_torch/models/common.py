@@ -268,6 +268,52 @@ def launch_tables() -> list[dict]:
     return [qmatmul.launches, decode_attn.launches, flash_attn.launches]
 
 
+def capture_graph(run, device, state=(), generator=None, pool=None, warmups: int = 1):
+    """run() captured as a CUDA graph, the discipline of every graph of the
+    port: `warmups` calls on a side stream first (the kernel library and
+    every first-use cache), after which the state buffers and the generator
+    are restored (the rows they wrote are rewritten before any query reads
+    them); the generator, where run() draws, registered with the graph; the
+    capture's launch counts taken off the tables.  Returns (graph, the
+    launches of one replay per table) for count_replays.  A capture that
+    fails raises (capture_error_mode "global": a forbidden call fails it)."""
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        if not hasattr(graph, "register_generator_state"):
+            raise NotImplementedError(f"torch {torch.__version__} cannot register a generator with a CUDA graph: "
+                                      "a sampling loop cannot be graphed")
+        graph.register_generator_state(generator)
+    saved = [b.clone() for b in state]
+    rng = generator.get_state() if generator is not None else None
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        for _ in range(warmups):
+            run()
+    cur.wait_stream(side)
+    for b, s in zip(state, saved):
+        b.copy_(s)
+    if rng is not None:
+        generator.set_state(rng)
+    tables = launch_tables()
+    before = [dict(t) for t in tables]
+    with torch.cuda.graph(graph, pool=pool):
+        run()
+    per_replay = []
+    for table, was in zip(tables, before):  # the capture launched nothing: its counts move to the replays
+        per_replay.append({k: table[k] - was[k] for k in table})
+        table.update(was)
+    return graph, per_replay
+
+
+def count_replays(per_replay: list, n: int = 1):
+    """Add n replays' launches (capture_graph's per_replay) to the tables."""
+    for table, counts in zip(launch_tables(), per_replay):
+        for k, c in counts.items():
+            table[k] += c * n
+
+
 class _DecodeState:
     """The decode loop's carry on the device (the JAX scan's carry, less the
     cache): the token fed next (b, 1), its position (0-d int32, which the
@@ -332,37 +378,16 @@ class DecodeGraph:
         self.captures = 0
 
     def _capture(self, top_k):
-        graph = torch.cuda.CUDAGraph()
         pick = greedy
         if top_k is not None:
-            if not hasattr(graph, "register_generator_state"):
-                raise NotImplementedError(f"torch {torch.__version__} cannot register a generator with a CUDA "
-                                          "graph: sampled decode cannot be graphed")
-            graph.register_generator_state(self.generator)
             pick = _sampler(self.generator, self.temperature, top_k, self.top_p)
-        step = lambda: _decode_step(self.model, self.state, self.cache, pick)
-        # warm-up outside the capture: builds the kernel library and fills
-        # every first-use cache (RoPE frequencies, the decode attention's
-        # arrival counters, library handles), on a side stream as PyTorch
-        # asks; it writes rows 0 and 1 of the static cache, which no request
-        # reads before writing them
+        # the warm-up (the RoPE frequencies, the decode attention's arrival
+        # counters, library handles) writes rows 0 and 1 of the static cache,
+        # which no request reads before writing them
         self.state.start(torch.zeros_like(self.state.tok), 0)
-        side = torch.cuda.Stream(self.model.device)
-        side.wait_stream(torch.cuda.current_stream(self.model.device))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                step()
-        torch.cuda.current_stream(self.model.device).wait_stream(side)
-        tables = launch_tables()
-        before = [dict(t) for t in tables]
-        with torch.cuda.graph(graph):  # capture_error_mode "global": a forbidden call fails the capture
-            step()
-        per_step = []
-        for table, was in zip(tables, before):  # the capture launched nothing: its counts move to the replays
-            per_step.append({k: table[k] - was[k] for k in table})
-            table.update(was)
         self.captures += 1
-        return graph, per_step
+        return capture_graph(lambda: _decode_step(self.model, self.state, self.cache, pick), self.model.device,
+                             generator=None if top_k is None else self.generator, warmups=2)
 
     def run(self, cache, first_token, n_past: int, n_tokens: int, sampling=None) -> np.ndarray:
         """Decode n_tokens from first_token at position n_past over the
@@ -394,9 +419,7 @@ class DecodeGraph:
             graph.replay()
         if sampling is not None:
             generator.set_state(self.generator.get_state())
-        for table, counts in zip(launch_tables(), per_step):
-            for k, n in counts.items():
-                table[k] += n * n_tokens
+        count_replays(per_step, n_tokens)
         rows = slice(n_past, n_past + n_tokens)
         for layer, static in zip(cache, self.cache):
             for c, s in zip(layer, static):

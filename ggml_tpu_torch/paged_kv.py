@@ -21,11 +21,12 @@ context lengths (vLLM's PagedAttention, with static shapes):
 
 The paged stretch (make_paged_decode_scan) runs h greedy steps as ONE CUDA
 graph replay on the card over static buffers the host fills by copy_; one
-capture per h.  The linears go through the port's planar_matmul kernels.
+capture per h.  make_paged_verify_step is the multi-token step of
+speculative decoding: T = draft_k + 1 rows a slot written into their pages.
+The linears go through the port's planar_matmul kernels.
 
 Not ported yet (ROADMAP.md): the paged steps of gemma2, phi3 and deepseek
-(those families are not ported) and the multi-token verify steps of
-speculative decoding.
+(those families are not ported).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .models.common import launch_tables
+from .models.common import capture_graph, count_replays
 
 
 @dataclass
@@ -282,6 +283,53 @@ def make_paged_decode_step(model, pcfg: PagedConfig, forward_fn=None):
     return _make_paged_step_generic(model, pcfg, forward_fn)
 
 
+def make_paged_verify_step(model, pcfg: PagedConfig, forward_fn=None):
+    """The multi-token paged step, the speculative verify's shape: T =
+    draft_k + 1 new rows a slot written into their pages and all T
+    positions evaluated causally in one forward.  step(params, pools, tokens
+    (B, T), lengths (B,), tables (B, P), wpages (B, T), woffs (B, T), active
+    (B,)) -> (logits (B, T, vocab), pools), every index a long tensor on the
+    model's device.  Rejected drafts need no rollback: their rows sit past
+    the slot's accepted length, masked by position, and the next tick
+    rewrites the same (page, offset) rows.  The llama family runs its paged
+    forward over T tokens; every other family the generic adapter over
+    forward_fn."""
+    from .models import llama
+
+    _families_to_come(model)
+    if isinstance(model, llama.Llama):
+        return _make_paged_llama_general(model, pcfg)
+    if forward_fn is None:
+        raise TypeError(f"the paged verify of {type(model).__name__} needs forward_fn for the generic adapter")
+    return _make_paged_multi_generic(model, pcfg, forward_fn)
+
+
+def _make_paged_multi_generic(model, pcfg: PagedConfig, forward_fn):
+    """The generic multi-token paged step, by the composition of
+    _make_paged_step_generic: each layer's window gathered into a dense
+    view, the family's own forward over the T tokens, then the T rows each
+    slot wrote scattered back into their pages.  The rows are read from the
+    start the forward wrote them at: lengths clamped to [0, W - T], as JAX's
+    dynamic_slice clamps it."""
+    cfg = model.cfg
+
+    def step(params, pools, tokens, lengths, tables, wpages, woffs, active):
+        b, t = tokens.shape
+        views = [(paged_gather(kp, tables), paged_gather(vp, tables)) for kp, vp in pools]
+        logits, views = forward_fn(params, cfg, tokens, lengths, views, lengths)
+        w = views[0][0].shape[2]
+        rows = torch.arange(b, device=tokens.device)[:, None]
+        cols = lengths.to(torch.long).clamp(0, w - t)[:, None] + torch.arange(t, device=tokens.device)[None, :]
+        for (kp, vp), (kv, vv) in zip(pools, views):
+            krows, vrows = kv[rows, :, cols], vv[rows, :, cols]  # (B, T, H, D)
+            for j in range(t):  # T is small and static
+                paged_write(kp, krows[:, j], wpages[:, j], woffs[:, j])
+                paged_write(vp, vrows[:, j], wpages[:, j], woffs[:, j])
+        return torch.where(active[:, None, None], logits, 0.0), pools
+
+    return step
+
+
 def _make_paged_step_generic(model, pcfg: PagedConfig, forward_fn):
     """Any dense-KV family paged, by composition: gather each layer's window
     into a dense per-layer cache, run the family's OWN forward over it (the
@@ -480,25 +528,10 @@ class PagedDecodeScan:
             self._cur_tok.copy_(nxt[:, None])
 
     def _capture(self, params, pools, h: int):
-        graph = torch.cuda.CUDAGraph()
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self._steps(params, pools, h)
-        cur.wait_stream(side)
-        tables = launch_tables()
-        before = [dict(t) for t in tables]
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        with torch.cuda.graph(graph, pool=self._pool):
-            self._steps(params, pools, h)
-        per_call = []
-        for table, was in zip(tables, before):  # the capture launched nothing: its counts move to the replays
-            per_call.append({k: table[k] - was[k] for k in table})
-            table.update(was)
         self.captures += 1
-        return graph, per_call
+        return capture_graph(lambda: self._steps(params, pools, h), self.device, pool=self._pool)
 
     def __call__(self, params, pools, tok, lengths, tables, wpages, woffs, active, h: int, *, put,
                  span) -> np.ndarray:
@@ -524,9 +557,7 @@ class PagedDecodeScan:
             graph, per_call = self.graphs[h]
             with span("paged"):
                 graph.replay()
-        for table, counts in zip(launch_tables(), per_call):
-            for k, n in counts.items():
-                table[k] += n
+        count_replays(per_call)
         self.replays += 1
         return self.outs[:h].cpu().numpy()
 

@@ -57,9 +57,16 @@ def sample_top_k_top_p(logits, generator: torch.Generator, temperature=1.0, top_
     torch.multinomial runs for one sample (argmax of log p - log E, E ~
     Exp(1) from `generator`), without its check that reads a value back to
     the host."""
-    lg = warp_logits(logits, temperature, top_k, top_p, repeat_penalty, recent_tokens)
+    return race(warp_logits(logits, temperature, top_k, top_p, repeat_penalty, recent_tokens), generator), generator
+
+
+def race(logits, generator: torch.Generator) -> torch.Tensor:
+    """One draw per row from softmax(logits) as the exponential race
+    (argmax of logits - log E, E ~ Exp(1) from `generator`): what
+    torch.multinomial runs for one sample, reading nothing on the host."""
+    lg = logits.float()
     e = torch.empty_like(lg).exponential_(generator=generator)
-    return torch.argmax(lg - torch.log(e), dim=-1), generator
+    return torch.argmax(lg - torch.log(e), dim=-1)
 
 
 def greedy(logits) -> torch.Tensor:

@@ -22,13 +22,20 @@ The other paths of the JAX engine that the port has:
 - chunked prefill (prefill_chunk=C): prompts prefill in chunks of C tokens
   over a populated cache, batched as (max_batch, C) dispatches;
 - the q8 KV cache (cache_dtype="q8_kv"): int8 codes and per-row scales
-  (models/common.QuantKV), dequantized on read.
+  (models/common.QuantKV), dequantized on read;
+- speculative decoding (draft=model, draft_k=k): every tick drafts k tokens
+  a slot with the draft model over its own dense cache and verifies them in
+  ONE (max_batch, k + 1) target forward, greedy or by rejection sampling
+  (speculative.py's rules per slot).  Dense engines run SPEC_STRETCH rounds
+  a dispatch with the accept rule on the device (one CUDA graph replay on
+  the card); paged engines verify through paged_kv.make_paged_verify_step.
+  Every admission path mirrors the prompt into the draft's cache.
 
 The engine's invariant (docs/serving.md): every request emits what it would
 emit alone.  Batching, admission order and preemption change no id.
 
-Not ported yet (ROADMAP.md): speculative decoding (draft=), forward_fn and
-cache_put (tensor-parallel serving).
+Not ported yet (ROADMAP.md): forward_fn and cache_put (tensor-parallel
+serving).
 """
 
 from __future__ import annotations
@@ -42,8 +49,14 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from .models.common import QUANT_KV_DTYPE, cache_set_slot, cache_slot, init_layer_cache, launch_tables
+from .models.common import (QUANT_KV_DTYPE, cache_set_slot, cache_slot, capture_graph, count_replays,
+                            init_layer_cache)
 from .sampling import sample_top_k_top_p
+from .speculative import _forward_for, spec_round
+
+# rounds of a speculative stretch: one dispatch and one read cover R draft
+# and verify rounds (the window margin reserves R * (draft_k + 1) rows)
+SPEC_STRETCH = 4
 
 @dataclass
 class _PrefillShare:
@@ -54,6 +67,7 @@ class _PrefillShare:
     logits: Any = None  # (1, vocab) last-position logits, or None (bucket padding)
     cache: Any = None  # single-slot cache
     t: int = 0
+    draft: Any = None  # the draft's single-slot cache (speculative engines)
 
 
 @dataclass
@@ -71,8 +85,9 @@ class Request:
     sampling: dict | None = None
     share: _PrefillShare | None = None  # forked-generation prefill share
     # device->host KV snapshot taken at eviction: {"cache": host slot cache
-    # (rows [0, n_past)), "n_past": int, "cur_tok": int}; resume restores it
-    # instead of re-prefilling the sequence
+    # (rows [0, n_past)), "n_past": int, "cur_tok": int, "draft": the draft's
+    # rows [0, n_past) or None}; resume restores it instead of re-prefilling
+    # the sequence
     snapshot: dict | None = None
 
     @property
@@ -84,7 +99,7 @@ class Request:
 
 
 def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, section 1: serving)")
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, section 1: tensor-parallel serving)")
 
 
 class Engine:
@@ -105,8 +120,14 @@ class Engine:
     (capacity = the sum of live contexts); slots that run out of pages evict
     the least urgent running request back to the queue.  prefill_chunk: C
     tokens a prefill dispatch.  cache_dtype="q8_kv": the int8 KV cache (dense
-    engine only).  Each is checked against serving_matrix.features_for.
-    draft, forward_fn and cache_put raise NotImplementedError."""
+    engine only).  draft: a model of the same vocabulary on the same device
+    (a wrapper over a prefix of the target's own layers shares its tensors):
+    every tick drafts draft_k tokens a slot and verifies them in one (B,
+    draft_k + 1) target forward; greedy engines emit the plain engine's ids
+    wherever the verify's and a step's logits agree on the argmax, sampled
+    ones run rejection sampling.  Each is checked against
+    serving_matrix.features_for.  forward_fn and cache_put raise
+    NotImplementedError."""
 
     def __init__(self, model, max_batch: int = 4, max_seq: int = 512, eos_id: int = -1,
                  cache_dtype=torch.bfloat16, sampler: dict | None = None, seed: int = 0,
@@ -124,19 +145,17 @@ class Engine:
             self._fwd = gpt2.forward
         else:
             raise TypeError(f"Engine cannot drive {type(model).__name__}")
-        for flag, what in ((draft is not None, "speculative decoding (draft=)"),
-                           (forward_fn is not None, "a custom engine forward (forward_fn=)"),
+        for flag, what in ((forward_fn is not None, "a custom engine forward (forward_fn=)"),
                            (cache_put is not None, "a placed KV cache (cache_put=)")):
             if flag:
                 raise _not_ported(what)
-        del draft_k
         if not (isinstance(cache_dtype, torch.dtype) or cache_dtype == QUANT_KV_DTYPE):
             raise ValueError(f"cache_dtype {cache_dtype!r}: a torch dtype or {QUANT_KV_DTYPE!r}")
         # feature x family gate (serving_matrix): an unsupported combination
         # fails here with the matrix's answer
         feats = features_for(model)
-        for flag, feat in ((paged is not None, "paged_kv"), (cache_dtype == QUANT_KV_DTYPE, "q8_kv"),
-                           (bool(prefill_chunk), "chunked_prefill")):
+        for flag, feat in ((paged is not None, "paged_kv"), (draft is not None, "speculative"),
+                           (cache_dtype == QUANT_KV_DTYPE, "q8_kv"), (bool(prefill_chunk), "chunked_prefill")):
             if flag and not feats[feat]:
                 raise TypeError(f"{type(model).__name__} does not support '{feat}' (serving_matrix.py)")
         self.model = model
@@ -211,6 +230,12 @@ class Engine:
         self.record_events = record_events
         self.events: list = []  # (kind, start, end) CUDA events, with record_events
 
+        self.draft = draft
+        self.draft_k = draft_k
+        self._pending_draft = None  # a per-request admission's draft slot cache, until _admit installs it
+        if draft is not None:
+            self._init_draft(draft, draft_k, cache_dtype)
+
         self.slots: list[Request | None] = [None] * B
         self.n_past = np.zeros(B, np.int32)
         self.cur_tok = np.zeros(B, np.int32)
@@ -230,6 +255,7 @@ class Engine:
         (top_k is engine-static); temperature == 0 -> exact greedy."""
         prompt = self._check_prompt(prompt)
         if sampling is not None:
+            self._check_slot_sampling()
             bad = set(sampling) - {"temperature", "top_p"}
             if bad:
                 raise ValueError(f"unknown sampling keys: {sorted(bad)}")
@@ -246,6 +272,7 @@ class Engine:
         batching of main-batched.cpp:81-145).  sampling: as in submit()."""
         prompt = self._check_prompt(prompt)
         if sampling is not None:
+            self._check_slot_sampling()
             self._any_slot_sampling = True
         share = _PrefillShare()
         rids = []
@@ -276,7 +303,7 @@ class Engine:
         enqueued from the device-resident state before tick t's tokens are
         read, and admission rides inside the stretch."""
         results: dict[int, list[int]] = {}
-        scan_mode = self.paged is None and self._hb > 1
+        scan_mode = self.paged is None and self.draft is None and self._hb > 1
         aborted = False
         while (self.queue or any(s is not None for s in self.slots)) and not aborted:
             if abort_callback is not None and abort_callback():
@@ -296,7 +323,7 @@ class Engine:
 
     def event_ms(self) -> dict:
         """Device ms inside the recorded spans by kind ("tick", "prefill",
-        "chunk", "paged"):
+        "chunk", "paged", "spec"):
         waits for the card, then clears the record."""
         out: dict = {}
         if self.events:
@@ -307,6 +334,10 @@ class Engine:
         return out
 
     # -- the device step ----------------------------------------------------------
+
+    def _check_slot_sampling(self):
+        if self.draft is not None:
+            raise ValueError("per-request sampling is not supported in speculative mode (engine-level sampler only)")
 
     def _check_prompt(self, prompt) -> np.ndarray:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -362,43 +393,16 @@ class Engine:
             self._alive &= (nxt != self.eos_id) & (self._budget > 0) & (self._np < self.max_seq - 1)
             self._tok.copy_(nxt[:, None])
 
-    def _capture(self, h: int, sampled: bool):
-        """Capture _steps(h, sampled) as a CUDA graph (models/common.DecodeGraph's
-        discipline): a warm-up on a side stream first (kernel library,
-        first-use caches), with the state buffers and the generator restored
-        after it (its rows at and past each slot's position are rewritten by
-        the real steps before any query reads them); the generator is
-        registered with the graph; the capture's launch counts move to the
-        replays.  A capture that fails raises."""
-        graph = torch.cuda.CUDAGraph()
-        if sampled or self._sampler_kw is not None:
-            if not hasattr(graph, "register_generator_state"):
-                raise NotImplementedError(f"torch {torch.__version__} cannot register a generator with a CUDA graph: "
-                                          "a sampled engine cannot be graphed")
-            graph.register_generator_state(self.generator)
-        state = (self._tok, self._np, self._alive, self._budget)
-        saved = [b.clone() for b in state]
-        rng = self.generator.get_state()
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self._steps(h, sampled)
-        cur.wait_stream(side)
-        self.decode_steps += h
-        for b, s in zip(state, saved):
-            b.copy_(s)
-        self.generator.set_state(rng)
-        tables = launch_tables()
-        before = [dict(t) for t in tables]
-        with torch.cuda.graph(graph):  # capture_error_mode "global": a forbidden call fails the capture
-            self._steps(h, sampled)
-        per_tick = []
-        for table, was in zip(tables, before):  # the capture launched nothing: its counts move to the replays
-            per_tick.append({k: table[k] - was[k] for k in table})
-            table.update(was)
+    def _capture(self, run: Callable, sampled: bool):
+        """Capture run() (h decode steps, or R speculative rounds) as a CUDA
+        graph (models/common.capture_graph): its warm-up's state buffers and
+        generator restored (its rows at and past each slot's position, in
+        the cache and the draft's, are rewritten by the real steps before
+        any query reads them)."""
         self.captures += 1
-        return graph, per_tick
+        draws = sampled or self._sampler_kw is not None
+        return capture_graph(run, self.device, (self._tok, self._np, self._alive, self._budget),
+                             self.generator if draws else None)
 
     @contextlib.contextmanager
     def _span(self, kind: str):
@@ -411,6 +415,17 @@ class Engine:
         end.record()
         self.events.append((kind, start, end))
 
+    def _replay(self, key, run: Callable, sampled: bool, span: str):
+        """One replay of the graph of run() (captured at its first use, the
+        warm-up's steps counted by the caller), its launch counts added."""
+        if key not in self._graphs:
+            self._graphs[key] = self._capture(run, sampled)
+        graph, per_tick = self._graphs[key]
+        with self._span(span):
+            graph.replay()
+        count_replays(per_tick)
+        self.replays += 1
+
     def _dispatch(self, sampled: bool):
         """Enqueue one tick of h steps; returns a handle for _fetch.  On the
         card: one graph replay, its (h, B) ids copied to pinned host memory
@@ -421,16 +436,9 @@ class Engine:
                 self._steps(h, sampled)
                 self.decode_steps += h
                 return self._outs[:h].clone(), None
-            key = (h, sampled)
-            if key not in self._graphs:
-                self._graphs[key] = self._capture(h, sampled)
-            graph, per_tick = self._graphs[key]
-            with self._span("tick"):
-                graph.replay()
-            for table, counts in zip(launch_tables(), per_tick):
-                for k, n in counts.items():
-                    table[k] += n
-            self.replays += 1
+            if (h, sampled) not in self._graphs:
+                self.decode_steps += h  # the capture's warm-up
+            self._replay((h, sampled), lambda: self._steps(h, sampled), sampled, "tick")
             self.decode_steps += h
             host = torch.empty((h, self.max_batch), dtype=torch.long, pin_memory=True)
             host.copy_(self._outs[:h], non_blocking=True)
@@ -453,6 +461,168 @@ class Engine:
         self._put(self._budget, budget)
         self._put(self._temp, self._slot_temp)
         self._put(self._topp, self._slot_topp)
+
+    # -- speculative decoding ----------------------------------------------------
+
+    def _init_draft(self, draft, k: int, cache_dtype):
+        """The draft's family forward, its own dense cache of max_batch x
+        max_seq rows, the stop margin (room for k + 1 verify rows inside the
+        window, the paged one too), the paged verify step and the stretch's
+        output buffers."""
+        if draft.device != self.device:
+            raise ValueError(f"the draft is on {draft.device}, the model on {self.device}")
+        if k < 1:
+            raise ValueError(f"draft_k = {k}: at least one draft token a tick")
+        self._draft_fwd = _forward_for(draft)
+        dcfg = draft.cfg
+        d_kv = getattr(dcfg, "n_head_kv", dcfg.n_head)
+        self._make_draft_cache = lambda b, rows=self.max_seq: init_layer_cache(
+            dcfg.n_layer, b, d_kv, rows, dcfg.head_dim, cache_dtype, self.device)
+        self.draft_cache = self._make_draft_cache(self.max_batch)  # never rebound, as the cache
+        self._spec_margin = self.max_seq - k - 2
+        if self.paged is not None:
+            from .paged_kv import make_paged_verify_step
+
+            self._spec_margin = min(self._spec_margin, self.paged.max_pages_per_seq * self.paged.page_size - k - 1)
+            self._paged_verify = make_paged_verify_step(self.model, self.paged, forward_fn=self._fwd)
+            # the paged round's static inputs: the page tables and the k + 1 rows' write coordinates
+            B, P = self.max_batch, self.paged.max_pages_per_seq
+            self._ptables = torch.zeros((B, P), dtype=torch.long, device=self.device)
+            self._pwpages = torch.zeros((B, k + 1), dtype=torch.long, device=self.device)
+            self._pwoffs = torch.zeros((B, k + 1), dtype=torch.long, device=self.device)
+        self._blocks = torch.zeros((SPEC_STRETCH, self.max_batch, k + 1), dtype=torch.long, device=self.device)
+        self._naccs = torch.zeros((SPEC_STRETCH, self.max_batch), dtype=torch.long, device=self.device)
+        self.spec_rounds = 0  # verify forwards: one a round
+        self.spec_drafted = 0  # drafts of live slots consumed, and those accepted: the acceptance rate
+        self.spec_accepted = 0
+
+    def _spec_round(self, sampled: bool, verify: Callable):
+        """One round for every slot from the static token and positions
+        (JAX's spec_tick and spec_tick_sampled: speculative.spec_round over
+        the draft's dense cache, drawing from the engine's sampler)."""
+        sampling = (self.generator, self._sampler_kw, self._sampler_kw) if sampled else None
+        return spec_round(self.draft, self._draft_fwd, self.draft_cache, self._tok, self._np, self.draft_k, verify,
+                          sampling)
+
+    def _spec_rounds(self, r: int, sampled: bool):
+        """r rounds over the static buffers and the dense caches (JAX's
+        spec_stretch and spec_stretch_sampled; r = 1 is its tick): round i's
+        blocks into _blocks[i], its n_acc into _naccs[i]; live slots advance
+        by n_acc + 1 with the correction as their next token (the device runs
+        optimistically: the host applies the EOS, budget and window stops as
+        it consumes the blocks), dead ones keep their token and position."""
+        verify = lambda seq, pos: self._fwd(self.model.params, self.cfg, seq, pos, self.cache, pos)[0]
+        for i in range(r):
+            block, n_acc, correction = self._spec_round(sampled, verify)
+            self._blocks[i].copy_(block)
+            self._naccs[i].copy_(n_acc)
+            self._np += torch.where(self._alive, n_acc + 1, 0).to(torch.int32)
+            self._tok.copy_(torch.where(self._alive, correction, self._tok[:, 0])[:, None])
+
+    def _spec_tick(self, active: np.ndarray):
+        """A dense speculative tick: SPEC_STRETCH rounds in one dispatch when
+        every live slot has window margin for their worst case (R * (k + 1)
+        new positions), else one round; on the card one graph replay a
+        dispatch (one capture per round count).  The host reads the blocks
+        once and consumes them."""
+        kk = self.draft_k
+        live = np.nonzero(active)[0]
+        r = SPEC_STRETCH if all(self.n_past[i] + SPEC_STRETCH * (kk + 1) < self._spec_margin for i in live) else 1
+        sampled = self._sampler_kw is not None
+        self._load_state(active, self._slot_budget())
+        self._consume_spec_blocks(*self._spec_dispatch(("spec", r), lambda: self._spec_rounds(r, sampled), r),
+                                  active)
+
+    def _spec_dispatch(self, key, run: Callable, r: int):
+        """run() (r rounds over the static buffers) eagerly on the CPU, as
+        one graph replay on the card; returns their (blocks, n_accs), read
+        on the host."""
+        with torch.no_grad():
+            if self.device.type != "cuda":
+                run()
+            else:
+                self._replay(key, run, self._sampler_kw is not None, "spec")
+            blocks, n_accs = self._blocks[:r].cpu().numpy().copy(), self._naccs[:r].cpu().numpy().copy()
+        self.spec_rounds += r
+        return blocks, n_accs
+
+    def _spec_paged_round(self, sampled: bool):
+        """One paged round over the static buffers: its verify writes the k +
+        1 rows a slot straight into the slots' pages at (_pwpages, _pwoffs)
+        (make_paged_verify_step); the draft keeps its dense cache."""
+        verify = lambda seq, pos: self._paged_verify(self.model.params, self.mgr.pools, seq, pos, self._ptables,
+                                                     self._pwpages, self._pwoffs, self._alive)[0]
+        block, n_acc, _ = self._spec_round(sampled, verify)
+        self._blocks[0].copy_(block)
+        self._naccs[0].copy_(n_acc)
+
+    def _spec_tick_paged(self, active: np.ndarray):
+        """A paged speculative tick (JAX's spec_tick_paged and
+        spec_tick_paged_sampled): one round, its inputs (tokens, positions,
+        tables, the write coordinates of k + 1 rows a slot, the live mask)
+        copied into static buffers, on the card one CUDA graph replay (its
+        warm-up writes the rows the replay rewrites with the same values).
+        Rejected rows are junk past the accepted length, rewritten by the
+        next tick at the same (page, offset).  The pages for k + 1 rows were
+        ensured by _tick."""
+        mgr = self.mgr
+        wpages, woffs = mgr.step_coords_multi(active, self.draft_k + 1)
+        for buf, values in ((self._tok, self.cur_tok), (self._np, self.n_past), (self._alive, active),
+                            (self._ptables, mgr.tables), (self._pwpages, wpages), (self._pwoffs, woffs)):
+            self._put(buf, values)
+        sampled = self._sampler_kw is not None
+        self._consume_spec_blocks(*self._spec_dispatch(("spec_paged",), lambda: self._spec_paged_round(sampled), 1),
+                                  active)
+        for i in np.nonzero(active)[0]:  # accepted tokens advance the page view; rejected rows stay junk past it
+            mgr.lengths[i] = self.n_past[i]
+
+    def _consume_spec_blocks(self, blocks: np.ndarray, n_accs: np.ndarray, active: np.ndarray):
+        """Apply fetched rounds (blocks (R, B, k + 1) of each round's accepted
+        drafts and correction, n_accs (R, B)) with the real EOS, budget and
+        window stops (the device ran optimistically), emitting the streaming
+        callbacks."""
+        for r in range(blocks.shape[0]):
+            for i, s in enumerate(self.slots):
+                if s is None or s.done or not active[i]:
+                    continue
+                self.spec_drafted += self.draft_k
+                self.spec_accepted += int(n_accs[r, i])
+                for tok in blocks[r, i, :n_accs[r, i] + 1]:
+                    if s.done:
+                        break
+                    tok = int(tok)
+                    self.n_past[i] += 1
+                    s.out.append(tok)
+                    self.cur_tok[i] = tok
+                    if tok == self.eos_id or len(s.out) >= s.max_new_tokens or self.n_past[i] >= self._spec_margin:
+                        s.done = True
+                    if s.on_token is not None:
+                        s.on_token(s.rid, tok, s.done)
+
+    def _draft_prefill(self, toks: np.ndarray):
+        """The draft's cache for a per-request admission: one prefill over
+        toks (1, w), the sequence padded as the target's prefill pads it, into
+        a fresh w-row slot cache, held until _admit installs it."""
+        dslot = self._make_draft_cache(1, toks.shape[1])
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        with torch.no_grad(), self._span("prefill"):
+            self._draft_fwd(self.draft.params, self.draft.cfg, self._to_device(toks), zero.expand(1), dslot, zero,
+                            prefill=True, need_logits=False)
+        self._pending_draft = dslot
+
+    def _batched_draft_prefill(self, toks: np.ndarray, idx: torch.Tensor, n: int):
+        """One draft prefill for an admission wave: toks (max_batch, w) over
+        a fresh (max_batch, w) draft cache, the wave's n rows copied into
+        their slots of the draft cache in place (rows past them dropped)."""
+        B, w = toks.shape
+        dslot = self._make_draft_cache(B, w)
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        with torch.no_grad(), self._span("prefill"):
+            self._draft_fwd(self.draft.params, self.draft.cfg, self._to_device(toks), zero.expand(B), dslot, zero,
+                            prefill=True, need_logits=False)
+            for big, small in zip(self.draft_cache, dslot):
+                for b, s in zip(big, small):
+                    b[:, :, :w].index_copy_(0, idx, s[:n])
 
     # -- internals ----------------------------------------------------------------
 
@@ -638,7 +808,10 @@ class Engine:
         else:
             pages = -(-n_past // self.paged.page_size)
             host = [(spill(k), spill(v)) for k, v in self.mgr.gather_prefix(i, pages)]
-        req.snapshot = {"cache": host, "n_past": n_past, "cur_tok": int(self.cur_tok[i])}
+        draft = None
+        if self.draft is not None:
+            draft = [(spill(k[:, :, :n_past]), spill(v[:, :, :n_past])) for k, v in cache_slot(self.draft_cache, i)]
+        req.snapshot = {"cache": host, "n_past": n_past, "cur_tok": int(self.cur_tok[i]), "draft": draft}
 
     def _resume_from_snapshot(self, i: int, req: Request) -> bool:
         """Restore an evicted slot's KV from its host snapshot.  Returns False
@@ -657,6 +830,8 @@ class Engine:
             self.mgr.install_prefill(i, snap["cache"], t)
         else:
             cache_set_slot(self.cache, snap["cache"], i)
+        if snap.get("draft") is not None:
+            cache_set_slot(self.draft_cache, snap["draft"], i)
         self.slots[i] = req
         self._slot_sampling_set(i, req)
         self.n_past[i] = t
@@ -700,13 +875,17 @@ class Engine:
         logits is None when the bucket padded past t (the caller re-decodes
         the true last token), and then the head is not run at all.  The slot
         cache has tb rows, or the whole pages of t on a paged engine.  With
-        prefill_chunk the prompt runs in chunks (_prefill_chunked)."""
+        prefill_chunk the prompt runs in chunks (_prefill_chunked).  A
+        speculative engine prefills the draft over the same tokens
+        (_draft_prefill)."""
         if self.prefill_chunk:
             return self._prefill_chunked(seq)
         t = len(seq)
         tb = self._bucket(t, bucket)
         toks = np.zeros((1, tb), np.int64)
         toks[0, :t] = seq
+        if self.draft is not None:
+            self._draft_prefill(toks)
         slot_cache = self._make_cache(1, max(tb, self._page_rows(t)))
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
         self.prefill_count += 1
@@ -719,8 +898,14 @@ class Engine:
         """Prefix-cache hit: the shared pages hold the KV of positions [0,
         pre_len).  Seed a dense slot cache with them in one pass, then run the
         populated-cache forward over the suffix alone.  Returns (last logits |
-        None, slot cache), with _prefill's bucket-padding contract."""
+        None, slot cache), with _prefill's bucket-padding contract.  The
+        draft, which has no pages, prefills the whole sequence as _prefill
+        would."""
         t = len(seq)
+        if self.draft is not None:
+            toks = np.zeros((1, self._bucket(t, bucket)), np.int64)
+            toks[0, :t] = seq
+            self._draft_prefill(toks)
         st = t - pre_len
         sb = min(self.max_seq - pre_len, -(-st // bucket) * bucket)
         toks = np.zeros((1, sb), np.int64)
@@ -742,9 +927,14 @@ class Engine:
         ceil(t / C) populated-cache steps of C tokens over a max_seq-row slot
         cache (positions carried by cache_len, the pad masked by position), no
         head.  Returns (None, slot cache, t, t): the caller re-decodes the last
-        token for position-exact logits, as after bucket padding."""
+        token for position-exact logits, as after bucket padding.  The draft
+        prefills the whole sequence in one forward over the C-rounded width."""
         C = self.prefill_chunk
         t = len(seq)
+        if self.draft is not None:
+            toks = np.zeros((1, min(self.max_seq, -(-t // C) * C)), np.int64)
+            toks[0, :t] = seq
+            self._draft_prefill(toks)
         slot_cache = self._make_cache(1, max(self.max_seq, self._page_rows(t)))
         self.prefill_count += 1
         with torch.no_grad():
@@ -826,7 +1016,9 @@ class Engine:
             if req.share is not None and not req.out:
                 if req.share.cache is None:  # the first of the fork group
                     req.share.logits, req.share.cache, req.share.t, _ = self._prefill(seq, bucket)
+                    req.share.draft = self._pending_draft
                 logits, slot_cache, t = req.share.logits, req.share.cache, req.share.t
+                self._pending_draft = req.share.draft
             elif matched:
                 assert self.mgr.ensure_capacity(i, t + 1)
                 logits, slot_cache = self._prefill_suffix(seq, matched * self.paged.page_size, i, bucket)
@@ -838,6 +1030,8 @@ class Engine:
                 self.mgr.publish_prefix(i, req.prompt)
             else:
                 cache_set_slot(self.cache, slot_cache, i)
+            if self.draft is not None:
+                cache_set_slot(self.draft_cache, self._pending_draft, i)
             self.slots[i] = req
             self._slot_sampling_set(i, req)
             self.n_past[i] = t
@@ -885,6 +1079,8 @@ class Engine:
             for big, small in zip(self.cache, slot_cache):
                 for b, s in zip(big, small):
                     b[:, :, :tb].index_copy_(0, idx, s[:n])
+        if self.draft is not None:
+            self._batched_draft_prefill(toks, idx, n)
         self.prefill_count += n
         for i, req, t in group:
             # re-decode the true last token for position-exact logits (its
@@ -923,6 +1119,14 @@ class Engine:
                 for big, small in zip(self.cache, self._chunk_cache):
                     for b, s in zip(big, small):
                         b[:, :, :rows].index_copy_(0, idx, s[:n, :, :rows])
+        if self.draft is not None:
+            # the draft over the whole prompts at the C-rounded width: a stale
+            # draft cache would not change an id (the verify decides) but
+            # would collapse acceptance
+            dtoks = np.zeros((B, rows), np.int64)
+            for r, (i, req, t) in enumerate(group):
+                dtoks[r, :t] = req.seq
+            self._batched_draft_prefill(dtoks, idx, n)
         self.prefill_count += n
         for i, req, t in group:  # the re-decode contract of _prefill_into_slots
             self.n_past[i] = t - 1
@@ -944,22 +1148,27 @@ class Engine:
         paged tick.  Dense: h steps (one graph replay on the card).  Paged:
         each live slot's next page first (evicting under pressure), then a
         greedy stretch of h steps when every live slot has room for them, or
-        one step."""
+        one step.  A speculative engine runs _spec_tick or _spec_tick_paged,
+        its pages grown by draft_k + 1 rows a slot."""
         active = np.array([s is not None and not s.done for s in self.slots])
         if self.paged is not None:
+            grow = self.draft_k + 1 if self.draft is not None else 1  # the rows a tick writes
             for i in np.nonzero(active)[0]:
                 i = int(i)
                 if self.slots[i] is None:  # evicted for an earlier slot's page
                     continue
-                while not self.mgr.ensure_capacity(i, int(self.mgr.lengths[i]) + 1):
+                while not self.mgr.ensure_capacity(i, int(self.mgr.lengths[i]) + grow):
                     if not self._evict_for_pages(i):  # nothing left to evict: requeue this request too
                         self._evict(i, self.slots[i])
                         break
             active &= np.array([s is not None for s in self.slots])
             if active.any():
-                self._paged_tick(active)
+                (self._spec_tick_paged if self.draft is not None else self._paged_tick)(active)
             return
         if not active.any():
+            return
+        if self.draft is not None:
+            self._spec_tick(active)
             return
         self._load_state(active, self._slot_budget())
         self._consume_scan_outs(self._fetch(self._dispatch(bool(self._any_slot_sampling))))

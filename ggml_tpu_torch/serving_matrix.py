@@ -6,9 +6,8 @@ Under the JAX predicates none of the three is stateful (recurrent or
 hybrid), so each takes chunked prefill, paged KV, the prefix cache,
 speculative decoding and forks; the q8 KV cache needs a dequant-on-read in
 the family forward, which Llama and GPT-J have and GPT-2 has not.  The
-Engine checks its flags against this table, as JAX's does (serve.py:247-258).
-Speculative decoding is in the table but not ported yet: the Engine refuses
-draft= on its own (ROADMAP.md, section 1).
+Engine checks its flags (paged, draft, the q8 cache, prefill_chunk) against
+this table, as JAX's does (serve.py:247-258).
 """
 
 from __future__ import annotations

@@ -29,7 +29,7 @@ from ggml_tpu_torch.gguf import GGUFFile, GGUFWriter
 from ggml_tpu_torch.models import gpt2
 from ggml_tpu_torch.opt import AdamWConfig, finetune
 from ggml_tpu_torch.quant.reference import random_blocks
-from tests.test_torch_rules import tiny_gptj_f32_gguf
+from tests.test_torch_rules import one_thread, tiny_gptj_f32_gguf  # noqa: F401  (the autouse fixture)
 
 SHAPE = dict(n_vocab=64, n_ctx=32, n_embd=32, n_head=4, n_layer=2)
 

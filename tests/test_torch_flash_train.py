@@ -20,7 +20,7 @@ from ggml_tpu.kernels.flash_attn import _fa_forward_lse
 from ggml_tpu.kernels.flash_attn import flash_attention_train as jax_flash_attention_train
 from ggml_tpu_torch.kernels import flash_attn
 from ggml_tpu_torch.kernels.flash_attn import flash_attention_fwd_lse, flash_attention_train
-from tests.test_torch_rules import nmse
+from tests.test_torch_rules import nmse, one_thread  # noqa: F401  (the autouse fixture)
 
 GATE = {"float32": 1e-10, "bfloat16": 1e-5}
 

@@ -26,7 +26,7 @@ from ggml_tpu_torch.gguf import GGUFFile
 from ggml_tpu_torch.models import gptj
 from ggml_tpu_torch.quant.planar import PlanarWeight
 from tests.test_torch_gptj import _jax_prefill, _port_prefill, greedy_decode_both
-from tests.test_torch_rules import nmse
+from tests.test_torch_rules import nmse, one_thread  # noqa: F401  (the autouse fixture)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from tools.convert_hf_gptj import convert_state_dict

@@ -27,7 +27,7 @@ from ggml_tpu_torch.kernels import qmatmul
 from ggml_tpu_torch.models import gptj
 from tests.test_torch_gptj import _jax_prefill, _port_prefill
 from tests.test_torch_gptj_q8 import assert_same_choice, teacher_forced_decode
-from tests.test_torch_rules import assert_planes_equal
+from tests.test_torch_rules import assert_planes_equal, one_thread  # noqa: F401  (the autouse fixture)
 
 E, LAYERS, VOCAB = 512, 2, 512
 TYPES = {"attn_q": JGGMLType.Q4_K, "attn_k": JGGMLType.Q4_K, "attn_v": JGGMLType.Q4_K,

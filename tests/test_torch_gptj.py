@@ -26,7 +26,7 @@ from ggml_tpu_torch.convert import params_from_numpy
 from ggml_tpu_torch.kernels import flash_attn
 from ggml_tpu_torch.models import gptj
 from ggml_tpu_torch.sampling import sample_top_k_top_p
-from tests.test_torch_rules import nmse, params_to_numpy
+from tests.test_torch_rules import nmse, one_thread, params_to_numpy  # noqa: F401  (the autouse fixture)
 
 CFG = dict(n_vocab=512, n_ctx=256, n_embd=512, n_head=4, n_layer=2, n_rot=32,
            rope_deinterleaved=True)
@@ -94,22 +94,41 @@ def test_rope_matches_jax(layout):
     np.testing.assert_array_equal(gptj.rope_permutation(128, 4, 32), jgptj.rope_permutation(128, 4, 32))
 
 
+_PORT_STEPS = weakref.WeakKeyDictionary()  # port model -> {(prompt, n_steps): [(logits, token)]}
+
+
+def port_greedy_steps(tm, prompt, n_steps: int) -> list:
+    """The port's prefill (f32 cache), then n_steps greedy forward() steps
+    by hand, each feeding back its own token: [(logits, token)] a step.  Kept
+    per model, prompt and length, so that the decode test against JAX and
+    the decode loop's test share one run."""
+    runs = _PORT_STEPS.setdefault(tm, {})
+    key = (prompt.shape, prompt.tobytes(), n_steps)
+    if key not in runs:
+        tl, tcache = _port_prefill(tm, prompt)
+        tok, steps = int(np.argmax(tl[0, -1])), []
+        pos = torch.tensor(prompt.shape[1], dtype=torch.int32)
+        for _ in range(n_steps):
+            tl = gptj.forward(tm.params, tm.cfg, torch.tensor([[tok]]), pos.expand(1), tcache, pos)[0].numpy()
+            pos += 1
+            tok = int(np.argmax(tl[0, -1]))
+            steps.append((tl, tok))
+        runs[key] = steps
+    return runs[key]
+
+
 def greedy_decode_both(jm, tm, prompt, n_steps: int):
     """Prefill both sides, then greedy-decode n_steps on each, each side
     feeding back its own token; yields (jax logits, port logits, jax token,
     port token) per step."""
     jl, jcache = _jax_prefill(jm, prompt)
-    tl, tcache = _port_prefill(tm, prompt)
-    jtok, ttok = int(np.argmax(np.asarray(jl)[0, -1])), int(np.argmax(tl[0, -1]))
+    jtok = int(np.argmax(np.asarray(jl)[0, -1]))
     t = prompt.shape[1]
-    pos = torch.tensor(t, dtype=torch.int32)
-    for n_past in range(t, t + n_steps):
+    for n_past, (tl, ttok) in zip(range(t, t + n_steps), port_greedy_steps(tm, prompt, n_steps)):
         jl, jcache = jgptj.forward(jm.params, jm.cfg, jnp.asarray([[jtok]], jnp.int32),
                                    jnp.full((1,), n_past, jnp.int32), jcache, jnp.int32(n_past))
-        tl = gptj.forward(tm.params, tm.cfg, torch.tensor([[ttok]]), pos.expand(1), tcache, pos)[0].numpy()
-        pos += 1
         jl = np.asarray(jl)
-        jtok, ttok = int(np.argmax(jl[0, -1])), int(np.argmax(tl[0, -1]))
+        jtok = int(np.argmax(jl[0, -1]))
         yield jl, tl, jtok, ttok
 
 
@@ -132,14 +151,7 @@ def test_decode_loop_matches_stepwise(models):
     logits, cache, n_past = tm.prefill(cache, prompt)
     first = torch.argmax(logits, dim=-1, keepdim=True)
     _, ids = tm.decode_greedy(cache, first, n_past, 16)
-
-    _, cache = _port_prefill(tm, prompt)
-    tok, pos, want = first, torch.tensor(n_past, dtype=torch.int32), []
-    for _ in range(16):
-        logits, cache = gptj.forward(tm.params, tm.cfg, tok, pos.expand(1), cache, pos)
-        tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
-        want.append(int(tok))
-        pos += 1
+    want = [tok for _, tok in port_greedy_steps(tm, prompt, 16)]  # the run test_greedy_decode_matches_jax holds
     assert ids.shape == (16, 1) and ids[:, 0].tolist() == want
     with pytest.raises(ValueError):  # a CUDA graph needs the card
         tm.decode_greedy(tm.new_cache(torch.float32), first, n_past, 2, graph=True)

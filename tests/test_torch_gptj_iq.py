@@ -35,7 +35,7 @@ from ggml_tpu_torch.models import gpt2, gptj
 from ggml_tpu_torch.tokenizer import BPETokenizer
 from tests.test_torch_gptj import _jax_prefill, _port_prefill
 from tests.test_torch_gptj_q8 import assert_same_choice, teacher_forced_decode
-from tests.test_torch_rules import assert_planes_equal
+from tests.test_torch_rules import assert_planes_equal, one_thread  # noqa: F401  (the autouse fixture)
 from tests.test_torch_tokenizer import bpe_vocab
 
 CFG = gptj.GPTJConfig(n_vocab=512, n_ctx=128, n_embd=512, n_head=4, n_layer=2, n_rot=32)

@@ -32,7 +32,8 @@ from ggml_tpu_torch.quant.planar import PlanarWeight
 from ggml_tpu_torch.quant.reference import random_blocks
 from tests.test_torch_gptj import _jax_prefill, _port_prefill
 from tests.test_torch_gptj_q8 import assert_same_choice, teacher_forced_decode
-from tests.test_torch_rules import assert_planes_equal, nmse, params_to_numpy
+from tests.test_torch_rules import (  # noqa: F401  (one_thread: the autouse fixture)
+    assert_planes_equal, nmse, one_thread, params_to_numpy)
 
 E, LAYERS, VOCAB = 512, 2, 512
 CFG = dict(n_vocab=VOCAB, n_ctx=256, n_embd=E, n_head=4, n_layer=LAYERS, n_rot=32, rope_deinterleaved=True)

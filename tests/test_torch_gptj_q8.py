@@ -23,7 +23,7 @@ from ggml_tpu_torch.dtypes import GGMLType
 from ggml_tpu_torch.models import gptj
 from ggml_tpu_torch.quant.planar import PlanarWeight
 from tests.test_torch_gptj import _jax_prefill, _port_prefill
-from tests.test_torch_rules import nmse, params_to_numpy
+from tests.test_torch_rules import nmse, one_thread, params_to_numpy  # noqa: F401  (the autouse fixture)
 
 CFG = dict(n_vocab=512, n_ctx=256, n_embd=512, n_head=4, n_layer=2, n_rot=32,
            rope_deinterleaved=True)

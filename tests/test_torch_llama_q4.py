@@ -43,7 +43,7 @@ from ggml_tpu_torch.models import llama
 from ggml_tpu_torch.quant.planar import PlanarWeight
 from tests.test_torch_gptj_q8 import assert_same_choice
 from tests.test_torch_llama import jax_prefill, port_prefill
-from tests.test_torch_rules import assert_planes_equal, nmse
+from tests.test_torch_rules import assert_planes_equal, nmse, one_thread  # noqa: F401  (the autouse fixture)
 
 CFG = llama.LlamaConfig(n_vocab=512, n_ctx=128, n_embd=512, n_head=4, n_head_kv=2, n_layer=2, n_ff=10240,
                         rope_base=500000.0)

@@ -57,7 +57,7 @@ from ggml_tpu_torch.cli import generate as cli
 from ggml_tpu_torch.gguf import GGUFFile, GGUFWriter
 from ggml_tpu_torch.models import llama
 from ggml_tpu_torch.opt import AdamWConfig, finetune, finetune_lora, lora
-from tests.test_torch_rules import nmse
+from tests.test_torch_rules import nmse, one_thread  # noqa: F401  (the autouse fixture)
 
 TINY = llama.LlamaConfig(n_vocab=96, n_ctx=64, n_embd=64, n_head=4, n_head_kv=2, n_layer=2, n_ff=128)
 Q4K = llama.LlamaConfig(n_vocab=256, n_ctx=128, n_embd=256, n_head=4, n_head_kv=4, n_layer=2, n_ff=512)

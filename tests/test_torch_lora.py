@@ -46,7 +46,8 @@ from ggml_tpu_torch.gguf import GGUFFile
 from ggml_tpu_torch.models import common, gpt2, gptj
 from ggml_tpu_torch.opt import AdamWConfig, finetune_lora, lora
 from ggml_tpu_torch.quant.planar import repack
-from tests.test_torch_rules import nmse, random_raw, tiny_gpt2_gguf, tiny_gptj_f32_gguf
+from tests.test_torch_rules import (  # noqa: F401  (one_thread: the autouse fixture)
+    nmse, one_thread, random_raw, tiny_gpt2_gguf, tiny_gptj_f32_gguf)
 
 GPT2_SHAPE = dict(n_vocab=64, n_ctx=32, n_embd=32, n_head=4, n_layer=2)
 GPTJ_CFG = gptj.GPTJConfig(n_vocab=256, n_ctx=128, n_embd=256, n_head=4, n_layer=2, n_rot=32)

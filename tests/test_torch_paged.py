@@ -31,7 +31,7 @@ from ggml_tpu.serve import Engine as JEngine
 from ggml_tpu_torch import paged_kv
 from ggml_tpu_torch.models import gpt2
 from ggml_tpu_torch.serve import Engine
-from tests.test_torch_rules import nmse
+from tests.test_torch_rules import nmse, one_thread  # noqa: F401  (the autouse fixture)
 from tests.test_torch_serve import _load, files  # noqa: F401  (the module fixture)
 
 FAMILIES = ["llama", "gptj", "gpt2"]

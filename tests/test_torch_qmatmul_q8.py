@@ -24,7 +24,8 @@ from ggml_tpu_torch.convert import params_from_numpy
 from ggml_tpu_torch.dtypes import GGMLType
 from ggml_tpu_torch.kernels import qmatmul
 from ggml_tpu_torch.quant.planar import PlanarWeight, repack
-from tests.test_torch_rules import assert_planes_equal, nmse, planar_fields, random_raw
+from tests.test_torch_rules import (  # noqa: F401  (one_thread: the autouse fixture)
+    assert_planes_equal, nmse, one_thread, planar_fields, random_raw)
 
 N = 256
 # (ggml type, force_q8): the five int8-plane types and Q4_K moved to int8 planes

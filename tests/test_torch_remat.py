@@ -53,7 +53,7 @@ from ggml_tpu_torch.models import gpt2, gptj, llama
 from ggml_tpu_torch.opt import make_lm_model_fn
 from ggml_tpu_torch.opt.lora import init_lora, wrap_lora
 from ggml_tpu_torch.opt.optimizer import LOSS_TYPES
-from tests.test_torch_rules import nmse
+from tests.test_torch_rules import nmse, one_thread  # noqa: F401  (the autouse fixture)
 
 POLICIES = ["everything_saveable", "nothing_saveable", "dots_saveable", "dots_with_no_batch_dims_saveable"]
 # each JAX compile of a value_and_grad costs 1.5-5 s alone (4-20 s in the

@@ -14,6 +14,21 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for a test module's PyTorch ops (a module imports
+    it to use it): the tiny models' ops take microseconds, and eight threads
+    a worker beside the other workers of the parallel test run oversubscribe
+    the cores (a speculative round of the tiny Llama read 0.3 s with eight
+    threads beside three busy workers, 13 ms with one)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def nmse(ref, got) -> float:
     ref = np.asarray(ref, np.float64)
     got = np.asarray(got, np.float64)
@@ -129,7 +144,8 @@ def test_port_modules_listed():
                  "ggml_tpu_torch.cli.generate", "ggml_tpu_torch.cli.gguf_dump", "ggml_tpu_torch.opt.lora",
                  "ggml_tpu_torch.checkpoint", "ggml_tpu_torch.models.llama", "ggml_tpu_torch.ops.core",
                  "ggml_tpu_torch.serve", "ggml_tpu_torch.cli.server", "ggml_tpu_torch.paged_kv",
-                 "ggml_tpu_torch.serving_matrix", "ggml_tpu_torch.models.mnist", "ggml_tpu_torch.opt.fit"):
+                 "ggml_tpu_torch.serving_matrix", "ggml_tpu_torch.models.mnist", "ggml_tpu_torch.opt.fit",
+                 "ggml_tpu_torch.speculative"):
         assert want in names
 
 
@@ -169,4 +185,13 @@ def test_entry_points_default_to_cuda():
     assert generate.parser().parse_args(["m.gguf"]).device == "cuda"
     assert server.parser().parse_args(["m.gguf"]).device == "cuda"
     assert not hasattr(gguf_dump.parser().parse_args(["m.gguf"]), "device")  # reads the file on the host only
+    # speculative decoding runs on its models' device: the card unless they were loaded on the CPU
+    import torch
+
+    from ggml_tpu_torch import speculative
+
+    target = llama.Llama({}, llama.LlamaConfig(n_layer=1))
+    for dec in (speculative.make_speculative_decoder(target, target),
+                speculative.make_speculative_decoder_sampled(target, target, sampler={})):
+        assert dec.device == torch.device("cuda") and dec.state is None  # nothing allocated before a call
 

@@ -34,7 +34,7 @@ from ggml_tpu_torch.models import common, gpt2, gptj, llama
 from ggml_tpu_torch.sampling import warp_logits
 from ggml_tpu_torch.serve import Engine
 from tests.test_torch_llama import random_params as llama_params
-from tests.test_torch_rules import nmse, tiny_gptj_f32_gguf
+from tests.test_torch_rules import nmse, one_thread, tiny_gptj_f32_gguf  # noqa: F401  (the autouse fixture)
 
 MAX_SEQ = 48
 LLAMA = llama.LlamaConfig(n_vocab=256, n_ctx=128, n_embd=64, n_head=4, n_head_kv=2, n_layer=2, n_ff=128,
@@ -395,13 +395,17 @@ def test_window_edge_and_small_admission_group(tiny_llama):
 
 
 def test_engine_refuses_what_is_not_ported(tiny_llama):
-    """Speculative decoding, a custom forward and a placed cache raise, as do
-    the paged steps of the families not ported (paged KV, chunked prefill
-    and the q8 cache: tests/test_torch_paged.py, test_torch_serve_chunked.py)."""
+    """A custom forward and a placed cache raise, as do the paged steps of
+    the families not ported; a draft builds a speculative engine (paged KV,
+    chunked prefill and the q8 cache: tests/test_torch_paged.py,
+    test_torch_serve_chunked.py; speculative decoding:
+    tests/test_torch_serve_spec.py)."""
     from ggml_tpu_torch.paged_kv import PagedConfig, make_paged_decode_step
 
     m = tiny_llama
-    for kw in (dict(draft=m), dict(forward_fn=llama.forward), dict(cache_put=lambda c: c)):
+    spec = Engine(m, max_batch=2, max_seq=MAX_SEQ, draft=m, draft_k=2)
+    assert spec.draft is m and spec.draft_k == 2 and len(spec.draft_cache) == m.cfg.n_layer
+    for kw in (dict(forward_fn=llama.forward), dict(cache_put=lambda c: c)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             Engine(m, max_batch=2, max_seq=MAX_SEQ, **kw)
     for family in ("Gemma2", "Phi3", "Deepseek"):

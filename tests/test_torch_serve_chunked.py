@@ -24,6 +24,7 @@ from ggml_tpu_torch import paged_kv
 from ggml_tpu_torch.models import common
 from ggml_tpu_torch.serve import Engine
 from ggml_tpu_torch.serving_matrix import FEATURES, features_for
+from tests.test_torch_rules import one_thread  # noqa: F401  (the autouse fixture)
 from tests.test_torch_serve import _load, files  # noqa: F401  (the module fixture)
 
 

@@ -37,7 +37,7 @@ from ggml_tpu_torch.kernels import qmatmul
 from ggml_tpu_torch.models import gptj
 from ggml_tpu_torch.quant.planar import PlanarWeight
 from ggml_tpu_torch.serve import Engine
-from tests.test_torch_rules import nmse
+from tests.test_torch_rules import nmse, one_thread  # noqa: F401  (the autouse fixture)
 
 CFG = gptj.GPTJConfig(n_vocab=256, n_ctx=128, n_embd=512, n_head=4, n_layer=2, n_rot=32)
 MAX_SEQ, BUCKET = 64, 32
