@@ -6,6 +6,8 @@
     python3 chip_smoke.py --flash-times           # phases 1, 2 and kernel J's and its mask ranges' times only
     python3 chip_smoke.py --train-times           # phases 1, 2 and kernels K, L, M's times at the training shapes only
     python3 chip_smoke.py --gemv-times            # phases 1, 2 and the GEMV kernels' times at the decode shapes only
+    python3 chip_smoke.py --gptj                  # phases 1, 2 and GPT-J-6B's synthesized planes (4a-4c, 4e, 4f,
+                                                  # 4m-4o, 4r) at all 28 layers only
     python3 chip_smoke.py --front-end             # phases 1, 2 and the text front end (4i) only
     python3 chip_smoke.py --qlora                 # phases 1, 2, the GGUF writer and QLoRA fine-tuning (4j) only
     python3 chip_smoke.py --iquants               # phases 1, 2 and GPT-J-6B from IQ4_XS, IQ1_M, TQ2_0 files (4k) only
@@ -14,6 +16,8 @@
                                                   # paged, chunked and q8 KV engines) only
     python3 chip_smoke.py --train                 # phases 1, 2 and training (4g, 4h, 4o, 4p, 4q) only
     python3 chip_smoke.py --spec                  # phases 1, 2 and speculative decoding (4r) only
+    python3 chip_smoke.py --moe                   # phases 1, 2 and the mixture-of-experts block (4s) only, Qwen3-30B-A3B
+                                                  # as deep as the card and the disk allow (at most 48 layers)
 
 Phases (any failure exits non-zero without the result line):
 1. the card, as nvidia-smi reports its name and power limit;
@@ -27,10 +31,15 @@ Phases (any failure exits non-zero without the result line):
    E over IQ2_XS and IQ1_S planes; A, B, C, F, G, H and J also at the
    Llama-3-8B shapes GPT-J never reached (N = 1024 and 14336, ffn_down's K =
    14336 over expanded planes for H, the 128256-row Q6_K head, J under GQA
-   32/8 at d = 128);
+   32/8 at d = 128), and at Qwen3-30B-A3B's (K = 2048 and N = 4096, 512,
+   2048 for A, B and C, the 151936-row Q6_K head for F and G, J under GQA
+   32/4);
 4. serve greedy requests through GPT-J-6B at its published widths
    (EleutherAI/gpt-j-6b: n_vocab 50400, E 4096, 16 heads, 28 layers, n_rot
-   64, context 2048), decoding as CUDA graph replays (one capture per model,
+   64, context 2048; the synthesized planes of (a)-(c), (e), (f), (m)-(o)
+   and (r) at 14 of its 28 layers in the whole run, all 28 with --gptj,
+   --serve, --spec and --train: the launch counts quoted below are at 28),
+   decoding as CUDA graph replays (one capture per model,
    made while warming up), counting every kernel launch of each run, then
    decoding the first request again eagerly (the same ids, ms/token side by
    side), and profiling eager and graphed decode: (a)
@@ -72,8 +81,9 @@ Phases (any failure exits non-zero without the result line):
    first again eagerly (the same ids), ms/token beside the plane-byte
    floor, a profiled graphed token by class; (l) Llama-3-8B at its
    published widths (meta-llama/Meta-Llama-3-8B: vocab 128256, E 4096, 32
-   layers, 32 heads over 8 kv heads, n_ff 14336, rope base 500000) from a
-   4.65 GB GGUF file of Q4_K weights with a Q6_K head and a 128256-entry
+   layers, 32 heads over 8 kv heads, n_ff 14336, rope base 500000; 8 of
+   its 32 layers in the whole run, all 32 with --llama, --serve, --spec and
+   --train, where the counts quoted below hold) from a 4.65 GB GGUF file of Q4_K weights with a Q6_K head and a 128256-entry
    byte-level BPE vocabulary: the load, greedy requests from prompts of 8
    and 100 as graph replays (225 planar launches a decode token: A on 192
    linears, H on 32 ffn_down over planes expanded on every call, F on the
@@ -123,7 +133,20 @@ Phases (any failure exits non-zero without the result line):
    reported with both rows; then 4l's Llama-3-8B through a paged engine
    with the prefix cache and a 2-layer self-draft at 4 slots, pinned (the
    final norm zeroed: ids equal) and not, its paged verify held against
-   llama.forward over the gathered windows;
+   llama.forward over the gathered windows; (s) the llama family's
+   mixture-of-experts block: bench_moe_decode's shape (8 layers of E 4096,
+   8 experts of 7168, 2 a token, bf16 weights synthesized on the card) as
+   graphed and eager greedy decode beside its two floors (every expert
+   streamed; the top-2 alone), grouped against dense experts, profiles by
+   class; Qwen3-30B-A3B (E 2048, 32 heads over 4, head_dim 128, 128
+   experts of 768, 8 a token, vocab 151936; 4 of its 48 layers in the whole
+   run) from a qwen3moe Q4_K GGUF file with a Q6_K head: the load, a
+   1024-token prefill (J, C, G, the grouped experts) and graphed decode
+   with exact launches, the engine at bench_serve's mix dense and paged and
+   at 16 slots (grouped experts inside the tick's graph), the paged step
+   against the dense forward, a captured 16-row forward against eager, LoRA
+   at 1 x 512 twice (the first step bit for bit), and tiny MoE files of the
+   four architectures on the card against the CPU;
 5. one JSON line listing every kernel, then the result line.
 
 Runs only where torch.cuda.is_available(); it imports nothing of JAX.
@@ -560,6 +583,20 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
     # chunked serving (phase 4n): GPT-J's (8, 256) chunk dispatch takes C at M = 2048
     for shape in (qkvup, attn_out, ffn_down):
         gemv_case("q4k_matmul", 2048, *shape)
+    # Qwen3-30B-A3B from a Q4_K file with a Q6_K head (phase 4s), E 2048: A
+    # at K = 2048 on q (N = 4096) and k, v (N = 512) and at K = 4096 on
+    # attn_output (N = 2048); B on them at the engine's M = 4 and 16; C at the
+    # 1024-token prefill and at LoRA's M = 512; F and G on the 151936-row head
+    q_q, q_kv, q_o, q_head = (2048, 4096, 4096), (2048, 512, 512), (4096, 2048, 2048), (2048, 151936, 152576)
+    for shape in (q_q, q_kv, q_o):
+        gemv_case("q4k_gemv_qact", 1, *shape, d_dtype=torch.float32)
+        gemv_case("q4k_gemv_rows", 4, *shape, d_dtype=torch.float32)
+        gemv_case("q4k_matmul", 1024, *shape, d_dtype=torch.float32)
+    gemv_case("q4k_gemv_rows", 16, *q_q, d_dtype=torch.float32)
+    gemv_case("q4k_matmul", 512, *q_q, d_dtype=torch.float32)
+    for m in (1, 4, 16):
+        gemv_case("q8_gemv_sb", m, *q_head, fmt="q6_k")
+    gemv_case("q8_matmul", 1024, *q_head, fmt="q6_k")
 
     def flash_case(b, h, h_kv, nq, nkv, d, types, causal=True, max_bias=0.0, softcap=0.0, time_it=True,
                    dead_row=None):
@@ -660,6 +697,7 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         flash_case(1, 4, 4, 100, 100, 128, types)       # the tiny model's heads, ragged tiles
     flash_case(1, 32, 8, 1024, 1024, 128, "mixed")      # Llama-3-8B's 1024-token prefill: GQA 32/8, d = 128
     flash_case(4, 32, 8, 1120, 1120, 128, "mixed")      # serving's (4, 1120) admission of Llama-3-8B (phase 4m)
+    flash_case(1, 32, 4, 1024, 1024, 128, "mixed")      # Qwen3-30B-A3B's 1024-token prefill: GQA 32/4 (phase 4s)
     # the mask ranges at the long prefill's shape (and the full context), then
     # exactness only at ragged shapes: ragged tiles on the 16-byte path (1000,
     # 64 x 80), and the scalar path (nkv % 4 != 0, a misaligned mask)
@@ -853,6 +891,16 @@ def reset_launches():
             table[k] = 0
 
 
+def gptj_config_of(params: dict):
+    """GPT-J-6B's config for synthesized weights (gptj.random_config("6b"))
+    at the depth `params` holds: the whole run cuts it, the phases' own
+    flags run all 28 layers."""
+    from ggml_tpu_torch.models import gptj
+
+    n_layer = 1 + max(int(k.split(".")[1]) for k in params if k.startswith("blk."))
+    return dataclasses.replace(gptj.random_config("6b"), n_layer=n_layer)
+
+
 def q6k_planes_like(torch, np, params: dict) -> dict:
     """`params` with every planar weight replaced by a compact Q6_K weight of
     the same shape, built with the port's own repack from random Q6_K blocks.
@@ -904,7 +952,7 @@ def phase_gptj(torch, np, label: str, params: dict, kernels: dict, prompts, prof
     from ggml_tpu_torch.models import gptj
     from ggml_tpu_torch.quant.planar import PlanarWeight
 
-    cfg = cfg or gptj.random_config("6b")
+    cfg = cfg or gptj_config_of(params)
     # the planes a decode token reads (a GGUF file's token embedding also
     # has planes, beside its dense copy for the row gather)
     plane_bytes = sum(v.plane_bytes() for k, v in params.items()
@@ -2108,13 +2156,15 @@ def phase_qlora_bench(torch, np, params: dict, card: str) -> dict:
     from ggml_tpu_torch.opt.lora import init_lora, wrap_lora
 
     rank, batch, seq, steps, lr = (QLORA_BENCH[k] for k in ("rank", "batch", "seq", "steps", "lr"))
-    cfg = gptj.random_config("6b")
+    cfg = gptj_config_of(params)
     rng = np.random.default_rng(0)
     x, y = (torch.from_numpy(rng.integers(0, cfg.n_vocab, (batch, seq))).cuda() for _ in range(2))
     before = tensor_checksums(torch, params)
     forward = planar_launches(params, batch * seq, head=True)
     recomputed = planar_launches(params, batch * seq, head=False)
-    check(forward == {"q4k_matmul": 85} and recomputed == {"q4k_matmul": 84}, f"kernels at M = {batch * seq}: "
+    linears = 3 * cfg.n_layer + 1  # the fused qkvup, attn_output, ffn_down a layer, and the head
+    check(forward == {"q4k_matmul": linears} and recomputed == {"q4k_matmul": linears - 1},
+          f"kernels at M = {batch * seq}: "
           f"{forward}, {recomputed}")
     out = dict(QLORA_BENCH, targets=list(QLORA_BENCH_TARGETS), remat=REMAT, card=card, runs={}, counts={})
     per_step = {}
@@ -2130,7 +2180,7 @@ def phase_qlora_bench(torch, np, params: dict, card: str) -> dict:
         run = timed_training(torch, np, opt, x, y, steps)
         per_step[name] = {k: v // steps for k, v in run["counts"].items() if v}
         want = {k: 0 for k in run["counts"]}
-        want["q4k_matmul"] = (85 + (84 if policy else 0)) * steps
+        want["q4k_matmul"] = (linears + (linears - 1 if policy else 0)) * steps
         check(run["counts"] == want, f"4o, remat {name}: launches {run['counts']}, want {want}")
         check(all(np.isfinite(run["losses"])), f"4o, remat {name}: losses {run['losses']}")
         for k, v in run["counts"].items():
@@ -2196,7 +2246,8 @@ def phase_qlora_llama(torch, np, path: str, tmp: str, card: str) -> dict:
     check(len(planar) == 7 * cfg.n_layer + 1, f"{len(planar)} planar linears")
     m = batch * seq
     forward, recomputed = planar_launches(base, m, head=True), planar_launches(base, m, head=False)
-    check(forward == {"q4k_matmul": 224, "q8_matmul": 1} and recomputed == {"q4k_matmul": 224},
+    linears = 7 * cfg.n_layer  # the Q4_K linears, every one adapted (224 at 32 layers)
+    check(forward == {"q4k_matmul": linears, "q8_matmul": 1} and recomputed == {"q4k_matmul": linears},
           f"kernels at M = {m}: {forward}, {recomputed}")
     kinds = {}
     for k in planar:
@@ -2223,7 +2274,7 @@ def phase_qlora_llama(torch, np, path: str, tmp: str, card: str) -> dict:
         run = timed_training(torch, np, opt, x, y, steps)
         per_step[name] = {k: v // steps for k, v in run["counts"].items() if v}
         want = {k: 0 for k in run["counts"]}
-        want.update(q4k_matmul=(224 + (224 if policy else 0)) * steps, q8_matmul=steps)
+        want.update(q4k_matmul=(linears + (linears if policy else 0)) * steps, q8_matmul=steps)
         check(run["counts"] == want, f"4p, remat {name}: launches {run['counts']}, want {want}")
         check(all(np.isfinite(run["losses"])), f"4p, remat {name}: losses {run['losses']}")
         for k, v in run["counts"].items():
@@ -2420,16 +2471,22 @@ def phase_iquants(torch, np, tmp: str, card: str, n_layer: int = 28) -> list:
 
 # 4l: the Llama family at Llama-3-8B's published widths, from a Q4_K GGUF file
 LLAMA3_8B_GGUF = "meta-llama-3-8b-q4_k.gguf"
-# planar launches of one Llama-3-8B decode token by wrapper: A on the 192
-# linears at K = 4096 (q, k, v, attn_output, ffn_gate, ffn_up), H on the 32
-# ffn_down (K = 14336: expanded planes), F on the Q6_K head
-LLAMA_DECODE_LAUNCHES = {"q4k_gemv_qact": 192, "q4_gemv": 32, "q8_gemv_sb": 1}
+LLAMA_LAYERS = 8  # the whole run's depth of Llama-3-8B (--llama, --serve, --spec, --train: all 32)
 
 
-def write_llama3_8b_gguf(np, tmp: str) -> tuple:
+def llama_step_launches(n_layer: int, m: int = 1) -> dict:
+    """Planar launches of one Llama-3-8B token step by wrapper at n_layer
+    layers: at M = 1 (decode) A, at 2 <= M <= 32 (an engine step) B, on the
+    6 linears of a layer at K = 4096 (q, k, v, attn_output, ffn_gate,
+    ffn_up), H on its ffn_down (K = 14336: expanded planes), F on the Q6_K
+    head (225 at 32 layers)."""
+    return {"q4k_gemv_qact" if m == 1 else "q4k_gemv_rows": 6 * n_layer, "q4_gemv": n_layer, "q8_gemv_sb": 1}
+
+
+def write_llama3_8b_gguf(np, tmp: str, n_layer: int = 32) -> tuple:
     """The GGUF file phase 4l reads, written into the directory tmp with the
     port's writer (models/llama.write_random_gguf): Llama-3-8B's published
-    widths, every 2-D weight Q4_K but output.weight Q6_K (as llama.cpp's
+    widths at n_layer of its 32 layers, every 2-D weight Q4_K but output.weight Q6_K (as llama.cpp's
     Q4_K_S and Q4_K_M files keep the head), F32 norms, a byte-level BPE
     vocabulary of 128256 entries (tokenizer.ggml.model gpt2, as Llama 3's
     files have: the 256 byte symbols, the merges learned from
@@ -2440,7 +2497,7 @@ def write_llama3_8b_gguf(np, tmp: str) -> tuple:
     from ggml_tpu_torch.models import llama
     from ggml_tpu_torch.tokenizer import byte_level_vocab, learn_merges
 
-    cfg = llama.llama3_8b_config()
+    cfg = dataclasses.replace(llama.llama3_8b_config(), n_layer=n_layer)
     merges = learn_merges(FRONT_END_TEXT, 100_000)  # until every word is one symbol
     tokens = byte_level_vocab(merges)
     bos, eos = 128000, 128001
@@ -2463,36 +2520,79 @@ def write_llama3_8b_gguf(np, tmp: str) -> tuple:
 _GEMV_CLASS = {("true", "true"): "A", ("true", "false"): "H", ("false", "true"): "F", ("false", "false"): "E"}
 
 
-_LLAMA_RANGES = ("planar_matmul.expand_compact", "llama.attention")
+_LLAMA_RANGES = {"planar_matmul.expand_compact": "H expansions", "llama.attention": "attention"}
+_MOE_RANGES = {**_LLAMA_RANGES, "llama.moe_experts": "experts", "llama.moe_router": "router"}
 
 
-def _llama_class(event, kernel: str) -> str:
+def _llama_class(event, kernel: str, ranges: dict = _LLAMA_RANGES, n_vocab: int | None = None) -> str:
+    """A kernel's class in a llama-family trace: the port's kernels by name
+    (A, H, F, E by their plane layout, C, G, J), then by the ranges around
+    the op that launched it (ranges: range name -> class), then, given
+    n_vocab, the head by its product's N, else other."""
     m = re.search(r"Planes<(true|false), (true|false)", kernel)
     if m:
         return _GEMV_CLASS[m[1], m[2]]
-    if "q4k_matmul_kernel" in kernel or "qmatmul_xsum_kernel" in kernel:
-        return "C"
-    if "q8_matmul_kernel" in kernel:
-        return "G"
+    for name, cls in (("q4k_matmul_kernel", "C"), ("qmatmul_xsum_kernel", "C"), ("q8_matmul_kernel", "G"),
+                      ("fa_sm90_kernel", "J"), ("flash_split_kernel", "J"), ("flash_mask_ranges_kernel", "J")):
+        if name in kernel:
+            return cls
     while event is not None:
-        if event.name == "planar_matmul.expand_compact":
-            return "H expansions"
-        if event.name == "llama.attention":
-            return "attention"
+        if event.name in ranges:
+            return ranges[event.name]
+        if n_vocab and event.name in ("aten::mm", "aten::addmm") and any(n_vocab in s for s in event.input_shapes or () if s):
+            return "head"
         event = event.cpu_parent
     return "other"
 
 
-def profile_llama_decode(torch, np, model, steps: int = 32, prompt: int = 8) -> dict:
+def profile_classes(torch, fn, steps: int = 1, ranges: dict = _LLAMA_RANGES, n_vocab: int | None = None) -> dict:
+    """fn() once under torch.profiler after a sync, fn running `steps`
+    steps: host ms, device busy ms (copies included), the idle share 1 -
+    busy / host, busy ms by _llama_class and the kernel launches, each a
+    step.  Every device event is booked by its kernel's name; then each
+    kernel the profiler ties to the op that launched it (it ties none to a
+    cudaLaunchKernelExC, the GEMVs' launch, nor to a graph replay's) and
+    that its name leaves in "other" moves to the class of the ranges around
+    that op (or to the head)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=n_vocab is not None) as prof:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / steps
+    by: dict = {}
+    for e in _device_events(prof):
+        if e.key in ranges or e.key.startswith("planar_matmul.") or getattr(e, "is_user_annotation", False):
+            continue  # a range's device span: its kernels, and the gaps between them
+        cls = _llama_class(None, e.key)
+        by[cls] = by.get(cls, 0.0) + e.self_device_time_total / 1e3 / steps
+    busy = sum(by.values())
+    for e in prof.events():
+        for k in getattr(e, "kernels", ()):
+            cls = _llama_class(e, k.name, ranges, n_vocab)
+            if cls != "other" and _llama_class(None, k.name) == "other":
+                by[cls] = by.get(cls, 0.0) + k.duration / 1e3 / steps
+                by["other"] = by.get("other", 0.0) - k.duration / 1e3 / steps
+    launches = sum(e.count for e in prof.key_averages() if e.key.startswith("cudaLaunchKernel")) / steps
+    return dict(host_ms=host, busy_ms=busy, idle_share=1 - busy / host, by_class_ms=by, launches=launches)
+
+
+def _fmt_classes(d: dict) -> str:
+    return ", ".join(f"{k} {v:.3f}" for k, v in sorted(d.items(), key=lambda kv: -kv[1]))
+
+
+def profile_llama_decode(torch, np, model, steps: int = 32, prompt: int = 8, ranges: dict = _LLAMA_RANGES,
+                         n_vocab: int | None = None) -> dict:
     """Llama decode after a `prompt`-token prompt (after the launch counters
     are read): host ms/token of `steps` graphed replays, then under
-    torch.profiler the same request again: device busy a token (copies
-    included), the idle share 1 - busy / host, and busy by class from the
-    kernels' names (A, H, F; the expansions and the attention's ops are
-    PyTorch kernels in "other" there); then 8 eager steps, where the ops
-    of the ranges planar_matmul.expand_compact and llama.attention are
-    booked to "H expansions" and "attention"."""
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler the same request again: device busy a token, the idle
+    share 1 - busy / host, and busy by class (profile_classes: by the
+    kernels' names alone in a replay); then 8 eager steps, where the ops of
+    the ranges (the H expansions, the attention; the experts and the router
+    under _MOE_RANGES) and, given n_vocab, the head get their classes."""
 
     def request():
         logits, cache, n_past = model.prefill(model.new_cache(torch.bfloat16), np.arange(prompt)[None])
@@ -2505,44 +2605,21 @@ def profile_llama_decode(torch, np, model, steps: int = 32, prompt: int = 8) -> 
     model.decode_greedy(cache, first, n_past, steps)  # returns the ids to the host: the card is done
     host_ms = (time.perf_counter() - t0) * 1e3 / steps
     cache, first, n_past = request()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.decode_greedy(cache, first, n_past, steps)
-        torch.cuda.synchronize()
-    events = _device_events(prof)
-    busy = sum(e.self_device_time_total for e in events) / steps / 1e3
-    graphed = {}
-    for e in events:
-        cls = _llama_class(None, e.key)
-        graphed[cls] = graphed.get(cls, 0.0) + e.self_device_time_total / steps / 1e3
+    graphed = profile_classes(torch, lambda: model.decode_greedy(cache, first, n_past, steps), steps)
     cache, first, n_past = request()
     eager_steps = 8
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.decode_greedy(cache, first, n_past, eager_steps, graph=False)
-        torch.cuda.synchronize()
-    # the two ranges from the kernels the profiler ties to the ops that
-    # launched them (it ties no kernel to a cudaLaunchKernelExC, the GEMVs'
-    # launch), every other class from the device events by name
-    eager = {}
-    for e in _device_events(prof):
-        if e.key in _LLAMA_RANGES or getattr(e, "is_user_annotation", False):
-            continue  # a range's device span: its kernels, and the gaps between them
-        cls = _llama_class(None, e.key)
-        eager[cls] = eager.get(cls, 0.0) + e.self_device_time_total / eager_steps / 1e3
-    for e in prof.events():
-        for k in getattr(e, "kernels", ()):
-            cls = _llama_class(e, k.name)
-            if cls in ("H expansions", "attention"):
-                eager[cls] = eager.get(cls, 0.0) + k.duration / eager_steps / 1e3
-                eager["other"] -= k.duration / eager_steps / 1e3
-    launches = sum(e.count for e in prof.key_averages() if e.key.startswith("cudaLaunchKernel")) / eager_steps
+    eager = profile_classes(torch, lambda: model.decode_greedy(cache, first, n_past, eager_steps, graph=False),
+                            eager_steps, ranges, n_vocab)
+    busy = graphed["busy_ms"]
     trace = dict(steps=steps, prompt=prompt, host_ms_per_token=host_ms, device_ms_per_token=busy,
-                 idle_share=1.0 - busy / host_ms, graphed_ms_per_token_by_class=graphed,
-                 eager_ms_per_token_by_class=eager, eager_launches_per_token=launches)
-    fmt = lambda d: ", ".join(f"{k} {v:.3f}" for k, v in sorted(d.items(), key=lambda kv: -kv[1]))
+                 idle_share=1.0 - busy / host_ms, graphed_ms_per_token_by_class=graphed["by_class_ms"],
+                 eager_ms_per_token_by_class=eager["by_class_ms"], eager_launches_per_token=eager["launches"],
+                 eager_device_ms_per_token=eager["busy_ms"], eager_host_ms_per_token=eager["host_ms"])
     print(f"  graphed decode, {steps} steps at pos {prompt}..{prompt + steps - 1}: host {host_ms:.3f} ms/token, "
-          f"device busy {busy:.3f} (idle {trace['idle_share'] * 100:.1f} %); by class (ms/token): {fmt(graphed)}")
-    print(f"  eager decode, {eager_steps} steps, {launches:.0f} kernel launches/token; device ms/token by class: "
-          f"{fmt(eager)}")
+          f"device busy {busy:.3f} (idle {trace['idle_share'] * 100:.1f} %); by class (ms/token): "
+          f"{_fmt_classes(graphed['by_class_ms'])}")
+    print(f"  eager decode, {eager_steps} steps, {eager['launches']:.0f} kernel launches/token, device busy "
+          f"{eager['busy_ms']:.3f} ms/token; by class: {_fmt_classes(eager['by_class_ms'])}")
     return trace
 
 
@@ -2695,7 +2772,7 @@ def phase_tiny_llama(torch, np, tmp: str) -> dict:
     return out
 
 
-def phase_llama(torch, np, tmp: str, card: str, serve: bool = False, train: bool = False) -> dict:
+def phase_llama(torch, np, tmp: str, card: str, serve: bool = False, train: bool = False, n_layer: int = 32) -> dict:
     """4l: Llama-3-8B at its published widths (meta-llama/Meta-Llama-3-8B
     config.json: vocab 128256, E 4096, 32 layers, 32 heads over 8 kv heads,
     head_dim 128, n_ff 14336, rope base 500000, context 8192, untied head)
@@ -2703,7 +2780,7 @@ def phase_llama(torch, np, tmp: str, card: str, serve: bool = False, train: bool
     planes through Llama.from_gguf (what `generate --quantized` does):
     greedy requests of 64 tokens from prompts of 8 and 100 decoded as graph
     replays with exact launch counts (225 planar launches a decode token,
-    LLAMA_DECODE_LAUNCHES), the first again eagerly (the same ids), a seeded
+    llama_step_launches), the first again eagerly (the same ids), a seeded
     sampled request (twice, eagerly, and with top_k = 1 against the greedy
     ids), a 1024-token prefill at max_seq 2048 through J (32 launches with
     their split, the mask ranges once) and C, flash against plain attention
@@ -2718,14 +2795,14 @@ def phase_llama(torch, np, tmp: str, card: str, serve: bool = False, train: bool
 
     gc.collect()  # earlier phases' models and their decode graphs form reference cycles
     torch.cuda.empty_cache()
-    path, info, tokens, merges = write_llama3_8b_gguf(np, tmp)
+    path, info, tokens, merges = write_llama3_8b_gguf(np, tmp, n_layer)
     out = dict(info)
     t0 = time.perf_counter()
     model = llama.Llama.from_gguf(path, max_seq=2048, device="cuda")
     torch.cuda.synchronize()
     out["load_s"] = time.perf_counter() - t0
     cfg = model.cfg
-    want_cfg = llama.llama3_8b_config()
+    want_cfg = dataclasses.replace(llama.llama3_8b_config(), n_layer=n_layer)
     check(dataclasses.replace(cfg, rms_eps=want_cfg.rms_eps) == want_cfg, f"config {cfg}")
     planar = {k: v for k, v in model.params.items() if isinstance(v, PlanarWeight) and k != "token_embd.weight"}
     check(len(planar) == 7 * cfg.n_layer + 1, f"{len(planar)} planar linears")
@@ -2749,7 +2826,7 @@ def phase_llama(torch, np, tmp: str, card: str, serve: bool = False, train: bool
         first, ids, t0, t1, t2, finite, event_ms = greedy_request(torch, model, prompt, n_gen - 1, graph=True)
         delta = {k: v - before[k] for k, v in launch_counts().items()}
         want = dict.fromkeys(delta, 0)
-        for k, n in LLAMA_DECODE_LAUNCHES.items():
+        for k, n in llama_step_launches(cfg.n_layer).items():
             want[k] += n * (n_gen - 1)
         if t <= 32:  # B on the K = 4096 linears, H on ffn_down, F on the head
             want["q4k_gemv_rows"] += linears - cfg.n_layer
@@ -2869,11 +2946,6 @@ def phase_llama(torch, np, tmp: str, card: str, serve: bool = False, train: bool
 # bench_serve's mix (bench.py:771-812): GPT-J-6B Q4_K, 8 slots, max_seq 256,
 # bucket 32, a warm request, then 24 requests of 4-30-token prompts x 32 new
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW, SERVE_BUCKET = 8, 24, 32, 32
-# planar launches of one engine step (M = slots) by wrapper: GPT-J's
-# synthesized planes take B on all 85 linears; Llama-3-8B's file takes B on
-# the 192 K = 4096 linears, H on the 32 ffn_down (expanded planes), F on the head
-GPTJ_STEP_LAUNCHES = {"q4k_gemv_rows": 85}
-LLAMA_STEP_LAUNCHES = {"q4k_gemv_rows": 192, "q4_gemv": 32, "q8_gemv_sb": 1}
 
 
 def _engine_delta(eng, before: dict) -> dict:
@@ -2965,7 +3037,7 @@ def phase_serve_gptj(torch, np, params: dict, card: str) -> dict:
     from ggml_tpu_torch.models import gptj
     from ggml_tpu_torch.serve import Engine
 
-    cfg = gptj.random_config("6b")
+    cfg = gptj_config_of(params)
     model = gptj.GPTJ(params, cfg, max_seq=256, device="cuda")
     rng = np.random.default_rng(0)
     eng = Engine(model, max_batch=SERVE_SLOTS, max_seq=256, cache_dtype=torch.bfloat16, record_events=True)
@@ -2994,8 +3066,7 @@ def phase_serve_gptj(torch, np, params: dict, card: str) -> dict:
     check(all(len(x) == SERVE_NEW and all(0 <= t < cfg.n_vocab for t in x) for x in ids),
           f"GPT-J serving: lengths {[len(x) for x in ids]}")
     want = dict.fromkeys(counts, 0)
-    for k, n in GPTJ_STEP_LAUNCHES.items():
-        want[k] += n * delta["decode_steps"]
+    want["q4k_gemv_rows"] += (3 * cfg.n_layer + 1) * delta["decode_steps"]  # B on every linear a step
     want["q4k_matmul"] += 3 * cfg.n_layer * waves  # a batched prefill runs no head
     check(counts == want and delta["captures"] == 0 and delta["prefill_count"] == SERVE_REQUESTS,
           f"GPT-J serving: launches {counts}, want {want}; {delta}, {waves} batched prefills")
@@ -3041,8 +3112,8 @@ def phase_serve_gptj(torch, np, params: dict, card: str) -> dict:
     one = gptj.GPTJ(params, dataclasses.replace(cfg, n_layer=1), max_seq=256, device="cuda")
     eng_one = Engine(one, max_batch=SERVE_SLOTS, max_seq=256, cache_dtype=torch.bfloat16)
     out["first_step_vs_b1"] = {}
-    for label, m, e, q, bucket in (("B both sides, 28 layers", model, eng, p[:4], 4),
-                                   ("C against B, 28 layers", model, eng, p, SERVE_BUCKET),
+    for label, m, e, q, bucket in ((f"B both sides, {cfg.n_layer} layers", model, eng, p[:4], 4),
+                                   (f"C against B, {cfg.n_layer} layers", model, eng, p, SERVE_BUCKET),
                                    ("C against B, 1 layer", one, eng_one, p, SERVE_BUCKET)):
         step = _first_step_logits(torch, np, e, q, bucket)
         solo = m.prefill(m.new_cache(torch.bfloat16), np.asarray([q]))[0][0].float()
@@ -3050,7 +3121,7 @@ def phase_serve_gptj(torch, np, params: dict, card: str) -> dict:
         out["first_step_vs_b1"][label] = dict(prompt=len(q), nmse=errors(solo, step)[0],
                                               top2_gap=float(top2[0] - top2[1]),
                                               same_argmax=bool(step.argmax() == solo.argmax()))
-    gate = out["first_step_vs_b1"]["B both sides, 28 layers"]
+    gate = out["first_step_vs_b1"][f"B both sides, {cfg.n_layer} layers"]
     check(gate["nmse"] <= 1e-6 and (gate["same_argmax"] or gate["top2_gap"] <= 1e-3),
           f"GPT-J serving: first step against b = 1 prefill logits, the same kernels: {gate}")
     print(f"  each request alone through the same engine: the same ids ({out['alone_s']:.1f}s); a grouped "
@@ -3125,7 +3196,7 @@ def phase_serve_llama(torch, np, model, path: str, tokens: list, merges: list, c
     check(all(len(x) == SERVE_NEW and all(0 <= t < cfg.n_vocab for t in x) for x in ids),
           f"Llama serving: {[len(x) for x in ids]} ids")
     want = dict.fromkeys(counts, 0)
-    for k, n in LLAMA_STEP_LAUNCHES.items():
+    for k, n in llama_step_launches(cfg.n_layer, 4).items():
         want[k] += n * delta["decode_steps"]
     want.update(q4k_matmul=7 * cfg.n_layer * waves, flash_attn=cfg.n_layer, flash_split=cfg.n_layer,
                 flash_mask_ranges=1)
@@ -3330,7 +3401,7 @@ def phase_serve_long(torch, np, params: dict, card: str) -> dict:
     from ggml_tpu_torch.models import gptj
     from ggml_tpu_torch.serve import Engine
 
-    cfg = gptj.random_config("6b")
+    cfg = gptj_config_of(params)
     model = gptj.GPTJ(params, cfg, max_seq=LONG_SEQ, device="cuda")
     rng = np.random.default_rng(0)
     lens = rng.integers(*LONG_LENS, 2 * LONG_SLOTS)
@@ -3400,7 +3471,7 @@ def phase_serve_paged(torch, np, params: dict, card: str) -> dict:
     from ggml_tpu_torch.paged_kv import PagedConfig, paged_gather
     from ggml_tpu_torch.serve import Engine
 
-    cfg = gptj.random_config("6b")
+    cfg = gptj_config_of(params)
     model = gptj.GPTJ(params, cfg, max_seq=PAGED_SEQ, device="cuda")
     per_seq = PAGED_SEQ // PAGE
     pcfg = PagedConfig(n_pages=LONG_SLOTS * per_seq + 8, page_size=PAGE, max_pages_per_seq=per_seq,
@@ -3526,7 +3597,7 @@ def phase_serve_q8(torch, np, params: dict, card: str) -> dict:
     from ggml_tpu_torch.models import common, gptj
     from ggml_tpu_torch.serve import Engine
 
-    cfg = gptj.random_config("6b")
+    cfg = gptj_config_of(params)
     model = gptj.GPTJ(params, cfg, max_seq=256, device="cuda")
     rng = np.random.default_rng(0)
     warm = rng.integers(0, cfg.n_vocab, 16).tolist()
@@ -3560,7 +3631,7 @@ def phase_serve_q8(torch, np, params: dict, card: str) -> dict:
     # engine's own cache), over 28 layers and over one: not gated
     one = gptj.GPTJ(params, dataclasses.replace(cfg, n_layer=1), max_seq=256, device="cuda")
     out["first_step_q8_vs_bf16_nmse"] = {}
-    for label, m in (("28 layers", model), ("1 layer", one)):
+    for label, m in ((f"{cfg.n_layer} layers", model), ("1 layer", one)):
         e8 = q8 if m is model else Engine(m, max_batch=SERVE_SLOTS, max_seq=256, cache_dtype="q8_kv")
         e16 = bf if m is model else Engine(m, max_batch=SERVE_SLOTS, max_seq=256, cache_dtype=torch.bfloat16)
         a, b = (_first_step_logits(torch, np, e, prompts[0], SERVE_BUCKET) for e in (e16, e8))
@@ -3637,8 +3708,8 @@ def phase_serve_llama_paged(torch, np, model, card: str) -> dict:
             counts[k] = counts.get(k, 0) + v
         out[label] = run
         print(f"  Llama-3-8B {label}, 4 slots ({card}): {run['tokens']} tokens in {run['wall_s'] * 1e3:.1f} ms, "
-              f"{run['tok_per_s']:.1f} tok/s, {run['ms_per_step']:.3f} ms a step on the card (4m's dense engine: "
-              f"12.54-12.56), idle {run['idle_share'] * 100:.1f} %; prefix hits {delta['cached_prefix_tokens']}; "
+              f"{run['tok_per_s']:.1f} tok/s, {run['ms_per_step']:.3f} ms a step on the card, "
+              f"idle {run['idle_share'] * 100:.1f} %; prefix hits {delta['cached_prefix_tokens']}; "
               f"launches {run['counts']}")
         del eng
         gc.collect()
@@ -3665,7 +3736,7 @@ def spec_partial_params(torch, params: dict, n_vocab: int) -> dict:
     """A draft that agrees in part: an f32 output bias of 1e4 on tokens 7
     and 11 alike (far above the logits of random weights, so that both
     models always answer one of the two; f32 at 1e4 keeps the raw logits to
-    1e-3), and the 2-layer draft and the 28-layer target pick the same one
+    1e-3), and the 2-layer draft and the deeper target pick the same one
     about as often as not: rounds accept some of their drafts.  The planes
     are shared; the logits less the bias are the raw ones."""
     bias = torch.zeros((n_vocab,), dtype=torch.float32, device="cuda")
@@ -3950,7 +4021,7 @@ def phase_spec_gptj(torch, np, params: dict, card: str) -> dict:
     from ggml_tpu_torch.models import gptj
     from ggml_tpu_torch.speculative import make_speculative_decoder
 
-    cfg = gptj.random_config("6b")
+    cfg = gptj_config_of(params)
     k, n = SPEC_K, SPEC_TOKENS
     out, problems = dict(counts={}), []
     prompt = np.random.default_rng(0).integers(0, cfg.n_vocab, SPEC_PARTIAL_PROMPT).tolist()
@@ -4128,7 +4199,7 @@ def phase_spec_serve(torch, np, params: dict, card: str) -> dict:
     from ggml_tpu_torch.models import gptj
     from ggml_tpu_torch.serve import Engine
 
-    cfg = gptj.random_config("6b")
+    cfg = gptj_config_of(params)
     biased = spec_bias_params(torch, params, cfg.n_vocab)
     model = gptj.GPTJ(biased, cfg, max_seq=256, device="cuda")
     draft = gptj.GPTJ(biased, dataclasses.replace(cfg, n_layer=SPEC_DRAFT_LAYERS), max_seq=256, device="cuda")
@@ -4185,7 +4256,7 @@ def spec_serve_partial(torch, np, params: dict, prompts, card: str) -> dict:
     from ggml_tpu_torch.paged_kv import PagedConfig
     from ggml_tpu_torch.serve import Engine
 
-    cfg = gptj.random_config("6b")
+    cfg = gptj_config_of(params)
     biased = spec_partial_params(torch, params, cfg.n_vocab)
     model = gptj.GPTJ(biased, cfg, max_seq=256, device="cuda")
     draft = gptj.GPTJ(biased, dataclasses.replace(cfg, n_layer=SPEC_DRAFT_LAYERS), max_seq=256, device="cuda")
@@ -4356,6 +4427,583 @@ def phase_spec_llama(torch, np, model, card: str) -> dict:
     return out
 
 
+# 4s: the llama family's mixture-of-experts block.  (a) bench_moe_decode
+# (bench.py:502-531): _synth_moe_llama("8x7g") (bench.py:445-479), random
+# bf16 weights (their values do not matter, only the bytes), batch 1,
+# max_seq 128, 32 greedy tokens from token 11 at n_past 0 to warm up, then
+# 32 timed from n_past 32; (b) Qwen3-30B-A3B (Qwen/Qwen3-30B-A3B
+# config.json) from a qwen3moe Q4_K GGUF file with a Q6_K head and Q6_K
+# ffn_down experts, its depth cut (MOE_QWEN_LAYERS; all 48 under --moe where
+# the card and the time allow); (c) the engine on (b) at bench_serve's mix
+# (4 slots, 24 requests of 4-30-token prompts from default_rng(0) x 32 new,
+# bucket 32), dense and paged with the prefix cache, and at 16 slots; (d)
+# finetune_lora(keep_quantized=True) on (b)'s file (rank 8 on the default
+# targets, batch 1 x 512, lr 1e-3) and finetune of the model cut to one
+# layer, as a user calls them; (e) tiny Mixtral, qwen2moe, qwen3moe and granitemoe files on the card against
+# the CPU
+MOE_BENCH = dict(n_vocab=32000, n_ctx=4096, n_embd=4096, n_head=32, n_head_kv=8, n_layer=8, n_ff=7168, n_expert=8,
+                 n_expert_used=2)
+MOE_TOKENS, MOE_FIRST, MOE_MAX_SEQ = 32, 11, 128
+MOE_QWEN_LAYERS = 4  # the whole run's depth of Qwen3-30B-A3B (--moe: MOE_QWEN_LAYERS_ALONE)
+MOE_QWEN_LAYERS_ALONE = 48
+MOE_QWEN_FF_EXP = 768  # moe_intermediate_size
+MOE_SLOTS_GROUPED = 16  # an engine tick of 16 rows takes the grouped experts (JAX's rule: >= 16 tokens)
+MOE_LORA = dict(rank=8, batch=1, seq=512, steps=3, lr=1e-3)
+# bf16 grouped against dense experts, one step's logits: the two paths round
+# other bf16 products in another order, and random layers spread it (on an
+# H100: 4.9e-4 over 8 layers of bench_moe's shape, 9.8e-5 to 7.9e-4 over 2
+# to 48 layers of Qwen3-30B-A3B's); the f32 paths agree to 1e-12 on the CPU
+# (tests/test_torch_moe.py)
+MOE_GROUPED_GATE = 1e-2
+
+
+def synth_moe_params(torch, cfg, seed: int = 0) -> dict:
+    """bench.py's _synth_moe_llama on the card: normal(0, 0.02) bf16 weights
+    from a seeded generator, its names and shapes (the router ffn_gate_inp
+    (E, D), the stacked experts), norms of ones."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, f, e, hd = cfg.n_embd, cfg.n_ff, cfg.n_expert, cfg.head_dim
+    shapes = {"token_embd.weight": (cfg.n_vocab, d), "output.weight": (cfg.n_vocab, d)}
+    ones = {"output_norm.weight": (d,)}
+    for i in range(cfg.n_layer):
+        pre = f"blk.{i}."
+        ones[pre + "attn_norm.weight"] = ones[pre + "ffn_norm.weight"] = (d,)
+        shapes.update({pre + "attn_q.weight": (cfg.n_head * hd, d), pre + "attn_k.weight": (cfg.n_head_kv * hd, d),
+                       pre + "attn_v.weight": (cfg.n_head_kv * hd, d), pre + "attn_output.weight": (d, cfg.n_head * hd),
+                       pre + "ffn_gate_inp.weight": (e, d), pre + "ffn_gate_exps.weight": (e, f, d),
+                       pre + "ffn_up_exps.weight": (e, f, d), pre + "ffn_down_exps.weight": (e, d, f)})
+    out = {}
+    for name, shape in sorted(shapes.items()):
+        out[name] = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16).mul_(0.02)
+    for name, shape in ones.items():
+        out[name] = torch.ones(shape, dtype=torch.bfloat16, device="cuda")
+    return out
+
+
+def moe_stream_bytes(torch, params: dict, cfg, cache) -> dict:
+    """Bytes a decode token reads at least: every tensor but the embedding
+    (one row of it), the KV cache window the attention reads whole, and
+    every expert (JAX's dense path) or only the top-k (a path that reads
+    the chosen experts alone).  Planes count their plane bytes."""
+    from ggml_tpu_torch.quant.planar import PlanarWeight
+
+    size = lambda t: t.plane_bytes() if isinstance(t, PlanarWeight) else t.numel() * t.element_size()
+    experts = sum(size(v) for k, v in params.items() if "_exps." in k)
+    rest = sum(size(v) for k, v in params.items() if "_exps." not in k and not k.startswith("token_embd"))
+    rest += cfg.n_embd * 2 + sum(size(k) + size(v) for k, v in cache)
+    every = experts + rest
+    topk = experts * cfg.n_expert_used / cfg.n_expert + rest
+    return dict(every_bytes=every, topk_bytes=topk, every_floor_ms=every / HBM_BYTES_PER_S * 1e3,
+                topk_floor_ms=topk / HBM_BYTES_PER_S * 1e3)
+
+
+def _with_env(key: str, value: str, fn):
+    old = os.environ.get(key)
+    os.environ[key] = value
+    try:
+        return fn()
+    finally:
+        if old is None:
+            del os.environ[key]
+        else:
+            os.environ[key] = old
+
+
+def grouped_against_dense(torch, model, cache, token: int, pos: int) -> dict:
+    """One decode step's logits with the experts forced through the grouped
+    path (GGML_TPU_MOE_GROUPED=1) and through the dense path (0), each over
+    its own copy of the cache: NMSE, gated at MOE_GROUPED_GATE (bf16: the
+    two paths round other products in another order)."""
+    tok = torch.tensor([[token]], device=model.device)
+    p = torch.tensor(pos, dtype=torch.int32, device=model.device)
+    copy = lambda: [(k.clone(), v.clone()) for k, v in cache]
+    with torch.no_grad():
+        grouped = _with_env("GGML_TPU_MOE_GROUPED", "1", lambda: model.decode_logits(copy(), tok, p)).float()
+        dense = _with_env("GGML_TPU_MOE_GROUPED", "0", lambda: model.decode_logits(copy(), tok, p)).float()
+    nm, mae = errors(dense, grouped)
+    check(bool(torch.isfinite(grouped).all()) and nm <= MOE_GROUPED_GATE,
+          f"grouped against dense experts: NMSE {nm:.2e} > {MOE_GROUPED_GATE:g}")
+    return dict(nmse=nm, max_abs_err=mae, same_argmax=int(grouped.argmax()) == int(dense.argmax()))
+
+
+def moe_decode_run(torch, np, model, prompt, n: int) -> dict:
+    """A greedy request: prefill `prompt`, one graphed warm-up request (the
+    capture), then n graphed tokens timed, the launches of those tokens
+    counted (reset just before, read just after), then the same n eagerly
+    from the same position over the same cache: equal ids, ms/token each."""
+    cache = model.new_cache(torch.bfloat16)
+    logits, cache, n_past = model.prefill(cache, prompt)
+    first = torch.argmax(logits, dim=-1, keepdim=True)
+    model.decode_greedy(cache, first, n_past, n)  # the capture and first uses
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    cache, ids = model.decode_greedy(cache, first, n_past, n)
+    graphed_ms = (time.perf_counter() - t0) * 1e3 / n
+    counts = {k: v for k, v in launch_counts().items() if v}
+    t0 = time.perf_counter()
+    cache, eager = model.decode_greedy(cache, first, n_past, n, graph=False)
+    eager_ms = (time.perf_counter() - t0) * 1e3 / n
+    ids, eager = ids[:, 0].tolist(), eager[:, 0].tolist()
+    check(ids == eager, f"graphed ids {ids[:8]}... against eager {eager[:8]}...")
+    check(all(0 <= t < model.cfg.n_vocab for t in ids), f"ids {ids[:8]}")
+    return dict(first=int(first[0, 0]), ids=ids, n_past=n_past, cache=cache, graphed_ms_per_token=graphed_ms,
+                eager_ms_per_token=eager_ms, counts=counts, launches_per_token={k: v / n for k, v in counts.items()})
+
+
+def phase_moe_bench(torch, np, card: str) -> dict:
+    """4s (a): bench_moe_decode's shape (MOE_BENCH): the weights synthesized
+    on the card, 32 greedy tokens from token 11 at n_past 0 (the capture and
+    warm-up), then 32 from n_past 32 graphed and timed, then again eagerly
+    (the same ids); ms/token and tokens/s beside the two floors (every
+    expert streamed, as the dense path does; the top-2 alone); one step's
+    logits through the grouped and the dense experts; graphed and eager
+    decode profiled by class (profile_llama_decode).  No kernel of the port is on this path
+    (dense bf16 weights, the plain attention): its counts stay 0."""
+    import gc
+
+    from ggml_tpu_torch.models import llama
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama.LlamaConfig(**MOE_BENCH)
+    t0 = time.perf_counter()
+    params = synth_moe_params(torch, cfg)
+    torch.cuda.synchronize()
+    out = dict(config=MOE_BENCH, card=card, synth_s=time.perf_counter() - t0)
+    model = llama.Llama(params, cfg, max_seq=MOE_MAX_SEQ, batch=1, device="cuda")
+    first = torch.tensor([[MOE_FIRST]], device="cuda")
+    cache = model.new_cache(torch.bfloat16)
+    t0 = time.perf_counter()
+    cache, warm = model.decode_greedy(cache, first, 0, MOE_TOKENS)
+    torch.cuda.synchronize()
+    out["warm_s"] = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    cache, ids = model.decode_greedy(cache, first, MOE_TOKENS, MOE_TOKENS)
+    dt = time.perf_counter() - t0
+    out["counts"] = {k: v for k, v in launch_counts().items() if v}
+    t0 = time.perf_counter()
+    cache, eager = model.decode_greedy(cache, first, MOE_TOKENS, MOE_TOKENS, graph=False)
+    eager_dt = time.perf_counter() - t0
+    ids, eager = ids[:, 0].tolist(), eager[:, 0].tolist()
+    check(ids == eager and all(0 <= t < cfg.n_vocab for t in ids), f"bench_moe: graphed {ids[:8]}, eager {eager[:8]}")
+    floors = moe_stream_bytes(torch, params, cfg, cache)
+    out.update(floors, ms_per_token=dt * 1e3 / MOE_TOKENS, tokens_per_s=MOE_TOKENS / dt,
+               eager_ms_per_token=eager_dt * 1e3 / MOE_TOKENS, ids=ids, port_launches=out["counts"])
+    out["every_floor_share"] = out["every_floor_ms"] / out["ms_per_token"]
+    print(f"  bench_moe_decode's shape (8 layers, 8 experts of 7168, 2 a token, bf16) on {card}: "
+          f"{out['ms_per_token']:.3f} ms/token graphed ({out['tokens_per_s']:.1f} tok/s), eager "
+          f"{out['eager_ms_per_token']:.3f}; floors: every expert streamed {out['every_bytes'] / 1e9:.2f} GB = "
+          f"{out['every_floor_ms']:.3f} ms, the top-2 alone {out['topk_bytes'] / 1e9:.2f} GB = "
+          f"{out['topk_floor_ms']:.3f} ms; graphed ids equal eager; port launches {out['counts']}")
+    out["grouped_vs_dense"] = grouped_against_dense(torch, model, cache, ids[-1], 2 * MOE_TOKENS)
+    print(f"  one step's logits, grouped against dense experts: NMSE {out['grouped_vs_dense']['nmse']:.2e} "
+          f"(gate {MOE_GROUPED_GATE:g}), same argmax {out['grouped_vs_dense']['same_argmax']}")
+    out["decode_trace"] = profile_llama_decode(torch, np, model, ranges=_MOE_RANGES, n_vocab=cfg.n_vocab)
+    del model, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def write_qwen3_moe_gguf(np, tmp: str, n_layer: int) -> tuple:
+    """Qwen3-30B-A3B's GGUF file at its published widths cut to n_layer
+    layers (models/llama.write_random_gguf, arch qwen3moe): Q4_K weights, a
+    Q6_K head and Q6_K ffn_down experts (as llama.cpp's Q4_K_M keeps them),
+    an F32 router, ones for the norms (q/k norms too).  Returns (path,
+    config, dict(gguf_write_s, gguf_bytes))."""
+    from ggml_tpu_torch.dtypes import GGMLType
+    from ggml_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.qwen3_30b_a3b_config(), n_layer=n_layer)
+    types = {"output.weight": GGMLType.Q6_K} | {f"blk.{i}.ffn_down_exps.weight": GGMLType.Q6_K
+                                                 for i in range(n_layer)}
+    path = os.path.join(tmp, f"qwen3-30b-a3b-{n_layer}-layers-q4_k.gguf")
+    t0 = time.perf_counter()
+    llama.write_random_gguf(path, cfg, seed=0, types=types, arch="qwen3moe", n_ff_exp=MOE_QWEN_FF_EXP)
+    info = dict(gguf_write_s=time.perf_counter() - t0, gguf_bytes=os.path.getsize(path))
+    print(f"  wrote {info['gguf_bytes'] / 1e9:.3f} GB of qwen3moe GGUF ({n_layer} of 48 layers) in "
+          f"{info['gguf_write_s']:.1f}s")
+    return path, cfg, info
+
+
+def phase_moe_qwen(torch, np, path: str, want_cfg, card: str) -> tuple:
+    """4s (b): Qwen3-30B-A3B from write_qwen3_moe_gguf's file, loaded as
+    Llama.from_gguf loads it (the attention and head as planes, the experts
+    dequantized to bf16): the load, a 1024-token prefill (J at GQA 32/4, C
+    on every attention linear, G on the head, the grouped experts) with its
+    exact launches and busy time by class, graphed decode of 32 tokens
+    after an 8-token prompt (A on the 4 attention linears of every layer, F
+    on the head) with exact launches a token, ms/token beside its floor,
+    and eagerly, the same ids; grouped against dense experts at one step.
+    Returns (model, record)."""
+    from ggml_tpu_torch.models import llama
+    from ggml_tpu_torch.quant.planar import PlanarWeight
+
+    t0 = time.perf_counter()
+    model = llama.Llama.from_gguf(path, max_seq=2048, device="cuda")
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    out = dict(load_s=time.perf_counter() - t0, card=card, n_layer=cfg.n_layer,
+               card_gb=torch.cuda.memory_allocated() / 1e9)
+    check(dataclasses.replace(cfg, rms_eps=want_cfg.rms_eps) == want_cfg, f"config {cfg}")  # eps read as f32
+    planar = [k for k, v in model.params.items() if isinstance(v, PlanarWeight) and k != "token_embd.weight"]
+    check(len(planar) == 4 * cfg.n_layer + 1, f"{len(planar)} planar linears")
+    exps = model.params["blk.0.ffn_gate_exps.weight"]
+    check(exps.shape == (128, MOE_QWEN_FF_EXP, 2048) and exps.dtype == torch.bfloat16, f"experts {exps.shape}")
+    print(f"  loaded in {out['load_s']:.1f}s ({out['card_gb']:.2f} GB on the card): {len(planar)} planar linears, "
+          f"the experts bf16")
+    rng = np.random.default_rng(0)
+    long = rng.integers(0, cfg.n_vocab, (1, 1024))
+    model.prefill(model.new_cache(torch.bfloat16), long)  # first uses
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, _, _ = model.prefill(model.new_cache(torch.bfloat16), long)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    counts = {k: v for k, v in launch_counts().items() if v}
+    want = planar_launches(model.params, 1024, head=True)
+    want.update(flash_attn=cfg.n_layer, flash_split=cfg.n_layer, flash_mask_ranges=1)
+    check(counts == want and bool(torch.isfinite(logits).all()), f"1024-token prefill: launches {counts}, want {want}")
+    prof = profile_classes(torch, lambda: model.prefill(model.new_cache(torch.bfloat16), long), 1, _MOE_RANGES,
+                           cfg.n_vocab)
+    out["prefill"] = dict(ms=prefill_ms, counts=counts, profile=prof)
+    print(f"  1024-token prefill: {prefill_ms:.1f} ms, launches {counts}; device busy {prof['busy_ms']:.1f} ms by "
+          f"class: {_fmt_classes(prof['by_class_ms'])}")
+    run = moe_decode_run(torch, np, model, rng.integers(0, cfg.n_vocab, (1, 8)), MOE_TOKENS)
+    want = {k: v * MOE_TOKENS for k, v in planar_launches(model.params, 1, head=True).items()}
+    check(run["counts"] == want, f"decode launches {run['counts']}, want {want}")
+    floors = moe_stream_bytes(torch, model.params, cfg, run.pop("cache"))
+    run.update(floors, counts_prefill=out["prefill"]["counts"])
+    run["every_floor_share"] = run["every_floor_ms"] / run["graphed_ms_per_token"]
+    out["decode"] = run
+    print(f"  decode after 8 tokens: {run['graphed_ms_per_token']:.3f} ms/token graphed, "
+          f"{run['eager_ms_per_token']:.3f} eager (the same {MOE_TOKENS} ids); floors: every expert "
+          f"{run['every_bytes'] / 1e9:.2f} GB = {run['every_floor_ms']:.3f} ms, the top-8 alone "
+          f"{run['topk_bytes'] / 1e9:.2f} GB = {run['topk_floor_ms']:.3f} ms; launches a token "
+          f"{run['launches_per_token']}")
+    cache = model.new_cache(torch.bfloat16)
+    model.prefill(cache, np.asarray([[run["first"]]]))
+    out["grouped_vs_dense"] = grouped_against_dense(torch, model, cache, run["ids"][0], 1)
+    print(f"  one step's logits, grouped against dense experts: NMSE {out['grouped_vs_dense']['nmse']:.2e}")
+    out["decode"]["trace"] = profile_llama_decode(torch, np, model, ranges=_MOE_RANGES, n_vocab=cfg.n_vocab)
+    return model, out
+
+
+def paged_against_dense(torch, np, model) -> dict:
+    """The MoE model's paged decode step over 4 slots (random bf16 pools,
+    pages of 16; positions 5, 40, 77 and an inactive slot) against its
+    dense forward over the windows gathered from the pools after the step
+    (the step's rows written into them): NMSE over the active slots."""
+    from ggml_tpu_torch.paged_kv import PagedConfig, make_paged_decode_step, paged_gather
+
+    cfg, dev = model.cfg, model.device
+    pcfg = PagedConfig(n_pages=40, page_size=16, max_pages_per_seq=8)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pools = [tuple(torch.randn((pcfg.n_pages + 1, cfg.n_head_kv, 16, cfg.head_dim), generator=gen,
+                               device=dev).to(torch.bfloat16) for _ in range(2)) for _ in range(cfg.n_layer)]
+    tables = torch.tensor([[1, 2, 3, 4, 0, 0, 0, 0], [5, 6, 7, 8, 9, 10, 11, 12], [13, 14, 15, 16, 17, 18, 19, 20],
+                           [0] * 8], device=dev)
+    lengths = torch.tensor([5, 40, 77, 0], device=dev)
+    wpage = torch.stack([tables[i, lengths[i] // 16] for i in range(3)] + [torch.tensor(pcfg.n_pages, device=dev)])
+    woff = torch.tensor([5, 8, 13, 0], device=dev)
+    active = torch.tensor([True, True, True, False], device=dev)
+    tokens = torch.tensor([[17], [200], [301], [0]], device=dev)
+    step = make_paged_decode_step(model, pcfg)
+    with torch.no_grad():
+        got, pools = step(model.params, pools, tokens, lengths, tables, wpage, woff, active)
+        from ggml_tpu_torch.models import llama
+
+        views = [(paged_gather(kp, tables), paged_gather(vp, tables)) for kp, vp in pools]
+        pos = lengths.to(torch.int32)
+        want = llama.forward(model.params, cfg, tokens, pos, views, pos)[0]
+    nm = max(errors(want[i].float(), got[i].float())[0] for i in range(3))
+    check(nm <= 1e-5 and not got[3].any(), f"paged step against the dense forward: NMSE {nm:.2e}")
+    return dict(nmse=nm)
+
+
+def captured_grouped_forward(torch, np, model, rows: int) -> dict:
+    """The engine's decode step at `rows` slots (>= 16: the grouped experts,
+    the tokens sorted by expert on the card) captured as a CUDA graph
+    (models/common.capture_graph) and replayed, against the same forward run
+    eagerly on the same state: equal logits."""
+    from ggml_tpu_torch.models import llama
+    from ggml_tpu_torch.models.common import capture_graph
+
+    cfg, dev = model.cfg, model.device
+    cache = llama.init_cache(cfg, rows, 256, torch.bfloat16, dev)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for k, v in cache:
+        k.copy_(torch.randn(k.shape, generator=gen, device=dev))
+        v.copy_(torch.randn(v.shape, generator=gen, device=dev))
+    tok = torch.randint(0, cfg.n_vocab, (rows, 1), generator=gen, device=dev)
+    pos = torch.randint(0, 200, (rows,), generator=gen, device=dev).to(torch.int32)
+    out = torch.empty((rows, cfg.n_vocab), dtype=torch.float32, device=dev)
+
+    def run():
+        out.copy_(llama.forward(model.params, cfg, tok, pos, cache, pos)[0][:, -1].float())
+
+    graph, _ = capture_graph(run, dev)
+    graph.replay()
+    replayed = out.clone()
+    with torch.no_grad():
+        run()
+    check(torch.equal(replayed, out) and bool(torch.isfinite(out).all()),
+          f"the captured {rows}-row forward replays other logits than eager: {errors(out, replayed)}")
+    return dict(rows=rows, equal=True)
+
+
+def split_margins(torch, np, model, prompts, a_ids, b_ids, n: int = 4) -> list:
+    """Where two engines' greedy ids part: for the first n requests whose ids
+    differ, at the first step where they do, the model's own b = 1 prefill
+    of the prompt and the ids both engines gave before it (a third rounding
+    of the same sums): the gap between its top two logits on the last row,
+    the gap between the two engines' picks there, and the smallest margin
+    between the k-th and (k+1)-th router logits of that row over the layers
+    (an expert flips where a rounding exceeds it)."""
+    from ggml_tpu_torch.models import llama
+
+    real = llama.moe_topk
+    out = []
+    for prompt, a, b in zip(prompts, a_ids, b_ids):
+        a, b = list(a), list(b)
+        if a == b or len(out) == n:
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        margins = []
+
+        def topk(router, k, renorm=True):
+            v = router.float().reshape(-1, router.shape[-1])[-1].sort(descending=True).values
+            margins.append(float(v[k - 1] - v[k]))
+            return real(router, k, renorm)
+
+        llama.moe_topk = topk
+        try:
+            with torch.no_grad():
+                logits = model.prefill(model.new_cache(torch.bfloat16), np.asarray([prompt + a[:j]]))[0][0].float()
+        finally:
+            llama.moe_topk = real
+        top = logits.topk(2).values
+        out.append(dict(step=j, a_id=a[j], b_id=b[j], top2_gap=float(top[0] - top[1]),
+                        picks_gap=float(logits[a[j]] - logits[b[j]]), argmax=int(logits.argmax()),
+                        router_margin_min=min(margins), router_margin_layer=int(np.argmin(margins))))
+    return out
+
+
+def phase_moe_serve(torch, np, model, card: str) -> dict:
+    """4s (c): the engine on (b)'s model at bench_serve's mix: 4 slots dense
+    and paged with the prefix cache (pages of 16), a warm pass each, a timed
+    pass with exact launches (timed_mix: B on the attention linears at M =
+    4, F on the head, C and G at the admissions); then 16 slots (every
+    tick's 16 rows take the grouped experts inside its graph); the paged
+    step against the dense forward; a captured 16-row forward against
+    eager."""
+    import gc
+
+    from ggml_tpu_torch.paged_kv import PagedConfig
+    from ggml_tpu_torch.serve import Engine
+
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.n_vocab, int(rng.integers(4, 30))).tolist() for _ in range(SERVE_REQUESTS)]
+    out, counts = {}, {}
+    kinds = (("dense", 4, {}), ("paged", 4, dict(paged=PagedConfig(4 * 16 + 16, 16, 16, prefix_cache=True))),
+             ("dense_16_slots", MOE_SLOTS_GROUPED, {}))
+    for label, slots, kw in kinds:
+        eng = Engine(model, max_batch=slots, max_seq=256, cache_dtype=torch.bfloat16, record_events=True, **kw)
+        _run_ids(eng, prompts, SERVE_NEW)
+        torch.cuda.synchronize()
+        eng.event_ms()
+        run = timed_mix(torch, eng, prompts, SERVE_NEW)
+        ev, delta = run["event_ms"], run["engine"]
+        span, steps = ("paged", delta["paged_steps"]) if label == "paged" else ("tick", delta["decode_steps"])
+        run["ms_per_step"] = ev.get(span, 0.0) / max(1, steps)
+        for k, v in run["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+        out[label] = run
+        print(f"  {label}, {slots} slots ({card}): {run['tokens']} tokens in {run['wall_s'] * 1e3:.1f} ms, "
+              f"{run['tok_per_s']:.1f} tok/s, {run['ms_per_step']:.3f} ms a step on the card, idle "
+              f"{run['idle_share'] * 100:.1f} %; prefix hits {delta['cached_prefix_tokens']}; launches {run['counts']}")
+        del eng
+        gc.collect()
+    out["paged_equal_dense"] = sum(a == b for a, b in zip(out["paged"]["ids"], out["dense"]["ids"]))
+    out["split_margins"] = split_margins(torch, np, model, prompts, out["dense"]["ids"], out["paged"]["ids"])
+    for run in out.values():
+        if isinstance(run, dict):
+            run.pop("ids", None)
+    out["counts"] = counts
+    out["paged_step_vs_dense"] = paged_against_dense(torch, np, model)
+    out["captured_grouped"] = captured_grouped_forward(torch, np, model, MOE_SLOTS_GROUPED)
+    print(f"  {out['paged_equal_dense']} of {len(prompts)} requests give the same ids dense and paged; the paged step "
+          f"against the dense forward over the gathered windows: NMSE {out['paged_step_vs_dense']['nmse']:.2e}; a "
+          f"captured {MOE_SLOTS_GROUPED}-row forward (grouped experts) replays equal to eager")
+    print("  where dense and paged part, a b = 1 prefill up to the split: "
+          + "; ".join(f"step {m['step']}: top-2 gap {m['top2_gap']:.4f}, picks' gap {m['picks_gap']:.4f} (argmax "
+                      f"{'dense' if m['argmax'] == m['a_id'] else 'paged' if m['argmax'] == m['b_id'] else 'neither'}"
+                      f"), router k/k+1 margin {m['router_margin_min']:.5f} (layer {m['router_margin_layer']})"
+                      for m in out["split_margins"]))
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_train(torch, np, path: str, tmp: str, card: str, want_step: dict) -> dict:
+    """4s (d): the finetuning entry points on Qwen3-30B-A3B, as a user calls
+    them.  finetune_lora(keep_quantized=True) on (b)'s file, twice: each call
+    loads the file itself (the attention and the head as planes, the frozen
+    experts in bf16: finetune.moe_expert_dtype), rank 8 on the default
+    targets (q, k, v, attn_output: the experts are 3-D), batch 1 x 512 of a
+    repeated seeded pattern, lr 1e-3, 1 + 3 steps, the experts' products
+    grouped (512 tokens): the call's seconds to the end of step 0 (load
+    included), ms/step over steps 1-3 on the host's clock (the log's stamps
+    after steps 0 and 3; the loss read back every step), exact launches
+    (want_step a step: C on the 4 attention linears of every layer, G on the
+    head), peak memory, losses finite and falling; the losses and the
+    trained adapters equal across the two calls bit for bit.  Then finetune
+    (full weights: f32 masters, the experts cast to bf16 in the forward) of
+    the same model cut to one layer, 1 + 3 steps at 1 x 512 at the default
+    AdamW: its seconds to step 0, ms/step, peak memory, finite losses, no
+    launch of the port's kernels (every weight dense), the trained experts
+    f32."""
+    import gc
+
+    from ggml_tpu_torch.opt import AdamWConfig, finetune, finetune_lora
+
+    rank, batch, seq, steps, lr = (MOE_LORA[k] for k in ("rank", "batch", "seq", "steps", "lr"))
+    pattern = np.random.default_rng(1).integers(0, 151936, 61)
+    toks = np.resize(pattern, batch * seq * (steps + 1) + 1).astype(np.int32)
+
+    def timed(fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        stamps = []
+        t0 = time.perf_counter()
+        losses, result = fn(lambda line: stamps.append(time.perf_counter()))  # after steps 0 and `steps`
+        run = dict(to_first_step_s=stamps[0] - t0, ms_per_step=(stamps[1] - stamps[0]) * 1e3 / steps,
+                   counts={k: v for k, v in launch_counts().items() if v}, losses=losses,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, allocated_before_gb=before / 1e9)
+        run["tokens_per_s"] = batch * seq / (run["ms_per_step"] * 1e-3)
+        return run, result
+
+    runs, adapters = [], []
+    want = {k: v * (steps + 1) for k, v in want_step.items()}
+    for _ in range(2):
+        run, trained = timed(lambda log: finetune_lora(
+            path, toks, rank=rank, keep_quantized=True, seq_len=seq, batch=batch, steps=steps + 1,
+            adamw=AdamWConfig(alpha=lr), device="cuda", log=log))
+        check(run["counts"] == want and all(np.isfinite(run["losses"])) and run["losses"][-1] < run["losses"][0],
+              f"4s LoRA: launches {run['counts']}, want {want}; losses {run['losses']}")
+        run["adapters"] = len(trained)
+        runs.append(run)
+        adapters.append(trained)
+        del trained
+    a, b = runs
+    same = a["losses"] == b["losses"] and all(torch.equal(adapters[0][n][k], adapters[1][n][k])
+                                              for n in adapters[0] for k in "ab")
+    check(same, f"4s LoRA: two calls differ ({a['losses']} against {b['losses']})")
+    del adapters
+    out = dict(MOE_LORA, card=card, runs=runs, equal_across_calls=same, counts=a["counts"], launches_per_step=want_step)
+    print(f"  finetune_lora(keep_quantized=True) rank {rank} ({a['adapters']} adapters), {batch} x {seq}: "
+          f"{a['to_first_step_s']:.1f} / {b['to_first_step_s']:.1f} s to the end of step 0 (the load included), "
+          f"then {a['ms_per_step']:.1f} / {b['ms_per_step']:.1f} ms/step ({a['tokens_per_s']:.0f} tok/s), launches a "
+          f"step {want_step}, peak {a['peak_memory_gb']:.2f} GB; losses {[round(v, 4) for v in a['losses']]}; both "
+          "calls equal bit for bit")
+
+    path1, cfg1, info = write_qwen3_moe_gguf(np, tmp, 1)
+    run, opt = timed(lambda log: finetune(path1, toks, seq_len=seq, batch=batch, steps=steps + 1, device="cuda",
+                                          log=log))
+    exps = opt.params["blk.0.ffn_gate_exps.weight"]
+    check(run["counts"] == {} and all(np.isfinite(run["losses"])) and exps.dtype == torch.float32,
+          f"4s finetune: launches {run['counts']}, losses {run['losses']}, experts {exps.dtype}")
+    run.update(info, n_layer=cfg1.n_layer, params=sum(v.numel() for v in opt.params.values()))
+    del opt, exps
+    os.remove(path1)
+    out["full"] = run
+    print(f"  finetune (full weights, 1 of 48 layers, {run['params'] / 1e9:.3f} B f32 parameters), {batch} x {seq}: "
+          f"{run['to_first_step_s']:.1f} s to the end of step 0, then {run['ms_per_step']:.1f} ms/step, peak "
+          f"{run['peak_memory_gb']:.2f} GB; losses {[round(v, 4) for v in run['losses']]}; the experts trained in f32")
+    return out
+
+
+def phase_moe_tiny(torch, np, tmp: str) -> dict:
+    """4s (e): tiny files (E 64, 4 heads over 2 kv heads, 2 layers, 4
+    experts of 32, 2 a token; write_random_gguf with F32 weights) of
+    Mixtral (llama), qwen2moe (its shared expert), qwen3moe and granitemoe
+    on the card against the same file on the CPU, fed the same tokens: f32
+    (TF32 off) at a 12-token prompt (the dense experts) and 3 decode steps,
+    NMSE <= 1e-9; bf16 at a 20-token prompt (the grouped experts: bf16
+    only on the card) and 3 decode steps, NMSE <= 1e-3 (bf16 products
+    rounded in another order)."""
+    from ggml_tpu_torch.dtypes import GGMLType
+    from ggml_tpu_torch.models import llama
+
+    base = dict(n_vocab=256, n_ctx=64, n_embd=64, n_head=4, n_head_kv=2, n_layer=2, n_ff=96, rope_base=10000.0,
+                n_expert=4, n_expert_used=2)
+    archs = {"llama": {}, "qwen2moe": {}, "qwen3moe": dict(head_dim_override=32),
+             "granitemoe": dict(embd_scale=12.0, resid_scale=0.22, attn_scale=0.0625, logit_scale=8.0)}
+    out = {}
+    for i, (arch, over) in enumerate(archs.items()):
+        path = os.path.join(tmp, f"tiny-{arch}.gguf")
+        llama.write_random_gguf(path, llama.LlamaConfig(**base, **over), seed=20 + i, arch=arch, n_ff_exp=32,
+                                default_type=GGMLType.F32)
+        for dtype, t, gate in ((torch.float32, 12, 1e-9), (torch.bfloat16, 20, 1e-3)):
+            models = [llama.Llama.from_gguf(path, dtype=dtype, keep_quantized=False, device=d, max_seq=32)
+                      for d in ("cpu", "cuda")]
+            prompt = torch.from_numpy(np.random.default_rng(t).integers(0, 256, (1, t)))
+            runs = []
+            for m in models:
+                zero = torch.zeros((), dtype=torch.int32, device=m.device)
+                cache = m.new_cache(torch.float32)
+                runs.append([llama.forward(m.params, m.cfg, prompt.to(m.device), zero.expand(1), cache, zero,
+                                           prefill=True)[0][:, -1].float().cpu(), cache])
+            worst = errors(runs[0][0], runs[1][0])[0]
+            tok = int(torch.argmax(runs[0][0]))
+            for step in range(3):
+                logits = []
+                for m, (_, cache) in zip(models, runs):
+                    pos = torch.tensor(t + step, dtype=torch.int32, device=m.device)
+                    logits.append(llama.forward(m.params, m.cfg, torch.tensor([[tok]], device=m.device),
+                                                pos.expand(1), cache, pos)[0][0, -1].float().cpu())
+                worst = max(worst, errors(*logits)[0])
+                tok = int(torch.argmax(logits[0]))
+            name = f"{arch}/{str(dtype)[6:]}"
+            check(worst <= gate, f"tiny {name}: card against CPU NMSE {worst:.2e} > {gate:g}")
+            out[name] = worst
+        os.remove(path)
+    print("  tiny MoE files, card against CPU, worst NMSE over the prefill and 3 steps: "
+          + ", ".join(f"{k} {v:.1e}" for k, v in out.items()))
+    return out
+
+
+def phase_moe(torch, np, tmp: str, card: str, n_layer: int) -> list:
+    """4s: (a)-(e) above; returns the run records, each with its counts."""
+    import gc
+
+    runs = [phase_moe_bench(torch, np, card)]
+    path, cfg, info = write_qwen3_moe_gguf(np, tmp, n_layer)
+    model, qwen = phase_moe_qwen(torch, np, path, cfg, card)
+    qwen.update(info)
+    qwen["counts"] = {}
+    for key in ("prefill", "decode"):
+        for k, v in qwen[key]["counts"].items():
+            qwen["counts"][k] = qwen["counts"].get(k, 0) + v
+    runs.append(qwen)
+    runs.append(phase_moe_serve(torch, np, model, card))
+    want_step = planar_launches(model.params, MOE_LORA["batch"] * MOE_LORA["seq"], head=True)
+    del model
+    runs.append(phase_moe_train(torch, np, path, tmp, card, want_step))
+    os.remove(path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.append(dict(tiny=phase_moe_tiny(torch, np, tmp), counts={}))
+    return runs
+
+
 def flash_times(torch, flash_attn) -> dict:
     """Kernel J's device time (µs) at GPT-J's 1024-token prefill, f32 q/k
     with a bf16 v and all bf16 (each call computes its mask ranges), then its
@@ -4453,6 +5101,62 @@ def gemv_times(torch, qmatmul) -> dict:
                 print(f"  {key}: " + ", ".join(f"{t:.1f}us" for t in out[key]))
             del pw
     return out
+
+
+# the whole run's depth of GPT-J-6B's synthesized planes (4a-4f, 4m-4o, 4r);
+# --gptj runs them at all 28 layers, --serve, --spec and --train theirs too
+GPTJ_LAYERS = 14
+
+
+def phase_gptj_synth(torch, np, card: str, n_layer: int) -> list:
+    """4a-4c, 4e, 4f, 4m-4o and 4r over GPT-J-6B's synthesized planes at its
+    published widths, cut to n_layer of its 28 layers; returns the runs."""
+    from ggml_tpu_torch.dtypes import GGMLType
+    from ggml_tpu_torch.models import gptj
+
+    cfg = dataclasses.replace(gptj.random_config("6b"), n_layer=n_layer)
+    synth = lambda t: gptj.synth_quantized_params(cfg, t, seed=0, dtype=torch.bfloat16, device="cuda")
+    runs = []
+    q4k_kernels = dict(decode="q4k_gemv_qact", rows="q4k_gemv_rows", matmul="q4k_matmul")
+    stage(f"4a. GPT-J-6B Q4_K (synthesized compact planes, {n_layer} of its 28 layers), three greedy requests, then "
+          "a 1024-token prompt")
+    params = synth(GGMLType.Q4_K)
+    runs.append(phase_gptj(torch, np, "q4_k", params, q4k_kernels, (8, 100, 1), profile=True, sampled=True))
+    runs.append(phase_gptj(torch, np, "q4_k long", params, q4k_kernels, (1024,), profile=False, max_seq=2048,
+                           long_decode_profile=1088))
+    stage("4m. serving: GPT-J-6B Q4_K (the same planes), 8 slots, bench_serve's mix")
+    runs.append(phase_serve_gptj(torch, np, params, card))
+    runs += phase_serve_4n(torch, np, params, card).values()
+    runs += phase_spec(torch, np, params, card).values()
+    stage("4o. QLoRA of GPT-J-6B Q4_K (the same planes) at bench_qlora's shape, with and without remat")
+    runs.append(phase_qlora_bench(torch, np, params, card))
+    del params
+    torch.cuda.empty_cache()
+    stage("4b. GPT-J-6B Q8_0 (synthesized int8 planes), three greedy requests")
+    params = synth(GGMLType.Q8_0)
+    runs.append(phase_gptj(torch, np, "q8_0", params, dict(
+        decode="q8_gemv", rows="q8_gemv", matmul="q8_matmul"), (8, 100, 1), profile=True))
+    stage("4c. GPT-J-6B Q6_K (compact planes repacked from random blocks), one greedy request")
+    t0 = time.perf_counter()
+    params = q6k_planes_like(torch, np, params)
+    torch.cuda.synchronize()
+    print(f"  repacked and tiled in {time.perf_counter() - t0:.1f}s")
+    runs.append(phase_gptj(torch, np, "q6_k", params, dict(
+        decode="q8_gemv_sb", rows="q8_gemv_sb"), (8,), profile=True))
+    del params
+    torch.cuda.empty_cache()
+    q4_kernels = dict(decode="q4_gemv", rows="q4_gemv", matmul="q4k_matmul")
+    stage("4e. GPT-J-6B Q4_0 (synthesized multiplied-out nibble planes), context 2048, four greedy requests")
+    params = synth(GGMLType.Q4_0)
+    runs.append(phase_gptj(torch, np, "q4_0", params, q4_kernels, (8, 100, 1, 1024), profile=True, max_seq=2048))
+    del params
+    torch.cuda.empty_cache()
+    stage("4f. GPT-J-6B Q3_K (synthesized nibble planes, groups of 16), one greedy request")
+    params = synth(GGMLType.Q3_K)
+    runs.append(phase_gptj(torch, np, "q3_k", params, q4_kernels, (8,), profile=False))
+    del params
+    torch.cuda.empty_cache()
+    return runs
 
 
 def main() -> int:
@@ -4630,6 +5334,25 @@ def main() -> int:
                                                      "count": torch.cuda.device_count()}}))
             return 0
 
+        if sys.argv[1:] == ["--moe"]:
+            import shutil
+
+            with tempfile.TemporaryDirectory(prefix="qwen3-moe-gguf-") as tmp:
+                # the deepest Qwen3-30B-A3B the card (about 1.22 GB a layer in
+                # bf16 experts, 12 GB kept for the rest) and the disk (about
+                # 0.4 GB of GGUF a layer) hold, at most its 48 layers
+                card_gb = torch.cuda.mem_get_info()[1] / 1e9
+                disk_gb = shutil.disk_usage(tmp).free / 1e9
+                n_layer = max(1, min(MOE_QWEN_LAYERS_ALONE, int((card_gb - 12) / 1.25), int(disk_gb / 0.42) - 2))
+                print(f"  card {card_gb:.1f} GB, free disk {disk_gb:.1f} GB: Qwen3-30B-A3B at {n_layer} of 48 layers")
+                stage(f"4s. mixture of experts: bench_moe_decode's shape, Qwen3-30B-A3B ({n_layer} of 48 layers) "
+                      "decode, prefill, the engine and LoRA, tiny MoE files")
+                moe = phase_moe(torch, np, tmp, card, n_layer)
+            print(json.dumps(dict(card=card, moe=moe), default=str))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
+
         if sys.argv[1:] == ["--long-decode-profile"]:
             stage("4. GPT-J-6B Q4_K (synthesized compact planes), decode after a 1088-token prompt, profiled")
             from ggml_tpu_torch.dtypes import GGMLType
@@ -4646,55 +5369,19 @@ def main() -> int:
                                                      "count": torch.cuda.device_count()}}))
             return 0
 
+        if sys.argv[1:] == ["--gptj"]:
+            runs = phase_gptj_synth(torch, np, card, 28)
+            print(json.dumps(dict(card=card, runs=runs)))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
+
         stage("3. kernels against their plain versions")
         flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
         kernel_results = phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush)
         del flush
 
-        from ggml_tpu_torch.dtypes import GGMLType
-        from ggml_tpu_torch.models import gptj
-
-        cfg = gptj.random_config("6b")
-        synth = lambda t: gptj.synth_quantized_params(cfg, t, seed=0, dtype=torch.bfloat16, device="cuda")
-        runs = []
-        q4k_kernels = dict(decode="q4k_gemv_qact", rows="q4k_gemv_rows", matmul="q4k_matmul")
-        stage("4a. GPT-J-6B Q4_K (synthesized compact planes), three greedy requests, then a 1024-token prompt")
-        params = synth(GGMLType.Q4_K)
-        runs.append(phase_gptj(torch, np, "q4_k", params, q4k_kernels, (8, 100, 1), profile=True, sampled=True))
-        runs.append(phase_gptj(torch, np, "q4_k long", params, q4k_kernels, (1024,), profile=False, max_seq=2048,
-                               long_decode_profile=1088))
-        stage("4m. serving: GPT-J-6B Q4_K (the same planes), 8 slots, bench_serve's mix")
-        runs.append(phase_serve_gptj(torch, np, params, card))
-        runs += phase_serve_4n(torch, np, params, card).values()
-        runs += phase_spec(torch, np, params, card).values()
-        stage("4o. QLoRA of GPT-J-6B Q4_K (the same planes) at bench_qlora's shape, with and without remat")
-        runs.append(phase_qlora_bench(torch, np, params, card))
-        del params
-        torch.cuda.empty_cache()
-        stage("4b. GPT-J-6B Q8_0 (synthesized int8 planes), three greedy requests")
-        params = synth(GGMLType.Q8_0)
-        runs.append(phase_gptj(torch, np, "q8_0", params, dict(
-            decode="q8_gemv", rows="q8_gemv", matmul="q8_matmul"), (8, 100, 1), profile=True))
-        stage("4c. GPT-J-6B Q6_K (compact planes repacked from random blocks), one greedy request")
-        t0 = time.perf_counter()
-        params = q6k_planes_like(torch, np, params)
-        torch.cuda.synchronize()
-        print(f"  repacked and tiled in {time.perf_counter() - t0:.1f}s")
-        runs.append(phase_gptj(torch, np, "q6_k", params, dict(
-            decode="q8_gemv_sb", rows="q8_gemv_sb"), (8,), profile=True))
-        del params
-        torch.cuda.empty_cache()
-        q4_kernels = dict(decode="q4_gemv", rows="q4_gemv", matmul="q4k_matmul")
-        stage("4e. GPT-J-6B Q4_0 (synthesized multiplied-out nibble planes), context 2048, four greedy requests")
-        params = synth(GGMLType.Q4_0)
-        runs.append(phase_gptj(torch, np, "q4_0", params, q4_kernels, (8, 100, 1, 1024), profile=True, max_seq=2048))
-        del params
-        torch.cuda.empty_cache()
-        stage("4f. GPT-J-6B Q3_K (synthesized nibble planes, groups of 16), one greedy request")
-        params = synth(GGMLType.Q3_K)
-        runs.append(phase_gptj(torch, np, "q3_k", params, q4_kernels, (8,), profile=False))
-        del params
-        torch.cuda.empty_cache()
+        runs = phase_gptj_synth(torch, np, card, GPTJ_LAYERS)
         stage("4d. tiny GPT-J on the card against the CPU")
         tiny = phase_tiny_reference(torch, np)
         stage("4g. GPT-2-medium training, batch 8 x 512, bf16 over f32 masters, AdamW, flash attention")
@@ -4722,10 +5409,14 @@ def main() -> int:
             # otherwise take past 700 s (--iquants runs all 28)
             stage("4k. GPT-J-6B (4 of its 28 layers) from IQ4_XS, IQ1_M and TQ2_0 GGUF files")
             runs += phase_iquants(torch, np, tmp, card, n_layer=4)
-            stage("4l. Llama-3-8B from a Q4_K GGUF file (Q6_K head)")
-            llama_run = phase_llama(torch, np, tmp, card, serve=True, train=True)
+            stage(f"4l. Llama-3-8B ({LLAMA_LAYERS} of its 32 layers) from a Q4_K GGUF file (Q6_K head)")
+            llama_run = phase_llama(torch, np, tmp, card, serve=True, train=True, n_layer=LLAMA_LAYERS)
             runs += [llama_run, llama_run.pop("serve"), llama_run.pop("serve_paged_chunked"), llama_run.pop("spec"),
                      llama_run.pop("qlora")]
+        with tempfile.TemporaryDirectory(prefix="qwen3-moe-gguf-") as tmp:
+            stage(f"4s. mixture of experts: bench_moe_decode's shape, Qwen3-30B-A3B ({MOE_QWEN_LAYERS} of 48 layers) "
+                  "decode, prefill, the engine and LoRA, tiny MoE files")
+            runs += phase_moe(torch, np, tmp, card, MOE_QWEN_LAYERS)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

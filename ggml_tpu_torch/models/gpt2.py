@@ -58,10 +58,26 @@ def config_from_gguf(g: GGUFFile) -> GPT2Config:
     )
 
 
-_CHUNK_ROWS = 8192  # rows a dequantization job of load_params takes at most
+_CHUNK_ROWS = 8192  # rows a dequantization or repack job of load_params takes at most (whole experts, at least one)
 
 
-def load_params(g: GGUFFile, dtype=torch.float32, keep_quantized: bool = False, device="cuda") -> dict:
+def _dequantize_rows(g: GGUFFile, name: str, out: torch.Tensor, r0: int, r1: int):
+    """Rows [r0, r1) of a tensor's (rows, K) view, its leading dims
+    flattened (a stack of experts is its experts' rows, as ggml stores it),
+    dequantized and copied into out[r0:r1], a view of the load's type and
+    device."""
+    from ..dtypes import row_size
+    from ..quant.reference import dequantize
+
+    info = g.tensors[name]
+    t, k = GGMLType(info.ggml_type), int(info.shape[-1])
+    rb = row_size(t, k)
+    x = dequantize(g.tensor_bytes(name)[r0 * rb:r1 * rb], t, (r1 - r0) * k).reshape(r1 - r0, k)
+    out[r0:r1].copy_(torch.from_numpy(x))
+
+
+def load_params(g: GGUFFile, dtype=torch.float32, keep_quantized: bool = False, device="cuda",
+                expert_dtype=None) -> dict:
     """Load GGUF tensors onto `device`.
 
     keep_quantized=False: every tensor dequantized to `dtype` (what training
@@ -71,46 +87,60 @@ def load_params(g: GGUFFile, dtype=torch.float32, keep_quantized: bool = False, 
     gather.  Every type of planar_types() repacks: Q4_0, Q4_1, Q2_K, Q3_K,
     Q4_K (packed nibbles where (K/2) % G == 0, else int8), Q5_0, Q5_1, Q8_0,
     Q5_K, Q6_K and the IQ* and TQ* types (int8).  A quantized type without
-    planes is dequantized to `dtype`, as the JAX loader does, and one without
-    a dequantizer either raises NotImplementedError.
+    planes, and every tensor of more than two dims (the stacked experts of a
+    mixture-of-experts file), is dequantized to `dtype`, as the JAX loader
+    does, and one without a dequantizer raises NotImplementedError.
+    expert_dtype: the type of the tensors of more than two dims instead
+    (opt/finetune.moe_expert_dtype: the frozen experts of a LoRA base on the
+    card); None: `dtype`.
 
     The tensors are dequantized or repacked in numpy on up to 8 threads (numpy
     releases the interpreter lock in the array work): a 6B model's Q4_K file
     takes minutes on one core.  A tensor of more than _CHUNK_ROWS rows is
-    dequantized in chunks of rows, a job each: the embedding or head of a
-    128256-entry vocabulary would otherwise hold one thread for half a
-    minute.  Each tensor's result does not depend on the order, and the
-    dict keeps the file's order.
+    dequantized in chunks, a job each, into its tensor on `device`: chunks of
+    rows of a 2-D tensor (the embedding or head of a 128256-entry vocabulary
+    would otherwise hold one thread for half a minute) and of whole experts
+    of a 3-D one (Qwen3-30B-A3B's stacks hold 201M values each); planes of
+    such a tensor are repacked in chunks of rows as well (whole padding
+    units, quant/planar.repack_rows), a job each, and put side by side on
+    `device` (concat_columns).  No job holds more than its chunk in host
+    memory.  Each tensor's result does not depend on the order, and the dict
+    keeps the file's order.
     """
-    from ..dtypes import row_size
-    from ..quant.planar import planar_types, repack
-    from ..quant.reference import dequantize
+    from ..quant.planar import concat_columns, padding_unit, planar_types, repack, repack_rows
 
-    def planes(name, info):
-        n, k = info.shape
-        return repack(g.tensor_bytes(name), GGMLType(info.ggml_type), (int(n), int(k))).to(device)
-
-    def rows(name, info, out, r0: int, r1: int):
-        """Rows [r0, r1) of a 2-D tensor dequantized into out."""
-        t, k = GGMLType(info.ggml_type), int(info.shape[1])
-        rb = row_size(t, k)
-        out[r0:r1] = dequantize(g.tensor_bytes(name)[r0 * rb:r1 * rb], t, (r1 - r0) * k).reshape(r1 - r0, k)
+    def planes(pool, name, info):
+        """A future of the planes on `device`, or (combine, futures) of
+        chunks of rows (whole padding units) repacked a job each."""
+        n, k = (int(d) for d in info.shape)
+        t = GGMLType(info.ggml_type)
+        if n <= _CHUNK_ROWS:
+            return pool.submit(lambda: repack(g.tensor_bytes(name), t, (n, k)).to(device))
+        unit = padding_unit(n)
+        step = max(unit, _CHUNK_ROWS // unit * unit)
+        part = lambda r0: repack_rows(g.tensor_bytes(name), t, (n, k), r0, min(r0 + step, n)).to(device)
+        return concat_columns, [pool.submit(part, r) for r in range(0, n, step)]
 
     def dense(pool, name, info):
-        """A future of the tensor on `device`, or the array its row chunks fill."""
-        if len(info.shape) != 2 or info.shape[0] <= _CHUNK_ROWS:
-            return pool.submit(lambda: torch.from_numpy(g.to_float32(name)).to(device, dtype))
-        out = np.empty(tuple(int(d) for d in info.shape), np.float32)
-        return out, [pool.submit(rows, name, info, out, r, min(r + _CHUNK_ROWS, out.shape[0]))
-                     for r in range(0, out.shape[0], _CHUNK_ROWS)]
+        """A future of the tensor on `device`, or (combine, futures) of the
+        chunks that fill it."""
+        shape = tuple(int(d) for d in info.shape)
+        dt = expert_dtype if expert_dtype is not None and len(shape) > 2 else dtype
+        n_rows = int(np.prod(shape[:-1], dtype=np.int64)) if len(shape) >= 2 else 1
+        if n_rows <= _CHUNK_ROWS:
+            return pool.submit(lambda: torch.from_numpy(g.to_float32(name)).to(device, dt))
+        unit = int(np.prod(shape[1:-1], dtype=np.int64))  # rows an expert holds (1 in a 2-D tensor)
+        step = max(1, _CHUNK_ROWS // unit) * unit
+        out = torch.empty(shape, dtype=dt, device=device)
+        rows = out.view(n_rows, shape[-1])
+        return (lambda _: out), [pool.submit(_dequantize_rows, g, name, rows, r, min(r + step, n_rows))
+                                 for r in range(0, n_rows, step)]
 
     def result(job):
         if not isinstance(job, tuple):
             return job.result()
-        out, chunks = job
-        for c in chunks:
-            c.result()
-        return torch.from_numpy(out).to(device, dtype)
+        combine, chunks = job
+        return combine([c.result() for c in chunks])
 
     jobs = []  # (key, job) in the file's order
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
@@ -122,7 +152,7 @@ def load_params(g: GGUFFile, dtype=torch.float32, keep_quantized: bool = False, 
                 and name != "position_embd.weight"
             )
             if keep_quantized and is_matmul_weight and GGMLType(info.ggml_type) in planar_types():
-                jobs.append((name, pool.submit(planes, name, info)))
+                jobs.append((name, planes(pool, name, info)))
                 if name == "token_embd.weight":  # dense copy for the row gather
                     jobs.append(("token_embd.weight@dense", dense(pool, name, info)))
             else:

@@ -7,7 +7,8 @@ module serves the dense architectures of the registry's llama family:
 llama, qwen2 and seed_oss (qkv biases, often a tied output), qwen3 (per-head
 q/k RMSNorm, a decoupled head_dim), granite (embedding, residual, attention
 and logit scales), smollm3 (NoPE layers), ernie4_5 and helium (interleaved
-RoPE).  The mixture-of-experts block (n_expert > 0) is not ported.
+RoPE), and their mixture-of-experts variants (Mixtral under llama,
+qwen2moe with its shared expert, qwen3moe, granitemoe: moe_ffn_block).
 
 - quantized weights stay planes in device memory and run through the
   hand-written kernels of ggml_tpu_torch.kernels.qmatmul (a Q4_K file at
@@ -23,11 +24,19 @@ RoPE).  The mixture-of-experts block (n_expert > 0) is not ported.
   GGUF files converted by llama.cpp store q/k rows with an extra per-head
   permutation; `Llama.from_gguf(..., llamacpp_permuted=True)` undoes it at
   load, dequantizing q and k to dense weights (a permutation of rows inside
-  a head cannot be applied to packed planes).
+  a head cannot be applied to packed planes);
+- the experts (3-D *_exps tensors, dequantized at load as in JAX) run as
+  plain PyTorch products, as JAX runs them outside any Pallas kernel: below
+  16 tokens a gate-masked sum over every expert (moe_expert_sum, decode),
+  from 16 tokens the (token, expert) pairs sorted by expert through
+  torch._grouped_mm with the group offsets on the device (moe_expert_sum_
+  grouped, prefill and training), so neither reads a value on the host and
+  both run inside a CUDA graph.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -61,8 +70,10 @@ class LlamaConfig:
     # n_embd // n_head
     qk_norm: bool = False
     head_dim_override: int = 0
-    # mixture of experts (Mixtral, qwen2moe, qwen3moe, granitemoe): read from
-    # the file, not ported (forward and Llama raise)
+    # mixture of experts (Mixtral, qwen2moe, qwen3moe, granitemoe): the
+    # experts' count and how many a token uses; qwen2moe keeps the top-k
+    # probabilities of the softmax over all experts (moe_renorm False) and
+    # adds a sigmoid-gated shared expert
     n_expert: int = 0
     n_expert_used: int = 0
     moe_renorm: bool = True
@@ -183,10 +194,150 @@ def init_cache(cfg: LlamaConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
     return init_layer_cache(cfg.n_layer, batch, cfg.n_head_kv, max_seq, cfg.head_dim, dtype, device)
 
 
-def _no_experts(cfg: LlamaConfig):
+def moe_topk(router_logits: torch.Tensor, n_expert_used: int, renorm: bool = True):
+    """Top-k routing weights over f32 router logits (llama.py:230-240):
+    renorm (Mixtral, qwen3moe, granitemoe) a softmax over the k values,
+    otherwise (qwen2moe) exp(top - logsumexp(all)), the full softmax's
+    probabilities of the k experts, which do not sum to 1.  Returns (probs,
+    idx), each (..., k).  The experts come in jax.lax.top_k's order: by
+    the floats' total order (-0.0 below 0.0), the lower expert first among
+    equal logits (torch.topk promises no order, and bf16 router logits over
+    128 experts tie often): a stable descending sort of the int32 keys that
+    order the f32 bit patterns as that total order does."""
+    logits = router_logits.float()
+    bits = logits.view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # a negative float's magnitude bits flipped
+    idx = torch.sort(key, dim=-1, descending=True, stable=True)[1][..., :n_expert_used]
+    vals = logits.gather(-1, idx)
+    if renorm:
+        return torch.softmax(vals, dim=-1), idx
+    return torch.exp(vals - torch.logsumexp(logits, dim=-1, keepdim=True)), idx
+
+
+def moe_gates(router_logits: torch.Tensor, n_expert: int, n_expert_used: int, renorm: bool = True):
+    """The (..., E) f32 gate vector: the top-k weights at their experts,
+    zeros elsewhere (llama.py:243-248)."""
+    probs, idx = moe_topk(router_logits, n_expert_used, renorm)
+    return torch.zeros((*probs.shape[:-1], n_expert), dtype=torch.float32, device=probs.device).scatter(
+        -1, idx, probs)
+
+
+def moe_expert_sum(h, w_gate, w_up, w_down, gates):
+    """The gate-weighted sum of every expert's SwiGLU FFN (llama.py:251-259):
+    w_gate, w_up (E, F, D), w_down (E, D, F), gates (..., E).  Each product
+    reads every expert, as decode must stream them all under JAX's dense
+    path; dense f32 products run in full f32 (TF32 off, Precision.HIGHEST).
+    The result comes back in h's type."""
+    lead, d = h.shape[:-1], h.shape[-1]
+    e, f = w_gate.shape[0], w_gate.shape[1]
+    x = h.reshape(-1, d).to(w_gate.dtype)
+    hg = torch.matmul(x, w_gate.reshape(e * f, d).t()).view(-1, e, f)
+    hu = torch.matmul(x.to(w_up.dtype), w_up.reshape(e * f, d).t()).view(-1, e, f)
+    act = F.silu(hg) * hu
+    y = torch.matmul(act.transpose(0, 1), w_down.to(act.dtype).transpose(1, 2))  # (E, n, D)
+    out = torch.einsum("end,ne->nd", y, gates.reshape(-1, e).to(y.dtype))
+    return out.reshape(*lead, d).to(h.dtype)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient:
+    torch._grouped_mm's own backward refuses an expanded one (the gradient
+    of y.sum() raised "Invalid strides/sizes, got [0, 0]" on the CPU and on
+    the card)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """Rows of x (M, K) sorted by group against a stack of weights w (G, N,
+    K): rows [offs[g-1], offs[g]) times w[g]^T, through torch._grouped_mm
+    with the int32 group ends offs (G,) on x's device (JAX's
+    ragged_dot_general).  Differentiable in x and w.  On the card only bf16
+    runs: there _grouped_mm takes other types through a fallback that
+    copies the offsets to the host, which no CUDA graph can hold and which
+    reads the group sizes the device computed, so the port raises."""
+    if x.is_cuda and (x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16):
+        raise NotImplementedError(
+            f"the grouped expert product on the card takes bfloat16 experts; torch._grouped_mm computes "
+            f"{x.dtype} x {w.dtype} there through a fallback that reads the group offsets on the host "
+            "(load the model in bfloat16, or set GGML_TPU_MOE_GROUPED=0 for the dense path)")
+    return _ContiguousGrad.apply(torch._grouped_mm(x, w.transpose(-2, -1), offs=offs))
+
+
+def moe_expert_sum_grouped(h, w_gate, w_up, w_down, top_probs, top_idx, n_expert: int):
+    """moe_expert_sum over only the chosen experts (llama.py:262-292): the
+    (token, expert) pairs sorted by expert (stable), three grouped products
+    over the sorted rows, the rows weighted by their gates and added back to
+    their tokens.  The group ends come from a search of the sorted experts
+    on the device (no bincount: on the card it reads its maximum on the
+    host).  Each token's k rows are added in the order JAX's scatter-add
+    applies them, by expert, in the rows' type; every index op here has a
+    deterministic backward.  Differentiable (finetuning runs through it)."""
+    b, t, d = h.shape
+    k = top_idx.shape[-1]
+    n = b * t
+    dev = h.device
+    flat_e = top_idx.reshape(n * k)
+    order = torch.argsort(flat_e, stable=True)
+    tok = order // k  # pair j is token j // k's
+    offs = torch.searchsorted(flat_e[order], torch.arange(n_expert, device=dev), right=True).to(torch.int32)
+    xs = h.reshape(n, d)[tok].to(w_gate.dtype)  # (n k, D) sorted by expert
+    hg = grouped_matmul(xs, w_gate, offs)  # (n k, F)
+    hu = grouped_matmul(xs, w_up.to(xs.dtype), offs)
+    down = grouped_matmul(F.silu(hg) * hu, w_down.to(hg.dtype), offs)  # (n k, D)
+    rows = down * top_probs.reshape(n * k)[order][:, None].to(down.dtype)
+    where = torch.empty_like(order)
+    where[order] = torch.arange(n * k, device=dev)  # the sorted row of each pair
+    where = where.view(n, k).sort(dim=1).values  # a token's rows in sorted (expert) order
+    out = torch.zeros((n, d), dtype=down.dtype, device=dev)
+    for j in range(k):
+        out = out + rows[where[:, j]]
+    return out.reshape(b, t, d).to(h.dtype)
+
+
+def moe_ffn_block(params: dict, pre: str, h, cfg: LlamaConfig):
+    """The sparse mixture-of-experts FFN of a llama-family layer (llama.py:
+    191-227), shared by the dense forward and the paged step: the router
+    (ffn_gate_inp, (E, D)), then below 16 tokens the dense gate-masked sum
+    over all experts and from 16 the grouped sum over the chosen ones, as
+    JAX's GGML_TPU_MOE_GROUPED reads (auto; 1 always grouped, 0 never), then
+    qwen2moe's sigmoid-gated shared expert."""
+    w_gate = params[pre + "ffn_gate_exps.weight"]
+    w_up = params[pre + "ffn_up_exps.weight"]
+    w_down = params[pre + "ffn_down_exps.weight"]
+    with torch.profiler.record_function("llama.moe_router"):
+        router = _linear(h, params[pre + "ffn_gate_inp.weight"])
+    n_tokens = h.shape[0] * h.shape[1]
+    mode = os.environ.get("GGML_TPU_MOE_GROUPED", "auto")
+    with torch.profiler.record_function("llama.moe_experts"):
+        if mode == "1" or (mode == "auto" and n_tokens >= 16):
+            probs, idx = moe_topk(router, cfg.n_expert_used, cfg.moe_renorm)
+            out = moe_expert_sum_grouped(h, w_gate, w_up, w_down, probs, idx, cfg.n_expert)
+        else:
+            gates = moe_gates(router, cfg.n_expert, cfg.n_expert_used, cfg.moe_renorm)
+            out = moe_expert_sum(h, w_gate, w_up, w_down, gates)
+    if cfg.moe_shared:  # qwen2moe: a dense SwiGLU expert every token takes, gated by a sigmoid
+        sg = torch.sigmoid(_linear(h, params[pre + "ffn_gate_inp_shexp.weight"]))
+        gate = _linear(h, params[pre + "ffn_gate_shexp.weight"])
+        up = _linear(h, params[pre + "ffn_up_shexp.weight"])
+        out = out + sg * _linear(F.silu(gate) * up, params[pre + "ffn_down_shexp.weight"])
+    return out
+
+
+def ffn_block(params: dict, pre: str, h, cfg: LlamaConfig):
+    """A layer's FFN on its normed input: the experts where the model has
+    them, else the SwiGLU MLP (llama.py:378-384)."""
     if cfg.n_expert > 0:
-        raise NotImplementedError("the llama family's mixture-of-experts block (n_expert > 0) is not ported yet "
-                                  "(ROADMAP.md, section 1)")
+        return moe_ffn_block(params, pre, h, cfg)
+    gate = _linear(h, params[pre + "ffn_gate.weight"])
+    up = _linear(h, params[pre + "ffn_up.weight"])
+    return _linear(F.silu(gate) * up, params[pre + "ffn_down.weight"])
 
 
 def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, pos_start: torch.Tensor, cache: list,
@@ -204,7 +355,6 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, pos_start: tor
     final norm and the head and returns (None, cache): a prefill that only
     fills the cache (serve.Engine's admission).  layer_remat: each layer
     rematerialized (common.run_layers)."""
-    _no_experts(cfg)
     b, t = tokens.shape
     dev = tokens.device
     max_seq = cache[0][0].shape[-2]
@@ -272,10 +422,7 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, pos_start: tor
                 attn_out = out.reshape(b, t, cfg.n_head * hd).to(dt)
         x = x + res(_linear(attn_out, params[pre + "attn_output.weight"]))
 
-        h = _rms_norm(x, params[pre + "ffn_norm.weight"], cfg.rms_eps)
-        gate = _linear(h, params[pre + "ffn_gate.weight"])
-        up = _linear(h, params[pre + "ffn_up.weight"])
-        return x + res(_linear(F.silu(gate) * up, params[pre + "ffn_down.weight"]))
+        return x + res(ffn_block(params, pre, _rms_norm(x, params[pre + "ffn_norm.weight"], cfg.rms_eps), cfg))
 
     x = run_layers(layer, cfg.n_layer, x, layer_remat)
     if not need_logits:
@@ -294,7 +441,6 @@ class Llama:
     """Inference wrapper: prefill + on-device greedy or sampled decode."""
 
     def __init__(self, params: dict, cfg: LlamaConfig, max_seq: int = 2048, batch: int = 1, device="cuda"):
-        _no_experts(cfg)
         self.params = params
         self.cfg = cfg
         self.max_seq = max_seq
@@ -315,7 +461,6 @@ class Llama:
 
         with GGUFFile(path) as g:
             cfg = config_from_gguf(g)
-            _no_experts(cfg)
             params = load_params(g, dtype, keep_quantized=keep_quantized, device=device)
             if llamacpp_permuted:
                 for i in range(cfg.n_layer):
@@ -381,30 +526,68 @@ def llama3_8b_config() -> LlamaConfig:
                        rope_base=500000.0, rms_eps=1e-5)
 
 
+def qwen3_30b_a3b_config() -> LlamaConfig:
+    """Qwen3-30B-A3B at its published widths (Qwen/Qwen3-30B-A3B
+    config.json: vocab 151936, hidden 2048, 48 layers, 32 heads over 4 kv
+    heads, head_dim 128, 128 experts with 8 a token, moe_intermediate_size
+    768, intermediate_size 6144, rope_theta 1e6, rms_norm_eps 1e-6,
+    norm_topk_prob true, 40960 positions; untied output).  n_ff is the
+    file's feed_forward_length (6144); the experts' width (768) is their
+    tensors' (write_random_gguf's n_ff_exp)."""
+    return LlamaConfig(n_vocab=151936, n_ctx=40960, n_embd=2048, n_head=32, n_head_kv=4, n_layer=48, n_ff=6144,
+                       rope_base=1e6, rms_eps=1e-6, qk_norm=True, head_dim_override=128, n_expert=128,
+                       n_expert_used=8)
+
+
 def write_random_gguf(path, cfg: LlamaConfig, seed: int = 0, tokenizer: dict | None = None,
-                      types: dict | None = None):
-    """Write a llama GGUF file as llama.cpp's converter lays out a dense
-    model (rotate-half q/k rows: load with llamacpp_permuted=False), its 2-D
+                      types: dict | None = None, arch: str = "llama", n_ff_exp: int | None = None,
+                      default_type: GGMLType = GGMLType.Q4_K):
+    """Write a llama-family GGUF file as llama.cpp's converter lays out a
+    model (rotate-half q/k rows: load with llamacpp_permuted=False), its
     matmul weights blocks from quant/reference.random_blocks (weights of std
     about 0.02, as models/gptj.write_random_gguf draws them), its norms F32
     ones: a file for running the GGUF path at any width without a
     checkpoint.  types: a map from weight names ("token_embd.weight",
-    "output.weight", "blk.{i}.attn_q.weight", ...) to types (Q4_K, Q6_K and
-    the IQ* and TQ* types); Q4_K for a weight it does not name.
+    "output.weight", "blk.{i}.attn_q.weight", "blk.{i}.ffn_down_exps.weight",
+    ...) to types (Q4_K, Q6_K, the IQ* and TQ* types, or F32 for normal
+    values of std 0.02); default_type for a weight it does not name.
+    arch: the key prefix and general.architecture; qwen2 and qwen2moe files
+    get F32 q/k/v biases, qwen3 and qwen3moe per-head q/k norms (ones) and
+    attention.key_length, granite and granitemoe their four scales.
+    A config with experts (cfg.n_expert > 0) gets expert_count,
+    expert_used_count and expert_feed_forward_length, and in every layer an
+    F32 router ffn_gate_inp (E, D), as llama.cpp's quantizer leaves it, and
+    the stacked 3-D expert tensors ffn_gate_exps, ffn_up_exps (E, n_ff_exp,
+    D) and ffn_down_exps (E, D, n_ff_exp) in place of the MLP (n_ff_exp:
+    cfg.n_ff by default; JAX reads the width from these shapes); qwen2moe
+    also the shared expert ffn_{gate,up,down}_shexp (width cfg.n_ff) and its
+    F32 gate ffn_gate_inp_shexp (1, D).
     tokenizer: GGUF tokenizer.ggml.* keys (without the prefix) -> values,
     written as they are."""
     from ..gguf import GGUFWriter
 
-    arch = "llama"
     rng = np.random.default_rng(seed)
     w = GGUFWriter()
     w.add_string("general.architecture", arch)
-    for key, val in (("context_length", cfg.n_ctx), ("embedding_length", cfg.n_embd),
-                     ("attention.head_count", cfg.n_head), ("attention.head_count_kv", cfg.n_head_kv),
-                     ("block_count", cfg.n_layer), ("feed_forward_length", cfg.n_ff), ("vocab_size", cfg.n_vocab)):
+    n_ff_exp = n_ff_exp or cfg.n_ff
+    keys = [("context_length", cfg.n_ctx), ("embedding_length", cfg.n_embd), ("attention.head_count", cfg.n_head),
+            ("attention.head_count_kv", cfg.n_head_kv), ("block_count", cfg.n_layer),
+            ("feed_forward_length", cfg.n_ff), ("vocab_size", cfg.n_vocab)]
+    if cfg.head_dim_override:
+        keys += [("attention.key_length", cfg.head_dim), ("attention.value_length", cfg.head_dim)]
+    if cfg.n_expert:
+        keys += [("expert_count", cfg.n_expert), ("expert_used_count", cfg.n_expert_used),
+                 ("expert_feed_forward_length", n_ff_exp)]
+        if arch == "qwen2moe":
+            keys.append(("expert_shared_feed_forward_length", cfg.n_ff))
+    for key, val in keys:
         w.add_u32(f"{arch}.{key}", val)
     w.add_f32(f"{arch}.rope.freq_base", cfg.rope_base)
     w.add_f32(f"{arch}.attention.layer_norm_rms_epsilon", cfg.rms_eps)
+    if arch in ("granite", "granitemoe"):
+        for key, val in (("embedding_scale", cfg.embd_scale), ("residual_scale", cfg.resid_scale),
+                         ("attention.scale", cfg.attn_scale), ("logit_scale", cfg.logit_scale)):
+            w.add_f32(f"{arch}.{key}", val)
     for key, val in (tokenizer or {}).items():
         if isinstance(val, str):
             w.add_string(f"tokenizer.ggml.{key}", val)
@@ -413,9 +596,18 @@ def write_random_gguf(path, cfg: LlamaConfig, seed: int = 0, tokenizer: dict | N
         else:
             w.add_array(f"tokenizer.ggml.{key}", val)
 
-    def weight(name, n, k):
-        t = GGMLType((types or {}).get(name, GGMLType.Q4_K))
-        w.add_tensor(name, _random_weight_blocks(t, n, k, rng), t, raw_shape_ne=(k, n))
+    def weight(name, *shape):
+        """A matmul weight of numpy shape (..., n, k): its rows are the
+        leading dims flattened, as ggml stores a stack of matrices."""
+        t = GGMLType((types or {}).get(name, default_type))
+        if t == GGMLType.F32:
+            w.add_tensor(name, (rng.standard_normal(shape) * 0.02).astype(np.float32))
+        else:
+            w.add_tensor(name, _random_weight_blocks(t, int(np.prod(shape[:-1])), shape[-1], rng), t,
+                         raw_shape_ne=tuple(reversed(shape)))
+
+    def f32(name, *shape, s=0.02):
+        w.add_tensor(name, (rng.standard_normal(shape) * s).astype(np.float32))
 
     def ones(name, n):
         w.add_tensor(name, np.ones((n,), np.float32))
@@ -430,9 +622,27 @@ def write_random_gguf(path, cfg: LlamaConfig, seed: int = 0, tokenizer: dict | N
         weight(pre + "attn_q.weight", cfg.n_head * hd, E)
         weight(pre + "attn_k.weight", cfg.n_head_kv * hd, E)
         weight(pre + "attn_v.weight", cfg.n_head_kv * hd, E)
+        if arch in ("qwen2", "qwen2moe"):
+            for name, n in (("attn_q", cfg.n_head * hd), ("attn_k", cfg.n_head_kv * hd),
+                            ("attn_v", cfg.n_head_kv * hd)):
+                f32(pre + name + ".bias", n)
+        if arch in ("qwen3", "qwen3moe"):
+            ones(pre + "attn_q_norm.weight", hd)
+            ones(pre + "attn_k_norm.weight", hd)
         weight(pre + "attn_output.weight", E, cfg.n_head * hd)
         ones(pre + "ffn_norm.weight", E)
-        weight(pre + "ffn_gate.weight", cfg.n_ff, E)
-        weight(pre + "ffn_up.weight", cfg.n_ff, E)
-        weight(pre + "ffn_down.weight", E, cfg.n_ff)
+        if cfg.n_expert:
+            f32(pre + "ffn_gate_inp.weight", cfg.n_expert, E)
+            weight(pre + "ffn_gate_exps.weight", cfg.n_expert, n_ff_exp, E)
+            weight(pre + "ffn_up_exps.weight", cfg.n_expert, n_ff_exp, E)
+            weight(pre + "ffn_down_exps.weight", cfg.n_expert, E, n_ff_exp)
+            if arch == "qwen2moe":
+                f32(pre + "ffn_gate_inp_shexp.weight", 1, E)
+                weight(pre + "ffn_gate_shexp.weight", cfg.n_ff, E)
+                weight(pre + "ffn_up_shexp.weight", cfg.n_ff, E)
+                weight(pre + "ffn_down_shexp.weight", E, cfg.n_ff)
+        else:
+            weight(pre + "ffn_gate.weight", cfg.n_ff, E)
+            weight(pre + "ffn_up.weight", cfg.n_ff, E)
+            weight(pre + "ffn_down.weight", E, cfg.n_ff)
     w.write(path)

@@ -14,22 +14,25 @@ import importlib
 ARCHS: dict[str, tuple[str, str]] = {
     "gpt2": ("gpt2", "GPT2"),
     "gptj": ("gptj", "GPTJ"),
-    # the dense llama family (qkv biases, qk-norm, granite scales, NoPE,
-    # interleaved RoPE, a decoupled head_dim)
+    # the llama family (qkv biases, qk-norm, granite scales, NoPE,
+    # interleaved RoPE, a decoupled head_dim; the experts of Mixtral, which
+    # is a llama file with llama.expert_count, qwen2moe, qwen3moe, granitemoe)
     "llama": ("llama", "Llama"),
     "qwen2": ("llama", "Llama"),
     "qwen3": ("llama", "Llama"),
+    "qwen2moe": ("llama", "Llama"),
+    "qwen3moe": ("llama", "Llama"),
     "granite": ("llama", "Llama"),
+    "granitemoe": ("llama", "Llama"),
     "smollm3": ("llama", "Llama"),
     "ernie4_5": ("llama", "Llama"),
     "helium": ("llama", "Llama"),
     "seed_oss": ("llama", "Llama"),
 }
 
-# the rest of the JAX registry's table (ggml_tpu/models/registry.py:15-73);
-# the llama family's mixture-of-experts strings wait for its MoE block
+# the rest of the JAX registry's table (ggml_tpu/models/registry.py:15-73)
 _NOT_PORTED = (
-    "qwen2moe", "qwen3moe", "granitemoe", "deepseek2", "gemma", "gemma2", "gemma3", "phi2", "phi3", "phimoe", "gptneox",
+    "deepseek2", "gemma", "gemma2", "gemma3", "phi2", "phi3", "phimoe", "gptneox",
     "falcon", "gpt-oss", "bloom", "mpt", "starcoder", "starcoder2", "command-r", "olmo", "olmo2", "olmo3",
     "persimmon", "olmoe", "nemotron", "stablelm", "glm", "glm4", "glm4moe", "dots1", "dbrx", "qwen3next",
     "bamba", "jamba", "mamba", "falcon_mamba", "mamba2", "rwkv", "xlstm", "recurrentgemma", "lfm2", "llama4",

@@ -5,7 +5,9 @@ example).
 make_lm_model_fn builds the model function the Optimizer trains: the family
 forward from an empty cache, optionally in bf16 over f32 master weights and
 (GPT-2) through the flash-attention training kernels.  Ported families: gpt2,
-gptj and the dense llama family (llama, qwen2, qwen3).  remat_policy runs
+gptj and the llama family (llama, qwen2, qwen3, and with experts Mixtral
+under llama, qwen2moe and qwen3moe: the experts' gradients flow through
+the grouped path, models/llama.moe_expert_sum_grouped).  remat_policy runs
 each layer under torch.utils.checkpoint, the counterpart of jax.checkpoint
 (see _remat).  Checkpoints go through checkpoint.py (atomic publish,
 bit-exact resume).
@@ -23,7 +25,6 @@ from .optimizer import AdamWConfig, Optimizer
 
 # the families the JAX package finetunes, with the ROADMAP.md item that ports them
 _NOT_PORTED = {
-    "qwen2moe": "section 1 item 4, the MoE block", "qwen3moe": "section 1 item 4, the MoE block",
     "deepseek2": "section 1 item 6, the other families", "gemma2": "section 1 item 6, the other families",
     "phi2": "section 1 item 6, the other families", "gptneox": "section 1 item 6, the other families",
     "falcon": "section 1 item 6, the other families",
@@ -39,7 +40,7 @@ def _family(arch: str):
         from ..models import gptj as fam
 
         return fam
-    if arch in ("llama", "qwen2", "qwen3"):
+    if arch in ("llama", "qwen2", "qwen3", "qwen2moe", "qwen3moe"):
         from ..models import llama as fam
 
         return fam
@@ -47,6 +48,17 @@ def _family(arch: str):
         raise NotImplementedError(f"finetuning {arch} is not ported yet (ROADMAP.md, {_NOT_PORTED[arch]})")
     raise ValueError("finetune supports gpt2/gptj/llama(+qwen2/3, qwen*moe)/deepseek2/"
                      f"gemma2/phi2/gptneox/falcon, not {arch}")
+
+
+def moe_expert_dtype(device):
+    """The type a mixture-of-experts model's stacked experts (its tensors of
+    more than two dims) train in on `device`: bfloat16 on the card, the one
+    type its grouped expert product takes there (models/llama.
+    grouped_matmul), where JAX runs them in f32; None elsewhere (the
+    forward's type, f32 as in JAX).  finetune keeps f32 master experts and
+    casts them in the forward (make_lm_model_fn's expert_dtype); the LoRA
+    entry points, whose experts are frozen, load them in this type."""
+    return torch.bfloat16 if torch.device(device).type == "cuda" else None
 
 
 # the argument-free policies of jax.checkpoint_policies, under both of their
@@ -119,13 +131,16 @@ def _remat(policy: str):
 
 
 def make_lm_model_fn(fam, cfg, seq_len: int, batch: int, compute_dtype=None, cast_logits_f32: bool = True,
-                     remat_policy: str | None = None, train_flash: bool = False):
+                     remat_policy: str | None = None, train_flash: bool = False, expert_dtype=None):
     """(params, tokens (B, T)) -> logits (B, T, V) through the family forward
     from an empty cache (positions from the zero cache_len).
 
     compute_dtype=torch.bfloat16: f32 master weights are cast to bf16 where
     the forward begins (a differentiable .to(), so the gradients come back
-    in f32); None keeps the whole pass in f32.  cast_logits_f32=False keeps
+    in f32); None keeps the whole pass in f32.  expert_dtype: the type f32
+    tensors of more than two dims (the stacked experts) are cast to in the
+    same way, whatever compute_dtype is (moe_expert_dtype).
+    cast_logits_f32=False keeps
     the logits in the compute type, for the fused cross entropy.
     train_flash=True: attention through the flash-attention training kernels
     (O(seq) residuals; GPT-2, whose forward takes the flag); no cache is
@@ -137,10 +152,15 @@ def make_lm_model_fn(fam, cfg, seq_len: int, batch: int, compute_dtype=None, cas
     LoRAWeight values (QLoRA), which no cast touches."""
     remat = _remat(remat_policy) if remat_policy else None
 
+    def cast(v):
+        if getattr(v, "dtype", None) != torch.float32:
+            return v
+        dt = expert_dtype if expert_dtype is not None and v.ndim > 2 else compute_dtype
+        return v if dt is None else v.to(dt)
+
     def model_fn(params, tokens):
-        if compute_dtype is not None:
-            params = {k: v.to(compute_dtype) if getattr(v, "dtype", None) == torch.float32 else v
-                      for k, v in params.items()}
+        if compute_dtype is not None or expert_dtype is not None:
+            params = {k: cast(v) for k, v in params.items()}
         b, t = tokens.shape
         cache = (None if train_flash and t > 1 else
                  fam.init_cache(cfg, b, seq_len, compute_dtype or torch.float32, device=tokens.device))
@@ -192,7 +212,8 @@ def save_params_gguf(path, params: dict, metadata: dict, half: bool = False):
 def finetune(model_path, tokens, *, arch: str | None = None, seq_len: int = 64, batch: int = 2,
              steps: int = 100, adamw: AdamWConfig | None = None, mesh=None, seed: int = 0, out_path=None,
              checkpoint_path=None, checkpoint_every: int = 0, log=None, device="cuda"):
-    """Next-token finetuning loop in f32 through the cache-window attention.
+    """Next-token finetuning loop in f32 through the cache-window attention
+    (a mixture-of-experts model's experts in moe_expert_dtype(device)).
     Returns (losses, opt).  tokens: flat int array of training token ids;
     out_path: write the trained weights as GGUF; checkpoint_path +
     checkpoint_every: the optimizer state every checkpoint_every steps as
@@ -210,7 +231,7 @@ def finetune(model_path, tokens, *, arch: str | None = None, seq_len: int = 64, 
         metadata = dict(g.metadata)
 
     ds = token_windows(tokens, seq_len)
-    model_fn = make_lm_model_fn(fam, cfg, seq_len, batch)
+    model_fn = make_lm_model_fn(fam, cfg, seq_len, batch, expert_dtype=moe_expert_dtype(device))
     opt = Optimizer(model_fn, params, loss_type="cross_entropy_sparse", adamw=adamw or AdamWConfig())
 
     rng = np.random.default_rng(seed)

@@ -169,20 +169,23 @@ def finetune_lora(model_path, tokens, *, rank: int = 8, alpha: float | None = No
     forward runs the inference kernels (kernel C at batch·seq_len > 32 rows),
     and gradients reach the adapters through planar_matmul's backward, so a
     6B Q4_K base finetunes on one card.  Beyond the reference, which
-    restricts training to F32/F16 params (src/ggml.c:5859).
+    restricts training to F32/F16 params (src/ggml.c:5859).  A
+    mixture-of-experts base's stacked experts, never adapted (they are not
+    2-D), load in finetune.moe_expert_dtype(device): bf16 on the card.
 
     base: the file's params as models.gpt2.load_params returned them (with
     this keep_quantized, on `device`), to train over weights already in
     memory instead of loading the file again; they are not changed."""
     from ..models.gpt2 import load_params
-    from .finetune import _family, make_lm_model_fn, save_params_gguf, token_windows
+    from .finetune import _family, make_lm_model_fn, moe_expert_dtype, save_params_gguf, token_windows
     from .optimizer import AdamWConfig, Optimizer
 
     with GGUFFile(model_path) as g:
         arch = arch or g.metadata.get("general.architecture", "gpt2")
         fam = _family(arch)
         if base is None:
-            base = load_params(g, torch.float32, keep_quantized=keep_quantized, device=device)
+            base = load_params(g, torch.float32, keep_quantized=keep_quantized, device=device,
+                               expert_dtype=moe_expert_dtype(device))
         if not keep_quantized:
             # keep_quantized keeps the loader's aliases (token_embd.weight@dense:
             # the embedding gather needs a dense table beside the planes)
@@ -193,7 +196,7 @@ def finetune_lora(model_path, tokens, *, rank: int = 8, alpha: float | None = No
     alpha = float(rank if alpha is None else alpha)
     scale = alpha / rank
     lora = init_lora(base, rank, targets=targets, seed=seed)
-    lm_fn = make_lm_model_fn(fam, cfg, seq_len, batch)
+    lm_fn = make_lm_model_fn(fam, cfg, seq_len, batch, expert_dtype=moe_expert_dtype(device))
 
     if keep_quantized:
         # the quantized base rides the step as the Optimizer's `frozen`

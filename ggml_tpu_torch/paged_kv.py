@@ -373,14 +373,14 @@ def _make_paged_llama_general(model, pcfg: PagedConfig):
     """The llama family's paged forward over T >= 1 tokens a slot (T = 1 is
     the decode step): query j of slot b sits at position lengths[b] + j and
     attends the window rows at or before it.  GQA, qk_norm, NoPE layers,
-    rope_interleaved, scaled RoPE and the granite multipliers, as the dense
-    forward has them (paged must equal dense)."""
+    rope_interleaved, scaled RoPE, the granite multipliers and the experts
+    (models/llama.ffn_block), as the dense forward has them (paged must
+    equal dense)."""
     from .models.gptj import _rope_interleaved, rope_angles
-    from .models.llama import _no_experts, _rms_norm, _rope_half, _rope_half_angles
+    from .models.llama import _rms_norm, _rope_half, _rope_half_angles, ffn_block
     from .models.common import linear as _linear
 
     cfg = model.cfg
-    _no_experts(cfg)
     hd, n_kv = cfg.head_dim, cfg.n_head_kv
     scale = cfg.attn_scale or 1.0 / np.sqrt(hd)
     res = (lambda y: y) if cfg.resid_scale == 1.0 else (lambda y: cfg.resid_scale * y)
@@ -415,10 +415,7 @@ def _make_paged_llama_general(model, pcfg: PagedConfig):
                 paged_write(vp, v[:, j], wpage[:, j], woff[:, j])
             attn_out = _attend(q, paged_gather(kp, tables), paged_gather(vp, tables), positions, scale)
             x = x + res(_linear(attn_out.to(dt), params[pre + "attn_output.weight"]))
-            h2 = _rms_norm(x, params[pre + "ffn_norm.weight"], cfg.rms_eps)
-            gate = _linear(h2, params[pre + "ffn_gate.weight"])
-            up = _linear(h2, params[pre + "ffn_up.weight"])
-            x = x + res(_linear(torch.nn.functional.silu(gate) * up, params[pre + "ffn_down.weight"]))
+            x = x + res(ffn_block(params, pre, _rms_norm(x, params[pre + "ffn_norm.weight"], cfg.rms_eps), cfg))
         x = _rms_norm(x, params["output_norm.weight"], cfg.rms_eps)
         w_out = params.get("output.weight", params.get("token_embd.weight@dense", params["token_embd.weight"]))
         logits = _linear(x, w_out)

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..dtypes import GGMLType, get_type_traits
+from ..dtypes import GGMLType, get_type_traits, row_size
 from . import reference as R
 
 F32 = np.float32
@@ -355,6 +355,34 @@ def _wide_pad(n: int, n_pad_to: int) -> int:
     if n >= 4096 and n_pad_to < 1024:
         return 1024
     return n_pad_to
+
+
+def repack_rows(raw: np.ndarray, ggml_type: GGMLType, shape: tuple[int, int], r0: int, r1: int,
+                n_pad_to: int = 128) -> PlanarWeight:
+    """repack of rows [r0, r1) of a (N, K) weight whose raw bytes are `raw`,
+    padded as the whole weight pads: concat_columns of such parts, each but
+    the last a whole number of padding units (padding_unit(N)), is the
+    whole weight's repack."""
+    n, k = shape
+    rb = row_size(ggml_type, k)
+    return repack(np.asarray(raw).reshape(-1)[r0 * rb:r1 * rb], ggml_type, (r1 - r0, k),
+                  n_pad_to=padding_unit(n, n_pad_to))
+
+
+def padding_unit(n: int, n_pad_to: int = 128) -> int:
+    """The multiple of rows repack pads a weight of n rows to."""
+    return _wide_pad(n, n_pad_to)
+
+
+def concat_columns(parts: list) -> PlanarWeight:
+    """One PlanarWeight from repack_rows parts of consecutive row ranges:
+    their planes side by side along the N (last) axis, which holds the
+    columns independently."""
+    first = parts[0]
+    cat = lambda name: None if getattr(first, name) is None else torch.cat([getattr(p, name) for p in parts], -1)
+    return PlanarWeight(kind=first.kind, codes=cat("codes"), scales=cat("scales"), offsets=cat("offsets"),
+                        group=first.group, n=sum(p.n for p in parts), k=first.k, orig_type=first.orig_type,
+                        sb=first.sb, supers=None if first.d is None else (cat("d"), cat("dmin")))
 
 
 def _rebuild(pw: PlanarWeight, f) -> PlanarWeight:

@@ -159,14 +159,14 @@ def test_registry_loads_the_ported_families(gpt2_path, gptj_path):
 
 
 def test_registry_refuses_what_it_has_not(gpt2_path):
-    assert set(registry.ARCHS) == {"gpt2", "gptj", "llama", "qwen2", "qwen3", "granite", "smollm3", "ernie4_5",
-                                   "helium", "seed_oss"}
+    assert set(registry.ARCHS) == {"gpt2", "gptj", "llama", "qwen2", "qwen3", "qwen2moe", "qwen3moe", "granite",
+                                   "granitemoe", "smollm3", "ernie4_5", "helium", "seed_oss"}
     assert set(registry.ARCHS) | set(registry._NOT_PORTED) == set(JAX_ARCHS)
     for arch in sorted(set(JAX_ARCHS) - set(registry.ARCHS)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             registry.model_class(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.load_model(gpt2_path, arch="qwen2moe", device="cpu")
+        registry.load_model(gpt2_path, arch="olmoe", device="cpu")
     with pytest.raises(KeyError):
         registry.model_class("no-such-arch")
 

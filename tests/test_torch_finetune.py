@@ -8,8 +8,9 @@ within 1e-4 (f32 sums in another order, amplified by AdamW's normalization),
 for GPT-2 and for a tiny f32 GPT-J (test_gptj_finetune_matches_jax).
 The output GGUF loads in both packages with the trained weights bit for bit.
 The CLI runs full-weight training, LoRA (--lora-rank) and checkpoints
-(--checkpoint-dir, --checkpoint-every); --dp, qwen2moe and falcon still raise
-(llama, qwen2 and qwen3 train: tests/test_torch_llama_train.py).
+(--checkpoint-dir, --checkpoint-every); --dp, deepseek2 and falcon still raise
+(llama, qwen2 and qwen3 train: tests/test_torch_llama_train.py; qwen2moe and
+qwen3moe: tests/test_torch_moe.py).
 """
 
 import numpy as np
@@ -129,9 +130,9 @@ def test_finetune_rejects_families_and_options_not_ported(tiny_gguf):
     from ggml_tpu_torch.opt.finetune import _family
 
     assert _family("gptj").__name__ == "ggml_tpu_torch.models.gptj"
-    for arch in ("llama", "qwen2", "qwen3"):
+    for arch in ("llama", "qwen2", "qwen3", "qwen2moe", "qwen3moe"):
         assert _family(arch).__name__ == "ggml_tpu_torch.models.llama"
-    for arch, item in (("qwen2moe", "the MoE block"), ("falcon", "the other families")):
+    for arch, item in (("deepseek2", "the other families"), ("falcon", "the other families")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md, section 1 item ., {item}"):
             _family(arch)
     with pytest.raises(ValueError):

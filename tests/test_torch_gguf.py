@@ -4,8 +4,9 @@ GPTJ.from_gguf(device="cpu"), both in f32 activations.
 
 Reader, Q4_K repack, the on-load q/k RoPE permutation and the model run
 through both packages from the same bytes.  Gates as in test_torch_gptj.py,
-against the JAX forward run op by op: logits NMSE <= 1e-6 at prefill and at
-each of 16 greedy decode steps, and the 16 greedy tokens equal.
+against the JAX forward run op by op at prefill and jitted at decode
+(jax_decode_step): logits NMSE <= 1e-6 at prefill and at each of 16 greedy
+decode steps, and the 16 greedy tokens equal.
 """
 
 import sys

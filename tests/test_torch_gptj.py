@@ -6,7 +6,8 @@ the compact planes in both packages), with synthesized Q4_K planes from the
 JAX package carried over as numpy.  Prefill of 40 tokens runs the M>32
 matmul (kernel C), of 5 tokens the 2..32-row GEMV (kernel B); the 16 decode
 steps run the M=1 GEMV (kernel A) and the decode attention (kernel D).
-The JAX side is its forward run op by op (Pallas kernels in interpret mode).
+The JAX side is its forward (Pallas kernels in interpret mode), run op by
+op at prefill and jitted at decode (jax_decode_step).
 Gates: logits NMSE <= 1e-6 at prefill and at every decode step, and the 16
 greedy tokens of both sides equal, each side decoding its own tokens.
 """
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from ggml_tpu.dtypes import GGMLType as JGGMLType
@@ -117,6 +119,20 @@ def port_greedy_steps(tm, prompt, n_steps: int) -> list:
     return runs[key]
 
 
+# the JAX forward's decode step, jitted: one compile a model replaces 10-20 s
+# a step of op-by-op interpret-mode kernels.  Over Q4_K planes (this file's
+# model and test_torch_gguf.py's) a step's logits under jit equal op by op's
+# bit for bit; a prefill's do not, nor a step's over int8 planes, so
+# _jax_prefill and test_torch_gptj_q8.teacher_forced_decode stay op by op
+_jax_decode = jax.jit(jgptj.forward, static_argnums=(1,))
+
+
+def jax_decode_step(jm, tok: int, n_past: int, jcache):
+    """One JAX decode step of token tok at n_past: (logits, cache)."""
+    return _jax_decode(jm.params, jm.cfg, jnp.asarray([[tok]], jnp.int32), jnp.full((1,), n_past, jnp.int32),
+                       jcache, jnp.int32(n_past))
+
+
 def greedy_decode_both(jm, tm, prompt, n_steps: int):
     """Prefill both sides, then greedy-decode n_steps on each, each side
     feeding back its own token; yields (jax logits, port logits, jax token,
@@ -125,8 +141,7 @@ def greedy_decode_both(jm, tm, prompt, n_steps: int):
     jtok = int(np.argmax(np.asarray(jl)[0, -1]))
     t = prompt.shape[1]
     for n_past, (tl, ttok) in zip(range(t, t + n_steps), port_greedy_steps(tm, prompt, n_steps)):
-        jl, jcache = jgptj.forward(jm.params, jm.cfg, jnp.asarray([[jtok]], jnp.int32),
-                                   jnp.full((1,), n_past, jnp.int32), jcache, jnp.int32(n_past))
+        jl, jcache = jax_decode_step(jm, jtok, n_past, jcache)
         jl = np.asarray(jl)
         jtok = int(np.argmax(jl[0, -1]))
         yield jl, tl, jtok, ttok
