@@ -18,6 +18,8 @@
     python3 chip_smoke.py --spec                  # phases 1, 2 and speculative decoding (4r) only
     python3 chip_smoke.py --moe                   # phases 1, 2 and the mixture-of-experts block (4s) only, Qwen3-30B-A3B
                                                   # as deep as the card and the disk allow (at most 48 layers)
+    python3 chip_smoke.py --deepseek              # phases 1, 2 and the DeepSeek family (4t) only, DeepSeek-V2-Lite at
+                                                  # all 27 layers
 
 Phases (any failure exits non-zero without the result line):
 1. the card, as nvidia-smi reports its name and power limit;
@@ -33,11 +35,15 @@ Phases (any failure exits non-zero without the result line):
    14336 over expanded planes for H, the 128256-row Q6_K head, J under GQA
    32/8 at d = 128), and at Qwen3-30B-A3B's (K = 2048 and N = 4096, 512,
    2048 for A, B and C, the 151936-row Q6_K head for F and G, J under GQA
-   32/4);
+   32/4), at DeepSeek-V2-Lite's (A at K = 2048 and N = 3072, 576, 2048,
+   2816; B and C on q and attn_kv_a_mqa; C at K = 2816 and G over Q5_0
+   planes at K = 10944 at M = 1, 4 and 1024; F on the 102400-row head) and
+   DeepSeek-V3's (A on attn_q_a, attn_q_b and attn_output; H at K = 18432;
+   E on the 129280-row Q6_K head over expanded planes);
 4. serve greedy requests through GPT-J-6B at its published widths
    (EleutherAI/gpt-j-6b: n_vocab 50400, E 4096, 16 heads, 28 layers, n_rot
    64, context 2048; the synthesized planes of (a)-(c), (e), (f), (m)-(o)
-   and (r) at 14 of its 28 layers in the whole run, all 28 with --gptj,
+   and (r) at 8 of its 28 layers in the whole run, all 28 with --gptj,
    --serve, --spec and --train: the launch counts quoted below are at 28),
    decoding as CUDA graph replays (one capture per model,
    made while warming up), counting every kernel launch of each run, then
@@ -81,7 +87,7 @@ Phases (any failure exits non-zero without the result line):
    first again eagerly (the same ids), ms/token beside the plane-byte
    floor, a profiled graphed token by class; (l) Llama-3-8B at its
    published widths (meta-llama/Meta-Llama-3-8B: vocab 128256, E 4096, 32
-   layers, 32 heads over 8 kv heads, n_ff 14336, rope base 500000; 8 of
+   layers, 32 heads over 8 kv heads, n_ff 14336, rope base 500000; 4 of
    its 32 layers in the whole run, all 32 with --llama, --serve, --spec and
    --train, where the counts quoted below hold) from a 4.65 GB GGUF file of Q4_K weights with a Q6_K head and a 128256-entry
    byte-level BPE vocabulary: the load, greedy requests from prompts of 8
@@ -139,14 +145,31 @@ Phases (any failure exits non-zero without the result line):
    graphed and eager greedy decode beside its two floors (every expert
    streamed; the top-2 alone), grouped against dense experts, profiles by
    class; Qwen3-30B-A3B (E 2048, 32 heads over 4, head_dim 128, 128
-   experts of 768, 8 a token, vocab 151936; 4 of its 48 layers in the whole
+   experts of 768, 8 a token, vocab 151936; 2 of its 48 layers in the whole
    run) from a qwen3moe Q4_K GGUF file with a Q6_K head: the load, a
    1024-token prefill (J, C, G, the grouped experts) and graphed decode
    with exact launches, the engine at bench_serve's mix dense and paged and
    at 16 slots (grouped experts inside the tick's graph), the paged step
    against the dense forward, a captured 16-row forward against eager, LoRA
    at 1 x 512 twice (the first step bit for bit), and tiny MoE files of the
-   four architectures on the card against the CPU;
+   four architectures on the card against the CPU; (t) the DeepSeek family
+   (models/deepseek.py: absorbed MLA, group-limited routing, shared
+   experts): bench_mla_decode's shape (16 layers of V2-Lite's attention
+   with a dense FFN, bf16 synthesized on the card) graphed and eager beside
+   its floor, the attention's share of busy time; DeepSeek-V2-Lite
+   (deepseek-ai/DeepSeek-V2-Lite config.json: vocab 102400, E 2048, 16
+   heads, kv_lora 512, 64 experts of 1408 with 2 shared, 6 a token, one
+   dense layer; 4 of its 27 layers in the whole run, all 27 with
+   --deepseek) from a deepseek2 Q4_K file (Q6_K head, llama.cpp's Q5_0
+   fallback where K is not whole superblocks) through registry.load_model:
+   the load, a 1024-token prefill and graphed decode with exact launches (C
+   and G at M = 1), the generate CLI, the Engine dense, paged with the
+   prefix cache, chunked, q8, at 16 slots and with a 2-layer self-draft,
+   LoRA at 1 x 512 and finetune of a 2-layer cut; DeepSeek-V3's widths
+   (q_lora 1536, 128 heads, 256 experts of 2048, 8 groups, sigmoid scores
+   with a bias) at its 3 dense layers and 1 MoE layer: a 1024-token
+   prefill, graphed decode, the route on the card against the CPU's,
+   grouped against dense experts;
 5. one JSON line listing every kernel, then the result line.
 
 Runs only where torch.cuda.is_available(); it imports nothing of JAX.
@@ -279,8 +302,9 @@ def random_q8_planes(torch, n: int, k: int, npad: int, fmt: str, gen):
     them), "q5_1" / "q5_k_synth" (f32 / bf16 scales and offsets per 32),
     "q6_k" (compact: int8 sub-scales per 16, f32 d per 256) and "q5_k"
     (compact: 6-bit sub-scale and min codes per 32, f32 d and dmin per 256),
-    as repack builds them, and "q6_k_bf16" / "q5_k_bf16" (the same with
-    bf16 d and dmin)."""
+    as repack builds them, "q6_k_bf16" / "q5_k_bf16" (the same with bf16 d
+    and dmin), and "q5_0" (codes -16..15, f32 scales per 32, as repack
+    builds Q5_0)."""
     from ggml_tpu_torch.dtypes import GGMLType
     from ggml_tpu_torch.quant.planar import PlanarWeight
 
@@ -296,6 +320,9 @@ def random_q8_planes(torch, n: int, k: int, npad: int, fmt: str, gen):
         return PlanarWeight(kind="q8", codes=codes(0, 32, k), scales=codes(0, 64, k // 32),
                             offsets=codes(0, 64, k // 32), group=32, n=n, k=k, orig_type=GGMLType.Q5_K, sb=8,
                             supers=(small(k // 256, dd), small(k // 256, dd)))
+    if fmt == "q5_0":  # as repack builds Q5_0: codes q - 16, one f32 scale per 32, no offsets
+        return PlanarWeight(kind="q8", codes=codes(-16, 16, k), scales=small(k // 32, torch.float32), offsets=None,
+                            group=32, n=n, k=k, orig_type=GGMLType.Q5_0)
     orig, dt, affine = {"q8_0": (GGMLType.Q8_0, torch.bfloat16, False),
                         "q6_k_synth": (GGMLType.Q6_K, torch.bfloat16, False),
                         "q5_1": (GGMLType.Q5_1, torch.float32, True),
@@ -377,6 +404,8 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
             pw, label = random_q4_planes(torch, n, k, npad, fmt, gen, offsets), fmt + ("" if offsets else " no offsets")
         elif fmt == "q4_k_expanded":  # compact Q4_K planes multiplied out, as planar_matmul hands them to H
             pw, label = expand_compact(random_planes(torch, n, k, npad, torch.float32, gen)), "q4_k expanded (f32)"
+        elif fmt == "q6_k_expanded":  # compact Q6_K planes with no F tile, multiplied out for E
+            pw, label = expand_compact(random_q8_planes(torch, n, k, npad, "q6_k", gen)), "q6_k expanded (f32)"
         elif fmt.startswith(("iq", "tq")):
             pw = iq_planes(torch, np, slabs, n, k, npad, fmt)
             label = f"{fmt} (G={pw.group}{', offsets' if pw.offsets is not None else ''})"
@@ -597,6 +626,32 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
     for m in (1, 4, 16):
         gemv_case("q8_gemv_sb", m, *q_head, fmt="q6_k")
     gemv_case("q8_matmul", 1024, *q_head, fmt="q6_k")
+    # DeepSeek-V2-Lite from a deepseek2 Q4_K file with a Q6_K head (phase
+    # 4t), E 2048: A at K = 2048 on q (N = 3072), attn_kv_a_mqa (576),
+    # attn_output (2048) and the shared experts' gate and up (2816), B at the
+    # engine's M = 4 and C at the 1024-token prefill on q and attn_kv_a_mqa;
+    # at every M, C on the shared ffn_down (K = 2816: Q4_K planes multiplied
+    # out, 44 groups a half-plane, no GEMV tile) and G on the dense layer's
+    # ffn_down (K = 10944: Q5_0 int8 planes, 342 groups); F on the
+    # 102400-row head.  DeepSeek-V3's widths (E 7168): A on attn_q_a (K =
+    # 7168, N = 1536), attn_q_b (K = 1536, N = 24576) and attn_output (K =
+    # 16384, N = 7168); H on the dense ffn_down (K = 18432: no compact
+    # tile, expanded); E on the 129280-row Q6_K head (K = 7168: no F tile,
+    # expanded)
+    v2_q, v2_kva, v2_o, v2_sh = (2048, 3072, 3072), (2048, 576, 640), (2048, 2048, 2048), (2048, 2816, 2816)
+    for shape in (v2_q, v2_kva, v2_o, v2_sh):
+        gemv_case("q4k_gemv_qact", 1, *shape, d_dtype=torch.float32)
+    for shape in (v2_q, v2_kva):
+        gemv_case("q4k_gemv_rows", 4, *shape, d_dtype=torch.float32)
+        gemv_case("q4k_matmul", 1024, *shape, d_dtype=torch.float32)
+    for m in (1, 4, 1024):
+        gemv_case("q4k_matmul", m, 2816, 2048, 2048, fmt="q4_0_f32")
+        gemv_case("q8_matmul", m, 10944, 2048, 2048, fmt="q5_0")
+    gemv_case("q8_gemv_sb", 1, 2048, 102400, 102400, fmt="q6_k")
+    for shape in ((7168, 1536, 1536), (1536, 24576, 24576), (16384, 7168, 7168)):
+        gemv_case("q4k_gemv_qact", 1, *shape)
+    gemv_case("q4_gemv", 1, 18432, 7168, 7168, fmt="q4_k_expanded")
+    gemv_case("q8_gemv", 1, 7168, 129280, 130048, fmt="q6_k_expanded")
 
     def flash_case(b, h, h_kv, nq, nkv, d, types, causal=True, max_bias=0.0, softcap=0.0, time_it=True,
                    dead_row=None):
@@ -2471,7 +2526,7 @@ def phase_iquants(torch, np, tmp: str, card: str, n_layer: int = 28) -> list:
 
 # 4l: the Llama family at Llama-3-8B's published widths, from a Q4_K GGUF file
 LLAMA3_8B_GGUF = "meta-llama-3-8b-q4_k.gguf"
-LLAMA_LAYERS = 8  # the whole run's depth of Llama-3-8B (--llama, --serve, --spec, --train: all 32)
+LLAMA_LAYERS = 4  # the whole run's depth of Llama-3-8B (--llama, --serve, --spec, --train: all 32)
 
 
 def llama_step_launches(n_layer: int, m: int = 1) -> dict:
@@ -4444,7 +4499,7 @@ def phase_spec_llama(torch, np, model, card: str) -> dict:
 MOE_BENCH = dict(n_vocab=32000, n_ctx=4096, n_embd=4096, n_head=32, n_head_kv=8, n_layer=8, n_ff=7168, n_expert=8,
                  n_expert_used=2)
 MOE_TOKENS, MOE_FIRST, MOE_MAX_SEQ = 32, 11, 128
-MOE_QWEN_LAYERS = 4  # the whole run's depth of Qwen3-30B-A3B (--moe: MOE_QWEN_LAYERS_ALONE)
+MOE_QWEN_LAYERS = 2  # the whole run's depth of Qwen3-30B-A3B (--moe: MOE_QWEN_LAYERS_ALONE)
 MOE_QWEN_LAYERS_ALONE = 48
 MOE_QWEN_FF_EXP = 768  # moe_intermediate_size
 MOE_SLOTS_GROUPED = 16  # an engine tick of 16 rows takes the grouped experts (JAX's rule: >= 16 tokens)
@@ -4482,9 +4537,10 @@ def synth_moe_params(torch, cfg, seed: int = 0) -> dict:
 
 def moe_stream_bytes(torch, params: dict, cfg, cache) -> dict:
     """Bytes a decode token reads at least: every tensor but the embedding
-    (one row of it), the KV cache window the attention reads whole, and
-    every expert (JAX's dense path) or only the top-k (a path that reads
-    the chosen experts alone).  Planes count their plane bytes."""
+    (one row of it), the KV cache window the attention reads whole (a
+    Deepseek's latent pair), and every expert (JAX's dense path) or only the
+    top-k (a path that reads the chosen experts alone); a model without
+    experts reads the same either way.  Planes count their plane bytes."""
     from ggml_tpu_torch.quant.planar import PlanarWeight
 
     size = lambda t: t.plane_bytes() if isinstance(t, PlanarWeight) else t.numel() * t.element_size()
@@ -4492,7 +4548,7 @@ def moe_stream_bytes(torch, params: dict, cfg, cache) -> dict:
     rest = sum(size(v) for k, v in params.items() if "_exps." not in k and not k.startswith("token_embd"))
     rest += cfg.n_embd * 2 + sum(size(k) + size(v) for k, v in cache)
     every = experts + rest
-    topk = experts * cfg.n_expert_used / cfg.n_expert + rest
+    topk = (experts * cfg.n_expert_used / cfg.n_expert if cfg.n_expert else 0) + rest
     return dict(every_bytes=every, topk_bytes=topk, every_floor_ms=every / HBM_BYTES_PER_S * 1e3,
                 topk_floor_ms=topk / HBM_BYTES_PER_S * 1e3)
 
@@ -5004,6 +5060,515 @@ def phase_moe(torch, np, tmp: str, card: str, n_layer: int) -> list:
     return runs
 
 
+# 4t: the DeepSeek family (models/deepseek.py: absorbed MLA, group-limited
+# routing, shared experts, leading dense layers): (a) bench_mla_decode's
+# exact shape (bench.py:534-590, scale "lite": V2-Lite's attention with a
+# dense FFN, 16 layers of bf16 synthesized on the card, batch 1, max_seq
+# 128, 32 + 32 tokens from token 11); (b) DeepSeek-V2-Lite from a deepseek2
+# Q4_K GGUF file (Q6_K head) through the normal entry points, DS_LITE_LAYERS
+# of its 27 layers in the whole run (--deepseek: all 27): the load, a
+# 1024-token prefill, graphed decode, the generate CLI, the Engine (dense,
+# paged, chunked, q8, 16 slots, a self-draft), LoRA and finetune; (c)
+# DeepSeek-V3's widths cut to its 3 dense layers and 1 MoE layer (q_lora,
+# 8 groups, sigmoid scores with a bias, routed scaling), synthesized on the
+# card: a 1024-token prefill, graphed decode, the route on the card against
+# the CPU's, grouped against dense experts
+DS_MLA = dict(n_vocab=32000, n_embd=2048, n_head=16, n_layer=16, n_ff=8192, n_dense_lead=16, kv_lora_rank=512,
+              qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128, q_lora_rank=0, n_expert=0)
+DS_TOKENS, DS_FIRST, DS_MAX_SEQ = 32, 11, 128
+DS_LITE_LAYERS = 4  # the whole run's depth of DeepSeek-V2-Lite: the dense layer and 3 MoE layers
+DS_LITE_LAYERS_ALONE = 27  # --deepseek
+DS_LITE_FF_EXP, DS_V3_FF_EXP = 1408, 2048  # moe_intermediate_size
+DS_V3_LAYERS = 4  # DeepSeek-V3's 3 dense layers and its first MoE layer
+DS_SERVE_SEQ, DS_SHARED = 256, 64  # the engine's max_seq; the paged mix's shared prefix
+DS_LORA = dict(rank=8, batch=1, seq=512, steps=3, lr=1e-3)
+_DS_RANGES = {"planar_matmul.expand_compact": "expansions", "deepseek.attention": "MLA attention",
+              "deepseek.moe_experts": "experts", "deepseek.router": "router"}
+
+
+def synth_mla_params(torch, cfg, seed: int = 0) -> dict:
+    """bench.py's _synth_on_device for bench_mla_decode: normal(0, 0.02)
+    bf16 weights from a seeded generator on the card, norms of ones."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, H, r = cfg.n_embd, cfg.n_head, cfg.kv_lora_rank
+    shapes = {"token_embd.weight": (cfg.n_vocab, d), "output.weight": (cfg.n_vocab, d)}
+    ones = {"output_norm.weight": (d,)}
+    for i in range(cfg.n_layer):
+        pre = f"blk.{i}."
+        ones.update({pre + "attn_norm.weight": (d,), pre + "ffn_norm.weight": (d,), pre + "attn_kv_a_norm.weight": (r,)})
+        shapes.update({pre + "attn_q.weight": (H * cfg.qk_head_dim, d),
+                       pre + "attn_kv_a_mqa.weight": (r + cfg.qk_rope_dim, d),
+                       pre + "attn_kv_b.weight": (H * (cfg.qk_nope_dim + cfg.v_head_dim), r),
+                       pre + "attn_output.weight": (d, H * cfg.v_head_dim), pre + "ffn_gate.weight": (cfg.n_ff, d),
+                       pre + "ffn_up.weight": (cfg.n_ff, d), pre + "ffn_down.weight": (d, cfg.n_ff)})
+    out = {name: torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16).mul_(0.02)
+           for name, shape in sorted(shapes.items())}
+    out.update({name: torch.ones(shape, dtype=torch.bfloat16, device="cuda") for name, shape in ones.items()})
+    return out
+
+
+def phase_ds_mla(torch, np, card: str) -> dict:
+    """4t (a): bench_mla_decode's shape (DS_MLA), as bench.py runs it: 32
+    greedy tokens from token 11 at n_past 0 (the capture and warm-up), then
+    32 from n_past 32 graphed and timed, then eagerly (the same ids);
+    ms/token and tokens/s beside the floor (the weights' bytes a token at
+    3.35 TB/s); graphed and eager decode profiled, the absorbed attention's
+    share of eager busy time read by its range.  Dense bf16 weights: no
+    kernel of the port is on this path, its counts stay 0."""
+    import gc
+
+    from ggml_tpu_torch.models import deepseek
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = deepseek.DeepseekConfig(**DS_MLA)
+    t0 = time.perf_counter()
+    params = synth_mla_params(torch, cfg)
+    torch.cuda.synchronize()
+    out = dict(config=DS_MLA, card=card, synth_s=time.perf_counter() - t0)
+    model = deepseek.Deepseek(params, cfg, max_seq=DS_MAX_SEQ, device="cuda")
+    first = torch.tensor([[DS_FIRST]], device="cuda")
+    cache = model.new_cache(torch.bfloat16)
+    cache, _ = model.decode_greedy(cache, first, 0, DS_TOKENS)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    cache, ids = model.decode_greedy(cache, first, DS_TOKENS, DS_TOKENS)
+    dt = time.perf_counter() - t0
+    out["counts"] = {k: v for k, v in launch_counts().items() if v}
+    t0 = time.perf_counter()
+    cache, eager = model.decode_greedy(cache, first, DS_TOKENS, DS_TOKENS, graph=False)
+    eager_dt = time.perf_counter() - t0
+    ids, eager = ids[:, 0].tolist(), eager[:, 0].tolist()
+    check(ids == eager and all(0 <= t < cfg.n_vocab for t in ids) and out["counts"] == {},
+          f"bench_mla: graphed {ids[:8]}, eager {eager[:8]}, launches {out['counts']}")
+    floors = moe_stream_bytes(torch, params, cfg, cache)
+    out.update(weights_bytes=floors["every_bytes"], floor_ms=floors["every_floor_ms"], ms_per_token=dt * 1e3 / DS_TOKENS,
+               mla_lite_bf16_decode_tokens_per_sec_per_chip=DS_TOKENS / dt,
+               eager_ms_per_token=eager_dt * 1e3 / DS_TOKENS, ids=ids)
+    out["decode_trace"] = profile_llama_decode(torch, np, model, ranges=_DS_RANGES, n_vocab=cfg.n_vocab)
+    by = out["decode_trace"]["eager_ms_per_token_by_class"]
+    out["attention_share_of_eager_busy"] = by.get("MLA attention", 0.0) / out["decode_trace"]["eager_device_ms_per_token"]
+    print(f"  bench_mla_decode's shape (16 layers, bf16) on {card}: {out['ms_per_token']:.3f} ms/token graphed "
+          f"({out['mla_lite_bf16_decode_tokens_per_sec_per_chip']:.1f} tok/s), eager {out['eager_ms_per_token']:.3f}; "
+          f"floor {out['weights_bytes'] / 1e9:.3f} GB = {out['floor_ms']:.3f} ms; the absorbed attention "
+          f"{out['attention_share_of_eager_busy'] * 100:.1f} % of eager busy; graphed ids equal eager")
+    del model, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def write_v2_lite_gguf(np, tmp: str, n_layer: int) -> tuple:
+    """DeepSeek-V2-Lite's GGUF file at its published widths cut to n_layer
+    layers (models/deepseek.write_random_gguf): Q4_K weights with llama.cpp's
+    fallbacks (Q5_0 for the dense ffn_down, K = 10944, and ffn_down_exps, K
+    = 1408), a Q6_K head, an F32 router and a zero selection bias (V2 has
+    none), ones for the norms, a byte-level BPE vocabulary of 102400
+    entries (the byte symbols, FRONT_END_TEXT's merges, placeholder words,
+    <｜begin▁of▁sentence｜> at 100000 and <｜end▁of▁sentence｜> at 100001).
+    Returns (path, config, dict(gguf_write_s, gguf_bytes), tokens, merges)."""
+    from ggml_tpu_torch.dtypes import GGMLType
+    from ggml_tpu_torch.models import deepseek
+    from ggml_tpu_torch.tokenizer import byte_level_vocab, learn_merges
+
+    cfg = dataclasses.replace(deepseek.deepseek_v2_lite_config(), n_layer=n_layer)
+    merges = learn_merges(FRONT_END_TEXT, 100_000)
+    tokens = byte_level_vocab(merges)
+    bos, eos = 100000, 100001
+    fill = _placeholders(set(tokens), cfg.n_vocab - len(tokens) - 2)
+    tokens = (tokens + fill[:bos - len(tokens)] + ["<｜begin▁of▁sentence｜>", "<｜end▁of▁sentence｜>"]
+              + fill[bos - len(tokens):])
+    check(len(tokens) == cfg.n_vocab and len(set(tokens)) == len(tokens), f"vocabulary of {len(tokens)} entries")
+    path = os.path.join(tmp, f"deepseek-v2-lite-{n_layer}-layers-q4_k.gguf")
+    t0 = time.perf_counter()
+    deepseek.write_random_gguf(path, cfg, seed=0, types={"output.weight": GGMLType.Q6_K}, n_ff_exp=DS_LITE_FF_EXP,
+                               tokenizer=dict(model="gpt2", tokens=tokens, merges=merges, bos_token_id=bos,
+                                              eos_token_id=eos))
+    info = dict(gguf_write_s=time.perf_counter() - t0, gguf_bytes=os.path.getsize(path))
+    print(f"  wrote {info['gguf_bytes'] / 1e9:.3f} GB of deepseek2 GGUF ({n_layer} of 27 layers) in "
+          f"{info['gguf_write_s']:.1f}s")
+    return path, cfg, info, tokens, merges
+
+
+def ds_prefill_and_decode(torch, np, model, label: str) -> dict:
+    """A Deepseek's 1024-token prefill (after a first-use run) with its
+    exact launches (each planar linear's kernel at M = 1024, the head's) and
+    busy time by class (_DS_RANGES); graphed decode of DS_TOKENS tokens
+    after an 8-token prompt (moe_decode_run: eagerly the same ids) with its
+    exact launches a token, beside the every-expert and top-k floors;
+    grouped against dense experts at one step.  Returns the record, its
+    counts summed."""
+    cfg, p = model.cfg, model.params
+    rng = np.random.default_rng(0)
+    long = rng.integers(0, cfg.n_vocab, (1, 1024))
+    model.prefill(model.new_cache(torch.bfloat16), long)  # first uses
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, _, _ = model.prefill(model.new_cache(torch.bfloat16), long)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    counts = {k: v for k, v in launch_counts().items() if v}
+    want = planar_launches(p, 1024, head=True)
+    check(counts == want and bool(torch.isfinite(logits).all()), f"{label} prefill: launches {counts}, want {want}")
+    prof = profile_classes(torch, lambda: model.prefill(model.new_cache(torch.bfloat16), long), 1, _DS_RANGES,
+                           cfg.n_vocab)
+    out = dict(prefill=dict(ms=prefill_ms, counts=counts, profile=prof), long_prompt=long)
+    print(f"  1024-token prefill: {prefill_ms:.1f} ms, launches {counts}; device busy {prof['busy_ms']:.1f} ms by "
+          f"class: {_fmt_classes(prof['by_class_ms'])}")
+    run = moe_decode_run(torch, np, model, rng.integers(0, cfg.n_vocab, (1, 8)), DS_TOKENS)
+    want = {k: v * DS_TOKENS for k, v in planar_launches(p, 1, head=True).items()}
+    check(run["counts"] == want, f"{label} decode launches {run['counts']}, want {want}")
+    run.update(moe_stream_bytes(torch, p, cfg, run.pop("cache")))
+    run["every_floor_share"] = run["every_floor_ms"] / run["graphed_ms_per_token"]
+    out["decode"] = run
+    print(f"  decode after 8 tokens: {run['graphed_ms_per_token']:.3f} ms/token graphed, "
+          f"{run['eager_ms_per_token']:.3f} eager (the same {DS_TOKENS} ids); floors: every expert "
+          f"{run['every_bytes'] / 1e9:.3f} GB = {run['every_floor_ms']:.3f} ms, the top {cfg.n_expert_used} alone "
+          f"{run['topk_bytes'] / 1e9:.3f} GB = {run['topk_floor_ms']:.3f} ms; launches a token "
+          f"{run['launches_per_token']}")
+    cache = model.new_cache(torch.bfloat16)
+    model.prefill(cache, np.asarray([[run["first"]]]))
+    out["grouped_vs_dense"] = grouped_against_dense(torch, model, cache, run["ids"][0], 1)
+    print(f"  one step's logits, grouped against dense experts: NMSE {out['grouped_vs_dense']['nmse']:.2e}")
+    out["counts"] = dict(counts)
+    for k, v in run["counts"].items():
+        out["counts"][k] = out["counts"].get(k, 0) + v
+    return out
+
+
+def phase_ds_lite(torch, np, path: str, want_cfg, tokens, merges, card: str) -> tuple:
+    """4t (b), the model: DeepSeek-V2-Lite loaded through
+    registry.load_model(keep_quantized=True) (the linears as planes, the
+    experts and attn_kv_b dense bf16): the load; a 1024-token prefill with
+    its exact launches (C on every planar linear, G on the dense ffn_down
+    and the head) and busy time by class; graphed decode of 32 tokens after
+    an 8-token prompt with exact launches a token (A on q, attn_kv_a_mqa,
+    attn_output and the gate and up products, C on the shared ffn_down and
+    G on the dense ffn_down at M = 1, F on the head), ms/token beside the
+    every-expert and top-6 floors, eagerly the same ids; grouped against
+    dense experts at one step; the generate CLI in a subprocess, its text
+    this process's greedy text, its kernel report.  Returns (model, record)."""
+    from ggml_tpu_torch.kernels import qmatmul
+    from ggml_tpu_torch.models import deepseek, registry
+    from ggml_tpu_torch.quant.planar import PlanarWeight
+    from ggml_tpu_torch.tokenizer import BPETokenizer
+
+    t0 = time.perf_counter()
+    model = registry.load_model(path, keep_quantized=True, max_seq=2048, device="cuda")
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    out = dict(load_s=time.perf_counter() - t0, card=card, n_layer=cfg.n_layer,
+               card_gb=torch.cuda.memory_allocated() / 1e9)
+    check(isinstance(model, deepseek.Deepseek) and dataclasses.replace(cfg, rms_eps=want_cfg.rms_eps) == want_cfg,
+          f"model {type(model).__name__}, config {cfg}")
+    p = model.params
+    planar = [k for k, v in p.items() if isinstance(v, PlanarWeight) and k != "token_embd.weight"]
+    exps, kv_b = p["blk.1.ffn_gate_exps.weight"], p["blk.0.attn_kv_b.weight"]
+    check(exps.shape == (64, DS_LITE_FF_EXP, 2048) and exps.dtype == torch.bfloat16
+          and isinstance(kv_b, torch.Tensor) and kv_b.dtype == torch.bfloat16, f"experts {exps.shape}, kv_b {kv_b}")
+    check(qmatmul.select_kernel(p["blk.1.ffn_down_shexp.weight"], 1) == "q4k_matmul"
+          and qmatmul.select_kernel(p["blk.0.ffn_down.weight"], 1) == "q8_matmul", "C and G at M = 1")
+    print(f"  loaded in {out['load_s']:.1f}s ({out['card_gb']:.2f} GB on the card): {len(planar)} planar linears, "
+          "the experts and attn_kv_b bf16; C on the shared ffn_down and G on the dense ffn_down at M = 1")
+    out.update(ds_prefill_and_decode(torch, np, model, "V2-Lite"))
+    del out["long_prompt"]
+    out["decode"]["trace"] = profile_llama_decode(torch, np, model, ranges=_DS_RANGES, n_vocab=cfg.n_vocab)
+
+    tok = BPETokenizer(tokens, merges)
+    text = " ".join(FRONT_END_TEXT.split()[:48])
+    cmd = [sys.executable, "-m", "ggml_tpu_torch.cli.generate", path, "-p", text, "-n", "16", "--quantized",
+           "--top-k", "1", "--seed", "0", "--verbose"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    out["cli_wall_s"] = time.perf_counter() - t0
+    check(r.returncode == 0, f"the generate CLI exited {r.returncode}:\n{r.stderr[-4000:]}")
+    report = re.findall(r"^\s+(q4|q8)\s+K=(\d+)\s+N=(\d+)\s+(gemv-M|matmul-M) -> (.+)$", r.stderr, re.M)
+    out["cli_report"] = [" ".join(x) for x in report]
+    kernel_of = {(kind, int(k), int(n), c): path_ for kind, k, n, c, path_ in report}
+    check(kernel_of.get(("q4", 2816, 2048, "gemv-M")) == "q4k_matmul"
+          and kernel_of.get(("q8", 10944, 2048, "gemv-M")) == "q8_matmul", f"kernel report {report}")
+    same = deepseek.Deepseek(p, cfg, max_seq=512, device="cuda")  # the CLI's max_seq
+    ids = same.generate(np.asarray([tok.encode(text)], np.int32), 16)
+    check(r.stdout == text + tok.decode(ids) + "\n", f"CLI text {r.stdout[-200:]!r} differs from "
+          f"{text + tok.decode(ids)!r}")
+    del same
+    print(f"  CLI (python -m ggml_tpu_torch.cli.generate --quantized --top-k 1 -n 16): exit 0 in "
+          f"{out['cli_wall_s']:.1f}s, the text of this process's greedy request; report: "
+          + "; ".join(out["cli_report"]))
+    return model, out
+
+
+def phase_ds_serve(torch, np, model, card: str) -> dict:
+    """4t (b), the Engine on the model at bench_serve's mix (24 requests of
+    4-30-token prompts x 32 new from seed 0, max_seq 256, bucket 32): 4
+    slots dense, paged with the prefix cache (pages of 16; the even
+    requests behind a shared 64-token prefix, as serve_paged shares), chunked
+    (chunks of 16), q8 (the latent cache's bytes against bf16 and against an
+    expanded per-head cache), 16 slots (the grouped experts inside the
+    tick's graph), each a warm pass and a timed pass with exact launches
+    (timed_mix); the dense engine with a 2-layer self-draft at k = 4 (its
+    tok/s, rounds and acceptance, ids beside the dense engine's); a paged
+    engine with a draft raises, as JAX's does."""
+    import gc
+
+    from ggml_tpu_torch.models import deepseek
+    from ggml_tpu_torch.paged_kv import PagedConfig
+    from ggml_tpu_torch.serve import Engine
+
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.n_vocab, int(rng.integers(4, 30))).tolist() for _ in range(SERVE_REQUESTS)]
+    shared = rng.integers(0, cfg.n_vocab, DS_SHARED).tolist()
+    paged_prompts = [shared + q if i % 2 == 0 else q for i, q in enumerate(prompts)]
+    pcfg = PagedConfig(4 * DS_SERVE_SEQ // 16 + 16, 16, DS_SERVE_SEQ // 16, prefix_cache=True)
+    kinds = (("dense", 4, prompts, {}), ("paged", 4, paged_prompts, dict(paged=pcfg)),
+             ("chunked", 4, prompts, dict(prefill_chunk=16)), ("q8", 4, prompts, dict(cache_dtype="q8_kv")),
+             ("dense_16_slots", MOE_SLOTS_GROUPED, prompts, {}))
+    out, counts = {}, {}
+    for label, slots, mix, kw in kinds:
+        kw = dict(dict(cache_dtype=torch.bfloat16), **kw)
+        eng = Engine(model, max_batch=slots, max_seq=DS_SERVE_SEQ, record_events=True, **kw)
+        _run_ids(eng, mix, SERVE_NEW)
+        torch.cuda.synchronize()
+        eng.event_ms()
+        eng.cached_prefix_tokens = 0
+        run = timed_mix(torch, eng, mix, SERVE_NEW)
+        ev, delta = run["event_ms"], run["engine"]
+        span, steps = ("paged", delta["paged_steps"]) if label == "paged" else ("tick", delta["decode_steps"])
+        run["ms_per_step"] = ev.get(span, 0.0) / max(1, steps)
+        if label == "q8":
+            run["cache_bytes"] = sum(a.nbytes + b.nbytes for a, b in eng.cache)
+            run["bf16_cache_bytes"] = cfg.n_layer * slots * DS_SERVE_SEQ * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
+            run["expanded_cache_bytes"] = (cfg.n_layer * slots * DS_SERVE_SEQ * cfg.n_head
+                                           * (cfg.qk_head_dim + cfg.v_head_dim) * 2)
+        for k, v in run["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+        out[label] = run
+        print(f"  {label}, {slots} slots ({card}): {run['tokens']} tokens in {run['wall_s'] * 1e3:.1f} ms, "
+              f"{run['tok_per_s']:.1f} tok/s, {run['ms_per_step']:.3f} ms a step on the card, idle "
+              f"{run['idle_share'] * 100:.1f} %; prefix hits {delta['cached_prefix_tokens']}; launches {run['counts']}"
+              + (f"; cache {run['cache_bytes'] / 1e6:.2f} MB (bf16 {run['bf16_cache_bytes'] / 1e6:.2f}, expanded "
+                 f"per head {run['expanded_cache_bytes'] / 1e6:.2f})" if label == "q8" else ""))
+        del eng
+        gc.collect()
+    draft = deepseek.Deepseek(model.params, dataclasses.replace(cfg, n_layer=2), max_seq=DS_SERVE_SEQ, device="cuda")
+    eng = Engine(model, max_batch=4, max_seq=DS_SERVE_SEQ, cache_dtype=torch.bfloat16, draft=draft, draft_k=4)
+    _run_ids(eng, prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    r0, d0, a0 = eng.spec_rounds, eng.spec_drafted, eng.spec_accepted
+    reset_launches()
+    t0 = time.perf_counter()
+    ids = _run_ids(eng, prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    spec = dict(wall_s=wall, tok_per_s=sum(map(len, ids)) / wall, rounds=eng.spec_rounds - r0,
+                acceptance=(eng.spec_accepted - a0) / max(1, eng.spec_drafted - d0),
+                counts={k: v for k, v in launch_counts().items() if v},
+                equal_to_dense=sum(a == b for a, b in zip(ids, out["dense"]["ids"])))
+    check(all(len(x) == SERVE_NEW and all(0 <= t < cfg.n_vocab for t in x) for x in ids), "draft engine ids")
+    for k, v in spec["counts"].items():
+        counts[k] = counts.get(k, 0) + v
+    out["draft"] = spec
+    print(f"  dense with a 2-layer self-draft, k = 4: {spec['tok_per_s']:.1f} tok/s, {spec['rounds']} rounds, "
+          f"acceptance {spec['acceptance'] * 100:.1f} %; {spec['equal_to_dense']} of {len(ids)} requests give the "
+          "dense engine's ids")
+    del eng
+    try:
+        Engine(model, max_batch=4, max_seq=DS_SERVE_SEQ, cache_dtype=torch.bfloat16, draft=draft, paged=pcfg)
+        raise SmokeFailure("a paged engine over a Deepseek target took a draft")
+    except ValueError:
+        out["paged_draft_raises"] = True
+    del draft
+    out["paged_equal_dense"] = sum(a == b for a, b in zip(out["paged"]["ids"][1::2], out["dense"]["ids"][1::2]))
+    for run in out.values():
+        if isinstance(run, dict):
+            run.pop("ids", None)
+    out["counts"] = counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ds_train(torch, np, path: str, tmp: str, card: str) -> dict:
+    """4t (b), finetuning as a user calls it: finetune_lora over the file
+    (rank 8 on the default targets: attn_output and the dense layer's
+    SwiGLU; batch 1 x 512 of a repeated seeded pattern, lr 1e-3, 1 + 3
+    steps; the base loaded dense f32, its frozen experts bf16: the file's
+    attn_kv_b is Q4_K, which QLoRA cannot reshape, as in JAX): seconds to
+    the end of step 0 (the load included), ms/step, peak memory, finite
+    losses; then finetune (full weights) of the model cut to its dense layer
+    and one MoE layer, 1 + 3 steps at 1 x 512."""
+    import gc
+
+    from ggml_tpu_torch.opt import finetune, finetune_lora
+
+    rank, batch, seq, steps, lr = (DS_LORA[k] for k in ("rank", "batch", "seq", "steps", "lr"))
+    from ggml_tpu_torch.opt import AdamWConfig
+
+    pattern = np.random.default_rng(1).integers(0, 102400, 61)
+    toks = np.resize(pattern, batch * seq * (steps + 1) + 1).astype(np.int32)
+
+    def timed(fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        stamps = []
+        t0 = time.perf_counter()
+        losses, result = fn(lambda line: stamps.append(time.perf_counter()))
+        run = dict(to_first_step_s=stamps[0] - t0, ms_per_step=(stamps[1] - stamps[0]) * 1e3 / steps,
+                   counts={k: v for k, v in launch_counts().items() if v}, losses=losses,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        check(all(np.isfinite(losses)), f"losses {losses}")
+        return run, result
+
+    lora, trained = timed(lambda log: finetune_lora(path, toks, rank=rank, seq_len=seq, batch=batch, steps=steps + 1,
+                                                    adamw=AdamWConfig(alpha=lr), device="cuda", log=log))
+    lora["adapters"] = len(trained)
+    del trained
+    print(f"  finetune_lora rank {rank} ({lora['adapters']} adapters), {batch} x {seq}: {lora['to_first_step_s']:.1f} s "
+          f"to the end of step 0 (the load included), then {lora['ms_per_step']:.1f} ms/step, peak "
+          f"{lora['peak_memory_gb']:.2f} GB; losses {[round(v, 4) for v in lora['losses']]}")
+    path2, cfg2, info, _, _ = write_v2_lite_gguf(np, tmp, 2)
+    full, opt = timed(lambda log: finetune(path2, toks, seq_len=seq, batch=batch, steps=steps + 1, device="cuda",
+                                           log=log))
+    check(opt.params["blk.1.ffn_gate_exps.weight"].dtype == torch.float32, "the trained experts are f32 masters")
+    full.update(info, params=sum(v.numel() for v in opt.params.values()))
+    del opt
+    os.remove(path2)
+    print(f"  finetune (full weights, 2 of 27 layers, {full['params'] / 1e9:.3f} B f32 parameters), {batch} x {seq}: "
+          f"{full['to_first_step_s']:.1f} s to the end of step 0, then {full['ms_per_step']:.1f} ms/step, peak "
+          f"{full['peak_memory_gb']:.2f} GB; losses {[round(v, 4) for v in full['losses']]}")
+    counts = dict(lora["counts"])
+    for k, v in full["counts"].items():
+        counts[k] = counts.get(k, 0) + v
+    return dict(DS_LORA, card=card, lora=lora, full=full, counts=counts)
+
+
+def synth_v3_params(torch, cfg, seed: int = 0) -> dict:
+    """DeepSeek-V3's parameters at its widths on the card, cut to cfg's
+    layers: the 2-D linears as synthesized Q4_K planes (models/gptj.
+    synth_planar_weight: compact where K allows it), a Q6_K head, the token
+    embedding, attn_kv_b and the stacked experts normal(0, 0.02) bf16, the
+    router normal(0, 0.02) f32, the selection bias normal(0, 0.5) f32 (as
+    JAX's parity test draws it), norms of ones."""
+    from ggml_tpu_torch.dtypes import GGMLType
+    from ggml_tpu_torch.models.gptj import synth_planar_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    dgen = torch.Generator(device="cuda").manual_seed(seed)
+    normal = lambda shape, s=0.02, dt=torch.bfloat16: torch.randn(shape, generator=dgen, device="cuda", dtype=dt).mul_(s)
+    q4 = lambda n, k: synth_planar_weight(n, k, GGMLType.Q4_K, gen)
+    ones = lambda n: torch.ones((n,), dtype=torch.bfloat16, device="cuda")
+    d, H, r, e, f = cfg.n_embd, cfg.n_head, cfg.kv_lora_rank, cfg.n_expert, DS_V3_FF_EXP
+    p = {"token_embd.weight": normal((cfg.n_vocab, d)), "output_norm.weight": ones(d),
+         "output.weight": synth_planar_weight(cfg.n_vocab, d, GGMLType.Q6_K, gen)}
+    for i in range(cfg.n_layer):
+        pre = f"blk.{i}."
+        p.update({pre + "attn_norm.weight": ones(d), pre + "ffn_norm.weight": ones(d),
+                  pre + "attn_q_a.weight": q4(cfg.q_lora_rank, d), pre + "attn_q_a_norm.weight": ones(cfg.q_lora_rank),
+                  pre + "attn_q_b.weight": q4(H * cfg.qk_head_dim, cfg.q_lora_rank),
+                  pre + "attn_kv_a_mqa.weight": q4(r + cfg.qk_rope_dim, d), pre + "attn_kv_a_norm.weight": ones(r),
+                  pre + "attn_kv_b.weight": normal((H * (cfg.qk_nope_dim + cfg.v_head_dim), r)),
+                  pre + "attn_output.weight": q4(d, H * cfg.v_head_dim)})
+        if i < cfg.n_dense_lead:
+            p.update({pre + "ffn_gate.weight": q4(cfg.n_ff, d), pre + "ffn_up.weight": q4(cfg.n_ff, d),
+                      pre + "ffn_down.weight": q4(d, cfg.n_ff)})
+            continue
+        p.update({pre + "ffn_gate_inp.weight": normal((e, d), dt=torch.float32),
+                  pre + "exp_probs_b.bias": normal((e,), 0.5, torch.float32),
+                  pre + "ffn_gate_exps.weight": normal((e, f, d)), pre + "ffn_up_exps.weight": normal((e, f, d)),
+                  pre + "ffn_down_exps.weight": normal((e, d, f)),
+                  pre + "ffn_gate_shexp.weight": q4(cfg.n_shared * f, d),
+                  pre + "ffn_up_shexp.weight": q4(cfg.n_shared * f, d),
+                  pre + "ffn_down_shexp.weight": q4(d, cfg.n_shared * f)})
+    return p
+
+
+def phase_ds_v3(torch, np, card: str) -> dict:
+    """4t (c): DeepSeek-V3's widths (deepseek_v3_config) at its 3 dense
+    layers and its first MoE layer (synth_v3_params: 22.5 GB of bf16
+    experts): a 1024-token prefill with its exact launches and busy time by
+    class; the route of its 1024 rows on the card against the CPU's route
+    of the same f32 router logits: the same experts; graphed decode of 32
+    tokens with exact launches (A, H on the dense ffn_down over expanded
+    planes, E on the head over expanded planes), eagerly the same ids,
+    ms/token beside the every-expert and top-8 floors; grouped against
+    dense experts at one step."""
+    import gc
+
+    from ggml_tpu_torch.models import deepseek
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(deepseek.deepseek_v3_config(), n_layer=DS_V3_LAYERS)
+    t0 = time.perf_counter()
+    params = synth_v3_params(torch, cfg)
+    torch.cuda.synchronize()
+    out = dict(card=card, n_layer=cfg.n_layer, synth_s=time.perf_counter() - t0,
+               card_gb=torch.cuda.memory_allocated() / 1e9)
+    model = deepseek.Deepseek(params, cfg, max_seq=1088, device="cuda")
+    print(f"  DeepSeek-V3 ({cfg.n_layer} layers: 3 dense, 1 MoE; synthesized in {out['synth_s']:.1f}s, "
+          f"{out['card_gb']:.2f} GB)")
+    out.update(ds_prefill_and_decode(torch, np, model, "V3"))
+    routed = []
+    real = deepseek.deepseek_route
+
+    def tap(h, w, bias, c):
+        routed.append((h.float().reshape(-1, h.shape[-1]).clone(), w, bias))
+        return real(h, w, bias, c)
+
+    deepseek.deepseek_route = tap
+    try:
+        model.prefill(model.new_cache(torch.bfloat16), out.pop("long_prompt"))
+    finally:
+        deepseek.deepseek_route = real
+    h, w, bias = routed[0]
+    router = torch.matmul(h, w.float().t())
+    _, card_idx = deepseek.route_logits(router, bias, cfg)
+    _, cpu_idx = deepseek.route_logits(router.cpu(), bias.cpu(), cfg)
+    same = int((card_idx.cpu() == cpu_idx).all(dim=-1).sum())
+    check(same == h.shape[0], f"the route on the card and the CPU's: {same} of {h.shape[0]} rows agree")
+    per = cfg.n_expert // cfg.n_group
+    scores = torch.sigmoid(router.cpu()) + bias.cpu()
+    surv = scores.view(-1, cfg.n_group, per).topk(2, dim=-1).values.sum(-1).topk(cfg.topk_group, dim=-1).indices
+    masked_rows = int(sum(bool(((cpu_idx[i] // per)[:, None] != surv[i][None, :]).all(-1).any())
+                          for i in range(h.shape[0])))
+    out["route"] = dict(rows=h.shape[0], equal_rows=same, rows_with_a_masked_group_expert=masked_rows)
+    print(f"  the route of the 1024-token prefill's {h.shape[0]} rows on the card equals the CPU's route of the "
+          f"same router logits ({masked_rows} rows choose an expert of a masked group)")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_deepseek(torch, np, tmp: str, card: str, n_layer: int) -> list:
+    """4t: (a)-(c) above, V2-Lite at n_layer of its 27 layers; returns the
+    run records, each with its counts."""
+    import gc
+
+    stage("4t (a). bench_mla_decode's shape: 16 layers of V2-Lite's attention, bf16, graphed decode")
+    runs = [phase_ds_mla(torch, np, card)]
+    stage(f"4t (b). DeepSeek-V2-Lite ({n_layer} of 27 layers) from a deepseek2 Q4_K GGUF file")
+    path, cfg, info, tokens, merges = write_v2_lite_gguf(np, tmp, n_layer)
+    model, lite = phase_ds_lite(torch, np, path, cfg, tokens, merges, card)
+    lite.update(info)
+    runs.append(lite)
+    runs.append(phase_ds_serve(torch, np, model, card))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.append(phase_ds_train(torch, np, path, tmp, card))
+    os.remove(path)
+    stage("4t (c). DeepSeek-V3's widths: its 3 dense layers and 1 MoE layer, synthesized")
+    runs.append(phase_ds_v3(torch, np, card))
+    return runs
+
+
 def flash_times(torch, flash_attn) -> dict:
     """Kernel J's device time (µs) at GPT-J's 1024-token prefill, f32 q/k
     with a bf16 v and all bf16 (each call computes its mask ranges), then its
@@ -5105,7 +5670,7 @@ def gemv_times(torch, qmatmul) -> dict:
 
 # the whole run's depth of GPT-J-6B's synthesized planes (4a-4f, 4m-4o, 4r);
 # --gptj runs them at all 28 layers, --serve, --spec and --train theirs too
-GPTJ_LAYERS = 14
+GPTJ_LAYERS = 8
 
 
 def phase_gptj_synth(torch, np, card: str, n_layer: int) -> list:
@@ -5353,6 +5918,16 @@ def main() -> int:
                                                      "count": torch.cuda.device_count()}}))
             return 0
 
+        if sys.argv[1:] == ["--deepseek"]:
+            with tempfile.TemporaryDirectory(prefix="deepseek-gguf-") as tmp:
+                stage(f"4t. DeepSeek: bench_mla_decode's shape, DeepSeek-V2-Lite (all {DS_LITE_LAYERS_ALONE} "
+                      "layers), DeepSeek-V3's widths")
+                ds = phase_deepseek(torch, np, tmp, card, DS_LITE_LAYERS_ALONE)
+            print(json.dumps(dict(card=card, deepseek=ds), default=str))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
+
         if sys.argv[1:] == ["--long-decode-profile"]:
             stage("4. GPT-J-6B Q4_K (synthesized compact planes), decode after a 1088-token prompt, profiled")
             from ggml_tpu_torch.dtypes import GGMLType
@@ -5417,6 +5992,10 @@ def main() -> int:
             stage(f"4s. mixture of experts: bench_moe_decode's shape, Qwen3-30B-A3B ({MOE_QWEN_LAYERS} of 48 layers) "
                   "decode, prefill, the engine and LoRA, tiny MoE files")
             runs += phase_moe(torch, np, tmp, card, MOE_QWEN_LAYERS)
+        with tempfile.TemporaryDirectory(prefix="deepseek-gguf-") as tmp:
+            stage(f"4t. DeepSeek: bench_mla_decode's shape, DeepSeek-V2-Lite ({DS_LITE_LAYERS} of 27 layers), "
+                  "DeepSeek-V3's widths")
+            runs += phase_deepseek(torch, np, tmp, card, DS_LITE_LAYERS)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -5438,7 +6017,7 @@ def main() -> int:
             nmse=max(r["nmse"] for r in recs), shape=main_rec["shape"], ms=main_rec["ms"],
             plain_ms=main_rec["plain_ms"], bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
             library_ms=main_rec["library_ms"], shapes=recs))
-    print(json.dumps(dict(card=card, runs=runs, tiny_reference=tiny)))
+    print(json.dumps(dict(card=card, runs=runs, tiny_reference=tiny), default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -457,6 +457,67 @@ def decode_loop(model, cache, first_token, n_past: int, n_tokens: int, *, graph=
     return cache, state.out.cpu().numpy()
 
 
+class FamilyModel:
+    """The inference wrapper over a family forward: prefill and on-device
+    greedy or sampled decode (the llama family's and Deepseek's).  A
+    subclass gives _forward (its family forward, looked up when called)
+    and new_cache."""
+
+    def __init__(self, params: dict, cfg, max_seq: int = 2048, batch: int = 1, device="cuda"):
+        self.params = params
+        self.cfg = cfg
+        self.max_seq = max_seq
+        self.batch = batch
+        self.device = torch.device(device)
+        self.decode_graphs: dict = {}  # cache dtype -> DecodeGraph, made at the first graphed decode
+
+    def _forward(self, *args, **kw):
+        raise NotImplementedError
+
+    def new_cache(self, dtype=torch.bfloat16):
+        raise NotImplementedError
+
+    def _check_room(self, n_past: int, n_new: int):
+        if n_past + n_new > self.max_seq:
+            raise ValueError(f"{n_past} + {n_new} tokens exceed the cache of {self.max_seq}")
+
+    def prefill(self, cache, tokens: np.ndarray):
+        """Run the prompt (b, t) from an empty cache; returns (last-position
+        logits (b, n_vocab), cache, t)."""
+        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.long).to(self.device)
+        t = tokens.shape[1]
+        self._check_room(0, t)
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        logits, cache = self._forward(self.params, self.cfg, tokens, zero.expand(tokens.shape[0]), cache, zero,
+                                      prefill=True)
+        return logits[:, -1, :], cache, t
+
+    def decode_logits(self, cache, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """Logits (b, n_vocab) of tokens (b, 1) at position pos, a 0-d int32
+        tensor on the model's device; their cache rows are written in place."""
+        return self._forward(self.params, self.cfg, tokens, pos.expand(tokens.shape[0]), cache, pos)[0][:, -1, :]
+
+    def decode_step(self, cache, token, n_past: int):
+        """token (b, 1) at position n_past: returns (logits (b, n_vocab), cache)."""
+        self._check_room(n_past, 1)
+        token = torch.as_tensor(token).to(self.device, torch.long).reshape(-1, 1)
+        return self.decode_logits(cache, token, torch.full((), n_past, dtype=torch.int32, device=self.device)), cache
+
+    def decode_greedy(self, cache, first_token, n_past: int, n_tokens: int, graph=None):
+        """Generate n_tokens greedily from first_token at position n_past, as
+        one CUDA graph replay a token on the card (graph=False: eagerly; see
+        decode_loop).  Returns (cache, ids (n_tokens, b) numpy)."""
+        return decode_loop(self, cache, first_token, n_past, n_tokens, graph=graph)
+
+    def decode_sampled(self, cache, first_token, n_past: int, n_tokens: int, key, **sampler_kw):
+        """On-device top-k/top-p sampled decode, key a torch.Generator on the
+        model's device (see make_sampled_decode)."""
+        return make_sampled_decode(self)(cache, first_token, n_past, n_tokens, key, **sampler_kw)
+
+    def generate(self, prompt_tokens: np.ndarray, n_tokens: int, sampler=None, key=None):
+        return generate(self, prompt_tokens, n_tokens, sampler=sampler, key=key)
+
+
 def make_sampled_decode(model):
     """The on-device sampled decode loop (top-k/top-p/temperature inside the
     loop, the draws from a torch.Generator on the model's device: the JAX

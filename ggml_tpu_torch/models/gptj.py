@@ -344,6 +344,50 @@ _SYNTH_TYPES = {GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q2_K, GGMLType.Q3_K, GGML
                 GGMLType.Q5_1, GGMLType.Q8_0, GGMLType.Q5_K, GGMLType.Q6_K}
 
 
+def synth_planar_weight(n: int, k: int, ggml_type: GGMLType, gen, device="cuda",
+                        use_q4: bool | None = None):
+    """One (n, k) weight of synth_quantized_params's planes: random codes
+    drawn from the torch.Generator gen on `device`, constant scales (every
+    weight's effective scale 0.0025, offset -0.02 where the type is affine),
+    N padded to 128 (to 2048 above 8192 rows)."""
+    from ..quant.planar import _Q4_PLANE_TYPES, PlanarWeight, _compact_applicable
+
+    ggml_type = GGMLType(ggml_type)
+    if ggml_type not in _SYNTH_TYPES:
+        raise NotImplementedError(f"synthetic {ggml_type.name} planes are not ported (the IQ* and TQ* types load "
+                                  "from GGUF files: write_random_gguf(types=))")
+    if use_q4 is None:
+        use_q4 = ggml_type in _Q4_PLANE_TYPES
+    elif use_q4 and ggml_type not in _Q4_PLANE_TYPES:
+        raise ValueError(f"{ggml_type.name} codes do not fit a 4-bit plane")
+    G = 16 if ggml_type in (GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q6_K) else 32
+    SB = 8
+    affine = ggml_type in _Q4_PLANE_TYPES or ggml_type == GGMLType.Q5_K
+    s_val = np.float32(0.02 / 8)
+    sdt = torch.bfloat16  # scales, offsets, d and dmin in bf16, as the JAX synthesis stores them
+    pad_to = 2048 if n > 8192 else 128
+    npad = -(-n // pad_to) * pad_to
+    full = lambda shape, v, dt: torch.full(shape, v, dtype=dt, device=device)
+    offsets = full((k // G, npad), float(-8.0 * s_val), sdt) if affine else None
+    if not use_q4:
+        return PlanarWeight(
+            kind="q8", group=G, n=n, k=k, orig_type=ggml_type,
+            codes=torch.randint(-128, 128, (k, npad), dtype=torch.int8, device=device, generator=gen),
+            scales=full((k // G, npad), float(s_val), sdt), offsets=offsets)
+    if not _compact_applicable(ggml_type, k):
+        return PlanarWeight(
+            kind="q4", group=G, n=n, k=k, orig_type=ggml_type, sb=SB,
+            codes=torch.randint(0, 256, (k // 2, npad), dtype=torch.uint8, device=device, generator=gen),
+            scales=full((2, (k // 2) // G, npad), float(s_val), sdt), offsets=offsets)
+    sup = (2, (k // 2) // (G * SB), npad)
+    return PlanarWeight(
+        kind="q4", group=G, n=n, k=k, orig_type=ggml_type, sb=SB,
+        codes=torch.randint(0, 256, (k // 2, npad), dtype=torch.uint8, device=device, generator=gen),
+        scales=full((2, (k // 2) // G, npad), 32, torch.int8),
+        offsets=full((k // G, npad), 32, torch.int8),
+        supers=(full(sup, float(s_val / 32), sdt), full(sup, float(8.0 * s_val / 32), sdt)))
+
+
 def synth_quantized_params(cfg: GPTJConfig, ggml_type: GGMLType = GGMLType.Q4_K, seed: int = 0,
                            dtype=torch.bfloat16, device="cuda", use_q4: bool | None = None) -> dict:
     """A full parameter set with weights ALREADY in planes (random codes,
@@ -362,46 +406,9 @@ def synth_quantized_params(cfg: GPTJConfig, ggml_type: GGMLType = GGMLType.Q4_K,
 
     Each layer holds one (7E x E) qkv+ffn_up weight, the JAX default layout:
     with the parallel residual, qkv and ffn_up read the same h."""
-    from ..quant.planar import _Q4_PLANE_TYPES, PlanarWeight, _compact_applicable
-
-    ggml_type = GGMLType(ggml_type)
-    if ggml_type not in _SYNTH_TYPES:
-        raise NotImplementedError(f"synthetic {ggml_type.name} planes are not ported (the IQ* and TQ* types load "
-                                  "from GGUF files: write_random_gguf(types=))")
-    if use_q4 is None:
-        use_q4 = ggml_type in _Q4_PLANE_TYPES
-    elif use_q4 and ggml_type not in _Q4_PLANE_TYPES:
-        raise ValueError(f"{ggml_type.name} codes do not fit a 4-bit plane")
-    G = 16 if ggml_type in (GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q6_K) else 32
-    SB = 8
-    affine = ggml_type in _Q4_PLANE_TYPES or ggml_type == GGMLType.Q5_K
-    s_val = np.float32(0.02 / 8)
-    sdt = torch.bfloat16  # scales, offsets, d and dmin in bf16, as the JAX synthesis stores them
     gen = torch.Generator(device=device)
     gen.manual_seed(seed + 7)
-
-    def qweight(n, k):
-        pad_to = 2048 if n > 8192 else 128
-        npad = -(-n // pad_to) * pad_to
-        full = lambda shape, v, dt: torch.full(shape, v, dtype=dt, device=device)
-        offsets = full((k // G, npad), float(-8.0 * s_val), sdt) if affine else None
-        if not use_q4:
-            return PlanarWeight(
-                kind="q8", group=G, n=n, k=k, orig_type=ggml_type,
-                codes=torch.randint(-128, 128, (k, npad), dtype=torch.int8, device=device, generator=gen),
-                scales=full((k // G, npad), float(s_val), sdt), offsets=offsets)
-        if not _compact_applicable(ggml_type, k):
-            return PlanarWeight(
-                kind="q4", group=G, n=n, k=k, orig_type=ggml_type, sb=SB,
-                codes=torch.randint(0, 256, (k // 2, npad), dtype=torch.uint8, device=device, generator=gen),
-                scales=full((2, (k // 2) // G, npad), float(s_val), sdt), offsets=offsets)
-        sup = (2, (k // 2) // (G * SB), npad)
-        return PlanarWeight(
-            kind="q4", group=G, n=n, k=k, orig_type=ggml_type, sb=SB,
-            codes=torch.randint(0, 256, (k // 2, npad), dtype=torch.uint8, device=device, generator=gen),
-            scales=full((2, (k // 2) // G, npad), 32, torch.int8),
-            offsets=full((k // G, npad), 32, torch.int8),
-            supers=(full(sup, float(s_val / 32), sdt), full(sup, float(8.0 * s_val / 32), sdt)))
+    qweight = lambda n, k: synth_planar_weight(n, k, ggml_type, gen, device, use_q4)
 
     E = cfg.n_embd
     dgen = torch.Generator(device=device)
@@ -433,7 +440,7 @@ def synth_quantized_params(cfg: GPTJConfig, ggml_type: GGMLType = GGMLType.Q4_K,
 # write_random_gguf writes: weights of about a trained model's std, 0.02,
 # measured over random blocks of each type.
 _RANDOM_GGUF_SCALE = {
-    GGMLType.Q4_K: 8e-5, GGMLType.Q6_K: 1.4e-5, GGMLType.IQ4_NL: 2.9e-4, GGMLType.IQ4_XS: 1.5e-5, GGMLType.IQ3_S: 1.3e-4,
+    GGMLType.Q4_K: 8e-5, GGMLType.Q6_K: 1.4e-5, GGMLType.Q5_0: 2.1e-3, GGMLType.Q8_0: 2.6e-4, GGMLType.IQ4_NL: 2.9e-4, GGMLType.IQ4_XS: 1.5e-5, GGMLType.IQ3_S: 1.3e-4,
     GGMLType.IQ3_XXS: 1.3e-4, GGMLType.IQ2_S: 3.4e-4, GGMLType.IQ2_XS: 3.4e-4, GGMLType.IQ2_XXS: 3.6e-4,
     GGMLType.IQ1_M: 2.7e-3, GGMLType.IQ1_S: 2.7e-3, GGMLType.TQ2_0: 2.7e-2, GGMLType.TQ1_0: 2.3e-2,
 }
@@ -455,7 +462,7 @@ def _random_weight_blocks(t: GGMLType, n: int, k: int, rng) -> np.ndarray:
     from ..quant.reference import random_blocks
 
     if t not in _RANDOM_GGUF_SCALE:
-        raise ValueError(f"write_random_gguf writes Q4_K, Q6_K and the IQ* and TQ* types, not {t.name}")
+        raise ValueError(f"write_random_gguf writes Q4_K, Q6_K, Q5_0, Q8_0 and the IQ* and TQ* types, not {t.name}")
     b = random_blocks(t, n * k // get_type_traits(t).block_size, rng, scale=_RANDOM_GGUF_SCALE[t])
     if t == GGMLType.Q4_K:
         d = b[:, 0:2].copy().view("<f2").astype(np.float32)

@@ -45,8 +45,8 @@ import torch.nn.functional as F
 
 from ..dtypes import GGMLType
 from ..gguf import GGUFFile
-from .common import (cache_rows, cache_write, causal_mask, decode_loop, dequant_cache, init_layer_cache,
-                     linear as _linear, make_sampled_decode, run_layers)
+from .common import (FamilyModel, cache_rows, cache_write, causal_mask, dequant_cache, init_layer_cache,
+                     linear as _linear, run_layers)
 from .gptj import _random_weight_blocks, _rope_interleaved, rope_angles
 
 
@@ -194,21 +194,27 @@ def init_cache(cfg: LlamaConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
     return init_layer_cache(cfg.n_layer, batch, cfg.n_head_kv, max_seq, cfg.head_dim, dtype, device)
 
 
+def top_k(x: torch.Tensor, k: int):
+    """jax.lax.top_k over the last axis of an f32 tensor: (values, indices),
+    each (..., k), by the floats' total order (-0.0 below 0.0), the lower
+    index first among equal values (torch.topk promises no order, and bf16
+    router logits over 128 experts tie often): a stable descending sort of
+    the int32 keys that order the f32 bit patterns as that total order
+    does."""
+    bits = x.contiguous().view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # a negative float's magnitude bits flipped
+    idx = torch.sort(key, dim=-1, descending=True, stable=True)[1][..., :k]
+    return x.gather(-1, idx), idx
+
+
 def moe_topk(router_logits: torch.Tensor, n_expert_used: int, renorm: bool = True):
     """Top-k routing weights over f32 router logits (llama.py:230-240):
     renorm (Mixtral, qwen3moe, granitemoe) a softmax over the k values,
     otherwise (qwen2moe) exp(top - logsumexp(all)), the full softmax's
     probabilities of the k experts, which do not sum to 1.  Returns (probs,
-    idx), each (..., k).  The experts come in jax.lax.top_k's order: by
-    the floats' total order (-0.0 below 0.0), the lower expert first among
-    equal logits (torch.topk promises no order, and bf16 router logits over
-    128 experts tie often): a stable descending sort of the int32 keys that
-    order the f32 bit patterns as that total order does."""
+    idx), each (..., k), the experts in jax.lax.top_k's order (top_k)."""
     logits = router_logits.float()
-    bits = logits.view(torch.int32)
-    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # a negative float's magnitude bits flipped
-    idx = torch.sort(key, dim=-1, descending=True, stable=True)[1][..., :n_expert_used]
-    vals = logits.gather(-1, idx)
+    vals, idx = top_k(logits, n_expert_used)
     if renorm:
         return torch.softmax(vals, dim=-1), idx
     return torch.exp(vals - torch.logsumexp(logits, dim=-1, keepdim=True)), idx
@@ -437,16 +443,12 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, pos_start: tor
     return logits, cache
 
 
-class Llama:
-    """Inference wrapper: prefill + on-device greedy or sampled decode."""
+class Llama(FamilyModel):
+    """Inference wrapper: prefill + on-device greedy or sampled decode
+    (common.FamilyModel over llama.forward)."""
 
-    def __init__(self, params: dict, cfg: LlamaConfig, max_seq: int = 2048, batch: int = 1, device="cuda"):
-        self.params = params
-        self.cfg = cfg
-        self.max_seq = max_seq
-        self.batch = batch
-        self.device = torch.device(device)
-        self.decode_graphs: dict = {}  # cache dtype -> common.DecodeGraph, made at the first graphed decode
+    def _forward(self, *args, **kw):
+        return forward(*args, **kw)
 
     @classmethod
     def from_gguf(cls, path, dtype=torch.bfloat16, keep_quantized: bool = True, llamacpp_permuted: bool = False,
@@ -473,48 +475,6 @@ class Llama:
 
     def new_cache(self, dtype=torch.bfloat16):
         return init_cache(self.cfg, self.batch, self.max_seq, dtype, self.device)
-
-    def _check_room(self, n_past: int, n_new: int):
-        if n_past + n_new > self.max_seq:
-            raise ValueError(f"{n_past} + {n_new} tokens exceed the cache of {self.max_seq}")
-
-    def prefill(self, cache, tokens: np.ndarray):
-        """Run the prompt (b, t) from an empty cache; returns (last-position
-        logits (b, n_vocab), cache, t)."""
-        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.long).to(self.device)
-        t = tokens.shape[1]
-        self._check_room(0, t)
-        zero = torch.zeros((), dtype=torch.int32, device=self.device)
-        logits, cache = forward(self.params, self.cfg, tokens, zero.expand(tokens.shape[0]), cache, zero,
-                                prefill=True)
-        return logits[:, -1, :], cache, t
-
-    def decode_logits(self, cache, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-        """Logits (b, n_vocab) of tokens (b, 1) at position pos, a 0-d int32
-        tensor on the model's device; their cache rows are written in place."""
-        return forward(self.params, self.cfg, tokens, pos.expand(tokens.shape[0]), cache, pos)[0][:, -1, :]
-
-    def decode_step(self, cache, token, n_past: int):
-        """token (b, 1) at position n_past: returns (logits (b, n_vocab), cache)."""
-        self._check_room(n_past, 1)
-        token = torch.as_tensor(token).to(self.device, torch.long).reshape(-1, 1)
-        return self.decode_logits(cache, token, torch.full((), n_past, dtype=torch.int32, device=self.device)), cache
-
-    def decode_greedy(self, cache, first_token, n_past: int, n_tokens: int, graph=None):
-        """Generate n_tokens greedily from first_token at position n_past, as
-        one CUDA graph replay a token on the card (graph=False: eagerly; see
-        common.decode_loop).  Returns (cache, ids (n_tokens, b) numpy)."""
-        return decode_loop(self, cache, first_token, n_past, n_tokens, graph=graph)
-
-    def decode_sampled(self, cache, first_token, n_past: int, n_tokens: int, key, **sampler_kw):
-        """On-device top-k/top-p sampled decode, key a torch.Generator on the
-        model's device (see common.make_sampled_decode)."""
-        return make_sampled_decode(self)(cache, first_token, n_past, n_tokens, key, **sampler_kw)
-
-    def generate(self, prompt_tokens: np.ndarray, n_tokens: int, sampler=None, key=None):
-        from .common import generate
-
-        return generate(self, prompt_tokens, n_tokens, sampler=sampler, key=key)
 
 
 def llama3_8b_config() -> LlamaConfig:

@@ -28,11 +28,13 @@ ARCHS: dict[str, tuple[str, str]] = {
     "ernie4_5": ("llama", "Llama"),
     "helium": ("llama", "Llama"),
     "seed_oss": ("llama", "Llama"),
+    # DeepSeek V2/V3: multi-head latent attention, group-limited routing
+    "deepseek2": ("deepseek", "Deepseek"),
 }
 
 # the rest of the JAX registry's table (ggml_tpu/models/registry.py:15-73)
 _NOT_PORTED = (
-    "deepseek2", "gemma", "gemma2", "gemma3", "phi2", "phi3", "phimoe", "gptneox",
+    "gemma", "gemma2", "gemma3", "phi2", "phi3", "phimoe", "gptneox",
     "falcon", "gpt-oss", "bloom", "mpt", "starcoder", "starcoder2", "command-r", "olmo", "olmo2", "olmo3",
     "persimmon", "olmoe", "nemotron", "stablelm", "glm", "glm4", "glm4moe", "dots1", "dbrx", "qwen3next",
     "bamba", "jamba", "mamba", "falcon_mamba", "mamba2", "rwkv", "xlstm", "recurrentgemma", "lfm2", "llama4",

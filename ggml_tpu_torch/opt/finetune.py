@@ -5,9 +5,10 @@ example).
 make_lm_model_fn builds the model function the Optimizer trains: the family
 forward from an empty cache, optionally in bf16 over f32 master weights and
 (GPT-2) through the flash-attention training kernels.  Ported families: gpt2,
-gptj and the llama family (llama, qwen2, qwen3, and with experts Mixtral
+gptj, the llama family (llama, qwen2, qwen3, and with experts Mixtral
 under llama, qwen2moe and qwen3moe: the experts' gradients flow through
-the grouped path, models/llama.moe_expert_sum_grouped).  remat_policy runs
+the grouped path, models/llama.moe_expert_sum_grouped) and deepseek2 (its
+cache the MLA latent: make_lm_model_fn asks the family for it).  remat_policy runs
 each layer under torch.utils.checkpoint, the counterpart of jax.checkpoint
 (see _remat).  Checkpoints go through checkpoint.py (atomic publish,
 bit-exact resume).
@@ -25,9 +26,8 @@ from .optimizer import AdamWConfig, Optimizer
 
 # the families the JAX package finetunes, with the ROADMAP.md item that ports them
 _NOT_PORTED = {
-    "deepseek2": "section 1 item 6, the other families", "gemma2": "section 1 item 6, the other families",
-    "phi2": "section 1 item 6, the other families", "gptneox": "section 1 item 6, the other families",
-    "falcon": "section 1 item 6, the other families",
+    "gemma2": "section 1 item 6, the other families", "phi2": "section 1 item 6, the other families",
+    "gptneox": "section 1 item 6, the other families", "falcon": "section 1 item 6, the other families",
 }
 
 
@@ -42,6 +42,10 @@ def _family(arch: str):
         return fam
     if arch in ("llama", "qwen2", "qwen3", "qwen2moe", "qwen3moe"):
         from ..models import llama as fam
+
+        return fam
+    if arch == "deepseek2":
+        from ..models import deepseek as fam
 
         return fam
     if arch in _NOT_PORTED:

@@ -25,8 +25,12 @@ capture per h.  make_paged_verify_step is the multi-token step of
 speculative decoding: T = draft_k + 1 rows a slot written into their pages.
 The linears go through the port's planar_matmul kernels.
 
-Not ported yet (ROADMAP.md): the paged steps of gemma2, phi3 and deepseek
-(those families are not ported).
+DeepSeek's MLA pools hold the compressed latent and the shared rope key of
+a token (an asymmetric pair, (n_pages + 1, 1, page_size, kv_lora_rank) and
+(..., qk_rope_dim)); its step attends over them in the absorbed form.
+
+Not ported yet (ROADMAP.md): the paged steps of gemma2 and phi3 (those
+families are not ported).
 """
 
 from __future__ import annotations
@@ -52,17 +56,19 @@ class PagedKVManager:
 
     Pools: per layer (k_pool, v_pool) of (n_pages + 1, H_kv, page_size, D);
     the last page is the TRASH page that absorbs the writes of inactive slots.
+    head_dim: an int for symmetric (k, v) pools, or a (dk, dv) pair (the MLA
+    pools: dk = kv_lora_rank, dv = qk_rope_dim, one head).
     Tables: (max_batch, max_pages_per_seq) int32 page ids on the host;
     unallocated entries hold 0 and are masked by the per-slot lengths."""
 
-    def __init__(self, n_layer: int, n_kv_heads: int, head_dim: int, max_batch: int, pcfg: PagedConfig,
+    def __init__(self, n_layer: int, n_kv_heads: int, head_dim, max_batch: int, pcfg: PagedConfig,
                  dtype=torch.bfloat16, device="cuda"):
         self.pcfg = pcfg
         self.device = torch.device(device)
-        mk = lambda: torch.zeros((pcfg.n_pages + 1, n_kv_heads, pcfg.page_size, head_dim), dtype=dtype,
-                                 device=device)
+        dk, dv = head_dim if isinstance(head_dim, (tuple, list)) else (head_dim, head_dim)
+        mk = lambda d: torch.zeros((pcfg.n_pages + 1, n_kv_heads, pcfg.page_size, d), dtype=dtype, device=device)
         self.trash_page = pcfg.n_pages
-        self.pools = [(mk(), mk()) for _ in range(n_layer)]
+        self.pools = [(mk(dk), mk(dv)) for _ in range(n_layer)]
         self.tables = np.zeros((max_batch, pcfg.max_pages_per_seq), np.int32)
         self.lengths = np.zeros((max_batch,), np.int32)
         self._free = list(range(pcfg.n_pages - 1, -1, -1))  # pop() -> page 0 first
@@ -252,7 +258,7 @@ def paged_gather(pool_kv: torch.Tensor, table) -> torch.Tensor:
 
 def _families_to_come(model):
     name = type(model).__name__
-    if name in ("Gemma2", "Phi3", "Deepseek"):
+    if name in ("Gemma2", "Phi3"):
         raise NotImplementedError(f"the paged decode step of {name} is not ported yet (ROADMAP.md, section 1: "
                                   "it comes with its family)")
 
@@ -262,13 +268,16 @@ def make_paged_decode_step(model, pcfg: PagedConfig, forward_fn=None):
     lengths (B,), tables (B,P), wpage (B,), woff (B,), active (B,)), every
     index a long tensor on the model's device -> (logits (B, vocab), pools),
     the pools written in place.  Slots at distinct positions (continuous
-    batching).  GPT-J and the llama family have their own steps; GPT-2 (and
-    any family with forward_fn) runs the generic adapter over its forward."""
-    from .models import gptj, llama
+    batching).  GPT-J, the llama family and Deepseek have their own steps;
+    GPT-2 (and any family with forward_fn) runs the generic adapter over its
+    forward."""
+    from .models import deepseek, gptj, llama
 
     _families_to_come(model)
     if isinstance(model, gptj.GPTJ):
         return _make_paged_step_gptj(model, pcfg)
+    if isinstance(model, deepseek.Deepseek):
+        return _make_paged_step_deepseek(model, pcfg)
     if isinstance(model, llama.Llama):
         gen = _make_paged_llama_general(model, pcfg)
 
@@ -472,6 +481,48 @@ def _make_paged_step_gptj(model, pcfg: PagedConfig):
             x = x + attn_out + ff
         x = _layer_norm(x, params["output_norm.weight"], params["output_norm.bias"], cfg.eps)
         logits = _linear(x, params["output.weight"], params.get("output.bias"))[:, 0]
+        return torch.where(active[:, None], logits, 0.0), pools
+
+    return step
+
+
+def _make_paged_step_deepseek(model, pcfg: PagedConfig):
+    """DeepSeek's absorbed-MLA paged step (paged_kv.py:802-891): the pools
+    hold each token's latent and rope key, written at (wpage, woff), and
+    every slot attends over its gathered window as the dense forward
+    attends over its cache (paged equals dense).  The head is the file's
+    output, or the embedding's dense copy, as JAX's step takes it."""
+    from .models.deepseek import attention_inputs, ffn_block, final_logits, mla_attention
+    from .models.gptj import rope_angles
+    from .models.common import linear as _linear
+    from .models.llama import _rms_norm
+
+    cfg = model.cfg
+    window = pcfg.max_pages_per_seq * pcfg.page_size
+
+    def step(params, pools, tokens, lengths, tables, wpage, woff, active):
+        b, t = tokens.shape
+        assert t == 1
+        positions = lengths[:, None].to(torch.long)
+        embd = params.get("token_embd.weight@dense", params["token_embd.weight"])
+        x = embd[tokens]
+        dt = x.dtype
+        cos, sin = rope_angles(positions, cfg.qk_rope_dim, cfg.rope_base)
+        visible = torch.arange(window, device=tokens.device)[None, None, None, :] <= positions[:, :, None, None]
+        for i in range(cfg.n_layer):
+            pre = f"blk.{i}."
+            h = _rms_norm(x, params[pre + "attn_norm.weight"], cfg.rms_eps)
+            q_pass, q_rot, c_t, krot = attention_inputs(params, pre, h, cos, sin, cfg)
+            cp, kp = pools[i]
+            paged_write(cp, c_t, wpage, woff)  # (B, 1, rank): one head
+            paged_write(kp, krot, wpage, woff)
+            with torch.profiler.record_function("deepseek.attention"):
+                o = mla_attention(q_pass, q_rot, paged_gather(cp, tables)[:, 0], paged_gather(kp, tables)[:, 0],
+                                  params[pre + "attn_kv_b.weight"], visible, cfg, dt)
+            x = x + _linear(o, params[pre + "attn_output.weight"])
+            x = x + ffn_block(params, pre, i, _rms_norm(x, params[pre + "ffn_norm.weight"], cfg.rms_eps), cfg)
+        w_out = params.get("output.weight", params.get("token_embd.weight@dense", params["token_embd.weight"]))
+        logits = final_logits(params, x, cfg, w_out)[:, 0]
         return torch.where(active[:, None], logits, 0.0), pools
 
     return step

@@ -98,12 +98,25 @@ class Request:
         return np.concatenate([self.prompt, np.asarray(self.out, np.int32)])
 
 
+def _cache_maker(model, dtype, max_seq: int) -> Callable:
+    """make(b, rows=max_seq) -> a dense cache of b slots for the model's
+    family on its device: the latent pair of Deepseek's MLA
+    (deepseek.init_cache), every other family's (k, v) heads."""
+    from .models import deepseek
+
+    cfg, dev = model.cfg, model.device
+    if isinstance(model, deepseek.Deepseek):
+        return lambda b, rows=max_seq: deepseek.init_cache(cfg, b, rows, dtype, dev)
+    n_kv = getattr(cfg, "n_head_kv", cfg.n_head)
+    return lambda b, rows=max_seq: init_layer_cache(cfg.n_layer, b, n_kv, rows, cfg.head_dim, dtype, dev)
+
+
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, section 1: tensor-parallel serving)")
 
 
 class Engine:
-    """model: a Llama, GPTJ or GPT2 wrapper (params, cfg, device) whose family
+    """model: a Llama, Deepseek, GPTJ or GPT2 wrapper (params, cfg, device) whose family
     forward(params, cfg, tokens, pos_start, cache, cache_len) takes per-row
     cache_len vectors.  max_batch slots share one cache of max_seq rows.
 
@@ -125,7 +138,8 @@ class Engine:
     every tick drafts draft_k tokens a slot and verifies them in one (B,
     draft_k + 1) target forward; greedy engines emit the plain engine's ids
     wherever the verify's and a step's logits agree on the argmax, sampled
-    ones run rejection sampling.  Each is checked against
+    ones run rejection sampling (a paged engine over a Deepseek target takes
+    no draft, as JAX's does not).  Each is checked against
     serving_matrix.features_for.  forward_fn and cache_put raise
     NotImplementedError."""
 
@@ -134,11 +148,14 @@ class Engine:
                  paged=None, draft=None, draft_k: int = 4,
                  forward_fn=None, cache_put=None, prefill_chunk: int | None = None,
                  horizon: int | None = None, record_events: bool = False):
-        from .models import gpt2, gptj, llama
+        from .models import deepseek, gpt2, gptj, llama
         from .serving_matrix import features_for
 
         if isinstance(model, llama.Llama):
             self._fwd = llama.forward
+        elif isinstance(model, deepseek.Deepseek):
+            # MLA: each slot caches the compressed latent and the rope key
+            self._fwd = deepseek.forward
         elif isinstance(model, gptj.GPTJ):
             self._fwd = gptj.forward
         elif isinstance(model, gpt2.GPT2):
@@ -164,9 +181,7 @@ class Engine:
         self.max_batch = B = max_batch
         self.max_seq = max_seq
         self.eos_id = eos_id
-        n_kv = getattr(cfg, "n_head_kv", cfg.n_head)
-        self._make_cache = lambda b, rows=max_seq: init_layer_cache(cfg.n_layer, b, n_kv, rows, cfg.head_dim,
-                                                                     cache_dtype, dev)
+        self._make_cache = _cache_maker(model, cache_dtype, max_seq)
         self.tick_horizon = (horizon if horizon is not None
                              else int(os.environ.get("GGML_TPU_TICK_HORIZON", "16")))
         self._hb = 1  # largest power of two <= horizon: one graph per sampling mode
@@ -181,7 +196,12 @@ class Engine:
                 raise ValueError("the q8 KV cache is dense-engine only (the page pools keep their own dtype)")
             if paged.page_size * paged.max_pages_per_seq < max_seq:
                 raise ValueError("paged logical window smaller than max_seq")
-            self.mgr = PagedKVManager(cfg.n_layer, n_kv, cfg.head_dim, B, paged, cache_dtype, dev)
+            if isinstance(model, deepseek.Deepseek):  # the MLA pools: the latent and the rope key, one head
+                self.mgr = PagedKVManager(cfg.n_layer, 1, (cfg.kv_lora_rank, cfg.qk_rope_dim), B, paged, cache_dtype,
+                                          dev)
+            else:
+                self.mgr = PagedKVManager(cfg.n_layer, getattr(cfg, "n_head_kv", cfg.n_head), cfg.head_dim, B, paged,
+                                          cache_dtype, dev)
             self._paged_step = make_paged_decode_step(model, paged, forward_fn=self._fwd)
             self._paged_scan = make_paged_decode_scan(self._paged_step, B, paged.max_pages_per_seq, self._hb, dev)
             self.cache = None
@@ -473,11 +493,13 @@ class Engine:
             raise ValueError(f"the draft is on {draft.device}, the model on {self.device}")
         if k < 1:
             raise ValueError(f"draft_k = {k}: at least one draft token a tick")
+        from .models import deepseek
+
+        if self.paged is not None and isinstance(self.model, deepseek.Deepseek):
+            raise ValueError("speculative + paged KV does not compose for MLA targets (asymmetric latent pools "
+                             "need their own verify step), as in the JAX engine")
         self._draft_fwd = _forward_for(draft)
-        dcfg = draft.cfg
-        d_kv = getattr(dcfg, "n_head_kv", dcfg.n_head)
-        self._make_draft_cache = lambda b, rows=self.max_seq: init_layer_cache(
-            dcfg.n_layer, b, d_kv, rows, dcfg.head_dim, cache_dtype, self.device)
+        self._make_draft_cache = _cache_maker(draft, cache_dtype, self.max_seq)
         self.draft_cache = self._make_draft_cache(self.max_batch)  # never rebound, as the cache
         self._spec_margin = self.max_seq - k - 2
         if self.paged is not None:

@@ -1,11 +1,12 @@
 """Serving feature x model family: which Engine features drive which of the
 port's families (port of ggml_tpu/serving_matrix.py, its predicates for the
-three families the port has: Llama, GPT-J and GPT-2).
+four families the port has: Llama, GPT-J, GPT-2 and Deepseek).
 
-Under the JAX predicates none of the three is stateful (recurrent or
+Under the JAX predicates none of the four is stateful (recurrent or
 hybrid), so each takes chunked prefill, paged KV, the prefix cache,
 speculative decoding and forks; the q8 KV cache needs a dequant-on-read in
-the family forward, which Llama and GPT-J have and GPT-2 has not.  The
+the family forward, which Llama, GPT-J and Deepseek (its MLA latent, JAX's
+"mla" row) have and GPT-2 has not.  The
 Engine checks its flags (paged, draft, the q8 cache, prefill_chunk) against
 this table, as JAX's does (serve.py:247-258).
 """
@@ -26,6 +27,6 @@ FEATURES = (
 def features_for(model) -> dict[str, bool]:
     """The features a constructed model wrapper supports (the predicates the
     Engine constructor enforces).  No family of the port is stateful."""
-    from .models import gptj, llama
+    from .models import deepseek, gptj, llama
 
-    return {f: True for f in FEATURES} | {"q8_kv": isinstance(model, (llama.Llama, gptj.GPTJ))}
+    return {f: True for f in FEATURES} | {"q8_kv": isinstance(model, (llama.Llama, gptj.GPTJ, deepseek.Deepseek))}

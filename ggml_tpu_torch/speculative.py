@@ -40,10 +40,12 @@ SPEC_GROUP = 4  # graph replays (rounds) between two host reads of the count
 
 
 def _forward_for(model):
-    from .models import gpt2, gptj, llama
+    from .models import deepseek, gpt2, gptj, llama
 
     if isinstance(model, llama.Llama):
         return llama.forward
+    if isinstance(model, deepseek.Deepseek):
+        return deepseek.forward
     if isinstance(model, gptj.GPTJ):
         return gptj.forward
     if isinstance(model, gpt2.GPT2):

@@ -160,7 +160,7 @@ def test_registry_loads_the_ported_families(gpt2_path, gptj_path):
 
 def test_registry_refuses_what_it_has_not(gpt2_path):
     assert set(registry.ARCHS) == {"gpt2", "gptj", "llama", "qwen2", "qwen3", "qwen2moe", "qwen3moe", "granite",
-                                   "granitemoe", "smollm3", "ernie4_5", "helium", "seed_oss"}
+                                   "granitemoe", "smollm3", "ernie4_5", "helium", "seed_oss", "deepseek2"}
     assert set(registry.ARCHS) | set(registry._NOT_PORTED) == set(JAX_ARCHS)
     for arch in sorted(set(JAX_ARCHS) - set(registry.ARCHS)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -408,7 +408,7 @@ def test_engine_refuses_what_is_not_ported(tiny_llama):
     for kw in (dict(forward_fn=llama.forward), dict(cache_put=lambda c: c)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             Engine(m, max_batch=2, max_seq=MAX_SEQ, **kw)
-    for family in ("Gemma2", "Phi3", "Deepseek"):
+    for family in ("Gemma2", "Phi3"):  # Deepseek's paged step: tests/test_torch_deepseek.py
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make_paged_decode_step(type(family, (), {})(), PagedConfig(n_pages=4, page_size=4, max_pages_per_seq=2))
     with pytest.raises(TypeError):
