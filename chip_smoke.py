@@ -20,6 +20,8 @@
                                                   # as deep as the card and the disk allow (at most 48 layers)
     python3 chip_smoke.py --deepseek              # phases 1, 2 and the DeepSeek family (4t) only, DeepSeek-V2-Lite at
                                                   # all 27 layers
+    python3 chip_smoke.py --moe-families          # phases 1, 2 and the other MoE families (4u) only, each model as
+                                                  # deep as the card and the disk allow (at most its published depth)
 
 Phases (any failure exits non-zero without the result line):
 1. the card, as nvidia-smi reports its name and power limit;
@@ -43,7 +45,7 @@ Phases (any failure exits non-zero without the result line):
 4. serve greedy requests through GPT-J-6B at its published widths
    (EleutherAI/gpt-j-6b: n_vocab 50400, E 4096, 16 heads, 28 layers, n_rot
    64, context 2048; the synthesized planes of (a)-(c), (e), (f), (m)-(o)
-   and (r) at 8 of its 28 layers in the whole run, all 28 with --gptj,
+   and (r) at 4 of its 28 layers in the whole run, all 28 with --gptj,
    --serve, --spec and --train: the launch counts quoted below are at 28),
    decoding as CUDA graph replays (one capture per model,
    made while warming up), counting every kernel launch of each run, then
@@ -67,7 +69,7 @@ Phases (any failure exits non-zero without the result line):
    counting every launch, and profile one step; (h) a tiny f32 GPT-2 on the
    card against the same model on the CPU: loss, every gradient through the
    flash kernels, 3 AdamW steps; (i) the text front end: write a GPT-J-6B
-   GGUF (Q4_K blocks, a byte-level BPE vocabulary of 50400 entries; 4 of
+   GGUF (Q4_K blocks, a byte-level BPE vocabulary of 50400 entries; 2 of
    its 28 layers in the whole run, all 28 with --front-end and --qlora), run
    `python -m ggml_tpu_torch.cli.generate --quantized` on it, then load it
    here: the CLI's greedy text, a seeded sampled request twice, a grammar-
@@ -78,7 +80,7 @@ Phases (any failure exits non-zero without the result line):
    launches a step), finite falling losses, the adapter GGUF round trip, the
    base unchanged, peak memory, a profiled step by class; then a tiny GPT-J
    QLoRA run on the card against the CPU and a checkpoint resume on the card;
-   (k) GPT-J-6B (4 of its 28 layers; all 28 with --iquants) from three GGUF
+   (k) GPT-J-6B (2 of its 28 layers; all 28 with --iquants) from three GGUF
    files written with every 2-D weight in one type, IQ4_XS (E at decode),
    IQ1_M and TQ2_0 (G at every M, 6 launches a layer and one a decode
    token), each loaded as planes (as `generate --quantized` loads it) and
@@ -87,7 +89,7 @@ Phases (any failure exits non-zero without the result line):
    first again eagerly (the same ids), ms/token beside the plane-byte
    floor, a profiled graphed token by class; (l) Llama-3-8B at its
    published widths (meta-llama/Meta-Llama-3-8B: vocab 128256, E 4096, 32
-   layers, 32 heads over 8 kv heads, n_ff 14336, rope base 500000; 4 of
+   layers, 32 heads over 8 kv heads, n_ff 14336, rope base 500000; 2 of
    its 32 layers in the whole run, all 32 with --llama, --serve, --spec and
    --train, where the counts quoted below hold) from a 4.65 GB GGUF file of Q4_K weights with a Q6_K head and a 128256-entry
    byte-level BPE vocabulary: the load, greedy requests from prompts of 8
@@ -159,7 +161,7 @@ Phases (any failure exits non-zero without the result line):
    its floor, the attention's share of busy time; DeepSeek-V2-Lite
    (deepseek-ai/DeepSeek-V2-Lite config.json: vocab 102400, E 2048, 16
    heads, kv_lora 512, 64 experts of 1408 with 2 shared, 6 a token, one
-   dense layer; 4 of its 27 layers in the whole run, all 27 with
+   dense layer; 2 of its 27 layers in the whole run, all 27 with
    --deepseek) from a deepseek2 Q4_K file (Q6_K head, llama.cpp's Q5_0
    fallback where K is not whole superblocks) through registry.load_model:
    the load, a 1024-token prefill and graphed decode with exact launches (C
@@ -169,7 +171,23 @@ Phases (any failure exits non-zero without the result line):
    (q_lora 1536, 128 heads, 256 experts of 2048, 8 groups, sigmoid scores
    with a bias) at its 3 dense layers and 1 MoE layer: a 1024-token
    prefill, graphed decode, the route on the card against the CPU's,
-   grouped against dense experts;
+   grouped against dense experts; (u) the other mixture-of-experts
+   families (models/glm4moe.py with dots1, olmoe.py, dbrx.py, phimoe.py,
+   gptoss.py): gpt-oss-20b, Phi-3.5-MoE, GLM-4.5-Air, OLMoE-1B-7B (2
+   layers each in the whole run) and DBRX (1 layer) at their published
+   widths from Q4_K GGUF files with a Q6_K head (llama.cpp's Q5_0 and Q8_0
+   fallbacks where K is not whole superblocks: every gpt-oss row at K =
+   2880), through registry.load_model: the load, 32 greedy tokens graphed
+   and eagerly (the same ids) with exact launches beside the every-expert
+   and top-k floors, a profiled decode by class, the engine at 4 slots
+   (each request equal to itself alone but at tied picks), q8_kv refused;
+   for gpt-oss-20b and Phi-3.5-MoE the paged engine with a prefix hit and
+   the chunked one, for gpt-oss-20b a 1-layer self-draft and one HTTP
+   request to cli/server.py, for Phi-3.5-MoE engines on both sides of its
+   LongRoPE switch; tiny files of all six architectures (dots1 too) on the
+   card against the CPU; in phase 3, G at K = 2880 and 1408 over Q5_0
+   planes and on the 201088-row Q8_0 head, A at gpt-oss's, GLM-4.5-Air's
+   and DBRX's attention shapes, F on the 151552- and 32064-row heads;
 5. one JSON line listing every kernel, then the result line.
 
 Runs only where torch.cuda.is_available(); it imports nothing of JAX.
@@ -303,8 +321,8 @@ def random_q8_planes(torch, n: int, k: int, npad: int, fmt: str, gen):
     "q6_k" (compact: int8 sub-scales per 16, f32 d per 256) and "q5_k"
     (compact: 6-bit sub-scale and min codes per 32, f32 d and dmin per 256),
     as repack builds them, "q6_k_bf16" / "q5_k_bf16" (the same with bf16 d
-    and dmin), and "q5_0" (codes -16..15, f32 scales per 32, as repack
-    builds Q5_0)."""
+    and dmin), "q5_0" (codes -16..15, f32 scales per 32, as repack builds
+    Q5_0) and "q8_0_f32" (f32 scales per 32, as repack builds Q8_0)."""
     from ggml_tpu_torch.dtypes import GGMLType
     from ggml_tpu_torch.quant.planar import PlanarWeight
 
@@ -324,6 +342,7 @@ def random_q8_planes(torch, n: int, k: int, npad: int, fmt: str, gen):
         return PlanarWeight(kind="q8", codes=codes(-16, 16, k), scales=small(k // 32, torch.float32), offsets=None,
                             group=32, n=n, k=k, orig_type=GGMLType.Q5_0)
     orig, dt, affine = {"q8_0": (GGMLType.Q8_0, torch.bfloat16, False),
+                        "q8_0_f32": (GGMLType.Q8_0, torch.float32, False),
                         "q6_k_synth": (GGMLType.Q6_K, torch.bfloat16, False),
                         "q5_1": (GGMLType.Q5_1, torch.float32, True),
                         "q5_k_synth": (GGMLType.Q5_K, torch.bfloat16, True)}[fmt]
@@ -652,6 +671,27 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         gemv_case("q4k_gemv_qact", 1, *shape)
     gemv_case("q4_gemv", 1, 18432, 7168, 7168, fmt="q4_k_expanded")
     gemv_case("q8_gemv", 1, 7168, 129280, 130048, fmt="q6_k_expanded")
+    # the other mixture-of-experts families from Q4_K files with a Q6_K head
+    # (phase 4u).  gpt-oss-20b, E 2880: every row at K = 2880 is a Q5_0
+    # plane (llama.cpp's fallback; 90 groups of 32, no GEMV tile), so G at
+    # every M on q (N = 4096), k and v (N = 512) and an expert-sized N =
+    # 2880, and on the 201088-row head (Q6_K's fallback, Q8_0); A on
+    # attn_output (K = 4096, N = 2880).  GLM-4.5-Air, E 4096: A on q (N =
+    # 12288) and attn_output (K = 12288), G on the shared expert's ffn_down
+    # (K = 1408, Q5_0: 44 groups), F on the 151552-row head.  DBRX: A at K =
+    # 6144 on q (N = 6144) and k, v (N = 1024).  F on Phi-3.5-MoE's
+    # 32064-row head.
+    for m in (1, 4, 1024):
+        for n, npad in ((4096, 4096), (512, 512), (2880, 2944)):
+            gemv_case("q8_matmul", m, 2880, n, npad, fmt="q5_0")
+    for m in (1, 4):
+        gemv_case("q8_matmul", m, 2880, 201088, 201728, fmt="q8_0_f32")
+        gemv_case("q8_matmul", m, 1408, 4096, 4096, fmt="q5_0")
+    for shape in ((4096, 2880, 2944), (4096, 12288, 12288), (12288, 4096, 4096), (6144, 6144, 6144),
+                  (6144, 1024, 1024)):
+        gemv_case("q4k_gemv_qact", 1, *shape, d_dtype=torch.float32)
+    gemv_case("q8_gemv_sb", 1, 4096, 151552, 151552, fmt="q6_k")
+    gemv_case("q8_gemv_sb", 1, 4096, 32064, 32768, fmt="q6_k")
 
     def flash_case(b, h, h_kv, nq, nkv, d, types, causal=True, max_bias=0.0, softcap=0.0, time_it=True,
                    dead_row=None):
@@ -1861,13 +1901,13 @@ def _qlora_class(event, kernel: str) -> str:
             return "backward dequant"
         if e.name == "planar_matmul.bwd_product":
             return "backward products"
-        if e.name in ("gptj.attention", "llama.attention") or e.name.endswith(_ATTENTION_BACKWARD):
+        if e.name in ("gptj.attention", "family.attention") or e.name.endswith(_ATTENTION_BACKWARD):
             return "attention"
         e = e.cpu_parent
     return "other"
 
 
-_QLORA_RANGES = ("planar_matmul.bwd_dequant", "planar_matmul.bwd_product", "gptj.attention", "llama.attention")
+_QLORA_RANGES = ("planar_matmul.bwd_dequant", "planar_matmul.bwd_product", "gptj.attention", "family.attention")
 
 
 def qlora_step_breakdown(prof) -> tuple:
@@ -2575,7 +2615,7 @@ def write_llama3_8b_gguf(np, tmp: str, n_layer: int = 32) -> tuple:
 _GEMV_CLASS = {("true", "true"): "A", ("true", "false"): "H", ("false", "true"): "F", ("false", "false"): "E"}
 
 
-_LLAMA_RANGES = {"planar_matmul.expand_compact": "H expansions", "llama.attention": "attention"}
+_LLAMA_RANGES = {"planar_matmul.expand_compact": "H expansions", "family.attention": "attention"}
 _MOE_RANGES = {**_LLAMA_RANGES, "llama.moe_experts": "experts", "llama.moe_router": "router"}
 
 
@@ -3428,7 +3468,7 @@ def profile_device(torch, fn) -> dict:
     by = {"B": 0.0, "C": 0.0, "GEMM": 0.0, "other": 0.0}
     for e in _device_events(prof):
         key = e.key
-        if re.fullmatch(r"(gptj|llama)\.attention|planar_matmul\..*", key):
+        if re.fullmatch(r"(gptj|family)\.attention|planar_matmul\..*", key):
             continue  # a record_function range: a device event spanning its kernels and the gaps between them
         library = any(t in key.lower() for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas"))
         cls = ("B" if "gemv_sm90_kernel" in key else "C" if ("q4k_matmul_kernel" in key or "qmatmul_xsum" in key)
@@ -4749,16 +4789,22 @@ def phase_moe_qwen(torch, np, path: str, want_cfg, card: str) -> tuple:
 
 
 def paged_against_dense(torch, np, model) -> dict:
-    """The MoE model's paged decode step over 4 slots (random bf16 pools,
-    pages of 16; positions 5, 40, 77 and an inactive slot) against its
-    dense forward over the windows gathered from the pools after the step
+    """The model's paged decode step over 4 slots (random bf16 pools, pages
+    of 16; positions 5, 40, 77 and an inactive slot) against its dense
+    forward (its family's, speculative._forward_for: the llama family's
+    paged step is its own, every other family's the generic adapter over
+    that forward) over the windows gathered from the pools after the step
     (the step's rows written into them): NMSE over the active slots."""
+    from ggml_tpu_torch.models import llama
     from ggml_tpu_torch.paged_kv import PagedConfig, make_paged_decode_step, paged_gather
+    from ggml_tpu_torch.speculative import _forward_for
 
     cfg, dev = model.cfg, model.device
+    forward = _forward_for(model)
     pcfg = PagedConfig(n_pages=40, page_size=16, max_pages_per_seq=8)
     gen = torch.Generator(device=dev).manual_seed(5)
-    pools = [tuple(torch.randn((pcfg.n_pages + 1, cfg.n_head_kv, 16, cfg.head_dim), generator=gen,
+    n_kv = getattr(cfg, "n_head_kv", cfg.n_head)
+    pools = [tuple(torch.randn((pcfg.n_pages + 1, n_kv, 16, cfg.head_dim), generator=gen,
                                device=dev).to(torch.bfloat16) for _ in range(2)) for _ in range(cfg.n_layer)]
     tables = torch.tensor([[1, 2, 3, 4, 0, 0, 0, 0], [5, 6, 7, 8, 9, 10, 11, 12], [13, 14, 15, 16, 17, 18, 19, 20],
                            [0] * 8], device=dev)
@@ -4767,16 +4813,15 @@ def paged_against_dense(torch, np, model) -> dict:
     woff = torch.tensor([5, 8, 13, 0], device=dev)
     active = torch.tensor([True, True, True, False], device=dev)
     tokens = torch.tensor([[17], [200], [301], [0]], device=dev)
-    step = make_paged_decode_step(model, pcfg)
+    step = make_paged_decode_step(model, pcfg, forward_fn=None if forward is llama.forward else forward)
     with torch.no_grad():
         got, pools = step(model.params, pools, tokens, lengths, tables, wpage, woff, active)
-        from ggml_tpu_torch.models import llama
-
         views = [(paged_gather(kp, tables), paged_gather(vp, tables)) for kp, vp in pools]
         pos = lengths.to(torch.int32)
-        want = llama.forward(model.params, cfg, tokens, pos, views, pos)[0]
+        want = forward(model.params, cfg, tokens, pos, views, pos)[0]
     nm = max(errors(want[i].float(), got[i].float())[0] for i in range(3))
-    check(nm <= 1e-5 and not got[3].any(), f"paged step against the dense forward: NMSE {nm:.2e}")
+    check(nm <= 1e-5 and not got[3].any(), f"{type(model).__name__}: paged step against the dense forward: "
+                                            f"NMSE {nm:.2e}")
     return dict(nmse=nm)
 
 
@@ -4811,40 +4856,134 @@ def captured_grouped_forward(torch, np, model, rows: int) -> dict:
     return dict(rows=rows, equal=True)
 
 
-def split_margins(torch, np, model, prompts, a_ids, b_ids, n: int = 4) -> list:
+def router_hook(torch, model) -> tuple:
+    """(module, function name, margins, decisions) of the model's router,
+    for wrapping the function where its forward looks it up.  margins(args,
+    out) -> ((rows,), (rows,)): the smallest change that flips a routing
+    decision of each row, as a value and in units of one rounding (ulp) of
+    the router's scores in their own type (bf16 logits: 2^-7 of the value;
+    the deepseek route's f32 ones 2^-23).  Top-k, gpt-oss and the deepseek
+    route: the gap between the k-th and (k+1)-th selection values.
+    sparsemixer: over both rounds and every expert but those picked, the
+    relative gap (max - s) / max(|s|, max) from 2 jitter (its mask's edge;
+    in ulps the score change that crosses it) or from 0 (a tie with the
+    round's pick).  decisions(args, out) -> (rows, n): the chosen experts;
+    sparsemixer's picks and both masks."""
+    from ggml_tpu_torch.models import deepseek, glm4moe, gptoss, llama, phimoe
+
+    def ulp(x, dtype):
+        return torch.finfo(dtype).eps * torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 1)
+
+    def gap_k(sel, k, dtype):
+        v = sel.float().reshape(-1, sel.shape[-1]).sort(dim=-1, descending=True).values
+        gap = v[:, k - 1] - v[:, k]
+        return gap, gap / ulp(torch.maximum(v[:, k - 1].abs(), v[:, k].abs()), dtype)
+
+    def chosen(out):
+        return out[1].reshape(-1, out[1].shape[-1]).sort(dim=-1).values
+
+    if isinstance(model, phimoe.PhiMoE):
+        def rounds(scores, jitter):
+            s = scores.float().reshape(-1, scores.shape[-1])
+            taken = torch.zeros_like(s, dtype=torch.bool)
+            for _ in range(2):
+                m, i = s.masked_fill(taken, float("-inf")).max(dim=-1, keepdim=True)
+                rel = (m - s) / torch.maximum(s.abs(), m)
+                taken = taken | torch.nn.functional.one_hot(i[:, 0], s.shape[-1]).bool()
+                yield s, m, i, rel, taken
+
+        def margins(a, out):
+            raw, ulps = [], []
+            for s, m, _, rel, taken in rounds(*a):
+                edge = (rel - 2 * a[1]).abs()
+                raw.append(torch.minimum(edge, rel).masked_fill(taken, float("inf")).amin(dim=-1))
+                u = torch.minimum(edge * torch.maximum(s.abs(), m) / ulp(s, a[0].dtype), (m - s) / ulp(m, a[0].dtype))
+                ulps.append(u.masked_fill(taken, float("inf")).amin(dim=-1))
+            return torch.stack(raw).amin(dim=0), torch.stack(ulps).amin(dim=0)
+
+        def decisions(a, out):
+            return torch.cat([torch.cat([i, (rel > 2 * a[1]).long()], dim=-1) for _, _, i, rel, _ in rounds(*a)],
+                             dim=-1)
+
+        return phimoe, "sparsemixer_top2_gates", margins, decisions
+    if isinstance(model, (glm4moe.GLM4MoE, deepseek.Deepseek)):
+        def ds_margins(a, out):
+            logits, bias, cfg = a
+            sc = torch.sigmoid(logits.float()) if cfg.score_func == "sigmoid" else torch.softmax(logits.float(), -1)
+            return gap_k(sc + bias.float(), cfg.n_expert_used, torch.float32)
+
+        return deepseek, "route_logits", ds_margins, lambda a, out: chosen(out)
+    return (gptoss if isinstance(model, gptoss.GptOss) else llama), "moe_topk", \
+        lambda a, out: gap_k(a[0], a[1], a[0].dtype), lambda a, out: chosen(out)
+
+
+def routed_prefill(torch, np, model, tokens: list, chunk: int = 0) -> tuple:
+    """The model's own b = 1 prefill of tokens through its family forward
+    (in chunks of `chunk` rows through the cache when given), with its
+    router wrapped (router_hook): (the last row's logits f32, the router
+    margins and their ulps, each (MoE layers, rows), the decisions, a list
+    over the MoE layers)."""
+    from ggml_tpu_torch.speculative import _forward_for
+
+    forward = _forward_for(model)
+    mod, name, margins, decisions = router_hook(torch, model)
+    real = getattr(mod, name)
+    calls = []
+
+    def hooked(*a, **kw):
+        out = real(*a, **kw)
+        calls.append((margins(a, out), decisions(a, out)))
+        return out
+
+    step = chunk or len(tokens)
+    toks = torch.as_tensor(np.asarray([tokens]), device=model.device)
+    cache = model.new_cache(torch.bfloat16)
+    setattr(mod, name, hooked)
+    try:
+        with torch.no_grad():
+            for a in range(0, len(tokens), step):
+                pos = torch.tensor([a], dtype=torch.int32, device=model.device)
+                logits = forward(model.params, model.cfg, toks[:, a:a + step], pos, cache, pos,
+                                 prefill=step == len(tokens))[0]
+    finally:
+        setattr(mod, name, real)
+    n_moe = len(calls) // -(-len(tokens) // step)
+    per_layer = [calls[i::n_moe] for i in range(n_moe)]
+    return (logits[0, -1].float(), [torch.stack([torch.cat([m[j] for m, _ in c]) for c in per_layer]) for j in (0, 1)],
+            [torch.cat([d for _, d in c]) for c in per_layer])
+
+
+def split_margins(torch, np, model, prompts, a_ids, b_ids, n: int = 4, flips: bool = False) -> list:
     """Where two engines' greedy ids part: for the first n requests whose ids
     differ, at the first step where they do, the model's own b = 1 prefill
     of the prompt and the ids both engines gave before it (a third rounding
-    of the same sums): the gap between its top two logits on the last row,
-    the gap between the two engines' picks there, and the smallest margin
-    between the k-th and (k+1)-th router logits of that row over the layers
-    (an expert flips where a rounding exceeds it)."""
-    from ggml_tpu_torch.models import llama
-
-    real = llama.moe_topk
+    of the same sums; routed_prefill): the gap between its top two logits
+    on the last row, the gap between the two engines' picks there, and the
+    smallest router margin (router_hook) over the layers on that row and on
+    any row, and on any row in ulps of the router's scores.  With flips, the same tokens prefilled again in chunks of 16
+    (M = 16 a forward: kernel B's int8 rows on the Q4_K linears where the
+    whole sequence runs C over bf16 rows, another rounding of the same
+    sums): the routing decisions (rows x MoE layers) that differ between the
+    two prefills, and the picks' gap in the chunked one."""
     out = []
     for prompt, a, b in zip(prompts, a_ids, b_ids):
         a, b = list(a), list(b)
         if a == b or len(out) == n:
             continue
         j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-        margins = []
-
-        def topk(router, k, renorm=True):
-            v = router.float().reshape(-1, router.shape[-1])[-1].sort(descending=True).values
-            margins.append(float(v[k - 1] - v[k]))
-            return real(router, k, renorm)
-
-        llama.moe_topk = topk
-        try:
-            with torch.no_grad():
-                logits = model.prefill(model.new_cache(torch.bfloat16), np.asarray([prompt + a[:j]]))[0][0].float()
-        finally:
-            llama.moe_topk = real
+        logits, (margins, ulps), decisions = routed_prefill(torch, np, model, prompt + a[:j])
         top = logits.topk(2).values
-        out.append(dict(step=j, a_id=a[j], b_id=b[j], top2_gap=float(top[0] - top[1]),
-                        picks_gap=float(logits[a[j]] - logits[b[j]]), argmax=int(logits.argmax()),
-                        router_margin_min=min(margins), router_margin_layer=int(np.argmin(margins))))
+        last = margins[:, -1]
+        rec = dict(step=j, a_id=a[j], b_id=b[j], top2_gap=float(top[0] - top[1]),
+                   picks_gap=float(logits[a[j]] - logits[b[j]]), argmax=int(logits.argmax()),
+                   router_margin_min=float(last.min()), router_margin_layer=int(last.argmin()),
+                   router_margin_any_row=float(margins.min()), router_ulps_any_row=float(ulps.min()))
+        if flips:
+            chunked, _, again = routed_prefill(torch, np, model, prompt + a[:j], chunk=16)
+            rec.update(route_flips=int(sum(int((x != y).any(dim=-1).sum()) for x, y in zip(decisions, again))),
+                       chunked_picks_gap=float(chunked[a[j]] - chunked[b[j]]),
+                       chunked_logits_max_abs=float((chunked - logits).abs().max()))
+        out.append(rec)
     return out
 
 
@@ -4970,7 +5109,9 @@ def phase_moe_train(torch, np, path: str, tmp: str, card: str, want_step: dict) 
           f"step {want_step}, peak {a['peak_memory_gb']:.2f} GB; losses {[round(v, 4) for v in a['losses']]}; both "
           "calls equal bit for bit")
 
-    path1, cfg1, info = write_qwen3_moe_gguf(np, tmp, 1)
+    cut_dir = os.path.join(tmp, "cut")  # apart from the whole run's file, which may hold as many layers
+    os.makedirs(cut_dir, exist_ok=True)
+    path1, cfg1, info = write_qwen3_moe_gguf(np, cut_dir, 1)
     run, opt = timed(lambda log: finetune(path1, toks, seq_len=seq, batch=batch, steps=steps + 1, device="cuda",
                                           log=log))
     exps = opt.params["blk.0.ffn_gate_exps.weight"]
@@ -5432,7 +5573,9 @@ def phase_ds_train(torch, np, path: str, tmp: str, card: str) -> dict:
     print(f"  finetune_lora rank {rank} ({lora['adapters']} adapters), {batch} x {seq}: {lora['to_first_step_s']:.1f} s "
           f"to the end of step 0 (the load included), then {lora['ms_per_step']:.1f} ms/step, peak "
           f"{lora['peak_memory_gb']:.2f} GB; losses {[round(v, 4) for v in lora['losses']]}")
-    path2, cfg2, info, _, _ = write_v2_lite_gguf(np, tmp, 2)
+    cut_dir = os.path.join(tmp, "cut")  # apart from the whole run's file, which may hold as many layers
+    os.makedirs(cut_dir, exist_ok=True)
+    path2, cfg2, info, _, _ = write_v2_lite_gguf(np, cut_dir, 2)
     full, opt = timed(lambda log: finetune(path2, toks, seq_len=seq, batch=batch, steps=steps + 1, device="cuda",
                                            log=log))
     check(opt.params["blk.1.ffn_gate_exps.weight"].dtype == torch.float32, "the trained experts are f32 masters")
@@ -5569,6 +5712,402 @@ def phase_deepseek(torch, np, tmp: str, card: str, n_layer: int) -> list:
     return runs
 
 
+# 4u: the other mixture-of-experts families (models/glm4moe.py, which also
+# reads dots1, olmoe.py, dbrx.py, phimoe.py, gptoss.py), each at its
+# published widths from a GGUF file of random Q4_K weights with a Q6_K head
+# (llama.cpp's fallbacks where K is not whole superblocks: Q4_K -> Q5_0,
+# Q6_K -> Q8_0), its depth cut (MF_MODELS; --moe-families: as deep as the
+# card and the disk allow, at most the published depth): (a) the load
+# through registry.load_model, 32 greedy tokens graphed and eagerly (the
+# same ids) beside the every-expert and top-k floors, exact launches, a
+# profiled decode by class, the load's card-side decode of an expert
+# against the host's; (b) the engine at 4 slots over mixed prompts, each
+# request equal to itself alone through the same engine but at a tie
+# (mf_parted: tied picks or a tied routing decision), the paged step
+# against the dense forward; (c) for gpt-oss-20b and Phi-3.5-MoE the paged
+# engine with a prefix hit and the chunked one, for gpt-oss-20b a 1-layer
+# self-draft, each request equal to the dense engine's but at a tie, for
+# Phi-3.5-MoE engines on both sides of its LongRoPE switch (max_seq 4096:
+# the short factors; 8192: the long ones); (d) q8_kv refused; (e) one HTTP request to cli/server.py on the gpt-oss file; (f)
+# tiny files of the six architectures on the card against the CPU
+MF_TOKENS, MF_SEQ, MF_SERVE_SEQ, MF_NEW = 32, 2048, 256, 16
+# name -> (module, config function, the whole run's depth, published depth, writer arguments)
+MF_MODELS = {
+    "gpt-oss-20b": ("gptoss", "gpt_oss_20b_config", 2, 24, {}),
+    "Phi-3.5-MoE": ("phimoe", "phi35_moe_config", 2, 32, {}),
+    "GLM-4.5-Air": ("glm4moe", "glm45_air_config", 2, 46, dict(n_ff_exp=1408, n_shared=1, bias_std=0.02)),
+    "OLMoE-1B-7B": ("olmoe", "olmoe_1b_7b_config", 2, 16, {}),
+    "DBRX": ("dbrx", "dbrx_config", 1, 40, {}),
+}
+# the ranges of the eager profile: the families' attention, routers and
+# experts; planar_matmul's expansions
+_MF_RANGES = {**_LLAMA_RANGES, "llama.moe_experts": "experts", "llama.moe_router": "router",
+              "deepseek.moe_experts": "experts", "deepseek.router": "router", "phimoe.moe_experts": "experts",
+              "phimoe.router": "router", "gptoss.moe_experts": "experts", "gptoss.router": "router"}
+# a greedy request parts from itself alone only where its two candidates tie:
+# the b = 1 reference's logits of the two picks within this (bf16 roundings
+# of logits of about 1-4 are 1/128-1/32)
+MF_TIE = 0.0625
+
+
+def _mf_layer_bytes(cfg, n_ff_exp: int) -> tuple:
+    """(bf16 bytes on the card, GGUF bytes) of one layer at ~4.5 bits a
+    quantized weight: the experts dominate."""
+    e, d = getattr(cfg, "n_expert", 0), cfg.n_embd
+    params = 3 * e * n_ff_exp * d + 4 * d * cfg.n_head * cfg.head_dim
+    return 2 * params, params * 9 // 16
+
+
+def mf_depth(torch, cfg, kw: dict, tmp: str, most: int) -> int:
+    """The deepest cut the card (12 GB kept for the rest) and the free disk
+    (the file twice, 2 GB kept) hold, at most `most`."""
+    import shutil
+
+    card, disk = _mf_layer_bytes(cfg, kw.get("n_ff_exp", cfg.n_ff))
+    free_card = torch.cuda.mem_get_info()[1] - 12e9
+    free_disk = shutil.disk_usage(tmp).free - 2e9
+    return max(1, min(most, int(free_card // card), int(free_disk // (2 * disk))))
+
+
+def write_mf_gguf(np, tmp: str, name: str, n_layer: int, vocab: bool = False) -> tuple:
+    """The model's GGUF file at its published widths cut to n_layer layers
+    (its module's write_random_gguf, seed 0, Q4_K with a Q6_K head); with
+    vocab, a byte-level BPE vocabulary of n_vocab entries (the byte
+    symbols, FRONT_END_TEXT's merges, placeholder words, <|endoftext|> last).
+    Returns (path, config, dict(gguf_write_s, gguf_bytes))."""
+    import importlib
+
+    from ggml_tpu_torch.dtypes import GGMLType
+    from ggml_tpu_torch.tokenizer import byte_level_vocab, learn_merges
+
+    mod_name, fn, _, _, kw = MF_MODELS[name]
+    mod = importlib.import_module(f"ggml_tpu_torch.models.{mod_name}")
+    cfg = dataclasses.replace(getattr(mod, fn)(), n_layer=n_layer)
+    tok_kw = {}
+    if vocab:
+        merges = learn_merges(FRONT_END_TEXT, 100_000)
+        tokens = byte_level_vocab(merges)
+        tokens = tokens + _placeholders(set(tokens), cfg.n_vocab - len(tokens) - 1) + ["<|endoftext|>"]
+        check(len(tokens) == cfg.n_vocab and len(set(tokens)) == len(tokens), f"vocabulary of {len(tokens)}")
+        tok_kw = dict(tokenizer=dict(model="gpt2", tokens=tokens, merges=merges, eos_token_id=cfg.n_vocab - 1))
+    path = os.path.join(tmp, f"{name.lower()}-{n_layer}-layers-q4_k.gguf")
+    t0 = time.perf_counter()
+    mod.write_random_gguf(path, cfg, seed=0, types={"output.weight": GGMLType.Q6_K}, **kw, **tok_kw)
+    info = dict(gguf_write_s=time.perf_counter() - t0, gguf_bytes=os.path.getsize(path))
+    print(f"  wrote {info['gguf_bytes'] / 1e9:.3f} GB of {name} GGUF ({n_layer} layers) in "
+          f"{info['gguf_write_s']:.1f}s")
+    return path, cfg, info
+
+
+def _mf_classes(by: dict) -> dict:
+    """busy ms by class folded into linears (the port's kernels and the
+    head), experts (with the router), attention and other."""
+    out = dict(linears=0.0, experts=0.0, attention=0.0, other=0.0)
+    for k, v in by.items():
+        key = ("linears" if k in ("A", "B", "C", "E", "F", "G", "H", "H expansions", "head") else
+               "experts" if k in ("experts", "router") else "attention" if k in ("attention", "J") else "other")
+        out[key] += v
+    return out
+
+
+def mf_parted(torch, np, model, label: str, prompts, want: list, got: list) -> list:
+    """Where an engine's ids part from the dense engine's (or a request's
+    alone from its ids in the mix): split_margins with flips for each such
+    request; each must part at a tie: the two picks within MF_TIE in the b =
+    1 reference, or a tied routing decision on one of its rows: one that
+    another rounding of the same sums flips (route_flips > 0), or one
+    within a rounding of the router's scores (router_ulps_any_row <= 1:
+    the engines' kernels round those scores either way)."""
+    parted = split_margins(torch, np, model, prompts, want, got, n=len(prompts), flips=True)
+    for m in parted:
+        check(abs(m["picks_gap"]) <= MF_TIE or m["route_flips"] > 0 or m["router_ulps_any_row"] <= 1.0,
+              f"{type(model).__name__} {label}: a request parts from the dense engine beyond a tie: {m}")
+    return parted
+
+
+def _fmt_parted(parted: list) -> str:
+    return "; ".join(f"step {m['step']}: picks' gap {m['picks_gap']:.4f} (top-2 {m['top2_gap']:.4f}), router margin "
+                     f"{m['router_margin_min']:.5f} on the row, {m['router_margin_any_row']:.5f} on any "
+                     f"({m['router_ulps_any_row']:.2f} ulps), "
+                     f"{m['route_flips']} routing decisions flip in chunks of 16 (picks' gap there "
+                     f"{m['chunked_picks_gap']:.4f})" for m in parted)
+
+
+def mf_dequant_check(torch, np, model, path: str) -> dict:
+    """The first expert of the first ffn_gate_exps, decoded on the card by
+    the load (quant/torch_dequant.py), against the host's numpy decode of
+    the same blocks cast to the same type: equal bit for bit."""
+    from ggml_tpu_torch.dtypes import GGMLType, row_size
+    from ggml_tpu_torch.gguf import GGUFFile
+    from ggml_tpu_torch.quant.reference import dequantize
+
+    name = next(k for k in model.params if k.endswith("ffn_gate_exps.weight"))
+    got = model.params[name][0]
+    with GGUFFile(path) as g:
+        info = g.tensors[name]
+        t, (n, k) = GGMLType(info.ggml_type), (int(d) for d in info.shape[1:])
+        want = dequantize(g.tensor_bytes(name)[:n * row_size(t, k)], t, n * k).reshape(n, k)
+    want = torch.from_numpy(want).to(got.dtype)
+    check(torch.equal(got.cpu().view(torch.int16), want.view(torch.int16)),
+          f"{name}: the card's decode of {t.name} differs from the host's")
+    return dict(tensor=name, type=t.name, equal=True)
+
+
+def phase_mf_model(torch, np, name: str, tmp: str, card: str, n_layer: int) -> dict:
+    """4u (a)-(e) for one model; returns its record with its counts."""
+    import gc
+    import importlib
+
+    from ggml_tpu_torch.kernels import qmatmul
+    from ggml_tpu_torch.models import registry
+    from ggml_tpu_torch.paged_kv import PagedConfig
+    from ggml_tpu_torch.quant.planar import PlanarWeight
+    from ggml_tpu_torch.serve import Engine
+
+    mod = importlib.import_module(f"ggml_tpu_torch.models.{MF_MODELS[name][0]}")
+    path, want_cfg, info = write_mf_gguf(np, tmp, name, n_layer, vocab=name == "gpt-oss-20b")
+    t0 = time.perf_counter()
+    model = registry.load_model(path, keep_quantized=True, max_seq=MF_SEQ, device="cuda")
+    torch.cuda.synchronize()
+    cfg, p = model.cfg, model.params
+    out = dict(model=name, n_layer=n_layer, load_s=time.perf_counter() - t0, card=card,
+               card_gb=torch.cuda.memory_allocated() / 1e9, **info)
+    same = lambda got, want: got == want or (isinstance(want, float) and got == float(np.float32(want)))  # f32 keys
+    check(type(model).__module__ == mod.__name__ and all(
+        same(getattr(cfg, f.name), getattr(want_cfg, f.name)) for f in dataclasses.fields(cfg)),
+          f"{name}: {type(model).__name__}, config {cfg}")
+    planar = sorted({str(v.orig_type.name) for k, v in p.items() if isinstance(v, PlanarWeight)})
+    exps = next(v for k, v in p.items() if k.endswith("ffn_gate_exps.weight"))
+    check(exps.dtype == torch.bfloat16 and exps.dim() == 3, f"{name} experts {exps.dtype} {exps.shape}")
+    kernels_m1 = sorted({qmatmul.select_kernel(w, 1) for k, w in p.items()
+                         if isinstance(w, PlanarWeight) and k != "token_embd.weight"})
+    out.update(plane_types=planar, kernels_at_m1=kernels_m1)
+    print(f"  loaded in {out['load_s']:.1f}s ({out['card_gb']:.2f} GB on the card): planes {planar}, the experts "
+          f"bf16 {tuple(exps.shape)}; at M = 1: {kernels_m1}")
+
+    rng = np.random.default_rng(0)
+    run = moe_decode_run(torch, np, model, rng.integers(0, cfg.n_vocab, (1, 8)), MF_TOKENS)
+    want = {k: v * MF_TOKENS for k, v in planar_launches(p, 1, head=True).items()}
+    check(run["counts"] == want, f"{name} decode launches {run['counts']}, want {want}")
+    run.update(moe_stream_bytes(torch, p, cfg, run.pop("cache")))
+    run["every_floor_share"] = run["every_floor_ms"] / run["graphed_ms_per_token"]
+    trace = profile_llama_decode(torch, np, model, ranges=_MF_RANGES, n_vocab=cfg.n_vocab)
+    trace["eager_by_four_classes"] = _mf_classes(trace["eager_ms_per_token_by_class"])
+    run["trace"] = trace
+    out["decode"] = run
+    counts = dict(run["counts"])
+    print(f"  decode after 8 tokens ({card}): {run['graphed_ms_per_token']:.3f} ms/token graphed, "
+          f"{run['eager_ms_per_token']:.3f} eager (the same {MF_TOKENS} ids); floors: every expert "
+          f"{run['every_bytes'] / 1e9:.3f} GB = {run['every_floor_ms']:.3f} ms, the top {cfg.n_expert_used} alone "
+          f"{run['topk_bytes'] / 1e9:.3f} GB = {run['topk_floor_ms']:.3f} ms; launches a token "
+          f"{run['launches_per_token']}; an eager token by class: {_fmt_classes(trace['eager_by_four_classes'])}")
+
+    def engine(label, prompts, n_new=MF_NEW, **kw):
+        kw = dict(dict(max_batch=4, max_seq=MF_SERVE_SEQ, cache_dtype=torch.bfloat16), **kw)
+        eng = Engine(model, **kw)
+        _run_ids(eng, prompts[:1], 2)  # captures and first uses
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        ids = _run_ids(eng, prompts, n_new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k, v in launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        check(all(len(x) == n_new and all(0 <= t < cfg.n_vocab for t in x) for x in ids), f"{name} {label} ids")
+        rec = dict(wall_s=wall, tok_per_s=sum(map(len, ids)) / wall, slots=eng.max_batch)
+        return eng, ids, rec
+
+    prompts = [rng.integers(0, cfg.n_vocab, int(rng.integers(4, 30))).tolist() for _ in range(8)]
+    eng, ids, rec = engine("dense", prompts)
+    alone = [_run_ids(eng, [q], len(x))[0] for q, x in zip(prompts, ids)]
+    rec.update(equal=sum(a == b for a, b in zip(alone, ids)), parted=mf_parted(torch, np, model, "alone", prompts,
+                                                                                 ids, alone))
+    out["engine"] = rec
+    print(f"  engine, 4 slots, 8 prompts of 4-30 tokens x {MF_NEW}: {rec['tok_per_s']:.1f} tok/s; "
+          f"{rec['equal']} of 8 requests equal to themselves alone" + (
+              f"; where they part: {_fmt_parted(rec['parted'])}" if rec["parted"] else ""))
+    del eng
+    try:
+        Engine(model, max_batch=4, max_seq=MF_SERVE_SEQ, cache_dtype="q8_kv")
+        raise SmokeFailure(f"{name}: a q8 KV cache was accepted")
+    except TypeError:
+        out["q8_kv_refused"] = True
+    out["paged_step_vs_dense"] = paged_against_dense(torch, np, model)
+    out["dequant"] = mf_dequant_check(torch, np, model, path)
+    print(f"  the paged step against the dense forward over the gathered windows: NMSE "
+          f"{out['paged_step_vs_dense']['nmse']:.2e}; {out['dequant']['tensor']}'s first expert decoded on the card "
+          f"equals the host's {out['dequant']['type']} decode bit for bit; q8_kv refused")
+    if name in ("gpt-oss-20b", "Phi-3.5-MoE"):
+        shared = rng.integers(0, cfg.n_vocab, 48).tolist()
+        mix = [shared + q if i % 2 == 0 else q for i, q in enumerate(prompts)]
+        pcfg = PagedConfig(4 * MF_SERVE_SEQ // 16 + 16, 16, MF_SERVE_SEQ // 16, prefix_cache=True)
+        _, dense_ids, _ = engine("dense (paged mix)", mix)
+        eng, paged_ids, rec = engine("paged", mix, paged=pcfg)
+        check(eng.cached_prefix_tokens > 0, f"{name}: no prefix hit")
+        rec.update(prefix_hits=eng.cached_prefix_tokens, equal_to_dense=sum(a == b for a, b in zip(paged_ids, dense_ids)),
+                   parted=mf_parted(torch, np, model, "paged", mix, dense_ids, paged_ids))
+        out["paged"] = rec
+        del eng
+        eng, chunk_ids, rec = engine("chunked", prompts, prefill_chunk=16)
+        rec.update(equal_to_dense=sum(a == b for a, b in zip(chunk_ids, ids)),
+                   parted=mf_parted(torch, np, model, "chunked", prompts, ids, chunk_ids))
+        out["chunked"] = rec
+        del eng
+        for label in ("paged", "chunked"):
+            r = out[label]
+            print(f"  {label} ({'pages of 16, the prefix cache; half the mix behind a 48-token prefix, ' if label == 'paged' else 'chunks of 16, '}"
+                  f"{r.get('prefix_hits', 0)} prefix tokens hit): {r['tok_per_s']:.1f} tok/s, {r['equal_to_dense']} of 8 "
+                  f"equal to the dense engine" + (f"; where they part: {_fmt_parted(r['parted'])}" if r["parted"] else ""))
+    if name == "gpt-oss-20b":
+        draft = type(model)(p, dataclasses.replace(cfg, n_layer=1), max_seq=MF_SERVE_SEQ, device="cuda")
+        eng, draft_ids, rec = engine("draft", prompts, draft=draft, draft_k=4)
+        rec.update(rounds=eng.spec_rounds, acceptance=eng.spec_accepted / max(1, eng.spec_drafted),
+                   equal_to_dense=sum(a == b for a, b in zip(draft_ids, ids)),
+                   parted=mf_parted(torch, np, model, "draft", prompts, ids, draft_ids))
+        out["draft"] = rec
+        del eng, draft
+        print(f"  dense with a 1-layer self-draft, k = 4: {rec['tok_per_s']:.1f} tok/s, {rec['rounds']} rounds, "
+              f"acceptance {rec['acceptance'] * 100:.1f} %, {rec['equal_to_dense']} of 8 equal to the dense engine"
+              + (f"; where they part: {_fmt_parted(rec['parted'])}" if rec["parted"] else ""))
+        out["http"] = mf_http(torch, np, model, path)
+    if name == "Phi-3.5-MoE":
+        for seq in (4096, 8192):  # the short factors at max_seq <= n_ctx_orig, the long ones above
+            eng, _, out[f"engine_max_seq_{seq}"] = engine(f"max_seq {seq}", prompts[:4], n_new=8, max_seq=seq)
+            del eng
+        zero = torch.zeros((), dtype=torch.int32, device="cuda")
+        tok = torch.as_tensor(np.asarray([prompts[0]]), device="cuda")
+        with torch.no_grad():
+            short, long = (mod.forward(p, cfg, tok, zero.expand(1), mod.init_cache(cfg, 1, s, torch.bfloat16), zero)[0]
+                           for s in (4096, 4097))
+        out["longrope_logits_nmse"] = errors(short.float(), long.float())[0]
+        check(out["longrope_logits_nmse"] > 0, "Phi-3.5-MoE: the long and short factors gave the same logits")
+        print(f"  engines at max_seq 4096 (short factors) and 8192 (long): {out['engine_max_seq_4096']['tok_per_s']:.1f}"
+              f" and {out['engine_max_seq_8192']['tok_per_s']:.1f} tok/s; a prefill's logits with the two factor "
+              f"sets part by NMSE {out['longrope_logits_nmse']:.2e}")
+    out["counts"] = counts
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.remove(path)
+    return out
+
+
+def mf_http(torch, np, model, path: str) -> dict:
+    """One non-streamed completion from cli/server.py over the loaded model
+    (ServerState(model=...), serve on a free local port): its text is the
+    greedy text of the prompt through the same model."""
+    import json
+    import threading
+    import urllib.request
+
+    from ggml_tpu_torch.cli import server
+    from ggml_tpu_torch.serve import Engine
+
+    state = server.ServerState(path, max_batch=4, max_seq=512, model=model)
+    httpd = server.serve(state, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    text = " ".join(FRONT_END_TEXT.split()[:12])
+    body = json.dumps({"prompt": text, "max_tokens": 8, "temperature": 0}).encode()
+    t0 = time.perf_counter()
+    try:
+        req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_address[1]}/v1/completions", body,
+                                     {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            reply = json.loads(r.read())["choices"][0]
+    finally:
+        httpd.shutdown()
+        state.shutdown()
+    wall = time.perf_counter() - t0
+    check(state.error is None and reply["finish_reason"] in ("length", "stop"), f"server: {reply}, {state.error!r}")
+    eng = Engine(model, max_batch=4, max_seq=512, eos_id=state.eos_id, cache_dtype=torch.bfloat16)
+    want = state.tok.decode(_run_ids(eng, [state.encode(text)], 8)[0])
+    check(reply["text"] == want, f"server text {reply['text']!r}, the engine's greedy text {want!r}")
+    print(f"  HTTP server on the gpt-oss file: one completion of 8 tokens in {wall:.1f}s, the engine's greedy text")
+    return dict(wall_s=wall, text=reply["text"][:60], finish_reason=reply["finish_reason"])
+
+
+# 4u (f): tiny files of the six architectures (E 64, 4 heads over 2 kv
+# heads, 2 layers, 4-8 experts of 24-32; F32 weights), card against CPU
+_MF_TINY = dict(n_vocab=256, n_ctx=64, n_embd=64, n_head=4, n_head_kv=2, n_layer=2)
+
+
+def phase_mf_tiny(torch, np, tmp: str) -> dict:
+    """Each architecture's tiny file on the card against the same file on
+    the CPU, fed the same tokens: f32 (TF32 off) at a 12-token prompt (the
+    dense experts) and 3 decode steps, NMSE <= 1e-9; bf16 at a 20-token
+    prompt (the grouped experts where a family has them: bf16 only on the
+    card) and 3 decode steps, NMSE <= 1e-3."""
+    from ggml_tpu_torch.dtypes import GGMLType
+    from ggml_tpu_torch.models import dbrx, glm4moe, gptoss, olmoe, phimoe
+
+    archs = {
+        "glm4moe": (glm4moe, glm4moe.GLM4MoEConfig(**_MF_TINY, head_dim=16, n_ff=96, n_rot=8, n_expert=8,
+                                                   n_expert_used=3, n_group=2, topk_group=1), dict(n_ff_exp=24)),
+        "dots1": (glm4moe, glm4moe.GLM4MoEConfig(**_MF_TINY, head_dim=16, n_ff=96, n_rot=16, qk_norm=True,
+                                                 n_expert=8, n_expert_used=3, moe_renorm=False),
+                  dict(n_ff_exp=24, arch="dots1")),
+        "olmoe": (olmoe, olmoe.OlmoEConfig(**_MF_TINY, n_ff=32, n_expert=8, n_expert_used=3), {}),
+        "dbrx": (dbrx, dbrx.DBRXConfig(**_MF_TINY, n_ff=32, n_expert=4, n_expert_used=2, clamp_kqv=0.05), {}),
+        "phimoe": (phimoe, phimoe.PhiMoEConfig(**_MF_TINY, n_ctx_orig=16, head_dim=16, n_ff=32, n_expert=4,
+                                               n_expert_used=2, longrope=True, long_mscale=1.2), {}),
+        "gpt-oss": (gptoss, gptoss.GptOssConfig(**_MF_TINY, head_dim=16, n_ff=32, n_expert=4, n_expert_used=2,
+                                                sliding_window=6, rope_scaling="yarn", rope_scale=4.0,
+                                                n_ctx_orig=16), {}),
+    }
+    from ggml_tpu_torch.models import registry
+
+    out = {}
+    for i, (arch, (mod, cfg, kw)) in enumerate(archs.items()):
+        path = os.path.join(tmp, f"tiny-{arch}.gguf")
+        mod.write_random_gguf(path, cfg, seed=30 + i, default_type=GGMLType.F32, **kw)
+        cls = registry.model_class(arch)
+        for dtype, t, gate in ((torch.float32, 12, 1e-9), (torch.bfloat16, 20, 1e-3)):
+            models = [cls.from_gguf(path, dtype=dtype, keep_quantized=False, device=d, max_seq=32)
+                      for d in ("cpu", "cuda")]
+            prompt = torch.from_numpy(np.random.default_rng(t).integers(0, 256, (1, t)))
+            runs = []
+            for m in models:
+                zero = torch.zeros((), dtype=torch.int32, device=m.device)
+                cache = m.new_cache(torch.float32)
+                runs.append([mod.forward(m.params, m.cfg, prompt.to(m.device), zero.expand(1), cache, zero)[0][:, -1]
+                             .float().cpu(), cache])
+            worst = errors(runs[0][0], runs[1][0])[0]
+            tok = int(torch.argmax(runs[0][0]))
+            for step in range(3):
+                logits = []
+                for m, (_, cache) in zip(models, runs):
+                    pos = torch.tensor(t + step, dtype=torch.int32, device=m.device)
+                    logits.append(mod.forward(m.params, m.cfg, torch.tensor([[tok]], device=m.device),
+                                              pos.expand(1), cache, pos)[0][0, -1].float().cpu())
+                worst = max(worst, errors(*logits)[0])
+                tok = int(torch.argmax(logits[0]))
+            name = f"{arch}/{str(dtype)[6:]}"
+            check(worst <= gate, f"tiny {name}: card against CPU NMSE {worst:.2e} > {gate:g}")
+            out[name] = worst
+        os.remove(path)
+    print("  tiny files, card against CPU, worst NMSE over the prefill and 3 steps: "
+          + ", ".join(f"{k} {v:.1e}" for k, v in out.items()))
+    return out
+
+
+def phase_moe_families(torch, np, tmp: str, card: str, deep: bool) -> list:
+    """4u: (a)-(e) for each model at MF_MODELS' depth (deep: mf_depth's), then
+    (f); returns the run records, each with its counts."""
+    import importlib
+
+    runs = []
+    for name, (mod_name, fn, depth, most, kw) in MF_MODELS.items():
+        if deep:
+            cfg = getattr(importlib.import_module(f"ggml_tpu_torch.models.{mod_name}"), fn)()
+            depth = mf_depth(torch, cfg, kw, tmp, most)
+        stage(f"4u. {name} ({depth} of {most} layers) from a Q4_K GGUF file")
+        runs.append(phase_mf_model(torch, np, name, tmp, card, depth))
+    stage("4u (f). tiny glm4moe, dots1, olmoe, dbrx, phimoe and gpt-oss files on the card against the CPU")
+    runs.append(dict(tiny=phase_mf_tiny(torch, np, tmp), counts={}))
+    return runs
+
+
 def flash_times(torch, flash_attn) -> dict:
     """Kernel J's device time (µs) at GPT-J's 1024-token prefill, f32 q/k
     with a bf16 v and all bf16 (each call computes its mask ranges), then its
@@ -5671,6 +6210,7 @@ def gemv_times(torch, qmatmul) -> dict:
 # the whole run's depth of GPT-J-6B's synthesized planes (4a-4f, 4m-4o, 4r);
 # --gptj runs them at all 28 layers, --serve, --spec and --train theirs too
 GPTJ_LAYERS = 8
+GPTJ_FILE_LAYERS = 4  # the whole run's depth of 4i-4k's GPT-J-6B files
 
 
 def phase_gptj_synth(torch, np, card: str, n_layer: int) -> list:
@@ -5928,6 +6468,14 @@ def main() -> int:
                                                      "count": torch.cuda.device_count()}}))
             return 0
 
+        if sys.argv[1:] == ["--moe-families"]:
+            with tempfile.TemporaryDirectory(prefix="moe-families-gguf-") as tmp:
+                mf = phase_moe_families(torch, np, tmp, card, deep=True)
+            print(json.dumps(dict(card=card, moe_families=mf), default=str))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
+
         if sys.argv[1:] == ["--long-decode-profile"]:
             stage("4. GPT-J-6B Q4_K (synthesized compact planes), decode after a 1088-token prompt, profiled")
             from ggml_tpu_torch.dtypes import GGMLType
@@ -5969,21 +6517,21 @@ def main() -> int:
             stage("4q. MNIST: fc and cnn through opt.fit, bench_mnist's eval")
             runs.append(phase_mnist(torch, np, tmp, card))
         with tempfile.TemporaryDirectory(prefix="gptj6b-gguf-") as tmp:
-            # 4i and 4j at 4 of GPT-J's 28 layers in the whole run, which 4p's
-            # training of Llama-3-8B would otherwise take past 1000 s (loading
-            # the 28-layer file three times and 4j's once took 187 s of PR 17's
-            # first whole run; --front-end and --qlora run all 28)
-            stage("4i. the text front end: GPT-J-6B (4 of its 28 layers) from a Q4_K GGUF file, the generate CLI, "
-                  "perplexity")
-            written = write_gptj6b_gguf(np, tmp, n_layer=4)
+            # 4i, 4j and 4k at GPTJ_FILE_LAYERS of GPT-J's 28 layers in the
+            # whole run, which the later phases would otherwise take past the
+            # time limit (loading the 28-layer file three times and 4j's once
+            # took 187 s of an earlier whole run; --front-end, --qlora and
+            # --iquants run all 28)
+            stage(f"4i. the text front end: GPT-J-6B ({GPTJ_FILE_LAYERS} of its 28 layers) from a Q4_K GGUF file, "
+                  "the generate CLI, perplexity")
+            written = write_gptj6b_gguf(np, tmp, n_layer=GPTJ_FILE_LAYERS)
             runs.append(phase_front_end(torch, np, written))
-            stage("4j. QLoRA fine-tuning of GPT-J-6B (4 layers) from the same file, batch 4 x 128, rank 8")
+            stage(f"4j. QLoRA fine-tuning of GPT-J-6B ({GPTJ_FILE_LAYERS} layers) from the same file, batch 4 x 128, "
+                  "rank 8")
             runs.append(phase_qlora(torch, np, written[0], tmp))
             os.remove(written[0])
-            # at 4 of its 28 layers in the whole run, which 4l and 4m would
-            # otherwise take past 700 s (--iquants runs all 28)
-            stage("4k. GPT-J-6B (4 of its 28 layers) from IQ4_XS, IQ1_M and TQ2_0 GGUF files")
-            runs += phase_iquants(torch, np, tmp, card, n_layer=4)
+            stage(f"4k. GPT-J-6B ({GPTJ_FILE_LAYERS} of its 28 layers) from IQ4_XS, IQ1_M and TQ2_0 GGUF files")
+            runs += phase_iquants(torch, np, tmp, card, n_layer=GPTJ_FILE_LAYERS)
             stage(f"4l. Llama-3-8B ({LLAMA_LAYERS} of its 32 layers) from a Q4_K GGUF file (Q6_K head)")
             llama_run = phase_llama(torch, np, tmp, card, serve=True, train=True, n_layer=LLAMA_LAYERS)
             runs += [llama_run, llama_run.pop("serve"), llama_run.pop("serve_paged_chunked"), llama_run.pop("spec"),
@@ -5996,6 +6544,8 @@ def main() -> int:
             stage(f"4t. DeepSeek: bench_mla_decode's shape, DeepSeek-V2-Lite ({DS_LITE_LAYERS} of 27 layers), "
                   "DeepSeek-V3's widths")
             runs += phase_deepseek(torch, np, tmp, card, DS_LITE_LAYERS)
+        with tempfile.TemporaryDirectory(prefix="moe-families-gguf-") as tmp:
+            runs += phase_moe_families(torch, np, tmp, card, deep=False)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -6003,7 +6553,7 @@ def main() -> int:
         traceback.print_exc()
         return 1
 
-    stage("5. summary")
+    stage(f"5. summary (the run so far: {time.perf_counter() - _START:.1f}s)")
     kernels = []
     # q4k_gemv_i8 lies on no path of planar_matmul (at M=1 that hands bf16 x to
     # q4k_gemv_qact), so its launches are 0; phase 3 holds it against its plain version

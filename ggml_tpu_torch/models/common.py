@@ -166,6 +166,47 @@ def causal_mask(t: int, device="cuda") -> torch.Tensor:
     return torch.where(i[None, :] <= i[:, None], 0.0, -1e30).to(torch.float32)
 
 
+def window_keep(positions: torch.Tensor, max_seq: int, window: int = 0) -> torch.Tensor:
+    """(b, 1, 1, t, S) bool: the cache rows each query row at positions (b,
+    t) attends, kv_pos <= q_pos, and with a sliding window also kv_pos >
+    q_pos - window.  Computed once per forward."""
+    kv_pos = torch.arange(max_seq, device=positions.device)[None, None, None, None, :]
+    q_pos = positions[:, None, None, :, None]
+    keep = kv_pos <= q_pos
+    return keep & (kv_pos > q_pos - window) if window else keep
+
+
+def gqa_attention(q: torch.Tensor, kc, vc, keep: torch.Tensor, scale: float,
+                  sinks: torch.Tensor | None = None) -> torch.Tensor:
+    """Grouped-query attention over the whole cache window in f32, as the JAX
+    family forwards write it in einsums (e.g. ggml_tpu/models/olmoe.py:
+    110-121): q (b, H, t, d), kc and vc (b, n_kv, S, d) a layer's cache
+    buffers (a q8 cache dequantized on read), keep from window_keep; each
+    kv head serves the H / n_kv query heads beside it, whose rows are
+    stacked so that every product is one batched matmul.  The probabilities
+    are cast to the values' type before the value product.  sinks (H,): one learned logit a head joins the softmax
+    as an extra column and its mass is dropped (gpt-oss,
+    ggml_tpu/models/gptoss.py:201-208): normalized against max(max(att),
+    sink), so a row that masks every key gives zeros, not NaN.  Returns (b,
+    t, H * d) in the values' type."""
+    b, n_head, t, hd = q.shape
+    n_kv, s = kc.shape[1], kc.shape[2]
+    rep = n_head // n_kv
+    with torch.profiler.record_function("family.attention"):
+        kc, vc = dequant_cache(kc), dequant_cache(vc)
+        att = torch.matmul(q.reshape(b, n_kv, rep * t, hd).float(), kc.float().transpose(-1, -2)) * scale
+        att = torch.where(keep, att.view(b, n_kv, rep, t, s), torch.full((), float("-inf"), device=q.device))
+        if sinks is None:
+            att = torch.softmax(att, dim=-1)
+        else:
+            sink = sinks.float().reshape(1, n_kv, rep, 1, 1)
+            m = torch.maximum(att.amax(dim=-1, keepdim=True), sink)
+            e = torch.exp(att - m)
+            att = e / (e.sum(-1, keepdim=True) + torch.exp(sink - m))
+        out = torch.matmul(att.to(vc.dtype).view(b, n_kv, rep * t, s), vc)
+        return out.view(b, n_head, t, hd).transpose(1, 2).reshape(b, t, n_head * hd)
+
+
 def layer_norm(x, w, b, eps):
     m = torch.mean(x, dim=-1, keepdim=True)
     v = torch.mean((x - m) ** 2, dim=-1, keepdim=True)

@@ -44,7 +44,7 @@ from ..dtypes import GGMLType
 from ..gguf import GGUFFile
 from .common import (QUANT_KV_DTYPE, FamilyModel, LoRAWeight, QuantKV, cache_rows, cache_write, dequant_cache,
                      linear as _linear, run_layers)
-from .gptj import _random_weight_blocks, rope_angles
+from .gptj import rope_angles
 from .llama import _rms_norm, _rope_half, moe_expert_sum, moe_expert_sum_grouped, top_k
 
 
@@ -359,11 +359,6 @@ def deepseek_v3_config() -> DeepseekConfig:
                           score_func="sigmoid", moe_renorm=True, routed_scale=2.5, rope_base=10000.0, rms_eps=1e-6)
 
 
-# llama.cpp's fallback for a k-quant whose rows are not whole superblocks of
-# 256 (llama_tensor_get_type)
-_FALLBACK = {GGMLType.Q4_K: GGMLType.Q5_0, GGMLType.Q6_K: GGMLType.Q8_0}
-
-
 def write_random_gguf(path, cfg: DeepseekConfig, seed: int = 0, tokenizer: dict | None = None,
                       types: dict | None = None, n_ff_exp: int | None = None,
                       default_type: GGMLType = GGMLType.Q4_K, bias_std: float = 0.0):
@@ -384,14 +379,11 @@ def write_random_gguf(path, cfg: DeepseekConfig, seed: int = 0, tokenizer: dict 
     DeepSeek-V2-Lite's widths the dense ffn_down (K = 10944) and
     ffn_down_exps (K = 1408).  F32: normal values of std 0.02; other types
     random blocks of weights of std about 0.02 (models/gptj.
-    _random_weight_blocks).  tokenizer: GGUF tokenizer.ggml.* keys (without
+    _random_weight_blocks), drawn and written by random_gguf.
+    write_family_gguf.  tokenizer: GGUF tokenizer.ggml.* keys (without
     the prefix) -> values."""
-    from ..gguf import GGUFWriter
+    from .random_gguf import write_family_gguf
 
-    rng = np.random.default_rng(seed)
-    w = GGUFWriter()
-    a = "deepseek2"
-    w.add_string("general.architecture", a)
     n_ff_exp = n_ff_exp or cfg.n_ff
     keys = [("context_length", cfg.n_ctx), ("embedding_length", cfg.n_embd), ("block_count", cfg.n_layer),
             ("feed_forward_length", cfg.n_ff), ("attention.head_count", cfg.n_head),
@@ -404,68 +396,37 @@ def write_random_gguf(path, cfg: DeepseekConfig, seed: int = 0, tokenizer: dict 
              ("expert_used_count", cfg.n_expert_used), ("expert_shared_count", cfg.n_shared),
              ("expert_feed_forward_length", n_ff_exp), ("expert_group_count", cfg.n_group),
              ("expert_group_used_count", cfg.topk_group),
-             ("expert_gating_func", 2 if cfg.score_func == "sigmoid" else 1)]
-    for key, val in keys:
-        w.add_u32(f"{a}.{key}", val)
-    w.add_f32(f"{a}.rope.freq_base", cfg.rope_base)
-    w.add_f32(f"{a}.attention.layer_norm_rms_epsilon", cfg.rms_eps)
-    w.add_bool(f"{a}.expert_weights_norm", cfg.moe_renorm)
-    w.add_f32(f"{a}.expert_weights_scale", cfg.routed_scale)
-    w.add_bool(f"{a}.rope_interleave", cfg.rope_interleave)
-    for key, val in (tokenizer or {}).items():
-        if isinstance(val, str):
-            w.add_string(f"tokenizer.ggml.{key}", val)
-        elif isinstance(val, int):
-            w.add_u32(f"tokenizer.ggml.{key}", val)
-        else:
-            w.add_array(f"tokenizer.ggml.{key}", val)
-
-    def weight(name, *shape):
-        t = GGMLType((types or {}).get(name, default_type))
-        if shape[-1] % 256 and t in _FALLBACK:
-            t = _FALLBACK[t]
-        if t == GGMLType.F32:
-            w.add_tensor(name, (rng.standard_normal(shape) * 0.02).astype(np.float32))
-        else:
-            w.add_tensor(name, _random_weight_blocks(t, int(np.prod(shape[:-1])), shape[-1], rng), t,
-                         raw_shape_ne=tuple(reversed(shape)))
-
-    def f32(name, *shape, s=0.02):
-        w.add_tensor(name, (rng.standard_normal(shape) * s).astype(np.float32))
-
-    def ones(name, n):
-        w.add_tensor(name, np.ones((n,), np.float32))
-
+             ("expert_gating_func", 2 if cfg.score_func == "sigmoid" else 1),
+             ("rope.freq_base", float(cfg.rope_base)), ("attention.layer_norm_rms_epsilon", float(cfg.rms_eps)),
+             ("expert_weights_norm", bool(cfg.moe_renorm)), ("expert_weights_scale", float(cfg.routed_scale)),
+             ("rope_interleave", bool(cfg.rope_interleave))]
     d, H, r = cfg.n_embd, cfg.n_head, cfg.kv_lora_rank
-    weight("token_embd.weight", cfg.n_vocab, d)
-    ones("output_norm.weight", d)
-    weight("output.weight", cfg.n_vocab, d)
+    tensors = [("token_embd.weight", (cfg.n_vocab, d), "w"), ("output_norm.weight", (d,), "ones"),
+               ("output.weight", (cfg.n_vocab, d), "w")]
     for i in range(cfg.n_layer):
         pre = f"blk.{i}."
-        ones(pre + "attn_norm.weight", d)
-        ones(pre + "ffn_norm.weight", d)
+        tensors += [(pre + "attn_norm.weight", (d,), "ones"), (pre + "ffn_norm.weight", (d,), "ones")]
         if cfg.q_lora_rank:
-            weight(pre + "attn_q_a.weight", cfg.q_lora_rank, d)
-            ones(pre + "attn_q_a_norm.weight", cfg.q_lora_rank)
-            weight(pre + "attn_q_b.weight", H * cfg.qk_head_dim, cfg.q_lora_rank)
+            tensors += [(pre + "attn_q_a.weight", (cfg.q_lora_rank, d), "w"),
+                        (pre + "attn_q_a_norm.weight", (cfg.q_lora_rank,), "ones"),
+                        (pre + "attn_q_b.weight", (H * cfg.qk_head_dim, cfg.q_lora_rank), "w")]
         else:
-            weight(pre + "attn_q.weight", H * cfg.qk_head_dim, d)
-        weight(pre + "attn_kv_a_mqa.weight", r + cfg.qk_rope_dim, d)
-        ones(pre + "attn_kv_a_norm.weight", r)
-        weight(pre + "attn_kv_b.weight", H * (cfg.qk_nope_dim + cfg.v_head_dim), r)
-        weight(pre + "attn_output.weight", d, H * cfg.v_head_dim)
+            tensors.append((pre + "attn_q.weight", (H * cfg.qk_head_dim, d), "w"))
+        tensors += [(pre + "attn_kv_a_mqa.weight", (r + cfg.qk_rope_dim, d), "w"),
+                    (pre + "attn_kv_a_norm.weight", (r,), "ones"),
+                    (pre + "attn_kv_b.weight", (H * (cfg.qk_nope_dim + cfg.v_head_dim), r), "w"),
+                    (pre + "attn_output.weight", (d, H * cfg.v_head_dim), "w")]
         if i < cfg.n_dense_lead or cfg.n_expert == 0:
-            weight(pre + "ffn_gate.weight", cfg.n_ff, d)
-            weight(pre + "ffn_up.weight", cfg.n_ff, d)
-            weight(pre + "ffn_down.weight", d, cfg.n_ff)
+            tensors += [(pre + "ffn_gate.weight", (cfg.n_ff, d), "w"), (pre + "ffn_up.weight", (cfg.n_ff, d), "w"),
+                        (pre + "ffn_down.weight", (d, cfg.n_ff), "w")]
             continue
-        f32(pre + "ffn_gate_inp.weight", cfg.n_expert, d)
-        f32(pre + "exp_probs_b.bias", cfg.n_expert, s=bias_std)
-        weight(pre + "ffn_gate_exps.weight", cfg.n_expert, n_ff_exp, d)
-        weight(pre + "ffn_up_exps.weight", cfg.n_expert, n_ff_exp, d)
-        weight(pre + "ffn_down_exps.weight", cfg.n_expert, d, n_ff_exp)
         n_sh = cfg.n_shared * n_ff_exp
-        weight(pre + "ffn_gate_shexp.weight", n_sh, d)
-        weight(pre + "ffn_up_shexp.weight", n_sh, d)
-        weight(pre + "ffn_down_shexp.weight", d, n_sh)
-    w.write(path)
+        tensors += [(pre + "ffn_gate_inp.weight", (cfg.n_expert, d), 0.02),
+                    (pre + "exp_probs_b.bias", (cfg.n_expert,), float(bias_std)),
+                    (pre + "ffn_gate_exps.weight", (cfg.n_expert, n_ff_exp, d), "w"),
+                    (pre + "ffn_up_exps.weight", (cfg.n_expert, n_ff_exp, d), "w"),
+                    (pre + "ffn_down_exps.weight", (cfg.n_expert, d, n_ff_exp), "w"),
+                    (pre + "ffn_gate_shexp.weight", (n_sh, d), "w"), (pre + "ffn_up_shexp.weight", (n_sh, d), "w"),
+                    (pre + "ffn_down_shexp.weight", (d, n_sh), "w")]
+    write_family_gguf(path, "deepseek2", keys, tensors, seed=seed, tokenizer=tokenizer, types=types,
+                      default_type=default_type)

@@ -65,14 +65,22 @@ def _dequantize_rows(g: GGUFFile, name: str, out: torch.Tensor, r0: int, r1: int
     """Rows [r0, r1) of a tensor's (rows, K) view, its leading dims
     flattened (a stack of experts is its experts' rows, as ggml stores it),
     dequantized and copied into out[r0:r1], a view of the load's type and
-    device."""
+    device.  On a CUDA device the types of quant/torch_dequant.py are
+    decoded there from their raw blocks (the same values bit for bit); the
+    rest in numpy on the host."""
     from ..dtypes import row_size
+    from ..quant import torch_dequant
     from ..quant.reference import dequantize
 
     info = g.tensors[name]
     t, k = GGMLType(info.ggml_type), int(info.shape[-1])
     rb = row_size(t, k)
-    x = dequantize(g.tensor_bytes(name)[r0 * rb:r1 * rb], t, (r1 - r0) * k).reshape(r1 - r0, k)
+    raw = g.tensor_bytes(name)[r0 * rb:r1 * rb]
+    if out.device.type == "cuda" and t in torch_dequant.DEQUANT:
+        x = torch_dequant.dequantize(torch.from_numpy(raw.copy()).to(out.device), t, (r1 - r0) * k)
+        out[r0:r1].copy_(x.reshape(r1 - r0, k))
+        return
+    x = dequantize(raw, t, (r1 - r0) * k).reshape(r1 - r0, k)
     out[r0:r1].copy_(torch.from_numpy(x))
 
 
@@ -104,7 +112,9 @@ def load_params(g: GGUFFile, dtype=torch.float32, keep_quantized: bool = False, 
     such a tensor are repacked in chunks of rows as well (whole padding
     units, quant/planar.repack_rows), a job each, and put side by side on
     `device` (concat_columns).  No job holds more than its chunk in host
-    memory.  Each tensor's result does not depend on the order, and the dict
+    memory.  On a CUDA device the stacked experts of Q4_K, Q5_0 and Q8_0
+    blocks are decoded on the card from their raw bytes (_dequantize_rows),
+    bit for bit the host's values.  Each tensor's result does not depend on the order, and the dict
     keeps the file's order.
     """
     from ..quant.planar import concat_columns, padding_unit, planar_types, repack, repack_rows
@@ -127,7 +137,7 @@ def load_params(g: GGUFFile, dtype=torch.float32, keep_quantized: bool = False, 
         shape = tuple(int(d) for d in info.shape)
         dt = expert_dtype if expert_dtype is not None and len(shape) > 2 else dtype
         n_rows = int(np.prod(shape[:-1], dtype=np.int64)) if len(shape) >= 2 else 1
-        if n_rows <= _CHUNK_ROWS:
+        if n_rows <= _CHUNK_ROWS and not (torch.device(device).type == "cuda" and len(shape) > 2):
             return pool.submit(lambda: torch.from_numpy(g.to_float32(name)).to(device, dt))
         unit = int(np.prod(shape[1:-1], dtype=np.int64))  # rows an expert holds (1 in a 2-D tensor)
         step = max(1, _CHUNK_ROWS // unit) * unit

@@ -45,9 +45,9 @@ import torch.nn.functional as F
 
 from ..dtypes import GGMLType
 from ..gguf import GGUFFile
-from .common import (FamilyModel, cache_rows, cache_write, causal_mask, dequant_cache, init_layer_cache,
-                     linear as _linear, run_layers)
-from .gptj import _random_weight_blocks, _rope_interleaved, rope_angles
+from .common import (FamilyModel, cache_rows, cache_write, causal_mask, gqa_attention, init_layer_cache,
+                     linear as _linear, run_layers, window_keep)
+from .gptj import _rope_interleaved, rope_angles
 
 
 @dataclass(frozen=True)
@@ -276,35 +276,49 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor) -> torc
     return _ContiguousGrad.apply(torch._grouped_mm(x, w.transpose(-2, -1), offs=offs))
 
 
+def sort_by_expert(top_idx: torch.Tensor, n_expert: int):
+    """The (token, expert) pairs of top_idx (..., k) sorted by expert
+    (stable): (order, the token of each sorted pair, the int32 group ends
+    (E,)).  The group ends come from a search of the sorted experts on the
+    device (no bincount: on the card it reads its maximum on the host)."""
+    k = top_idx.shape[-1]
+    flat_e = top_idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    offs = torch.searchsorted(flat_e[order], torch.arange(n_expert, device=flat_e.device), right=True)
+    return order, order // k, offs.to(torch.int32)  # pair j is token j // k's
+
+
+def add_back(rows: torch.Tensor, order: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """The weighted rows (n k, D) of the sorted pairs added back to their n
+    tokens, each token's k rows in the order JAX's scatter-add applies them,
+    by expert, in the rows' type; every index op here has a deterministic
+    backward."""
+    dev = rows.device
+    where = torch.empty_like(order)
+    where[order] = torch.arange(n * k, device=dev)  # the sorted row of each pair
+    where = where.view(n, k).sort(dim=1).values  # a token's rows in sorted (expert) order
+    out = torch.zeros((n, rows.shape[-1]), dtype=rows.dtype, device=dev)
+    for j in range(k):
+        out = out + rows[where[:, j]]
+    return out
+
+
 def moe_expert_sum_grouped(h, w_gate, w_up, w_down, top_probs, top_idx, n_expert: int):
     """moe_expert_sum over only the chosen experts (llama.py:262-292): the
-    (token, expert) pairs sorted by expert (stable), three grouped products
-    over the sorted rows, the rows weighted by their gates and added back to
-    their tokens.  The group ends come from a search of the sorted experts
-    on the device (no bincount: on the card it reads its maximum on the
-    host).  Each token's k rows are added in the order JAX's scatter-add
-    applies them, by expert, in the rows' type; every index op here has a
-    deterministic backward.  Differentiable (finetuning runs through it)."""
+    (token, expert) pairs sorted by expert (sort_by_expert), three grouped
+    products over the sorted rows, the rows weighted by their gates and
+    added back to their tokens (add_back).  Differentiable (finetuning runs
+    through it)."""
     b, t, d = h.shape
     k = top_idx.shape[-1]
     n = b * t
-    dev = h.device
-    flat_e = top_idx.reshape(n * k)
-    order = torch.argsort(flat_e, stable=True)
-    tok = order // k  # pair j is token j // k's
-    offs = torch.searchsorted(flat_e[order], torch.arange(n_expert, device=dev), right=True).to(torch.int32)
+    order, tok, offs = sort_by_expert(top_idx, n_expert)
     xs = h.reshape(n, d)[tok].to(w_gate.dtype)  # (n k, D) sorted by expert
     hg = grouped_matmul(xs, w_gate, offs)  # (n k, F)
     hu = grouped_matmul(xs, w_up.to(xs.dtype), offs)
     down = grouped_matmul(F.silu(hg) * hu, w_down.to(hg.dtype), offs)  # (n k, D)
     rows = down * top_probs.reshape(n * k)[order][:, None].to(down.dtype)
-    where = torch.empty_like(order)
-    where[order] = torch.arange(n * k, device=dev)  # the sorted row of each pair
-    where = where.view(n, k).sort(dim=1).values  # a token's rows in sorted (expert) order
-    out = torch.zeros((n, d), dtype=down.dtype, device=dev)
-    for j in range(k):
-        out = out + rows[where[:, j]]
-    return out.reshape(b, t, d).to(h.dtype)
+    return add_back(rows, order, n, k).reshape(b, t, d).to(h.dtype)
 
 
 def moe_ffn_block(params: dict, pre: str, h, cfg: LlamaConfig):
@@ -371,7 +385,6 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, pos_start: tor
         x = x * cfg.embd_scale
     dt = x.dtype
     hd, n_kv = cfg.head_dim, cfg.n_head_kv
-    rep = cfg.n_head // n_kv
     scale = cfg.attn_scale or 1.0 / np.sqrt(hd)
     res = (lambda y: y) if cfg.resid_scale == 1.0 else (lambda y: cfg.resid_scale * y)
     cos, sin = rope_angles(positions, hd, cfg.rope_base) if cfg.rope_interleaved else _rope_half_angles(positions, cfg)
@@ -386,7 +399,7 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, pos_start: tor
         mask = causal_mask(t, dev)
         ranges = mask_ranges(mask)
     else:  # which cache rows each query row sees, the same for every layer
-        visible = torch.arange(max_seq, device=dev)[None, None, None, None, :] <= positions[:, None, None, :, None]
+        visible = window_keep(positions, max_seq)
     def layer(i, x):
         pre = f"blk.{i}."
         h = _rms_norm(x, params[pre + "attn_norm.weight"], cfg.rms_eps)
@@ -411,21 +424,8 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, pos_start: tor
             # go in as they are, and the output comes back in q's type
             out = flash_attention(q, k, v, mask=mask, scale=scale, ranges=ranges)
             attn_out = out.reshape(b, t, cfg.n_head * hd).to(dt)
-        else:
-            # grouped-query attention in f32 over the whole cache window (a q8
-            # cache dequantized on read, llama.py:362-375): each kv head serves
-            # the rep query heads beside it, whose rows are stacked so that
-            # every product is one batched matmul
-            with torch.profiler.record_function("llama.attention"):
-                kd, vd = dequant_cache(kc), dequant_cache(vc)
-                qg = q.reshape(b, n_kv, rep * t, hd).float()
-                att = torch.matmul(qg, kd.float().transpose(-1, -2)) * scale
-                att = att.view(b, n_kv, rep, t, max_seq)
-                att = torch.where(visible, att, torch.full((), float("-inf"), device=dev))
-                att = torch.softmax(att, dim=-1).to(vd.dtype)
-                out = torch.matmul(att.view(b, n_kv, rep * t, max_seq), vd)
-                out = out.view(b, cfg.n_head, t, hd).transpose(1, 2)
-                attn_out = out.reshape(b, t, cfg.n_head * hd).to(dt)
+        else:  # grouped-query attention in f32 over the whole cache window (llama.py:362-375)
+            attn_out = gqa_attention(q, kc, vc, visible, scale).to(dt)
         x = x + res(_linear(attn_out, params[pre + "attn_output.weight"]))
 
         return x + res(ffn_block(params, pre, _rms_norm(x, params[pre + "ffn_norm.weight"], cfg.rms_eps), cfg))
@@ -523,12 +523,9 @@ def write_random_gguf(path, cfg: LlamaConfig, seed: int = 0, tokenizer: dict | N
     also the shared expert ffn_{gate,up,down}_shexp (width cfg.n_ff) and its
     F32 gate ffn_gate_inp_shexp (1, D).
     tokenizer: GGUF tokenizer.ggml.* keys (without the prefix) -> values,
-    written as they are."""
-    from ..gguf import GGUFWriter
+    written as they are (random_gguf.write_family_gguf draws and writes)."""
+    from .random_gguf import write_family_gguf
 
-    rng = np.random.default_rng(seed)
-    w = GGUFWriter()
-    w.add_string("general.architecture", arch)
     n_ff_exp = n_ff_exp or cfg.n_ff
     keys = [("context_length", cfg.n_ctx), ("embedding_length", cfg.n_embd), ("attention.head_count", cfg.n_head),
             ("attention.head_count_kv", cfg.n_head_kv), ("block_count", cfg.n_layer),
@@ -540,69 +537,36 @@ def write_random_gguf(path, cfg: LlamaConfig, seed: int = 0, tokenizer: dict | N
                  ("expert_feed_forward_length", n_ff_exp)]
         if arch == "qwen2moe":
             keys.append(("expert_shared_feed_forward_length", cfg.n_ff))
-    for key, val in keys:
-        w.add_u32(f"{arch}.{key}", val)
-    w.add_f32(f"{arch}.rope.freq_base", cfg.rope_base)
-    w.add_f32(f"{arch}.attention.layer_norm_rms_epsilon", cfg.rms_eps)
+    keys += [("rope.freq_base", float(cfg.rope_base)), ("attention.layer_norm_rms_epsilon", float(cfg.rms_eps))]
     if arch in ("granite", "granitemoe"):
-        for key, val in (("embedding_scale", cfg.embd_scale), ("residual_scale", cfg.resid_scale),
-                         ("attention.scale", cfg.attn_scale), ("logit_scale", cfg.logit_scale)):
-            w.add_f32(f"{arch}.{key}", val)
-    for key, val in (tokenizer or {}).items():
-        if isinstance(val, str):
-            w.add_string(f"tokenizer.ggml.{key}", val)
-        elif isinstance(val, int):
-            w.add_u32(f"tokenizer.ggml.{key}", val)
-        else:
-            w.add_array(f"tokenizer.ggml.{key}", val)
-
-    def weight(name, *shape):
-        """A matmul weight of numpy shape (..., n, k): its rows are the
-        leading dims flattened, as ggml stores a stack of matrices."""
-        t = GGMLType((types or {}).get(name, default_type))
-        if t == GGMLType.F32:
-            w.add_tensor(name, (rng.standard_normal(shape) * 0.02).astype(np.float32))
-        else:
-            w.add_tensor(name, _random_weight_blocks(t, int(np.prod(shape[:-1])), shape[-1], rng), t,
-                         raw_shape_ne=tuple(reversed(shape)))
-
-    def f32(name, *shape, s=0.02):
-        w.add_tensor(name, (rng.standard_normal(shape) * s).astype(np.float32))
-
-    def ones(name, n):
-        w.add_tensor(name, np.ones((n,), np.float32))
-
+        keys += [("embedding_scale", float(cfg.embd_scale)), ("residual_scale", float(cfg.resid_scale)),
+                 ("attention.scale", float(cfg.attn_scale)), ("logit_scale", float(cfg.logit_scale))]
     E, hd = cfg.n_embd, cfg.head_dim
-    weight("token_embd.weight", cfg.n_vocab, E)
-    ones("output_norm.weight", E)
-    weight("output.weight", cfg.n_vocab, E)
+    nq, nkv = cfg.n_head * hd, cfg.n_head_kv * hd
+    tensors = [("token_embd.weight", (cfg.n_vocab, E), "w"), ("output_norm.weight", (E,), "ones"),
+               ("output.weight", (cfg.n_vocab, E), "w")]
     for i in range(cfg.n_layer):
         pre = f"blk.{i}."
-        ones(pre + "attn_norm.weight", E)
-        weight(pre + "attn_q.weight", cfg.n_head * hd, E)
-        weight(pre + "attn_k.weight", cfg.n_head_kv * hd, E)
-        weight(pre + "attn_v.weight", cfg.n_head_kv * hd, E)
+        tensors += [(pre + "attn_norm.weight", (E,), "ones"), (pre + "attn_q.weight", (nq, E), "w"),
+                    (pre + "attn_k.weight", (nkv, E), "w"), (pre + "attn_v.weight", (nkv, E), "w")]
         if arch in ("qwen2", "qwen2moe"):
-            for name, n in (("attn_q", cfg.n_head * hd), ("attn_k", cfg.n_head_kv * hd),
-                            ("attn_v", cfg.n_head_kv * hd)):
-                f32(pre + name + ".bias", n)
+            tensors += [(pre + "attn_q.bias", (nq,), 0.02), (pre + "attn_k.bias", (nkv,), 0.02),
+                        (pre + "attn_v.bias", (nkv,), 0.02)]
         if arch in ("qwen3", "qwen3moe"):
-            ones(pre + "attn_q_norm.weight", hd)
-            ones(pre + "attn_k_norm.weight", hd)
-        weight(pre + "attn_output.weight", E, cfg.n_head * hd)
-        ones(pre + "ffn_norm.weight", E)
+            tensors += [(pre + "attn_q_norm.weight", (hd,), "ones"), (pre + "attn_k_norm.weight", (hd,), "ones")]
+        tensors += [(pre + "attn_output.weight", (E, nq), "w"), (pre + "ffn_norm.weight", (E,), "ones")]
         if cfg.n_expert:
-            f32(pre + "ffn_gate_inp.weight", cfg.n_expert, E)
-            weight(pre + "ffn_gate_exps.weight", cfg.n_expert, n_ff_exp, E)
-            weight(pre + "ffn_up_exps.weight", cfg.n_expert, n_ff_exp, E)
-            weight(pre + "ffn_down_exps.weight", cfg.n_expert, E, n_ff_exp)
+            tensors += [(pre + "ffn_gate_inp.weight", (cfg.n_expert, E), 0.02),
+                        (pre + "ffn_gate_exps.weight", (cfg.n_expert, n_ff_exp, E), "w"),
+                        (pre + "ffn_up_exps.weight", (cfg.n_expert, n_ff_exp, E), "w"),
+                        (pre + "ffn_down_exps.weight", (cfg.n_expert, E, n_ff_exp), "w")]
             if arch == "qwen2moe":
-                f32(pre + "ffn_gate_inp_shexp.weight", 1, E)
-                weight(pre + "ffn_gate_shexp.weight", cfg.n_ff, E)
-                weight(pre + "ffn_up_shexp.weight", cfg.n_ff, E)
-                weight(pre + "ffn_down_shexp.weight", E, cfg.n_ff)
+                tensors += [(pre + "ffn_gate_inp_shexp.weight", (1, E), 0.02),
+                            (pre + "ffn_gate_shexp.weight", (cfg.n_ff, E), "w"),
+                            (pre + "ffn_up_shexp.weight", (cfg.n_ff, E), "w"),
+                            (pre + "ffn_down_shexp.weight", (E, cfg.n_ff), "w")]
         else:
-            weight(pre + "ffn_gate.weight", cfg.n_ff, E)
-            weight(pre + "ffn_up.weight", cfg.n_ff, E)
-            weight(pre + "ffn_down.weight", E, cfg.n_ff)
-    w.write(path)
+            tensors += [(pre + "ffn_gate.weight", (cfg.n_ff, E), "w"), (pre + "ffn_up.weight", (cfg.n_ff, E), "w"),
+                        (pre + "ffn_down.weight", (E, cfg.n_ff), "w")]
+    write_family_gguf(path, arch, keys, tensors, seed=seed, tokenizer=tokenizer, types=types,
+                      default_type=default_type)

@@ -116,7 +116,8 @@ def _not_ported(what: str):
 
 
 class Engine:
-    """model: a Llama, Deepseek, GPTJ or GPT2 wrapper (params, cfg, device) whose family
+    """model: a Llama, Deepseek, GPTJ, GPT2, GLM4MoE, OlmoE, DBRX, PhiMoE or
+    GptOss wrapper (params, cfg, device) whose family
     forward(params, cfg, tokens, pos_start, cache, cache_len) takes per-row
     cache_len vectors.  max_batch slots share one cache of max_seq rows.
 
@@ -148,20 +149,13 @@ class Engine:
                  paged=None, draft=None, draft_k: int = 4,
                  forward_fn=None, cache_put=None, prefill_chunk: int | None = None,
                  horizon: int | None = None, record_events: bool = False):
-        from .models import deepseek, gpt2, gptj, llama
+        from .models import deepseek
         from .serving_matrix import features_for
 
-        if isinstance(model, llama.Llama):
-            self._fwd = llama.forward
-        elif isinstance(model, deepseek.Deepseek):
-            # MLA: each slot caches the compressed latent and the rope key
-            self._fwd = deepseek.forward
-        elif isinstance(model, gptj.GPTJ):
-            self._fwd = gptj.forward
-        elif isinstance(model, gpt2.GPT2):
-            self._fwd = gpt2.forward
-        else:
-            raise TypeError(f"Engine cannot drive {type(model).__name__}")
+        try:
+            self._fwd = _forward_for(model)
+        except TypeError:
+            raise TypeError(f"Engine cannot drive {type(model).__name__}") from None
         for flag, what in ((forward_fn is not None, "a custom engine forward (forward_fn=)"),
                            (cache_put is not None, "a placed KV cache (cache_put=)")):
             if flag:

@@ -1,12 +1,14 @@
 """Serving feature x model family: which Engine features drive which of the
 port's families (port of ggml_tpu/serving_matrix.py, its predicates for the
-four families the port has: Llama, GPT-J, GPT-2 and Deepseek).
+nine families the port has: Llama, GPT-J, GPT-2, Deepseek, GLM4MoE (glm4moe
+and dots1), OlmoE, DBRX, PhiMoE and GptOss).
 
-Under the JAX predicates none of the four is stateful (recurrent or
+Under the JAX predicates none of the nine is stateful (recurrent or
 hybrid), so each takes chunked prefill, paged KV, the prefix cache,
 speculative decoding and forks; the q8 KV cache needs a dequant-on-read in
-the family forward, which Llama, GPT-J and Deepseek (its MLA latent, JAX's
-"mla" row) have and GPT-2 has not.  The
+the family forward, which JAX's q8_ok gives Llama, GPT-J and Deepseek (its
+MLA latent, JAX's "mla" row) of these, and not GPT-2 or the five other
+mixture-of-experts families (serving_matrix.py:47).  The
 Engine checks its flags (paged, draft, the q8 cache, prefill_chunk) against
 this table, as JAX's does (serve.py:247-258).
 """

@@ -40,16 +40,14 @@ SPEC_GROUP = 4  # graph replays (rounds) between two host reads of the count
 
 
 def _forward_for(model):
-    from .models import deepseek, gpt2, gptj, llama
+    """The family forward of a model wrapper (JAX serve.py's dispatch)."""
+    from .models import dbrx, deepseek, glm4moe, gpt2, gptj, gptoss, llama, olmoe, phimoe
 
-    if isinstance(model, llama.Llama):
-        return llama.forward
-    if isinstance(model, deepseek.Deepseek):
-        return deepseek.forward
-    if isinstance(model, gptj.GPTJ):
-        return gptj.forward
-    if isinstance(model, gpt2.GPT2):
-        return gpt2.forward
+    for fam, cls in ((llama, llama.Llama), (deepseek, deepseek.Deepseek), (gptj, gptj.GPTJ), (gpt2, gpt2.GPT2),
+                     (glm4moe, glm4moe.GLM4MoE), (olmoe, olmoe.OlmoE), (dbrx, dbrx.DBRX), (phimoe, phimoe.PhiMoE),
+                     (gptoss, gptoss.GptOss)):
+        if isinstance(model, cls):
+            return fam.forward
     raise TypeError(f"no forward for {type(model).__name__}")
 
 

@@ -24,6 +24,7 @@ from ggml_tpu.opt import AdamWConfig as JaxAdamWConfig
 from ggml_tpu.opt import Optimizer as JaxOptimizer
 from ggml_tpu_torch import checkpoint as ckpt
 from ggml_tpu_torch.opt import AdamWConfig, Optimizer
+from tests.test_torch_rules import one_thread  # noqa: F401  (the autouse fixture)
 
 RNG = np.random.default_rng(21)
 W = RNG.standard_normal((4, 3)).astype(np.float32)

@@ -34,7 +34,7 @@ from ggml_tpu_torch.kernels import qmatmul
 from ggml_tpu_torch.models import gpt2, gptj, registry
 from ggml_tpu_torch.quant.planar import PlanarWeight
 from ggml_tpu_torch.tokenizer import BPETokenizer
-from tests.test_torch_rules import tiny_gpt2_gguf
+from tests.test_torch_rules import one_thread, tiny_gpt2_gguf  # noqa: F401  (one_thread: the autouse fixture)
 from tests.test_torch_tokenizer import bpe_vocab
 
 PROMPT = "the quick brown fox jumps over the lazy dog, don't it? 42 cafés and 3.14 über-tions"
@@ -160,13 +160,14 @@ def test_registry_loads_the_ported_families(gpt2_path, gptj_path):
 
 def test_registry_refuses_what_it_has_not(gpt2_path):
     assert set(registry.ARCHS) == {"gpt2", "gptj", "llama", "qwen2", "qwen3", "qwen2moe", "qwen3moe", "granite",
-                                   "granitemoe", "smollm3", "ernie4_5", "helium", "seed_oss", "deepseek2"}
+                                   "granitemoe", "smollm3", "ernie4_5", "helium", "seed_oss", "deepseek2", "glm4moe",
+                                   "dots1", "olmoe", "dbrx", "phimoe", "gpt-oss"}
     assert set(registry.ARCHS) | set(registry._NOT_PORTED) == set(JAX_ARCHS)
     for arch in sorted(set(JAX_ARCHS) - set(registry.ARCHS)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             registry.model_class(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.load_model(gpt2_path, arch="olmoe", device="cpu")
+        registry.load_model(gpt2_path, arch="jetmoe", device="cpu")
     with pytest.raises(KeyError):
         registry.model_class("no-such-arch")
 

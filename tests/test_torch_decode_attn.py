@@ -13,7 +13,7 @@ import jax.numpy as jnp
 
 from ggml_tpu.kernels.decode_attn import fused_decode_attention as jax_fused_decode_attention
 from ggml_tpu_torch.kernels.decode_attn import fused_decode_attention
-from tests.test_torch_rules import nmse
+from tests.test_torch_rules import nmse, one_thread  # noqa: F401  (one_thread: the autouse fixture)
 
 HQ, HKV, D, S = 4, 4, 64, 64
 

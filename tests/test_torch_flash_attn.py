@@ -21,7 +21,7 @@ from ggml_tpu.ops.core import alibi_slopes as jax_alibi_slopes
 from ggml_tpu_torch.kernels import flash_attn
 from ggml_tpu_torch.kernels.flash_attn import flash_attention
 from ggml_tpu_torch.models.common import causal_mask
-from tests.test_torch_rules import nmse
+from tests.test_torch_rules import nmse, one_thread  # noqa: F401  (one_thread: the autouse fixture)
 
 GATE = {"float32": 1e-10, "bfloat16": 1e-5, "mixed": 1e-5}
 

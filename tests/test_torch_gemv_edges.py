@@ -23,7 +23,8 @@ from ggml_tpu_torch.convert import params_from_numpy
 from ggml_tpu_torch.dtypes import GGMLType
 from ggml_tpu_torch.kernels import qmatmul
 from ggml_tpu_torch.quant.planar import repack
-from tests.test_torch_rules import assert_planes_equal, nmse, planar_fields, random_raw
+from tests.test_torch_rules import (  # noqa: F401  (one_thread: the autouse fixture)
+    assert_planes_equal, nmse, one_thread, planar_fields, random_raw)
 
 N = 128
 

@@ -24,7 +24,7 @@ from ggml_tpu_torch.kernels import flash_attn
 from ggml_tpu_torch.models import gpt2
 from ggml_tpu_torch.opt.finetune import make_lm_model_fn
 from ggml_tpu_torch.opt.optimizer import LOSS_TYPES
-from tests.test_torch_rules import nmse
+from tests.test_torch_rules import nmse, one_thread  # noqa: F401  (one_thread: the autouse fixture)
 
 SHAPE = dict(n_vocab=96, n_ctx=32, n_embd=64, n_head=4, n_layer=2)
 B, T = 2, 16

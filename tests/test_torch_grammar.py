@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from ggml_tpu import grammar as jgrammar
 from ggml_tpu_torch import grammar as tgrammar
+from tests.test_torch_rules import one_thread  # noqa: F401  (the autouse fixture)
 
 GRAMMARS = {
     "literals": 'root ::= "yes" | "no"',

@@ -31,7 +31,8 @@ from ggml_tpu_torch.models import gptj
 from ggml_tpu_torch.quant import reference
 from ggml_tpu_torch.quant.planar import PlanarWeight, planar_types, repack
 from tests.test_torch_qmatmul_q8 import _expected_kernel
-from tests.test_torch_rules import assert_planes_equal, nmse, random_raw
+from tests.test_torch_rules import (  # noqa: F401  (one_thread: the autouse fixture)
+    assert_planes_equal, nmse, one_thread, random_raw)
 
 # type -> (group, offsets) of its planes, as the JAX package factors it
 IQ_TYPES = {

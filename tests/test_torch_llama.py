@@ -27,7 +27,7 @@ from ggml_tpu_torch.convert import params_from_numpy
 from ggml_tpu_torch.gguf import GGUFFile, GGUFWriter
 from ggml_tpu_torch.kernels import flash_attn
 from ggml_tpu_torch.models import gptj, llama, registry
-from tests.test_torch_rules import nmse
+from tests.test_torch_rules import nmse, one_thread  # noqa: F401  (one_thread: the autouse fixture)
 
 BASE = dict(n_vocab=96, n_ctx=128, n_embd=128, n_head=4, n_head_kv=2, n_layer=2, n_ff=192, rope_base=500000.0)
 # variant -> (config changes, parameter options)
@@ -152,10 +152,10 @@ def test_config_from_gguf_matches_jax(tmp_path, arch):
     jg.close()
     assert dataclasses.asdict(got) == dataclasses.asdict(want) and got.head_dim == want.head_dim
     assert registry.model_class(arch) is llama.Llama
-    if arch.endswith("moe"):  # the experts are read and served (tests/test_torch_moe.py); olmoe's block is not ported
+    if arch.endswith("moe"):  # the experts are read and served (tests/test_torch_moe.py); jetmoe's block is not ported
         assert (got.n_expert, got.n_expert_used) == (8, 2) and llama.Llama({}, got, device="cpu").cfg is got
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            registry.model_class("olmoe")
+            registry.model_class("jetmoe")
 
 
 @pytest.mark.parametrize("kind", ["none", "linear", "yarn", "interleaved"])

@@ -37,6 +37,7 @@ from ggml_tpu_torch.quant.planar import PlanarWeight
 from ggml_tpu_torch.tokenizer import SPMTokenizer
 from tests import test_tokenizer_spm as spm_tests
 from tools.gguf_split import split
+from tests.test_torch_rules import one_thread  # noqa: F401  (the autouse fixture)
 
 PROMPT = "hello hello hé"
 
@@ -83,7 +84,7 @@ def test_registry_and_cli_flags_on_a_llama_file(gguf_path, tmp_path, capsys):
     assert isinstance(m, llama.Llama) and m.max_seq == 32 and m.params["blk.0.attn_q.weight"].dtype == torch.bfloat16
     assert registry.model_class("qwen3moe") is registry.model_class("granitemoe") is llama.Llama
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.load_model(gguf_path, arch="glm4moe", device="cpu")
+        registry.load_model(gguf_path, arch="jetmoe", device="cpu")
     # --lora merges into the dense weights (its text against JAX's: tests/test_torch_llama_train.py)
     from ggml_tpu_torch.opt import lora
 

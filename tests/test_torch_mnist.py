@@ -31,7 +31,7 @@ from ggml_tpu.opt import fit as jax_fit
 from ggml_tpu.opt.fit import Result as JaxResult
 from ggml_tpu_torch.models import mnist
 from ggml_tpu_torch.opt import AdamWConfig, Dataset, Optimizer, Result, epoch, fit
-from tests.test_torch_rules import nmse
+from tests.test_torch_rules import nmse, one_thread  # noqa: F401  (one_thread: the autouse fixture)
 
 KINDS = {"fc": (mnist.init_fc, mnist.fc_forward, jmnist.init_fc, jmnist.fc_forward, 1e-3),
          "cnn": (mnist.init_cnn, mnist.cnn_forward, jmnist.init_cnn, jmnist.cnn_forward, 3e-3)}

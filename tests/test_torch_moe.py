@@ -26,6 +26,8 @@ q/k norms, a decoupled head_dim) and granitemoe (the four scales).
   on the planes, the grouped experts) and 2 decode steps (A) against JAX's
   forward with its Pallas kernels in interpret mode
   (test_torch_gptj_q8.assert_same_choice).
+- quant/torch_dequant.py (the card's decode of a load's experts) bit for
+  bit reference.dequantize's Q4_K, Q5_0 and Q8_0 values.
 - load_params dequantizes a 3-D expert tensor in chunks of experts: the
   result equals the whole tensor's and JAX's load_params bit for bit; it
   repacks a large 2-D weight's planes in chunks of rows: every plane equals
@@ -283,6 +285,30 @@ def test_load_params_chunks_experts(q4k_file, monkeypatch):
         np.testing.assert_array_equal(bits(chunked[name]), np.asarray(want[name]).view(np.int16), err_msg=name)
 
 
+@pytest.mark.parametrize("t", ["Q4_K", "Q5_0", "Q8_0"])
+def test_torch_dequant_equals_the_reference(t):
+    """quant/torch_dequant.py, which decodes a CUDA load's experts on the
+    card, run here on CPU tensors: bit for bit reference.dequantize's values
+    over random blocks whose fp16 fields take every finite bit pattern
+    class (subnormals, the largest, negative, zero)."""
+    from ggml_tpu_torch.dtypes import get_type_traits
+    from ggml_tpu_torch.quant import reference, torch_dequant
+
+    t = GGMLType[t]
+    tr = get_type_traits(t)
+    rng = np.random.default_rng(11)
+    b = reference.random_blocks(t, 2048, rng)
+    offs = {GGMLType.Q4_K: (0, 2), GGMLType.Q5_0: (0,), GGMLType.Q8_0: (0,)}[t]
+    for off in offs:
+        bits = rng.integers(0, 0x7C00, 2048, dtype=np.uint16) | (rng.integers(0, 2, 2048, dtype=np.uint16) << 15)
+        bits[:4] = [0x0001, 0x7BFF, 0x8000, 0x0000]
+        b[:, off:off + 2] = bits.astype("<u2").view(np.uint8).reshape(2048, 2)
+    n = 2048 * tr.block_size
+    want = reference.dequantize(b, t, n)
+    got = torch_dequant.dequantize(torch.from_numpy(b), t, n).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
 @pytest.mark.parametrize("n", [300, 4500])
 def test_load_params_chunks_planes(tmp_path, monkeypatch, n):
     """A 2-D weight of more than _CHUNK_ROWS rows (Qwen3-30B-A3B's head
@@ -309,10 +335,11 @@ def test_load_params_chunks_planes(tmp_path, monkeypatch, n):
         monkeypatch.setattr(gpt2, "_CHUNK_ROWS", n // 3)
         starts = []
         real = planar.repack_rows
-        monkeypatch.setattr(planar, "repack_rows", lambda *a: starts.append(a[3]) or real(*a))
+        monkeypatch.setattr(planar, "repack_rows", lambda *a: starts.append((a[1], a[3])) or real(*a))
         chunked = gpt2.load_params(g, torch.float32, keep_quantized=True, device="cpu")
     step = 1024 if n == 4500 else 128
-    assert starts == list(range(0, n, step)) * len(types)
+    # the jobs run on the loader's threads: each type's chunks, in any order
+    assert sorted(starts) == sorted((t, r) for t in types for r in range(0, n, step))
     for t in types:
         a, b = whole[f"{t.name}.weight"], chunked[f"{t.name}.weight"]
         assert isinstance(b, planar.PlanarWeight) and (b.n, b.k, b.npad, b.kind) == (a.n, a.k, a.npad, a.kind)

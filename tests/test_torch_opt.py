@@ -27,7 +27,7 @@ from ggml_tpu.opt.finetune import make_lm_model_fn as jax_make_lm_model_fn
 from ggml_tpu_torch.convert import params_from_numpy
 from ggml_tpu_torch.models import gpt2
 from ggml_tpu_torch.opt import LOSS_TYPES, AdamWConfig, Dataset, Optimizer, make_lm_model_fn
-from tests.test_torch_rules import nmse
+from tests.test_torch_rules import nmse, one_thread  # noqa: F401  (one_thread: the autouse fixture)
 
 SHAPE = dict(n_vocab=64, n_ctx=16, n_embd=32, n_head=4, n_layer=1)
 B, T = 4, 16

@@ -14,7 +14,8 @@ from ggml_tpu.quant import reference as jref
 from ggml_tpu_torch.convert import params_from_numpy
 from ggml_tpu_torch.dtypes import GGMLType
 from ggml_tpu_torch.quant import planar, reference
-from tests.test_torch_rules import assert_planes_equal, planar_fields, random_raw
+from tests.test_torch_rules import (  # noqa: F401  (one_thread: the autouse fixture)
+    assert_planes_equal, one_thread, planar_fields, random_raw)
 
 N = 200  # not a multiple of the 128-column pad
 TYPES = [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K]

@@ -14,7 +14,8 @@ from ggml_tpu.quant import reference as jref
 from ggml_tpu_torch.dtypes import GGMLType
 from ggml_tpu_torch.quant import planar, reference
 from ggml_tpu_torch.quant.planar import PlanarWeight
-from tests.test_torch_rules import assert_planes_equal, random_raw
+from tests.test_torch_rules import (  # noqa: F401  (one_thread: the autouse fixture)
+    assert_planes_equal, one_thread, random_raw)
 
 N = 200  # not a multiple of the 128-column pad
 TYPES = [GGMLType.Q8_0, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q5_K, GGMLType.Q6_K]

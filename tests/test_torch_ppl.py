@@ -20,7 +20,7 @@ from ggml_tpu.models import gptj as jgptj
 from ggml_tpu_torch import ppl
 from ggml_tpu_torch.gguf import GGUFFile
 from ggml_tpu_torch.models import gpt2, gptj
-from tests.test_torch_rules import tiny_gpt2_gguf
+from tests.test_torch_rules import one_thread, tiny_gpt2_gguf  # noqa: F401  (one_thread: the autouse fixture)
 from tests.test_torch_tokenizer import bpe_vocab
 
 WINDOW = 64

@@ -46,7 +46,7 @@ from ggml_tpu_torch.opt import AdamWConfig, Optimizer, finetune_lora, make_lm_mo
 from ggml_tpu_torch.opt.lora import init_lora, wrap_lora
 from ggml_tpu_torch.quant.planar import PlanarWeight, repack
 from ggml_tpu_torch.quant.reference import dequantize
-from tests.test_torch_rules import nmse, random_raw
+from tests.test_torch_rules import nmse, one_thread, random_raw  # noqa: F401  (one_thread: the autouse fixture)
 
 N, K = 192, 512
 FORMATS = [GGMLType.Q4_K, GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q6_K]

@@ -25,7 +25,7 @@ from ggml_tpu.quant.planar import repack as jax_repack
 from ggml_tpu_torch.convert import params_from_numpy
 from ggml_tpu_torch.kernels import qmatmul
 from ggml_tpu_torch.quant.planar import repack
-from tests.test_torch_rules import nmse, planar_fields
+from tests.test_torch_rules import nmse, one_thread, planar_fields  # noqa: F401  (one_thread: the autouse fixture)
 
 N = 256
 

@@ -145,7 +145,9 @@ def test_port_modules_listed():
                  "ggml_tpu_torch.checkpoint", "ggml_tpu_torch.models.llama", "ggml_tpu_torch.ops.core",
                  "ggml_tpu_torch.serve", "ggml_tpu_torch.cli.server", "ggml_tpu_torch.paged_kv",
                  "ggml_tpu_torch.serving_matrix", "ggml_tpu_torch.models.mnist", "ggml_tpu_torch.opt.fit",
-                 "ggml_tpu_torch.speculative", "ggml_tpu_torch.models.deepseek"):
+                 "ggml_tpu_torch.speculative", "ggml_tpu_torch.models.deepseek", "ggml_tpu_torch.models.glm4moe",
+                 "ggml_tpu_torch.models.olmoe", "ggml_tpu_torch.models.dbrx", "ggml_tpu_torch.models.phimoe",
+                 "ggml_tpu_torch.models.gptoss", "ggml_tpu_torch.models.phi2", "ggml_tpu_torch.models.random_gguf"):
         assert want in names
 
 
@@ -168,7 +170,8 @@ def test_entry_points_default_to_cuda():
     from ggml_tpu_torch.convert import params_from_numpy
     from ggml_tpu_torch.cli import finetune as cli
     from ggml_tpu_torch.cli import generate, gguf_dump, server
-    from ggml_tpu_torch.models import common, deepseek, gpt2, gptj, llama, mnist, registry
+    from ggml_tpu_torch.models import (common, dbrx, deepseek, glm4moe, gpt2, gptj, gptoss, llama, mnist, olmoe,
+                                       phimoe, registry)
     from ggml_tpu_torch.checkpoint import load_params
     from ggml_tpu_torch.opt import finetune, finetune_lora
     from ggml_tpu_torch.paged_kv import PagedKVManager
@@ -180,7 +183,10 @@ def test_entry_points_default_to_cuda():
                finetune_lora, load_params, registry.load_model, perplexity, llama.Llama.__init__,
                llama.Llama.from_gguf, llama.init_cache, server.ServerState.__init__, PagedKVManager.__init__,
                mnist.init_fc, mnist.init_cnn, mnist.load_gguf, deepseek.Deepseek.__init__,
-               deepseek.Deepseek.from_gguf, deepseek.init_cache):
+               deepseek.Deepseek.from_gguf, deepseek.init_cache,
+               *(f for mod, cls in ((glm4moe, glm4moe.GLM4MoE), (olmoe, olmoe.OlmoE), (dbrx, dbrx.DBRX),
+                                    (phimoe, phimoe.PhiMoE), (gptoss, gptoss.GptOss))
+                 for f in (cls.__init__, cls.from_gguf, mod.init_cache))):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
     assert cli.parser().parse_args(["in.gguf", "out.gguf", "--tokens", "t.npy"]).device == "cuda"
     assert generate.parser().parse_args(["m.gguf"]).device == "cuda"

@@ -21,7 +21,7 @@ from ggml_tpu.sampling import warp_logits as jax_warp_logits
 from ggml_tpu_torch.convert import params_from_numpy
 from ggml_tpu_torch.models import gptj
 from ggml_tpu_torch.sampling import greedy, sample_top_k_top_p, warp_logits
-from tests.test_torch_rules import params_to_numpy
+from tests.test_torch_rules import one_thread, params_to_numpy  # noqa: F401  (one_thread: the autouse fixture)
 
 V = 512
 CFG = dict(n_vocab=V, n_ctx=256, n_embd=512, n_head=4, n_layer=2, n_rot=32, rope_deinterleaved=True)

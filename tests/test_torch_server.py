@@ -23,6 +23,7 @@ from ggml_tpu.models import gpt2 as jgpt2
 from ggml_tpu_torch.cli import server
 from ggml_tpu_torch.gguf import GGUFWriter
 from ggml_tpu_torch.tokenizer import bytes_to_unicode
+from tests.test_torch_rules import one_thread  # noqa: F401  (the autouse fixture)
 
 SHAPE = dict(n_vocab=256, n_ctx=128, n_embd=32, n_head=4, n_layer=2)
 TEMPLATE = ("{% for m in messages %}<{{ m.role }}>{{ m.content }}{% endfor %}"

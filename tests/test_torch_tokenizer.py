@@ -19,6 +19,7 @@ from ggml_tpu_torch import tokenizer as ttok
 from ggml_tpu_torch.gguf import GGUFFile, GGUFWriter
 from ggml_tpu_torch.models.registry import load_tokenizer
 from tests import test_tokenizer_spm as spm_tests
+from tests.test_torch_rules import one_thread  # noqa: F401  (the autouse fixture)
 
 _WORDS = ["the", "quick", "brown", "fox", "jumps", "over", "lazy", "dog", "don't", "it's", "we're", "they've",
           "I'm", "you'll", "he'd", "Hello", "World", "café", "naïve", "über", "日本語", "données", "😀", "42",
