@@ -22,6 +22,8 @@
                                                   # all 27 layers
     python3 chip_smoke.py --moe-families          # phases 1, 2 and the other MoE families (4u) only, each model as
                                                   # deep as the card and the disk allow (at most its published depth)
+    python3 chip_smoke.py --dense-families        # phases 1, 2 and the dense families (4v) only, each model as deep
+                                                  # as the card and the disk allow (at most its published depth)
 
 Phases (any failure exits non-zero without the result line):
 1. the card, as nvidia-smi reports its name and power limit;
@@ -187,7 +189,24 @@ Phases (any failure exits non-zero without the result line):
    LongRoPE switch; tiny files of all six architectures (dots1 too) on the
    card against the CPU; in phase 3, G at K = 2880 and 1408 over Q5_0
    planes and on the 201088-row Q8_0 head, A at gpt-oss's, GLM-4.5-Air's
-   and DBRX's attention shapes, F on the 151552- and 32064-row heads;
+   and DBRX's attention shapes, F on the 151552- and 32064-row heads; (v)
+   the dense families (models/gemma2.py for gemma, gemma2 and gemma3,
+   phi2.py, phi3.py, neox.py, falcon.py): Gemma-2-9B, Gemma-3-12B, Phi-2,
+   Phi-3.5-mini, GPT-NeoX-20B and Falcon-7B (4 layers each in the whole
+   run) at their published widths from Q4_K GGUF files with a Q6_K head or
+   a Q6_K embedding where the head is tied (Falcon-7B's K = 4544 takes the
+   Q5_0 and Q8_0 fallbacks): the load, prefills of 8, 100 and 1024 tokens,
+   32 greedy tokens graphed and eagerly with exact launches beside the
+   plane-byte floor, a profiled decode by class, the engine at 4 slots
+   dense, paged (the gemma family's and Phi-3's own steps), chunked, q8
+   (the gemma family and Phi-3.5), with a 1-layer self-draft, any parting
+   only at a tie; one QLoRA and one full-weight step of the four families
+   JAX finetunes; tiny files of every variant and their first training
+   steps on the card against the CPU; in phase 3, A, B and C at their
+   attention and MLP shapes, C over multiplied-out Q4_K planes at K = 3840
+   and 18176, G over Q5_0 planes at K = 4544 (N = 4544, 64, 18176), H at K
+   = 14336, 15360 and 10240, F on the 51200-, 32064-, 50432-, 256000- and
+   262208-row heads;
 5. one JSON line listing every kernel, then the result line.
 
 Runs only where torch.cuda.is_available(); it imports nothing of JAX.
@@ -692,6 +711,43 @@ def phase_kernels(torch, F, qmatmul, decode_attn, flash_attn, flush):
         gemv_case("q4k_gemv_qact", 1, *shape, d_dtype=torch.float32)
     gemv_case("q8_gemv_sb", 1, 4096, 151552, 151552, fmt="q6_k")
     gemv_case("q8_gemv_sb", 1, 4096, 32064, 32768, fmt="q6_k")
+    # the dense families from Q4_K files with a Q6_K head (phase 4v).
+    # Gemma-2-9B, E 3584: A on q (N = 4096), k and v (2048), gate and up
+    # (14336), attn_output (K = 4096); ffn_down (K = 14336) has no compact
+    # tile: H over expanded planes.  Gemma-3-12B, E 3840: K % 512 != 0, so
+    # q, k, v, gate and up are Q4_K planes multiplied out (f32 scales and
+    # offsets per 32, as repack builds them) with 60 groups a half-plane, no
+    # GEMV tile: C at every M, decode included; H on ffn_down (K = 15360,
+    # expanded).  Phi-2 (E 2560): A on q and ffn_up (10240), H on ffn_down
+    # (K = 10240), F on the 51200-row head.  Phi-3.5-mini (E 3072): A on q,
+    # gate (8192) and ffn_down (K = 8192), F on the 32064-row head at K =
+    # 3072.  GPT-NeoX-20B (E 6144): A on q, ffn_up (24576) and ffn_down (K =
+    # 24576), F on the 50432-row head.  Falcon-7B (E 4544, not whole
+    # superblocks): q, k, v (N = 64, padded to 128), attn_output and ffn_up
+    # are Q5_0 planes with 142 groups: G at every M; ffn_down (K = 18176)
+    # multiplied-out Q4_K with 284 groups a half-plane: C at every M.  The
+    # tied heads of Gemma and Falcon are the embeddings' dense copies (a
+    # library product, as JAX's einsum), not planes: F is held at Gemma's
+    # widths all the same (N = 256000 at K = 3584, 262208 at K = 3840, padded
+    # to 263168).
+    for shape in ((3584, 4096, 4096), (3584, 2048, 2048), (3584, 14336, 14336), (4096, 3584, 3584),
+                  (4096, 3840, 3840), (2560, 2560, 2560), (2560, 10240, 10240), (3072, 8192, 8192),
+                  (8192, 3072, 3072), (6144, 24576, 24576), (24576, 6144, 6144)):
+        gemv_case("q4k_gemv_qact", 1, *shape, d_dtype=torch.float32)
+    for shape in ((3584, 4096, 4096), (3072, 3072, 3072), (6144, 6144, 6144)):
+        gemv_case("q4k_gemv_rows", 4, *shape, d_dtype=torch.float32)
+        gemv_case("q4k_matmul", 1024, *shape, d_dtype=torch.float32)
+    for m in (1, 4, 1024):
+        gemv_case("q4k_matmul", m, 3840, 4096, 4096, fmt="q4_0_f32")
+        gemv_case("q4k_matmul", m, 18176, 4544, 5120, fmt="q4_0_f32")
+        for n, npad in ((4544, 5120), (64, 128), (18176, 18432)):
+            gemv_case("q8_matmul", m, 4544, n, npad, fmt="q5_0")
+    gemv_case("q4k_matmul", 1, 3840, 15360, 15360, fmt="q4_0_f32")
+    for k, n in ((14336, 3584), (15360, 3840), (10240, 2560)):
+        gemv_case("q4_gemv", 1, k, n, n, fmt="q4_k_expanded")
+    for k, n, npad in ((2560, 51200, 51200), (3072, 32064, 32768), (6144, 50432, 51200), (3584, 256000, 256000),
+                       (3840, 262208, 263168)):
+        gemv_case("q8_gemv_sb", 1, k, n, npad, fmt="q6_k")
 
     def flash_case(b, h, h_kv, nq, nkv, d, types, causal=True, max_bias=0.0, softcap=0.0, time_it=True,
                    dead_row=None):
@@ -5853,6 +5909,29 @@ def mf_dequant_check(torch, np, model, path: str) -> dict:
     return dict(tensor=name, type=t.name, equal=True)
 
 
+def engine_run(torch, model, counts: dict, label: str, prompts, n_new: int, **kw) -> tuple:
+    """An Engine over the model (4 slots, MF_SERVE_SEQ rows, a bf16 cache
+    unless kw says otherwise) warmed up on the first prompt (its captures
+    and first uses), then the prompts run for n_new tokens each on the
+    host clock, their launches added to counts.  Returns (the engine, the
+    ids, dict(wall_s, tok_per_s, slots))."""
+    from ggml_tpu_torch.serve import Engine
+
+    eng = Engine(model, **dict(dict(max_batch=4, max_seq=MF_SERVE_SEQ, cache_dtype=torch.bfloat16), **kw))
+    _run_ids(eng, prompts[:1], 2)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    ids = _run_ids(eng, prompts, n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for k, v in launch_counts().items():
+        counts[k] = counts.get(k, 0) + v
+    check(all(len(x) == n_new and all(0 <= t < model.cfg.n_vocab for t in x) for x in ids),
+          f"{type(model).__name__} {label} ids")
+    return eng, ids, dict(wall_s=wall, tok_per_s=sum(map(len, ids)) / wall, slots=eng.max_batch)
+
+
 def phase_mf_model(torch, np, name: str, tmp: str, card: str, n_layer: int) -> dict:
     """4u (a)-(e) for one model; returns its record with its counts."""
     import gc
@@ -5903,20 +5982,7 @@ def phase_mf_model(torch, np, name: str, tmp: str, card: str, n_layer: int) -> d
           f"{run['launches_per_token']}; an eager token by class: {_fmt_classes(trace['eager_by_four_classes'])}")
 
     def engine(label, prompts, n_new=MF_NEW, **kw):
-        kw = dict(dict(max_batch=4, max_seq=MF_SERVE_SEQ, cache_dtype=torch.bfloat16), **kw)
-        eng = Engine(model, **kw)
-        _run_ids(eng, prompts[:1], 2)  # captures and first uses
-        torch.cuda.synchronize()
-        reset_launches()
-        t0 = time.perf_counter()
-        ids = _run_ids(eng, prompts, n_new)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        for k, v in launch_counts().items():
-            counts[k] = counts.get(k, 0) + v
-        check(all(len(x) == n_new and all(0 <= t < cfg.n_vocab for t in x) for x in ids), f"{name} {label} ids")
-        rec = dict(wall_s=wall, tok_per_s=sum(map(len, ids)) / wall, slots=eng.max_batch)
-        return eng, ids, rec
+        return engine_run(torch, model, counts, label, prompts, n_new, **kw)
 
     prompts = [rng.integers(0, cfg.n_vocab, int(rng.integers(4, 30))).tolist() for _ in range(8)]
     eng, ids, rec = engine("dense", prompts)
@@ -6061,33 +6127,42 @@ def phase_mf_tiny(torch, np, tmp: str) -> dict:
     for i, (arch, (mod, cfg, kw)) in enumerate(archs.items()):
         path = os.path.join(tmp, f"tiny-{arch}.gguf")
         mod.write_random_gguf(path, cfg, seed=30 + i, default_type=GGMLType.F32, **kw)
-        cls = registry.model_class(arch)
-        for dtype, t, gate in ((torch.float32, 12, 1e-9), (torch.bfloat16, 20, 1e-3)):
-            models = [cls.from_gguf(path, dtype=dtype, keep_quantized=False, device=d, max_seq=32)
-                      for d in ("cpu", "cuda")]
-            prompt = torch.from_numpy(np.random.default_rng(t).integers(0, 256, (1, t)))
-            runs = []
-            for m in models:
-                zero = torch.zeros((), dtype=torch.int32, device=m.device)
-                cache = m.new_cache(torch.float32)
-                runs.append([mod.forward(m.params, m.cfg, prompt.to(m.device), zero.expand(1), cache, zero)[0][:, -1]
-                             .float().cpu(), cache])
-            worst = errors(runs[0][0], runs[1][0])[0]
-            tok = int(torch.argmax(runs[0][0]))
-            for step in range(3):
-                logits = []
-                for m, (_, cache) in zip(models, runs):
-                    pos = torch.tensor(t + step, dtype=torch.int32, device=m.device)
-                    logits.append(mod.forward(m.params, m.cfg, torch.tensor([[tok]], device=m.device),
-                                              pos.expand(1), cache, pos)[0][0, -1].float().cpu())
-                worst = max(worst, errors(*logits)[0])
-                tok = int(torch.argmax(logits[0]))
-            name = f"{arch}/{str(dtype)[6:]}"
-            check(worst <= gate, f"tiny {name}: card against CPU NMSE {worst:.2e} > {gate:g}")
-            out[name] = worst
+        out.update(tiny_against_cpu(torch, np, mod, registry.model_class(arch), path, arch))
         os.remove(path)
     print("  tiny files, card against CPU, worst NMSE over the prefill and 3 steps: "
           + ", ".join(f"{k} {v:.1e}" for k, v in out.items()))
+    return out
+
+
+def tiny_against_cpu(torch, np, mod, cls, path: str, label: str) -> dict:
+    """A tiny file's model (cls) on the card against the same file on the
+    CPU, fed the same tokens through mod.forward: f32 (TF32 off) at a
+    12-token prompt and 3 greedy decode steps, NMSE <= 1e-9; bf16 at a
+    20-token prompt and 3 steps, NMSE <= 1e-3.  Returns {label/dtype: the
+    worst NMSE}."""
+    out = {}
+    for dtype, t, gate in ((torch.float32, 12, 1e-9), (torch.bfloat16, 20, 1e-3)):
+        models = [cls.from_gguf(path, dtype=dtype, keep_quantized=False, device=d, max_seq=32) for d in ("cpu", "cuda")]
+        prompt = torch.from_numpy(np.random.default_rng(t).integers(0, 256, (1, t)))
+        runs = []
+        for m in models:
+            zero = torch.zeros((), dtype=torch.int32, device=m.device)
+            cache = m.new_cache(torch.float32)
+            runs.append([mod.forward(m.params, m.cfg, prompt.to(m.device), zero.expand(1), cache, zero)[0][:, -1]
+                         .float().cpu(), cache])
+        worst = errors(runs[0][0], runs[1][0])[0]
+        tok = int(torch.argmax(runs[0][0]))
+        for step in range(3):
+            logits = []
+            for m, (_, cache) in zip(models, runs):
+                pos = torch.tensor(t + step, dtype=torch.int32, device=m.device)
+                logits.append(mod.forward(m.params, m.cfg, torch.tensor([[tok]], device=m.device), pos.expand(1),
+                                          cache, pos)[0][0, -1].float().cpu())
+            worst = max(worst, errors(*logits)[0])
+            tok = int(torch.argmax(logits[0]))
+        name = f"{label}/{str(dtype)[6:]}"
+        check(worst <= gate, f"tiny {name}: card against CPU NMSE {worst:.2e} > {gate:g}")
+        out[name] = worst
     return out
 
 
@@ -6105,6 +6180,455 @@ def phase_moe_families(torch, np, tmp: str, card: str, deep: bool) -> list:
         runs.append(phase_mf_model(torch, np, name, tmp, card, depth))
     stage("4u (f). tiny glm4moe, dots1, olmoe, dbrx, phimoe and gpt-oss files on the card against the CPU")
     runs.append(dict(tiny=phase_mf_tiny(torch, np, tmp), counts={}))
+    return runs
+
+
+# 4v: the dense families (models/gemma2.py, which reads gemma, gemma2 and
+# gemma3 files, phi2.py, phi3.py, neox.py, falcon.py), each at its published
+# widths from a GGUF file of random Q4_K weights with a Q6_K head (the
+# embedding of a tied model, llama.cpp's rule where a file has no output
+# tensor; llama.cpp's fallbacks where K is not whole superblocks: Q4_K ->
+# Q5_0, Q6_K -> Q8_0), its depth cut (DV_MODELS; --dense-families: as deep
+# as the card and the disk allow, at most the published depth): (a) the
+# load through registry.load_model; (b) prefills of 8, 100 and 1024 tokens
+# timed, with exact launches; (c) 32 greedy tokens graphed and eagerly (the
+# same ids) beside the plane-byte floor, exact launches a token, an eager
+# token profiled by class; (d) the engine at 4 slots over mixed prompts:
+# dense (each request equal to itself alone but at a tie: dense_parted),
+# paged with a prefix hit (the gemma family's and Phi-3's own steps, the
+# generic adapter for the others), chunked, q8 (the gemma family and
+# Phi-3.5; the others refuse it) and with a 1-layer self-draft, each
+# request equal to the dense engine's but at a tie (q8 is another result:
+# each q8 request equal to itself alone), the paged step against the
+# dense forward; (e) for the four families JAX finetunes, one QLoRA step
+# over the loaded planes and one full-weight step over their f32
+# dequantization; (f) tiny files of every variant on the card against the
+# CPU, with finetune's and finetune_lora's first steps
+DV_PREFILLS = (8, 100, 1024)
+DV_TRAIN = dict(rank=8, batch=1, seq=128, lr=1e-3)
+# name -> (module, config function, the whole run's depth, published depth, writer arguments, finetuned)
+DV_MODELS = {
+    "Gemma-2-9B": ("gemma2", "gemma2_9b_config", 4, 42, dict(arch="gemma2"), True),
+    "Gemma-3-12B": ("gemma2", "gemma3_12b_config", 4, 48, dict(arch="gemma3"), False),
+    "Phi-2": ("phi2", "phi2_config", 4, 32, {}, True),
+    "Phi-3.5-mini": ("phi3", "phi35_mini_config", 4, 32, {}, False),
+    "GPT-NeoX-20B": ("neox", "gpt_neox_20b_config", 4, 44, {}, True),
+    "Falcon-7B": ("falcon", "falcon_7b_config", 4, 32, {}, True),
+}
+
+
+def _dv_layer_bytes(cfg) -> tuple:
+    """(bytes on the card, GGUF bytes) of one layer at ~4.5 bits a weight."""
+    d, hd = cfg.n_embd, cfg.head_dim
+    n_kv = getattr(cfg, "n_head_kv", cfg.n_head)
+    n_ff = getattr(cfg, "n_ff", 4 * d)
+    params = 2 * d * cfg.n_head * hd + 2 * d * n_kv * hd + 3 * d * n_ff
+    return params * 9 // 16, params * 9 // 16
+
+
+def dv_depth(torch, cfg, tmp: str, most: int) -> int:
+    """The deepest cut the card (24 GB kept for the head, the engines and
+    a full-weight step) and the free disk (2 GB kept) hold, at most `most`."""
+    import shutil
+
+    card, disk = _dv_layer_bytes(cfg)
+    free_card = torch.cuda.mem_get_info()[1] - 24e9
+    free_disk = shutil.disk_usage(tmp).free - 2e9
+    return max(1, min(most, int(free_card // card), int(free_disk // disk)))
+
+
+def write_dv_gguf(np, tmp: str, name: str, n_layer: int) -> tuple:
+    """The model's GGUF file at its published widths cut to n_layer layers
+    (its module's write_random_gguf, seed 0, Q4_K with a Q6_K head or, where
+    the head is tied, a Q6_K embedding).  Returns (path, config,
+    dict(gguf_write_s, gguf_bytes))."""
+    import importlib
+
+    from ggml_tpu_torch.dtypes import GGMLType
+
+    mod_name, fn, _, _, kw, _ = DV_MODELS[name]
+    mod = importlib.import_module(f"ggml_tpu_torch.models.{mod_name}")
+    cfg = dataclasses.replace(getattr(mod, fn)(), n_layer=n_layer)
+    head = "token_embd.weight" if mod_name in ("gemma2", "falcon") else "output.weight"
+    path = os.path.join(tmp, f"{name.lower()}-{n_layer}-layers-q4_k.gguf")
+    t0 = time.perf_counter()
+    mod.write_random_gguf(path, cfg, seed=0, types={head: GGMLType.Q6_K}, **kw)
+    info = dict(gguf_write_s=time.perf_counter() - t0, gguf_bytes=os.path.getsize(path))
+    print(f"  wrote {info['gguf_bytes'] / 1e9:.3f} GB of {name} GGUF ({n_layer} layers) in "
+          f"{info['gguf_write_s']:.1f}s")
+    return path, cfg, info
+
+
+def dv_stream_bytes(params: dict, cache) -> dict:
+    """Bytes a decode token reads at least: every plane and dense tensor but
+    the embedding (one row of it) and its planes, the head (a tied model's
+    dense embedding, read whole once), the KV cache window the attention
+    reads whole; the floor at HBM_BYTES_PER_S."""
+    from ggml_tpu_torch.quant.planar import PlanarWeight
+
+    size = lambda t: t.plane_bytes() if isinstance(t, PlanarWeight) else t.numel() * t.element_size()
+    total = sum(size(v) for k, v in params.items() if not k.startswith("token_embd"))
+    if "output.weight" not in params:  # tied: the dense embedding is the head
+        total += size(params.get("token_embd.weight@dense", params["token_embd.weight"]))
+    total += sum(size(k) + size(v) for k, v in cache)
+    return dict(stream_bytes=total, floor_ms=total / HBM_BYTES_PER_S * 1e3)
+
+
+def dense_parted(torch, np, model, label: str, prompts, want: list, got: list) -> list:
+    """Where an engine's ids part from the dense engine's (or a request's
+    alone from its ids in the mix): at the first step where a request parts,
+    three references of its prompt and the ids before it through the
+    model's own forward, each another rounding of the same sums: the b = 1
+    prefill whole, the same in chunks of 16 rows (every linear B: int8
+    activations a row), and the same sequence as enough identical rows to
+    make M > 32 (every linear C: bf16 activations), as an engine's padded
+    admission runs it.  Each parting must be at a tie: the references
+    preferring different picks, or the two picks within MF_TIE in a
+    reference or within the rounding envelope, the largest change of any
+    logit between the B and C references (another rounding of the same sums:
+    up to 0.35 at Phi-3.5-mini's widths, whose SwiGLU spreads the int8
+    roundings; 0.06 at Phi-2's)."""
+    from ggml_tpu_torch.speculative import _forward_for
+
+    forward = _forward_for(model)
+    out = []
+    for prompt, a, b in zip(prompts, want, got):
+        a, b = list(a), list(b)
+        if a == b:
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        seq = prompt + a[:j]
+        t = len(seq)
+        gaps, lasts = [], []
+        for step, rows in ((t, 1), (16, 1), (t, -(-33 // t))):
+            toks = torch.as_tensor(np.asarray([seq] * rows), device=model.device)
+            cache = [(k[:1].repeat(rows, 1, 1, 1), v[:1].repeat(rows, 1, 1, 1)) for k, v in model.new_cache(torch.bfloat16)]
+            with torch.no_grad():
+                for s in range(0, t, step):
+                    pos = torch.full((rows,), s, dtype=torch.int32, device=model.device)
+                    logits = forward(model.params, model.cfg, toks[:, s:s + step], pos, cache, pos[0],
+                                     prefill=step == t)[0]
+            lasts.append(logits[0, -1].float())
+            gaps.append(float(lasts[-1][a[j]] - lasts[-1][b[j]]))
+        rec = dict(step=j, a_id=a[j], b_id=b[j], picks_gap=gaps[0], chunked_picks_gap=gaps[1], batched_picks_gap=gaps[2],
+                   envelope=float((lasts[1] - lasts[2]).abs().max()))
+        check(min(map(abs, gaps)) <= max(MF_TIE, rec["envelope"]) or len({g > 0 for g in gaps}) > 1,
+              f"{type(model).__name__} {label}: a request parts beyond a tie: {rec}")
+        out.append(rec)
+    return out
+
+
+def _fmt_dparted(parted: list) -> str:
+    return "; ".join(f"step {m['step']}: picks' gap {m['picks_gap']:.4f} (chunked {m['chunked_picks_gap']:.4f}, "
+                     f"batched {m['batched_picks_gap']:.4f}; envelope {m['envelope']:.4f})" for m in parted)
+
+
+def dv_train(torch, np, model, path: str, card: str, full_layers: int) -> dict:
+    """4v (e): finetune_lora(keep_quantized=True) over the loaded model's
+    planes (its dense tensors cast to f32: finetune_lora's base=), rank 8 on
+    the default targets, batch 1 x 128, lr 1e-3, one step: its seconds,
+    launches, peak memory, a finite loss.  Then one full-weight step of its
+    first full_layers layers (the whole run's cut: f32 weights, moments and
+    gradients of a deeper cut would not fit the card): every plane
+    dequantized to f32 on the card (qmatmul.planar_dequant: the planes'
+    values, the GGUF's up to the last bit of a product), the family's
+    make_lm_model_fn from an Optimizer at the default AdamW, as finetune
+    runs it, no launch of the port's kernels (every weight dense)."""
+    import gc
+
+    from ggml_tpu_torch.gguf import GGUFFile
+    from ggml_tpu_torch.kernels import qmatmul
+    from ggml_tpu_torch.opt import AdamWConfig, Optimizer, finetune_lora
+    from ggml_tpu_torch.opt.finetune import _family, make_lm_model_fn
+    from ggml_tpu_torch.quant.planar import PlanarWeight
+
+    with GGUFFile(path) as g:
+        fam = _family(g.metadata["general.architecture"])
+    model.decode_graphs.clear()  # the decode graphs' pools (a gemma's holds its f32 head copy): no more decode
+    rank, batch, seq, lr = (DV_TRAIN[k] for k in ("rank", "batch", "seq", "lr"))
+    toks = np.resize(np.random.default_rng(1).integers(0, model.cfg.n_vocab, 61), batch * seq + 1).astype(np.int32)
+
+    def timed(fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, extra = fn()
+        torch.cuda.synchronize()
+        run = dict(s=time.perf_counter() - t0, loss=loss, counts={k: v for k, v in launch_counts().items() if v},
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **extra)
+        check(np.isfinite(loss), f"{type(model).__name__}: loss {loss}")
+        return run
+
+    base = {k: v if isinstance(v, PlanarWeight) else v.float() for k, v in model.params.items()}
+
+    def qlora():
+        losses, trained = finetune_lora(path, toks, rank=rank, keep_quantized=True, seq_len=seq, batch=batch,
+                                        steps=1, adamw=AdamWConfig(alpha=lr), device="cuda", base=base)
+        return losses[0], dict(adapters=len(trained))
+
+    out = dict(DV_TRAIN, qlora=timed(qlora))
+    want = planar_launches(base, batch * seq, True)
+    check(out["qlora"]["counts"] == {k: v for k, v in want.items() if v},
+          f"QLoRA launches {out['qlora']['counts']}, want {want} (the forward; the backward dequantizes)")
+    del base
+
+    kept = {k: v for k, v in model.params.items()
+            if not ((k == "token_embd.weight" and "token_embd.weight@dense" in model.params) or (
+                k.startswith("blk.") and int(k.split(".")[1]) >= full_layers))}
+
+    def dequantized() -> dict:
+        params = {}
+        for k, v in kept.items():
+            if isinstance(v, PlanarWeight):
+                v = qmatmul.planar_dequant(v, torch.float32)[:, :v.n].t().contiguous()
+            params[k.replace("@dense", "")] = v.float()
+        return params
+
+    def full():
+        # the Optimizer clones the dict it is handed, which is then freed
+        fn = make_lm_model_fn(fam, dataclasses.replace(model.cfg, n_layer=full_layers), seq, batch)
+        opt = Optimizer(fn, dequantized(), loss_type="cross_entropy_sparse", adamw=AdamWConfig())
+        loss = float(opt.step(toks[:-1].reshape(batch, seq), toks[1:].reshape(batch, seq))["loss"])
+        n = sum(v.numel() for v in opt.params.values())
+        del opt
+        return loss, dict(params=n, n_layer=full_layers)
+
+    # f32 weights, AdamW's three state copies, the gradients and two update
+    # temporaries: seven copies of the weights
+    n_params = sum(v.n * v.k if isinstance(v, PlanarWeight) else v.numel() for v in kept.values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    need, free = 7 * 4 * n_params, torch.cuda.mem_get_info()[0]
+    if need > free:  # a deep model's planes beside them (--dense-families)
+        out["full"] = dict(skipped=f"needs {need / 1e9:.1f} GB, {free / 1e9:.1f} GB free", params=n_params)
+        print(f"  QLoRA, rank {rank}, {batch} x {seq}: one step in {out['qlora']['s']:.2f} s, loss "
+              f"{out['qlora']['loss']:.4f}; the full-weight step of {full_layers} layers skipped: "
+              f"{out['full']['skipped']} ({card})")
+        return out
+    out["full"] = timed(full)
+    check(out["full"]["counts"] == {}, f"full step launches {out['full']['counts']}")
+    q, f = out["qlora"], out["full"]
+    print(f"  QLoRA, rank {rank}, {batch} x {seq}: one step in {q['s']:.2f} s, loss {q['loss']:.4f}, peak "
+          f"{q['peak_memory_gb']:.2f} GB; full weights ({full_layers} layers, {f['params'] / 1e9:.3f} B f32 "
+          f"parameters): one step in "
+          f"{f['s']:.2f} s, loss {f['loss']:.4f}, peak {f['peak_memory_gb']:.2f} GB ({card})")
+    return out
+
+
+def phase_dv_model(torch, np, name: str, tmp: str, card: str, n_layer: int) -> dict:
+    """4v (a)-(e) for one model; returns its record with its counts."""
+    import gc
+    import importlib
+
+    from ggml_tpu_torch.kernels import qmatmul
+    from ggml_tpu_torch.models import registry
+    from ggml_tpu_torch.paged_kv import PagedConfig
+    from ggml_tpu_torch.quant.planar import PlanarWeight
+    from ggml_tpu_torch.serve import Engine
+
+    mod_name = DV_MODELS[name][0]
+    mod = importlib.import_module(f"ggml_tpu_torch.models.{mod_name}")
+    path, want_cfg, info = write_dv_gguf(np, tmp, name, n_layer)
+    t0 = time.perf_counter()
+    model = registry.load_model(path, keep_quantized=True, max_seq=MF_SEQ, device="cuda")
+    torch.cuda.synchronize()
+    cfg, p = model.cfg, model.params
+    out = dict(model=name, n_layer=n_layer, load_s=time.perf_counter() - t0, card=card,
+               card_gb=torch.cuda.memory_allocated() / 1e9, **info)
+    same = lambda got, want: got == want or (isinstance(want, float) and got == float(np.float32(want)))  # f32 keys
+    check(type(model).__module__ == mod.__name__ and all(
+        same(getattr(cfg, f.name), getattr(want_cfg, f.name)) for f in dataclasses.fields(cfg)),
+          f"{name}: {type(model).__name__}, config {cfg}")
+    planar = sorted({str(v.orig_type.name) for v in p.values() if isinstance(v, PlanarWeight)})
+    sites = {}
+    for k, w in p.items():
+        if isinstance(w, PlanarWeight) and k != "token_embd.weight":
+            sites.setdefault(f"K={w.k} N={w.n} {w.orig_type.name}", {m: qmatmul.select_kernel(w, m) for m in (1, 4, 1024)})
+    out.update(plane_types=planar, sites=sites)
+    print(f"  loaded in {out['load_s']:.1f}s ({out['card_gb']:.2f} GB on the card): planes {planar}; kernels at "
+          f"M = 1, 4, 1024: " + "; ".join(f"{s}: {', '.join(k.values())}" for s, k in sites.items()))
+
+    counts = {}
+    rng = np.random.default_rng(0)
+    prefills = {}
+    for t in DV_PREFILLS:
+        prompt = rng.integers(0, cfg.n_vocab, (1, t))
+        model.prefill(model.new_cache(torch.bfloat16), prompt)  # first uses at this length
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, _, _ = model.prefill(model.new_cache(torch.bfloat16), prompt)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {k: v for k, v in launch_counts().items() if v}
+        want = {k: v for k, v in planar_launches(p, t, True).items() if v}
+        check(got == want and bool(torch.isfinite(logits).all()), f"{name} prefill {t}: launches {got}, want {want}")
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        prefills[t] = dict(ms=ms, tok_per_s=t / ms * 1e3, counts=got)
+    out["prefill"] = prefills
+    print("  prefill: " + ", ".join(f"{t} tokens {r['ms']:.1f} ms ({r['tok_per_s']:.0f} tok/s)"
+                                     for t, r in prefills.items()))
+
+    run = moe_decode_run(torch, np, model, rng.integers(0, cfg.n_vocab, (1, 8)), MF_TOKENS)
+    want = {k: v * MF_TOKENS for k, v in planar_launches(p, 1, head=True).items()}
+    check(run["counts"] == want, f"{name} decode launches {run['counts']}, want {want}")
+    run.update(dv_stream_bytes(p, run.pop("cache")))
+    run["floor_share"] = run["floor_ms"] / run["graphed_ms_per_token"]
+    run["trace"] = profile_llama_decode(torch, np, model, n_vocab=cfg.n_vocab)
+    out["decode"] = run
+    for k, v in run["counts"].items():
+        counts[k] = counts.get(k, 0) + v
+    print(f"  decode after 8 tokens ({card}): {run['graphed_ms_per_token']:.3f} ms/token graphed, "
+          f"{run['eager_ms_per_token']:.3f} eager (the same {MF_TOKENS} ids); floor {run['stream_bytes'] / 1e9:.3f} GB "
+          f"= {run['floor_ms']:.3f} ms ({run['floor_share'] * 100:.1f} % of graphed); launches a token "
+          f"{run['launches_per_token']}")
+
+    def engine(label, prompts, n_new=MF_NEW, **kw):
+        return engine_run(torch, model, counts, label, prompts, n_new, **kw)
+
+    prompts = [rng.integers(0, cfg.n_vocab, int(rng.integers(4, 30))).tolist() for _ in range(8)]
+    eng, ids, rec = engine("dense", prompts)
+    alone = [_run_ids(eng, [q], len(x))[0] for q, x in zip(prompts, ids)]
+    rec.update(equal=sum(a == b for a, b in zip(alone, ids)),
+               parted=dense_parted(torch, np, model, "alone", prompts, ids, alone))
+    out["engine"] = rec
+    del eng
+    shared = rng.integers(0, cfg.n_vocab, 48).tolist()
+    mix = [shared + q if i % 2 == 0 else q for i, q in enumerate(prompts)]
+    pcfg = PagedConfig(4 * MF_SERVE_SEQ // 16 + 16, 16, MF_SERVE_SEQ // 16, prefix_cache=True)
+    _, dense_ids, _ = engine("dense (paged mix)", mix)
+    eng, paged_ids, rec = engine("paged", mix, paged=pcfg)
+    check(eng.cached_prefix_tokens > 0, f"{name}: no prefix hit")
+    rec.update(prefix_hits=eng.cached_prefix_tokens, equal_to_dense=sum(a == b for a, b in zip(paged_ids, dense_ids)),
+               parted=dense_parted(torch, np, model, "paged", mix, dense_ids, paged_ids))
+    out["paged"] = rec
+    del eng
+    eng, chunk_ids, rec = engine("chunked", prompts, prefill_chunk=16)
+    rec.update(equal_to_dense=sum(a == b for a, b in zip(chunk_ids, ids)),
+               parted=dense_parted(torch, np, model, "chunked", prompts, ids, chunk_ids))
+    out["chunked"] = rec
+    del eng
+    draft = type(model)(p, dataclasses.replace(cfg, n_layer=1), max_seq=MF_SERVE_SEQ, device=model.device)
+    eng, draft_ids, rec = engine("draft", prompts, draft=draft, draft_k=4)
+    rec.update(rounds=eng.spec_rounds, acceptance=eng.spec_accepted / max(1, eng.spec_drafted),
+               equal_to_dense=sum(a == b for a, b in zip(draft_ids, ids)),
+               parted=dense_parted(torch, np, model, "draft", prompts, ids, draft_ids))
+    out["draft"] = rec
+    del eng, draft
+    if mod_name in ("gemma2", "phi3"):
+        eng, q8_ids, rec = engine("q8", prompts[:4], cache_dtype="q8_kv")
+        q8_alone = [_run_ids(eng, [q], len(x))[0] for q, x in zip(prompts[:4], q8_ids)]
+        rec.update(equal_to_dense=sum(a == b for a, b in zip(q8_ids, ids)),
+                   equal_alone=sum(a == b for a, b in zip(q8_alone, q8_ids)),
+                   parted=dense_parted(torch, np, model, "q8 alone", prompts[:4], q8_ids, q8_alone))
+        out["q8"] = rec
+        del eng
+    else:
+        try:
+            Engine(model, max_batch=4, max_seq=MF_SERVE_SEQ, cache_dtype="q8_kv")
+            raise SmokeFailure(f"{name}: a q8 KV cache was accepted")
+        except TypeError:
+            out["q8"] = "refused"
+    out["paged_step_vs_dense"] = paged_against_dense(torch, np, model)
+    for label in ("engine", "paged", "chunked", "draft", "q8"):
+        r = out[label]
+        if isinstance(r, dict):
+            agree = (f"{r['equal']} of 8 equal to themselves alone" if label == "engine" else
+                     f"{r['equal_alone']} of 4 equal to themselves alone, {r['equal_to_dense']} to the dense engine"
+                     if label == "q8" else f"{r['equal_to_dense']} of 8 equal to the dense engine")
+            extra = (f", {r['prefix_hits']} prefix tokens hit" if label == "paged" else
+                     f", {r['rounds']} rounds, acceptance {r['acceptance'] * 100:.1f} %" if label == "draft" else "")
+            print(f"  engine {'dense' if label == 'engine' else label}, 4 slots: {r['tok_per_s']:.1f} tok/s{extra}; {agree}"
+                  + (f"; where they part: {_fmt_dparted(r['parted'])}" if r["parted"] else ""))
+    print(f"  q8_kv {'refused' if out['q8'] == 'refused' else 'served'}; the paged step against the dense forward: "
+          f"NMSE {out['paged_step_vs_dense']['nmse']:.2e}")
+    if DV_MODELS[name][5]:
+        out["train"] = dv_train(torch, np, model, path, card, min(n_layer, DV_MODELS[name][2]))
+        for k, v in out["train"]["qlora"]["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    out["counts"] = counts
+    del model, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.remove(path)
+    return out
+
+
+# 4v (f): tiny files of every variant (E 64, 4 heads, 2-3 layers; F32
+# weights), card against CPU, the configs of tests/test_torch_dense_families.py
+_DV_TINY = dict(n_vocab=256, n_ctx=64, n_embd=64, n_head=4, n_layer=2)
+
+
+def phase_dv_tiny(torch, np, tmp: str) -> dict:
+    """Each variant's tiny file on the card against the same file on the
+    CPU (tiny_against_cpu).  For gemma2, phi2, gptneox and falcon, finetune's and
+    finetune_lora's (dense) first two losses on the card against the CPU's,
+    within 1e-5."""
+    from ggml_tpu_torch.dtypes import GGMLType
+    from ggml_tpu_torch.models import falcon, gemma2, neox, phi2, phi3
+    from ggml_tpu_torch.opt import AdamWConfig, finetune, finetune_lora
+
+    g = dict(_DV_TINY, n_head_kv=2, head_dim=16, n_ff=96)
+    variants = {
+        "gemma": (gemma2, gemma2.Gemma2Config(**g, sliding_window=0, attn_softcap=0.0, final_softcap=0.0,
+                                              sandwich=False, query_pre_attn_scalar=16.0), dict(arch="gemma")),
+        "gemma2": (gemma2, gemma2.Gemma2Config(**g, sliding_window=6, attn_softcap=0.01, final_softcap=0.3,
+                                               query_pre_attn_scalar=24.0), dict(arch="gemma2")),
+        "gemma3": (gemma2, gemma2.Gemma2Config(**dict(g, n_layer=3), rope_base=1e6, sliding_window=5,
+                                               attn_softcap=0.0, final_softcap=0.0, sliding_pattern=3, qk_norm=True,
+                                               rope_local_base=10000.0, rope_scale_global=8.0,
+                                               query_pre_attn_scalar=16.0), dict(arch="gemma3")),
+        "phi2": (phi2, phi2.Phi2Config(**_DV_TINY, n_head_kv=2, n_ff=96, n_rot=8), {}),
+        "phi3": (phi3, phi3.Phi3Config(**g, n_ctx_orig=16, sliding_window=6, longrope=True), {}),
+        "gptneox": (neox, neox.NeoXConfig(**_DV_TINY, n_ff=96, n_rot=8), {}),
+        "gptneox-sequential": (neox, neox.NeoXConfig(**_DV_TINY, n_ff=96, n_rot=8, parallel_residual=False), {}),
+        "falcon": (falcon, falcon.FalconConfig(**_DV_TINY, n_head_kv=1), {}),
+        "falcon-dual-norm": (falcon, falcon.FalconConfig(**_DV_TINY, n_head_kv=2, dual_norm=True), {}),
+    }
+    from ggml_tpu_torch.models import registry
+
+    out, train = {}, {}
+    toks = np.resize(np.random.default_rng(0).integers(0, 256, 13), 200).astype(np.int32)
+    for i, (case, (mod, cfg, kw)) in enumerate(variants.items()):
+        path = os.path.join(tmp, f"tiny-{case}.gguf")
+        mod.write_random_gguf(path, cfg, seed=30 + i, default_type=GGMLType.F32, **kw)
+        out.update(tiny_against_cpu(torch, np, mod, registry.model_class(kw.get("arch", case.split("-")[0])), path,
+                                    case))
+        if case in ("gemma2", "phi2", "gptneox", "falcon"):
+            kw = dict(seq_len=16, batch=2, steps=2)
+            full = [finetune(path, toks, adamw=AdamWConfig(alpha=3e-3), device=d, **kw)[0] for d in ("cpu", "cuda")]
+            lora = [finetune_lora(path, toks, rank=4, adamw=AdamWConfig(alpha=1e-3), device=d, **kw)[0]
+                    for d in ("cpu", "cuda")]
+            gap = max(abs(a - b) for pair in (full, lora) for a, b in zip(*pair))
+            check(gap <= 1e-5, f"tiny {case} training: card losses {full[1]}, {lora[1]} against CPU {full[0]}, "
+                               f"{lora[0]}")
+            train[case] = dict(finetune=full[1], finetune_lora=lora[1], max_loss_gap=gap)
+        os.remove(path)
+    print("  tiny files, card against CPU, worst NMSE over the prefill and 3 steps: "
+          + ", ".join(f"{k} {v:.1e}" for k, v in out.items()))
+    print("  tiny training, card against CPU, largest loss gap over 2 steps of finetune and finetune_lora: "
+          + ", ".join(f"{k} {v['max_loss_gap']:.1e}" for k, v in train.items()))
+    return dict(forward=out, train=train)
+
+
+def phase_dense_families(torch, np, tmp: str, card: str, deep: bool) -> list:
+    """4v: (a)-(e) for each model at DV_MODELS' depth (deep: dv_depth's),
+    then (f); returns the run records, each with its counts."""
+    import importlib
+
+    runs = []
+    for name, (mod_name, fn, depth, most, _, _) in DV_MODELS.items():
+        if deep:
+            cfg = getattr(importlib.import_module(f"ggml_tpu_torch.models.{mod_name}"), fn)()
+            depth = dv_depth(torch, cfg, tmp, most)
+        stage(f"4v. {name} ({depth} of {most} layers) from a Q4_K GGUF file")
+        runs.append(phase_dv_model(torch, np, name, tmp, card, depth))
+    stage("4v (f). tiny gemma, gemma2, gemma3, phi2, phi3, gptneox and falcon files on the card against the CPU")
+    runs.append(dict(tiny=phase_dv_tiny(torch, np, tmp), counts={}))
     return runs
 
 
@@ -6476,6 +7000,14 @@ def main() -> int:
                                                      "count": torch.cuda.device_count()}}))
             return 0
 
+        if sys.argv[1:] == ["--dense-families"]:
+            with tempfile.TemporaryDirectory(prefix="dense-families-gguf-") as tmp:
+                dv = phase_dense_families(torch, np, tmp, card, deep=True)
+            print(json.dumps(dict(card=card, dense_families=dv), default=str))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
+
         if sys.argv[1:] == ["--long-decode-profile"]:
             stage("4. GPT-J-6B Q4_K (synthesized compact planes), decode after a 1088-token prompt, profiled")
             from ggml_tpu_torch.dtypes import GGMLType
@@ -6546,6 +7078,8 @@ def main() -> int:
             runs += phase_deepseek(torch, np, tmp, card, DS_LITE_LAYERS)
         with tempfile.TemporaryDirectory(prefix="moe-families-gguf-") as tmp:
             runs += phase_moe_families(torch, np, tmp, card, deep=False)
+        with tempfile.TemporaryDirectory(prefix="dense-families-gguf-") as tmp:
+            runs += phase_dense_families(torch, np, tmp, card, deep=False)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

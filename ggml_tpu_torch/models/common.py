@@ -177,14 +177,16 @@ def window_keep(positions: torch.Tensor, max_seq: int, window: int = 0) -> torch
 
 
 def gqa_attention(q: torch.Tensor, kc, vc, keep: torch.Tensor, scale: float,
-                  sinks: torch.Tensor | None = None) -> torch.Tensor:
+                  sinks: torch.Tensor | None = None, softcap: float = 0.0) -> torch.Tensor:
     """Grouped-query attention over the whole cache window in f32, as the JAX
     family forwards write it in einsums (e.g. ggml_tpu/models/olmoe.py:
     110-121): q (b, H, t, d), kc and vc (b, n_kv, S, d) a layer's cache
     buffers (a q8 cache dequantized on read), keep from window_keep; each
     kv head serves the H / n_kv query heads beside it, whose rows are
     stacked so that every product is one batched matmul.  The probabilities
-    are cast to the values' type before the value product.  sinks (H,): one learned logit a head joins the softmax
+    are cast to the values' type before the value product.  softcap: the
+    scaled scores become tanh(s / softcap) * softcap before the mask (gemma2,
+    ggml_tpu/models/gemma2.py:175-176); 0 leaves them as they are.  sinks (H,): one learned logit a head joins the softmax
     as an extra column and its mass is dropped (gpt-oss,
     ggml_tpu/models/gptoss.py:201-208): normalized against max(max(att),
     sink), so a row that masks every key gives zeros, not NaN.  Returns (b,
@@ -195,6 +197,8 @@ def gqa_attention(q: torch.Tensor, kc, vc, keep: torch.Tensor, scale: float,
     with torch.profiler.record_function("family.attention"):
         kc, vc = dequant_cache(kc), dequant_cache(vc)
         att = torch.matmul(q.reshape(b, n_kv, rep * t, hd).float(), kc.float().transpose(-1, -2)) * scale
+        if softcap:
+            att = torch.tanh(att / softcap) * softcap
         att = torch.where(keep, att.view(b, n_kv, rep, t, s), torch.full((), float("-inf"), device=q.device))
         if sinks is None:
             att = torch.softmax(att, dim=-1)

@@ -39,12 +39,20 @@ ARCHS: dict[str, tuple[str, str]] = {
     "dbrx": ("dbrx", "DBRX"),
     "phimoe": ("phimoe", "PhiMoE"),
     "gpt-oss": ("gptoss", "GptOss"),
+    # the dense families: Gemma 1/2/3 (one module), Phi-2, Phi-3 (LongRoPE),
+    # GPT-NeoX, Falcon
+    "gemma": ("gemma2", "Gemma2"),
+    "gemma2": ("gemma2", "Gemma2"),
+    "gemma3": ("gemma2", "Gemma2"),
+    "phi2": ("phi2", "Phi2"),
+    "phi3": ("phi3", "Phi3"),
+    "gptneox": ("neox", "NeoX"),
+    "falcon": ("falcon", "Falcon"),
 }
 
 # the rest of the JAX registry's table (ggml_tpu/models/registry.py:15-73)
 _NOT_PORTED = (
-    "gemma", "gemma2", "gemma3", "phi2", "phi3", "gptneox",
-    "falcon", "bloom", "mpt", "starcoder", "starcoder2", "command-r", "olmo", "olmo2", "olmo3",
+    "bloom", "mpt", "starcoder", "starcoder2", "command-r", "olmo", "olmo2", "olmo3",
     "persimmon", "nemotron", "stablelm", "glm", "glm4", "qwen3next",
     "bamba", "jamba", "mamba", "falcon_mamba", "mamba2", "rwkv", "xlstm", "recurrentgemma", "lfm2", "llama4",
     "apertus", "granitehybrid", "minimax", "zamba2", "chameleon", "jetmoe",

@@ -7,8 +7,10 @@ forward from an empty cache, optionally in bf16 over f32 master weights and
 (GPT-2) through the flash-attention training kernels.  Ported families: gpt2,
 gptj, the llama family (llama, qwen2, qwen3, and with experts Mixtral
 under llama, qwen2moe and qwen3moe: the experts' gradients flow through
-the grouped path, models/llama.moe_expert_sum_grouped) and deepseek2 (its
-cache the MLA latent: make_lm_model_fn asks the family for it).  remat_policy runs
+the grouped path, models/llama.moe_expert_sum_grouped), deepseek2 (its
+cache the MLA latent: make_lm_model_fn asks the family for it), gemma2,
+phi2, gptneox and falcon, as JAX's _family has them (gemma and gemma3 raise
+its ValueError).  remat_policy runs
 each layer under torch.utils.checkpoint, the counterpart of jax.checkpoint
 (see _remat).  Checkpoints go through checkpoint.py (atomic publish,
 bit-exact resume).
@@ -24,34 +26,20 @@ from ..gguf import GGUFFile, GGUFWriter
 from .dataset import Dataset
 from .optimizer import AdamWConfig, Optimizer
 
-# the families the JAX package finetunes, with the ROADMAP.md item that ports them
-_NOT_PORTED = {
-    "gemma2": "section 1 item 6, the other families", "phi2": "section 1 item 6, the other families",
-    "gptneox": "section 1 item 6, the other families", "falcon": "section 1 item 6, the other families",
+_FAMILIES = {  # arch -> module under ggml_tpu_torch.models (ggml_tpu/opt/finetune.py:29-51)
+    "gpt2": "gpt2", "gptj": "gptj", "llama": "llama", "qwen2": "llama", "qwen3": "llama", "qwen2moe": "llama",
+    "qwen3moe": "llama", "deepseek2": "deepseek", "gemma2": "gemma2", "phi2": "phi2", "gptneox": "neox",
+    "falcon": "falcon",
 }
 
 
 def _family(arch: str):
-    if arch == "gpt2":
-        from ..models import gpt2 as fam
+    if arch not in _FAMILIES:
+        raise ValueError("finetune supports gpt2/gptj/llama(+qwen2/3, qwen*moe)/deepseek2/"
+                         f"gemma2/phi2/gptneox/falcon, not {arch}")
+    import importlib
 
-        return fam
-    if arch == "gptj":
-        from ..models import gptj as fam
-
-        return fam
-    if arch in ("llama", "qwen2", "qwen3", "qwen2moe", "qwen3moe"):
-        from ..models import llama as fam
-
-        return fam
-    if arch == "deepseek2":
-        from ..models import deepseek as fam
-
-        return fam
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(f"finetuning {arch} is not ported yet (ROADMAP.md, {_NOT_PORTED[arch]})")
-    raise ValueError("finetune supports gpt2/gptj/llama(+qwen2/3, qwen*moe)/deepseek2/"
-                     f"gemma2/phi2/gptneox/falcon, not {arch}")
+    return importlib.import_module(f"..models.{_FAMILIES[arch]}", __package__)
 
 
 def moe_expert_dtype(device):

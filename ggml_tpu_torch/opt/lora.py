@@ -135,8 +135,9 @@ def apply_lora_to_params(params: dict, path, scale: float | None = None, cfg=Non
     adapter's b rows take the same permutation, so the update lands on the
     rows it was trained for.  (The JAX generate --lora merges file-order
     adapters into the permuted rows: ROADMAP.md, "Faults found".)  A
-    llama-family model keeps the file's q/k rows (Llama.from_gguf), so its
-    adapter merges as it is; one loaded with llamacpp_permuted=True has its
+    llama-family model keeps the file's q/k rows (Llama.from_gguf), as do
+    the gemma, phi2, phi3, gptneox and falcon loaders, so their adapters
+    merge as they are; one loaded with llamacpp_permuted=True has its
     q and k rows unpermuted, and the file-order adapter is merged into them
     unchanged, as the JAX package merges it (ROADMAP.md, section 3)."""
     lora, alpha = load_lora_gguf(path)

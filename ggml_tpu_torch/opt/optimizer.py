@@ -119,11 +119,15 @@ def _adamw_apply(cfg: AdamWConfig, params: list, m: list, v: list, g: list, t: t
     for state, new in zip(m + v, m32 + v32):
         if state.dtype != torch.float32:  # round on store; the update reads the stored moments
             state.copy_(new)
-    mhat = torch._foreach_div([x.float() for x in m], b1c)
-    vhat = torch._foreach_div([x.float() for x in v], b2c)
-    den = torch._foreach_sqrt(vhat)
+    # the same operations in the same order as mhat / (sqrt(vhat) + eps),
+    # each written over its input: two temporaries the size of the
+    # parameters, not four (a full-weight step's peak)
+    step = torch._foreach_div([x.float() for x in m], b1c)  # mhat
+    den = torch._foreach_div([x.float() for x in v], b2c)  # vhat
+    torch._foreach_sqrt_(den)
     torch._foreach_add_(den, cfg.eps)
-    step = torch._foreach_div(mhat, den)
+    torch._foreach_div_(step, den)
+    del den
     p32 = [p.float() for p in params]
     if cfg.wd:
         torch._foreach_add_(step, torch._foreach_mul(p32, cfg.wd))

@@ -27,10 +27,10 @@ The linears go through the port's planar_matmul kernels.
 
 DeepSeek's MLA pools hold the compressed latent and the shared rope key of
 a token (an asymmetric pair, (n_pages + 1, 1, page_size, kv_lora_rank) and
-(..., qk_rope_dim)); its step attends over them in the absorbed form.
-
-Not ported yet (ROADMAP.md): the paged steps of gemma2 and phi3 (those
-families are not ported).
+(..., qk_rope_dim)); its step attends over them in the absorbed form.  The
+gemma family and Phi-3 have their own steps too (softcaps and per-layer
+windows; LongRoPE chosen by the window's length); Phi-2, GPT-NeoX, Falcon,
+GPT-2 and the mixture-of-experts families run the generic adapter.
 """
 
 from __future__ import annotations
@@ -256,28 +256,24 @@ def paged_gather(pool_kv: torch.Tensor, table) -> torch.Tensor:
     return _window(pool_kv[table])
 
 
-def _families_to_come(model):
-    name = type(model).__name__
-    if name in ("Gemma2", "Phi3"):
-        raise NotImplementedError(f"the paged decode step of {name} is not ported yet (ROADMAP.md, section 1: "
-                                  "it comes with its family)")
-
-
 def make_paged_decode_step(model, pcfg: PagedConfig, forward_fn=None):
     """One-token decode step over paged KV: step(params, pools, tokens (B,1),
     lengths (B,), tables (B,P), wpage (B,), woff (B,), active (B,)), every
     index a long tensor on the model's device -> (logits (B, vocab), pools),
     the pools written in place.  Slots at distinct positions (continuous
-    batching).  GPT-J, the llama family and Deepseek have their own steps;
-    GPT-2 (and any family with forward_fn) runs the generic adapter over its
-    forward."""
-    from .models import deepseek, gptj, llama
+    batching).  GPT-J, the llama family, the gemma family, Phi-3 and
+    Deepseek have their own steps; every other family (given forward_fn)
+    runs the generic adapter over its forward (ggml_tpu/paged_kv.py:338)."""
+    from .models import deepseek, gemma2, gptj, llama, phi3
 
-    _families_to_come(model)
     if isinstance(model, gptj.GPTJ):
         return _make_paged_step_gptj(model, pcfg)
+    if isinstance(model, gemma2.Gemma2):
+        return _make_paged_step_gemma2(model, pcfg)
     if isinstance(model, deepseek.Deepseek):
         return _make_paged_step_deepseek(model, pcfg)
+    if isinstance(model, phi3.Phi3):
+        return _make_paged_step_phi3(model, pcfg)
     if isinstance(model, llama.Llama):
         gen = _make_paged_llama_general(model, pcfg)
 
@@ -305,7 +301,6 @@ def make_paged_verify_step(model, pcfg: PagedConfig, forward_fn=None):
     forward_fn."""
     from .models import llama
 
-    _families_to_come(model)
     if isinstance(model, llama.Llama):
         return _make_paged_llama_general(model, pcfg)
     if forward_fn is None:
@@ -481,6 +476,86 @@ def _make_paged_step_gptj(model, pcfg: PagedConfig):
             x = x + attn_out + ff
         x = _layer_norm(x, params["output_norm.weight"], params["output_norm.bias"], cfg.eps)
         logits = _linear(x, params["output.weight"], params.get("output.bias"))[:, 0]
+        return torch.where(active[:, None], logits, 0.0), pools
+
+    return step
+
+
+def _make_paged_step_gemma2(model, pcfg: PagedConfig):
+    """The gemma family's paged step (paged_kv.py:635-722): the f32 scaled
+    embedding, the sandwich norms, both softcaps, each layer's sliding or
+    global window with its RoPE base and position scale, gemma3's q/k norms,
+    as models/gemma2.forward has them (paged must equal dense).  The two keep
+    masks over the gathered window are computed once a step."""
+    from .models.common import gqa_attention, window_keep
+    from .models.gemma2 import _rms_norm_gemma, attention_inputs, block_tail, embed, final_logits, layer_rope
+
+    cfg = model.cfg
+    scale = cfg.query_pre_attn_scalar ** -0.5
+    window = pcfg.max_pages_per_seq * pcfg.page_size
+
+    def step(params, pools, tokens, lengths, tables, wpage, woff, active):
+        b, t = tokens.shape
+        assert t == 1
+        positions = lengths[:, None].to(torch.long)
+        x = embed(params, cfg, tokens)
+        dt = x.dtype
+        keep = window_keep(positions, window)
+        keep_sliding = window_keep(positions, window, cfg.sliding_window) if cfg.sliding_window else keep
+        for i in range(cfg.n_layer):
+            pre = f"blk.{i}."
+            sliding, cos, sin = layer_rope(cfg, i, positions)
+            q, k, v = attention_inputs(params, pre, _rms_norm_gemma(x, params[pre + "attn_norm.weight"], cfg.rms_eps),
+                                       cos, sin, cfg)
+            kp, vp = pools[i]
+            paged_write(kp, k[:, 0], wpage, woff)
+            paged_write(vp, v[:, 0], wpage, woff)
+            out = gqa_attention(q.transpose(1, 2), paged_gather(kp, tables), paged_gather(vp, tables),
+                                keep_sliding if sliding else keep, scale, softcap=cfg.attn_softcap)
+            x = block_tail(params, pre, x, out.to(dt), cfg)
+        return torch.where(active[:, None], final_logits(params, x, cfg)[:, 0], 0.0), pools
+
+    return step
+
+
+def _make_paged_step_phi3(model, pcfg: PagedConfig):
+    """Phi-3's paged step (paged_kv.py:724-800): LongRoPE with the long or
+    short factors chosen by the paged window's length (P x page_size rows,
+    the length of the cache the step attends, as the dense forward chooses
+    by its cache's), attn_factor on cos and sin, the uniform sliding window,
+    as models/phi3.forward has them (paged must equal dense)."""
+    from .models.common import gqa_attention, linear as _linear, window_keep
+    from .models.llama import _rms_norm, _rope_half
+    from .models.phi3 import mlp, rope_for
+
+    cfg = model.cfg
+    hd = cfg.head_dim
+    window = pcfg.max_pages_per_seq * pcfg.page_size
+
+    def step(params, pools, tokens, lengths, tables, wpage, woff, active):
+        b, t = tokens.shape
+        assert t == 1
+        positions = lengths[:, None].to(torch.long)
+        embd = params.get("token_embd.weight@dense", params["token_embd.weight"])
+        x = embd[tokens]
+        dt = x.dtype
+        cos, sin = rope_for(params, cfg, positions, window)
+        keep = window_keep(positions, window, cfg.sliding_window)
+        for i in range(cfg.n_layer):
+            pre = f"blk.{i}."
+            h = _rms_norm(x, params[pre + "attn_norm.weight"], cfg.rms_eps)
+            q = _linear(h, params[pre + "attn_q.weight"]).reshape(b, 1, cfg.n_head, hd)
+            k = _linear(h, params[pre + "attn_k.weight"]).reshape(b, 1, cfg.n_head_kv, hd)
+            v = _linear(h, params[pre + "attn_v.weight"]).reshape(b, cfg.n_head_kv, hd)
+            kp, vp = pools[i]
+            paged_write(kp, _rope_half(k, cos, sin)[:, 0], wpage, woff)
+            paged_write(vp, v, wpage, woff)
+            out = gqa_attention(_rope_half(q, cos, sin).transpose(1, 2), paged_gather(kp, tables),
+                                paged_gather(vp, tables), keep, hd ** -0.5)
+            x = x + _linear(out.to(dt), params[pre + "attn_output.weight"])
+            x = x + mlp(params, pre, _rms_norm(x, params[pre + "ffn_norm.weight"], cfg.rms_eps))
+        x = _rms_norm(x, params["output_norm.weight"], cfg.rms_eps)
+        logits = _linear(x, params.get("output.weight", params["token_embd.weight"]))[:, 0]
         return torch.where(active[:, None], logits, 0.0), pools
 
     return step

@@ -8,7 +8,7 @@ within 1e-4 (f32 sums in another order, amplified by AdamW's normalization),
 for GPT-2 and for a tiny f32 GPT-J (test_gptj_finetune_matches_jax).
 The output GGUF loads in both packages with the trained weights bit for bit.
 The CLI runs full-weight training, LoRA (--lora-rank) and checkpoints
-(--checkpoint-dir, --checkpoint-every); --dp, gemma2 and falcon still raise
+(--checkpoint-dir, --checkpoint-every); --dp, gemma and gemma3 still raise
 (llama, qwen2 and qwen3 train: tests/test_torch_llama_train.py; qwen2moe and
 qwen3moe: tests/test_torch_moe.py; deepseek2: tests/test_torch_deepseek.py).
 """
@@ -133,11 +133,11 @@ def test_finetune_rejects_families_and_options_not_ported(tiny_gguf):
     for arch in ("llama", "qwen2", "qwen3", "qwen2moe", "qwen3moe"):
         assert _family(arch).__name__ == "ggml_tpu_torch.models.llama"
     assert _family("deepseek2").__name__ == "ggml_tpu_torch.models.deepseek"
-    for arch, item in (("gemma2", "the other families"), ("falcon", "the other families")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, section 1 item ., {item}"):
+    assert _family("gemma2").__name__ == "ggml_tpu_torch.models.gemma2"
+    assert _family("falcon").__name__ == "ggml_tpu_torch.models.falcon"
+    for arch in ("gemma", "gemma3", "nope"):  # not in JAX's _family either
+        with pytest.raises(ValueError):
             _family(arch)
-    with pytest.raises(ValueError):
-        _family("nope")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         finetune(str(tiny_gguf), _pattern(100), steps=1, mesh=object(), device="cpu")
 

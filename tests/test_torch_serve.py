@@ -395,11 +395,11 @@ def test_window_edge_and_small_admission_group(tiny_llama):
 
 
 def test_engine_refuses_what_is_not_ported(tiny_llama):
-    """A custom forward and a placed cache raise, as do the paged steps of
-    the families not ported; a draft builds a speculative engine (paged KV,
-    chunked prefill and the q8 cache: tests/test_torch_paged.py,
-    test_torch_serve_chunked.py; speculative decoding:
-    tests/test_torch_serve_spec.py)."""
+    """A custom forward and a placed cache raise, as does a paged step for
+    a model of no family without a forward for the generic adapter; a draft
+    builds a speculative engine (paged KV, chunked prefill and the q8 cache:
+    tests/test_torch_paged.py, test_torch_serve_chunked.py; speculative
+    decoding: tests/test_torch_serve_spec.py)."""
     from ggml_tpu_torch.paged_kv import PagedConfig, make_paged_decode_step
 
     m = tiny_llama
@@ -408,8 +408,8 @@ def test_engine_refuses_what_is_not_ported(tiny_llama):
     for kw in (dict(forward_fn=llama.forward), dict(cache_put=lambda c: c)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             Engine(m, max_batch=2, max_seq=MAX_SEQ, **kw)
-    for family in ("Gemma2", "Phi3"):  # Deepseek's paged step: tests/test_torch_deepseek.py
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for family in ("Gemma2", "Phi3"):  # their own steps: tests/test_torch_dense_families_serve.py
+        with pytest.raises(TypeError, match="forward_fn"):  # a stand-in of no family, and no forward for the adapter
             make_paged_decode_step(type(family, (), {})(), PagedConfig(n_pages=4, page_size=4, max_pages_per_seq=2))
     with pytest.raises(TypeError):
         Engine(object(), max_batch=2)
